@@ -7,17 +7,23 @@ Phases, in order; any failure propagates and the exit code is not 0:
   2. build: the kernels of src/repro_torch/kernels/csrc/, one nvcc each,
      all at once, with ptxas' register and shared-memory report;
   3. kernels: each CUDA kernel against its plain PyTorch version at the
-     shapes of the main path (qwen3-0.6b decode and prefill), in bf16 and
-     f32, with the max error beside its tolerance, and the median time of
-     the kernel, the plain version and one PyTorch library call beside
-     the least time the card could take;
-  4. the slice at full width: qwen3-0.6b (28 layers, random weights from
-     a seed) served by the engine on 4 slots to 8 requests, with every
-     kernel's launches counted over that run; a torch.profiler trace of
-     decode steps at 4 busy slots (the card's busy time a step, by kernel,
-     against the step's wall time); then two requests whose engine streams
-     must equal whole-prompt prefill plus batch-1 decode;
-  5. a JSON line of the kernels, the card line, and the result line.
+     shapes of the main paths (qwen3-0.6b decode and prefill; dense, paged
+     and int8), with the max error beside its tolerance, and the median
+     time of the kernel, the plain version and one PyTorch library call
+     beside the least time the card could take; a bf16 page pool must
+     give the dense decode kernel's bits;
+  4. the dense slice at full width: qwen3-0.6b (28 layers, random weights
+     from a seed) served by the engine on 4 slots to 8 requests, with
+     every kernel's launches counted over that run; a torch.profiler trace
+     of decode steps at 4 busy slots (the card's busy time a step, by
+     kernel, against the step's wall time); then two requests whose
+     engine streams must equal whole-prompt prefill plus batch-1 decode;
+  5. the paged slices at full width: phase 4's trace on a bf16 page pool
+     must give phase 4's streams bit for bit; a prefix-heavy chat trace on
+     an int8 page pool with int8 weights (prefix pages shared), with
+     exact launch counts, speed, memory and the pool's report; and that
+     configuration's streams at 4 slots equal to each request alone;
+  6. a JSON line of the kernels, the card line, and the result line.
 """
 
 import json
@@ -58,7 +64,8 @@ def main() -> int:
     smoke.phase_serve()
     smoke.phase_trace()
     smoke.phase_batching()
-    print("[5/5] result")
+    smoke.phase_paged()
+    print("[6/6] result")
     print(json.dumps({"kernels": smoke.kernel_rows()}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
@@ -77,7 +84,7 @@ class Smoke:
     # -- 1. card ------------------------------------------------------
     def phase_card(self):
         torch = self.torch
-        print(f"[1/5] card: {card_line()}")
+        print(f"[1/6] card: {card_line()}")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         print(f"      torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -89,7 +96,7 @@ class Smoke:
         from repro_torch.kernels import _build
         t0 = time.perf_counter()
         libs = _build.build_all()
-        print(f"[2/5] build: {sorted(libs)} from "
+        print(f"[2/6] build: {sorted(libs)} from "
               f"{_build.CSRC.relative_to(ROOT)} in "
               f"{time.perf_counter() - t0:.1f} s (nvcc "
               f"{' '.join(_build.NVCC_FLAGS)})")
@@ -156,7 +163,7 @@ class Smoke:
         torch = self.torch
         from repro_torch.kernels import ops, ref
         F = torch.nn.functional
-        print("[3/5] kernels against their plain versions (median of 50, "
+        print("[3/6] kernels against their plain versions (median of 50, "
               "L2 flushed)")
         gen = torch.Generator(device=self.dev).manual_seed(0)
 
@@ -249,6 +256,85 @@ class Smoke:
                     (2 * q.numel() + 2 * sum(keys) * hkv * d) * size,
                     4 * sum(keys) * h * d, dname, tol)
             del q, kc, vc
+        self._kernels_int8_and_paged(randn, tols[torch.bfloat16])
+
+    def _kernels_int8_and_paged(self, randn, tol):
+        """matmul_q at the int8 main path's shapes and flash_decode_paged
+        on bf16 and int8 pools, bf16 activations."""
+        torch = self.torch
+        from repro_torch.core import precision
+        from repro_torch.kernels import ops, ref
+        dtype = torch.bfloat16
+        # -- matmul_q: every dense layer of the int8-weight model; the
+        #    down-projection carries the residual
+        cases = [(m, k, n, "none") for m in (4, 256)
+                 for k, n in ((1024, 2048), (1024, 1024), (2048, 1024),
+                              (1024, 3072))]
+        cases += [(m, 3072, 1024, "residual") for m in (4, 256)]
+        for m, k, n, ep in cases:
+            a = randn(m, k, dtype=dtype)
+            wq, scale = precision.quantize_int8(
+                randn(k, n, dtype=torch.float32, scale=k ** -0.5))
+            r = randn(m, n, dtype=dtype) if ep == "residual" else None
+            self._case(
+                "matmul_q", f"bfloat16 M={m} K={k} N={n} int8 W {ep}",
+                lambda a=a, wq=wq, s=scale, r=r, ep=ep: ops.matmul_q(
+                    a, wq, s, epilogue=ep, residual=r),
+                lambda a=a, wq=wq, s=scale, r=r, ep=ep: ref.matmul_q_ref(
+                    a, wq, s, dtype, ep, residual=r),
+                None, m * k * 2 + k * n + n * 4 + m * n * 2
+                + (0 if r is None else m * n * 2),
+                2 * m * n * k, "bfloat16", tol)
+        # -- flash_decode_paged: 4 slots, 128 pages of 16 a slot, one idle,
+        #    the pages shuffled over the pool, -1 past each prefix
+        b_, h, hkv, d, ps, pp = 4, 16, 8, 128, 16, 128
+        tk = pp * ps
+        pos_list = [-1, 0, 700, 2047]
+        q = randn(b_, 1, h, d, dtype=dtype)
+        kc = randn(b_, tk, hkv, d, dtype=dtype)
+        vc = randn(b_, tk, hkv, d, dtype=dtype)
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=self.dev)
+        perm = torch.randperm(b_ * pp, generator=torch.Generator()
+                              .manual_seed(0)).to(self.dev)
+        kp = torch.empty((b_ * pp, ps, hkv, d), dtype=dtype, device=self.dev)
+        vp = torch.empty_like(kp)
+        kp[perm] = kc.reshape(b_ * pp, ps, hkv, d)
+        vp[perm] = vc.reshape(b_ * pp, ps, hkv, d)
+        table = perm.reshape(b_, pp).to(torch.int32)
+        for i, p in enumerate(pos_list):
+            table[i, max(p, -1) // ps + 1:] = -1
+        k8, ks = precision.quantize_kv(kp)
+        v8, vs = precision.quantize_kv(vp)
+        ks, vs = ks.transpose(1, 2).contiguous(), vs.transpose(1, 2).contiguous()
+        for window in (None, 512):
+            # a bf16 pool gives the dense kernel's bits over the same values
+            dense = ops.flash_decode(q, kc, vc, pos=pos, window=window)
+            paged = ops.flash_decode_paged(q, kp, vp, table, pos=pos,
+                                           window=window)
+            assert torch.equal(paged, dense), \
+                f"paged bf16 pool != dense cache bits, window={window}"
+            lo = [max(0, p - window + 1) if window else 0 for p in pos_list]
+            keys = sum(max(0, p - l + 1) for p, l in zip(pos_list, lo))
+            pages = sum(p // ps - l // ps + 1 for p, l in zip(pos_list, lo)
+                        if p >= 0)
+            io = 2 * q.numel() * 2 + pages * 4 + b_ * 4     # q, o, table, pos
+            for pool, (k_, v_, kw, elem) in {
+                    "bf16": (kp, vp, {}, 2),
+                    "int8": (k8, v8, dict(ks=ks, vs=vs), 1)}.items():
+                nbytes = io + 2 * keys * hkv * (d * elem + (4 if kw else 0))
+                self._case(
+                    "flash_decode_paged",
+                    f"bfloat16 {pool} pool B={b_} H={h} Hkv={hkv} D={d} "
+                    f"ps={ps} pp={pp} window={window}",
+                    lambda k_=k_, v_=v_, kw=kw, w_=window:
+                        ops.flash_decode_paged(q, k_, v_, table, pos=pos,
+                                               window=w_, **kw),
+                    lambda k_=k_, v_=v_, kw=kw, w_=window:
+                        ref.flash_decode_paged_ref(q, k_, v_, table, pos=pos,
+                                                   window=w_, **kw),
+                    None, nbytes, 4 * keys * h * d, "bfloat16", tol)
+        print("      flash_decode_paged on a bf16 pool equals flash_decode on "
+              "the dense cache, bit for bit (window None and 512)")
 
     # -- 4. the slice at full width --------------------------------------
     def phase_serve(self):
@@ -263,12 +349,14 @@ class Smoke:
         params = M.init_params(cfg, torch.Generator().manual_seed(0), self.dev)
         work = synthetic_trace(cfg, 8, rng=np.random.default_rng(0),
                                len_range=(64, 512), gen=32)
-        max_len = max(len(it.prompt) + it.gen for it in work)
+        # whole 16-token pages, the paged engine's rounding: phase 5's
+        # paged engine on this trace then runs the same prefill shapes
+        max_len = -(-max(len(it.prompt) + it.gen for it in work) // 16) * 16
         engine = ServingEngine(cfg, params, max_slots=4, max_len=max_len,
                                device=self.dev)
         del params                      # the engine keeps its bf16 copy
         torch.cuda.synchronize()
-        print(f"[4/5] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
+        print(f"[4/6] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
               f"heads {cfg.n_heads}/{cfg.n_kv_heads}x{cfg.resolved_head_dim} "
               f"d_ff {cfg.d_ff} vocab {cfg.vocab}->{cfg.padded_vocab}; "
               f"weights ready in {time.perf_counter() - t0:.1f} s; "
@@ -291,9 +379,9 @@ class Smoke:
         steps = engine.decode_steps + sum(len(r.prompt) % 8 for r in reqs)
         n_pre = len(reqs)
         L = cfg.n_layers
-        want = {"matmul": (5 * L + 1) * (steps + n_pre),
+        want = {"matmul": (5 * L + 1) * (steps + n_pre), "matmul_q": 0,
                 "gated_matmul": L * (steps + n_pre),
-                "flash_decode": L * steps}
+                "flash_decode": L * steps, "flash_decode_paged": 0}
         print(f"      launches {self.launches} (expected {want}: "
               f"{engine.decode_steps} decode steps at 141/28/28 each)")
         assert self.launches == want, (self.launches, want)
@@ -307,17 +395,21 @@ class Smoke:
               f"{report['ttft_p50_s'] * 1e3:.0f} ms; max_memory_allocated "
               f"{peak / 2 ** 30:.3f} GiB")
         self.engine = engine
+        self.work, self.max_len = work, engine.max_len
+        self.dense_streams = [list(r.generated) for r in reqs]
 
-    def phase_trace(self, n_steps=6):
-        """Trace decode steps of the phase-4 engine with 4 slots busy at a
-        depth of ~260: the card's busy time a step, by kernel, beside the
-        step's wall time on the host clock (the profiler's own host cost
+    def phase_trace(self):
+        self._trace(self.engine)
+
+    def _trace(self, eng, n_steps=6):
+        """Trace decode steps of `eng` with 4 slots busy at a depth of
+        ~260: the card's busy time a step, by kernel, beside the step's
+        wall time on the host clock (the profiler's own host cost
         included, so the idle share read here is an upper bound)."""
         torch = self.torch
         import numpy as np
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
-        eng = self.engine
         rng = np.random.default_rng(2)
         for _ in range(4):
             eng.submit(rng.integers(0, eng.cfg.vocab, 256).astype(np.int32),
@@ -336,10 +428,7 @@ class Smoke:
         for e in prof.events():
             if e.device_type != DeviceType.CUDA:
                 continue
-            name = e.name
-            group = next((g for g in ("gated_matmul", "matmul", "flash_decode")
-                          if f"{g}_kernel" in name),
-                         "memcpy" if name.startswith("Mem") else "other")
+            group = _kernel_group(e.name)
             busy[group] = busy.get(group, 0.0) + e.time_range.elapsed_us() / 1e3
             count[group] = count.get(group, 0) + 1
         if not busy:
@@ -392,7 +481,131 @@ class Smoke:
               f"(prompts {[len(p) for p in prompts]}, {n_new} tokens) equal "
               f"whole-prompt prefill + batch-1 decode, token for token")
 
-    # -- 5. the kernels line --------------------------------------------
+    # -- 5. the paged slices at full width ---------------------------------
+    def _run_counted(self, engine, work):
+        """Serve `work`, with the launch counts set to 0 just before and
+        read just after. Returns (requests, report, launches)."""
+        torch = self.torch
+        from repro_torch.kernels import ops
+        reqs = [engine.submit(it.prompt, it.gen) for it in work]
+        ops.reset_launch_counts()
+        report = engine.run()
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        assert report["n_finished"] == len(reqs), report
+        for r in reqs:
+            assert len(r.generated) == r.max_new_tokens, (r.rid, r.generated)
+            assert all(0 <= t < engine.cfg.vocab for t in r.generated), \
+                r.generated
+        return reqs, report, launches
+
+    @staticmethod
+    def _want_launches(engine, reqs, per_gemm_step):
+        """Launch counts of a run: every prefill and every one-token step
+        runs the step's GEMMs; an admission's remainder steps (dense
+        batch-1 sub-cache) decode with flash_decode, the decode steps on
+        the pool with flash_decode_paged."""
+        L = engine.cfg.n_layers
+        rem = sum(len(r.prompt) % 8 for r in reqs)
+        runs = engine.decode_steps + rem + len(reqs)
+        want = {"matmul": 0, "matmul_q": 0, "gated_matmul": 0,
+                "flash_decode": L * rem,
+                "flash_decode_paged": L * engine.decode_steps}
+        for name, n in per_gemm_step.items():
+            want[name] = n * runs
+        return want
+
+    def phase_paged(self):
+        torch = self.torch
+        import numpy as np
+        from repro_torch.models import model as M
+        from repro_torch.serving import ServingEngine, prefix_heavy_trace
+        cfg = self.engine.cfg
+        L = cfg.n_layers
+        del self.engine                  # free phase 4's engine
+        params = M.init_params(cfg, torch.Generator().manual_seed(0), self.dev)
+
+        # 1. phase 4's trace on a bf16 page pool: phase 4's streams, bit for bit
+        work = self.work
+        eng = ServingEngine(cfg, params, max_slots=4, max_len=self.max_len,
+                            device=self.dev, kv_layout="paged")
+        assert eng.max_len == self.max_len, (eng.max_len, self.max_len)
+        reqs, rep, launches = self._run_counted(eng, work)
+        want = self._want_launches(eng, reqs, {"matmul": 5 * L + 1,
+                                               "gated_matmul": L})
+        assert launches == want, (launches, want)
+        got = [r.generated for r in reqs]
+        assert got == self.dense_streams, "paged bf16 streams != dense streams"
+        print(f"[5/6] paged bf16 KV (page 16, {rep['kv_pool']['n_pages']} "
+              f"pages): phase 4's {len(reqs)} streams, token for token; "
+              f"launches {launches} ({eng.decode_steps} decode steps at "
+              f"141/28/28 each); prefill {rep['prefill_tok_s']:.1f} tok/s, "
+              f"decode {rep['decode_tok_s']:.1f} tok/s, decode step p50 "
+              f"{rep['decode_step_p50_s'] * 1e3:.2f} ms p99 "
+              f"{rep['decode_step_p99_s'] * 1e3:.2f} ms")
+        del eng
+
+        # 2. prefix-heavy chat on an int8 pool with int8 weights
+        work = prefix_heavy_trace(cfg, 8, rng=np.random.default_rng(0),
+                                  prefix_len=392, suffix_range=(16, 128),
+                                  gen=32)
+        max_len = max(len(it.prompt) + it.gen for it in work)
+        eng = ServingEngine(cfg, params, max_slots=4, max_len=max_len,
+                            device=self.dev, kv_layout="paged",
+                            quant_kv="int8", quant="int8", page_size=16)
+        del params
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        weights = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reqs, rep, launches = self._run_counted(eng, work)
+        peak = torch.cuda.max_memory_allocated()
+        want = self._want_launches(eng, reqs, {"matmul_q": 7 * L,
+                                               "matmul": 1})
+        assert launches == want, (launches, want)
+        kv = rep["kv_pool"]
+        assert kv["shared_page_hits"] > 0, kv
+        self.paged_launches = launches
+        print(f"      int8 KV + int8 weights: {len(reqs)} requests, prompts "
+              f"{[len(it.prompt) for it in work]} (a 392-token shared "
+              f"prefix), gen 32, 4 slots, max_len {eng.max_len}; launches "
+              f"{launches} ({eng.decode_steps} decode steps at 196/1/28 "
+              f"each)")
+        print(f"      prefill {rep['prefill_tok_s']:.1f} tok/s, decode "
+              f"{rep['decode_tok_s']:.1f} tok/s (occupancy "
+              f"{rep['mean_occupancy']:.2f}/4), decode step p50 "
+              f"{rep['decode_step_p50_s'] * 1e3:.2f} ms p99 "
+              f"{rep['decode_step_p99_s'] * 1e3:.2f} ms, latency p50 "
+              f"{rep['latency_p50_s'] * 1e3:.0f} ms, ttft p50 "
+              f"{rep['ttft_p50_s'] * 1e3:.0f} ms; memory_allocated before "
+              f"the run (weights + pool) {weights / 2 ** 30:.3f} GiB, "
+              f"max_memory_allocated {peak / 2 ** 30:.3f} GiB")
+        print(f"      kv pool: {json.dumps(kv)}")
+        self._trace(eng)
+
+        # 3. batch invariance there: 4 slots against each request alone
+        rng = np.random.default_rng(3)
+        prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+                   for n in (64, 136)]
+        n_new = 16
+
+        def streams(slots, batch):
+            e = ServingEngine(cfg, eng.params, max_slots=slots, max_len=160,
+                              device=self.dev, kv_layout="paged",
+                              quant_kv="int8", quant="int8", page_size=16,
+                              kv_pool_pages=40)
+            rs = [e.submit(p, n_new) for p in batch]
+            e.run()
+            return [r.generated for r in rs]
+
+        together = streams(4, prompts)
+        alone = [streams(1, [p])[0] for p in prompts]
+        assert together == alone, (together, alone)
+        print(f"      batch invariance: int8 streams of {len(prompts)} "
+              f"requests (prompts {[len(p) for p in prompts]}, {n_new} "
+              f"tokens) at 4 slots equal each alone in a 1-slot engine")
+
+    # -- 6. the kernels line --------------------------------------------
     def kernel_rows(self):
         """One row per kernel: its launches on the main path, the max error
         over every case, and the times of its main-path decode shape."""
@@ -406,19 +619,45 @@ class Smoke:
             "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
                              "src/repro/kernels/flash_attention.py:478",
                              "bfloat16 B=4 H=16 Hkv=8 D=128 Tk=2048 window=None"),
+            "matmul_q": ("src/repro_torch/kernels/csrc/matmul.cu",
+                         "src/repro/kernels/matmul.py:256",
+                         "bfloat16 M=4 K=1024 N=3072 int8 W none"),
+            "flash_decode_paged": (
+                "src/repro_torch/kernels/csrc/flash_decode.cu",
+                "src/repro/kernels/flash_attention.py:631",
+                "bfloat16 int8 pool B=4 H=16 Hkv=8 D=128 ps=16 pp=128 "
+                "window=None"),
         }
+        # launches: the dense kernels' from phase 4's run, the int8 path's
+        # from phase 5's int8 run
+        counts = {**self.launches,
+                  **{k: self.paged_launches[k]
+                     for k in ("matmul_q", "flash_decode_paged")}}
         rows = []
         for name, (source, replaces, label) in meta.items():
             cases = self.results[name]
             rep = next(c for c in cases if c["label"] == label)
             rows.append({
                 "name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": self.launches[name],
+                "replaces": replaces, "launches": counts[name],
                 "max_abs_err": max(c["max_abs_err"] for c in cases),
                 "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                 "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
                 "library_ms": rep["library_ms"], "shape": label})
         return rows
+
+
+def _kernel_group(name: str) -> str:
+    """A profiler kernel name's group: one of the port's kernels (by the
+    template arguments of its instantiation), memcpy, or other."""
+    if "gated_matmul_kernel" in name:
+        return "gated_matmul"
+    if "matmul_kernel" in name:
+        return "matmul_q" if "signed char" in name else "matmul"
+    if "flash_decode_kernel" in name:
+        return "flash_decode" if "false, false>" in name \
+            else "flash_decode_paged"
+    return "memcpy" if name.startswith("Mem") else "other"
 
 
 def _sdpa(torch, F, q, k, v, mask):

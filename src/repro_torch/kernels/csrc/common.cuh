@@ -1,14 +1,18 @@
 // Shared helpers of the port's CUDA kernels: conversions between the
-// storage types (float, __nv_bfloat16) and the f32 the kernels compute in.
+// storage types (float, __nv_bfloat16, int8 weights and KV pages) and the
+// f32 the kernels compute in.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace repro {
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+// int8 values (|q| <= 127) are exact in f32
+__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }

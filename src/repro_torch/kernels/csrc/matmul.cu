@@ -1,34 +1,44 @@
-// Tiled GEMM with a fused epilogue, and the dual-GEMM SwiGLU kernel.
+// Tiled GEMM with a fused epilogue, its int8-weight variant, and the
+// dual-GEMM SwiGLU kernel.
 //
-// Replaces the Pallas kernels `matmul_tiled` (_matmul_kernel) and
-// `gated_matmul_tiled` (_gated_matmul_kernel) of src/repro/kernels/matmul.py.
-// It is the paper's Listing 4 on the hardware family it was written for:
-// 64x64 output tiles, a k-step of 32, A and B tiles staged in shared memory,
-// __syncthreads() around each stage, and an f32 accumulator in registers
-// (4x4 outputs a thread). The epilogue is applied once, on the f32
-// accumulator, at the flush: none | bias | bias_gelu (tanh form) |
-// bias_silu | residual, then one rounding to the output type. The gated
-// kernel stages one A tile against two [K, N] weight tiles, keeps two
-// accumulators, and stores silu(g) * u in the input type without ever
-// writing g or u.
+// Replaces the Pallas kernels `matmul_tiled` (_matmul_kernel),
+// `matmul_q_tiled` (_matmul_q_kernel) and `gated_matmul_tiled`
+// (_gated_matmul_kernel) of src/repro/kernels/matmul.py. It is the paper's
+// Listing 4 on the hardware family it was written for: 64x64 output tiles,
+// a k-step of 32, A and B tiles staged in shared memory, __syncthreads()
+// around each stage, and an f32 accumulator in registers (4x4 outputs a
+// thread). The epilogue is applied once, on the f32 accumulator, at the
+// flush: none | bias | bias_gelu (tanh form) | bias_silu | residual, then
+// one rounding to the output type. The int8 variant (`matmul_q`) is the
+// same kernel with an int8 [K, N] B tile, widened to f32 as it is staged
+// (|q| <= 127 is exact), and the per-channel f32 scale multiplied onto the
+// accumulator at the flush, before the epilogue. The gated kernel stages
+// one A tile against two [K, N] weight tiles, keeps two accumulators, and
+// stores silu(g) * u in the input type without ever writing g or u.
 //
 // Bound at the main path's shapes (qwen3-0.6b on an H100, bf16): a decode
 // step has M = 4 rows, so each weight byte feeds 4 multiply-adds and the
 // GEMMs are bound by the bytes of the weights: 28 layers x 31.5 MB plus the
-// 311 MB tied embedding, about 1.19 GB a step, 0.36 ms at 3.35 TB/s. At
-// prefill (M = 64..512) the operation count binds instead.
+// 311 MB tied embedding, about 1.19 GB a step, 0.36 ms at 3.35 TB/s. With
+// int8 weights a layer's matrices are 15.7 MB (plus 0.1 MB of scales):
+// 0.44 GB of int8 weights and the 0.31 GB bf16 embedding, 0.224 ms a step;
+// one M=4 K=1024 N=3072 int8 GEMM reads 3.15 MB, about 0.94 us. At prefill
+// (M = 64..512) the operation count binds instead.
 //
 // What the design does about it: every weight tile is read from device
 // memory once per 64-row block of A, so at decode each weight byte is read
 // exactly once; rows past M are neither loaded nor multiplied. It does not
-// yet reach the bound: loads are 2-byte scalars and the products run on the
-// FMA units, not the tensor cores (wgmma/TMA are a later step).
+// yet reach the bound: loads are 1- and 2-byte scalars, the products run on
+// the FMA units, not the tensor cores (wgmma/TMA are a later step), and at
+// M=4 each block's serial k-loop, not the bytes, sets the time, so the int8
+// tile is expected to gain little time over bf16 until that loop is
+// restructured.
 //
 // Edges are masked in the kernel (no padding on the host). The GEMM reads B
 // either as [K, N] row-major or as [N, K] (the tied embedding, as a
-// transposed operand), chosen by `b_nk`. There is no split-K and no atomic: each
-// output's sum runs over k in ascending order whatever M is, so a row
-// computes the same bits at batch 1 as at batch 4.
+// transposed operand), chosen by `b_nk`; the int8 B is [K, N]. There is no
+// split-K and no atomic: each output's sum runs over k in ascending order
+// whatever M is, so a row computes the same bits at batch 1 as at batch 4.
 
 #include <stdint.h>
 
@@ -68,8 +78,8 @@ __device__ __forceinline__ void load_a(float (*As)[BK + 1], const TIn* A, int M,
   }
 }
 
-template <typename TIn, bool NK>
-__device__ __forceinline__ void load_b(float (*Bs)[BN + 1], const TIn* B, int N, int K,
+template <typename TB, bool NK>
+__device__ __forceinline__ void load_b(float (*Bs)[BN + 1], const TB* B, int N, int K,
                                        long long ldb, int n0, int k0, int tid) {
 #pragma unroll
   for (int i = 0; i < BN * BK / THREADS; ++i) {
@@ -84,11 +94,12 @@ __device__ __forceinline__ void load_b(float (*Bs)[BN + 1], const TIn* B, int N,
   }
 }
 
-template <typename TIn, typename TOut, bool NK>
+// TB: B's element type (TIn, or int8_t with the per-channel scale S).
+template <typename TIn, typename TB, typename TOut, bool NK>
 __global__ void __launch_bounds__(THREADS)
-matmul_kernel(const TIn* __restrict__ A, const TIn* __restrict__ B, const void* __restrict__ E,
-              TOut* __restrict__ C, int M, int N, int K, long long lda, long long ldb,
-              long long lde, int e_bf16, int epilogue) {
+matmul_kernel(const TIn* __restrict__ A, const TB* __restrict__ B, const float* __restrict__ S,
+              const void* __restrict__ E, TOut* __restrict__ C, int M, int N, int K,
+              long long lda, long long ldb, long long lde, int e_bf16, int epilogue) {
   __shared__ float As[BM][BK + 1];
   __shared__ float Bs[BK][BN + 1];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
@@ -104,7 +115,7 @@ matmul_kernel(const TIn* __restrict__ A, const TIn* __restrict__ B, const void* 
 
   for (int k0 = 0; k0 < K; k0 += BK) {
     load_a<TIn>(As, A, M, K, lda, m0, k0, tid);
-    load_b<TIn, NK>(Bs, B, N, K, ldb, n0, k0, tid);
+    load_b<TB, NK>(Bs, B, N, K, ldb, n0, k0, tid);
     __syncthreads();
 #pragma unroll 8
     for (int kk = 0; kk < BK; ++kk) {
@@ -132,6 +143,7 @@ matmul_kernel(const TIn* __restrict__ A, const TIn* __restrict__ B, const void* 
       const int gn = n0 + tx + 16 * j;
       if (gn >= N) continue;
       float v = acc[i][j];
+      if (S != nullptr) v *= S[gn];  // dequantize before the epilogue
       if (epilogue == EP_RESIDUAL) {
         v += load_any(E, e_bf16, (long long)gm * lde + gn);
       } else if (epilogue != EP_NONE) {
@@ -210,9 +222,19 @@ void launch_matmul(const void* a, const void* b, const void* e, void* c, int M, 
   const TIn* B = static_cast<const TIn*>(b);
   TOut* C = static_cast<TOut*>(c);
   if (b_nk)
-    matmul_kernel<TIn, TOut, true><<<grid, THREADS, 0, s>>>(A, B, e, C, M, N, K, lda, ldb, lde, e_bf16, epilogue);
+    matmul_kernel<TIn, TIn, TOut, true><<<grid, THREADS, 0, s>>>(A, B, nullptr, e, C, M, N, K, lda, ldb, lde, e_bf16, epilogue);
   else
-    matmul_kernel<TIn, TOut, false><<<grid, THREADS, 0, s>>>(A, B, e, C, M, N, K, lda, ldb, lde, e_bf16, epilogue);
+    matmul_kernel<TIn, TIn, TOut, false><<<grid, THREADS, 0, s>>>(A, B, nullptr, e, C, M, N, K, lda, ldb, lde, e_bf16, epilogue);
+}
+
+template <typename TIn, typename TOut>
+void launch_matmul_q(const void* a, const void* bq, const float* scale, const void* e, void* c,
+                     int M, int N, int K, long long lda, long long ldb, long long lde,
+                     int e_bf16, int epilogue, cudaStream_t s) {
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  matmul_kernel<TIn, int8_t, TOut, false><<<grid, THREADS, 0, s>>>(
+      static_cast<const TIn*>(a), static_cast<const int8_t*>(bq), scale, e,
+      static_cast<TOut*>(c), M, N, K, lda, ldb, lde, e_bf16, epilogue);
 }
 
 template <typename T>
@@ -239,6 +261,24 @@ extern "C" int repro_matmul(const void* a, const void* b, const void* e, void* c
       launch_matmul<float, __nv_bfloat16>(a, b, e, c, M, N, K, lda, ldb, lde, b_nk, e_bf16, epilogue, s);
     else
       launch_matmul<float, float>(a, b, e, c, M, N, K, lda, ldb, lde, b_nk, e_bf16, epilogue, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int repro_matmul_q(const void* a, const void* bq, const float* scale, const void* e,
+                              void* c, int M, int N, int K, long long lda, long long ldb,
+                              long long lde, int in_bf16, int out_bf16, int e_bf16, int epilogue,
+                              void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M > 0 && N > 0) {
+    if (in_bf16 && out_bf16)
+      launch_matmul_q<__nv_bfloat16, __nv_bfloat16>(a, bq, scale, e, c, M, N, K, lda, ldb, lde, e_bf16, epilogue, s);
+    else if (in_bf16)
+      launch_matmul_q<__nv_bfloat16, float>(a, bq, scale, e, c, M, N, K, lda, ldb, lde, e_bf16, epilogue, s);
+    else if (out_bf16)
+      launch_matmul_q<float, __nv_bfloat16>(a, bq, scale, e, c, M, N, K, lda, ldb, lde, e_bf16, epilogue, s);
+    else
+      launch_matmul_q<float, float>(a, bq, scale, e, c, M, N, K, lda, ldb, lde, e_bf16, epilogue, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -26,6 +26,11 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor
     return torch.matmul(a.to(acc), b.to(acc)).to(out_dtype)
 
 
+def dequantize_ref(wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The float weight from int8 + per-channel scale."""
+    return wq.to(scale.dtype) * scale
+
+
 def epilogue_ref(y: torch.Tensor, epilogue: str, bias=None,
                  residual=None) -> torch.Tensor:
     """The epilogue lattice on `y`, in y's dtype. gelu is the tanh
@@ -49,6 +54,19 @@ def fused_matmul_ref(a, b, out_dtype=None, epilogue="none", bias=None,
     rounding to `out_dtype` at the end."""
     out_dtype = out_dtype or a.dtype
     acc = matmul_ref(a, b, out_dtype=_acc_dtype(a.dtype))
+    return epilogue_ref(acc, epilogue, bias, residual).to(out_dtype)
+
+
+def matmul_q_ref(a, wq, scale, out_dtype=None, epilogue="none", bias=None,
+                 residual=None) -> torch.Tensor:
+    """What the int8-weight kernel computes: A @ Wq on an f32 accumulator
+    (int8 values are exact in bf16 and f32), the (N,) per-channel scale
+    applied to the accumulator, then the epilogue, then one rounding to
+    `out_dtype`."""
+    out_dtype = out_dtype or a.dtype
+    acc_dtype = _acc_dtype(a.dtype)
+    acc = torch.matmul(a.to(acc_dtype), wq.to(acc_dtype))
+    acc = acc * scale.reshape(1, -1).to(acc_dtype)
     return epilogue_ref(acc, epilogue, bias, residual).to(out_dtype)
 
 
@@ -89,3 +107,29 @@ def attention_fwd_ref(q, k, v, *, window=None, q_offset=0):
     p = torch.where(mask, torch.exp(logits - lse), torch.zeros_like(logits))
     out = torch.einsum("bhqk,bkhd->bqhd", p, vf)
     return out.to(q.dtype)
+
+
+def paged_gather_ref(kp, table, scales=None):
+    """Each slot's logical K/V from a page pool: logical page j of slot b
+    is pool page table[b, j]. kp [P, page_size, Hkv, D]; table [B, pp],
+    -1 unmapped (clamped to page 0, which the caller's causal mask
+    hides); scales [P, Hkv, page_size] f32 for an int8 pool, which is
+    then dequantized in f32. Returns [B, pp * page_size, Hkv, D]."""
+    b, pp = table.shape
+    _, ps, hkv, d = kp.shape
+    idx = table.long().clamp(min=0)
+    gathered = kp[idx]                                # (B, pp, ps, Hkv, D)
+    if scales is not None:
+        s = scales[idx]                               # (B, pp, Hkv, ps)
+        gathered = gathered.float() * s.transpose(2, 3)[..., None]
+    return gathered.reshape(b, pp * ps, hkv, d)
+
+
+def flash_decode_paged_ref(q, kp, vp, table, *, pos=0, window=None,
+                           ks=None, vs=None):
+    """Decode attention through a page table: gather (and dequantize)
+    each slot's pages, then `attention_fwd_ref` at q_offset=pos.
+    q [B, 1, H, D]; returns [B, 1, H, D] in q's dtype."""
+    k = paged_gather_ref(kp, table, ks)
+    v = paged_gather_ref(vp, table, vs)
+    return attention_fwd_ref(q, k, v, window=window, q_offset=pos)

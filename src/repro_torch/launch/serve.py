@@ -11,6 +11,12 @@ Uniform single batch (all requests at t=0, equal lengths):
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
         --batch 4 --prompt-len 32 --gen 16 --device cpu
 
+Prefix-heavy chat over a paged int8 KV pool (a shared 392-token system
+prompt; prefix pages are shared, and copied on write):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --kv-layout paged \
+        --quant-kv int8 --prefix-len 392
+
 Weights are random, drawn from a torch.Generator seeded with --seed.
 """
 
@@ -24,12 +30,20 @@ import torch
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.core.device import resolve_device
 from repro_torch.models import model as M
-from repro_torch.serving import ServingEngine, synthetic_trace
+from repro_torch.serving import (ServingEngine, prefix_heavy_trace,
+                                 synthetic_trace)
 from repro_torch.serving.request import FINISHED
 
 
 def build_workload(cfg, args, rng):
-    """Mixed-length trace when --requests is set, else the uniform batch."""
+    """Prefix-heavy chat when --prefix-len is set, the mixed-length trace
+    when --requests is set, else the uniform batch."""
+    if args.prefix_len:
+        return prefix_heavy_trace(cfg, args.requests or args.batch, rng=rng,
+                                  prefix_len=args.prefix_len,
+                                  suffix_range=(args.suffix_min,
+                                                args.suffix_max),
+                                  gen=args.gen)
     if args.requests:
         return synthetic_trace(cfg, args.requests, rng=rng,
                                len_range=(args.prompt_len_min,
@@ -69,6 +83,22 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=16,
                     help="tokens to generate per request")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kv-layout", choices=("dense", "paged"),
+                    default="dense",
+                    help="KV cache layout: per-slot rows, or a shared "
+                         "page pool with prefix sharing + copy-on-write")
+    ap.add_argument("--quant-kv", choices=("off", "int8"), default="off",
+                    help="int8 KV pages (requires --kv-layout paged)")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per KV page in paged mode")
+    ap.add_argument("--kv-pool-pages", type=int, default=0,
+                    help="physical page pool size (0 = dense-equivalent "
+                         "capacity: max_slots * pages_per_slot)")
+    ap.add_argument("--prefix-len", type=int, default=0,
+                    help="shared system-prompt length: > 0 switches the "
+                         "workload to the prefix-heavy chat trace")
+    ap.add_argument("--suffix-min", type=int, default=2)
+    ap.add_argument("--suffix-max", type=int, default=12)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the CUDA kernels) or cpu (their plain "
                          "PyTorch versions)")
@@ -84,7 +114,9 @@ def main(argv=None):
     params = M.init_params(cfg, torch.Generator().manual_seed(args.seed),
                            device)
     engine = ServingEngine(cfg, params, max_slots=max_slots, max_len=max_len,
-                           device=device)
+                           device=device, kv_layout=args.kv_layout,
+                           quant_kv=args.quant_kv, page_size=args.page_size,
+                           kv_pool_pages=args.kv_pool_pages or None)
     del params
     requests = [engine.submit(it.prompt, it.gen, arrival_time=it.arrival)
                 for it in work]
@@ -103,9 +135,16 @@ def main(argv=None):
           f"latency p50 {report['latency_p50_s']*1e3:.0f}ms "
           f"p95 {report['latency_p95_s']*1e3:.0f}ms, "
           f"ttft p50 {report['ttft_p50_s']*1e3:.0f}ms")
+    if "kv_pool" in report:
+        kv = report["kv_pool"]
+        print(f"kv pool: {kv['n_pages']} pages x {kv['page_size']} tok, "
+              f"peak resident {kv['peak_resident']}, "
+              f"peak sharing {kv['peak_sharing_ratio']:.2f}x, "
+              f"{kv['shared_page_hits']} shared hits, "
+              f"{kv['cow_copies']} CoW copies")
     check_outputs(cfg, engine, requests)
 
-    if not args.requests:
+    if not args.requests and not args.prefix_len:
         gen = np.stack([np.asarray(r.generated, np.int32) for r in requests])
         print("generated ids[0,:16]:", gen[0, :16].tolist())
         return gen

@@ -1,8 +1,11 @@
-"""Attention layer: GQA, qk-norm, RoPE, dense KV cache.
+"""Attention layer: GQA, qk-norm, RoPE, dense or paged KV cache.
 
-Two paths, routed by `attention()`:
-  * a one-token decode step goes to the flash_decode kernel, which reads
-    each slot's cache prefix in place;
+Three paths:
+  * a one-token decode step on a dense cache goes to the flash_decode
+    kernel, which reads each slot's cache prefix in place;
+  * a one-token decode step on a page pool (`kv_table` given) goes to
+    the flash_decode_paged kernel, which reads each slot's pages in
+    place through the table;
   * everything else (prefill into the cache) takes `chunked_attention`,
     an online softmax over KV chunks in plain PyTorch, as the JAX
     package runs it in plain XLA.
@@ -19,6 +22,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import precision
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 
@@ -121,11 +125,52 @@ def _write_rows(cache, k, v, pos):
         c[bidx, widx] = torch.where(keep, new[:, 0].to(c.dtype), c[bidx, widx])
 
 
-def attn_apply(p, x, cfg, *, cache: Optional[dict] = None, cache_pos=None):
+def _write_pages(pool, table, k, v, pos):
+    """Write each slot's new row at (table[b, pos // ps], pos % ps) of the
+    layer's pool, quantized on an int8 pool (scales into ks/vs[phys, :,
+    off]). A slot with pos < 0, pos past the table or an unmapped (-1)
+    write page writes nothing, as the JAX package's scatter with
+    mode="drop" writes nothing. Without a host sync: each dropped slot
+    repeats the write of one donor slot (the first kept one, or slot 0
+    rewriting its own old values when none is kept), so every duplicated
+    index carries one value and the scatter is deterministic; kept slots
+    write private pages (the engine's prepare_write), so theirs differ."""
+    ps = pool["k"].shape[1]
+    nb, pp = table.shape
+    pos = pos.to(k.device, torch.long)
+    bidx = torch.arange(nb, device=k.device)
+    j = (pos.clamp(min=0) // ps).clamp(max=pp - 1)
+    phys = table[bidx, j].long()
+    keep = (pos >= 0) & (pos < pp * ps) & (phys >= 0)
+    phys, off = phys.clamp(min=0), pos.clamp(min=0) % ps
+    donor = torch.argmax(keep.to(torch.int8))
+    sel = torch.where(keep, bidx, donor)
+    wp, wo = phys[sel], off[sel]
+    rows = {"k": k[:, 0], "v": v[:, 0]}                   # (B, Hkv, D)
+    if "ks" in pool:
+        for name in ("k", "v"):
+            q, s = precision.quantize_kv(rows[name])      # s: (B, Hkv)
+            rows[name], rows[name + "s"] = q, s
+    for name, new in rows.items():
+        c = pool[name]
+        if name in ("ks", "vs"):
+            old = c[phys, :, off]
+            c[wp, :, wo] = torch.where(keep[:, None], new, old)[sel]
+        else:
+            old = c[phys, off]
+            c[wp, wo] = torch.where(keep[:, None, None], new.to(c.dtype),
+                                    old)[sel]
+
+
+def attn_apply(p, x, cfg, *, cache: Optional[dict] = None, cache_pos=None,
+               kv_table=None):
     """Returns (out, cache). cache: {"k", "v"} [B, Tmax, Hkv, Dh], updated
     in place at cache_pos: an int (every row at one offset, a slice
     update) or, for a one-token step, a (B,) vector of per-slot positions
-    (continuous batching; pos < 0 = idle slot, its rows untouched)."""
+    (continuous batching; pos < 0 = idle slot, its rows untouched).
+    With kv_table (B, pp), cache is the layer's page pool {"k", "v":
+    [P, page_size, Hkv, Dh][, "ks", "vs": [P, Hkv, page_size]]}, and the
+    step is one token a slot at a per-slot cache_pos."""
     b, t, _ = x.shape
     dh = cfg.resolved_head_dim
     q = L.dense_apply(p["wq"], x).reshape(b, t, cfg.n_heads, dh)
@@ -138,13 +183,20 @@ def attn_apply(p, x, cfg, *, cache: Optional[dict] = None, cache_pos=None):
     if pos_vec and t != 1:
         raise ValueError(f"a per-slot cache_pos takes one token a slot, "
                          f"got {t}")
+    if kv_table is not None and not pos_vec:
+        raise ValueError("a paged KV cache takes a per-slot cache_pos")
     positions = L.default_positions(
         b, t, cache_pos if cache_pos is not None else 0, device=x.device)
     if cfg.use_rope:
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
 
-    if cache is not None and pos_vec:
+    if cache is not None and kv_table is not None:
+        _write_pages(cache, kv_table, k, v, cache_pos)
+        out = kops.flash_decode_paged(q, cache["k"], cache["v"], kv_table,
+                                      pos=cache_pos, window=cfg.window,
+                                      ks=cache.get("ks"), vs=cache.get("vs"))
+    elif cache is not None and pos_vec:
         _write_rows(cache, k, v, cache_pos)
         out = attention(q, cache["k"], cache["v"], window=cfg.window,
                         chunk=cfg.attn_chunk, q_offset=cache_pos,

@@ -7,8 +7,10 @@ shapes as the JAX package's (`repro/models/layers.py`).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import gemm
+from repro_torch.core import precision
 
 
 def dense_init(generator, d_in: int, d_out: int, *, dtype, device,
@@ -22,17 +24,40 @@ def dense_init(generator, d_in: int, d_out: int, *, dtype, device,
     return p
 
 
+def dense_quantize(p):
+    """{"w": float, "b"?} -> {"w_q": int8, "w_scale": f32 per-channel,
+    "b"?} (`precision.quantize_int8` over the contraction axis). A stacked
+    (L, K, N) weight gets (L, 1, N) scales, which indexing a layer slices
+    alongside the int8 leaf."""
+    q, s = precision.quantize_int8(p["w"])
+    out = {"w_q": q, "w_scale": s}
+    if "b" in p:
+        out["b"] = p["b"]
+    return out
+
+
 def dense_apply(p, x, *, out_dtype=None, activation=None, residual=None):
     """activation/residual ride the GEMM kernel's flush (core.gemm).
-    The weight is cast to x's dtype as the JAX package casts it; the
+    Quantized params ({"w_q", "w_scale"}) take the int8-weight GEMM. A
+    float weight is cast to x's dtype as the JAX package casts it; the
     serving engine casts its weights once, so this is then a no-op."""
+    if "w_q" in p:
+        return gemm.dense_q(x, p["w_q"], p["w_scale"], p.get("b"),
+                            activation=activation, residual=residual,
+                            out_dtype=out_dtype)
     return gemm.dense(x, p["w"].to(x.dtype), p.get("b"),
                       activation=activation, residual=residual,
                       out_dtype=out_dtype)
 
 
 def gated_apply(p_gate, p_up, x):
-    """SwiGLU hidden phase through the dual-GEMM kernel."""
+    """SwiGLU hidden phase through the dual-GEMM kernel. Quantized
+    weights take two int8-weight GEMMs and the gate product after them,
+    as the JAX package does (it has no int8 dual-GEMM kernel)."""
+    if "w_q" in p_gate:
+        g = gemm.dense_q(x, p_gate["w_q"], p_gate["w_scale"])
+        u = gemm.dense_q(x, p_up["w_q"], p_up["w_scale"])
+        return (F.silu(g) * u).to(g.dtype)
     return gemm.gated_mlp(x, p_gate["w"].to(x.dtype), p_up["w"].to(x.dtype))
 
 

@@ -1,9 +1,12 @@
 """Top-level model API of the port, family `dense`:
 
     params = init_params(cfg, generator, device)
+    qparams = quantize_params(params)          # int8 dense weights
     cache = init_cache(cfg, batch_size, max_len, device)
+    pcache = init_paged_cache(cfg, n_pages, page_size, max_slots,
+                              pages_per_slot, quant_kv=..., device=...)
     logits, cache = prefill(cfg, params, batch, cache)
-    logits, cache = decode_step(cfg, params, token, pos, cache)
+    logits, cache = decode_step(cfg, params, token, pos, cache)   # or pcache
 
 Params carry the keys, shapes, scales and param_dtype of the JAX
 package's `init_params`; `repro_torch.bridge` converts those leaf for
@@ -45,12 +48,68 @@ def init_params(cfg, generator: torch.Generator, device=None) -> Dict[str, Any]:
     return p
 
 
+#: Param subtrees never quantized: the embedding is gathered, and the
+#: tied logits attend through it (the router has no served arch yet).
+QUANT_EXCLUDE = ("embed", "router")
+
+
+def quantize_params(params):
+    """Every dense-layer weight dict ({"w": 2D or stacked 3D float,
+    "b"?}) outside QUANT_EXCLUDE becomes {"w_q", "w_scale", "b"?}
+    (layers.dense_quantize); dense_apply / gated_apply then route those
+    layers through core.gemm.dense_q. Quantize the f32 params, before
+    any cast, as the JAX engine does."""
+    def rec(node, name):
+        if isinstance(node, dict):
+            w = node.get("w")
+            if (isinstance(w, torch.Tensor) and w.dim() in (2, 3)
+                    and name not in QUANT_EXCLUDE and w.is_floating_point()):
+                return L.dense_quantize(node)
+            return {k: rec(v, k) for k, v in node.items()}
+        return node
+
+    return rec(params, "")
+
+
 def init_cache(cfg, batch: int, max_len: int, device=None):
     device = resolve_device(device)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
     dtype = getattr(torch, cfg.dtype)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_paged_cache(cfg, n_pages: int, page_size: int, max_slots: int,
+                     pages_per_slot: int, *, quant_kv: str = "off",
+                     device=None):
+    """Page-pool KV cache for continuous-batching decode (the host-side
+    bookkeeping is serving.kv_pool). Layout:
+
+        {"pages": {"k", "v": (L, n_pages, page_size, Hkv, Dh)
+                   [, "ks", "vs": (L, n_pages, Hkv, page_size) f32]},
+         "table": (max_slots, pages_per_slot) int32, -1 = unmapped}
+
+    quant_kv="int8" stores int8 pages with per-(position, head) f32
+    scale planes; the decode kernel dequantizes on f32."""
+    _check_family(cfg)
+    device = resolve_device(device)
+    hkv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    shape = (cfg.n_layers, n_pages, page_size, hkv, dh)
+    if quant_kv == "int8":
+        planes = (cfg.n_layers, n_pages, hkv, page_size)
+        pages = {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                 "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                 "ks": torch.zeros(planes, dtype=torch.float32, device=device),
+                 "vs": torch.zeros(planes, dtype=torch.float32, device=device)}
+    elif quant_kv == "off":
+        dtype = getattr(torch, cfg.dtype)
+        pages = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                 "v": torch.zeros(shape, dtype=dtype, device=device)}
+    else:
+        raise ValueError(f"unknown quant_kv {quant_kv!r}")
+    return {"pages": pages,
+            "table": torch.full((max_slots, pages_per_slot), -1,
+                                dtype=torch.int32, device=device)}
 
 
 def _logits(cfg, params, x):
@@ -77,8 +136,15 @@ def prefill(cfg, params, batch, cache, pos: int = 0):
 def decode_step(cfg, params, token, pos, cache):
     """One-token step. token: (B, 1) int; pos: an int, or a (B,) per-slot
     position vector (pos < 0 marks an idle slot whose cache is left
-    untouched and whose logits are garbage). Returns (f32 logits, cache)."""
+    untouched and whose logits are garbage). `cache` is a dense cache
+    (init_cache) or a paged one (init_paged_cache, which takes a per-slot
+    pos). Returns (f32 logits, cache)."""
     x = L.embed_apply(params["embed"], token, dtype=getattr(torch, cfg.dtype))
-    x, cache = T.stack_apply(params["layers"], x, cfg, caches=cache,
-                             cache_pos=pos)
+    if "pages" in cache:
+        # the layer-less table goes to every layer's pool
+        x, _ = T.stack_apply(params["layers"], x, cfg, caches=cache["pages"],
+                             cache_pos=pos, kv_table=cache["table"])
+    else:
+        x, cache = T.stack_apply(params["layers"], x, cfg, caches=cache,
+                                 cache_pos=pos)
     return _logits(cfg, params, x), cache

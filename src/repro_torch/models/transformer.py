@@ -3,7 +3,8 @@
 Params are stacked with a leading layer dim, as the JAX package's
 `stack_init` builds them, and `stack_apply` loops over that dim in
 Python where the reference scans. Caches keep their (L, B, T, Hkv, D)
-layout; layer i works on views of row i, updated in place.
+layout (page pools their (L, P, page_size, Hkv, D) one); layer i works on
+views of row i, updated in place.
 """
 
 from __future__ import annotations
@@ -29,10 +30,11 @@ def block_init(generator, cfg, *, device):
     }
 
 
-def block_apply(p, x, cfg, *, cache=None, cache_pos=None):
+def block_apply(p, x, cfg, *, cache=None, cache_pos=None, kv_table=None):
     """Returns (x, cache)."""
     h, cache = A.attn_apply(p["attn"], L.rmsnorm_apply(p["attn_norm"], x),
-                            cfg, cache=cache, cache_pos=cache_pos)
+                            cfg, cache=cache, cache_pos=cache_pos,
+                            kv_table=kv_table)
     x = x + h
     # the skip connection rides the down-projection's flush (residual)
     out = F.mlp_apply(p["mlp"], L.rmsnorm_apply(p["mlp_norm"], x), cfg,
@@ -58,11 +60,14 @@ def _index(tree, i):
     return tree[i]
 
 
-def stack_apply(params, x, cfg, *, caches=None, cache_pos=None):
-    """Returns (x, caches)."""
+def stack_apply(params, x, cfg, *, caches=None, cache_pos=None,
+                kv_table=None):
+    """Returns (x, caches). kv_table (paged decode) has no layer dim: a
+    logical page is the same physical page in every layer's pool, so
+    every layer gets the same table."""
     n = params["attn_norm"]["scale"].shape[0]
     for i in range(n):
         cache = None if caches is None else _index(caches, i)
         x, _ = block_apply(_index(params, i), x, cfg, cache=cache,
-                           cache_pos=cache_pos)
+                           cache_pos=cache_pos, kv_table=kv_table)
     return x, caches
