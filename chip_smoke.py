@@ -8,10 +8,11 @@ Phases, in order; any failure propagates and the exit code is not 0:
      all at once, with ptxas' register and shared-memory report;
   3. kernels: each CUDA kernel against its plain PyTorch version at the
      shapes of the main paths (qwen3-0.6b decode and prefill; dense, paged
-     and int8), with the max error beside its tolerance, and the median
-     time of the kernel, the plain version and one PyTorch library call
-     beside the least time the card could take; a bf16 page pool must
-     give the dense decode kernel's bits;
+     and int8; training attention, forward and backward), with the max
+     error beside its tolerance, and the median time of the kernel, the
+     plain version and one PyTorch library call beside the least time the
+     card could take; a bf16 page pool must give the dense decode
+     kernel's bits;
   4. the dense slice at full width: qwen3-0.6b (28 layers, random weights
      from a seed) served by the engine on 4 slots to 8 requests, with
      every kernel's launches counted over that run; a torch.profiler trace
@@ -23,10 +24,18 @@ Phases, in order; any failure propagates and the exit code is not 0:
      an int8 page pool with int8 weights (prefix pages shared), with
      exact launch counts, speed, memory and the pool's report; and that
      configuration's streams at 4 slots equal to each request alone;
-  6. a JSON line of the kernels, the card line, and the result line.
+  6. training at full width: 8 AdamW steps of qwen3-0.6b (f32 params,
+     bf16 activations) at batch 4 x 512 tokens, with exact launch counts
+     a step, finite losses and grad norms, a falling loss, speed, memory
+     and a torch.profiler trace of a step; the first 4 steps again
+     through the plain versions on the card, step 0 held to the kernels';
+     then a whole step at depth 2 in f32 on the card against the same
+     step on the CPU;
+  7. a JSON line of the kernels, the card line, and the result line.
 """
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -65,7 +74,9 @@ def main() -> int:
     smoke.phase_trace()
     smoke.phase_batching()
     smoke.phase_paged()
-    print("[6/6] result")
+    smoke.phase_train()
+    smoke.phase_train_vs_cpu()
+    print("[7/7] result")
     print(json.dumps({"kernels": smoke.kernel_rows()}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
@@ -84,7 +95,7 @@ class Smoke:
     # -- 1. card ------------------------------------------------------
     def phase_card(self):
         torch = self.torch
-        print(f"[1/6] card: {card_line()}")
+        print(f"[1/7] card: {card_line()}")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         print(f"      torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -96,7 +107,7 @@ class Smoke:
         from repro_torch.kernels import _build
         t0 = time.perf_counter()
         libs = _build.build_all()
-        print(f"[2/6] build: {sorted(libs)} from "
+        print(f"[2/7] build: {sorted(libs)} from "
               f"{_build.CSRC.relative_to(ROOT)} in "
               f"{time.perf_counter() - t0:.1f} s (nvcc "
               f"{' '.join(_build.NVCC_FLAGS)})")
@@ -126,26 +137,36 @@ class Smoke:
 
     def _case(self, kernel, label, run_kernel, run_plain, run_library,
               nbytes, flops, dtype, tol):
-        """Compare, then time. tol = (atol, rtol) on |kernel - plain|."""
+        """Compare, then time. tol = (atol, rtol) on |kernel - plain|, or
+        a list of them for a kernel of several outputs. run_library: a
+        callable to time, or a time measured by the caller, or None."""
         torch = self.torch
         got = run_kernel()
         torch.cuda.synchronize()
         want = run_plain()
         torch.cuda.synchronize()
-        assert got.shape == want.shape and got.dtype == want.dtype, \
-            (label, got.shape, want.shape, got.dtype, want.dtype)
-        g, w = got.float(), want.float()
-        assert torch.isfinite(g).all(), f"{kernel} {label}: non-finite output"
-        err = (g - w).abs()
-        atol, rtol = tol
-        bad = err > atol + rtol * w.abs()
-        max_err = err.max().item()
-        assert not bad.any(), (f"{kernel} {label}: {int(bad.sum())} elements "
-                               f"off, max |err| {max_err:g} (atol {atol:g} "
-                               f"rtol {rtol:g})")
+        outs = list(zip(*((got, want) if isinstance(got, tuple)
+                          else ((got,), (want,)))))
+        tols = tol if isinstance(tol, list) else [tol] * len(outs)
+        max_err = 0.0
+        for (got, want), (atol, rtol) in zip(outs, tols):
+            assert got.shape == want.shape and got.dtype == want.dtype, \
+                (label, got.shape, want.shape, got.dtype, want.dtype)
+            g, w = got.float(), want.float()
+            assert torch.isfinite(g).all(), \
+                f"{kernel} {label}: non-finite output"
+            err = (g - w).abs()
+            bad = err > atol + rtol * w.abs()
+            max_err = max(max_err, err.max().item())
+            assert not bad.any(), (f"{kernel} {label}: {int(bad.sum())} "
+                                   f"elements off, max |err| "
+                                   f"{err.max().item():g} (atol {atol:g} "
+                                   f"rtol {rtol:g})")
+        atol, rtol = tols[0]
         ms = self._time_ms(run_kernel)
         plain_ms = self._time_ms(run_plain)
-        lib_ms = None if run_library is None else self._time_ms(run_library)
+        lib_ms = self._time_ms(run_library) if callable(run_library) \
+            else run_library
         t_bytes = nbytes / HBM_BYTES_S * 1e3
         t_ops = flops / PEAK_FLOPS[dtype] * 1e3
         row = dict(label=label, max_abs_err=max_err, tol=tol, ms=ms,
@@ -154,7 +175,7 @@ class Smoke:
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
         self.results.setdefault(kernel, []).append(row)
         lib = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
-        print(f"      {kernel:13s} {label:44s} err {max_err:.2e} "
+        print(f"      {kernel:19s} {label:44s} err {max_err:.2e} "
               f"(atol {atol:g} rtol {rtol:g})  kernel {ms:.4f} ms  "
               f"plain {plain_ms:.4f}  library {lib}  bound {row['bound_ms']:.4f} "
               f"({row['bound_by']})")
@@ -163,7 +184,7 @@ class Smoke:
         torch = self.torch
         from repro_torch.kernels import ops, ref
         F = torch.nn.functional
-        print("[3/6] kernels against their plain versions (median of 50, "
+        print("[3/7] kernels against their plain versions (median of 50, "
               "L2 flushed)")
         gen = torch.Generator(device=self.dev).manual_seed(0)
 
@@ -257,6 +278,7 @@ class Smoke:
                     4 * sum(keys) * h * d, dname, tol)
             del q, kc, vc
         self._kernels_int8_and_paged(randn, tols[torch.bfloat16])
+        self._kernels_attention(randn, tols)
 
     def _kernels_int8_and_paged(self, randn, tol):
         """matmul_q at the int8 main path's shapes and flash_decode_paged
@@ -336,6 +358,56 @@ class Smoke:
         print("      flash_decode_paged on a bf16 pool equals flash_decode on "
               "the dense cache, bit for bit (window None and 512)")
 
+    def _kernels_attention(self, randn, tols):
+        """flash_attention and flash_attention_bwd at the training shape
+        (B=4, T=512, 16 query / 8 KV heads of 128, causal), with a window
+        of 128 and at a ragged T=500, in bf16 and f32. The bound counts
+        the unmasked (query, key) pairs only; the library yardsticks are
+        SDPA's forward, and its forward + backward less its forward."""
+        torch = self.torch
+        from repro_torch.kernels import ops, ref
+        F = torch.nn.functional
+        b_, h, hkv, d = 4, 16, 8, 128
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[-1]
+            size = torch.finfo(dtype).bits // 8
+            for t, window in ((512, None), (512, 128), (500, None)):
+                q = randn(b_, t, h, d, dtype=dtype)
+                k = randn(b_, t, hkv, d, dtype=dtype)
+                v = randn(b_, t, hkv, d, dtype=dtype)
+                do = randn(b_, t, h, d, dtype=dtype)
+                pos = torch.arange(t, device=self.dev)
+                mask = pos[None, :] <= pos[:, None]
+                if window:
+                    mask &= pos[None, :] > pos[:, None] - window
+                pairs = int(mask.sum())
+                label = (f"{dname} B={b_} T={t} H={h} Hkv={hkv} D={d} "
+                         f"causal window={window}")
+                qkv_bytes = (2 * q.numel() + 2 * k.numel()) * size
+                lse_bytes = b_ * h * t * 4
+                sdpa = _sdpa_train(torch, F, q, k, v, None if window is None
+                                   else mask)
+                self._case(
+                    "flash_attention", label,
+                    lambda: ops.flash_attention_fwd(q, k, v, window=window),
+                    lambda: ref.flash_attention_fwd_ref(q, k, v,
+                                                        window=window),
+                    sdpa, qkv_bytes + lse_bytes, 4 * b_ * h * pairs * d,
+                    dname, [tols[dtype], tols[torch.float32]])
+                o, lse = ref.flash_attention_fwd_ref(q, k, v, window=window)
+                fwd_ms = self._time_ms(sdpa)
+                both_ms = self._time_ms(_sdpa_train(
+                    torch, F, q, k, v, None if window is None else mask, do))
+                self._case(
+                    "flash_attention_bwd", label,
+                    lambda: ops.flash_attention_bwd(q, k, v, o, do, lse,
+                                                    window=window),
+                    lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, lse,
+                                                        window=window),
+                    both_ms - fwd_ms, 2 * qkv_bytes + lse_bytes,
+                    10 * b_ * h * pairs * d, dname, tols[dtype])
+                del q, k, v, do, o, lse
+
     # -- 4. the slice at full width --------------------------------------
     def phase_serve(self):
         torch = self.torch
@@ -356,7 +428,7 @@ class Smoke:
                                device=self.dev)
         del params                      # the engine keeps its bf16 copy
         torch.cuda.synchronize()
-        print(f"[4/6] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
+        print(f"[4/7] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
               f"heads {cfg.n_heads}/{cfg.n_kv_heads}x{cfg.resolved_head_dim} "
               f"d_ff {cfg.d_ff} vocab {cfg.vocab}->{cfg.padded_vocab}; "
               f"weights ready in {time.perf_counter() - t0:.1f} s; "
@@ -381,7 +453,8 @@ class Smoke:
         L = cfg.n_layers
         want = {"matmul": (5 * L + 1) * (steps + n_pre), "matmul_q": 0,
                 "gated_matmul": L * (steps + n_pre),
-                "flash_decode": L * steps, "flash_decode_paged": 0}
+                "flash_decode": L * steps, "flash_decode_paged": 0,
+                "flash_attention": 0, "flash_attention_bwd": 0}
         print(f"      launches {self.launches} (expected {want}: "
               f"{engine.decode_steps} decode steps at 141/28/28 each)")
         assert self.launches == want, (self.launches, want)
@@ -510,7 +583,8 @@ class Smoke:
         runs = engine.decode_steps + rem + len(reqs)
         want = {"matmul": 0, "matmul_q": 0, "gated_matmul": 0,
                 "flash_decode": L * rem,
-                "flash_decode_paged": L * engine.decode_steps}
+                "flash_decode_paged": L * engine.decode_steps,
+                "flash_attention": 0, "flash_attention_bwd": 0}
         for name, n in per_gemm_step.items():
             want[name] = n * runs
         return want
@@ -536,7 +610,7 @@ class Smoke:
         assert launches == want, (launches, want)
         got = [r.generated for r in reqs]
         assert got == self.dense_streams, "paged bf16 streams != dense streams"
-        print(f"[5/6] paged bf16 KV (page 16, {rep['kv_pool']['n_pages']} "
+        print(f"[5/7] paged bf16 KV (page 16, {rep['kv_pool']['n_pages']} "
               f"pages): phase 4's {len(reqs)} streams, token for token; "
               f"launches {launches} ({eng.decode_steps} decode steps at "
               f"141/28/28 each); prefill {rep['prefill_tok_s']:.1f} tok/s, "
@@ -605,7 +679,178 @@ class Smoke:
               f"requests (prompts {[len(p) for p in prompts]}, {n_new} "
               f"tokens) at 4 slots equal each alone in a 1-slot engine")
 
-    # -- 6. the kernels line --------------------------------------------
+    # -- 6. training at full width -----------------------------------
+    def phase_train(self, steps=8, batch=4, seq=512):
+        """8 AdamW steps of qwen3-0.6b at full width and depth: f32
+        params, bf16 activations, random weights from seed 0, SyntheticLM
+        batches from seed 0, lr 1e-3 with 2 warmup steps, clip 1.0. The
+        loss must end below where it began. It does not within 4 steps:
+        Adam's first steps, near sign(g) times lr for every weight, lift
+        it (12.29 to 16.79 by step 3, through the kernels and through the
+        plain versions alike, `_train_plain`), and it falls from step 4
+        on."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.core.tree import leaves
+        from repro_torch.data.pipeline import SyntheticLM
+        from repro_torch.kernels import ops
+        from repro_torch.optim.adamw import AdamW, cosine_schedule
+        from repro_torch.training import train_loop as TL
+        cfg = get_config("qwen3-0.6b")
+        L = cfg.n_layers
+        torch.cuda.empty_cache()
+        opt = AdamW(lr=cosine_schedule(1e-3, 2, steps), clip_norm=1.0)
+        state = TL.init_state(cfg, opt, torch.Generator().manual_seed(0),
+                              self.dev)
+        step_fn = TL.make_train_step(cfg, opt)
+        data = SyntheticLM(vocab=cfg.vocab, seq_len=seq, batch=batch, seed=0)
+        batches = [{k: torch.as_tensor(v, dtype=torch.long, device=self.dev)
+                    for k, v in data.batch_at(i).items()}
+                   for i in range(steps + 1)]
+        n_params = sum(x.numel() for x in leaves(state.params))
+        # a step: the forward's 141 GEMMs, 28 dual GEMMs and 28 attentions;
+        # the backward's 2 GEMMs for each of the 141 (dx, dw) plus 4 for
+        # each dual GEMM (its gate/up recompute and their dw; dx of the two
+        # branches is 2 more), and 28 attention backwards
+        want = {"matmul": (5 * L + 1) * 3 + 6 * L, "gated_matmul": L,
+                "flash_attention": L, "flash_attention_bwd": L,
+                "matmul_q": 0, "flash_decode": 0, "flash_decode_paged": 0}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        losses, norms, times, per_step = [], [], [], []
+        before = ops.launch_counts()
+        for i in range(steps):
+            t0 = time.perf_counter()
+            state, met = step_fn(state, batches[i])
+            losses.append(float(met["loss"]))
+            norms.append(float(met["grad_norm"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            now = ops.launch_counts()
+            per_step.append({k: now[k] - before[k] for k in now})
+            before = now
+        self.train_launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[6/7] training {cfg.name} at full width ({L} layers, "
+              f"{n_params / 1e6:.1f}M f32 params, bf16 activations): "
+              f"{steps} AdamW steps at batch {batch} x {seq}")
+        for i in range(steps):
+            print(f"      step {i}: loss {losses[i]:.4f} grad norm "
+                  f"{norms[i]:.4f} wall {times[i] * 1e3:.1f} ms "
+                  f"({batch * seq / times[i]:.0f} tok/s)")
+            assert per_step[i] == want, (i, per_step[i], want)
+        assert all(map(math.isfinite, losses + norms)), (losses, norms)
+        assert losses[-1] < losses[0], losses
+        steady = statistics.median(times[1:])
+        print(f"      launches a step {want} (each step exactly); over the "
+              f"run {self.train_launches}; steady step {steady * 1e3:.1f} ms, "
+              f"{batch * seq / steady:.0f} tok/s; max_memory_allocated "
+              f"{peak / 2 ** 30:.3f} GiB")
+        self._trace_train_step(step_fn, state, batches[steps])
+        del state
+        self._train_plain(cfg, opt, batches, losses, norms)
+
+    def _train_plain(self, cfg, opt, batches, losses, norms, steps=4,
+                     rtol=1e-3):
+        """The first steps again from the same weights, with the kernel
+        dispatchers sent to the plain PyTorch versions on the card: step
+        0's loss and grad norm (no update yet) agree with the kernels'
+        within rtol 1e-3 (bf16 activations rounded at other places);
+        later steps are printed beside the kernels' (Adam's sign-like
+        first steps amplify those differences)."""
+        torch = self.torch
+        from repro_torch.kernels import ops
+        from repro_torch.training import train_loop as TL
+        on_card = ops._on_card
+        ops._on_card = lambda t: False
+        try:
+            state = TL.init_state(cfg, opt, torch.Generator().manual_seed(0),
+                                  self.dev)
+            step_fn = TL.make_train_step(cfg, opt)
+            plain = []
+            for i in range(steps):
+                state, met = step_fn(state, batches[i])
+                plain.append((float(met["loss"]), float(met["grad_norm"])))
+        finally:
+            ops._on_card = on_card
+        del state
+        torch.cuda.empty_cache()
+        for i, (loss, gn) in enumerate(plain):
+            print(f"      plain versions, step {i}: loss {loss:.4f} grad norm "
+                  f"{gn:.4f} (kernels {losses[i]:.4f} / {norms[i]:.4f})")
+        assert abs(plain[0][0] - losses[0]) <= rtol * abs(losses[0]), plain
+        assert abs(plain[0][1] - norms[0]) <= rtol * abs(norms[0]), plain
+
+    def _trace_train_step(self, step_fn, state, batch):
+        """One more step under torch.profiler: the card's busy time, by
+        kernel group, against the step's wall time."""
+        torch = self.torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step_fn(state, batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy, count = {}, {}
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            group = _kernel_group(e.name)
+            busy[group] = busy.get(group, 0.0) + e.time_range.elapsed_us() / 1e3
+            count[group] = count.get(group, 0) + 1
+        if not busy:
+            print("      trace: the profiler recorded no device time "
+                  "(not measured)")
+            return
+        total = sum(busy.values())
+        parts = ", ".join(f"{g} {busy[g]:.3f} ms ({count[g]} launches)"
+                          for g in sorted(busy, key=busy.get, reverse=True))
+        print(f"      trace: a train step under torch.profiler: wall "
+              f"{wall_ms:.1f} ms; card busy {total:.3f} ms: {parts}; idle "
+              f"share {1 - total / wall_ms:.3f}")
+
+    def phase_train_vs_cpu(self, batch=2, seq=256, tol=1e-4):
+        """A whole train step at full width, depth 2, f32 activations, on
+        the card (the CUDA kernels) and on the CPU (their plain versions)
+        from the same weights and batch: the loss and the global grad norm
+        agree within rtol 1e-4 (f32 sums in another order)."""
+        torch = self.torch
+        import dataclasses
+        from repro_torch.configs import get_config
+        from repro_torch.core.tree import tree_map
+        from repro_torch.data.pipeline import SyntheticLM
+        from repro_torch.models import model as M
+        from repro_torch.optim.adamw import AdamW
+        from repro_torch.training import train_loop as TL
+        cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=2,
+                                  dtype="float32")
+        opt = AdamW(lr=1e-3, clip_norm=1.0)
+        params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        data = SyntheticLM(vocab=cfg.vocab, seq_len=seq, batch=batch, seed=0)
+        out = []
+        for dev in (self.dev, torch.device("cpu")):
+            p = tree_map(lambda x: x.to(dev), params)
+            state = TL.TrainState(p, opt.init(p))
+            b = {k: torch.as_tensor(v, dtype=torch.long, device=dev)
+                 for k, v in data.batch_at(0).items()}
+            t0 = time.perf_counter()
+            state, met = TL.make_train_step(cfg, opt)(state, b)
+            out.append((float(met["loss"]), float(met["grad_norm"]),
+                        time.perf_counter() - t0))
+        (loss, gn, tc), (loss_c, gn_c, tp) = out
+        assert abs(loss - loss_c) <= tol * abs(loss_c), (loss, loss_c)
+        assert abs(gn - gn_c) <= tol * abs(gn_c), (gn, gn_c)
+        print(f"      depth 2, f32, batch {batch} x {seq}, one step: card "
+              f"loss {loss:.6f} grad norm {gn:.6f} ({tc * 1e3:.0f} ms); CPU "
+              f"loss {loss_c:.6f} grad norm {gn_c:.6f} ({tp * 1e3:.0f} ms); "
+              f"rel diff {abs(loss - loss_c) / loss_c:.2e} / "
+              f"{abs(gn - gn_c) / gn_c:.2e} (rtol {tol:g})")
+
+    # -- 7. the kernels line --------------------------------------------
     def kernel_rows(self):
         """One row per kernel: its launches on the main path, the max error
         over every case, and the times of its main-path decode shape."""
@@ -627,12 +872,22 @@ class Smoke:
                 "src/repro/kernels/flash_attention.py:631",
                 "bfloat16 int8 pool B=4 H=16 Hkv=8 D=128 ps=16 pp=128 "
                 "window=None"),
+            "flash_attention": (
+                "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "src/repro/kernels/flash_attention.py:179",
+                "bfloat16 B=4 T=512 H=16 Hkv=8 D=128 causal window=None"),
+            "flash_attention_bwd": (
+                "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "src/repro/kernels/flash_attention.py:373",
+                "bfloat16 B=4 T=512 H=16 Hkv=8 D=128 causal window=None"),
         }
         # launches: the dense kernels' from phase 4's run, the int8 path's
-        # from phase 5's int8 run
+        # from phase 5's int8 run, the training kernels' from phase 6's
         counts = {**self.launches,
                   **{k: self.paged_launches[k]
-                     for k in ("matmul_q", "flash_decode_paged")}}
+                     for k in ("matmul_q", "flash_decode_paged")},
+                  **{k: self.train_launches[k]
+                     for k in ("flash_attention", "flash_attention_bwd")}}
         rows = []
         for name, (source, replaces, label) in meta.items():
             cases = self.results[name]
@@ -657,6 +912,10 @@ def _kernel_group(name: str) -> str:
     if "flash_decode_kernel" in name:
         return "flash_decode" if "false, false>" in name \
             else "flash_decode_paged"
+    if "flash_attn_fwd_kernel" in name:
+        return "flash_attention"
+    if "flash_attn_bwd" in name:
+        return "flash_attention_bwd"
     return "memcpy" if name.startswith("Mem") else "other"
 
 
@@ -671,6 +930,27 @@ def _sdpa(torch, F, q, k, v, mask):
     return F.scaled_dot_product_attention(
         qt, kt.repeat_interleave(g, 1), vt.repeat_interleave(g, 1),
         attn_mask=mask)
+
+
+def _sdpa_train(torch, F, q, k, v, mask, do=None):
+    """The library yardstick for training attention (timed only): SDPA's
+    causal forward (a bool mask with a window), and with `do` its forward
+    and backward."""
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(do is not None)
+                  for x in (q, k, v))
+    g = q.shape[2] // k.shape[2]
+    if torch.__version__ >= "2.5":
+        kw = {"enable_gqa": True}
+    else:
+        kt, vt, kw = kt.repeat_interleave(g, 1), vt.repeat_interleave(g, 1), {}
+    kw.update(is_causal=True) if mask is None else kw.update(attn_mask=mask)
+
+    def run():
+        o = F.scaled_dot_product_attention(qt, kt, vt, **kw)
+        if do is not None:
+            o.backward(do.transpose(1, 2))
+        return o
+    return run
 
 
 if __name__ == "__main__":

@@ -2,7 +2,8 @@
 
 The JAX package (`repro`) stays the reference; this package imports
 nothing of it. Its layout mirrors the reference (`configs/`, `kernels/`,
-`core/`, `models/`, `serving/`, `launch/`), and every Pallas kernel on
+`core/`, `models/`, `optim/`, `data/`, `training/`, `serving/`,
+`launch/`), and every Pallas kernel on
 the ported path is a hand-written CUDA C++ kernel under
 `kernels/csrc/`, built at first use with `nvcc` and bound with ctypes.
 

@@ -36,7 +36,9 @@
 //
 // Edges are masked in the kernel (no padding on the host). The GEMM reads B
 // either as [K, N] row-major or as [N, K] (the tied embedding, as a
-// transposed operand), chosen by `b_nk`; the int8 B is [K, N]. There is no
+// transposed operand), chosen by `b_nk`, and A either as [M, K] row-major
+// or as [K, M] (the transpose view of an activation, for a weight
+// gradient a^T g), chosen by `a_km`; the int8 B is [K, N]. There is no
 // split-K and no atomic: each output's sum runs over k in ascending order
 // whatever M is, so a row computes the same bits at batch 1 as at batch 4.
 
@@ -66,15 +68,19 @@ __device__ __forceinline__ float load_any(const void* p, int is_bf16, long long 
                  : static_cast<const float*>(p)[i];
 }
 
-template <typename TIn>
+template <typename TIn, bool KM = false>
 __device__ __forceinline__ void load_a(float (*As)[BK + 1], const TIn* A, int M, int K,
                                        long long lda, int m0, int k0, int tid) {
 #pragma unroll
   for (int i = 0; i < BM * BK / THREADS; ++i) {
     const int idx = tid + i * THREADS;
-    const int m = idx / BK, k = idx % BK;
+    // consecutive threads walk the contiguous dim of A in either layout
+    const int m = KM ? idx % BM : idx / BK;
+    const int k = KM ? idx / BM : idx % BK;
     const int gm = m0 + m, gk = k0 + k;
-    As[m][k] = (gm < M && gk < K) ? to_f32(A[(long long)gm * lda + gk]) : 0.f;
+    float x = 0.f;
+    if (gm < M && gk < K) x = to_f32(KM ? A[(long long)gk * lda + gm] : A[(long long)gm * lda + gk]);
+    As[m][k] = x;
   }
 }
 
@@ -95,7 +101,8 @@ __device__ __forceinline__ void load_b(float (*Bs)[BN + 1], const TB* B, int N, 
 }
 
 // TB: B's element type (TIn, or int8_t with the per-channel scale S).
-template <typename TIn, typename TB, typename TOut, bool NK>
+// NK: B is [N, K]; KM: A is [K, M].
+template <typename TIn, typename TB, typename TOut, bool NK, bool KM>
 __global__ void __launch_bounds__(THREADS)
 matmul_kernel(const TIn* __restrict__ A, const TB* __restrict__ B, const float* __restrict__ S,
               const void* __restrict__ E, TOut* __restrict__ C, int M, int N, int K,
@@ -114,7 +121,7 @@ matmul_kernel(const TIn* __restrict__ A, const TB* __restrict__ B, const float* 
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
   for (int k0 = 0; k0 < K; k0 += BK) {
-    load_a<TIn>(As, A, M, K, lda, m0, k0, tid);
+    load_a<TIn, KM>(As, A, M, K, lda, m0, k0, tid);
     load_b<TB, NK>(Bs, B, N, K, ldb, n0, k0, tid);
     __syncthreads();
 #pragma unroll 8
@@ -213,18 +220,28 @@ gated_matmul_kernel(const T* __restrict__ A, const T* __restrict__ G, const T* _
   }
 }
 
+template <typename TIn, typename TOut, bool NK, bool KM>
+void launch_matmul_layout(const void* a, const void* b, const void* e, void* c, int M, int N,
+                          int K, long long lda, long long ldb, long long lde, int e_bf16,
+                          int epilogue, cudaStream_t s) {
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  matmul_kernel<TIn, TIn, TOut, NK, KM><<<grid, THREADS, 0, s>>>(
+      static_cast<const TIn*>(a), static_cast<const TIn*>(b), nullptr, e, static_cast<TOut*>(c),
+      M, N, K, lda, ldb, lde, e_bf16, epilogue);
+}
+
 template <typename TIn, typename TOut>
 void launch_matmul(const void* a, const void* b, const void* e, void* c, int M, int N, int K,
-                   long long lda, long long ldb, long long lde, int b_nk, int e_bf16,
+                   long long lda, long long ldb, long long lde, int a_km, int b_nk, int e_bf16,
                    int epilogue, cudaStream_t s) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  const TIn* A = static_cast<const TIn*>(a);
-  const TIn* B = static_cast<const TIn*>(b);
-  TOut* C = static_cast<TOut*>(c);
-  if (b_nk)
-    matmul_kernel<TIn, TIn, TOut, true><<<grid, THREADS, 0, s>>>(A, B, nullptr, e, C, M, N, K, lda, ldb, lde, e_bf16, epilogue);
+  if (a_km && b_nk)
+    launch_matmul_layout<TIn, TOut, true, true>(a, b, e, c, M, N, K, lda, ldb, lde, e_bf16, epilogue, s);
+  else if (a_km)
+    launch_matmul_layout<TIn, TOut, false, true>(a, b, e, c, M, N, K, lda, ldb, lde, e_bf16, epilogue, s);
+  else if (b_nk)
+    launch_matmul_layout<TIn, TOut, true, false>(a, b, e, c, M, N, K, lda, ldb, lde, e_bf16, epilogue, s);
   else
-    matmul_kernel<TIn, TIn, TOut, false><<<grid, THREADS, 0, s>>>(A, B, nullptr, e, C, M, N, K, lda, ldb, lde, e_bf16, epilogue);
+    launch_matmul_layout<TIn, TOut, false, false>(a, b, e, c, M, N, K, lda, ldb, lde, e_bf16, epilogue, s);
 }
 
 template <typename TIn, typename TOut>
@@ -232,7 +249,7 @@ void launch_matmul_q(const void* a, const void* bq, const float* scale, const vo
                      int M, int N, int K, long long lda, long long ldb, long long lde,
                      int e_bf16, int epilogue, cudaStream_t s) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  matmul_kernel<TIn, int8_t, TOut, false><<<grid, THREADS, 0, s>>>(
+  matmul_kernel<TIn, int8_t, TOut, false, false><<<grid, THREADS, 0, s>>>(
       static_cast<const TIn*>(a), static_cast<const int8_t*>(bq), scale, e,
       static_cast<TOut*>(c), M, N, K, lda, ldb, lde, e_bf16, epilogue);
 }
@@ -249,18 +266,19 @@ void launch_gated(const void* a, const void* g, const void* u, void* c, int M, i
 }  // namespace
 
 extern "C" int repro_matmul(const void* a, const void* b, const void* e, void* c, int M, int N,
-                            int K, long long lda, long long ldb, long long lde, int b_nk,
-                            int in_bf16, int out_bf16, int e_bf16, int epilogue, void* stream) {
+                            int K, long long lda, long long ldb, long long lde, int a_km,
+                            int b_nk, int in_bf16, int out_bf16, int e_bf16, int epilogue,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M > 0 && N > 0) {
     if (in_bf16 && out_bf16)
-      launch_matmul<__nv_bfloat16, __nv_bfloat16>(a, b, e, c, M, N, K, lda, ldb, lde, b_nk, e_bf16, epilogue, s);
+      launch_matmul<__nv_bfloat16, __nv_bfloat16>(a, b, e, c, M, N, K, lda, ldb, lde, a_km, b_nk, e_bf16, epilogue, s);
     else if (in_bf16)
-      launch_matmul<__nv_bfloat16, float>(a, b, e, c, M, N, K, lda, ldb, lde, b_nk, e_bf16, epilogue, s);
+      launch_matmul<__nv_bfloat16, float>(a, b, e, c, M, N, K, lda, ldb, lde, a_km, b_nk, e_bf16, epilogue, s);
     else if (out_bf16)
-      launch_matmul<float, __nv_bfloat16>(a, b, e, c, M, N, K, lda, ldb, lde, b_nk, e_bf16, epilogue, s);
+      launch_matmul<float, __nv_bfloat16>(a, b, e, c, M, N, K, lda, ldb, lde, a_km, b_nk, e_bf16, epilogue, s);
     else
-      launch_matmul<float, float>(a, b, e, c, M, N, K, lda, ldb, lde, b_nk, e_bf16, epilogue, s);
+      launch_matmul<float, float>(a, b, e, c, M, N, K, lda, ldb, lde, a_km, b_nk, e_bf16, epilogue, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,9 +10,11 @@ card and launches its kernel, or raises: the CPU path is the plain
 version in `kernels.ref`, chosen by `kernels.ops` for CPU tensors.
 
 The GEMM's B may be a [K, N] row-major tensor or the transpose view of
-an [N, K] one (`w.t()`); the kernel reads either layout in place, so the
-tied embedding feeds the logits GEMM without a copy. The dual GEMM takes
-[K, N] row-major weights and returns A's dtype.
+an [N, K] one (`w.t()`), and its A an [M, K] row-major tensor or the
+transpose view of a [K, M] one; the kernel reads either layout in place,
+so the tied embedding feeds the logits GEMM and an activation feeds its
+weight gradient ``aᵀ @ g`` without a copy. The dual GEMM and the int8
+GEMM take a row-major A and [K, N] row-major weights.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from repro_torch.kernels.ref import EPILOGUES
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "repro_matmul": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _I, _I, _I,
-                     _I, _I, _P],
+                     _I, _I, _I, _P],
     "repro_matmul_q": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _I, _I,
                        _I, _I, _P],
     "repro_gated_matmul": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _P],
@@ -54,17 +56,18 @@ def _check_a(a: torch.Tensor) -> None:
                          f"shape {tuple(a.shape)} strides {a.stride()}")
 
 
-def _b_layout(b: torch.Tensor):
-    """(b_nk, ldb) for a [K, N] operand: row-major, or the transpose view
-    of a row-major [N, K] tensor."""
-    if b.dim() != 2:
-        raise ValueError(f"B must be 2D, got shape {tuple(b.shape)}")
-    if b.stride(1) == 1:
-        return 0, b.stride(0)
-    if b.stride(0) == 1:
-        return 1, b.stride(1)
-    raise ValueError(f"B of strides {b.stride()} is neither [K, N] nor "
-                     f"[N, K] row-major")
+def _layout(x: torch.Tensor, name: str, dims: str):
+    """(transposed, leading dim) for a 2D operand of dims "RC": row-major
+    [R, C], or the transpose view of a row-major [C, R] tensor."""
+    if x.dim() != 2:
+        raise ValueError(f"{name} must be 2D, got shape {tuple(x.shape)}")
+    if x.stride(1) == 1:
+        return 0, x.stride(0)
+    if x.stride(0) == 1:
+        return 1, x.stride(1)
+    raise ValueError(f"{name} of strides {x.stride()} is neither "
+                     f"[{dims[0]}, {dims[1]}] nor [{dims[1]}, {dims[0]}] "
+                     f"row-major")
 
 
 def _check_cuda(*ts) -> None:
@@ -108,12 +111,12 @@ def matmul_tiled(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
     _check_dtype(out_dtype, "out_dtype")
     e, lde, e_bf16 = _epilogue_args(epilogue, epilogue_operand, m, n)
     _check_cuda(a, b, *([] if e is None else [e]))
-    _check_a(a)
-    b_nk, ldb = _b_layout(b)
+    a_km, lda = _layout(a, "A", "MK")
+    b_nk, ldb = _layout(b, "B", "KN")
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
     err = _lib().repro_matmul(
         a.data_ptr(), b.data_ptr(), None if e is None else e.data_ptr(),
-        c.data_ptr(), m, n, k, a.stride(0), ldb, lde, b_nk,
+        c.data_ptr(), m, n, k, lda, ldb, lde, a_km, b_nk,
         int(a.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
         e_bf16, EPILOGUES.index(epilogue), _build.stream_ptr(a.device))
     LAUNCHES["matmul"] += 1

@@ -11,6 +11,8 @@ there is no fallback from a failing kernel to its plain version.
     gated_matmul        matmul.gated_matmul_tiled            ref.gated_matmul_ref
     flash_decode        flash_attention.flash_decode         ref.attention_fwd_ref
     flash_decode_paged  flash_attention.flash_decode_paged   ref.flash_decode_paged_ref
+    flash_attention_fwd flash_attention.flash_attention      ref.flash_attention_fwd_ref
+    flash_attention_bwd flash_attention.flash_attention_bwd  ref.flash_attention_bwd_ref
 """
 
 from __future__ import annotations
@@ -170,6 +172,43 @@ def flash_decode_paged(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
                                       window=window, ks=ks, vs=vs)
     return _ref.flash_decode_paged_ref(q, kp, vp, table, pos=pos,
                                        window=window, ks=ks, vs=vs)
+
+
+def _check_bthd(q, k, v) -> None:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
+            or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3] \
+            or q.shape[2] % k.shape[2]:
+        raise ValueError(f"q {tuple(q.shape)} must be [B, Tq, H, D] against "
+                         f"k/v [B, Tk, Hkv, D] with Hkv dividing H, got k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int | None = None):
+    """Attention of q [B, Tq, H, D] over k/v [B, Tk, Hkv, D] with the
+    residual its backward needs: (o [B, Tq, H, D] in q's dtype,
+    lse [B, H, Tq] float32)."""
+    _check_bthd(q, k, v)
+    if _on_card(q):
+        return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                                   return_lse=True)
+    return _ref.flash_attention_fwd_ref(q, k, v, causal=causal, window=window)
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
+                        window: int | None = None):
+    """(dq, dk, dv) of `flash_attention_fwd` from its (o, lse) and the
+    cotangent do [B, Tq, H, D], in the input dtypes; dk/dv [B, Tk, Hkv,
+    D], summed over each KV head's group of query heads."""
+    _check_bthd(q, k, v)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
+                         f"be q's {tuple(q.shape)}")
+    if _on_card(q):
+        return _fa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                       window=window)
+    return _ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
+                                        window=window)
 
 
 def launch_counts() -> dict:

@@ -109,6 +109,67 @@ def attention_fwd_ref(q, k, v, *, window=None, q_offset=0):
     return out.to(q.dtype)
 
 
+_LSE_EMPTY = 1e30     # logsumexp of a row that sees no key
+
+
+def _attention_logits(q, k, *, causal, window):
+    """Scaled, masked logits [B, H, Tq, Tk] (f32, -1e30 where masked),
+    the (Tq, Tk) mask, the GQA group and the scaled f32 q."""
+    tq, h, d = q.shape[1:]
+    tk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    qs = q.float() * d ** -0.5
+    kf = k.float().repeat_interleave(g, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", qs, kf)
+    q_pos = torch.arange(tq, device=q.device)[:, None]
+    k_pos = torch.arange(tk, device=q.device)[None, :]
+    mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    return torch.where(mask, logits, torch.full_like(logits, -1e30)), mask, g, qs
+
+
+def flash_attention_fwd_ref(q, k, v, *, causal=True, window=None):
+    """Softmax attention of q [B, Tq, H, D] over k/v [B, Tk, Hkv, D] (GQA:
+    query head h reads kv head h // (H // Hkv)); query row i sees keys
+    j <= i under `causal` and j > i - window with a window. Returns
+    (o [B, Tq, H, D] in q's dtype, lse [B, H, Tq] f32): a row that sees
+    no key gets lse = 1e30 and o = 0, as the flash kernels give it."""
+    logits, mask, g, _ = _attention_logits(q, k, causal=causal, window=window)
+    lse = torch.where(mask.any(-1), torch.logsumexp(logits, dim=-1),
+                      torch.full_like(logits[..., 0], _LSE_EMPTY))
+    p = torch.exp(logits - lse[..., None])
+    vf = v.float().repeat_interleave(g, dim=2)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vf)
+    return out.to(q.dtype), lse
+
+
+def flash_attention_bwd_ref(q, k, v, o, do, lse, *, causal=True, window=None):
+    """The closed-form backward of `flash_attention_fwd_ref` from its
+    (o, lse) residuals and the output's cotangent do: P = exp(S - lse),
+    dV = Pᵀ dO, dS = P (dO Vᵀ - rowsum(dO O)), dK = dSᵀ qs,
+    dQ = D^-0.5 dS K, with dK and dV summed over each KV head's group of
+    query heads. Returns (dq, dk, dv) in the input dtypes."""
+    b, tq, h, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    logits, _, g, qs = _attention_logits(q, k, causal=causal, window=window)
+    p = torch.exp(logits - lse.float()[..., None])         # (B, H, Tq, Tk)
+    dof, of = do.float(), o.float()
+    vf = v.float().repeat_interleave(g, dim=2)
+    kf = k.float().repeat_interleave(g, dim=2)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)            # per query head
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    delta = (dof * of).sum(-1)                               # (B, Tq, H)
+    ds = p * (dp - delta.transpose(1, 2)[..., None])
+    dq = d ** -0.5 * torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qs)
+    dk = dk.reshape(b, tk, hkv, g, d).sum(3)
+    dv = dv.reshape(b, tk, hkv, g, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def paged_gather_ref(kp, table, scales=None):
     """Each slot's logical K/V from a page pool: logical page j of slot b
     is pool page table[b, j]. kp [P, page_size, Hkv, D]; table [B, pp],

@@ -1,14 +1,19 @@
 """Attention layer: GQA, qk-norm, RoPE, dense or paged KV cache.
 
-Three paths:
+Four paths:
+  * cache-less causal self-attention (the training forward) goes to the
+    flash_attention kernel through `_AttentionFused`, whose backward is
+    the flash_attention_bwd kernel, as the JAX package's `_attention_fused`
+    custom VJP routes it; the kernel takes any T (JAX routes only T its
+    blocks divide, `_flash_shapes_ok`, and the rest to the chunked path);
   * a one-token decode step on a dense cache goes to the flash_decode
     kernel, which reads each slot's cache prefix in place;
   * a one-token decode step on a page pool (`kv_table` given) goes to
     the flash_decode_paged kernel, which reads each slot's pages in
     place through the table;
-  * everything else (prefill into the cache) takes `chunked_attention`,
-    an online softmax over KV chunks in plain PyTorch, as the JAX
-    package runs it in plain XLA.
+  * prefill into a cache takes `chunked_attention`, an online softmax
+    over KV chunks in plain PyTorch, as the JAX package runs masked
+    prefill in plain XLA.
 
 The KV cache is updated in place: the JAX package writes a new cache
 and donates the old one; here the written rows land in the caller's
@@ -71,12 +76,37 @@ def chunked_attention(q, k, v, *, window=None, chunk=2048, q_offset=0,
     return out.to(q.dtype)
 
 
+class _AttentionFused(torch.autograd.Function):
+    """Causal attention of q [B, T, H, D] over its own k/v, the
+    counterpart of `_attention_fused`: the forward is the flash kernel
+    with its logsumexp, saved with the output; the backward is the
+    two-sweep flash_attention_bwd kernel on those residuals."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window):
+        o, lse = kops.flash_attention_fwd(q, k, v, causal=True, window=window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.window = window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = kops.flash_attention_bwd(
+            q, k, v, o, do.contiguous(), lse, causal=True, window=ctx.window)
+        return dq, dk, dv, None
+
+
 def attention(q, k, v, *, window, chunk, q_offset=0, kv_len=None,
               io_dtype=torch.float32, decode: bool = False):
     """The attention chokepoint: a decode step (t == 1, kv_len = pos + 1)
-    runs the flash_decode kernel; every other case the chunked path."""
+    runs the flash_decode kernel; cache-less self-attention (no kv_len,
+    q_offset 0) the flash_attention kernel and its backward; prefill into
+    a cache the chunked path."""
     if decode and q.shape[1] == 1:
         return kops.flash_decode(q, k, v, pos=q_offset, window=window)
+    if kv_len is None and isinstance(q_offset, int) and q_offset == 0:
+        return _AttentionFused.apply(q, k, v, window)
     return chunked_attention(q, k, v, window=window, chunk=chunk,
                              q_offset=q_offset, kv_len=kv_len,
                              io_dtype=io_dtype)
@@ -164,8 +194,9 @@ def _write_pages(pool, table, k, v, pos):
 
 def attn_apply(p, x, cfg, *, cache: Optional[dict] = None, cache_pos=None,
                kv_table=None):
-    """Returns (out, cache). cache: {"k", "v"} [B, Tmax, Hkv, Dh], updated
-    in place at cache_pos: an int (every row at one offset, a slice
+    """Returns (out, cache). Without a cache: causal self-attention over
+    x's own tokens (training). cache: {"k", "v"} [B, Tmax, Hkv, Dh],
+    updated in place at cache_pos: an int (every row at one offset, a slice
     update) or, for a one-token step, a (B,) vector of per-slot positions
     (continuous batching; pos < 0 = idle slot, its rows untouched).
     With kv_table (B, pp), cache is the layer's page pool {"k", "v":

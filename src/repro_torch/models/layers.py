@@ -39,7 +39,8 @@ def dense_quantize(p):
 def dense_apply(p, x, *, out_dtype=None, activation=None, residual=None):
     """activation/residual ride the GEMM kernel's flush (core.gemm).
     Quantized params ({"w_q", "w_scale"}) take the int8-weight GEMM. A
-    float weight is cast to x's dtype as the JAX package casts it; the
+    float weight is cast to x's dtype as the JAX package casts it, and
+    its gradient flows back through the cast to the f32 parameter; the
     serving engine casts its weights once, so this is then a no-op."""
     if "w_q" in p:
         return gemm.dense_q(x, p["w_q"], p["w_scale"], p.get("b"),
@@ -79,6 +80,9 @@ def embed_init(generator, vocab: int, d: int, *, dtype, device):
 
 
 def embed_apply(p, ids, *, dtype):
+    """The rows of the table for `ids`, in `dtype`. The gradient is plain
+    PyTorch, a scatter-add of each row's cotangent into the table (an
+    index_put with accumulate), as XLA scatters it."""
     return p["w"][ids].to(dtype)
 
 

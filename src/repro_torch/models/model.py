@@ -7,6 +7,8 @@
                               pages_per_slot, quant_kv=..., device=...)
     logits, cache = prefill(cfg, params, batch, cache)
     logits, cache = decode_step(cfg, params, token, pos, cache)   # or pcache
+    logits = forward(cfg, params, batch)                # training
+    loss, metrics = loss_fn(cfg, params, batch)         # differentiable
 
 Params carry the keys, shapes, scales and param_dtype of the JAX
 package's `init_params`; `repro_torch.bridge` converts those leaf for
@@ -121,6 +123,31 @@ def _logits(cfg, params, x):
     if cfg.padded_vocab != cfg.vocab:
         logits[..., cfg.vocab:] = -1e30      # mask the pad classes
     return logits
+
+
+def forward(cfg, params, batch):
+    """Full-sequence f32 logits (B, T, padded_vocab) of batch["tokens"]
+    (B, T), the pad classes masked to -1e30: the training forward, with
+    cache-less causal attention. (The JAX package's `forward` also
+    returns an aux dict, which is empty for the dense family.)"""
+    x = L.embed_apply(params["embed"], batch["tokens"],
+                      dtype=getattr(torch, cfg.dtype))
+    x, _ = T.stack_apply(params["layers"], x, cfg)
+    return _logits(cfg, params, x)
+
+
+def loss_fn(cfg, params, batch):
+    """Mean next-token cross entropy over the labels >= 0 of
+    batch["labels"] (B, T) (-1: no label), from an f32 log-softmax over
+    the padded vocab. Returns (loss, {"ce_loss", "tokens", "loss"})."""
+    logits = forward(cfg, params, batch)
+    labels = batch["labels"].long()
+    valid = labels >= 0
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    denom = valid.sum().clamp(min=1)
+    loss = (nll * valid).sum() / denom
+    return loss, {"ce_loss": loss, "tokens": denom, "loss": loss}
 
 
 def prefill(cfg, params, batch, cache, pos: int = 0):

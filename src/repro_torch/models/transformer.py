@@ -2,9 +2,12 @@
 
 Params are stacked with a leading layer dim, as the JAX package's
 `stack_init` builds them, and `stack_apply` loops over that dim in
-Python where the reference scans. Caches keep their (L, B, T, Hkv, D)
-layout (page pools their (L, P, page_size, Hkv, D) one); layer i works on
-views of row i, updated in place.
+Python where the reference scans. The stacked leaves stay the leaves of
+the param tree: layer i works on views of row i, so a gradient comes back
+as one tensor per stacked leaf, as the reference's scan gives it. Caches
+keep their (L, B, T, Hkv, D) layout (page pools their (L, P, page_size,
+Hkv, D) one), updated in place. Rematerialisation (the reference's
+`remat`) is not ported: the backward keeps every layer's activations.
 """
 
 from __future__ import annotations
@@ -54,20 +57,25 @@ def _stack(trees):
     return torch.stack(trees)
 
 
-def _index(tree, i):
+def _unstack(tree, n):
+    """The n per-layer trees of a stacked tree, as views. One unbind a
+    leaf: its backward stacks the n layers' gradients once."""
     if isinstance(tree, dict):
-        return {k: _index(v, i) for k, v in tree.items()}
-    return tree[i]
+        per_key = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return tree.unbind(0)
 
 
 def stack_apply(params, x, cfg, *, caches=None, cache_pos=None,
                 kv_table=None):
-    """Returns (x, caches). kv_table (paged decode) has no layer dim: a
-    logical page is the same physical page in every layer's pool, so
-    every layer gets the same table."""
+    """Returns (x, caches). Without caches this is the training forward
+    (cache-less causal attention). kv_table (paged decode) has no layer
+    dim: a logical page is the same physical page in every layer's pool,
+    so every layer gets the same table."""
     n = params["attn_norm"]["scale"].shape[0]
+    layers = _unstack(params, n)
+    per_cache = [None] * n if caches is None else _unstack(caches, n)
     for i in range(n):
-        cache = None if caches is None else _index(caches, i)
-        x, _ = block_apply(_index(params, i), x, cfg, cache=cache,
+        x, _ = block_apply(layers[i], x, cfg, cache=per_cache[i],
                            cache_pos=cache_pos, kv_table=kv_table)
     return x, caches

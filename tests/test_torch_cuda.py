@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: ragged edges, both B layouts, int8 weights, strided cache views,
-page pools (bf16, f32 and int8 pages, shuffled, -1 past each prefix),
-GQA groups, idle and windowed slots, and whole decode steps, dense and
-paged.
+card: ragged edges, both A and B layouts, int8 weights, strided cache
+views, page pools (bf16, f32 and int8 pages, shuffled, -1 past each
+prefix), GQA groups, idle and windowed slots, the training attention's
+forward and backward (ragged T, windows, rows that see no key), whole
+decode steps, dense and paged, and a whole train step.
 
 Marked `cuda`; each test skips where there is no CUDA device. On the
 card: `PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py`.
@@ -17,8 +18,11 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core import precision
+from repro_torch.core.tree import leaves
 from repro_torch.kernels import ops, ref
 from repro_torch.models import model as M
+from repro_torch.optim.adamw import AdamW
+from repro_torch.training import train_loop as TL
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
@@ -64,6 +68,94 @@ def test_matmul_kernel_matches_plain(dev, dtype, epilogue, mkn, b_nk):
         want = ref.fused_matmul_ref(a, b, out_dtype, epilogue,
                                     kw.get("bias"), kw.get("residual"))
         _close(got, want, out_dtype if out_dtype == dtype else torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("epilogue", ["none", "residual"])
+@pytest.mark.parametrize("mkn", [(5, 37, 19), (64, 130, 70), (1024, 512, 96)])
+@pytest.mark.parametrize("b_nk", [False, True])
+def test_matmul_transposed_a_matches_plain(dev, dtype, epilogue, mkn, b_nk):
+    """A as the transpose view of a [K, M] tensor: the weight gradient
+    aᵀ @ g of the GEMM's backward."""
+    m, k, n = mkn
+    a = _randn(k, m, dtype=dtype, dev=dev, seed=0).t()
+    b = _randn(n, k, dtype=dtype, dev=dev, seed=1, scale=k ** -0.5).t() \
+        if b_nk else _randn(k, n, dtype=dtype, dev=dev, seed=1, scale=k ** -0.5)
+    r = _randn(m, n, dtype=dtype, dev=dev, seed=2) \
+        if epilogue == "residual" else None
+    got = ops.matmul(a, b, epilogue=epilogue, residual=r)
+    want = ref.fused_matmul_ref(a, b, dtype, epilogue, residual=r)
+    _close(got, want, dtype)
+
+
+# (B, T, H, Hkv, D) and (Tq, Tk) where they differ: ragged T, GQA groups
+# of 1, 2 and 4, the training shape's head_dim
+ATTN_SHAPES = [(2, 37, 4, 2, 16), (1, 130, 8, 8, 64), (2, 200, 4, 1, 128),
+               (1, 512, 4, 2, 128)]
+
+
+def _attn_inputs(dev, dtype, shape, tk=None):
+    b, t, h, hkv, d = shape
+    q = _randn(b, t, h, d, dtype=dtype, dev=dev, seed=0)
+    k = _randn(b, tk or t, hkv, d, dtype=dtype, dev=dev, seed=1)
+    v = _randn(b, tk or t, hkv, d, dtype=dtype, dev=dev, seed=2)
+    return q, k, v
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+@pytest.mark.parametrize("window", [None, 7, 128])
+def test_flash_attention_kernel_matches_plain(dev, dtype, shape, window):
+    q, k, v = _attn_inputs(dev, dtype, shape)
+    o, lse = ops.flash_attention_fwd(q, k, v, causal=True, window=window)
+    want_o, want_lse = ref.flash_attention_fwd_ref(q, k, v, causal=True,
+                                                   window=window)
+    _close(o, want_o, dtype)
+    torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
+
+
+def test_flash_attention_rows_that_see_no_key(dev):
+    """Not causal, a window of 4 and Tk < Tq: rows from 23 on see no key
+    and get o = 0 and the 1e30 sentinel; the backward gives them nothing."""
+    q, k, v = _attn_inputs(dev, torch.float32, (2, 40, 4, 2, 16), tk=20)
+    o, lse = ops.flash_attention_fwd(q, k, v, causal=False, window=4)
+    want_o, want_lse = ref.flash_attention_fwd_ref(q, k, v, causal=False,
+                                                   window=4)
+    assert torch.equal(lse[:, :, 23:], torch.full_like(lse[:, :, 23:], 1e30))
+    assert torch.equal(o[:, 23:], torch.zeros_like(o[:, 23:]))
+    _close(o, want_o, torch.float32)
+    torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
+    do = _randn(*q.shape, dtype=torch.float32, dev=dev, seed=3)
+    got = ops.flash_attention_bwd(q, k, v, o, do, lse, causal=False, window=4)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal=False,
+                                       window=4)
+    for x, y in zip(got, want):
+        _close(x, y, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+@pytest.mark.parametrize("window", [None, 7, 128])
+def test_flash_attention_bwd_kernel_matches_plain(dev, dtype, shape, window):
+    q, k, v = _attn_inputs(dev, dtype, shape)
+    o, lse = ref.flash_attention_fwd_ref(q, k, v, causal=True, window=window)
+    do = _randn(*q.shape, dtype=dtype, dev=dev, seed=3)
+    got = ops.flash_attention_bwd(q, k, v, o, do, lse, causal=True,
+                                  window=window)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal=True,
+                                       window=window)
+    for x, y in zip(got, want):
+        _close(x, y, dtype)
+
+
+def test_flash_attention_bwd_is_deterministic(dev):
+    q, k, v = _attn_inputs(dev, torch.bfloat16, (2, 200, 4, 1, 128))
+    o, lse = ops.flash_attention_fwd(q, k, v, causal=True)
+    do = _randn(*q.shape, dtype=torch.bfloat16, dev=dev, seed=3)
+    first = ops.flash_attention_bwd(q, k, v, o, do, lse, causal=True)
+    again = ops.flash_attention_bwd(q, k, v, o, do, lse, causal=True)
+    for x, y in zip(first, again):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -198,9 +290,13 @@ def test_each_wrapper_counts_one_launch(dev):
     ops.flash_decode(q, kv, kv, pos=2)
     table = torch.zeros(1, 1, dtype=torch.int32, device=dev)
     ops.flash_decode_paged(q, kv, kv, table, pos=2)
+    o, lse = ops.flash_attention_fwd(kv, kv, kv)
+    ops.flash_attention_bwd(kv, kv, kv, o, o, lse)
     assert ops.launch_counts() == {"matmul": 1, "matmul_q": 1,
                                    "gated_matmul": 1, "flash_decode": 1,
-                                   "flash_decode_paged": 1}
+                                   "flash_decode_paged": 1,
+                                   "flash_attention": 1,
+                                   "flash_attention_bwd": 1}
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):
@@ -270,6 +366,37 @@ def test_paged_int8_decode_step_on_card_matches_cpu(dev):
                   *(cache["pages"][n].cpu() for n in ("ks", "vs")))
     for x, y in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(x, y, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_train_step_on_card_matches_cpu(dev, accum):
+    """The reduced model in f32: two AdamW steps on the card (the GEMM
+    autograd and the flash attention pair on their kernels) against the
+    same on the CPU: losses, grad norms and gradients agree."""
+    cfg = dataclasses.replace(get_config("qwen3-0.6b", reduced=True),
+                              dtype="float32")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = {"tokens": torch.randint(0, cfg.vocab, (4, 40), generator=
+                                     torch.Generator().manual_seed(1))}
+    batch["labels"] = batch["tokens"].roll(-1, 1)
+    batch["labels"][:, -1] = -1
+    opt = AdamW(lr=1e-3)
+    out = {}
+    for d in ("cpu", "cuda"):
+        p = _to(params, d)
+        b = _to(batch, d)
+        _, _, grads = TL._loss_and_grads(cfg, p, b)
+        step = TL.make_train_step(cfg, opt, accum=accum)
+        state = TL.TrainState(p, opt.init(p))
+        mets = []
+        for _ in range(2):
+            state, met = step(state, b)
+            mets.append([float(met["loss"]), float(met["grad_norm"])])
+        out[d] = (mets, _to(grads, "cpu"))
+    torch.testing.assert_close(torch.tensor(out["cuda"][0]),
+                               torch.tensor(out["cpu"][0]), atol=0, rtol=1e-5)
+    for x, y in zip(leaves(out["cuda"][1]), leaves(out["cpu"][1])):
+        torch.testing.assert_close(x, y, atol=1e-5, rtol=1e-4)
 
 
 def _to(tree, device):

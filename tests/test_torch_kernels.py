@@ -156,6 +156,11 @@ def test_launch_counters_do_not_move_on_cpu():
     ops.flash_decode_paged(torch.ones(1, 1, 2, 8), torch.ones(2, 4, 1, 8),
                            torch.ones(2, 4, 1, 8),
                            torch.tensor([[1, 0]], dtype=torch.int32), pos=5)
+    kv = torch.ones(1, 4, 2, 8)
+    o, lse = ops.flash_attention_fwd(kv, kv, kv)
+    ops.flash_attention_bwd(kv, kv, kv, o, o, lse)
     assert ops.launch_counts() == {"matmul": 0, "matmul_q": 0,
                                    "gated_matmul": 0, "flash_decode": 0,
-                                   "flash_decode_paged": 0}
+                                   "flash_decode_paged": 0,
+                                   "flash_attention": 0,
+                                   "flash_attention_bwd": 0}
