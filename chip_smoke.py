@@ -8,7 +8,9 @@ Phases, in order; any failure propagates and the exit code is not 0:
      all at once, with ptxas' register and shared-memory report;
   3. kernels: each CUDA kernel against its plain PyTorch version at the
      shapes of the main paths (qwen3-0.6b decode and prefill; dense, paged
-     and int8; training attention, forward and backward), with the max
+     and int8; training attention, forward and backward; mamba2-2.7b's
+     SSD intra-chunk work, ragged chunks, groups, bf16, a carried state,
+     strong decays and zamba2's d_state), with the max
      error beside its tolerance, and the median time of the kernel, the
      plain version and one PyTorch library call beside the least time the
      card could take; a bf16 page pool must give the dense decode
@@ -31,7 +33,14 @@ Phases, in order; any failure propagates and the exit code is not 0:
      through the plain versions on the card, step 0 held to the kernels';
      then a whole step at depth 2 in f32 on the card against the same
      step on the CPU;
-  7. a JSON line of the kernels, the card line, and the result line.
+  7. Mamba-2 serving at full width: mamba2-2.7b (64 layers, random
+     weights from a seed) served by the engine on 4 slots to 8 requests
+     whose prompts take every prefill branch, with exact launch counts
+     (the SSD kernel in every admission prefill), each stream equal to
+     the request run alone at batch 1, speed, memory and a torch.profiler
+     trace of decode steps and of a 512-token prefill; then a depth-2
+     prefill and decode in f32 on the card against the same on the CPU;
+  8. a JSON line of the kernels, the card line, and the result line.
 """
 
 import json
@@ -76,7 +85,9 @@ def main() -> int:
     smoke.phase_paged()
     smoke.phase_train()
     smoke.phase_train_vs_cpu()
-    print("[7/7] result")
+    smoke.phase_mamba()
+    smoke.phase_mamba_vs_cpu()
+    print("[8/8] result")
     print(json.dumps({"kernels": smoke.kernel_rows()}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
@@ -95,7 +106,7 @@ class Smoke:
     # -- 1. card ------------------------------------------------------
     def phase_card(self):
         torch = self.torch
-        print(f"[1/7] card: {card_line()}")
+        print(f"[1/8] card: {card_line()}")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         print(f"      torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -107,7 +118,7 @@ class Smoke:
         from repro_torch.kernels import _build
         t0 = time.perf_counter()
         libs = _build.build_all()
-        print(f"[2/7] build: {sorted(libs)} from "
+        print(f"[2/8] build: {sorted(libs)} from "
               f"{_build.CSRC.relative_to(ROOT)} in "
               f"{time.perf_counter() - t0:.1f} s (nvcc "
               f"{' '.join(_build.NVCC_FLAGS)})")
@@ -184,7 +195,7 @@ class Smoke:
         torch = self.torch
         from repro_torch.kernels import ops, ref
         F = torch.nn.functional
-        print("[3/7] kernels against their plain versions (median of 50, "
+        print("[3/8] kernels against their plain versions (median of 50, "
               "L2 flushed)")
         gen = torch.Generator(device=self.dev).manual_seed(0)
 
@@ -279,6 +290,7 @@ class Smoke:
             del q, kc, vc
         self._kernels_int8_and_paged(randn, tols[torch.bfloat16])
         self._kernels_attention(randn, tols)
+        self._kernels_ssd(gen, tols)
 
     def _kernels_int8_and_paged(self, randn, tol):
         """matmul_q at the int8 main path's shapes and flash_decode_paged
@@ -408,6 +420,79 @@ class Smoke:
                     10 * b_ * h * pairs * d, dname, tols[dtype])
                 del q, k, v, do, o, lse
 
+    def _kernels_ssd(self, gen, tols):
+        """ssd_intra_chunk against its plain version (y_diag and the chunk
+        states, both f32, so f32 tolerance also for bf16 inputs), and the
+        whole scan (ops.ssd: the kernel, then the inter-chunk recurrence)
+        against the plain chunked scan, y in the input dtype. x ~ N(0, 1),
+        B and C scaled so that C . B ~ N(0, 1), -a ~ U(0.01, 0.5). The
+        bound counts each input and output once, and the unmasked
+        products: the causal half of C B^T and of S x, and the state. No
+        single PyTorch call computes SSD, so there is no library time."""
+        torch = self.torch
+        from repro_torch.kernels import ops, ref
+        from repro_torch.kernels import ssd as kssd
+
+        def inputs(b, l, h, g, p, n, dtype, decay=None):
+            x = torch.randn((b, l, h, p), generator=gen, device=self.dev)
+            a = -(0.01 + 0.49 * torch.rand((b, l, h), generator=gen,
+                                           device=self.dev)) \
+                if decay is None else torch.full((b, l, h), -decay,
+                                                 device=self.dev)
+            bm, cm = (torch.randn((b, l, g, n), generator=gen, device=self.dev)
+                      * n ** -0.25 for _ in range(2))
+            return x.to(dtype), a, bm.to(dtype), cm.to(dtype)
+
+        # (B, L, H, G, P, N, chunk, dtype, decay, init_state)
+        f32, bf16 = torch.float32, torch.bfloat16
+        cases = [(1, 512, 80, 1, 64, 128, 256, f32, None, False),
+                 (1, 512, 80, 1, 64, 128, 256, bf16, None, False),
+                 (1, 512, 80, 1, 64, 128, 256, f32, None, True),
+                 (1, 512, 80, 1, 64, 128, 256, f32, 20.0, False),
+                 (1, 200, 80, 1, 64, 128, 200, f32, None, False),
+                 (1, 8, 80, 1, 64, 128, 8, f32, None, False),
+                 (1, 2, 80, 1, 64, 128, 2, f32, None, False),
+                 (2, 512, 8, 2, 64, 128, 256, f32, None, False),
+                 (1, 512, 64, 1, 64, 64, 128, f32, None, False)]
+        for b, l, h, g, p, n, q, dtype, decay, with_state in cases:
+            dname = str(dtype).split(".")[-1]
+            size = torch.finfo(dtype).bits // 8
+            x, a, bm, cm = inputs(b, l, h, g, p, n, dtype, decay)
+            nc = l // q
+            pairs = q * (q + 1) // 2
+            flops = b * h * nc * (2 * pairs * n + 2 * pairs * p + 2 * q * n * p)
+            # the scan adds the state -> output products and the recurrence
+            scan_flops = 2 * b * h * (l + nc) * n * p
+            in_bytes = (x.numel() + bm.numel() + cm.numel()) * size \
+                + a.numel() * 4
+            label = (f"{dname} B={b} L={l} H={h} G={g} P={p} N={n} "
+                     f"chunk={q}" + (f" a=-{decay:g}" if decay else ""))
+            if with_state:
+                s0 = torch.randn((b, h, p, n), generator=gen, device=self.dev)
+                self._case(
+                    "ssd", label + " scan from init_state",
+                    lambda: ops.ssd(x, a, bm, cm, q, init_state=s0),
+                    lambda: ref.ssd_chunked_ref(x, a, bm, cm, q, s0),
+                    None, in_bytes + s0.numel() * 8 + x.numel() * size,
+                    flops + scan_flops, "float32",
+                    [tols[dtype], tols[f32]])
+                continue
+            self._case(
+                "ssd", label,
+                lambda: kssd.ssd_intra_chunk(x, a, bm, cm, q),
+                lambda: ref.ssd_intra_chunk_ref(x, a, bm, cm, q),
+                None, in_bytes + x.numel() * 4 + b * h * nc * n * p * 4,
+                flops, "float32", tols[f32])
+            if dtype == bf16 or decay:
+                self._case(
+                    "ssd", label + " scan",
+                    lambda: ops.ssd(x, a, bm, cm, q),
+                    lambda: ref.ssd_chunked_ref(x, a, bm, cm, q),
+                    None, in_bytes + b * h * p * n * 4 + x.numel() * size,
+                    flops + scan_flops, "float32",
+                    [tols[dtype], tols[f32]])
+            del x, a, bm, cm
+
     # -- 4. the slice at full width --------------------------------------
     def phase_serve(self):
         torch = self.torch
@@ -428,7 +513,7 @@ class Smoke:
                                device=self.dev)
         del params                      # the engine keeps its bf16 copy
         torch.cuda.synchronize()
-        print(f"[4/7] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
+        print(f"[4/8] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
               f"heads {cfg.n_heads}/{cfg.n_kv_heads}x{cfg.resolved_head_dim} "
               f"d_ff {cfg.d_ff} vocab {cfg.vocab}->{cfg.padded_vocab}; "
               f"weights ready in {time.perf_counter() - t0:.1f} s; "
@@ -454,7 +539,7 @@ class Smoke:
         want = {"matmul": (5 * L + 1) * (steps + n_pre), "matmul_q": 0,
                 "gated_matmul": L * (steps + n_pre),
                 "flash_decode": L * steps, "flash_decode_paged": 0,
-                "flash_attention": 0, "flash_attention_bwd": 0}
+                "flash_attention": 0, "flash_attention_bwd": 0, "ssd": 0}
         print(f"      launches {self.launches} (expected {want}: "
               f"{engine.decode_steps} decode steps at 141/28/28 each)")
         assert self.launches == want, (self.launches, want)
@@ -481,7 +566,6 @@ class Smoke:
         included, so the idle share read here is an upper bound)."""
         torch = self.torch
         import numpy as np
-        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         rng = np.random.default_rng(2)
         for _ in range(4):
@@ -497,34 +581,17 @@ class Smoke:
             torch.cuda.synchronize()
         eng.run()
         wall_ms = sum(eng._step_times[first:first + n_steps]) / n_steps * 1e3
-        busy, count = {}, {}
-        for e in prof.events():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            group = _kernel_group(e.name)
-            busy[group] = busy.get(group, 0.0) + e.time_range.elapsed_us() / 1e3
-            count[group] = count.get(group, 0) + 1
-        if not busy:
-            print("      trace: the profiler recorded no device time "
-                  "(not measured)")
-            return
-        total = sum(busy.values()) / n_steps
-        parts = ", ".join(f"{g} {busy[g] / n_steps:.3f} ms "
-                          f"({count[g] // n_steps} launches)"
-                          for g in sorted(busy, key=busy.get, reverse=True))
-        print(f"      trace: {n_steps} decode steps at 4 slots under "
-              f"torch.profiler: wall {wall_ms:.2f} ms a step; card busy "
-              f"{total:.3f} ms a step: {parts}; idle share "
-              f"{1 - total / wall_ms:.3f}")
+        _print_trace(prof, f"{n_steps} decode steps at 4 slots", wall_ms,
+                     n_steps)
 
     def phase_batching(self):
         """The engine (batch-1 prefill, then decode at 4 slots with a
         per-slot pos vector) emits what whole-prompt prefill plus batch-1
         lock-step decode emits, bit for bit: the kernels have no split-K
-        and no atomic, so a row sums in the same order at any batch."""
-        torch = self.torch
+        and no atomic, and the norms reduce in an order that does not
+        depend on the batch, so a row sums in the same order at any
+        batch."""
         import numpy as np
-        from repro_torch.models import model as M
         from repro_torch.serving import ServingEngine
         cfg, params = self.engine.cfg, self.engine.params
         rng = np.random.default_rng(1)
@@ -536,20 +603,7 @@ class Smoke:
         reqs = [eng.submit(p, n_new) for p in prompts]
         eng.run()
         for req, prompt in zip(reqs, prompts):
-            cache = M.init_cache(cfg, 1, eng.max_len, self.dev)
-            toks = torch.as_tensor(prompt, dtype=torch.long, device=self.dev)
-            logits, cache = M.prefill(cfg, params, {"tokens": toks[None]},
-                                      cache)
-            out = []
-            for i in range(n_new):
-                row = logits[0, -1, :cfg.vocab]
-                assert torch.isfinite(row).all(), "non-finite logits"
-                out.append(int(torch.argmax(row)))
-                if i + 1 < n_new:
-                    tok = torch.tensor([[out[-1]]], device=self.dev)
-                    logits, cache = M.decode_step(cfg, params, tok,
-                                                  len(prompt) + i, cache)
-            assert req.generated == out, (req.rid, req.generated, out)
+            assert req.generated == self._alone(eng, prompt, n_new), req.rid
         print(f"      batching: engine streams of {len(prompts)} requests "
               f"(prompts {[len(p) for p in prompts]}, {n_new} tokens) equal "
               f"whole-prompt prefill + batch-1 decode, token for token")
@@ -584,7 +638,7 @@ class Smoke:
         want = {"matmul": 0, "matmul_q": 0, "gated_matmul": 0,
                 "flash_decode": L * rem,
                 "flash_decode_paged": L * engine.decode_steps,
-                "flash_attention": 0, "flash_attention_bwd": 0}
+                "flash_attention": 0, "flash_attention_bwd": 0, "ssd": 0}
         for name, n in per_gemm_step.items():
             want[name] = n * runs
         return want
@@ -610,7 +664,7 @@ class Smoke:
         assert launches == want, (launches, want)
         got = [r.generated for r in reqs]
         assert got == self.dense_streams, "paged bf16 streams != dense streams"
-        print(f"[5/7] paged bf16 KV (page 16, {rep['kv_pool']['n_pages']} "
+        print(f"[5/8] paged bf16 KV (page 16, {rep['kv_pool']['n_pages']} "
               f"pages): phase 4's {len(reqs)} streams, token for token; "
               f"launches {launches} ({eng.decode_steps} decode steps at "
               f"141/28/28 each); prefill {rep['prefill_tok_s']:.1f} tok/s, "
@@ -714,7 +768,8 @@ class Smoke:
         # branches is 2 more), and 28 attention backwards
         want = {"matmul": (5 * L + 1) * 3 + 6 * L, "gated_matmul": L,
                 "flash_attention": L, "flash_attention_bwd": L,
-                "matmul_q": 0, "flash_decode": 0, "flash_decode_paged": 0}
+                "matmul_q": 0, "flash_decode": 0, "flash_decode_paged": 0,
+                "ssd": 0}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
@@ -732,7 +787,7 @@ class Smoke:
             before = now
         self.train_launches = ops.launch_counts()
         peak = torch.cuda.max_memory_allocated()
-        print(f"[6/7] training {cfg.name} at full width ({L} layers, "
+        print(f"[6/8] training {cfg.name} at full width ({L} layers, "
               f"{n_params / 1e6:.1f}M f32 params, bf16 activations): "
               f"{steps} AdamW steps at batch {batch} x {seq}")
         for i in range(steps):
@@ -786,7 +841,6 @@ class Smoke:
         """One more step under torch.profiler: the card's busy time, by
         kernel group, against the step's wall time."""
         torch = self.torch
-        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -795,23 +849,7 @@ class Smoke:
             step_fn(state, batch)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        busy, count = {}, {}
-        for e in prof.events():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            group = _kernel_group(e.name)
-            busy[group] = busy.get(group, 0.0) + e.time_range.elapsed_us() / 1e3
-            count[group] = count.get(group, 0) + 1
-        if not busy:
-            print("      trace: the profiler recorded no device time "
-                  "(not measured)")
-            return
-        total = sum(busy.values())
-        parts = ", ".join(f"{g} {busy[g]:.3f} ms ({count[g]} launches)"
-                          for g in sorted(busy, key=busy.get, reverse=True))
-        print(f"      trace: a train step under torch.profiler: wall "
-              f"{wall_ms:.1f} ms; card busy {total:.3f} ms: {parts}; idle "
-              f"share {1 - total / wall_ms:.3f}")
+        _print_trace(prof, "a train step", wall_ms)
 
     def phase_train_vs_cpu(self, batch=2, seq=256, tol=1e-4):
         """A whole train step at full width, depth 2, f32 activations, on
@@ -850,26 +888,202 @@ class Smoke:
               f"rel diff {abs(loss - loss_c) / loss_c:.2e} / "
               f"{abs(gn - gn_c) / gn_c:.2e} (rtol {tol:g})")
 
+    # -- 7. Mamba-2 serving at full width -------------------------------
+    def phase_mamba(self):
+        """mamba2-2.7b served on 4 slots to 8 requests, 32 tokens each.
+        The prompts take every prefill branch: 2 (shorter than the conv
+        width - 1), 13 (a bucket remainder), 200 (one ragged chunk), 256
+        (one whole chunk), 397 (two chunks, padding and a remainder), 512,
+        and two more. An admission prefill of bucketed length lb runs 64 x
+        (in_proj, in_proj_bc, out_proj, and the conv tail's two
+        projections) + the logits = 321 GEMMs and 64 SSD scans; each
+        remainder token and each decode step 64 x 3 + 1 = 193 GEMMs."""
+        torch = self.torch
+        import numpy as np
+        from repro_torch.configs import get_config
+        from repro_torch.kernels import ops
+        from repro_torch.models import model as M
+        from repro_torch.serving import ServingEngine
+        cfg = get_config("mamba2-2.7b")
+        L = cfg.n_layers
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        params = M.init_params(cfg, torch.Generator().manual_seed(0), self.dev)
+        lengths = [2, 13, 200, 256, 397, 512, 97, 333]
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+                   for n in lengths]
+        gen = 32
+        eng = ServingEngine(cfg, params, max_slots=4,
+                            max_len=max(lengths) + gen, device=self.dev)
+        del params                      # the engine keeps its bf16 copy
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        weights = torch.cuda.memory_allocated()
+        sc = cfg.ssm
+        print(f"[7/8] {cfg.name}: {L} layers d_model {cfg.d_model} d_inner "
+              f"{sc.expand * cfg.d_model} ({sc.expand * cfg.d_model // sc.head_dim}"
+              f" SSD heads of {sc.head_dim}) d_state {sc.d_state} groups "
+              f"{sc.n_groups} conv {sc.conv_width} chunk {sc.chunk} vocab "
+              f"{cfg.vocab}->{cfg.padded_vocab}; weights ready in "
+              f"{time.perf_counter() - t0:.1f} s ({weights / 2 ** 30:.3f} GiB "
+              f"on the card, bf16); {len(prompts)} requests, prompts "
+              f"{lengths}, gen {gen}, 4 slots, max_len {eng.max_len}")
+        torch.cuda.reset_peak_memory_stats()
+        reqs = [eng.submit(pr, gen) for pr in prompts]
+        ops.reset_launch_counts()
+        report = eng.run()
+        torch.cuda.synchronize()
+        self.mamba_launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        assert report["n_finished"] == len(reqs), report
+        for r in reqs:
+            assert len(r.generated) == gen, (r.rid, r.generated)
+            assert all(0 <= t < cfg.vocab for t in r.generated), r.generated
+        rem = sum(n % 8 if n >= 8 else 0 for n in lengths)
+        one_token = eng.decode_steps + rem
+        want = {k: 0 for k in self.mamba_launches}
+        want.update(matmul=(5 * L + 1) * len(reqs) + (3 * L + 1) * one_token,
+                    ssd=L * len(reqs))
+        print(f"      launches {self.mamba_launches} (expected {want}: "
+              f"{len(reqs)} admission prefills at 321/64, {rem} remainder "
+              f"tokens and {eng.decode_steps} decode steps at 193/0)")
+        assert self.mamba_launches == want, (self.mamba_launches, want)
+        print(f"      prefill {report['prefill_tok_s']:.1f} tok/s, decode "
+              f"{report['decode_tok_s']:.1f} tok/s (occupancy "
+              f"{report['mean_occupancy']:.2f}/4), decode step p50 "
+              f"{report['decode_step_p50_s'] * 1e3:.2f} ms p99 "
+              f"{report['decode_step_p99_s'] * 1e3:.2f} ms, latency p50 "
+              f"{report['latency_p50_s'] * 1e3:.0f} ms p95 "
+              f"{report['latency_p95_s'] * 1e3:.0f} ms, ttft p50 "
+              f"{report['ttft_p50_s'] * 1e3:.0f} ms; max_memory_allocated "
+              f"{peak / 2 ** 30:.3f} GiB")
+
+        # each stream equals the request run alone at batch 1: the same
+        # bucketed prefill and remainder steps, then batch-1 decode
+        for req, prompt in zip(reqs, prompts):
+            assert req.generated == self._alone(eng, prompt, gen), \
+                (req.rid, len(prompt))
+        print(f"      the {len(reqs)} engine streams (decode at 4 slots) equal "
+              f"each request run alone at batch 1, token for token")
+        self._trace(eng, n_steps=4)
+        self._trace_prefill(eng, prompts[5])
+        del eng
+        torch.cuda.empty_cache()
+
+    def _alone(self, eng, prompt, n_new):
+        """Greedy tokens of `prompt` run alone as `eng` admits it: a
+        prefill of its 8-bucket, the remainder one token at a time, then
+        batch-1 decode steps."""
+        torch = self.torch
+        from repro_torch.models import model as M
+        cfg, params = eng.cfg, eng.params
+        toks = torch.as_tensor(prompt, dtype=torch.long, device=self.dev)
+        n = len(prompt)
+        lb = n - n % 8 or n
+        cache = M.init_cache(cfg, 1, eng.max_len, self.dev)
+        logits, cache = M.prefill(cfg, params, {"tokens": toks[None, :lb]},
+                                  cache)
+        for i in range(lb, n):
+            logits, cache = M.decode_step(cfg, params, toks[None, i:i + 1], i,
+                                          cache)
+        out = []
+        for i in range(n_new):
+            row = logits[0, -1, :cfg.vocab]
+            assert torch.isfinite(row).all(), "non-finite logits"
+            out.append(int(torch.argmax(row)))
+            if i + 1 < n_new:
+                tok = torch.tensor([[out[-1]]], device=self.dev)
+                logits, cache = M.decode_step(cfg, params, tok, n + i, cache)
+        return out
+
+    def _trace_prefill(self, eng, prompt):
+        """One admission-shaped prefill of `prompt` (batch 1) under
+        torch.profiler, after one untraced: the card's busy time by kernel
+        group against the prefill's wall time."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        from repro_torch.models import model as M
+        toks = torch.as_tensor(prompt, dtype=torch.long,
+                               device=self.dev)[None]
+
+        def run():
+            cache = M.init_cache(eng.cfg, 1, eng.max_len, self.dev)
+            return M.prefill(eng.cfg, eng.params, {"tokens": toks}, cache)[0]
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        _print_trace(prof, f"a {toks.shape[1]}-token prefill", wall_ms)
+
+    def phase_mamba_vs_cpu(self, n_layers=2, length=300, steps=4, tol=1e-4):
+        """mamba2-2.7b at full width, depth 2, f32 activations: a prefill
+        of a 300-token prompt (one whole chunk and a padded ragged one)
+        and 4 decode steps on the card (the CUDA kernels) and on the CPU
+        (their plain versions) from the same weights: logits and every
+        state leaf within rtol 1e-4, atol 1e-4 x the largest |value| (f32
+        sums in another order)."""
+        torch = self.torch
+        import dataclasses
+        from repro_torch.configs import get_config
+        from repro_torch.core.tree import tree_map
+        from repro_torch.models import model as M
+        cfg = dataclasses.replace(get_config("mamba2-2.7b"), n_layers=n_layers,
+                                  dtype="float32")
+        params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        toks = torch.randint(0, cfg.vocab, (1, length + steps),
+                             generator=torch.Generator().manual_seed(1))
+        out = []
+        for dev in (self.dev, torch.device("cpu")):
+            p = tree_map(lambda x: x.to(dev), params)
+            cache = M.init_cache(cfg, 1, length + steps, dev)
+            t0 = time.perf_counter()
+            logits, cache = M.prefill(cfg, p, {"tokens": toks[:, :length]
+                                               .to(dev)}, cache)
+            logs = [logits]
+            for i in range(steps):
+                logits, cache = M.decode_step(
+                    cfg, p, toks[:, length + i:length + i + 1].to(dev),
+                    length + i, cache)
+                logs.append(logits)
+            got = [t.cpu() for t in logs] + [v.cpu() for v in cache.values()]
+            out.append((got, time.perf_counter() - t0))
+        (card, tc), (cpu, tp) = out
+        worst = 0.0
+        for x, y in zip(card, cpu):
+            assert torch.isfinite(x).all(), "non-finite output on the card"
+            scale = y.abs().max().item()
+            torch.testing.assert_close(x, y, rtol=tol, atol=tol * scale)
+            worst = max(worst, ((x - y).abs().max() / scale).item())
+        print(f"      depth {n_layers}, f32, a {length}-token prefill and "
+              f"{steps} decode steps: card ({tc * 1e3:.0f} ms) against CPU "
+              f"({tp * 1e3:.0f} ms): logits and states within rtol {tol:g}; "
+              f"max |diff| / max |value| {worst:.2e}")
+
     # -- 7. the kernels line --------------------------------------------
     def kernel_rows(self):
         """One row per kernel: its launches on the main path, the max error
         over every case, and the times of its main-path decode shape."""
         meta = {
             "matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
-                       "src/repro/kernels/matmul.py:189",
+                       "src/repro/kernels/matmul.py:244",
                        "bfloat16 M=4 K=1024 N=152064 [N,K] B, f32 out"),
             "gated_matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
-                             "src/repro/kernels/matmul.py:327",
+                             "src/repro/kernels/matmul.py:360",
                              "bfloat16 M=4 K=1024 N=3072"),
             "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
-                             "src/repro/kernels/flash_attention.py:478",
+                             "src/repro/kernels/flash_attention.py:529",
                              "bfloat16 B=4 H=16 Hkv=8 D=128 Tk=2048 window=None"),
             "matmul_q": ("src/repro_torch/kernels/csrc/matmul.cu",
-                         "src/repro/kernels/matmul.py:256",
+                         "src/repro/kernels/matmul.py:315",
                          "bfloat16 M=4 K=1024 N=3072 int8 W none"),
             "flash_decode_paged": (
                 "src/repro_torch/kernels/csrc/flash_decode.cu",
-                "src/repro/kernels/flash_attention.py:631",
+                "src/repro/kernels/flash_attention.py:716",
                 "bfloat16 int8 pool B=4 H=16 Hkv=8 D=128 ps=16 pp=128 "
                 "window=None"),
             "flash_attention": (
@@ -880,14 +1094,19 @@ class Smoke:
                 "src/repro_torch/kernels/csrc/flash_attention.cu",
                 "src/repro/kernels/flash_attention.py:373",
                 "bfloat16 B=4 T=512 H=16 Hkv=8 D=128 causal window=None"),
+            "ssd": ("src/repro_torch/kernels/csrc/ssd.cu",
+                    "src/repro/kernels/ssd.py:185",
+                    "float32 B=1 L=512 H=80 G=1 P=64 N=128 chunk=256"),
         }
         # launches: the dense kernels' from phase 4's run, the int8 path's
-        # from phase 5's int8 run, the training kernels' from phase 6's
+        # from phase 5's int8 run, the training kernels' from phase 6's,
+        # the SSD kernel's from phase 7's
         counts = {**self.launches,
                   **{k: self.paged_launches[k]
                      for k in ("matmul_q", "flash_decode_paged")},
                   **{k: self.train_launches[k]
-                     for k in ("flash_attention", "flash_attention_bwd")}}
+                     for k in ("flash_attention", "flash_attention_bwd")},
+                  "ssd": self.mamba_launches["ssd"]}
         rows = []
         for name, (source, replaces, label) in meta.items():
             cases = self.results[name]
@@ -900,6 +1119,32 @@ class Smoke:
                 "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
                 "library_ms": rep["library_ms"], "shape": label})
         return rows
+
+
+def _print_trace(prof, what: str, wall_ms: float, n: int = 1) -> None:
+    """The card's busy time in a torch.profiler trace of `n` repeats of
+    `what`, by kernel group with its launches, against the wall time of
+    one (the profiler's own host cost included, so the idle share read
+    here is an upper bound)."""
+    from torch.autograd import DeviceType
+    busy, count = {}, {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        group = _kernel_group(e.name)
+        busy[group] = busy.get(group, 0.0) + e.time_range.elapsed_us() / 1e3
+        count[group] = count.get(group, 0) + 1
+    if not busy:
+        print("      trace: the profiler recorded no device time "
+              "(not measured)")
+        return
+    each = " a step" if n > 1 else ""
+    total = sum(busy.values()) / n
+    parts = ", ".join(f"{g} {busy[g] / n:.3f} ms ({count[g] // n} launches)"
+                      for g in sorted(busy, key=busy.get, reverse=True))
+    print(f"      trace: {what} under torch.profiler: wall {wall_ms:.2f} ms"
+          f"{each}; card busy {total:.3f} ms{each}: {parts}; idle share "
+          f"{1 - total / wall_ms:.3f}")
 
 
 def _kernel_group(name: str) -> str:
@@ -916,6 +1161,8 @@ def _kernel_group(name: str) -> str:
         return "flash_attention"
     if "flash_attn_bwd" in name:
         return "flash_attention_bwd"
+    if "ssd_chunk_kernel" in name:
+        return "ssd"
     return "memcpy" if name.startswith("Mem") else "other"
 
 

@@ -1,10 +1,10 @@
 """Model/runtime configuration of the PyTorch port.
 
-A copy of the JAX package's `ModelConfig` (its own module, so the port
-imports nothing of `repro`), cut to the fields that describe the models
-the port serves: each keeps its name and default there, so a config
-built here and one built there compare field by field. `reduced()`
-derives the same CPU test config as the reference's.
+A copy of the JAX package's `ModelConfig` and `SSMConfig` (its own
+module, so the port imports nothing of `repro`), cut to the fields that
+describe the models the port serves: each keeps its name and default
+there, so a config built here and one built there compare field by
+field. `reduced()` derives the same CPU test config as the reference's.
 """
 
 from __future__ import annotations
@@ -14,9 +14,19 @@ from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    conv_width: int = 4
+    chunk: int = 256
+    n_groups: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense (the only family the port serves)
+    family: str                     # dense | ssm (the families the port serves)
     n_layers: int
     d_model: int
     n_heads: int
@@ -31,6 +41,8 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     use_rope: bool = True
     tie_embeddings: bool = False
+    # Mamba-2 blocks (family ssm)
+    ssm: Optional[SSMConfig] = None
     # block flavour
     norm: str = "rms"
     mlp: str = "swiglu"
@@ -52,6 +64,10 @@ class ModelConfig:
         m = self.vocab_pad_to
         return ((self.vocab + m - 1) // m) * m
 
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
     def reduced(self) -> "ModelConfig":
         """Same family, toy dims: the CPU test config."""
         kw = dict(
@@ -65,6 +81,9 @@ class ModelConfig:
             vocab=256,
             attn_chunk=64,
         )
+        if self.ssm is not None:
+            kw["ssm"] = dataclasses.replace(
+                self.ssm, d_state=16, head_dim=8, chunk=16)
         if self.window is not None:
             kw["window"] = 32
         return dataclasses.replace(self, **kw)

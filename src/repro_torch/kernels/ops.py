@@ -13,6 +13,7 @@ there is no fallback from a failing kernel to its plain version.
     flash_decode_paged  flash_attention.flash_decode_paged   ref.flash_decode_paged_ref
     flash_attention_fwd flash_attention.flash_attention      ref.flash_attention_fwd_ref
     flash_attention_bwd flash_attention.flash_attention_bwd  ref.flash_attention_bwd_ref
+    ssd                 ssd.ssd_chunked (ssd_intra_chunk)    ref.ssd_chunked_ref
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import matmul as _mm
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import ssd as _ssd
 from repro_torch.kernels.ref import EPILOGUES
 
 
@@ -211,12 +213,44 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
                                         window=window)
 
 
+def ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+        chunk: int, init_state: torch.Tensor | None = None):
+    """Chunked SSD scan (the Mamba-2 dual form) of x (B, L, H, P)
+    dt-scaled inputs, a (B, L, H) log-decays and b/c (B, L, G, N), L a
+    multiple of chunk, seeded by init_state (B, H, P, N). Returns (y
+    (B, L, H, P) in x's dtype, final_state (B, H, P, N) float32); the
+    inter-chunk state is carried in float32 whatever the inputs. On the
+    card one call launches the intra-chunk kernel once."""
+    if x.dim() != 4 or a.dim() != 3 or b.dim() != 4 or c.dim() != 4:
+        raise ValueError(f"ssd expects x(B,L,H,P) a(B,L,H) b/c(B,L,G,N); "
+                         f"got {tuple(x.shape)}, {tuple(a.shape)}, "
+                         f"{tuple(b.shape)}, {tuple(c.shape)}")
+    bsz, l, h, p = x.shape
+    g, n = b.shape[-2:]
+    if tuple(a.shape) != (bsz, l, h):
+        raise ValueError(f"a shape {tuple(a.shape)} incompatible with x "
+                         f"{tuple(x.shape)}")
+    if tuple(b.shape) != (bsz, l, g, n) or c.shape != b.shape:
+        raise ValueError(f"b/c shapes {tuple(b.shape)}/{tuple(c.shape)} "
+                         f"must match")
+    if h % g:
+        raise ValueError(f"heads {h} not divisible by groups {g}")
+    if chunk <= 0 or l % chunk:
+        raise ValueError(f"seq len {l} not divisible by chunk {chunk}")
+    if init_state is not None and tuple(init_state.shape) != (bsz, h, p, n):
+        raise ValueError(f"init_state shape {tuple(init_state.shape)} != "
+                         f"{(bsz, h, p, n)}")
+    if _on_card(x):
+        return _ssd.ssd_chunked(x, a, b, c, chunk, init_state)
+    return _ref.ssd_chunked_ref(x, a, b, c, chunk, init_state)
+
+
 def launch_counts() -> dict:
     """Kernel launches so far, by kernel."""
-    return {**_mm.LAUNCHES, **_fa.LAUNCHES}
+    return {**_mm.LAUNCHES, **_fa.LAUNCHES, **_ssd.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_mm.LAUNCHES, _fa.LAUNCHES):
+    for counts in (_mm.LAUNCHES, _fa.LAUNCHES, _ssd.LAUNCHES):
         for name in counts:
             counts[name] = 0

@@ -194,3 +194,111 @@ def flash_decode_paged_ref(q, kp, vp, table, *, pos=0, window=None,
     k = paged_gather_ref(kp, table, ks)
     v = paged_gather_ref(vp, table, vs)
     return attention_fwd_ref(q, k, v, window=window, q_offset=pos)
+
+
+# ----------------------------------------------------------------------
+# SSD (Mamba-2 state-space duality)
+# ----------------------------------------------------------------------
+
+def segsum(a: torch.Tensor) -> torch.Tensor:
+    """a: (..., Q) -> (..., Q, Q) with S[i, j] = sum_{j < m <= i} a[..., m],
+    -inf above the diagonal: the log-space decay mask, masked before any
+    exp."""
+    q = a.shape[-1]
+    cs = torch.cumsum(a, dim=-1)
+    s = cs[..., :, None] - cs[..., None, :]
+    keep = torch.ones((q, q), dtype=torch.bool, device=a.device).tril()
+    return s.masked_fill(~keep, float("-inf"))
+
+
+def ssd_chunked_ref(x, a, b, c, chunk: int, init_state=None):
+    """The chunked SSD scan, as the JAX package's `ssd_chunked`.
+    x (B, L, H, P) dt-scaled, a (B, L, H) log-decays, b/c (B, L, G, N),
+    init_state (B, H, P, N) or None. Every interior value, the carried
+    inter-chunk state included, is f32 (f64 for f64 x). Returns (y in
+    x's dtype, final_state (B, H, P, N) f32)."""
+    bsz, l, h, p = x.shape
+    g, n = b.shape[-2:]
+    rep = h // g
+    nc = l // chunk
+    acc = _acc_dtype(x.dtype)
+    xc = x.to(acc).reshape(bsz, nc, chunk, h, p)
+    ac = a.to(acc).reshape(bsz, nc, chunk, h).transpose(2, 3)  # (B,nc,H,Q)
+    bc = b.to(acc).reshape(bsz, nc, chunk, g, n).repeat_interleave(rep, 3)
+    cc = c.to(acc).reshape(bsz, nc, chunk, g, n).repeat_interleave(rep, 3)
+
+    # 1. intra-chunk: the decay-masked blocked product
+    ldec = torch.exp(segsum(ac))                              # (B,nc,H,Q,Q)
+    cb = torch.einsum("bcqhn,bcshn->bchqs", cc, bc)
+    y_diag = torch.einsum("bchqs,bcshp->bcqhp", cb * ldec, xc)
+
+    # 2. each chunk's state
+    a_cum = torch.cumsum(ac, dim=-1)                          # (B,nc,H,Q)
+    decay_to_end = torch.exp(a_cum[..., -1:] - a_cum)
+    states = torch.einsum("bcqhn,bchq,bcqhp->bchpn", bc, decay_to_end, xc)
+
+    # 3. inter-chunk recurrence, seeded by init_state
+    chunk_decay = torch.exp(a_cum[..., -1])                   # (B,nc,H)
+    s = (torch.zeros((bsz, h, p, n), dtype=acc, device=x.device)
+         if init_state is None else init_state.to(acc))
+    prev = []
+    for ci in range(nc):
+        prev.append(s)                                        # state *before*
+        s = s * chunk_decay[:, ci, :, None, None] + states[:, ci]
+    prev_states = torch.stack(prev, dim=1)                    # (B,nc,H,P,N)
+
+    # 4. state -> output within each chunk
+    state_decay = torch.exp(a_cum)
+    y_off = torch.einsum("bcqhn,bchpn,bchq->bcqhp", cc, prev_states,
+                         state_decay)
+    y = (y_diag + y_off).reshape(bsz, l, h, p).to(x.dtype)
+    return y, s
+
+
+def ssd_intra_chunk_ref(x, a, b, c, chunk: int):
+    """What the SSD kernel computes, chunk by chunk, in f32: with
+    cs = cumsum(a) over a chunk and head h reading group h // (H / G),
+        y_diag[i] = sum_{j <= i} (C_i . B_j) exp(cs_i - cs_j) x_j
+        state     = sum_j (B_j exp(cs_last - cs_j))^T x_j       (N, P)
+    for x (B, L, H, P), a (B, L, H), b/c (B, L, G, N), L a multiple of
+    chunk. Returns (y_diag (B, L, H, P) f32, states (B, H, nc, N, P)
+    f32)."""
+    bsz, l, h, p = x.shape
+    g, n = b.shape[-2:]
+    rep = h // g
+    nc = l // chunk
+    f = torch.float32
+    xc = x.to(f).reshape(bsz, nc, chunk, h, p)
+    ac = a.to(f).reshape(bsz, nc, chunk, h).transpose(2, 3)    # (B,nc,H,Q)
+    bc = b.to(f).reshape(bsz, nc, chunk, g, n).repeat_interleave(rep, 3)
+    cc = c.to(f).reshape(bsz, nc, chunk, g, n).repeat_interleave(rep, 3)
+    scores = torch.einsum("bcqhn,bcshn->bchqs", cc, bc) \
+        * torch.exp(segsum(ac))
+    y_diag = torch.einsum("bchqs,bcshp->bcqhp", scores, xc)
+    cs = torch.cumsum(ac, dim=-1)
+    decay_end = torch.exp(cs[..., -1:] - cs)                    # (B,nc,H,Q)
+    states = torch.einsum("bcqhn,bchq,bcqhp->bhcnp", bc, decay_end, xc)
+    return y_diag.reshape(bsz, l, h, p), states
+
+
+def ssd_seq_ref(x, a, b, c, chunk: int = 0, init_state=None):
+    """The sequential per-token SSD oracle, as the JAX package's
+    `ssd_ref`: s_t = s_{t-1} exp(a_t) + x_t b_t^T, y_t = s_t c_t, in f32
+    (f64 for f64 x) with no chunking (`chunk` is accepted for the
+    signature and ignored). Returns (y in x's dtype, final_state (B, H,
+    P, N))."""
+    bsz, l, h, p = x.shape
+    g, n = b.shape[-2:]
+    rep = h // g
+    acc = _acc_dtype(x.dtype)
+    xf, af = x.to(acc), a.to(acc)
+    bf = b.to(acc).repeat_interleave(rep, 2)                  # (B,L,H,N)
+    cf = c.to(acc).repeat_interleave(rep, 2)
+    s = (torch.zeros((bsz, h, p, n), dtype=acc, device=x.device)
+         if init_state is None else init_state.to(acc))
+    ys = []
+    for t in range(l):
+        s = s * torch.exp(af[:, t])[..., None, None] \
+            + xf[:, t, :, :, None] * bf[:, t, :, None, :]
+        ys.append(torch.einsum("bhn,bhpn->bhp", cf[:, t], s))
+    return torch.stack(ys, dim=1).to(x.dtype), s

@@ -17,6 +17,11 @@ prompt; prefix pages are shared, and copied on write):
     PYTHONPATH=src python -m repro_torch.launch.serve --kv-layout paged \
         --quant-kv int8 --prefix-len 392
 
+Mamba-2 (attention-free; its recurrent state takes no page pool or int8):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
+        --requests 8 --max-slots 4 --prompt-len-min 64 --prompt-len-max 512
+
 Weights are random, drawn from a torch.Generator seeded with --seed.
 """
 
@@ -32,6 +37,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.serving import (ServingEngine, prefix_heavy_trace,
                                  synthetic_trace)
+from repro_torch.serving.engine import check_modes
 from repro_torch.serving.request import FINISHED
 
 
@@ -106,6 +112,7 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
+    check_modes(cfg, args.kv_layout, args.quant_kv, "off")
     rng = np.random.default_rng(args.seed)
     work = build_workload(cfg, args, rng)
     max_slots = args.max_slots or (args.batch if not args.requests else 4)

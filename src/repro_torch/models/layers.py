@@ -66,9 +66,26 @@ def rmsnorm_init(d: int, *, dtype, device):
     return {"scale": torch.ones((d,), dtype=dtype, device=device)}
 
 
+def _row_mean(x: torch.Tensor) -> torch.Tensor:
+    """Mean over the last dim, in an order that does not depend on how
+    many rows x has, so that a decode step at 4 slots normalises each row
+    to the bits of the same row alone. PyTorch's CUDA reduction splits
+    one reduction over a whole row across more threads the fewer rows
+    there are, which sums in another order; two reductions, over fixed
+    blocks of k values and then over the d / k block means (at least 16
+    blocks a row), are laid out alike at any row count
+    (`tests/test_torch_cuda.py` holds this on the card). k is a power of
+    two, so the block means are the block sums scaled exactly."""
+    d = x.shape[-1]
+    k = 128
+    while k > 1 and (d % k or d // k < 16):
+        k //= 2
+    return x.reshape(*x.shape[:-1], d // k, k).mean(-1).mean(-1, keepdim=True)
+
+
 def rmsnorm_apply(p, x, *, eps: float = 1e-6):
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    var = _row_mean(xf * xf)
     y = xf * torch.rsqrt(var + eps)
     return (y * p["scale"].float()).to(x.dtype)
 

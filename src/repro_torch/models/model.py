@@ -1,4 +1,4 @@
-"""Top-level model API of the port, family `dense`:
+"""Top-level model API of the port, families `dense` and `ssm`:
 
     params = init_params(cfg, generator, device)
     qparams = quantize_params(params)          # int8 dense weights
@@ -12,7 +12,11 @@
 
 Params carry the keys, shapes, scales and param_dtype of the JAX
 package's `init_params`; `repro_torch.bridge` converts those leaf for
-leaf. Caches are updated in place (see models.attention).
+leaf. Caches are updated in place (see models.attention). The ssm
+family's cache is its recurrent state: the SSD state and the two conv
+tails of every layer. It serves (prefill, decode_step) on a dense
+state: the page pool, int8 weights and training (forward, loss_fn) are
+the dense family's only.
 """
 
 from __future__ import annotations
@@ -23,13 +27,17 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
 
 
 def _check_family(cfg) -> None:
-    if cfg.family != "dense" or cfg.mlp != "swiglu" or cfg.norm != "rms":
-        raise ValueError(f"the port serves dense swiglu/rms decoders, not "
-                         f"{cfg.name} ({cfg.family})")
+    if cfg.norm != "rms" or not (
+            (cfg.family == "dense" and cfg.mlp == "swiglu")
+            or (cfg.family == "ssm" and cfg.ssm is not None)):
+        raise ValueError(f"the port serves dense swiglu/rms decoders and "
+                         f"rms Mamba-2 stacks (ssm), not {cfg.name} "
+                         f"({cfg.family})")
 
 
 def init_params(cfg, generator: torch.Generator, device=None) -> Dict[str, Any]:
@@ -46,7 +54,10 @@ def init_params(cfg, generator: torch.Generator, device=None) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         p["lm_head"] = L.dense_init(generator, cfg.d_model, cfg.padded_vocab,
                                     dtype=dtype, device=device)
-    p["layers"] = T.stack_init(generator, cfg, device=device)
+    if cfg.family == "ssm":
+        p["layers"] = T.ssm_stack_init(generator, cfg, device=device)
+    else:
+        p["layers"] = T.stack_init(generator, cfg, device=device)
     return p
 
 
@@ -60,7 +71,12 @@ def quantize_params(params):
     "b"?}) outside QUANT_EXCLUDE becomes {"w_q", "w_scale", "b"?}
     (layers.dense_quantize); dense_apply / gated_apply then route those
     layers through core.gemm.dense_q. Quantize the f32 params, before
-    any cast, as the JAX engine does."""
+    any cast, as the JAX engine does. int8 weights on the ssm family are
+    not ported."""
+    if "mamba" in params.get("layers", {}):
+        raise NotImplementedError("int8 weights are ported for the dense "
+                                  "family only, not for Mamba-2 (ssm) params")
+
     def rec(node, name):
         if isinstance(node, dict):
             w = node.get("w")
@@ -74,7 +90,16 @@ def quantize_params(params):
 
 
 def init_cache(cfg, batch: int, max_len: int, device=None):
+    """Dense: the (L, B, max_len, Hkv, Dh) K and V caches. ssm: each
+    layer's recurrent state, {"ssd": (L, B, H, P, N) f32, "conv":
+    (L, B, W - 1, d_inner), "conv_bc": (L, B, W - 1, 2GN)}, whatever
+    max_len."""
     device = resolve_device(device)
+    if cfg.family == "ssm":
+        st = S.mamba_init_state(cfg, batch, device=device,
+                                dtype=getattr(torch, cfg.dtype))
+        return {k: v.new_zeros((cfg.n_layers, *v.shape))
+                for k, v in st.items()}
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
     dtype = getattr(torch, cfg.dtype)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -94,6 +119,9 @@ def init_paged_cache(cfg, n_pages: int, page_size: int, max_slots: int,
     quant_kv="int8" stores int8 pages with per-(position, head) f32
     scale planes; the decode kernel dequantizes on f32."""
     _check_family(cfg)
+    if cfg.family != "dense":
+        raise ValueError(f"a paged KV cache is for attention caches; "
+                         f"{cfg.name} ({cfg.family}) keeps a recurrent state")
     device = resolve_device(device)
     hkv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
     shape = (cfg.n_layers, n_pages, page_size, hkv, dh)
@@ -130,6 +158,10 @@ def forward(cfg, params, batch):
     (B, T), the pad classes masked to -1e30: the training forward, with
     cache-less causal attention. (The JAX package's `forward` also
     returns an aux dict, which is empty for the dense family.)"""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"training (forward, loss_fn) is ported for "
+                                  f"the dense family only, not {cfg.name} "
+                                  f"({cfg.family})")
     x = L.embed_apply(params["embed"], batch["tokens"],
                       dtype=getattr(torch, cfg.dtype))
     x, _ = T.stack_apply(params["layers"], x, cfg)
@@ -152,11 +184,16 @@ def loss_fn(cfg, params, batch):
 
 def prefill(cfg, params, batch, cache, pos: int = 0):
     """Run the prompt batch["tokens"] (B, T) through the model, writing
-    the cache from `pos`. Returns (last-position f32 logits, cache)."""
+    the cache from `pos` (ssm: the state the prompt ends in, which the
+    prompt computes from a zero state). Returns (last-position f32
+    logits, cache)."""
     x = L.embed_apply(params["embed"], batch["tokens"],
                       dtype=getattr(torch, cfg.dtype))
-    x, cache = T.stack_apply(params["layers"], x, cfg, caches=cache,
-                             cache_pos=pos)
+    if cfg.family == "ssm":
+        x, cache = T.ssm_stack_apply(params["layers"], x, cfg, states=cache)
+    else:
+        x, cache = T.stack_apply(params["layers"], x, cfg, caches=cache,
+                                 cache_pos=pos)
     return _logits(cfg, params, x[:, -1:]), cache
 
 
@@ -165,9 +202,14 @@ def decode_step(cfg, params, token, pos, cache):
     position vector (pos < 0 marks an idle slot whose cache is left
     untouched and whose logits are garbage). `cache` is a dense cache
     (init_cache) or a paged one (init_paged_cache, which takes a per-slot
-    pos). Returns (f32 logits, cache)."""
+    pos). ssm: the state steps one token in every row; pos is not read,
+    so an idle slot's row steps on garbage, which its next admission
+    overwrites. Returns (f32 logits, cache)."""
     x = L.embed_apply(params["embed"], token, dtype=getattr(torch, cfg.dtype))
-    if "pages" in cache:
+    if cfg.family == "ssm":
+        x, cache = T.ssm_stack_apply(params["layers"], x, cfg, states=cache,
+                                     decode=True)
+    elif "pages" in cache:
         # the layer-less table goes to every layer's pool
         x, _ = T.stack_apply(params["layers"], x, cfg, caches=cache["pages"],
                              cache_pos=pos, kv_table=cache["table"])

@@ -1,4 +1,5 @@
-"""The dense decoder stack: pre-norm blocks of attention and a SwiGLU MLP.
+"""The decoder stacks: pre-norm blocks of attention and a SwiGLU MLP
+(family dense), and pre-norm Mamba-2 blocks (family ssm).
 
 Params are stacked with a leading layer dim, as the JAX package's
 `stack_init` builds them, and `stack_apply` loops over that dim in
@@ -17,6 +18,7 @@ import torch
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 
 
 def _norm_init(cfg, device):
@@ -79,3 +81,37 @@ def stack_apply(params, x, cfg, *, caches=None, cache_pos=None,
         x, _ = block_apply(layers[i], x, cfg, cache=per_cache[i],
                            cache_pos=cache_pos, kv_table=kv_table)
     return x, caches
+
+
+# ----------------------------------------------------------------------
+# Mamba-2 stack
+# ----------------------------------------------------------------------
+
+def ssm_stack_init(generator, cfg, *, device):
+    layers = [{"norm": _norm_init(cfg, device),
+               "mamba": S.mamba_init(generator, cfg, device=device)}
+              for _ in range(cfg.n_layers)]
+    return _stack(layers)
+
+
+def ssm_stack_apply(params, x, cfg, *, states=None, decode=False):
+    """Returns (x, states). states: stacked Mamba states (leading layer
+    dim). decode: x is one token a row, and each layer steps its state
+    from `states`; otherwise the full-sequence pass, which starts from a
+    zero state and, given `states`, writes the state it ends in there.
+    States are updated in place."""
+    n = params["norm"]["scale"].shape[0]
+    layers = _unstack(params, n)
+    per_state = [None] * n if states is None else _unstack(states, n)
+    for i in range(n):
+        xin = L.rmsnorm_apply(layers[i]["norm"], x)
+        if decode:
+            h, new = S.mamba_decode(layers[i]["mamba"], xin, cfg, per_state[i])
+        else:
+            h, new = S.mamba_apply(layers[i]["mamba"], xin, cfg,
+                                   return_state=states is not None)
+        if new is not None:
+            for k, v in new.items():
+                per_state[i][k].copy_(v)
+        x = x + h
+    return x, states

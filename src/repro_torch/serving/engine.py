@@ -29,6 +29,13 @@ quant_kv="int8" stores pages as int8 with per-(position, head) scales,
 quantized at page write; quant="int8" quantizes the dense weights once,
 at construction (the embedding stays in the compute dtype).
 
+Family ssm (Mamba-2): a slot's cache row is its recurrent state (the SSD
+state and the conv tails of every layer), which admission copies in
+leaf by leaf. The state has no positions, so neither a page pool nor
+int8 weights or pages apply, and max_len only bounds what a request may
+ask for. A decode step steps every row, an idle slot's on garbage that
+its next admission overwrites, as in the JAX engine.
+
 These are the dense, paged and int8 paths of the JAX package's
 `ServingEngine`, with the policy fields kv_layout / quant_kv / quant as
 constructor arguments. A kernel fault propagates: there is no retry and
@@ -82,24 +89,36 @@ def _on(tree, device):
             for k, v in tree.items()}
 
 
+def check_modes(cfg, kv_layout: str, quant_kv: str, quant: str) -> None:
+    """Raise ValueError for a cache layout or quantization mode the
+    engine does not serve `cfg` with."""
+    if kv_layout not in KV_LAYOUTS:
+        raise ValueError(f"unknown kv_layout {kv_layout!r}; expected "
+                         f"one of {KV_LAYOUTS}")
+    for name, mode in (("quant_kv", quant_kv), ("quant", quant)):
+        if mode not in QUANT_MODES:
+            raise ValueError(f"unknown {name} {mode!r}; expected one "
+                             f"of {QUANT_MODES}")
+    paged = kv_layout == "paged"
+    if cfg.family == "ssm" and (paged or quant_kv != "off" or quant != "off"):
+        raise ValueError(
+            f"{cfg.name} ({cfg.family}) keeps a recurrent state, not a KV "
+            f"cache: kv_layout='paged', quant_kv and quant apply to the "
+            f"dense family only")
+    if quant_kv != "off" and not paged:
+        raise ValueError(
+            "quant_kv applies to KV pages; it requires "
+            "kv_layout='paged' (dense caches stay full precision)")
+
+
 class ServingEngine:
     def __init__(self, cfg, params, *, max_slots: int, max_len: int,
                  device=None, kv_layout: str = "dense",
                  quant_kv: str = "off", quant: str = "off",
                  page_size: int = DEFAULT_PAGE_SIZE,
                  kv_pool_pages: Optional[int] = None):
-        if kv_layout not in KV_LAYOUTS:
-            raise ValueError(f"unknown kv_layout {kv_layout!r}; expected "
-                             f"one of {KV_LAYOUTS}")
-        for name, mode in (("quant_kv", quant_kv), ("quant", quant)):
-            if mode not in QUANT_MODES:
-                raise ValueError(f"unknown {name} {mode!r}; expected one "
-                                 f"of {QUANT_MODES}")
+        check_modes(cfg, kv_layout, quant_kv, quant)
         paged = kv_layout == "paged"
-        if quant_kv != "off" and not paged:
-            raise ValueError(
-                "quant_kv applies to KV pages; it requires "
-                "kv_layout='paged' (dense caches stay full precision)")
         self.cfg = cfg
         self.device = resolve_device(device)
         if quant == "int8":
@@ -108,15 +127,16 @@ class ServingEngine:
         self.params = _place(params, self.device, getattr(torch, cfg.dtype))
         self.max_slots = max_slots
         # chunked_attention needs kv lengths beyond attn_chunk to be
-        # chunk multiples; max_len is trace-dependent, so round it up.
-        # Paged mode also needs a whole number of pages, so the admission
-        # page copies never straddle the sub-cache's end.
+        # chunk multiples; max_len is trace-dependent, so round it up (an
+        # ssm state has no length to round). Paged mode also needs a whole
+        # number of pages, so the admission page copies never straddle the
+        # sub-cache's end.
         a = cfg.attn_chunk
         if paged:
             m = math.lcm(a, page_size) if max_len > a else page_size
             if max_len % m:
                 max_len += m - max_len % m
-        elif max_len > a and max_len % a:
+        elif cfg.family != "ssm" and max_len > a and max_len % a:
             max_len += a - max_len % a
         self.max_len = max_len
         self.scheduler = SlotScheduler(max_slots)
@@ -217,11 +237,12 @@ class ServingEngine:
             self._table_version = self.pool.version
 
     def _copy_prefill(self, slot: int, sub, plan) -> None:
-        """Dense: the slot's row. Paged: each freshly allocated prompt
-        page; pages shared with a resident prefix are never rewritten."""
+        """Dense: the slot's row of every leaf (K and V, or an ssm
+        state's leaves). Paged: each freshly allocated prompt page; pages
+        shared with a resident prefix are never rewritten."""
         if self.pool is None:
-            for name in ("k", "v"):
-                self.cache[name][:, slot] = sub[name][:, 0]
+            for name, leaf in sub.items():
+                self.cache[name][:, slot] = leaf[:, 0]
             return
         for j, phys in plan.private:
             self._write_page(sub, phys, j * self.page_size)

@@ -2,8 +2,10 @@
 card: ragged edges, both A and B layouts, int8 weights, strided cache
 views, page pools (bf16, f32 and int8 pages, shuffled, -1 past each
 prefix), GQA groups, idle and windowed slots, the training attention's
-forward and backward (ragged T, windows, rows that see no key), whole
-decode steps, dense and paged, and a whole train step.
+forward and backward (ragged T, windows, rows that see no key), the SSD
+intra-chunk kernel (ragged chunks, groups read through strides, bf16
+inputs, a carried state, strong decays), whole decode steps, dense,
+paged and Mamba-2, and a whole train step.
 
 Marked `cuda`; each test skips where there is no CUDA device. On the
 card: `PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py`.
@@ -292,11 +294,13 @@ def test_each_wrapper_counts_one_launch(dev):
     ops.flash_decode_paged(q, kv, kv, table, pos=2)
     o, lse = ops.flash_attention_fwd(kv, kv, kv)
     ops.flash_attention_bwd(kv, kv, kv, o, o, lse)
+    ops.ssd(torch.ones(1, 4, 2, 3, device=dev), -torch.ones(1, 4, 2, device=dev),
+            torch.ones(1, 4, 1, 5, device=dev), torch.ones(1, 4, 1, 5, device=dev), 2)
     assert ops.launch_counts() == {"matmul": 1, "matmul_q": 1,
                                    "gated_matmul": 1, "flash_decode": 1,
                                    "flash_decode_paged": 1,
                                    "flash_attention": 1,
-                                   "flash_attention_bwd": 1}
+                                   "flash_attention_bwd": 1, "ssd": 1}
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):
@@ -397,6 +401,120 @@ def test_train_step_on_card_matches_cpu(dev, accum):
                                torch.tensor(out["cpu"][0]), atol=0, rtol=1e-5)
     for x, y in zip(leaves(out["cuda"][1]), leaves(out["cpu"][1])):
         torch.testing.assert_close(x, y, atol=1e-5, rtol=1e-4)
+
+
+# (B, L, H, G, P, N, chunk): mamba2-2.7b's prefill at L = 512, one ragged
+# chunk of 200, chunks of 8 and 2, groups of 4 heads read through strides,
+# zamba2's d_state 64 and chunk 128
+SSD_SHAPES = [(1, 512, 80, 1, 64, 128, 256), (1, 200, 80, 1, 64, 128, 200),
+              (1, 8, 80, 1, 64, 128, 8), (1, 2, 80, 1, 64, 128, 2),
+              (2, 96, 8, 2, 64, 128, 32), (1, 256, 64, 1, 64, 64, 128),
+              (2, 48, 4, 2, 16, 16, 16)]
+
+
+def _ssd_inputs(dev, shape, dtype=torch.float32, decay=(0.01, 0.5)):
+    """x ~ N(0, 1), B and C scaled so that C . B ~ N(0, 1), log-decays
+    -a ~ U(decay) (a constant for a one-value range)."""
+    b, l, h, g, p, n, _ = shape
+    x = _randn(b, l, h, p, dtype=dtype, dev=dev, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    lo, hi = decay
+    a = -(lo + (hi - lo) * torch.rand((b, l, h), generator=gen, device=dev))
+    bm = _randn(b, l, g, n, dtype=dtype, dev=dev, seed=2, scale=n ** -0.25)
+    cm = _randn(b, l, g, n, dtype=dtype, dev=dev, seed=3, scale=n ** -0.25)
+    return x, a, bm, cm
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+def test_ssd_intra_chunk_kernel_matches_plain(dev, dtype, shape):
+    """Both outputs are f32 sums of the same (bf16-rounded) inputs."""
+    from repro_torch.kernels import ssd as kssd
+    x, a, bm, cm = _ssd_inputs(dev, shape, dtype)
+    chunk = shape[-1]
+    got = kssd.ssd_intra_chunk(x, a, bm, cm, chunk)
+    want = ref.ssd_intra_chunk_ref(x, a, bm, cm, chunk)
+    for g_, w_ in zip(got, want):
+        _close(g_, w_, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+def test_ssd_scan_on_card_matches_plain(dev, dtype, shape):
+    """ops.ssd (the kernel, then the inter-chunk scan) against the plain
+    chunked scan, from a carried state: y in the input dtype, the final
+    state f32."""
+    x, a, bm, cm = _ssd_inputs(dev, shape, dtype)
+    b, _, h, _, p, n, chunk = shape
+    s0 = _randn(b, h, p, n, dtype=torch.float32, dev=dev, seed=4)
+    y, s = ops.ssd(x, a, bm, cm, chunk, init_state=s0)
+    want_y, want_s = ref.ssd_chunked_ref(x, a, bm, cm, chunk, s0)
+    _close(y, want_y, dtype)
+    _close(s, want_s, torch.float32)
+
+
+def test_ssd_strong_decay_is_finite(dev):
+    """a = -20 a step: exp(cs_i - cs_j) above the diagonal would overflow
+    unless masked before the exp."""
+    shape = SSD_SHAPES[0]
+    x, a, bm, cm = _ssd_inputs(dev, shape, decay=(20.0, 20.0))
+    y, s = ops.ssd(x, a, bm, cm, shape[-1])
+    want_y, want_s = ref.ssd_chunked_ref(x, a, bm, cm, shape[-1])
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    _close(y, want_y, torch.float32)
+    _close(s, want_s, torch.float32)
+
+
+def test_ssd_kernel_is_deterministic(dev):
+    from repro_torch.kernels import ssd as kssd
+    x, a, bm, cm = _ssd_inputs(dev, SSD_SHAPES[0])
+    first = kssd.ssd_intra_chunk(x, a, bm, cm, 256)
+    for _ in range(3):
+        again = kssd.ssd_intra_chunk(x, a, bm, cm, 256)
+        assert all(torch.equal(u, v) for u, v in zip(first, again))
+
+
+def test_ssd_on_card_refuses_a_gradient(dev):
+    from repro_torch.core import ssd as core_ssd
+    x, a, bm, cm = _ssd_inputs(dev, SSD_SHAPES[-1])
+    with pytest.raises(NotImplementedError, match="training"):
+        core_ssd.ssd(x.requires_grad_(), a, bm, cm, 16)
+
+
+@pytest.mark.parametrize("d", [64, 1024, 2560, 5120])
+def test_rmsnorm_is_batch_invariant(dev, d):
+    """Each row of 1, 2 or 3 normalises to the bits of the same row in a
+    batch of 4 (qwen3's d_model 1024, mamba2's 2560 and its gated norm's
+    5120)."""
+    from repro_torch.models import layers as L
+    p = {"scale": torch.rand(d, device=dev) + 0.5}
+    for seed in range(50):
+        x = _randn(4, 1, d, dtype=torch.bfloat16, dev=dev, seed=seed)
+        full = L.rmsnorm_apply(p, x)
+        for rows in (slice(0, 1), slice(0, 2), slice(0, 3), slice(3, 4)):
+            assert torch.equal(L.rmsnorm_apply(p, x[rows]), full[rows])
+
+
+def test_mamba_prefill_and_decode_on_card_match_cpu(dev):
+    """The reduced mamba2 in f32: a prefill of a ragged prompt (padded to
+    a chunk multiple) and two decode steps on the card against the same
+    on the CPU: logits and every state leaf."""
+    cfg = dataclasses.replace(get_config("mamba2-2.7b", reduced=True),
+                              dtype="float32")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 21),
+                           generator=torch.Generator().manual_seed(1))
+    out = {}
+    for d in ("cpu", "cuda"):
+        p = _to(params, d)
+        cache = M.init_cache(cfg, 2, 32, d)
+        logs = [M.prefill(cfg, p, {"tokens": tokens.to(d)}, cache)[0]]
+        for i in range(2):
+            logs.append(M.decode_step(cfg, p, tokens[:, i:i + 1].to(d), 21 + i,
+                                      cache)[0])
+        out[d] = [t.cpu() for t in logs] + [v.cpu() for v in cache.values()]
+    for x, y in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(x, y, atol=1e-4, rtol=1e-4)
 
 
 def _to(tree, device):

@@ -159,8 +159,10 @@ def test_launch_counters_do_not_move_on_cpu():
     kv = torch.ones(1, 4, 2, 8)
     o, lse = ops.flash_attention_fwd(kv, kv, kv)
     ops.flash_attention_bwd(kv, kv, kv, o, o, lse)
+    ops.ssd(torch.ones(1, 4, 2, 3), -torch.ones(1, 4, 2),
+            torch.ones(1, 4, 1, 5), torch.ones(1, 4, 1, 5), 2)
     assert ops.launch_counts() == {"matmul": 0, "matmul_q": 0,
                                    "gated_matmul": 0, "flash_decode": 0,
                                    "flash_decode_paged": 0,
                                    "flash_attention": 0,
-                                   "flash_attention_bwd": 0}
+                                   "flash_attention_bwd": 0, "ssd": 0}
