@@ -10,11 +10,12 @@ Phases, in order; any failure propagates and the exit code is not 0:
      shapes of the main paths (qwen3-0.6b decode and prefill; dense, paged
      and int8; training attention, forward and backward; mamba2-2.7b's
      SSD intra-chunk work, ragged chunks, groups, bf16, a carried state,
-     strong decays and zamba2's d_state), with the max
-     error beside its tolerance, and the median time of the kernel, the
-     plain version and one PyTorch library call beside the least time the
-     card could take; a bf16 page pool must give the dense decode
-     kernel's bits;
+     strong decays and zamba2's d_state; the paper's naive GEMM at 4096^2
+     against the f64 product, and add, sub, mul and axpy bit for bit),
+     with the max error beside its tolerance, and the median time of the
+     kernel, the plain version and one PyTorch library call beside the
+     least time the card could take; a bf16 page pool must give the dense
+     decode kernel's bits;
   4. the dense slice at full width: qwen3-0.6b (28 layers, random weights
      from a seed) served by the engine on 4 slots to 8 requests, with
      every kernel's launches counted over that run; a torch.profiler trace
@@ -40,7 +41,15 @@ Phases, in order; any failure propagates and the exit code is not 0:
      the request run alone at batch 1, speed, memory and a torch.profiler
      trace of decode steps and of a 512-token prefill; then a depth-2
      prefill and decode in f32 on the card against the same on the CPU;
-  8. a JSON line of the kernels, the card line, and the result line.
+  8. the paper's experiment at its size, 4096^2: Table 2 through the
+     measurement `launch.paper` prints (`benchmarks.common.measure`: float,
+     double and complex-float through the naive kernel, the GEMM
+     chokepoint (the tiled kernel; f64 the plain f64 product) and
+     torch.matmul, each checked against the f64 product, beside the
+     paper's seconds; the naive/tiled ratio beside the paper's 3.0x), Fig 9 through `benchmarks.bench_add`'s
+     (add, sub and axpy in GB/s beside 3.35 TB/s), with exact launch
+     counts; then the roofline model of the paper's cards and the H100;
+  9. a JSON line of the kernels, the card line, and the result line.
 """
 
 import json
@@ -52,8 +61,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_S = 3.35e12                                   # H100 SXM
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}     # dense; f32 without TF32
 FLUSH_BYTES = 64 << 20                                  # > the 50 MB L2
 
 
@@ -87,7 +94,8 @@ def main() -> int:
     smoke.phase_train_vs_cpu()
     smoke.phase_mamba()
     smoke.phase_mamba_vs_cpu()
-    print("[8/8] result")
+    smoke.phase_paper()
+    print("[9/9] result")
     print(json.dumps({"kernels": smoke.kernel_rows()}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
@@ -98,15 +106,17 @@ def main() -> int:
 
 class Smoke:
     def __init__(self, torch):
+        from repro_torch.core import hw
         self.torch = torch
         self.dev = torch.device("cuda")
+        self.chip = hw.H100    # the card's peaks: device memory, FLOP/s by dtype
         self.results = {}      # kernel name -> list of case dicts
         self.launches = {}
 
     # -- 1. card ------------------------------------------------------
     def phase_card(self):
         torch = self.torch
-        print(f"[1/8] card: {card_line()}")
+        print(f"[1/9] card: {card_line()}")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         print(f"      torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -118,7 +128,7 @@ class Smoke:
         from repro_torch.kernels import _build
         t0 = time.perf_counter()
         libs = _build.build_all()
-        print(f"[2/8] build: {sorted(libs)} from "
+        print(f"[2/9] build: {sorted(libs)} from "
               f"{_build.CSRC.relative_to(ROOT)} in "
               f"{time.perf_counter() - t0:.1f} s (nvcc "
               f"{' '.join(_build.NVCC_FLAGS)})")
@@ -147,23 +157,28 @@ class Smoke:
         return statistics.median(s.elapsed_time(e) for s, e in ev)
 
     def _case(self, kernel, label, run_kernel, run_plain, run_library,
-              nbytes, flops, dtype, tol):
+              nbytes, flops, dtype, tol, reference=None, n_time=50):
         """Compare, then time. tol = (atol, rtol) on |kernel - plain|, or
         a list of them for a kernel of several outputs. run_library: a
-        callable to time, or a time measured by the caller, or None."""
+        callable to time, or a time measured by the caller, or None.
+        reference: a callable whose result (of a wider dtype) the kernel
+        is held against in place of the plain version's."""
         torch = self.torch
         got = run_kernel()
         torch.cuda.synchronize()
-        want = run_plain()
+        want = (reference or run_plain)()
         torch.cuda.synchronize()
         outs = list(zip(*((got, want) if isinstance(got, tuple)
                           else ((got,), (want,)))))
         tols = tol if isinstance(tol, list) else [tol] * len(outs)
         max_err = 0.0
         for (got, want), (atol, rtol) in zip(outs, tols):
-            assert got.shape == want.shape and got.dtype == want.dtype, \
+            assert got.shape == want.shape and (
+                reference or got.dtype == want.dtype), \
                 (label, got.shape, want.shape, got.dtype, want.dtype)
-            g, w = got.float(), want.float()
+            wide = torch.float64 if want.dtype == torch.float64 \
+                else torch.float32
+            g, w = got.to(wide), want.to(wide)
             assert torch.isfinite(g).all(), \
                 f"{kernel} {label}: non-finite output"
             err = (g - w).abs()
@@ -174,12 +189,12 @@ class Smoke:
                                    f"{err.max().item():g} (atol {atol:g} "
                                    f"rtol {rtol:g})")
         atol, rtol = tols[0]
-        ms = self._time_ms(run_kernel)
-        plain_ms = self._time_ms(run_plain)
-        lib_ms = self._time_ms(run_library) if callable(run_library) \
-            else run_library
-        t_bytes = nbytes / HBM_BYTES_S * 1e3
-        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        ms = self._time_ms(run_kernel, n=n_time)
+        plain_ms = self._time_ms(run_plain, n=n_time)
+        lib_ms = self._time_ms(run_library, n=n_time) \
+            if callable(run_library) else run_library
+        t_bytes = nbytes / self.chip.hbm_bw * 1e3
+        t_ops = flops / self.chip.peak_flops(getattr(torch, dtype).itemsize) * 1e3
         row = dict(label=label, max_abs_err=max_err, tol=tol, ms=ms,
                    plain_ms=plain_ms, library_ms=lib_ms,
                    bound_ms=max(t_bytes, t_ops),
@@ -195,7 +210,7 @@ class Smoke:
         torch = self.torch
         from repro_torch.kernels import ops, ref
         F = torch.nn.functional
-        print("[3/8] kernels against their plain versions (median of 50, "
+        print("[3/9] kernels against their plain versions (median of 50, "
               "L2 flushed)")
         gen = torch.Generator(device=self.dev).manual_seed(0)
 
@@ -291,6 +306,7 @@ class Smoke:
         self._kernels_int8_and_paged(randn, tols[torch.bfloat16])
         self._kernels_attention(randn, tols)
         self._kernels_ssd(gen, tols)
+        self._kernels_paper(randn, tols)
 
     def _kernels_int8_and_paged(self, randn, tol):
         """matmul_q at the int8 main path's shapes and flash_decode_paged
@@ -493,6 +509,84 @@ class Smoke:
                     [tols[dtype], tols[f32]])
             del x, a, bm, cm
 
+    def _kernels_paper(self, randn, tols, n=4096):
+        """The paper's kernels at its size n = 4096: the naive GEMM at n^2
+        (f32 held to the f64 product within atol K 2^-24, K roundings of a
+        partial sum of order 1; bf16 to its plain version), f64 at
+        (n/4)^2 (atol K 2^-53) and a ragged f32 product; add, sub and mul
+        in f32, bf16 and f64 at n^2, add at a ragged size, on unaligned
+        operands and on complex64 (through the f32 view), and axpy with
+        alpha a number and a tensor on the card, all bit for bit."""
+        torch = self.torch
+        from repro_torch.kernels import elementwise as kew
+        from repro_torch.kernels import ops, ref
+        f32, bf16, f64 = torch.float32, torch.bfloat16, torch.float64
+        exact = (0.0, 0.0)
+
+        def name_size(dtype):
+            return str(dtype).split(".")[-1], torch.finfo(dtype).bits // 8
+
+        q = n // 4
+        for m, k, nn, dtype, n_time in ((n, n, n, f32, 10), (n, n, n, bf16, 10),
+                                        (q, q, q, f64, 50),
+                                        (1000, 300, 700, f32, 50)):
+            dname, size = name_size(dtype)
+            a = randn(m, k, dtype=dtype)
+            b = randn(k, nn, dtype=dtype, scale=k ** -0.5)
+            reference, tol = None, tols.get(dtype)
+            if dtype != bf16:
+                tol = (k * 2.0 ** (-53 if dtype == f64 else -24), 0.0)
+                reference = lambda a=a, b=b: ref.matmul_ref(a.double(),
+                                                            b.double())
+            self._case(
+                "matmul_naive", f"{dname} M={m} K={k} N={nn}",
+                lambda a=a, b=b: ops.matmul_naive(a, b),
+                lambda a=a, b=b: ref.matmul_ref(a, b),
+                lambda a=a, b=b: torch.matmul(a, b),
+                (m * k + k * nn + m * nn) * size, 2 * m * nn * k, dname, tol,
+                reference=reference, n_time=n_time)
+            del a, b
+
+        library = {"add": torch.add, "sub": torch.sub, "mul": torch.mul}
+        for dtype in (f32, bf16, f64):
+            dname, size = name_size(dtype)
+            for rows, cols, names in ((n, n, ("add", "sub", "mul")),
+                                      (1000, 1001, ("add",))):
+                x, y = randn(rows, cols, dtype=dtype), randn(rows, cols, dtype=dtype)
+                for op in names:
+                    self._case(
+                        "binary_op", f"{dname} {op} {rows}x{cols}",
+                        lambda x=x, y=y, op=op: kew.binary_op(x, y, op),
+                        lambda x=x, y=y, op=op: ref.binary_ref(x, y, op),
+                        lambda x=x, y=y, op=op: library[op](x, y),
+                        3 * x.numel() * size, x.numel(), dname, exact)
+            x, y = randn(n, n, dtype=dtype), randn(n, n, dtype=dtype)
+            alpha_t = torch.full((1,), 0.7, device=self.dev)
+            for alpha, how in ((0.7, "a number"), (alpha_t, "an f32 tensor")):
+                self._case(
+                    "axpy", f"{dname} {n}x{n}, alpha {how}",
+                    lambda alpha=alpha: kew.axpy(alpha, x, y),
+                    lambda alpha=alpha: ref.saxpy_ref(alpha, x, y),
+                    lambda: torch.add(y, x, alpha=0.7),
+                    3 * x.numel() * size, 2 * x.numel(), dname, exact)
+            del x, y
+        # unaligned operands (one element into a buffer): the one-element path
+        xu, yu = (randn(n * n + 1, dtype=f32)[1:].view(n, n) for _ in range(2))
+        self._case("binary_op", f"float32 add {n}x{n} unaligned operands",
+                   lambda: ops.add(xu, yu), lambda: ref.add_ref(xu, yu),
+                   lambda: torch.add(xu, yu), 3 * xu.numel() * 4, xu.numel(),
+                   "float32", exact)
+        # complex64: add on the (re, im) pairs, through ops.add
+        xc, yc = (torch.complex(randn(n // 2, n // 2, dtype=f32),
+                                randn(n // 2, n // 2, dtype=f32))
+                  for _ in range(2))
+        self._case("binary_op", f"complex64 add {n // 2}x{n // 2} (f32 view)",
+                   lambda: torch.view_as_real(ops.add(xc, yc)),
+                   lambda: torch.view_as_real(ref.add_ref(xc, yc)),
+                   lambda: torch.add(xc, yc), 3 * xc.numel() * 8,
+                   2 * xc.numel(), "float32", exact)
+        del xu, yu, xc, yc
+
     # -- 4. the slice at full width --------------------------------------
     def phase_serve(self):
         torch = self.torch
@@ -513,7 +607,7 @@ class Smoke:
                                device=self.dev)
         del params                      # the engine keeps its bf16 copy
         torch.cuda.synchronize()
-        print(f"[4/8] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
+        print(f"[4/9] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
               f"heads {cfg.n_heads}/{cfg.n_kv_heads}x{cfg.resolved_head_dim} "
               f"d_ff {cfg.d_ff} vocab {cfg.vocab}->{cfg.padded_vocab}; "
               f"weights ready in {time.perf_counter() - t0:.1f} s; "
@@ -536,10 +630,9 @@ class Smoke:
         steps = engine.decode_steps + sum(len(r.prompt) % 8 for r in reqs)
         n_pre = len(reqs)
         L = cfg.n_layers
-        want = {"matmul": (5 * L + 1) * (steps + n_pre), "matmul_q": 0,
-                "gated_matmul": L * (steps + n_pre),
-                "flash_decode": L * steps, "flash_decode_paged": 0,
-                "flash_attention": 0, "flash_attention_bwd": 0, "ssd": 0}
+        want = _no_launches(matmul=(5 * L + 1) * (steps + n_pre),
+                            gated_matmul=L * (steps + n_pre),
+                            flash_decode=L * steps)
         print(f"      launches {self.launches} (expected {want}: "
               f"{engine.decode_steps} decode steps at 141/28/28 each)")
         assert self.launches == want, (self.launches, want)
@@ -635,10 +728,8 @@ class Smoke:
         L = engine.cfg.n_layers
         rem = sum(len(r.prompt) % 8 for r in reqs)
         runs = engine.decode_steps + rem + len(reqs)
-        want = {"matmul": 0, "matmul_q": 0, "gated_matmul": 0,
-                "flash_decode": L * rem,
-                "flash_decode_paged": L * engine.decode_steps,
-                "flash_attention": 0, "flash_attention_bwd": 0, "ssd": 0}
+        want = _no_launches(flash_decode=L * rem,
+                            flash_decode_paged=L * engine.decode_steps)
         for name, n in per_gemm_step.items():
             want[name] = n * runs
         return want
@@ -664,7 +755,7 @@ class Smoke:
         assert launches == want, (launches, want)
         got = [r.generated for r in reqs]
         assert got == self.dense_streams, "paged bf16 streams != dense streams"
-        print(f"[5/8] paged bf16 KV (page 16, {rep['kv_pool']['n_pages']} "
+        print(f"[5/9] paged bf16 KV (page 16, {rep['kv_pool']['n_pages']} "
               f"pages): phase 4's {len(reqs)} streams, token for token; "
               f"launches {launches} ({eng.decode_steps} decode steps at "
               f"141/28/28 each); prefill {rep['prefill_tok_s']:.1f} tok/s, "
@@ -766,10 +857,8 @@ class Smoke:
         # the backward's 2 GEMMs for each of the 141 (dx, dw) plus 4 for
         # each dual GEMM (its gate/up recompute and their dw; dx of the two
         # branches is 2 more), and 28 attention backwards
-        want = {"matmul": (5 * L + 1) * 3 + 6 * L, "gated_matmul": L,
-                "flash_attention": L, "flash_attention_bwd": L,
-                "matmul_q": 0, "flash_decode": 0, "flash_decode_paged": 0,
-                "ssd": 0}
+        want = _no_launches(matmul=(5 * L + 1) * 3 + 6 * L, gated_matmul=L,
+                            flash_attention=L, flash_attention_bwd=L)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
@@ -787,7 +876,7 @@ class Smoke:
             before = now
         self.train_launches = ops.launch_counts()
         peak = torch.cuda.max_memory_allocated()
-        print(f"[6/8] training {cfg.name} at full width ({L} layers, "
+        print(f"[6/9] training {cfg.name} at full width ({L} layers, "
               f"{n_params / 1e6:.1f}M f32 params, bf16 activations): "
               f"{steps} AdamW steps at batch {batch} x {seq}")
         for i in range(steps):
@@ -921,7 +1010,7 @@ class Smoke:
         torch.cuda.empty_cache()
         weights = torch.cuda.memory_allocated()
         sc = cfg.ssm
-        print(f"[7/8] {cfg.name}: {L} layers d_model {cfg.d_model} d_inner "
+        print(f"[7/9] {cfg.name}: {L} layers d_model {cfg.d_model} d_inner "
               f"{sc.expand * cfg.d_model} ({sc.expand * cfg.d_model // sc.head_dim}"
               f" SSD heads of {sc.head_dim}) d_state {sc.d_state} groups "
               f"{sc.n_groups} conv {sc.conv_width} chunk {sc.chunk} vocab "
@@ -1064,7 +1153,45 @@ class Smoke:
               f"({tp * 1e3:.0f} ms): logits and states within rtol {tol:g}; "
               f"max |diff| / max |value| {worst:.2e}")
 
-    # -- 7. the kernels line --------------------------------------------
+    # -- 8. the paper's experiment ---------------------------------------
+    def phase_paper(self, n=4096, iters=3):
+        """Table 2 and Figs 8-9 at the paper's size through the port's
+        entry points: the measurement `launch.paper` prints (float, double
+        and complex-float through the naive kernel, the GEMM chokepoint and
+        torch.matmul, each checked against the f64 product) and
+        `benchmarks.bench_add`'s (add, sub and axpy, each bit for bit with
+        its plain version), with exact launch counts."""
+        torch = self.torch
+        from repro_torch.benchmarks import bench_add, common
+        from repro_torch.kernels import ops
+        from repro_torch.launch import paper
+        print(f"[8/9] the paper's experiment at n={n} (Table 2, Figs 8-9)")
+        ops.reset_launch_counts()
+        gemm_rows = common.measure(n, self.dev, iters=iters)
+        add_rows = bench_add.measure(n, self.dev)
+        torch.cuda.synchronize()
+        self.paper_launches = ops.launch_counts()
+        want = _no_launches()
+        for r, per_call in ([(r, common.LAUNCHES_PER_CALL[r["route"], r["dtype"]])
+                             for r in gemm_rows]
+                            + [(r, bench_add.LAUNCHES_PER_CALL[r["case"]])
+                               for r in add_rows]):
+            row_want = {k: v * r["calls"] for k, v in per_call.items()}
+            assert r["launches"] == row_want, (r, row_want)
+            for k, v in row_want.items():
+                want[k] += v
+        paper.print_measured(gemm_rows, n, self.dev)
+        print(f"Fig 9, float32 {n}x{n} (median of 5, L2 flushed; each "
+              f"result bit for bit its plain version's):")
+        for r in add_rows:
+            print(f"  {r['case']:18s} {r['seconds'] * 1e3:8.4f} ms "
+                  f"{r['gbps']:8.1f} GB/s = {r['gbps'] * 1e9 / self.chip.hbm_bw:.3f} "
+                  f"of 3.35 TB/s")
+        print(f"      launches {self.paper_launches} (expected {want})")
+        assert self.paper_launches == want, (self.paper_launches, want)
+        paper.print_model()
+
+    # -- 9. the kernels line --------------------------------------------
     def kernel_rows(self):
         """One row per kernel: its launches on the main path, the max error
         over every case, and the times of its main-path decode shape."""
@@ -1097,11 +1224,22 @@ class Smoke:
             "ssd": ("src/repro_torch/kernels/csrc/ssd.cu",
                     "src/repro/kernels/ssd.py:185",
                     "float32 B=1 L=512 H=80 G=1 P=64 N=128 chunk=256"),
+            "matmul_naive": ("src/repro_torch/kernels/csrc/matmul_naive.cu",
+                             "src/repro/kernels/matmul_naive.py:56",
+                             "float32 M=4096 K=4096 N=4096"),
+            "binary_op": ("src/repro_torch/kernels/csrc/elementwise.cu",
+                          "src/repro/kernels/elementwise.py:48",
+                          "float32 add 4096x4096"),
+            "axpy": ("src/repro_torch/kernels/csrc/elementwise.cu",
+                     "src/repro/kernels/elementwise.py:75",
+                     "float32 4096x4096, alpha a number"),
         }
         # launches: the dense kernels' from phase 4's run, the int8 path's
         # from phase 5's int8 run, the training kernels' from phase 6's,
-        # the SSD kernel's from phase 7's
+        # the SSD kernel's from phase 7's, the paper's kernels from phase 8's
         counts = {**self.launches,
+                  **{k: self.paper_launches[k]
+                     for k in ("matmul_naive", "binary_op", "axpy")},
                   **{k: self.paged_launches[k]
                      for k in ("matmul_q", "flash_decode_paged")},
                   **{k: self.train_launches[k]
@@ -1119,6 +1257,12 @@ class Smoke:
                 "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
                 "library_ms": rep["library_ms"], "shape": label})
         return rows
+
+
+def _no_launches(**counts) -> dict:
+    """Every kernel's launch count 0, but for `counts`."""
+    from repro_torch.kernels import ops
+    return {**dict.fromkeys(ops.launch_counts(), 0), **counts}
 
 
 def _print_trace(prof, what: str, wall_ms: float, n: int = 1) -> None:

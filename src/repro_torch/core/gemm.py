@@ -19,8 +19,20 @@ Function, whose bookkeeping costs host time on every launch of a decode
 step. The cotangents take the dtypes the JAX package gives them: the
 incoming cotangent is cast to A's dtype, dA gets A's dtype and dB gets
 B's, so a weight gradient is rounded to the activation dtype before the
-cast back to the f32 parameter. `dense_q` is forward only: its int8
-weight is a frozen buffer.
+cast back to the f32 parameter.
+
+`matmul` routes by dtype, as the JAX package's `_matmul_2d` does:
+complex64 through `precision.complex_matmul` ("gauss3", three real
+GEMMs on the tiled kernel), float64 to the plain `ref.matmul_ref` (the
+JAX package sends f64 to XLA: there is no f64 tile kernel), and the rest
+to the tiled kernel. Its backward's GEMMs take the same route.
+
+`dense_q` is forward only on the card: its int8 weight is a frozen
+buffer, and the gradients of x, scale, b and residual (the JAX
+package's `_dense_q_vjp`) are not ported yet, so a call there that
+autograd would record raises rather than record nothing. On the CPU the
+plain version is ordinary PyTorch, which autograd differentiates as it
+is.
 """
 
 from __future__ import annotations
@@ -28,7 +40,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import precision as _prec
 from repro_torch.kernels import ops as _ops
+from repro_torch.kernels import ref as _ref
 
 _ACTIVATIONS = {"gelu": lambda y: F.gelu(y, approximate="tanh"),
                 "silu": F.silu}
@@ -45,13 +59,26 @@ def _recorded(*operands) -> bool:
         t is not None and t.requires_grad for t in operands)
 
 
+def _matmul_2d(a, b, out_dtype=None):
+    """A @ B on 2D operands, routed by dtype as `repro/core/gemm.py`
+    `_matmul_2d`: complex by gauss3 over the tiled kernel, float64 to the
+    plain product, the rest to the tiled kernel."""
+    if a.is_complex():
+        return _prec.complex_matmul(a, b, _ops.matmul, algorithm="gauss3")
+    if a.dtype == torch.float64:
+        return _ref.matmul_ref(a, b, out_dtype)
+    return _ops.matmul(a, b, out_dtype=out_dtype)
+
+
 def _matmul_grads(a, b, g, needs=(True, True)):
     """(dA, dB) of A @ B for the cotangent g, as `_matmul_bwd`: g cast to
-    A's dtype, dA = g Bᵀ in A's dtype, dB = Aᵀ g in B's. Both GEMMs read
+    A's dtype, dA = g Bᵀ in A's dtype, dB = Aᵀ g in B's (the conjugate
+    transposes for complex, PyTorch's convention). Both real GEMMs read
     their transposed operand in place."""
     g = g.to(a.dtype).contiguous()
-    da = _ops.matmul(g, b.t(), out_dtype=a.dtype) if needs[0] else None
-    db = _ops.matmul(a.t(), g, out_dtype=b.dtype) if needs[1] else None
+    at, bt = (a.t().conj(), b.t().conj()) if a.is_complex() else (a.t(), b.t())
+    da = _matmul_2d(g, bt, out_dtype=a.dtype) if needs[0] else None
+    db = _matmul_2d(at, g, out_dtype=b.dtype) if needs[1] else None
     return da, db
 
 
@@ -61,7 +88,7 @@ class _Matmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, b, out_dtype):
         ctx.save_for_backward(a, b)
-        return _ops.matmul(a, b, out_dtype=out_dtype)
+        return _matmul_2d(a, b, out_dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -73,7 +100,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
     """A @ B for a: (..., M, K), b: (K, N)."""
     a2 = _fold(a)
     out = _Matmul.apply(a2, b, out_dtype) if _recorded(a2, b) \
-        else _ops.matmul(a2, b, out_dtype=out_dtype)
+        else _matmul_2d(a2, b, out_dtype)
     return out.reshape(*a.shape[:-1], b.shape[-1])
 
 
@@ -158,9 +185,15 @@ def dense_q(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
     """y = act((x @ wq) * scale + b) + residual for x: (..., K), wq an
     int8 (K, N) weight and scale its (1, N) per-channel f32 scale
     (`core.precision.quantize_int8`). The kernel streams the int8 weight
-    and dequantizes on its f32 accumulator. Forward only: the int8
-    weight is a frozen buffer."""
+    and dequantizes on its f32 accumulator. Forward only on the card: a
+    call there that autograd would record raises."""
     _check_activation(activation)
+    if x.device.type == "cuda" and _recorded(x, scale, b, residual):
+        raise NotImplementedError(
+            "dense_q on the card is forward only: its backward (the "
+            "gradients of x, scale, b and residual, as the JAX package's "
+            "_dense_q_vjp) comes with int8 weights beyond the serving "
+            "forward")
     r = None if residual is None else _fold(residual)
     out = _dense_2d(
         lambda a, **kw: _ops.matmul_q(a, wq, scale, out_dtype=out_dtype,

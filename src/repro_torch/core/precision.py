@@ -2,12 +2,14 @@
 (`repro/core/precision.py`): per-channel symmetric int8 with
 ``scale = amax / 127`` over the contraction axis, round half to even,
 clipped to [-127, 127]. On float32 input the (q, scale) pair is the
-JAX package's bit for bit.
+JAX package's bit for bit. Also the paper's complex-float GEMM through
+real GEMMs, and the FLOP count of a GEMM by dtype.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import torch
 
@@ -65,3 +67,37 @@ def quantize_kv(x: torch.Tensor):
     (..., position, head) plane."""
     q, scale = quantize(x, KV_QUANT_SPEC)
     return q, scale.squeeze(-1)
+
+
+def complex_matmul(a: torch.Tensor, b: torch.Tensor,
+                   real_matmul: Callable[[torch.Tensor, torch.Tensor],
+                                         torch.Tensor],
+                   algorithm: str = "gauss3") -> torch.Tensor:
+    """Complex GEMM through real GEMMs (the paper's complex-float column):
+    "naive4" takes four real products, "gauss3" three (Gauss's trick).
+    `real_matmul` is any real GEMM, the tiled or the naive kernel's
+    dispatcher; the real and imaginary parts reach it contiguous, since
+    `torch.real`/`torch.imag` are strided views. The sums between the
+    products are plain PyTorch, as the JAX package leaves them to XLA."""
+    ar, ai = a.real.contiguous(), a.imag.contiguous()
+    br, bi = b.real.contiguous(), b.imag.contiguous()
+    if algorithm == "naive4":
+        re = real_matmul(ar, br) - real_matmul(ai, bi)
+        im = real_matmul(ar, bi) + real_matmul(ai, br)
+    elif algorithm == "gauss3":
+        t1 = real_matmul(ar, br)
+        t2 = real_matmul(ai, bi)
+        t3 = real_matmul(ar + ai, br + bi)
+        re = t1 - t2
+        im = t3 - t1 - t2
+    else:
+        raise ValueError(f"unknown complex algorithm {algorithm!r}")
+    return torch.complex(re, im)
+
+
+def gemm_flops(m: int, n: int, k: int, dtype: str) -> float:
+    """Useful-FLOP count per dtype name: complex is charged 4x the real
+    count, the mathematical form, so gauss3's 3 products show as an
+    efficiency above 1, as the paper counts elementary operations."""
+    base = 2.0 * m * n * k
+    return 4.0 * base if getattr(torch, dtype).is_complex else base

@@ -14,14 +14,24 @@ there is no fallback from a failing kernel to its plain version.
     flash_attention_fwd flash_attention.flash_attention      ref.flash_attention_fwd_ref
     flash_attention_bwd flash_attention.flash_attention_bwd  ref.flash_attention_bwd_ref
     ssd                 ssd.ssd_chunked (ssd_intra_chunk)    ref.ssd_chunked_ref
+    matmul_naive        matmul_naive.matmul_naive            ref.matmul_ref
+    add / sub           elementwise.binary_op                ref.add_ref / ref.sub_ref
+    axpy                elementwise.axpy                     ref.saxpy_ref
+
+`matmul_naive`, `add`, `sub` and `axpy` are the paper's experiment
+(Table 2, Figs 8-9), each an entry point of its own: the naive GEMM is
+not a backend of `matmul`, which is the tiled kernel and keeps refusing
+float64 on the card.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import elementwise as _ew
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import matmul as _mm
+from repro_torch.kernels import matmul_naive as _mmn
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import ssd as _ssd
 from repro_torch.kernels.ref import EPILOGUES
@@ -245,12 +255,69 @@ def ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     return _ref.ssd_chunked_ref(x, a, b, c, chunk, init_state)
 
 
+def matmul_naive(a: torch.Tensor, b: torch.Tensor, *,
+                 out_dtype=None) -> torch.Tensor:
+    """2D GEMM ``a @ b`` by the paper's Listing 3 (one thread an output
+    element, no shared memory): the sum in f32 (f64 for float64 inputs)
+    rounded once to out_dtype (default: a's)."""
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"shapes {tuple(a.shape)} @ {tuple(b.shape)}")
+    out_dtype = out_dtype or a.dtype
+    if _on_card(a):
+        return _mmn.matmul_naive(a, b, out_dtype=out_dtype)
+    return _ref.matmul_ref(a, b, out_dtype)
+
+
+def _binary(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if a.shape != b.shape:
+        raise ValueError(f"shapes {tuple(a.shape)} and {tuple(b.shape)} "
+                         f"differ")
+    if a.dtype != b.dtype:
+        raise TypeError(f"dtypes {a.dtype} and {b.dtype} differ")
+    if not _on_card(a):
+        return _ref.binary_ref(a, b, op)
+    if a.is_complex():
+        # complex add and sub act on the (re, im) pairs: the same
+        # function, exactly, through the real kernel
+        return torch.view_as_complex(_ew.binary_op(
+            torch.view_as_real(a), torch.view_as_real(b), op))
+    return _ew.binary_op(a, b, op)
+
+
+def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a + b for operands of one shape and dtype, in that dtype."""
+    return _binary("add", a, b)
+
+
+def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a - b for operands of one shape and dtype, in that dtype."""
+    return _binary("sub", a, b)
+
+
+def axpy(alpha, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """alpha * x + y in x's dtype, alpha (a number, or a one-element tensor
+    on x's device) cast to x's dtype first, the product rounded before the
+    sum."""
+    if x.shape != y.shape:
+        raise ValueError(f"shapes {tuple(x.shape)} and {tuple(y.shape)} "
+                         f"differ")
+    if x.dtype != y.dtype:
+        raise TypeError(f"dtypes {x.dtype} and {y.dtype} differ")
+    if _on_card(x):
+        return _ew.axpy(alpha, x, y)
+    return _ref.saxpy_ref(alpha, x, y)
+
+
+_COUNTERS = (_mm.LAUNCHES, _fa.LAUNCHES, _ssd.LAUNCHES, _mmn.LAUNCHES,
+             _ew.LAUNCHES)
+
+
 def launch_counts() -> dict:
     """Kernel launches so far, by kernel."""
-    return {**_mm.LAUNCHES, **_fa.LAUNCHES, **_ssd.LAUNCHES}
+    return {name: n for counts in _COUNTERS for name, n in counts.items()}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_mm.LAUNCHES, _fa.LAUNCHES, _ssd.LAUNCHES):
+    for counts in _COUNTERS:
         for name in counts:
             counts[name] = 0

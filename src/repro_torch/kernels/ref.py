@@ -20,7 +20,8 @@ def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
 
 
 def matmul_ref(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor:
-    """C = A @ B with f32 accumulation (f64 for f64 inputs)."""
+    """C = A @ B with f32 accumulation (f64 for f64 inputs): also the
+    plain version of the naive GEMM."""
     out_dtype = out_dtype or a.dtype
     acc = _acc_dtype(a.dtype)
     return torch.matmul(a.to(acc), b.to(acc)).to(out_dtype)
@@ -77,6 +78,34 @@ def gated_matmul_ref(a, w_gate, w_up) -> torch.Tensor:
     g = torch.matmul(a.to(acc), w_gate.to(acc))
     u = torch.matmul(a.to(acc), w_up.to(acc))
     return (F.silu(g) * u).to(a.dtype)
+
+
+def add_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a + b
+
+
+def sub_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a - b
+
+
+BINARY_OPS = {"add": add_ref, "sub": sub_ref, "mul": torch.mul}
+
+
+def binary_ref(a: torch.Tensor, b: torch.Tensor, op: str = "add") -> torch.Tensor:
+    """C = A op B in A's dtype, op in add, sub and mul: what the
+    elementwise kernel computes."""
+    if op not in BINARY_OPS:
+        raise ValueError(f"unknown op {op!r}; expected one of "
+                         f"{tuple(BINARY_OPS)}")
+    return BINARY_OPS[op](a, b)
+
+
+def saxpy_ref(alpha, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """alpha * x + y in x's dtype, with alpha (a number, or a one-element
+    tensor) cast to x's dtype first, as the JAX kernel casts it; the
+    product and the sum are rounded each."""
+    a = torch.as_tensor(alpha, dtype=x.dtype, device=x.device).reshape(())
+    return a * x + y
 
 
 def attention_fwd_ref(q, k, v, *, window=None, q_offset=0):

@@ -4,8 +4,9 @@ views, page pools (bf16, f32 and int8 pages, shuffled, -1 past each
 prefix), GQA groups, idle and windowed slots, the training attention's
 forward and backward (ragged T, windows, rows that see no key), the SSD
 intra-chunk kernel (ragged chunks, groups read through strides, bf16
-inputs, a carried state, strong decays), whole decode steps, dense,
-paged and Mamba-2, and a whole train step.
+inputs, a carried state, strong decays), the paper's naive GEMM and
+elementwise kernels (add, sub, mul and axpy bit for bit), whole decode
+steps, dense, paged and Mamba-2, and a whole train step.
 
 Marked `cuda`; each test skips where there is no CUDA device. On the
 card: `PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py`.
@@ -296,11 +297,16 @@ def test_each_wrapper_counts_one_launch(dev):
     ops.flash_attention_bwd(kv, kv, kv, o, o, lse)
     ops.ssd(torch.ones(1, 4, 2, 3, device=dev), -torch.ones(1, 4, 2, device=dev),
             torch.ones(1, 4, 1, 5, device=dev), torch.ones(1, 4, 1, 5, device=dev), 2)
+    ops.matmul_naive(a, w)
+    ops.add(a, a)
+    ops.axpy(2.0, a, a)
     assert ops.launch_counts() == {"matmul": 1, "matmul_q": 1,
                                    "gated_matmul": 1, "flash_decode": 1,
                                    "flash_decode_paged": 1,
                                    "flash_attention": 1,
-                                   "flash_attention_bwd": 1, "ssd": 1}
+                                   "flash_attention_bwd": 1, "ssd": 1,
+                                   "matmul_naive": 1, "binary_op": 1,
+                                   "axpy": 1}
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):
@@ -515,6 +521,145 @@ def test_mamba_prefill_and_decode_on_card_match_cpu(dev):
         out[d] = [t.cpu() for t in logs] + [v.cpu() for v in cache.values()]
     for x, y in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(x, y, atol=1e-4, rtol=1e-4)
+
+
+# (M, K, N): ragged edges on every side, a single row and column, K = 0
+NAIVE_SHAPES = [(5, 37, 19), (70, 100, 65), (129, 33, 257), (1, 300, 1),
+                (16, 0, 16), (1000, 300, 700)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("mkn", NAIVE_SHAPES)
+def test_matmul_naive_kernel_matches_plain(dev, dtype, mkn):
+    """f32 and f64 against the f64 product within K roundings of a
+    partial sum of order 1 (atol K u, u = 2^-24 or 2^-53); bf16 (and an
+    f32 output of bf16 inputs) against the plain version."""
+    m, k, n = mkn
+    a = _randn(m, k, dtype=dtype, dev=dev, seed=0)
+    b = _randn(k, n, dtype=dtype, dev=dev, seed=1, scale=max(k, 1) ** -0.5)
+    got = ops.matmul_naive(a, b)
+    assert got.dtype == dtype and got.shape == (m, n)
+    if dtype == torch.bfloat16:
+        _close(got, ref.matmul_ref(a, b), dtype)
+        _close(ops.matmul_naive(a, b, out_dtype=torch.float32),
+               ref.matmul_ref(a, b, torch.float32), torch.float32)
+        return
+    u = 2.0 ** -53 if dtype == torch.float64 else 2.0 ** -24
+    torch.testing.assert_close(got.double(), a.double() @ b.double(),
+                               atol=max(k, 1) * u, rtol=0)
+
+
+def test_matmul_naive_reads_row_strides(dev):
+    """A and B as row slices of wider tensors: read through their row
+    strides, no copy."""
+    a = _randn(40, 64, dtype=torch.float32, dev=dev, seed=0)[:, :50]
+    b = _randn(50, 96, dtype=torch.float32, dev=dev, seed=1)[:, 10:70]
+    torch.testing.assert_close(ops.matmul_naive(a, b), ref.matmul_ref(a, b),
+                               **TOL[torch.float32])
+
+
+def _elementwise_operands(dev, dtype, numel, offset, seed):
+    """A flat operand of `numel` elements starting `offset` elements into
+    its buffer (offset 1: not on a 16-byte boundary)."""
+    return _randn(numel + offset, dtype=dtype, dev=dev, seed=seed)[offset:]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("op", ["add", "sub", "mul"])
+@pytest.mark.parametrize("numel", [0, 1, 17, 4096, 1000 * 1001])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_binary_op_kernel_is_bit_exact(dev, dtype, op, numel, offset):
+    from repro_torch.kernels import elementwise as kew
+    x = _elementwise_operands(dev, dtype, numel, offset, 0)
+    y = _elementwise_operands(dev, dtype, numel, offset, 1)
+    assert torch.equal(kew.binary_op(x, y, op), ref.binary_ref(x, y, op))
+    x2, y2 = x[: numel - numel % 7].view(-1, 7), y[: numel - numel % 7].view(-1, 7)
+    assert torch.equal(kew.binary_op(x2, y2, op), ref.binary_ref(x2, y2, op))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("alpha", [0.7, -3.0, "tensor", "f32 tensor"])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_axpy_kernel_is_bit_exact(dev, dtype, alpha, offset):
+    x = _elementwise_operands(dev, dtype, 1000 * 1001, offset, 0)
+    y = _elementwise_operands(dev, dtype, 1000 * 1001, offset, 1)
+    if alpha == "tensor":
+        alpha = torch.full((1,), 0.7, dtype=dtype, device=dev)
+    elif alpha == "f32 tensor":
+        alpha = torch.tensor(1.3, device=dev)
+    assert torch.equal(ops.axpy(alpha, x, y), ref.saxpy_ref(alpha, x, y))
+
+
+def test_complex_add_and_sub_through_the_real_kernel(dev):
+    x = torch.complex(_randn(33, 65, dtype=torch.float32, dev=dev, seed=0),
+                      _randn(33, 65, dtype=torch.float32, dev=dev, seed=1))
+    y = torch.complex(_randn(33, 65, dtype=torch.float32, dev=dev, seed=2),
+                      _randn(33, 65, dtype=torch.float32, dev=dev, seed=3))
+    ops.reset_launch_counts()
+    assert torch.equal(ops.add(x, y), x + y)
+    assert torch.equal(ops.sub(x, y), x - y)
+    assert ops.launch_counts()["binary_op"] == 2
+
+
+def test_paper_kernels_refuse_what_they_do_not_take(dev):
+    from repro_torch.kernels import elementwise as kew
+    a = torch.ones(4, 6, device=dev)
+    with pytest.raises(ValueError):
+        ops.matmul_naive(a[:, ::2], torch.ones(3, 2, device=dev))
+    with pytest.raises(TypeError):
+        ops.matmul_naive(a, torch.ones(6, 2, device=dev, dtype=torch.float64))
+    with pytest.raises(TypeError):
+        ops.matmul_naive(a.double(), a.double().t(), out_dtype=torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.add(a[:, ::2], a[:, ::2])
+    with pytest.raises(TypeError):
+        kew.binary_op(a.half(), a.half())
+    with pytest.raises(ValueError, match="alpha"):
+        ops.axpy(torch.ones(2, device=dev), a, a)
+
+
+def test_gemm_routes_complex_and_float64(dev):
+    """complex64 by gauss3 over three tiled launches, float64 to the plain
+    product (no launch); both against the product in f64/c128; the
+    complex gradient is PyTorch's (conjugate) one."""
+    from repro_torch.core import gemm
+    g = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randn(37, 50, dtype=torch.complex64, device=dev, generator=g)
+    b = torch.randn(50, 29, dtype=torch.complex64, device=dev, generator=g)
+    ops.reset_launch_counts()
+    got = gemm.matmul(a, b)
+    assert ops.launch_counts()["matmul"] == 3
+    torch.testing.assert_close(got, (a.cdouble() @ b.cdouble()).cfloat(),
+                               atol=1e-4, rtol=1e-4)
+    a64, b64 = a.real.double(), b.real.double()
+    ops.reset_launch_counts()
+    assert torch.equal(gemm.matmul(a64, b64), a64 @ b64)
+    assert sum(ops.launch_counts().values()) == 0
+    ar, br = a.clone().requires_grad_(), b.clone().requires_grad_()
+    gemm.matmul(ar, br).abs().sum().backward()
+    aw, bw = a.clone().requires_grad_(), b.clone().requires_grad_()
+    (aw @ bw).abs().sum().backward()
+    torch.testing.assert_close(ar.grad, aw.grad, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(br.grad, bw.grad, atol=1e-4, rtol=1e-4)
+
+
+def test_dense_q_on_card_refuses_a_gradient(dev):
+    from repro_torch.core import gemm
+    x = torch.ones(2, 8, device=dev)
+    wq, scale = precision.quantize_int8(torch.ones(8, 4, device=dev))
+    assert gemm.dense_q(x, wq, scale).shape == (2, 4)
+    with torch.no_grad():
+        gemm.dense_q(x.clone().requires_grad_(), wq, scale)
+    for kw in ({"x": x.clone().requires_grad_()},
+               {"scale": scale.clone().requires_grad_()},
+               {"b": torch.zeros(4, device=dev, requires_grad=True)},
+               {"residual": torch.zeros(2, 4, device=dev, requires_grad=True)}):
+        args = {"x": x, "scale": scale, **kw}
+        with pytest.raises(NotImplementedError, match="forward only"):
+            gemm.dense_q(args.pop("x"), wq, args.pop("scale"), **args)
 
 
 def _to(tree, device):

@@ -64,6 +64,20 @@ def test_train_import_pulls_in_no_jax():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def test_paper_import_pulls_in_no_jax():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = ("import sys, repro_torch.launch.paper, "
+            "repro_torch.benchmarks.common, repro_torch.benchmarks.bench_matmul, "
+            "repro_torch.benchmarks.bench_shared_memory, "
+            "repro_torch.benchmarks.bench_add, repro_torch.core.hw; "
+            "repro_torch.core.hw.fingerprint(); "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 def test_engine_without_device_raises_where_there_is_no_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None runs on it")

@@ -161,8 +161,13 @@ def test_launch_counters_do_not_move_on_cpu():
     ops.flash_attention_bwd(kv, kv, kv, o, o, lse)
     ops.ssd(torch.ones(1, 4, 2, 3), -torch.ones(1, 4, 2),
             torch.ones(1, 4, 1, 5), torch.ones(1, 4, 1, 5), 2)
+    ops.matmul_naive(torch.ones(2, 3), torch.ones(3, 4))
+    ops.add(torch.ones(2, 3), torch.ones(2, 3))
+    ops.axpy(2.0, torch.ones(2, 3), torch.ones(2, 3))
     assert ops.launch_counts() == {"matmul": 0, "matmul_q": 0,
                                    "gated_matmul": 0, "flash_decode": 0,
                                    "flash_decode_paged": 0,
                                    "flash_attention": 0,
-                                   "flash_attention_bwd": 0, "ssd": 0}
+                                   "flash_attention_bwd": 0, "ssd": 0,
+                                   "matmul_naive": 0, "binary_op": 0,
+                                   "axpy": 0}
