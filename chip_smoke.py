@@ -11,11 +11,13 @@ Phases, in order; any failure propagates and the exit code is not 0:
      and int8; training attention, forward and backward; mamba2-2.7b's
      SSD intra-chunk work, ragged chunks, groups, bf16, a carried state,
      strong decays and zamba2's d_state; the paper's naive GEMM at 4096^2
-     against the f64 product, and add, sub, mul and axpy bit for bit),
-     with the max error beside its tolerance, and the median time of the
-     kernel, the plain version and one PyTorch library call beside the
-     least time the card could take; a bf16 page pool must give the dense
-     decode kernel's bits;
+     against the f64 product, and add, sub, mul and axpy bit for bit;
+     the bf16 GEMM also at training's shapes, 2048 rows, in all four
+     layouts), with the max error beside its tolerance, and the median
+     time of the kernel, the plain version and one PyTorch library call,
+     timed in turns with only the card's time inside each event pair,
+     beside the least time the card could take; a bf16 page pool must
+     give the dense decode kernel's bits;
   4. the dense slice at full width: qwen3-0.6b (28 layers, random weights
      from a seed) served by the engine on 4 slots to 8 requests, with
      every kernel's launches counted over that run; a torch.profiler trace
@@ -62,6 +64,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 FLUSH_BYTES = 64 << 20                                  # > the 50 MB L2
+SLEEP_HZ = 2.0e9              # torch.cuda._sleep cycles a second, at least
 
 
 def card_line() -> str:
@@ -138,23 +141,43 @@ class Smoke:
                     print(f"      {name}: {line.strip()}")
 
     # -- 3. kernels against their plain versions ------------------------
-    def _time_ms(self, fn, n=50, warmup=3):
-        """Median of n launches by CUDA events, L2 flushed before each
-        (decode reads each weight once a step: the caller finds it cold)."""
+    def _time_turns(self, fns, n=50, warmup=3, chunk=5):
+        """Median ms of each callable in `fns` over n rounds run in turns
+        (fns[0], fns[1], ... in each round), by CUDA events, L2 flushed
+        before each (decode reads each weight once a step: the caller
+        finds it cold). Only the card's time falls inside an event pair:
+        before each chunk of rounds the card sleeps (`torch.cuda._sleep`)
+        for twice the host's measured time to enqueue them, so the whole
+        chunk waits in the queue when the card wakes, and no wrapper's
+        ctypes call or library's Python dispatch is timed."""
         torch = self.torch
         flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=self.dev)
-        for _ in range(warmup):
-            fn()
+        for fn in fns:
+            for _ in range(warmup):
+                fn()
         torch.cuda.synchronize()
-        ev = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True)) for _ in range(n)]
-        for start, end in ev:
+        t0 = time.perf_counter()
+        for fn in fns:                   # one round, to size the sleep
             flush.zero_()
-            start.record()
             fn()
-            end.record()
+        enqueue_s = time.perf_counter() - t0
         torch.cuda.synchronize()
-        return statistics.median(s.elapsed_time(e) for s, e in ev)
+        events = [[] for _ in fns]
+        for r0 in range(0, n, chunk):
+            rounds = min(chunk, n - r0)
+            torch.cuda._sleep(int(SLEEP_HZ * (2 * enqueue_s * rounds + 1e-4)))
+            for _ in range(rounds):
+                for fn, ev in zip(fns, events):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    flush.zero_()
+                    start.record()
+                    fn()
+                    end.record()
+                    ev.append((start, end))
+            torch.cuda.synchronize()
+        return [statistics.median(s.elapsed_time(e) for s, e in ev)
+                for ev in events]
 
     def _case(self, kernel, label, run_kernel, run_plain, run_library,
               nbytes, flops, dtype, tol, reference=None, n_time=50):
@@ -189,10 +212,10 @@ class Smoke:
                                    f"{err.max().item():g} (atol {atol:g} "
                                    f"rtol {rtol:g})")
         atol, rtol = tols[0]
-        ms = self._time_ms(run_kernel, n=n_time)
-        plain_ms = self._time_ms(run_plain, n=n_time)
-        lib_ms = self._time_ms(run_library, n=n_time) \
-            if callable(run_library) else run_library
+        timed = [run_plain, run_kernel] + ([run_library]
+                                           if callable(run_library) else [])
+        plain_ms, ms, *lib = self._time_turns(timed, n=n_time)
+        lib_ms = lib[0] if lib else run_library
         t_bytes = nbytes / self.chip.hbm_bw * 1e3
         t_ops = flops / self.chip.peak_flops(getattr(torch, dtype).itemsize) * 1e3
         row = dict(label=label, max_abs_err=max_err, tol=tol, ms=ms,
@@ -201,17 +224,19 @@ class Smoke:
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
         self.results.setdefault(kernel, []).append(row)
         lib = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
+        rate = f"  {flops / ms / 1e9:.1f} TFLOP/s" \
+            if row["bound_by"] == "operations" else ""
         print(f"      {kernel:19s} {label:44s} err {max_err:.2e} "
               f"(atol {atol:g} rtol {rtol:g})  kernel {ms:.4f} ms  "
               f"plain {plain_ms:.4f}  library {lib}  bound {row['bound_ms']:.4f} "
-              f"({row['bound_by']})")
+              f"({row['bound_by']}){rate}")
 
     def phase_kernels(self):
         torch = self.torch
         from repro_torch.kernels import ops, ref
         F = torch.nn.functional
         print("[3/9] kernels against their plain versions (median of 50, "
-              "L2 flushed)")
+              "L2 flushed, in turns, card time only)")
         gen = torch.Generator(device=self.dev).manual_seed(0)
 
         def randn(*shape, dtype, scale=1.0):
@@ -264,6 +289,8 @@ class Smoke:
                 (m * k + k * n) * size + m * n * 4, 2 * m * n * k, dname,
                 tols[torch.float32])
             del w
+            if dtype == torch.bfloat16:
+                self._kernels_matmul_training(randn, tols)
             # -- gated_matmul: the SwiGLU gate/up at decode and prefill
             for m in (4, 256):
                 k, n = 1024, 3072
@@ -307,6 +334,44 @@ class Smoke:
         self._kernels_attention(randn, tols)
         self._kernels_ssd(gen, tols)
         self._kernels_paper(randn, tols)
+
+    def _kernels_matmul_training(self, randn, tols, m=2048):
+        """The bf16 GEMM at training's and a long prefill's shapes (4 x 512
+        tokens), in every layout the step runs: the up projection, the
+        down projection with its residual, the tied-embedding logits (W as
+        an [N, K] operand, f32 out), an input gradient (W^T: B as [N, K])
+        and a weight gradient (a^T g: A as [K, M], K the tokens), each
+        beside torch.matmul (addmm with the residual) in turns."""
+        torch = self.torch
+        from repro_torch.kernels import ops, ref
+        bf16, f32 = torch.bfloat16, torch.float32
+        # (label, (M, K, N), A as [K, M], B as [N, K], epilogue, out dtype)
+        cases = [("up", (m, 1024, 3072), False, False, "none", bf16),
+                 ("down + residual", (m, 3072, 1024), False, False,
+                  "residual", bf16),
+                 ("logits, [N,K] B, f32 out", (m, 1024, 152064), False, True,
+                  "none", f32),
+                 ("dX of up, [N,K] B", (m, 3072, 1024), False, True, "none",
+                  bf16),
+                 ("dW of up, [K,M] A", (1024, m, 3072), True, False, "none",
+                  bf16)]
+        for what, (mm, k, n), a_km, b_nk, ep, out in cases:
+            a = randn(k, mm, dtype=bf16).t() if a_km else randn(mm, k, dtype=bf16)
+            b = randn(n, k, dtype=bf16, scale=k ** -0.5).t() if b_nk \
+                else randn(k, n, dtype=bf16, scale=k ** -0.5)
+            r = randn(mm, n, dtype=bf16) if ep == "residual" else None
+            lib = (lambda a=a, b=b, r=r: torch.addmm(r, a, b)) if r is not None \
+                else (lambda a=a, b=b: torch.matmul(a, b))
+            self._case(
+                "matmul", f"bfloat16 M={mm} K={k} N={n} {what}",
+                lambda a=a, b=b, r=r, ep=ep, out=out: ops.matmul(
+                    a, b, out_dtype=out, epilogue=ep, residual=r),
+                lambda a=a, b=b, r=r, ep=ep, out=out: ref.fused_matmul_ref(
+                    a, b, out, ep, residual=r),
+                lib, (mm * k + k * n + (2 if r is not None else 0) * mm * n) * 2
+                + mm * n * out.itemsize, 2 * mm * n * k, "bfloat16",
+                tols[out], n_time=20)
+            del a, b, r
 
     def _kernels_int8_and_paged(self, randn, tol):
         """matmul_q at the int8 main path's shapes and flash_decode_paged
@@ -423,9 +488,8 @@ class Smoke:
                     sdpa, qkv_bytes + lse_bytes, 4 * b_ * h * pairs * d,
                     dname, [tols[dtype], tols[torch.float32]])
                 o, lse = ref.flash_attention_fwd_ref(q, k, v, window=window)
-                fwd_ms = self._time_ms(sdpa)
-                both_ms = self._time_ms(_sdpa_train(
-                    torch, F, q, k, v, None if window is None else mask, do))
+                fwd_ms, both_ms = self._time_turns([sdpa, _sdpa_train(
+                    torch, F, q, k, v, None if window is None else mask, do)])
                 self._case(
                     "flash_attention_bwd", label,
                     lambda: ops.flash_attention_bwd(q, k, v, o, do, lse,
@@ -1196,7 +1260,7 @@ class Smoke:
         """One row per kernel: its launches on the main path, the max error
         over every case, and the times of its main-path decode shape."""
         meta = {
-            "matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
+            "matmul": ("src/repro_torch/kernels/csrc/matmul_tc.cu",
                        "src/repro/kernels/matmul.py:244",
                        "bfloat16 M=4 K=1024 N=152064 [N,K] B, f32 out"),
             "gated_matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
@@ -1296,12 +1360,12 @@ def _kernel_group(name: str) -> str:
     template arguments of its instantiation), memcpy, or other."""
     if "gated_matmul_kernel" in name:
         return "gated_matmul"
-    if "matmul_kernel" in name:
+    if "matmul_kernel" in name:          # mma_matmul_kernel: bf16
         return "matmul_q" if "signed char" in name else "matmul"
     if "flash_decode_kernel" in name:
         return "flash_decode" if "false, false>" in name \
             else "flash_decode_paged"
-    if "flash_attn_fwd_kernel" in name:
+    if "flash_attn_fwd" in name:          # the bf16 (mma) and f32 forwards
         return "flash_attention"
     if "flash_attn_bwd" in name:
         return "flash_attention_bwd"

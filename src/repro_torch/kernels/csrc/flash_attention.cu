@@ -5,10 +5,10 @@
 // `flash_attention_bwd` (_flash_bwd_dkv_kernel, _flash_bwd_dq_kernel) of
 // src/repro/kernels/flash_attention.py. Query row i of query head h attends
 // the keys j of KV head h / (H / Hkv) (GQA) with j <= i under `causal` and
-// j > i - window under a window; q is scaled by D^-0.5 (in f32) before the
-// dot. All arithmetic is f32 and each output is rounded once to its type.
+// j > i - window under a window, at scale D^-0.5. Each output is rounded
+// once to its type.
 //
-//   forward:  S = qs K^T, online softmax over key tiles, O = P V / l,
+//   forward:  S = q K^T D^-0.5, online softmax over key tiles, O = P V / l,
 //             lse = m + log(l) in scaled-logit units; a row that sees no
 //             key (l == 0) gets O = 0 and lse = 1e30 (the Pallas
 //             kernel's sentinel), so the backward's exp(S - lse) is 0.
@@ -17,37 +17,57 @@
 //             delta = rowsum(dO * O) taken by the caller in PyTorch, as
 //             the JAX package takes it in XLA.
 //
+// Two forwards. bf16 runs on the tensor cores (`flash_attn_fwd_mma_kernel`,
+// FlashAttention-2's shape): a block of 4 warps owns 64 query rows held as
+// mma.sync fragments in registers, 64-key K/V tiles stream through two
+// cp.async buffers in shared memory, S = Q K^T and O += P V are
+// m16n8k16 products with f32 accumulators, and P goes from the S
+// accumulator to the PV A-fragment in registers. D is zero-padded to the
+// instance's width (64 or 128) in the tiles. It rounds in two places the
+// f32 kernels and the JAX kernel (q scaled in f32, then an f32 dot) do not:
+// the scale is applied to the f32 scores after the dot, and P enters P V as
+// hi + lo, two bf16 values with 16 significant bits between them, not as
+// f32 (the row sum l takes the f32 P). f32, and the backward in
+// both types, run on the FMA units from f32 tiles in shared memory, q
+// scaled in f32 before the dot (the depth-2 f32 train step is held to the
+// CPU at rtol 1e-4); the backward's redesign on the forward's fragments is
+// later work.
+//
 // Layouts: q/o/dO [B, Tq, H, D], k/v [B, Tk, Hkv, D] are read in place
 // through their (batch, time, head) strides, with a contiguous head dim;
 // there is no transposed or repeated copy of K/V for the GQA group. lse is
 // [B, H, Tq] f32, delta [B, Tq, H] f32; o, dq, dk and dv are written
-// contiguous. Ragged Tq and Tk are masked in the kernels, not padded.
+// contiguous. Ragged Tq and Tk are masked in the kernels, not padded. The
+// bf16 forward loads 16 bytes at a time where q, k and v and their strides
+// are 16-byte aligned, and element by element otherwise.
 //
 // Bound at the main path's shape (qwen3-0.6b training, B=4, T=512, 16
 // query / 8 KV heads of 128, causal, bf16): the forward moves q, k, v, o
 // once (25.3 MB, 7.5 us at 3.35 TB/s) and does 4.3 GFLOP of unmasked
 // products (4.4 us at 989 TFLOP/s), so it is bound by its bytes; the
-// backward moves q, k, v, o, dO, dq, dk, dv (50.6 MB, 15 us) against 10.8
-// GFLOP (11 us). A first kernel, this one is far from that: its products
-// run on the FMA units from f32 tiles in shared memory (mma.sync / wgmma
-// and TMA are later work).
+// tensor-core forward computes whole 64x64 tiles on the diagonal (4.8
+// GFLOP) and reads each K/V tile once per query tile (from L2 after the
+// first). The backward moves q, k, v, o, dO, dq, dk, dv (50.6 MB, 15 us)
+// against 10.8 GFLOP (11 us).
 //
 // What the design does about the TPU kernel's shape: Pallas walks the key
 // tiles (forward, dQ sweep) or query tiles (dK/dV sweep) along a
 // sequential grid dim and carries the accumulator in VMEM scratch between
 // grid steps. Here a block owns one output tile and loops over the tiles
 // it needs inside the block, skipping tiles wholly outside the causal and
-// window masks, so nothing carries between blocks. The dK/dV sweep holds a
-// (64, D) dK and dV accumulator in registers while the query tiles of all
-// g query heads of its KV head stream past: the GQA group-sum happens in
-// the kernel (Pallas writes per-query-head dK/dV and the caller sums
-// them, because it cannot revisit an output block). There are no atomics:
-// every sum runs in a fixed order, so a gradient has the same bits from
-// run to run.
+// window masks (and testing the mask per element only on tiles that cross
+// it), so nothing carries between blocks. The dK/dV sweep holds a (64, D)
+// dK and dV accumulator in registers while the query tiles of all g query
+// heads of its KV head stream past: the GQA group-sum happens in the
+// kernel (Pallas writes per-query-head dK/dV and the caller sums them,
+// because it cannot revisit an output block). There are no atomics: every
+// sum runs in a fixed order, so an output has the same bits from run to
+// run.
 
 #include <stdint.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -220,6 +240,197 @@ flash_attn_fwd_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T*
     }
     if (tx == 0)
       LSE[((long long)b * H + h) * mask.tq + qp] = l[i] > 0.f ? m[i] + logf(lsafe) : LSE_EMPTY;
+  }
+}
+
+// -- the bf16 forward on the tensor cores ------------------------------------
+// One block of 4 warps per (b * H + h, 64-row query tile), the tiles with
+// the most keys first. Each warp keeps its 16 query rows as ldmatrix
+// fragments in registers; 64-key K/V tiles are double-buffered in shared
+// memory by cp.async, the next one loading while this one is used. S = Q K^T
+// by mma.sync into f32, scaled by D^-0.5 log2(e) and masked there; the
+// online max and sum run on the fragments (each row's 4 owners meet by
+// shuffles within their quad); P stays in registers, where its layout is
+// already that of the A fragment of O += P V (V through ldmatrix.trans). P
+// enters P V as two bf16 fragments, hi = bf16(p) and lo = bf16(p - hi), so
+// each p keeps 16 significant bits and O an f32 sum's accuracy: one bf16
+// P would cost up to 2^-9 of each term, which with cancelling terms comes
+// to more than one rounding of O. The row sum l takes P in f32.
+using repro::bf16;
+
+constexpr int TC_BQ = 64, TC_BK = 64, TC_THREADS = 128;
+constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
+
+template <int DP>
+constexpr int tc_fwd_smem() { return (TC_BQ + 4 * TC_BK) * repro::padded(DP) * 2; }
+
+// DP: D rounded up to the instance's width (64 or 128); columns past D are
+// zero in every tile.
+template <int DP>
+__global__ void __launch_bounds__(TC_THREADS)
+flash_attn_fwd_mma_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
+                          const bf16* __restrict__ V, bf16* __restrict__ O, float* __restrict__ LSE,
+                          int H, int Hkv, int D, long long qb, long long qt, long long qh,
+                          long long kb, long long kt, long long kh, long long vb, long long vt,
+                          long long vh, Mask mask, float scale_log2, bool vec) {
+  constexpr int LDS = repro::padded(DP), KD = DP / 16, NS = TC_BK / 8, ND = DP / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [TC_BQ][LDS]
+  bf16* Ks = Qs + TC_BQ * LDS;                   // 2 slots of [TC_BK][LDS]
+  bf16* Vs = Ks + 2 * TC_BK * LDS;               // 2 slots of [TC_BK][LDS]
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, g = lane / 4, t = lane % 4;
+  const int b = blockIdx.x / H, h = blockIdx.x % H, hk = h / (H / Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_BQ;
+  const bf16* q = Q + b * qb + h * qh;
+  const bf16* k = K + b * kb + hk * kh;
+  const bf16* v = V + b * vb + hk * vh;
+
+  const int lo = mask.key_lo(q0) / TC_BK * TC_BK, hi = mask.key_hi(q0, TC_BQ);
+  const int n_tiles = hi > lo ? (hi - lo + TC_BK - 1) / TC_BK : 0;
+  auto load_kv = [&](int slot, int k0) {
+    repro::load_tile<TC_BK, DP, TC_THREADS>(Ks + slot * TC_BK * LDS, k, kt, k0, mask.tk, 0, D,
+                                            vec, tid);
+    repro::load_tile<TC_BK, DP, TC_THREADS>(Vs + slot * TC_BK * LDS, v, vt, k0, mask.tk, 0, D,
+                                            vec, tid);
+  };
+  repro::load_tile<TC_BQ, DP, TC_THREADS>(Qs, q, qt, q0, mask.tq, 0, D, vec, tid);
+  if (n_tiles > 0) load_kv(0, lo);
+  repro::cp_async_commit();
+  repro::cp_async_wait<0>();
+  __syncthreads();
+
+  uint32_t qf[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk)
+    repro::ldmatrix_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * LDS + kk * 16 + (lane >> 4) * 8);
+
+  float o[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};  // log2 units; this lane's part of l
+  const int row0 = q0 + warp * 16 + g;                        // rows row0 and row0 + 8
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = lo + it * TC_BK;
+    if (it > 0) {
+      repro::cp_async_wait<0>();
+      __syncthreads();  // tile it is in for all; every warp is done with tile it - 1
+    }
+    if (it + 1 < n_tiles) load_kv((it + 1) & 1, k0 + TC_BK);
+    repro::cp_async_commit();
+    const bf16* ks = Ks + (it & 1) * TC_BK * LDS;
+    const bf16* vs = Vs + (it & 1) * TC_BK * LDS;
+
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+      for (int j = 0; j < NS / 2; ++j) {
+        uint32_t r[4];
+        repro::ldmatrix_x4(r, ks + (j * 16 + (lane & 7) + (lane >> 4) * 8) * LDS + kk * 16 +
+                                  ((lane >> 3) & 1) * 8);
+        repro::mma_bf16(s[2 * j], qf[kk], r[0], r[1]);
+        repro::mma_bf16(s[2 * j + 1], qf[kk], r[2], r[3]);
+      }
+
+    // a tile wholly inside the masks needs no per-element test
+    const bool edge = k0 + TC_BK > mask.tk || (mask.causal && k0 + TC_BK - 1 > q0) ||
+                      (mask.window > 0 && k0 <= q0 + TC_BQ - 1 - mask.window);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        if (edge && !mask(row0 + (e >> 1) * 8, k0 + j * 8 + 2 * t + (e & 1))) x = -INFINITY;
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float base[2], alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_r[r], mx[r]);
+      base[r] = m_new == -INFINITY ? 0.f : m_new;  // a row with no key yet stays at 0
+      alpha[r] = exp2f(m_r[r] - base[r]);
+      m_r[r] = m_new;
+      l_r[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2f(s[j][e] - base[e >> 1]);
+        l_r[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < TC_BK / 16; ++kk) {
+      // P as hi + lo, two bf16 A fragments: 16 significant bits of each p
+      uint32_t ph[4], pl[4];
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const float p0 = s[2 * kk + (f >> 1)][(f & 1) * 2];
+        const float p1 = s[2 * kk + (f >> 1)][(f & 1) * 2 + 1];
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+        ph[f] = *reinterpret_cast<const uint32_t*>(&hi);
+        pl[f] = repro::pack_bf16(p0 - __low2float(hi), p1 - __high2float(hi));
+      }
+#pragma unroll
+      for (int j = 0; j < ND / 2; ++j) {
+        uint32_t r[4];
+        repro::ldmatrix_x4_trans(r, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS +
+                                        j * 16 + (lane >> 4) * 8);
+        repro::mma_bf16(o[2 * j], ph, r[0], r[1]);
+        repro::mma_bf16(o[2 * j], pl, r[0], r[1]);
+        repro::mma_bf16(o[2 * j + 1], ph, r[2], r[3]);
+        repro::mma_bf16(o[2 * j + 1], pl, r[2], r[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+    const int qp = row0 + 8 * r;
+    if (qp >= mask.tq) continue;
+    const float lsafe = l_r[r] > 0.f ? l_r[r] : 1.f;
+    bf16* out = O + (((long long)b * mask.tq + qp) * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      const int c = j * 8 + 2 * t;
+      if (c >= D) continue;
+      const bf16 o0 = __float2bfloat16_rn(o[j][2 * r] / lsafe);
+      if (c + 1 < D) {
+        const bf16 o1 = __float2bfloat16_rn(o[j][2 * r + 1] / lsafe);
+        if (D % 2 == 0) {
+          __nv_bfloat162 pair;
+          pair.x = o0;
+          pair.y = o1;
+          *reinterpret_cast<__nv_bfloat162*>(out + c) = pair;
+          continue;
+        }
+        out[c + 1] = o1;
+      }
+      out[c] = o0;
+    }
+    if (t == 0)
+      LSE[((long long)b * H + h) * mask.tq + qp] =
+          l_r[r] > 0.f ? m_r[r] * LN2 + logf(l_r[r]) : LSE_EMPTY;
   }
 }
 
@@ -472,6 +683,25 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, flo
   return cudaGetLastError();
 }
 
+template <int DP>
+cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v, void* o, float* lse,
+                           int B, int H, int Hkv, int D, const Strides& st, Mask mask, float scale,
+                           cudaStream_t s) {
+  constexpr int SMEM = tc_fwd_smem<DP>();
+  static const cudaError_t attr = allow_smem(flash_attn_fwd_mma_kernel<DP>, SMEM);
+  if (attr != cudaSuccess) return attr;
+  // 16-byte cp.async where every base and stride allows it
+  const bool vec = ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                     reinterpret_cast<uintptr_t>(v)) % 16 == 0) &&
+                   ((st.qb | st.qt | st.qh | st.kb | st.kt | st.kh | st.vb | st.vt | st.vh) % 8 == 0);
+  const dim3 grid(B * H, (mask.tq + TC_BQ - 1) / TC_BQ);
+  flash_attn_fwd_mma_kernel<DP><<<grid, TC_THREADS, SMEM, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), lse, H, Hkv, D, st.qb, st.qt, st.qh, st.kb, st.kt, st.kh, st.vb,
+      st.vt, st.vh, mask, scale * LOG2E, vec);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* delta, void* dq, void* dk, void* dv, int B,
@@ -511,9 +741,11 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   if (B == 0 || Tq == 0) return static_cast<int>(cudaGetLastError());
   const Strides st{qb, qt, qh, kb, kt, kh, vb, vt, vh, 0, 0, 0};
   const Mask mask{Tq, Tk, causal, window};
+  // bf16 on the tensor cores, f32 on the FMA kernel
   const cudaError_t err =
-      bf16 ? launch_fwd<__nv_bfloat16>(q, k, v, o, lse, B, H, Hkv, D, st, mask, scale, s)
-           : launch_fwd<float>(q, k, v, o, lse, B, H, Hkv, D, st, mask, scale, s);
+      !bf16 ? launch_fwd<float>(q, k, v, o, lse, B, H, Hkv, D, st, mask, scale, s)
+      : D <= 64 ? launch_fwd_mma<64>(q, k, v, o, lse, B, H, Hkv, D, st, mask, scale, s)
+                : launch_fwd_mma<128>(q, k, v, o, lse, B, H, Hkv, D, st, mask, scale, s);
   return static_cast<int>(err);
 }
 

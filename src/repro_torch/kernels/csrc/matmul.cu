@@ -1,46 +1,43 @@
-// Tiled GEMM with a fused epilogue, its int8-weight variant, and the
-// dual-GEMM SwiGLU kernel.
+// The FMA GEMMs: the f32 tiled GEMM with a fused epilogue, the int8-weight
+// GEMM (bf16 or f32 activations), and the dual-GEMM SwiGLU kernel. The
+// bf16 tiled GEMM, the main path's, runs on the tensor cores in
+// matmul_tc.cu (mma.sync from ldmatrix fragments, cp.async stages); these
+// three are the kernels not yet moved there.
 //
-// Replaces the Pallas kernels `matmul_tiled` (_matmul_kernel),
-// `matmul_q_tiled` (_matmul_q_kernel) and `gated_matmul_tiled`
+// Replaces the Pallas kernels `matmul_tiled` (_matmul_kernel, its f32
+// instances), `matmul_q_tiled` (_matmul_q_kernel) and `gated_matmul_tiled`
 // (_gated_matmul_kernel) of src/repro/kernels/matmul.py. It is the paper's
 // Listing 4 on the hardware family it was written for: 64x64 output tiles,
-// a k-step of 32, A and B tiles staged in shared memory, __syncthreads()
-// around each stage, and an f32 accumulator in registers (4x4 outputs a
-// thread). The epilogue is applied once, on the f32 accumulator, at the
-// flush: none | bias | bias_gelu (tanh form) | bias_silu | residual, then
-// one rounding to the output type. The int8 variant (`matmul_q`) is the
-// same kernel with an int8 [K, N] B tile, widened to f32 as it is staged
-// (|q| <= 127 is exact), and the per-channel f32 scale multiplied onto the
-// accumulator at the flush, before the epilogue. The gated kernel stages
-// one A tile against two [K, N] weight tiles, keeps two accumulators, and
-// stores silu(g) * u in the input type without ever writing g or u.
+// a k-step of 32, A and B tiles staged in shared memory as f32,
+// __syncthreads() around each stage, and an f32 accumulator in registers
+// (4x4 outputs a thread) on the FMA units. The f32 GEMM stays here on
+// purpose: it is Table 2's f32 "tiled" route (the paper's shared-memory
+// kernel, which Fig 8 measures), and the depth-2 f32 train and Mamba-2
+// steps are held to the CPU at rtol 1e-4, which TF32 would not meet. The
+// epilogue is applied once, on the f32 accumulator, at the flush: none |
+// bias | bias_gelu (tanh form) | bias_silu | residual, then one rounding
+// to the output type. The int8 variant (`matmul_q`) is the same kernel
+// with an int8 [K, N] B tile, widened to f32 as it is staged (|q| <= 127
+// is exact), and the per-channel f32 scale multiplied onto the accumulator
+// at the flush, before the epilogue. The gated kernel stages one A tile
+// against two [K, N] weight tiles, keeps two accumulators, and stores
+// silu(g) * u in the input type without ever writing g or u.
 //
-// Bound at the main path's shapes (qwen3-0.6b on an H100, bf16): a decode
-// step has M = 4 rows, so each weight byte feeds 4 multiply-adds and the
-// GEMMs are bound by the bytes of the weights: 28 layers x 31.5 MB plus the
-// 311 MB tied embedding, about 1.19 GB a step, 0.36 ms at 3.35 TB/s. With
-// int8 weights a layer's matrices are 15.7 MB (plus 0.1 MB of scales):
-// 0.44 GB of int8 weights and the 0.31 GB bf16 embedding, 0.224 ms a step;
-// one M=4 K=1024 N=3072 int8 GEMM reads 3.15 MB, about 0.94 us. At prefill
-// (M = 64..512) the operation count binds instead.
+// Bound at the main path's shapes (qwen3-0.6b on an H100): an int8 decode
+// step (M = 4) is bound by its weights' bytes: a layer's matrices are 15.7
+// MB (plus 0.1 MB of scales), one M=4 K=1024 N=3072 int8 GEMM reads 3.15
+// MB, about 0.94 us at 3.35 TB/s; the dual GEMM at decode reads 12.6 MB of
+// bf16 weights a layer. At prefill and in training (M = 512..2048) the
+// operation count binds instead: the FMA peak is 67 TFLOP/s. These kernels
+// reach neither bound: loads are 1- and 2-byte scalars, and at M = 4 each
+// block's serial k-loop, not the bytes, sets the time.
 //
-// What the design does about it: every weight tile is read from device
-// memory once per 64-row block of A, so at decode each weight byte is read
-// exactly once; rows past M are neither loaded nor multiplied. It does not
-// yet reach the bound: loads are 1- and 2-byte scalars, the products run on
-// the FMA units, not the tensor cores (wgmma/TMA are a later step), and at
-// M=4 each block's serial k-loop, not the bytes, sets the time, so the int8
-// tile is expected to gain little time over bf16 until that loop is
-// restructured.
-//
-// Edges are masked in the kernel (no padding on the host). The GEMM reads B
-// either as [K, N] row-major or as [N, K] (the tied embedding, as a
-// transposed operand), chosen by `b_nk`, and A either as [M, K] row-major
-// or as [K, M] (the transpose view of an activation, for a weight
-// gradient a^T g), chosen by `a_km`; the int8 B is [K, N]. There is no
-// split-K and no atomic: each output's sum runs over k in ascending order
-// whatever M is, so a row computes the same bits at batch 1 as at batch 4.
+// Edges are masked in the kernel (no padding on the host). The f32 GEMM
+// reads B either as [K, N] row-major or as [N, K] (`b_nk`) and A either as
+// [M, K] row-major or as [K, M] (`a_km`); the int8 B is [K, N]. There is
+// no split-K and no atomic: each output's sum runs over k in ascending
+// order whatever M is, so a row computes the same bits at batch 1 as at
+// batch 4.
 
 #include <stdint.h>
 
@@ -265,17 +262,13 @@ void launch_gated(const void* a, const void* g, const void* u, void* c, int M, i
 
 }  // namespace
 
+// f32 operands; bf16 ones go to repro_matmul_tc (matmul_tc.cu).
 extern "C" int repro_matmul(const void* a, const void* b, const void* e, void* c, int M, int N,
                             int K, long long lda, long long ldb, long long lde, int a_km,
-                            int b_nk, int in_bf16, int out_bf16, int e_bf16, int epilogue,
-                            void* stream) {
+                            int b_nk, int out_bf16, int e_bf16, int epilogue, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M > 0 && N > 0) {
-    if (in_bf16 && out_bf16)
-      launch_matmul<__nv_bfloat16, __nv_bfloat16>(a, b, e, c, M, N, K, lda, ldb, lde, a_km, b_nk, e_bf16, epilogue, s);
-    else if (in_bf16)
-      launch_matmul<__nv_bfloat16, float>(a, b, e, c, M, N, K, lda, ldb, lde, a_km, b_nk, e_bf16, epilogue, s);
-    else if (out_bf16)
+    if (out_bf16)
       launch_matmul<float, __nv_bfloat16>(a, b, e, c, M, N, K, lda, ldb, lde, a_km, b_nk, e_bf16, epilogue, s);
     else
       launch_matmul<float, float>(a, b, e, c, M, N, K, lda, ldb, lde, a_km, b_nk, e_bf16, epilogue, s);

@@ -9,7 +9,9 @@ against k/v [B, Tk, Hkv, D], the dense cache, or a page pool
 [P, page_size, Hkv, D] through a page table [B, pp] (-1 unmapped), all
 read in place through their strides. Each takes tensors on the card and
 launches its kernel, or raises; the CPU paths are the plain versions in
-`kernels.ref`, chosen by `kernels.ops`.
+`kernels.ref`, chosen by `kernels.ops`. A bf16 `flash_attention` runs on
+the tensor cores; f32, and the backward in both dtypes, on the FMA
+kernels of the same source.
 """
 
 from __future__ import annotations

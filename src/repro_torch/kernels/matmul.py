@@ -1,5 +1,6 @@
-"""Wrappers of the tiled GEMM, int8-weight GEMM and dual-GEMM CUDA kernels
-(`csrc/matmul.cu`).
+"""Wrappers of the tiled GEMM (`csrc/matmul_tc.cu` for bf16, on the
+tensor cores; `csrc/matmul.cu` for f32), int8-weight GEMM and dual-GEMM
+CUDA kernels (`csrc/matmul.cu`).
 
 `matmul_tiled` computes ``C[M,N] = epilogue(A[M,K] @ B[K,N])``,
 `matmul_q_tiled` ``epilogue((A @ Wq) * scale)`` for an int8 [K, N] Wq and
@@ -15,11 +16,17 @@ transpose view of a [K, M] one; the kernel reads either layout in place,
 so the tied embedding feeds the logits GEMM and an activation feeds its
 weight gradient ``aᵀ @ g`` without a copy. The dual GEMM and the int8
 GEMM take a row-major A and [K, N] row-major weights.
+
+`tile_plan` picks the bf16 kernel's tile. Its k-order (the k-step and
+the split of K) depends on nothing; M picks only the row tile and its
+instruction, and N how wide a tile to take, so one output row has the
+same bits at every M.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -29,10 +36,14 @@ from repro_torch.kernels.ref import EPILOGUES
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "repro_matmul": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _I, _I, _I,
-                     _I, _I, _I, _P],
+                     _I, _I, _P],
     "repro_matmul_q": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _I, _I,
                        _I, _I, _P],
     "repro_gated_matmul": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _P],
+}
+_TC_SIGNATURES = {
+    "repro_matmul_tc": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _I, _I, _I,
+                        _I, _I, _I, _P],
 }
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -42,6 +53,53 @@ LAUNCHES = {"matmul": 0, "matmul_q": 0, "gated_matmul": 0}
 
 def _lib():
     return _build.load("matmul", _SIGNATURES)
+
+
+@dataclass(frozen=True)
+class TilePlan:
+    """A tile of the bf16 GEMM (`csrc/matmul_tc.cu`): `kernel` is the
+    instance the launcher runs; bm x bn outputs a block, bk a k-stage,
+    `stages` of them in flight, `mma` the tensor-core instruction.
+    `k_order` fixes how each output is summed: the k-step and the number
+    of parts K is split into (summed in order). An m16n8k16 mma.sync step
+    and an m64nNk16 wgmma step give the same bits (checked on the card),
+    so the instruction is not part of it."""
+    kernel: int
+    bm: int
+    bn: int
+    bk: int
+    warps: int
+    stages: int
+    mma: str = "mma.sync.m16n8k16"
+    k_step: int = 16
+    k_split: int = 1
+
+    @property
+    def k_order(self) -> tuple:
+        return self.k_step, self.k_split
+
+
+_ROWS16_N8 = TilePlan(0, 16, 8, 256, 1, 4)
+_ROWS16_N32 = TilePlan(1, 16, 32, 128, 1, 4)
+_WIDE = TilePlan(2, 128, 128, 64, 12, 4, mma="wgmma.m64n128k16")
+_WIDE192 = TilePlan(3, 128, 192, 64, 12, 4, mma="wgmma.m64n192k16")
+_SMS = 132                      # H100 SXM: one wide block an SM
+
+
+def tile_plan(m: int, k: int, n: int, a_km: bool, b_nk: bool) -> TilePlan:
+    """The bf16 GEMM's tile for an (m, k, n) product in a layout. The
+    k-order is the same in every plan, whatever (m, k, n) and layout;
+    m picks the row tile: 16 rows for decode (m <= 16), with 8 columns a
+    block (32 for the logits' width, to cut the block count), else the
+    128-row TMA and wgmma tile, 192 columns wide where its waves of
+    blocks take less time than 128's, else 128 (the launcher gives an
+    operand TMA cannot take to a 128 x 64 mma.sync tile)."""
+    if m <= 16:
+        return _ROWS16_N32 if n >= 32768 else _ROWS16_N8
+
+    def cost(bn):                # waves of blocks x the work of one
+        return -(-(-(-m // 128) * -(-n // bn)) // _SMS) * bn
+    return _WIDE192 if cost(192) < cost(128) else _WIDE
 
 
 def _check_dtype(dtype: torch.dtype, what: str) -> None:
@@ -114,11 +172,19 @@ def matmul_tiled(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
     a_km, lda = _layout(a, "A", "MK")
     b_nk, ldb = _layout(b, "B", "KN")
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    err = _lib().repro_matmul(
-        a.data_ptr(), b.data_ptr(), None if e is None else e.data_ptr(),
-        c.data_ptr(), m, n, k, lda, ldb, lde, a_km, b_nk,
-        int(a.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-        e_bf16, EPILOGUES.index(epilogue), _build.stream_ptr(a.device))
+    operands = (a.data_ptr(), b.data_ptr(),
+                None if e is None else e.data_ptr(), c.data_ptr(), m, n, k,
+                lda, ldb, lde, a_km, b_nk)
+    if a.dtype == torch.bfloat16:        # the tensor cores
+        err = _build.load("matmul_tc", _TC_SIGNATURES).repro_matmul_tc(
+            *operands, int(out_dtype == torch.bfloat16), e_bf16,
+            EPILOGUES.index(epilogue),
+            tile_plan(m, k, n, bool(a_km), bool(b_nk)).kernel,
+            _build.stream_ptr(a.device))
+    else:                                # f32: the FMA kernel
+        err = _lib().repro_matmul(
+            *operands, int(out_dtype == torch.bfloat16), e_bf16,
+            EPILOGUES.index(epilogue), _build.stream_ptr(a.device))
     LAUNCHES["matmul"] += 1
     _build.check(err, "matmul_tiled")
     return c

@@ -1,8 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: ragged edges, both A and B layouts, int8 weights, strided cache
+card: ragged edges, both A and B layouts, the bf16 GEMM's tensor-core
+tile plans (every row tile, unaligned operands, one row's bits at every
+M), int8 weights, strided cache
 views, page pools (bf16, f32 and int8 pages, shuffled, -1 past each
 prefix), GQA groups, idle and windowed slots, the training attention's
-forward and backward (ragged T, windows, rows that see no key), the SSD
+forward and backward (ragged T, windows, rows that see no key, the bf16
+forward's padded head dims and its (o, lse) through the backward), the SSD
 intra-chunk kernel (ragged chunks, groups read through strides, bf16
 inputs, a carried state, strong decays), the paper's naive GEMM and
 elementwise kernels (add, sub, mul and axpy bit for bit), whole decode
@@ -91,6 +94,120 @@ def test_matmul_transposed_a_matches_plain(dev, dtype, epilogue, mkn, b_nk):
     _close(got, want, dtype)
 
 
+LAYOUTS = [(False, False), (False, True), (True, False), (True, True)]
+
+
+def _gemm_operands(dev, m, k, n, a_km, b_nk, seed=0):
+    """A [m, k] and B [k, n] in bf16 as row-major tensors or as transpose
+    views (A of a [k, m] tensor, B of an [n, k] one)."""
+    a = _randn(k, m, dtype=torch.bfloat16, dev=dev, seed=seed).t() if a_km \
+        else _randn(m, k, dtype=torch.bfloat16, dev=dev, seed=seed)
+    b = _randn(n, k, dtype=torch.bfloat16, dev=dev, seed=seed + 1,
+               scale=k ** -0.5).t() if b_nk \
+        else _randn(k, n, dtype=torch.bfloat16, dev=dev, seed=seed + 1,
+                    scale=k ** -0.5)
+    return a, b
+
+
+def _epilogue_kw(dev, epilogue, m, n):
+    if epilogue == "residual":
+        return {"residual": _randn(m, n, dtype=torch.bfloat16, dev=dev, seed=2)}
+    if epilogue != "none":
+        return {"bias": _randn(n, dtype=torch.float32, dev=dev, seed=3)}
+    return {}
+
+
+def _check_bf16_matmul(a, b, epilogue, kw):
+    for out_dtype in (torch.bfloat16, torch.float32):
+        got = ops.matmul(a, b, out_dtype=out_dtype, epilogue=epilogue, **kw)
+        want = ref.fused_matmul_ref(a, b, out_dtype, epilogue,
+                                    kw.get("bias"), kw.get("residual"))
+        _close(got, want, out_dtype)
+
+
+@pytest.mark.parametrize("epilogue", EPILOGUES)
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("m", [1, 4, 15, 16, 17, 130, 2048])
+def test_bf16_matmul_on_tensor_cores_matches_plain(dev, m, layout, epilogue):
+    """Every row tile of the tensor-core GEMM, each layout, odd K and N."""
+    k, n = 301, 259
+    a, b = _gemm_operands(dev, m, k, n, *layout)
+    _check_bf16_matmul(a, b, epilogue, _epilogue_kw(dev, epilogue, m, n))
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("m", [1, 4, 16, 130])
+def test_bf16_matmul_wide_n_matches_plain(dev, m, layout):
+    """The 32-column decode tile of the logits' width, ragged N."""
+    a, b = _gemm_operands(dev, m, 96, 32771, *layout)
+    _check_bf16_matmul(a, b, "none", {})
+
+
+@pytest.mark.parametrize("epilogue", ["none", "residual"])
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("m", [17, 2047])
+def test_bf16_matmul_wide_tile_ragged_edges(dev, m, layout, epilogue):
+    """The wide tile (TMA and wgmma) with ragged M, K and N and leading
+    dims padded to 16 bytes: the zero fill past the edges."""
+    k, n = 301, 1031
+    a_km, b_nk = layout
+    a = _randn(k, -(-m // 8) * 8 + 8, dtype=torch.bfloat16, dev=dev,
+               seed=0)[:, :m].t() \
+        if a_km else _randn(m, k + 3, dtype=torch.bfloat16, dev=dev, seed=0)[:, :k]
+    b = _randn(n, k + 3, dtype=torch.bfloat16, dev=dev, seed=1,
+               scale=k ** -0.5)[:, :k].t() if b_nk \
+        else _randn(k, n + 9, dtype=torch.bfloat16, dev=dev, seed=1,
+                    scale=k ** -0.5)[:, :n]
+    _check_bf16_matmul(a, b, epilogue, _epilogue_kw(dev, epilogue, m, n))
+
+
+@pytest.mark.parametrize("epilogue", ["bias", "residual"])
+@pytest.mark.parametrize("m", [4, 2048])
+def test_bf16_matmul_of_empty_k_is_the_epilogue(dev, m, epilogue):
+    """K = 0: every tile plan flushes the epilogue of a zero sum."""
+    a = torch.empty((m, 0), dtype=torch.bfloat16, device=dev)
+    b = torch.empty((0, 1024), dtype=torch.bfloat16, device=dev)
+    _check_bf16_matmul(a, b, epilogue, _epilogue_kw(dev, epilogue, m, 1024))
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("mn", [(4, 45), (130, 45), (2048, 1030)])
+def test_bf16_matmul_reads_unaligned_operands(dev, mn, layout):
+    """Leading dims of odd length and bases one element into a buffer:
+    the element-by-element loads (the wide plan's on the narrow tile)."""
+    (m, n), k = mn, 77
+    a_km, b_nk = layout
+    a = _randn(k, m + 3, dtype=torch.bfloat16, dev=dev, seed=0)[:, 1:m + 1].t() \
+        if a_km else _randn(m, k + 3, dtype=torch.bfloat16, dev=dev, seed=0)[:, 1:k + 1]
+    b = _randn(n, k + 3, dtype=torch.bfloat16, dev=dev, seed=1,
+               scale=k ** -0.5)[:, 1:k + 1].t() if b_nk \
+        else _randn(k, n + 3, dtype=torch.bfloat16, dev=dev, seed=1,
+                    scale=k ** -0.5)[:, 1:n + 1]
+    _check_bf16_matmul(a, b, "residual", _epilogue_kw(dev, "residual", m, n))
+
+
+@pytest.mark.parametrize("kn", [(1024, 1024), (3072, 1024), (1024, 40960),
+                                (1024, 1536)])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_bf16_matmul_is_batch_invariant(dev, layout, kn):
+    """A row of C has the same bits at M = 4, 136 and 2048 as alone at
+    M = 1 (each tile plan sums k in one order), in every layout, at the
+    main path's (K, N), at the logits' decode tile and at the 192-wide
+    tile (N = 1536 at M = 2048)."""
+    k, n = kn
+    a_km, b_nk = layout
+    a, b = _gemm_operands(dev, 2048, k, n, a_km, b_nk)
+    rows = [0, 3, 135, 2047]
+    for out_dtype in (torch.bfloat16, torch.float32):
+        alone = {r: ops.matmul(a[r:r + 1], b, out_dtype=out_dtype)
+                 for r in rows}
+        for m in (4, 136, 2048):
+            c = ops.matmul(a[:m], b, out_dtype=out_dtype)
+            for r in rows:
+                if r < m:
+                    assert torch.equal(c[r:r + 1], alone[r]), (m, r, out_dtype)
+
+
 # (B, T, H, Hkv, D) and (Tq, Tk) where they differ: ragged T, GQA groups
 # of 1, 2 and 4, the training shape's head_dim
 ATTN_SHAPES = [(2, 37, 4, 2, 16), (1, 130, 8, 8, 64), (2, 200, 4, 1, 128),
@@ -134,6 +251,49 @@ def test_flash_attention_rows_that_see_no_key(dev):
                                        window=4)
     for x, y in zip(got, want):
         _close(x, y, torch.float32)
+
+
+def test_bf16_flash_attention_rows_that_see_no_key(dev):
+    """The tensor-core forward: rows that see no key get o = 0 and the
+    1e30 sentinel."""
+    q, k, v = _attn_inputs(dev, torch.bfloat16, (2, 40, 4, 2, 16), tk=20)
+    o, lse = ops.flash_attention_fwd(q, k, v, causal=False, window=4)
+    want_o, want_lse = ref.flash_attention_fwd_ref(q, k, v, causal=False,
+                                                   window=4)
+    assert torch.equal(lse[:, :, 23:], torch.full_like(lse[:, :, 23:], 1e30))
+    assert torch.equal(o[:, 23:], torch.zeros_like(o[:, 23:]))
+    _close(o, want_o, torch.bfloat16)
+    torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("shape", [(2, 45, 4, 2, 36), (1, 70, 2, 1, 80)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_flash_attention_pads_head_dim(dev, shape, causal):
+    """A head_dim that is no multiple of 16 (36: no multiple of 8 either,
+    so no 16-byte load) and Tk != Tq."""
+    q, k, v = _attn_inputs(dev, torch.bfloat16, shape, tk=shape[1] + 19)
+    o, lse = ops.flash_attention_fwd(q, k, v, causal=causal)
+    want_o, want_lse = ref.flash_attention_fwd_ref(q, k, v, causal=causal)
+    _close(o, want_o, torch.bfloat16)
+    torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+@pytest.mark.parametrize("window", [None, 128])
+def test_bf16_flash_attention_feeds_the_backward(dev, shape, window):
+    """The tensor-core forward's (o, lse) through the FMA backward give the
+    plain forward-and-backward's gradients."""
+    q, k, v = _attn_inputs(dev, torch.bfloat16, shape)
+    do = _randn(*q.shape, dtype=torch.bfloat16, dev=dev, seed=3)
+    o, lse = ops.flash_attention_fwd(q, k, v, causal=True, window=window)
+    got = ops.flash_attention_bwd(q, k, v, o, do, lse, causal=True,
+                                  window=window)
+    o_p, lse_p = ref.flash_attention_fwd_ref(q, k, v, causal=True,
+                                             window=window)
+    want = ref.flash_attention_bwd_ref(q, k, v, o_p, do, lse_p, causal=True,
+                                       window=window)
+    for x, y in zip(got, want):
+        _close(x, y, torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

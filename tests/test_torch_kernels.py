@@ -14,6 +14,7 @@ import torch
 from repro.core.policy import Policy
 from repro.kernels import matmul as jmm
 from repro.kernels import ops as jops
+from repro_torch.kernels import matmul as tmm
 from repro_torch.kernels import ops
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -171,3 +172,35 @@ def test_launch_counters_do_not_move_on_cpu():
                                    "flash_attention_bwd": 0, "ssd": 0,
                                    "matmul_naive": 0, "binary_op": 0,
                                    "axpy": 0}
+
+
+# (K, N, a_km, b_nk) of the main paths' bf16 GEMMs: qwen3-0.6b's QKV, O,
+# gate/up and down projections and the tied-embedding logits (forward,
+# and W^T in the input gradients), the weight gradients (A as [K, M] with
+# K the tokens), mamba2-2.7b's in projections (z/x, then B/C/dt), its out
+# projection and its head
+MAIN_GEMMS = [(1024, 4096, False, False), (2048, 1024, False, False),
+              (1024, 3072, False, False), (3072, 1024, False, False),
+              (1024, 152064, False, True), (3072, 1024, False, True),
+              (1024, 3072, False, True), (2048, 3072, True, False),
+              (2048, 1024, True, False), (2560, 10240, False, False),
+              (2560, 336, False, False), (5120, 2560, False, False),
+              (2560, 50432, False, True)]
+
+
+@pytest.mark.parametrize("k, n, a_km, b_nk", MAIN_GEMMS)
+def test_tile_plan_k_order_does_not_depend_on_m(k, n, a_km, b_nk):
+    """One output row has the same bits at every batch only if the bf16
+    GEMM sums it in one order at every M: M may pick the row tile (and
+    with it mma.sync or wgmma), never the k-step or a split of K."""
+    plans = {m: tmm.tile_plan(m, k, n, a_km, b_nk)
+             for m in (1, 4, 8, 15, 16, 17, 64, 136, 512, 2048, 8192)}
+    assert len({p.k_order for p in plans.values()}) == 1, plans
+    assert all(p.k_split == 1 for p in plans.values())
+    # the two instructions whose k16 steps give the same bits on the card
+    # (tests/test_torch_cuda.py::test_bf16_matmul_is_batch_invariant)
+    assert {p.mma for p in plans.values()} <= {"mma.sync.m16n8k16",
+                                               "wgmma.m64n128k16",
+                                               "wgmma.m64n192k16"}
+    assert {plans[m].bm for m in (1, 4, 16)} == {16}
+    assert all(p.bm >= 64 for m, p in plans.items() if m > 16)
