@@ -1362,7 +1362,7 @@ def _kernel_group(name: str) -> str:
         return "gated_matmul"
     if "matmul_kernel" in name:          # mma_matmul_kernel: bf16
         return "matmul_q" if "signed char" in name else "matmul"
-    if "flash_decode_kernel" in name:
+    if "flash_decode" in name:            # the split and merge kernels
         return "flash_decode" if "false, false>" in name \
             else "flash_decode_paged"
     if "flash_attn_fwd" in name:          # the bf16 (mma) and f32 forwards

@@ -17,21 +17,20 @@
 //             delta = rowsum(dO * O) taken by the caller in PyTorch, as
 //             the JAX package takes it in XLA.
 //
-// Two forwards. bf16 runs on the tensor cores (`flash_attn_fwd_mma_kernel`,
-// FlashAttention-2's shape): a block of 4 warps owns 64 query rows held as
-// mma.sync fragments in registers, 64-key K/V tiles stream through two
-// cp.async buffers in shared memory, S = Q K^T and O += P V are
-// m16n8k16 products with f32 accumulators, and P goes from the S
-// accumulator to the PV A-fragment in registers. D is zero-padded to the
-// instance's width (64 or 128) in the tiles. It rounds in two places the
+// bf16 runs on the tensor cores, forward and backward (FlashAttention-2's
+// shape): a block of 4 warps owns 64 query rows (forward, dQ sweep) or 64
+// key rows (dK/dV sweep), the other operand's 64-row tiles stream through
+// two cp.async buffers in shared memory, every product is an m16n8k16
+// mma.sync with f32 accumulators, and P (and dS) go from an accumulator to
+// the next product's A fragment in registers. D is zero-padded to the
+// instance's width (64 or 128) in the tiles. They round in two places the
 // f32 kernels and the JAX kernel (q scaled in f32, then an f32 dot) do not:
-// the scale is applied to the f32 scores after the dot, and P enters P V as
-// hi + lo, two bf16 values with 16 significant bits between them, not as
-// f32 (the row sum l takes the f32 P). f32, and the backward in
-// both types, run on the FMA units from f32 tiles in shared memory, q
-// scaled in f32 before the dot (the depth-2 f32 train step is held to the
-// CPU at rtol 1e-4); the backward's redesign on the forward's fragments is
-// later work.
+// the scale is applied to the f32 scores after the dot (and to dQ and dK
+// after theirs), and P and dS enter their products as hi + lo, two bf16
+// values with 16 significant bits between them, not as f32 (the forward's
+// row sum l takes the f32 P). f32 runs on the FMA units from f32 tiles in
+// shared memory, q scaled in f32 before the dot (the depth-2 f32 train step
+// is held to the CPU at rtol 1e-4).
 //
 // Layouts: q/o/dO [B, Tq, H, D], k/v [B, Tk, Hkv, D] are read in place
 // through their (batch, time, head) strides, with a contiguous head dim;
@@ -48,7 +47,11 @@
 // tensor-core forward computes whole 64x64 tiles on the diagonal (4.8
 // GFLOP) and reads each K/V tile once per query tile (from L2 after the
 // first). The backward moves q, k, v, o, dO, dq, dk, dv (50.6 MB, 15 us)
-// against 10.8 GFLOP (11 us).
+// against 10.8 GFLOP (11 us): at the FMA units' 67 TFLOP/s it could not
+// take less than 0.16 ms, so only the tensor cores bring it near its bound.
+// Its two tensor-core sweeps run ten tile products a (query, key) tile
+// pair against the forward's three: S and dP are recomputed in both
+// sweeps, and hi + lo doubles the three products that take P or dS.
 //
 // What the design does about the TPU kernel's shape: Pallas walks the key
 // tiles (forward, dQ sweep) or query tiles (dK/dV sweep) along a
@@ -261,6 +264,21 @@ using repro::bf16;
 constexpr int TC_BQ = 64, TC_BK = 64, TC_THREADS = 128;
 constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
 
+// The A fragment of columns 16 kk .. 16 kk + 15 of a warp's 16-row f32
+// accumulators, as hi = bf16(x) and lo = bf16(x - hi): 16 significant bits.
+template <int N>
+__device__ __forceinline__ void split_frag(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                           const float (&acc)[N][4], int kk) {
+#pragma unroll
+  for (int f = 0; f < 4; ++f) {
+    const float x0 = acc[2 * kk + (f >> 1)][(f & 1) * 2];
+    const float x1 = acc[2 * kk + (f >> 1)][(f & 1) * 2 + 1];
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    hi[f] = *reinterpret_cast<const uint32_t*>(&h);
+    lo[f] = repro::pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
+  }
+}
+
 template <int DP>
 constexpr int tc_fwd_smem() { return (TC_BQ + 4 * TC_BK) * repro::padded(DP) * 2; }
 
@@ -379,16 +397,8 @@ flash_attn_fwd_mma_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K
     }
 #pragma unroll
     for (int kk = 0; kk < TC_BK / 16; ++kk) {
-      // P as hi + lo, two bf16 A fragments: 16 significant bits of each p
-      uint32_t ph[4], pl[4];
-#pragma unroll
-      for (int f = 0; f < 4; ++f) {
-        const float p0 = s[2 * kk + (f >> 1)][(f & 1) * 2];
-        const float p1 = s[2 * kk + (f >> 1)][(f & 1) * 2 + 1];
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
-        ph[f] = *reinterpret_cast<const uint32_t*>(&hi);
-        pl[f] = repro::pack_bf16(p0 - __low2float(hi), p1 - __high2float(hi));
-      }
+      uint32_t ph[4], pl[4];  // P as hi + lo: 16 significant bits of each p
+      split_frag(ph, pl, s, kk);
 #pragma unroll
       for (int j = 0; j < ND / 2; ++j) {
         uint32_t r[4];
@@ -431,6 +441,316 @@ flash_attn_fwd_mma_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K
     if (t == 0)
       LSE[((long long)b * H + h) * mask.tq + qp] =
           l_r[r] > 0.f ? m_r[r] * LN2 + logf(l_r[r]) : LSE_EMPTY;
+  }
+}
+
+// -- the bf16 backward on the tensor cores -----------------------------------
+// FlashAttention-2's backward in two sweeps, built from the forward's parts.
+// Both recompute P = exp2(S D^-0.5 log2(e) - lse log2(e)) from the
+// forward's lse (1e30 on a row that sees no key, so P = 0 there) and
+// dS = P (dP - delta) on the f32 accumulators of mma.sync, and both mask per
+// element only on tiles that cross a mask (or a ragged edge).
+//   dK/dV: one block of 4 warps per (b * Hkv + hk, 64-key tile), the key
+//   tiles that see the most queries first. K and V stay in shared memory;
+//   the 64-query tiles of the g query heads of hk stream past, head by
+//   head, Q, dO, lse and delta double-buffered by cp.async. Warp w owns
+//   keys 16 w .. 16 w + 15 and takes 32 queries at a time: S^T = K Q^T and
+//   dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q, P^T and dS^T going
+//   from the accumulators to A fragments in registers, dO and Q through
+//   ldmatrix.trans. The GQA group sum is the loop over the g heads, in
+//   order; dK is scaled by D^-0.5 at the end.
+//   dQ: one block of 4 warps per (b * H + h, 64-query tile), the tiles with
+//   the most keys first. Q and dO stay in shared memory, 64-key K/V tiles
+//   are double-buffered; S = Q K^T, dP = dO V^T, dQ += dS K (K through
+//   ldmatrix.trans), scaled by D^-0.5 at the end.
+// P and dS enter their products as hi + lo bf16 fragments, as P does in the
+// forward. K and V (Q and dO) are read by ldmatrix at every use, not kept
+// as fragments: beside a warp's 16 x 128 dK and dV accumulators (128
+// registers a thread) they would not fit in a thread's 255.
+
+template <int DP>
+constexpr int tc_bwd_smem() { return 6 * 64 * repro::padded(DP) * 2 + 4 * 64 * 4; }
+
+// Row g + 8 r of a warp's 16 x DP accumulators times `mul` into `out`
+// (D columns of bf16).
+template <int ND>
+__device__ __forceinline__ void store_row(bf16* __restrict__ out, const float (&acc)[ND][4],
+                                          int r, int D, float mul) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+    const int c = j * 8 + 2 * t;
+    if (c >= D) continue;
+    const bf16 o0 = __float2bfloat16_rn(acc[j][2 * r] * mul);
+    if (c + 1 < D) {
+      const bf16 o1 = __float2bfloat16_rn(acc[j][2 * r + 1] * mul);
+      if (D % 2 == 0) {
+        __nv_bfloat162 pair;
+        pair.x = o0;
+        pair.y = o1;
+        *reinterpret_cast<__nv_bfloat162*>(out + c) = pair;
+        continue;
+      }
+      out[c + 1] = o1;
+    }
+    out[c] = o0;
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(TC_THREADS)
+flash_attn_bwd_dkv_mma_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
+                              const bf16* __restrict__ V, const bf16* __restrict__ dO,
+                              const float* __restrict__ LSE, const float* __restrict__ DELTA,
+                              bf16* __restrict__ dK, bf16* __restrict__ dV, int H, int Hkv, int D,
+                              long long qb, long long qt, long long qh, long long kb, long long kt,
+                              long long kh, long long vb, long long vt, long long vh, long long ob,
+                              long long ot, long long oh, Mask mask, float scale,
+                              float scale_log2, bool vec) {
+  constexpr int LDS = repro::padded(DP), KD = DP / 16, ND = DP / 8, T = 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);                // [T][LDS], resident
+  bf16* Vs = Ks + T * LDS;                                     // [T][LDS], resident
+  bf16* Qs = Vs + T * LDS;                                     // 2 slots of [T][LDS]
+  bf16* dOs = Qs + 2 * T * LDS;                                // 2 slots of [T][LDS]
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * T * LDS);  // 2 slots of [T]
+  float* delta_s = lse_s + 2 * T;                              // 2 slots of [T]
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, g = lane / 4, t = lane % 4;
+  const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv, grp = H / Hkv;
+  const int k0 = blockIdx.y * T, krow = warp * 16;
+  const int qlo = mask.query_lo(k0) / T * T, qhi = mask.query_hi(k0, T);
+  const int n_qt = qhi > qlo ? (qhi - qlo + T - 1) / T : 0, n_it = grp * n_qt;
+
+  // query tile `it` (head hk * grp + it / n_qt) into slot `slot`
+  auto load_q = [&](int slot, int it) {
+    const int h = hk * grp + it / n_qt, q0 = qlo + it % n_qt * T;
+    repro::load_tile<T, DP, TC_THREADS>(Qs + slot * T * LDS, Q + b * qb + h * qh, qt, q0,
+                                        mask.tq, 0, D, vec, tid);
+    repro::load_tile<T, DP, TC_THREADS>(dOs + slot * T * LDS, dO + b * ob + h * oh, ot, q0,
+                                        mask.tq, 0, D, vec, tid);
+    if (tid < T) {
+      const int qp = q0 + tid, n = qp < mask.tq ? 4 : 0;
+      repro::cp_async4(lse_s + slot * T + tid,
+                       n ? LSE + ((long long)b * H + h) * mask.tq + qp : LSE, n);
+      repro::cp_async4(delta_s + slot * T + tid,
+                       n ? DELTA + ((long long)b * mask.tq + qp) * H + h : DELTA, n);
+    }
+  };
+  repro::load_tile<T, DP, TC_THREADS>(Ks, K + b * kb + hk * kh, kt, k0, mask.tk, 0, D, vec, tid);
+  repro::load_tile<T, DP, TC_THREADS>(Vs, V + b * vb + hk * vh, vt, k0, mask.tk, 0, D, vec, tid);
+  if (n_it > 0) load_q(0, 0);
+  repro::cp_async_commit();
+
+  float dk[ND][4], dv[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    repro::cp_async_wait<0>();
+    __syncthreads();  // tile it is in for all; every warp is done with tile it - 1
+    if (it + 1 < n_it) load_q((it + 1) & 1, it + 1);
+    repro::cp_async_commit();
+    const int q0 = qlo + it % n_qt * T;
+    const bf16* qs = Qs + (it & 1) * T * LDS;
+    const bf16* dos = dOs + (it & 1) * T * LDS;
+    const float* lse_r = lse_s + (it & 1) * T;
+    const float* delta_r = delta_s + (it & 1) * T;
+    // a tile wholly inside the masks and the edges needs no per-element test
+    const bool edge = k0 + T > mask.tk || q0 + T > mask.tq ||
+                      (mask.causal && k0 + T - 1 > q0) ||
+                      (mask.window > 0 && k0 <= q0 + T - 1 - mask.window);
+#pragma unroll 1
+    for (int qq = 0; qq < T; qq += 32) {
+      float st[4][4], dpt[4][4];  // 16 keys x 32 queries
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t ka[4], va[4];
+        repro::ldmatrix_x4(ka, Ks + (krow + (lane & 15)) * LDS + kk * 16 + (lane >> 4) * 8);
+        repro::ldmatrix_x4(va, Vs + (krow + (lane & 15)) * LDS + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int r = qq + j * 16 + (lane & 7) + (lane >> 4) * 8;
+          const int c = kk * 16 + ((lane >> 3) & 1) * 8;
+          uint32_t x[4];
+          repro::ldmatrix_x4(x, qs + r * LDS + c);
+          repro::mma_bf16(st[2 * j], ka, x[0], x[1]);
+          repro::mma_bf16(st[2 * j + 1], ka, x[2], x[3]);
+          repro::ldmatrix_x4(x, dos + r * LDS + c);
+          repro::mma_bf16(dpt[2 * j], va, x[0], x[1]);
+          repro::mma_bf16(dpt[2 * j + 1], va, x[2], x[3]);
+        }
+      }
+      // element e of n-tile j: key krow + g + 8 (e >> 1), query qq + 8 j + 2 t + (e & 1)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = qq + j * 8 + 2 * t + (e & 1);
+          float p = exp2f(st[j][e] * scale_log2 - lse_r[qi] * LOG2E);
+          if (edge && !mask(q0 + qi, k0 + krow + g + (e >> 1) * 8)) p = 0.f;
+          st[j][e] = p;
+          dpt[j][e] = p * (dpt[j][e] - delta_r[qi]);
+        }
+      // dV += P^T dO, dK += dS^T Q over the 32 queries, 16 at a time
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        uint32_t ph[4], pl[4], sh[4], sl[4];
+        split_frag(ph, pl, st, kk);
+        split_frag(sh, sl, dpt, kk);
+#pragma unroll
+        for (int j = 0; j < ND / 2; ++j) {
+          const int r = qq + kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+          const int c = j * 16 + (lane >> 4) * 8;
+          uint32_t x[4];
+          repro::ldmatrix_x4_trans(x, dos + r * LDS + c);
+          repro::mma_bf16(dv[2 * j], ph, x[0], x[1]);
+          repro::mma_bf16(dv[2 * j], pl, x[0], x[1]);
+          repro::mma_bf16(dv[2 * j + 1], ph, x[2], x[3]);
+          repro::mma_bf16(dv[2 * j + 1], pl, x[2], x[3]);
+          repro::ldmatrix_x4_trans(x, qs + r * LDS + c);
+          repro::mma_bf16(dk[2 * j], sh, x[0], x[1]);
+          repro::mma_bf16(dk[2 * j], sl, x[0], x[1]);
+          repro::mma_bf16(dk[2 * j + 1], sh, x[2], x[3]);
+          repro::mma_bf16(dk[2 * j + 1], sl, x[2], x[3]);
+        }
+      }
+    }
+  }
+  repro::cp_async_wait<0>();  // a tile no query sees still had K and V in flight
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kp = k0 + krow + g + 8 * r;
+    if (kp >= mask.tk) continue;
+    const long long row = (((long long)b * mask.tk + kp) * Hkv + hk) * D;
+    store_row(dK + row, dk, r, D, scale);
+    store_row(dV + row, dv, r, D, 1.f);
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(TC_THREADS)
+flash_attn_bwd_dq_mma_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
+                             const bf16* __restrict__ V, const bf16* __restrict__ dO,
+                             const float* __restrict__ LSE, const float* __restrict__ DELTA,
+                             bf16* __restrict__ dQ, int H, int Hkv, int D, long long qb,
+                             long long qt, long long qh, long long kb, long long kt, long long kh,
+                             long long vb, long long vt, long long vh, long long ob, long long ot,
+                             long long oh, Mask mask, float scale, float scale_log2, bool vec) {
+  constexpr int LDS = repro::padded(DP), KD = DP / 16, NS = TC_BK / 8, ND = DP / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [TC_BQ][LDS], resident
+  bf16* dOs = Qs + TC_BQ * LDS;                  // [TC_BQ][LDS], resident
+  bf16* Ks = dOs + TC_BQ * LDS;                  // 2 slots of [TC_BK][LDS]
+  bf16* Vs = Ks + 2 * TC_BK * LDS;               // 2 slots of [TC_BK][LDS]
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, g = lane / 4, t = lane % 4;
+  const int b = blockIdx.x / H, h = blockIdx.x % H, hk = h / (H / Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_BQ;
+  const bf16* k = K + b * kb + hk * kh;
+  const bf16* v = V + b * vb + hk * vh;
+
+  const int lo = mask.key_lo(q0) / TC_BK * TC_BK, hi = mask.key_hi(q0, TC_BQ);
+  const int n_tiles = hi > lo ? (hi - lo + TC_BK - 1) / TC_BK : 0;
+  auto load_kv = [&](int slot, int k0) {
+    repro::load_tile<TC_BK, DP, TC_THREADS>(Ks + slot * TC_BK * LDS, k, kt, k0, mask.tk, 0, D,
+                                            vec, tid);
+    repro::load_tile<TC_BK, DP, TC_THREADS>(Vs + slot * TC_BK * LDS, v, vt, k0, mask.tk, 0, D,
+                                            vec, tid);
+  };
+  repro::load_tile<TC_BQ, DP, TC_THREADS>(Qs, Q + b * qb + h * qh, qt, q0, mask.tq, 0, D, vec,
+                                          tid);
+  repro::load_tile<TC_BQ, DP, TC_THREADS>(dOs, dO + b * ob + h * oh, ot, q0, mask.tq, 0, D, vec,
+                                          tid);
+  if (n_tiles > 0) load_kv(0, lo);
+  repro::cp_async_commit();
+  const int row0 = q0 + warp * 16 + g;  // rows row0 and row0 + 8
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = row0 + 8 * r;
+    lse2[r] = qp < mask.tq ? LSE[((long long)b * H + h) * mask.tq + qp] * LOG2E : 0.f;
+    dl[r] = qp < mask.tq ? DELTA[((long long)b * mask.tq + qp) * H + h] : 0.f;
+  }
+  repro::cp_async_wait<0>();
+  __syncthreads();
+
+  float dq[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = lo + it * TC_BK;
+    if (it > 0) {
+      repro::cp_async_wait<0>();
+      __syncthreads();  // tile it is in for all; every warp is done with tile it - 1
+    }
+    if (it + 1 < n_tiles) load_kv((it + 1) & 1, k0 + TC_BK);
+    repro::cp_async_commit();
+    const bf16* ks = Ks + (it & 1) * TC_BK * LDS;
+    const bf16* vs = Vs + (it & 1) * TC_BK * LDS;
+
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qa[4], oa[4];
+      repro::ldmatrix_x4(qa, Qs + (warp * 16 + (lane & 15)) * LDS + kk * 16 + (lane >> 4) * 8);
+      repro::ldmatrix_x4(oa, dOs + (warp * 16 + (lane & 15)) * LDS + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int j = 0; j < NS / 2; ++j) {
+        const int r = j * 16 + (lane & 7) + (lane >> 4) * 8, c = kk * 16 + ((lane >> 3) & 1) * 8;
+        uint32_t x[4];
+        repro::ldmatrix_x4(x, ks + r * LDS + c);
+        repro::mma_bf16(s[2 * j], qa, x[0], x[1]);
+        repro::mma_bf16(s[2 * j + 1], qa, x[2], x[3]);
+        repro::ldmatrix_x4(x, vs + r * LDS + c);
+        repro::mma_bf16(dp[2 * j], oa, x[0], x[1]);
+        repro::mma_bf16(dp[2 * j + 1], oa, x[2], x[3]);
+      }
+    }
+    const bool edge = k0 + TC_BK > mask.tk || (mask.causal && k0 + TC_BK - 1 > q0) ||
+                      (mask.window > 0 && k0 <= q0 + TC_BQ - 1 - mask.window);
+    // dS, in place of S
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(s[j][e] * scale_log2 - lse2[e >> 1]);
+        if (edge && !mask(row0 + (e >> 1) * 8, k0 + j * 8 + 2 * t + (e & 1))) p = 0.f;
+        s[j][e] = p * (dp[j][e] - dl[e >> 1]);
+      }
+#pragma unroll
+    for (int kk = 0; kk < TC_BK / 16; ++kk) {
+      uint32_t sh[4], sl[4];
+      split_frag(sh, sl, s, kk);
+#pragma unroll
+      for (int j = 0; j < ND / 2; ++j) {
+        uint32_t x[4];
+        repro::ldmatrix_x4_trans(x, ks + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS +
+                                        j * 16 + (lane >> 4) * 8);
+        repro::mma_bf16(dq[2 * j], sh, x[0], x[1]);
+        repro::mma_bf16(dq[2 * j], sl, x[0], x[1]);
+        repro::mma_bf16(dq[2 * j + 1], sh, x[2], x[3]);
+        repro::mma_bf16(dq[2 * j + 1], sl, x[2], x[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = row0 + 8 * r;
+    if (qp < mask.tq) store_row(dQ + (((long long)b * mask.tq + qp) * H + h) * D, dq, r, D, scale);
   }
 }
 
@@ -702,6 +1022,38 @@ cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+template <int DP>
+cudaError_t launch_bwd_mma(const void* q, const void* k, const void* v, const void* dout,
+                           const float* lse, const float* delta, void* dq, void* dk, void* dv,
+                           int B, int H, int Hkv, int D, const Strides& st, Mask mask, float scale,
+                           cudaStream_t s) {
+  constexpr int SMEM = tc_bwd_smem<DP>();
+  static const cudaError_t attr_dkv = allow_smem(flash_attn_bwd_dkv_mma_kernel<DP>, SMEM);
+  static const cudaError_t attr_dq = allow_smem(flash_attn_bwd_dq_mma_kernel<DP>, SMEM);
+  if (attr_dkv != cudaSuccess) return attr_dkv;
+  if (attr_dq != cudaSuccess) return attr_dq;
+  const bool vec = ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                     reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout)) % 16 == 0) &&
+                   ((st.qb | st.qt | st.qh | st.kb | st.kt | st.kh | st.vb | st.vt | st.vh | st.ob |
+                     st.ot | st.oh) % 8 == 0);
+  const bf16* Q = static_cast<const bf16*>(q);
+  const bf16* K = static_cast<const bf16*>(k);
+  const bf16* V = static_cast<const bf16*>(v);
+  const bf16* dO = static_cast<const bf16*>(dout);
+  const dim3 grid_kv(B * Hkv, (mask.tk + 63) / 64);
+  flash_attn_bwd_dkv_mma_kernel<DP><<<grid_kv, TC_THREADS, SMEM, s>>>(
+      Q, K, V, dO, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Hkv, D, st.qb,
+      st.qt, st.qh, st.kb, st.kt, st.kh, st.vb, st.vt, st.vh, st.ob, st.ot, st.oh, mask, scale,
+      scale * LOG2E, vec);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid_q(B * H, (mask.tq + TC_BQ - 1) / TC_BQ);
+  flash_attn_bwd_dq_mma_kernel<DP><<<grid_q, TC_THREADS, SMEM, s>>>(
+      Q, K, V, dO, lse, delta, static_cast<bf16*>(dq), H, Hkv, D, st.qb, st.qt, st.qh, st.kb,
+      st.kt, st.kh, st.vb, st.vt, st.vh, st.ob, st.ot, st.oh, mask, scale, scale * LOG2E, vec);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* delta, void* dq, void* dk, void* dv, int B,
@@ -762,10 +1114,13 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
   if (B == 0 || Tq == 0 || Tk == 0) return static_cast<int>(cudaGetLastError());
   const Strides st{qb, qt, qh, kb, kt, kh, vb, vt, vh, ob, ot, oh};
   const Mask mask{Tq, Tk, causal, window};
+  // bf16 on the tensor cores, f32 on the FMA kernels
   const cudaError_t err =
-      bf16 ? launch_bwd<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Hkv, D, st,
-                                       mask, scale, s)
-           : launch_bwd<float>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Hkv, D, st, mask,
-                               scale, s);
+      !bf16 ? launch_bwd<float>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Hkv, D, st, mask,
+                                scale, s)
+      : D <= 64 ? launch_bwd_mma<64>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Hkv, D, st,
+                                     mask, scale, s)
+                : launch_bwd_mma<128>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Hkv, D, st,
+                                      mask, scale, s);
   return static_cast<int>(err);
 }

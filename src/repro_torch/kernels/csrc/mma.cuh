@@ -1,6 +1,7 @@
 // Building blocks of the port's tensor-core kernels (the bf16 GEMM of
-// matmul_tc.cu and the bf16 flash-attention forward): 16-byte cp.async
-// with zero fill, ldmatrix, mma.sync.m16n8k16 bf16 -> f32 and a tile
+// matmul_tc.cu, the bf16 flash-attention forward and backward) and of the
+// decode kernel's staging: 16-byte and 4-byte cp.async with zero fill,
+// ldmatrix, mma.sync.m16n8k16 bf16 -> f32 and a tile
 // loader that masks ragged and unaligned edges; and, for the GEMM's wide
 // tile, wgmma.m64nNk16, its shared-memory descriptors, mbarriers and
 // TMA loads.
@@ -41,6 +42,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // `src_bytes` are zero-filled (0: nothing is read).
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(smem_u32(smem)), "l"(gmem), "r"(src_bytes) : "memory");
+}
+
+// 4 bytes the same way (src_bytes 4 or 0).
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                ::"r"(smem_u32(smem)), "l"(gmem), "r"(src_bytes) : "memory");
 }
 

@@ -9,9 +9,10 @@ against k/v [B, Tk, Hkv, D], the dense cache, or a page pool
 [P, page_size, Hkv, D] through a page table [B, pp] (-1 unmapped), all
 read in place through their strides. Each takes tensors on the card and
 launches its kernel, or raises; the CPU paths are the plain versions in
-`kernels.ref`, chosen by `kernels.ops`. A bf16 `flash_attention` runs on
-the tensor cores; f32, and the backward in both dtypes, on the FMA
-kernels of the same source.
+`kernels.ref`, chosen by `kernels.ops`. bf16 `flash_attention` and
+`flash_attention_bwd` run on the tensor cores, f32 on the FMA kernels of
+the same source. The decode wrappers launch two kernels a call: one that
+sums each split of DECODE_SPLIT keys, and one that merges a row's splits.
 """
 
 from __future__ import annotations
@@ -24,11 +25,9 @@ from repro_torch.kernels import _build
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    "repro_flash_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _L, _L, _L, _L, _L, _L, _L, _L, _I, _F, _I, _P],
-    "repro_flash_decode_paged": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                 _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _I,
-                                 _F, _I, _I, _P],
+    "repro_flash_decode": [_P] * 6 + [_I] * 5 + [_L] * 8 + [_I, _F, _I, _P],
+    "repro_flash_decode_paged": [_P] * 9 + [_I] * 6 + [_L] * 7
+    + [_I, _F, _I, _I, _P],
 }
 _FA_SIGNATURES = {
     "repro_flash_attention": [_P] * 5 + [_I] * 6 + [_L] * 9
@@ -38,9 +37,13 @@ _FA_SIGNATURES = {
 }
 _DMAX = 256
 _FA_DMAX = 128
+#: Keys of a decode split (`SPLIT` in `csrc/flash_decode.cu`): split s
+#: holds the keys [s * DECODE_SPLIT, (s + 1) * DECODE_SPLIT).
+DECODE_SPLIT = 64
 
-#: Kernel launches, counted where each wrapper launches its kernel
-#: (`flash_attention_bwd` counts one for its two sweeps).
+#: Kernel launches, counted where each wrapper launches its kernels: one
+#: a call (`flash_attention_bwd` for its two sweeps, the decode wrappers
+#: for their split and merge kernels).
 LAUNCHES = {"flash_decode": 0, "flash_decode_paged": 0,
             "flash_attention": 0, "flash_attention_bwd": 0}
 
@@ -158,12 +161,41 @@ def _pos_vector(pos, b: int, device) -> torch.Tensor:
     return torch.full((b,), int(pos), dtype=torch.int32, device=device)
 
 
+def decode_splits(pos: int, window: int | None, tk: int) -> list:
+    """The key ranges [start, end) that the decode kernel sums one by one
+    and then merges in this order, for a slot at `pos` over a cache of
+    `tk` keys: the splits of DECODE_SPLIT keys at fixed positions that
+    meet the slot's keys [lo, min(pos, tk - 1)], clipped to them. Empty
+    for a slot that sees no key. The kernel computes them itself
+    (`csrc/flash_decode.cu`); this mirrors it for the tests."""
+    hi = min(pos, tk - 1)
+    lo = max(0, pos - window + 1) if window else 0
+    if pos < 0 or hi < lo:
+        return []
+    n = DECODE_SPLIT
+    return [(max(lo, s * n), min(hi, s * n + n - 1) + 1)
+            for s in range(lo // n, hi // n + 1)]
+
+
+def decode_scratch_floats(b: int, h: int, d: int, tk: int) -> int:
+    """f32 values of the decode kernel's scratch: each (slot, query head,
+    split) of a tk-key cache keeps its partial acc[d], m and l."""
+    return b * h * -(-tk // DECODE_SPLIT) * (d + 2)
+
+
+def _decode_scratch(b, h, d, tk, device) -> torch.Tensor:
+    return torch.empty(decode_scratch_floats(b, h, d, tk),
+                       dtype=torch.float32, device=device)
+
+
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  pos, window: int | None = None) -> torch.Tensor:
     """Each slot's query attends its cache prefix [pos - window + 1, pos]
     (the whole prefix without a window). pos: an int, broadcast to every
     slot, or a (B,) int tensor on the card; pos < 0 gives a zero row.
-    q is scaled by head_dim ** -0.5 before the dot."""
+    q is scaled by head_dim ** -0.5 before the dot. Two launches: the
+    splits' partials (`decode_splits`), then their merge; counted as
+    one."""
     b, _, h, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     if k.shape != v.shape or k.shape[0] != b:
@@ -180,10 +212,11 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError("the head dim must be contiguous")
     pos = _pos_vector(pos, b, q.device)
     o = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
+    scratch = _decode_scratch(b, h, d, tk, q.device)
     lib = _build.load("flash_decode", _SIGNATURES)
     err = lib.repro_flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-        o.data_ptr(), b, h, hkv, d, tk,
+        o.data_ptr(), scratch.data_ptr(), b, h, hkv, d, tk,
         q.stride(0), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2), int(window or 0), d ** -0.5,
         int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device))
@@ -200,7 +233,9 @@ def flash_decode_paged(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     pool page table[b, t // page_size], row t % page_size. kp/vp
     [P, page_size, Hkv, D] in q's dtype, or int8 with ks/vs
     [P, Hkv, page_size] float32 scales (dequantized in f32 before the
-    dot). table: (B, pp) int32 on the card. pos as in `flash_decode`."""
+    dot). table: (B, pp) int32 on the card. pos as in `flash_decode`,
+    and the same splits and merge, so a bf16 pool gives the dense
+    kernel's bits."""
     b, _, h, d = q.shape
     if kp.dim() != 4 or kp.shape != vp.shape:
         raise ValueError(f"kp {tuple(kp.shape)}, vp {tuple(vp.shape)}")
@@ -240,12 +275,14 @@ def flash_decode_paged(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
         raise ValueError("q's head dim must be contiguous")
     pos = _pos_vector(pos, b, q.device)
     o = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
+    scratch = _decode_scratch(b, h, d, table.shape[1] * ps, q.device)
     lib = _build.load("flash_decode", _SIGNATURES)
     err = lib.repro_flash_decode_paged(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
         ks.data_ptr() if int8_pool else None,
         vs.data_ptr() if int8_pool else None, table.data_ptr(),
-        pos.data_ptr(), o.data_ptr(), b, h, hkv, d, table.shape[1], ps,
+        pos.data_ptr(), o.data_ptr(), scratch.data_ptr(), b, h, hkv, d,
+        table.shape[1], ps,
         q.stride(0), q.stride(2), kp.stride(0), kp.stride(1), kp.stride(2),
         c_page, c_head, int(window or 0), d ** -0.5,
         int(q.dtype == torch.bfloat16), int(int8_pool),

@@ -3,9 +3,11 @@ card: ragged edges, both A and B layouts, the bf16 GEMM's tensor-core
 tile plans (every row tile, unaligned operands, one row's bits at every
 M), int8 weights, strided cache
 views, page pools (bf16, f32 and int8 pages, shuffled, -1 past each
-prefix), GQA groups, idle and windowed slots, the training attention's
-forward and backward (ragged T, windows, rows that see no key, the bf16
-forward's padded head dims and its (o, lse) through the backward), the SSD
+prefix), GQA groups, idle and windowed slots, a decode row's bits at any
+batch, cache depth and page order, the training attention's forward and
+backward (ragged T, windows, GQA groups up to 8, rows that see no key, the
+bf16 kernels' padded head dims, the forward's (o, lse) through the
+backward), the SSD
 intra-chunk kernel (ragged chunks, groups read through strides, bf16
 inputs, a carried state, strong decays), the paper's naive GEMM and
 elementwise kernels (add, sub, mul and axpy bit for bit), whole decode
@@ -297,9 +299,10 @@ def test_bf16_flash_attention_feeds_the_backward(dev, shape, window):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", ATTN_SHAPES)
+@pytest.mark.parametrize("shape", ATTN_SHAPES + [(1, 500, 16, 2, 128)])
 @pytest.mark.parametrize("window", [None, 7, 128])
 def test_flash_attention_bwd_kernel_matches_plain(dev, dtype, shape, window):
+    """GQA groups 1, 2, 4 and 8, ragged T (37, 130, 200, 500)."""
     q, k, v = _attn_inputs(dev, dtype, shape)
     o, lse = ref.flash_attention_fwd_ref(q, k, v, causal=True, window=window)
     do = _randn(*q.shape, dtype=dtype, dev=dev, seed=3)
@@ -309,6 +312,41 @@ def test_flash_attention_bwd_kernel_matches_plain(dev, dtype, shape, window):
                                        window=window)
     for x, y in zip(got, want):
         _close(x, y, dtype)
+
+
+@pytest.mark.parametrize("shape", [(2, 45, 4, 2, 36), (1, 70, 2, 1, 80)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_flash_attention_bwd_pads_head_dim(dev, shape, causal):
+    """The tensor-core backward on a head_dim that is no multiple of 16
+    (36: no multiple of 8 either, so no 16-byte load) and Tk != Tq."""
+    q, k, v = _attn_inputs(dev, torch.bfloat16, shape, tk=shape[1] + 19)
+    o, lse = ref.flash_attention_fwd_ref(q, k, v, causal=causal)
+    do = _randn(*q.shape, dtype=torch.bfloat16, dev=dev, seed=3)
+    got = ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal)
+    for x, y in zip(got, want):
+        _close(x, y, torch.bfloat16)
+
+
+def test_bf16_flash_attention_bwd_rows_that_see_no_key(dev):
+    """Not causal, a window of 4 and Tk < Tq: rows from 23 on see no key
+    (lse 1e30), and the tensor-core backward gives them dq = 0 and adds
+    nothing of theirs to dk and dv."""
+    q, k, v = _attn_inputs(dev, torch.bfloat16, (2, 40, 4, 2, 16), tk=20)
+    o, lse = ops.flash_attention_fwd(q, k, v, causal=False, window=4)
+    do = _randn(*q.shape, dtype=torch.bfloat16, dev=dev, seed=3)
+    got = ops.flash_attention_bwd(q, k, v, o, do, lse, causal=False, window=4)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal=False,
+                                       window=4)
+    assert torch.equal(got[0][:, 23:], torch.zeros_like(got[0][:, 23:]))
+    for x, y in zip(got, want):
+        _close(x, y, torch.bfloat16)
+    # the rows that see no key change nothing of dk and dv
+    do2 = do.clone()
+    do2[:, 23:] = _randn(2, 17, 4, 16, dtype=torch.bfloat16, dev=dev, seed=4)
+    again = ops.flash_attention_bwd(q, k, v, o, do2, lse, causal=False,
+                                    window=4)
+    assert torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])
 
 
 def test_flash_attention_bwd_is_deterministic(dev):
@@ -333,9 +371,11 @@ def test_gated_matmul_kernel_matches_plain(dev, dtype, mkn):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(3, 37, 4, 4, 16), (4, 100, 8, 2, 64),
-                                   (2, 300, 16, 8, 128)])
+                                   (2, 300, 16, 8, 128), (2, 130, 16, 2, 64)])
 @pytest.mark.parametrize("window", [None, 7])
 def test_flash_decode_kernel_matches_plain(dev, dtype, shape, window):
+    """GQA groups 1, 2, 4 and 8 (more query heads than a block takes in
+    one pass over its staged rows)."""
     b, tk, h, hkv, d = shape
     q = _randn(b, 1, h, d, dtype=dtype, dev=dev, seed=0)
     # the cache as the model holds it: one layer's view of (L, B, T, Hkv, D)
@@ -439,6 +479,51 @@ def test_flash_decode_paged_equals_dense_bit_for_bit(dev, dtype):
         assert torch.equal(
             ops.flash_decode_paged(q, kp, vp, table, pos=pos, window=window),
             ops.flash_decode(q, k, v, pos=pos, window=window))
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged-bfloat16", "paged-int8"])
+@pytest.mark.parametrize("window", [None, 512])
+def test_flash_decode_is_batch_invariant(dev, layout, window):
+    """A slot's output row has the same bits alone at B=1 and inside B=4
+    beside slots of other depths (in two orders), against a cache of
+    pos + 1 keys (whole pages for a pool) or of 2048, and with its pages
+    in another order: the engine's "streams equal each request alone"
+    gate rests on it."""
+    b, tk, h, hkv, d, ps = 4, 2048, 16, 8, 128, 16
+    q = _randn(b, 1, h, d, dtype=torch.bfloat16, dev=dev, seed=0)
+    k = _randn(b, tk, hkv, d, dtype=torch.bfloat16, dev=dev, seed=1)
+    v = _randn(b, tk, hkv, d, dtype=torch.bfloat16, dev=dev, seed=2)
+    pos_list = [-1, 63, 700, 2047]
+
+    def run(rows, depth, seed):
+        """Slots `rows` of the cache, `depth` keys deep, as one batch."""
+        pos = torch.tensor([pos_list[i] for i in rows], dtype=torch.int32,
+                           device=dev)
+        qb = q[rows].contiguous()
+        kb, vb = k[rows, :depth].contiguous(), v[rows, :depth].contiguous()
+        if layout == "dense":
+            return ops.flash_decode(qb, kb, vb, pos=pos, window=window)
+        kp, vp, table = _paged(kb, vb, ps, pos, seed=seed)
+        kw = {}
+        if layout == "paged-int8":
+            (kp, ks), (vp, vs) = (precision.quantize_kv(kp),
+                                  precision.quantize_kv(vp))
+            kw = dict(ks=ks.transpose(1, 2).contiguous(),
+                      vs=vs.transpose(1, 2).contiguous())
+        return ops.flash_decode_paged(qb, kp, vp, table, pos=pos,
+                                      window=window, **kw)
+
+    together = run([0, 1, 2, 3], tk, seed=3)
+    reversed_ = run([3, 2, 1, 0], tk, seed=4).flip(0)
+    assert not together[0].any(), "an idle slot (pos < 0) must give zeros"
+    for i, p in enumerate(pos_list):
+        assert torch.equal(reversed_[i], together[i]), (i, "batch order")
+        if p < 0:
+            continue
+        shallow = -(-(p + 1) // ps) * ps if layout != "dense" else p + 1
+        for depth, seed in ((tk, 5), (shallow, 6)):
+            alone = run([i], depth, seed=seed)
+            assert torch.equal(alone[0], together[i]), (i, depth)
 
 
 def test_each_wrapper_counts_one_launch(dev):

@@ -6,6 +6,9 @@ Tolerance: float32 on both sides, atol = rtol = 1e-5. The two compute
 the same function; the only difference is the order of the sums.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,8 +17,9 @@ import torch
 from repro.core.policy import Policy
 from repro.kernels import matmul as jmm
 from repro.kernels import ops as jops
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import matmul as tmm
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 PALLAS = Policy(backend="pallas", interpret=True)
@@ -204,3 +208,70 @@ def test_tile_plan_k_order_does_not_depend_on_m(k, n, a_km, b_nk):
                                                "wgmma.m64n192k16"}
     assert {plans[m].bm for m in (1, 4, 16)} == {16}
     assert all(p.bm >= 64 for m, p in plans.items() if m > 16)
+
+
+# (pos, window) of a decode slot: idle, the first key, a split's last and
+# first key, mid-cache, the cache's last key, windows that start inside a
+# split, a window shorter than a split
+DECODE_SLOTS = [(-1, None), (0, None), (63, None), (64, None), (700, None),
+                (2047, None), (700, 512), (2047, 512), (100, 7)]
+
+
+def test_decode_split_matches_the_kernel_source():
+    src = (Path(fa.__file__).parent / "csrc" / "flash_decode.cu").read_text()
+    assert re.search(r"constexpr int SPLIT = (\d+);", src).group(1) \
+        == str(fa.DECODE_SPLIT)
+
+
+@pytest.mark.parametrize("pos, window", DECODE_SLOTS)
+def test_decode_splits_depend_only_on_pos_and_window(pos, window):
+    """A slot's decode row has the same bits at any batch and cache depth
+    only if the kernel sums its keys in the same splits: they depend on
+    the slot's pos, the window and DECODE_SPLIT, never on Tk (the plan
+    takes no batch at all). They tile the slot's keys [lo, pos] in
+    ascending order, every inner edge a multiple of DECODE_SPLIT, and
+    each lies inside the scratch sized for Tk."""
+    n = fa.DECODE_SPLIT
+    depths = [tk for tk in (pos + 1, pos + 17, 2048, 4096) if tk > 0]
+    plans = {tk: fa.decode_splits(pos, window, tk) for tk in depths}
+    assert len({tuple(p) for p in plans.values()}) == 1, plans
+    plan = plans[depths[0]]
+    if pos < 0:
+        assert plan == []
+        return
+    lo = max(0, pos - window + 1) if window else 0
+    assert plan[0][0] == lo and plan[-1][1] == pos + 1
+    assert all(a[1] == b[0] for a, b in zip(plan, plan[1:]))
+    assert all(e % n == 0 for _, e in plan[:-1])
+    assert all(0 < e - s <= n for s, e in plan)
+    for tk in depths:
+        splits = -(-tk // n)
+        assert plan[-1][0] // n < splits
+        assert fa.decode_scratch_floats(4, 16, 128, tk) == 4 * 16 * splits * 130
+
+
+@pytest.mark.parametrize("pos, window", DECODE_SLOTS)
+def test_decode_split_merge_is_the_softmax(pos, window):
+    """The kernel's arithmetic in f32 on the CPU: each split's softmax
+    partial (m, l, acc), merged in the plan's order, is the plain
+    attention of the slot (zeros for a slot that sees no key)."""
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.standard_normal((1, 1, 4, 16)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((1, 2048, 2, 16)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((1, 2048, 2, 16)).astype(np.float32))
+    qs = q[0, 0].reshape(2, 2, 16) * 16 ** -0.5          # (Hkv, g, D)
+    parts = []
+    for s, e in fa.decode_splits(pos, window, 2048):
+        sc = torch.einsum("kgd,tkd->kgt", qs, k[0, s:e])
+        m = sc.amax(-1, keepdim=True)
+        p = torch.exp(sc - m)
+        parts.append((m, p.sum(-1, keepdim=True),
+                      torch.einsum("kgt,tkd->kgd", p, v[0, s:e])))
+    o = torch.zeros(2, 2, 16)
+    if parts:
+        mx = torch.stack([m for m, _, _ in parts]).amax(0)
+        w = [torch.exp(m - mx) for m, _, _ in parts]
+        o = sum(a * wi for (_, _, a), wi in zip(parts, w)) \
+            / sum(l_ * wi for (_, l_, _), wi in zip(parts, w))
+    want = ref.attention_fwd_ref(q, k, v, window=window, q_offset=pos)
+    torch.testing.assert_close(o.reshape(1, 1, 4, 16), want, **TOL)
