@@ -13,7 +13,8 @@ Phases, in order; any failure propagates and the exit code is not 0:
      strong decays and zamba2's d_state; the paper's naive GEMM at 4096^2
      against the f64 product, and add, sub, mul and axpy bit for bit;
      the bf16 GEMM also at training's shapes, 2048 rows, in all four
-     layouts), with the max error beside its tolerance, and the median
+     layouts, and the dual GEMM at 2048 rows beside a GEMM-only
+     yardstick), with the max error beside its tolerance, and the median
      time of the kernel, the plain version and one PyTorch library call,
      timed in turns with only the card's time inside each event pair,
      beside the least time the card could take; a bf16 page pool must
@@ -22,7 +23,8 @@ Phases, in order; any failure propagates and the exit code is not 0:
      from a seed) served by the engine on 4 slots to 8 requests, with
      every kernel's launches counted over that run; a torch.profiler trace
      of decode steps at 4 busy slots (the card's busy time a step, by
-     kernel, against the step's wall time); then two requests whose
+     kernel, against the step's wall time; each kernel of the step must
+     show in it); then two requests whose
      engine streams must equal whole-prompt prefill plus batch-1 decode;
   5. the paged slices at full width: phase 4's trace on a bf16 page pool
      must give phase 4's streams bit for bit; a prefix-heavy chat trace on
@@ -34,7 +36,9 @@ Phases, in order; any failure propagates and the exit code is not 0:
      a step, finite losses and grad norms, a falling loss, speed, memory
      and a torch.profiler trace of a step; the first 4 steps again
      through the plain versions on the card, step 0 held to the kernels';
-     then a whole step at depth 2 in f32 on the card against the same
+     the 8 steps from 3 seeds with only the dual GEMM through its plain
+     version, each final loss beside the kernels'; then a whole step at
+     depth 2 in f32 on the card against the same
      step on the CPU;
   7. Mamba-2 serving at full width: mamba2-2.7b (64 layers, random
      weights from a seed) served by the engine on 4 slots to 8 requests
@@ -291,8 +295,9 @@ class Smoke:
             del w
             if dtype == torch.bfloat16:
                 self._kernels_matmul_training(randn, tols)
-            # -- gated_matmul: the SwiGLU gate/up at decode and prefill
-            for m in (4, 256):
+            # -- gated_matmul: the SwiGLU gate/up at decode, prefill and
+            #    (bf16) training's 4 x 512 tokens
+            for m in (4, 256) + ((2048,) if dtype == torch.bfloat16 else ()):
                 k, n = 1024, 3072
                 a = randn(m, k, dtype=dtype)
                 wg = randn(k, n, dtype=dtype, scale=k ** -0.5)
@@ -302,7 +307,17 @@ class Smoke:
                     lambda a=a, wg=wg, wu=wu: ops.gated_matmul(a, wg, wu),
                     lambda a=a, wg=wg, wu=wu: ref.gated_matmul_ref(a, wg, wu),
                     None, (m * k + 2 * k * n + m * n) * size, 4 * m * n * k,
-                    dname, tol)
+                    dname, tol, n_time=20 if m == 2048 else 50)
+                if m == 2048:
+                    wgu = torch.cat([wg, wu], 1)
+                    ms, = self._time_turns([lambda: torch.matmul(a, wgu)],
+                                           n=20)
+                    print(f"      gated_matmul yardstick, GEMM only (no "
+                          f"silu(g)*u; not the row's library call): "
+                          f"torch.matmul(A, cat([Wg, Wu], 1)) M={m} K={k} "
+                          f"N={2 * n}: {ms:.4f} ms, "
+                          f"{4 * m * n * k / ms / 1e9:.1f} TFLOP/s")
+                    del wgu
             # -- flash_decode: 4 slots, one idle, against a 2048-deep cache
             b_, h, hkv, d, tk = 4, 16, 8, 128, 2048
             pos_list = [-1, 0, 700, 2047]
@@ -381,24 +396,32 @@ class Smoke:
         from repro_torch.kernels import ops, ref
         dtype = torch.bfloat16
         # -- matmul_q: every dense layer of the int8-weight model; the
-        #    down-projection carries the residual
+        #    down-projection carries the residual; each bias epilogue at
+        #    the up-projection's shape
         cases = [(m, k, n, "none") for m in (4, 256)
                  for k, n in ((1024, 2048), (1024, 1024), (2048, 1024),
                               (1024, 3072))]
         cases += [(m, 3072, 1024, "residual") for m in (4, 256)]
+        cases += [(m, 1024, 3072, ep) for m in (4, 256)
+                  for ep in ("bias", "bias_gelu", "bias_silu")]
         for m, k, n, ep in cases:
             a = randn(m, k, dtype=dtype)
             wq, scale = precision.quantize_int8(
                 randn(k, n, dtype=torch.float32, scale=k ** -0.5))
-            r = randn(m, n, dtype=dtype) if ep == "residual" else None
+            kw, e_bytes = {}, 0
+            if ep == "residual":
+                kw["residual"] = randn(m, n, dtype=dtype)
+                e_bytes = m * n * 2
+            elif ep != "none":
+                kw["bias"] = randn(n, dtype=dtype)
+                e_bytes = n * 2
             self._case(
                 "matmul_q", f"bfloat16 M={m} K={k} N={n} int8 W {ep}",
-                lambda a=a, wq=wq, s=scale, r=r, ep=ep: ops.matmul_q(
-                    a, wq, s, epilogue=ep, residual=r),
-                lambda a=a, wq=wq, s=scale, r=r, ep=ep: ref.matmul_q_ref(
-                    a, wq, s, dtype, ep, residual=r),
-                None, m * k * 2 + k * n + n * 4 + m * n * 2
-                + (0 if r is None else m * n * 2),
+                lambda a=a, wq=wq, s=scale, kw=kw, ep=ep: ops.matmul_q(
+                    a, wq, s, epilogue=ep, **kw),
+                lambda a=a, wq=wq, s=scale, kw=kw, ep=ep: ref.matmul_q_ref(
+                    a, wq, s, dtype, ep, **kw),
+                None, m * k * 2 + k * n + n * 4 + m * n * 2 + e_bytes,
                 2 * m * n * k, "bfloat16", tol)
         # -- flash_decode_paged: 4 slots, 128 pages of 16 a slot, one idle,
         #    the pages shuffled over the pool, -1 past each prefix
@@ -623,7 +646,8 @@ class Smoke:
                         lambda x=x, y=y, op=op: kew.binary_op(x, y, op),
                         lambda x=x, y=y, op=op: ref.binary_ref(x, y, op),
                         lambda x=x, y=y, op=op: library[op](x, y),
-                        3 * x.numel() * size, x.numel(), dname, exact)
+                        3 * x.numel() * size, x.numel(), dname, exact,
+                        n_time=200 if rows == n else 50)
             x, y = randn(n, n, dtype=dtype), randn(n, n, dtype=dtype)
             alpha_t = torch.full((1,), 0.7, device=self.dev)
             for alpha, how in ((0.7, "a number"), (alpha_t, "an f32 tensor")):
@@ -632,7 +656,8 @@ class Smoke:
                     lambda alpha=alpha: kew.axpy(alpha, x, y),
                     lambda alpha=alpha: ref.saxpy_ref(alpha, x, y),
                     lambda: torch.add(y, x, alpha=0.7),
-                    3 * x.numel() * size, 2 * x.numel(), dname, exact)
+                    3 * x.numel() * size, 2 * x.numel(), dname, exact,
+                    n_time=200)
             del x, y
         # unaligned operands (one element into a buffer): the one-element path
         xu, yu = (randn(n * n + 1, dtype=f32)[1:].view(n, n) for _ in range(2))
@@ -714,13 +739,15 @@ class Smoke:
         self.dense_streams = [list(r.generated) for r in reqs]
 
     def phase_trace(self):
-        self._trace(self.engine)
+        self._trace(self.engine, expect=("matmul", "gated_matmul",
+                                         "flash_decode"))
 
-    def _trace(self, eng, n_steps=6):
+    def _trace(self, eng, n_steps=6, expect=()):
         """Trace decode steps of `eng` with 4 slots busy at a depth of
         ~260: the card's busy time a step, by kernel, beside the step's
         wall time on the host clock (the profiler's own host cost
-        included, so the idle share read here is an upper bound)."""
+        included, so the idle share read here is an upper bound). Each
+        kernel group in `expect` must show in the trace."""
         torch = self.torch
         import numpy as np
         from torch.profiler import ProfilerActivity, profile
@@ -739,7 +766,7 @@ class Smoke:
         eng.run()
         wall_ms = sum(eng._step_times[first:first + n_steps]) / n_steps * 1e3
         _print_trace(prof, f"{n_steps} decode steps at 4 slots", wall_ms,
-                     n_steps)
+                     n_steps, expect)
 
     def phase_batching(self):
         """The engine (batch-1 prefill, then decode at 4 slots with a
@@ -864,7 +891,7 @@ class Smoke:
               f"the run (weights + pool) {weights / 2 ** 30:.3f} GiB, "
               f"max_memory_allocated {peak / 2 ** 30:.3f} GiB")
         print(f"      kv pool: {json.dumps(kv)}")
-        self._trace(eng)
+        self._trace(eng, expect=("matmul", "matmul_q", "flash_decode_paged"))
 
         # 3. batch invariance there: 4 slots against each request alone
         rng = np.random.default_rng(3)
@@ -958,6 +985,7 @@ class Smoke:
         self._trace_train_step(step_fn, state, batches[steps])
         del state
         self._train_plain(cfg, opt, batches, losses, norms)
+        self._train_gated_plain(cfg, opt, steps, batch, seq, losses[-1])
 
     def _train_plain(self, cfg, opt, batches, losses, norms, steps=4,
                      rtol=1e-3):
@@ -990,6 +1018,53 @@ class Smoke:
         assert abs(plain[0][0] - losses[0]) <= rtol * abs(losses[0]), plain
         assert abs(plain[0][1] - norms[0]) <= rtol * abs(norms[0]), plain
 
+    def _train_gated_plain(self, cfg, opt, steps, batch, seq, final0,
+                           seeds=(0, 1, 2)):
+        """How far the dual GEMM's summation order alone moves the final
+        loss: the same steps from seeds 0-2 (weights and batches) through
+        the kernels and again with only the dual GEMM sent to its plain
+        version on the card (another order of the same exact products),
+        each seed's two final losses and their gap printed. Seed 0's
+        kernel run is the one above (`final0`). No bound: Adam's first,
+        sign-like steps amplify any rounding difference."""
+        torch = self.torch
+        from repro_torch.data.pipeline import SyntheticLM
+        from repro_torch.kernels import ops, ref
+        from repro_torch.training import train_loop as TL
+        kernel = ops.gated_matmul
+        step_fn = TL.make_train_step(cfg, opt)
+        gaps = []
+        for seed in seeds:
+            data = SyntheticLM(vocab=cfg.vocab, seq_len=seq, batch=batch,
+                               seed=seed)
+            final = {"kernel": final0} if seed == 0 else {}
+            for how in ("kernel", "plain"):
+                if how in final:
+                    continue
+                ops.gated_matmul = kernel if how == "kernel" \
+                    else ref.gated_matmul_ref
+                try:
+                    state = TL.init_state(
+                        cfg, opt, torch.Generator().manual_seed(seed),
+                        self.dev)
+                    for i in range(steps):
+                        state, met = step_fn(state, {
+                            k: torch.as_tensor(v, dtype=torch.long,
+                                               device=self.dev)
+                            for k, v in data.batch_at(i).items()})
+                    final[how] = float(met["loss"])
+                finally:
+                    ops.gated_matmul = kernel
+                del state
+                torch.cuda.empty_cache()
+            assert all(map(math.isfinite, final.values())), (seed, final)
+            gaps.append(final["kernel"] - final["plain"])
+            print(f"      seed {seed}, loss after {steps} steps: kernels "
+                  f"{final['kernel']:.4f}, dual GEMM through its plain "
+                  f"version {final['plain']:.4f} (gap {gaps[-1]:+.4f})")
+        print(f"      the dual GEMM's summation order moves the final loss "
+              f"by {min(gaps):+.4f} to {max(gaps):+.4f} over seeds {seeds}")
+
     def _trace_train_step(self, step_fn, state, batch):
         """One more step under torch.profiler: the card's busy time, by
         kernel group, against the step's wall time."""
@@ -1002,7 +1077,9 @@ class Smoke:
             step_fn(state, batch)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        _print_trace(prof, "a train step", wall_ms)
+        _print_trace(prof, "a train step", wall_ms,
+                     expect=("matmul", "gated_matmul", "flash_attention",
+                             "flash_attention_bwd"))
 
     def phase_train_vs_cpu(self, batch=2, seq=256, tol=1e-4):
         """A whole train step at full width, depth 2, f32 activations, on
@@ -1119,7 +1196,7 @@ class Smoke:
                 (req.rid, len(prompt))
         print(f"      the {len(reqs)} engine streams (decode at 4 slots) equal "
               f"each request run alone at batch 1, token for token")
-        self._trace(eng, n_steps=4)
+        self._trace(eng, n_steps=4, expect=("matmul",))
         self._trace_prefill(eng, prompts[5])
         del eng
         torch.cuda.empty_cache()
@@ -1171,7 +1248,8 @@ class Smoke:
             run()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        _print_trace(prof, f"a {toks.shape[1]}-token prefill", wall_ms)
+        _print_trace(prof, f"a {toks.shape[1]}-token prefill", wall_ms,
+                     expect=("matmul", "ssd"))
 
     def phase_mamba_vs_cpu(self, n_layers=2, length=300, steps=4, tol=1e-4):
         """mamba2-2.7b at full width, depth 2, f32 activations: a prefill
@@ -1263,13 +1341,13 @@ class Smoke:
             "matmul": ("src/repro_torch/kernels/csrc/matmul_tc.cu",
                        "src/repro/kernels/matmul.py:244",
                        "bfloat16 M=4 K=1024 N=152064 [N,K] B, f32 out"),
-            "gated_matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
+            "gated_matmul": ("src/repro_torch/kernels/csrc/matmul_tc.cu",
                              "src/repro/kernels/matmul.py:360",
                              "bfloat16 M=4 K=1024 N=3072"),
             "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
                              "src/repro/kernels/flash_attention.py:529",
                              "bfloat16 B=4 H=16 Hkv=8 D=128 Tk=2048 window=None"),
-            "matmul_q": ("src/repro_torch/kernels/csrc/matmul.cu",
+            "matmul_q": ("src/repro_torch/kernels/csrc/matmul_tc.cu",
                          "src/repro/kernels/matmul.py:315",
                          "bfloat16 M=4 K=1024 N=3072 int8 W none"),
             "flash_decode_paged": (
@@ -1329,11 +1407,12 @@ def _no_launches(**counts) -> dict:
     return {**dict.fromkeys(ops.launch_counts(), 0), **counts}
 
 
-def _print_trace(prof, what: str, wall_ms: float, n: int = 1) -> None:
+def _print_trace(prof, what: str, wall_ms: float, n: int = 1,
+                 expect=()) -> None:
     """The card's busy time in a torch.profiler trace of `n` repeats of
     `what`, by kernel group with its launches, against the wall time of
     one (the profiler's own host cost included, so the idle share read
-    here is an upper bound)."""
+    here is an upper bound). Each group in `expect` must show in it."""
     from torch.autograd import DeviceType
     busy, count = {}, {}
     for e in prof.events():
@@ -1353,14 +1432,17 @@ def _print_trace(prof, what: str, wall_ms: float, n: int = 1) -> None:
     print(f"      trace: {what} under torch.profiler: wall {wall_ms:.2f} ms"
           f"{each}; card busy {total:.3f} ms{each}: {parts}; idle share "
           f"{1 - total / wall_ms:.3f}")
+    missing = set(expect) - set(busy)
+    assert not missing, f"{what}: no {sorted(missing)} kernel in the trace"
 
 
 def _kernel_group(name: str) -> str:
     """A profiler kernel name's group: one of the port's kernels (by the
     template arguments of its instantiation), memcpy, or other."""
-    if "gated_matmul_kernel" in name:
+    if "gated_matmul_kernel" in name:     # mma_, tma_ (bf16) and FMA (f32)
         return "gated_matmul"
-    if "matmul_kernel" in name:          # mma_matmul_kernel: bf16
+    if "matmul_kernel" in name:           # mma_, tma_ (bf16) and FMA (f32);
+        # the int8-weight instances take int8 ("signed char") B
         return "matmul_q" if "signed char" in name else "matmul"
     if "flash_decode" in name:            # the split and merge kernels
         return "flash_decode" if "false, false>" in name \

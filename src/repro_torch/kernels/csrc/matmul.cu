@@ -1,36 +1,31 @@
-// The FMA GEMMs: the f32 tiled GEMM with a fused epilogue, the int8-weight
-// GEMM (bf16 or f32 activations), and the dual-GEMM SwiGLU kernel. The
-// bf16 tiled GEMM, the main path's, runs on the tensor cores in
-// matmul_tc.cu (mma.sync from ldmatrix fragments, cp.async stages); these
-// three are the kernels not yet moved there.
+// The FMA GEMMs, f32 only: the f32 tiled GEMM with a fused epilogue, the
+// int8-weight GEMM with f32 activations, and the dual-GEMM SwiGLU kernel
+// in f32. Their bf16 instances, the main paths', run on the tensor cores
+// in matmul_tc.cu (mma.sync and wgmma).
 //
-// Replaces the Pallas kernels `matmul_tiled` (_matmul_kernel, its f32
-// instances), `matmul_q_tiled` (_matmul_q_kernel) and `gated_matmul_tiled`
-// (_gated_matmul_kernel) of src/repro/kernels/matmul.py. It is the paper's
-// Listing 4 on the hardware family it was written for: 64x64 output tiles,
-// a k-step of 32, A and B tiles staged in shared memory as f32,
-// __syncthreads() around each stage, and an f32 accumulator in registers
-// (4x4 outputs a thread) on the FMA units. The f32 GEMM stays here on
-// purpose: it is Table 2's f32 "tiled" route (the paper's shared-memory
-// kernel, which Fig 8 measures), and the depth-2 f32 train and Mamba-2
-// steps are held to the CPU at rtol 1e-4, which TF32 would not meet. The
-// epilogue is applied once, on the f32 accumulator, at the flush: none |
-// bias | bias_gelu (tanh form) | bias_silu | residual, then one rounding
-// to the output type. The int8 variant (`matmul_q`) is the same kernel
-// with an int8 [K, N] B tile, widened to f32 as it is staged (|q| <= 127
-// is exact), and the per-channel f32 scale multiplied onto the accumulator
-// at the flush, before the epilogue. The gated kernel stages one A tile
-// against two [K, N] weight tiles, keeps two accumulators, and stores
-// silu(g) * u in the input type without ever writing g or u.
+// Replaces the f32 instances of the Pallas kernels `matmul_tiled`
+// (_matmul_kernel), `matmul_q_tiled` (_matmul_q_kernel) and
+// `gated_matmul_tiled` (_gated_matmul_kernel) of
+// src/repro/kernels/matmul.py. It is the paper's Listing 4 on the hardware
+// family it was written for: 64x64 output tiles, a k-step of 32, A and B
+// tiles staged in shared memory as f32, __syncthreads() around each
+// stage, and an f32 accumulator in registers (4x4 outputs a thread) on the
+// FMA units. These kernels stay here on purpose: the f32 GEMM is Table 2's
+// f32 "tiled" route (the paper's shared-memory kernel, which Fig 8
+// measures), and the depth-2 f32 train and Mamba-2 steps are held to the
+// CPU at rtol 1e-4, which TF32 would not meet. The epilogue is applied
+// once, on the f32 accumulator, at the flush: none | bias | bias_gelu
+// (tanh form) | bias_silu | residual, then one rounding to the output
+// type. The int8 variant (`matmul_q`) is the same kernel with an int8
+// [K, N] B tile, widened to f32 as it is staged (|q| <= 127 is exact),
+// and the per-channel f32 scale multiplied onto the accumulator at the
+// flush, before the epilogue. The gated kernel stages one A tile against
+// two [K, N] weight tiles, keeps two accumulators, and stores silu(g) * u
+// without ever writing g or u.
 //
-// Bound at the main path's shapes (qwen3-0.6b on an H100): an int8 decode
-// step (M = 4) is bound by its weights' bytes: a layer's matrices are 15.7
-// MB (plus 0.1 MB of scales), one M=4 K=1024 N=3072 int8 GEMM reads 3.15
-// MB, about 0.94 us at 3.35 TB/s; the dual GEMM at decode reads 12.6 MB of
-// bf16 weights a layer. At prefill and in training (M = 512..2048) the
-// operation count binds instead: the FMA peak is 67 TFLOP/s. These kernels
-// reach neither bound: loads are 1- and 2-byte scalars, and at M = 4 each
-// block's serial k-loop, not the bytes, sets the time.
+// Bound: at M = 512..2048 the f32 operation count, 67 TFLOP/s on the FMA
+// units; at M = 4 the weight's bytes. These kernels reach neither: at
+// M = 4 each block's serial k-loop, not the bytes, sets the time.
 //
 // Edges are masked in the kernel (no padding on the host). The f32 GEMM
 // reads B either as [K, N] row-major or as [N, K] (`b_nk`) and A either as
@@ -241,23 +236,14 @@ void launch_matmul(const void* a, const void* b, const void* e, void* c, int M, 
     launch_matmul_layout<TIn, TOut, false, false>(a, b, e, c, M, N, K, lda, ldb, lde, e_bf16, epilogue, s);
 }
 
-template <typename TIn, typename TOut>
+template <typename TOut>
 void launch_matmul_q(const void* a, const void* bq, const float* scale, const void* e, void* c,
                      int M, int N, int K, long long lda, long long ldb, long long lde,
                      int e_bf16, int epilogue, cudaStream_t s) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  matmul_kernel<TIn, int8_t, TOut, false, false><<<grid, THREADS, 0, s>>>(
-      static_cast<const TIn*>(a), static_cast<const int8_t*>(bq), scale, e,
+  matmul_kernel<float, int8_t, TOut, false, false><<<grid, THREADS, 0, s>>>(
+      static_cast<const float*>(a), static_cast<const int8_t*>(bq), scale, e,
       static_cast<TOut*>(c), M, N, K, lda, ldb, lde, e_bf16, epilogue);
-}
-
-template <typename T>
-void launch_gated(const void* a, const void* g, const void* u, void* c, int M, int N, int K,
-                  long long lda, long long ldb, cudaStream_t s) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gated_matmul_kernel<T><<<grid, THREADS, 0, s>>>(
-      static_cast<const T*>(a), static_cast<const T*>(g), static_cast<const T*>(u),
-      static_cast<T*>(c), M, N, K, lda, ldb);
 }
 
 }  // namespace
@@ -276,33 +262,30 @@ extern "C" int repro_matmul(const void* a, const void* b, const void* e, void* c
   return static_cast<int>(cudaGetLastError());
 }
 
+// f32 activations; bf16 ones go to repro_matmul_q_tc (matmul_tc.cu).
 extern "C" int repro_matmul_q(const void* a, const void* bq, const float* scale, const void* e,
                               void* c, int M, int N, int K, long long lda, long long ldb,
-                              long long lde, int in_bf16, int out_bf16, int e_bf16, int epilogue,
+                              long long lde, int out_bf16, int e_bf16, int epilogue,
                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M > 0 && N > 0) {
-    if (in_bf16 && out_bf16)
-      launch_matmul_q<__nv_bfloat16, __nv_bfloat16>(a, bq, scale, e, c, M, N, K, lda, ldb, lde, e_bf16, epilogue, s);
-    else if (in_bf16)
-      launch_matmul_q<__nv_bfloat16, float>(a, bq, scale, e, c, M, N, K, lda, ldb, lde, e_bf16, epilogue, s);
-    else if (out_bf16)
-      launch_matmul_q<float, __nv_bfloat16>(a, bq, scale, e, c, M, N, K, lda, ldb, lde, e_bf16, epilogue, s);
+    if (out_bf16)
+      launch_matmul_q<__nv_bfloat16>(a, bq, scale, e, c, M, N, K, lda, ldb, lde, e_bf16, epilogue, s);
     else
-      launch_matmul_q<float, float>(a, bq, scale, e, c, M, N, K, lda, ldb, lde, e_bf16, epilogue, s);
+      launch_matmul_q<float>(a, bq, scale, e, c, M, N, K, lda, ldb, lde, e_bf16, epilogue, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// f32; bf16 goes to repro_gated_matmul_tc (matmul_tc.cu).
 extern "C" int repro_gated_matmul(const void* a, const void* g, const void* u, void* c, int M,
-                                  int N, int K, long long lda, long long ldb, int bf16,
-                                  void* stream) {
+                                  int N, int K, long long lda, long long ldb, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M > 0 && N > 0) {
-    if (bf16)
-      launch_gated<__nv_bfloat16>(a, g, u, c, M, N, K, lda, ldb, s);
-    else
-      launch_gated<float>(a, g, u, c, M, N, K, lda, ldb, s);
+    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+    gated_matmul_kernel<float><<<grid, THREADS, 0, s>>>(
+        static_cast<const float*>(a), static_cast<const float*>(g), static_cast<const float*>(u),
+        static_cast<float*>(c), M, N, K, lda, ldb);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,12 +1,38 @@
-// The bf16 tiled GEMM on Hopper's tensor cores, with the fused epilogue.
+// The bf16 GEMMs on Hopper's tensor cores: the tiled GEMM with its fused
+// epilogue, the int8-weight GEMM and the SwiGLU dual GEMM.
 //
-// Replaces the Pallas kernel `matmul_tiled` (_matmul_kernel) of
-// src/repro/kernels/matmul.py for bf16 operands; its f32 instantiations,
-// the int8-weight GEMM and the dual GEMM stay on the FMA kernel of
+// Replaces, for bf16 activations, the Pallas kernels of
+// src/repro/kernels/matmul.py: `matmul_tiled` (_matmul_kernel),
+// `matmul_q_tiled` (_matmul_q_kernel) and `gated_matmul_tiled`
+// (_gated_matmul_kernel); their f32 instances stay on the FMA kernels of
 // matmul.cu. C[M, N] = epilogue(A @ B), with bf16 products summed in f32
 // on the tensor cores. The epilogue (none | bias | bias_gelu (tanh form) |
 // bias_silu | residual) is applied on the f32 accumulator fragments at
 // the flush, then the one rounding to bf16 or f32.
+//
+// The int8-weight GEMM, C = epilogue((A @ widen(Wq)) * scale), stages the
+// int8 [K, N] tile by cp.async (16 bytes at a time; 8 for an 8-column
+// tile) and widens each thread's B fragment from shared memory into
+// packed bf16 pairs: int8 -> bf16 is exact (|q| <= 127 fits bf16's 8
+// significant bits), so an mma.sync bf16 step on the widened fragment is
+// the JAX kernel's bf16 dot of A against the widened tile. The (N,) f32
+// scale multiplies the f32 accumulator at the flush, before the epilogue.
+// It takes the `rows16` tile at decode (8 or 16 columns a block, by N)
+// and the 128 x 64 mma.sync tile for M > 16 (wgmma reads B from shared
+// memory in A's type, so int8 there would need a widening pass between
+// TMA and wgmma).
+//
+// The dual GEMM, H = silu(A @ Wg) * (A @ Wu), stages the same columns of
+// Wg and Wu side by side in one B tile, so one A fragment feeds both
+// products and the thread that holds column n of g holds column n of u
+// in the same position of its other accumulator: the flush takes
+// silu(g) * u on the f32 accumulators (rounded intrinsics) and rounds
+// once to bf16; neither g nor u is written. At decode a one-warp 16-row
+// tile with 16 columns of each; for M > 16 the TMA + wgmma tile,
+// whose B stage is one (or two) 64-column boxes of Wg beside the same of
+// Wu, so one m64n128k16 (m64n256k16) step yields 64 (128) columns of g
+// in the first half of the accumulator groups and of u in the second,
+// and a block writes 128 x 64 (128 x 128) of H.
 //
 // Two paths, by tile plan (chosen by `kernels/matmul.py` `tile_plan` and
 // passed here by number):
@@ -39,20 +65,24 @@
 //
 // Bound at the main path's shapes (H100, bf16): a decode GEMM (M = 4)
 // does 4 multiply-adds per weight byte pair and is bound by the weight's
-// bytes (the tied-embedding logits: 311 MB, 93 us at 3.35 TB/s); a prefill
-// or training GEMM (M = 2048) by the tensor cores (M=2048 K=1024 N=3072:
-// 12.9 GFLOP, 13 us at the 989 TFLOP/s dense bf16 peak). The wide tile
+// bytes (the tied-embedding logits: 311 MB, 93 us at 3.35 TB/s; an int8
+// up-projection, K=1024 N=3072: 3.15 MB, 0.94 us; the dual GEMM's two
+// bf16 weights: 12.6 MB a layer, 3.8 us); a prefill or training GEMM
+// (M = 2048) by the tensor cores (M=2048 K=1024 N=3072: 12.9 GFLOP, 13 us
+// at the 989 TFLOP/s dense bf16 peak; the dual GEMM twice that, 26 us). The wide tile
 // still leaves time there: one block an SM, so whole waves of blocks (the
 // 192-wide tile takes M=1024 N=3072 from 1.45 waves to 1), each epilogue
 // unhidden, and each tile re-reads its A rows and B columns from L2.
 //
-// Batch invariance: every plan sums each output in one order, fixed by K
-// alone: ceil(K / 16) k-steps of 16 in ascending order from a zero f32
-// accumulator, steps past K skipped, no split of K across warps or blocks
-// and no atomics. An m16n8k16 mma.sync step and an m64nNk16 wgmma step
-// give the same bits, so a tile plan changes which rows and columns share
-// a block, never a row's bits: one row of C is the same at M = 1, 4, 136
-// or 2048 (`tests/test_torch_cuda.py` checks it on the card).
+// Batch invariance: every plan of the three GEMMs sums each output in one
+// order, fixed by K alone: ceil(K / 16) k-steps of 16 in ascending order
+// from a zero f32 accumulator, steps past K skipped, no split of K across
+// warps or blocks and no atomics. An m16n8k16 mma.sync step and an
+// m64nNk16 wgmma step give the same bits, and the flush (scale, epilogue,
+// silu(g) * u) is written in rounded intrinsics that no instance contracts
+// differently, so a tile plan changes which rows and columns share a
+// block, never a row's bits: one row of C is the same at M = 1, 4, 136 or
+// 2048 (`tests/test_torch_cuda.py` checks it on the card for each GEMM).
 
 #include <cuda.h>
 #include <dlfcn.h>
@@ -87,16 +117,22 @@ __device__ __forceinline__ float load_any(const void* p, int is_bf16, long long 
 
 struct Args {
   const bf16* A;
-  const bf16* B;
+  const void* B;  // bf16, or int8 for the int8-weight GEMM; Wg for the dual GEMM
   const void* E;
   void* C;
   int M, N, K;
   long long lda, ldb, lde;
   int e_bf16, epilogue;
-  bool a_vec, b_vec;  // 16-byte aligned base and a leading dim of 8k elements
+  bool a_vec, b_vec;  // 16-byte aligned bases and a leading dim of 16 bytes' multiple
+  const bf16* U = nullptr;   // the dual GEMM's Wu (B's row stride)
+  const float* S = nullptr;  // the int8 weight's (N,) scale
 };
 
+// silu(g) * u on the dual GEMM's f32 accumulators.
+__device__ __forceinline__ float glu(float g, float u) { return __fmul_rn(silu(g), u); }
+
 __device__ __forceinline__ float flush_one(const Args& p, float v, int gm, int gn) {
+  if (p.S != nullptr) v = __fmul_rn(v, p.S[gn]);  // dequantize before the epilogue
   if (p.epilogue == EP_RESIDUAL) {
     v = __fadd_rn(v, load_any(p.E, p.e_bf16, (long long)gm * p.lde + gn));
   } else if (p.epilogue != EP_NONE) {
@@ -107,15 +143,16 @@ __device__ __forceinline__ float flush_one(const Args& p, float v, int gm, int g
   return v;
 }
 
-// Two neighbouring outputs (gm, gn) and (gm, gn + 1) of one accumulator
-// fragment: epilogue, rounding, store (a paired store where aligned).
-template <typename TOut>
-__device__ __forceinline__ void flush_pair(const Args& p, float v0, float v1, int gm, int gn) {
+// Two neighbouring outputs (gm, gn) and (gm, gn + 1): out(i, column) is
+// output i's f32 value, then the rounding and the store (a paired store
+// where aligned).
+template <typename TOut, typename Out>
+__device__ __forceinline__ void store_pair(const Args& p, int gm, int gn, Out out) {
   if (gm >= p.M || gn >= p.N) return;
   TOut* c = static_cast<TOut*>(p.C) + (long long)gm * p.N + gn;
-  const TOut o0 = from_f32<TOut>(flush_one(p, v0, gm, gn));
+  const TOut o0 = from_f32<TOut>(out(0, gn));
   if (gn + 1 < p.N) {
-    const TOut o1 = from_f32<TOut>(flush_one(p, v1, gm, gn + 1));
+    const TOut o1 = from_f32<TOut>(out(1, gn + 1));
     if (p.N % 2 == 0) {
       if constexpr (sizeof(TOut) == 2) {
         __nv_bfloat162 pair;
@@ -132,12 +169,25 @@ __device__ __forceinline__ void flush_pair(const Args& p, float v0, float v1, in
   c[0] = o0;
 }
 
-// The A and B fragments of k-step kk of a warp's WM x WN sub-tile from the
-// stage's shared tiles.
-template <int MT, int NT, int WM, int WN, int A_LD, int B_LD, bool A_KM, bool B_NK>
-__device__ __forceinline__ void load_frags(uint32_t (&af)[MT][4], uint32_t (&bfr)[NT][2],
-                                           const bf16* a, const bf16* b, int kk, int wm, int wn,
-                                           int lane) {
+// Two neighbouring outputs of one accumulator fragment: scale, epilogue,
+// rounding, store.
+template <typename TOut>
+__device__ __forceinline__ void flush_pair(const Args& p, float v0, float v1, int gm, int gn) {
+  store_pair<TOut>(p, gm, gn, [&](int i, int n) { return flush_one(p, i ? v1 : v0, gm, n); });
+}
+
+// The dual GEMM's two outputs from their g and u accumulators.
+template <typename TOut>
+__device__ __forceinline__ void flush_glu(const Args& p, float g0, float g1, float u0, float u1,
+                                          int gm, int gn) {
+  store_pair<TOut>(p, gm, gn, [&](int i, int) { return i ? glu(g1, u1) : glu(g0, u0); });
+}
+
+// The A fragments of k-step kk of a warp's WM-row sub-tile from the
+// stage's shared tile.
+template <int MT, int WM, int A_LD, bool A_KM>
+__device__ __forceinline__ void load_a_frags(uint32_t (&af)[MT][4], const bf16* a, int kk, int wm,
+                                             int lane) {
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
     const int mb = wm * WM + i * 16;
@@ -147,6 +197,13 @@ __device__ __forceinline__ void load_frags(uint32_t (&af)[MT][4], uint32_t (&bfr
     else
       repro::ldmatrix_x4(af[i], a + (mb + (lane & 15)) * A_LD + kk * 16 + (lane >> 4) * 8);
   }
+}
+
+// The B fragments of k-step kk of a warp's WN-column sub-tile from the
+// stage's shared bf16 tile.
+template <int NT, int WN, int B_LD, bool B_NK>
+__device__ __forceinline__ void load_b_frags(uint32_t (&bfr)[NT][2], const bf16* b, int kk, int wn,
+                                             int lane) {
   if constexpr (NT == 1) {
     const int nb = wn * WN;
     if constexpr (B_NK)
@@ -172,41 +229,85 @@ __device__ __forceinline__ void load_frags(uint32_t (&af)[MT][4], uint32_t (&bfr
   }
 }
 
+// The same from a shared int8 [BK][B_LD] tile, widened: lane 4 g + t takes
+// column g of k rows 2t, 2t + 1, 8 + 2t and 9 + 2t of each n8 tile (the
+// fragment ldmatrix.trans would give of a bf16 tile), as two packed bf16
+// pairs. int8 -> f32 -> bf16 is exact.
+template <int NT, int WN, int B_LD>
+__device__ __forceinline__ void load_b_frags_i8(uint32_t (&bfr)[NT][2], const int8_t* b, int kk,
+                                                int wn, int lane) {
+  const int8_t* q = b + (kk * 16 + 2 * (lane % 4)) * B_LD + wn * WN + lane / 4;
+#pragma unroll
+  for (int j = 0; j < NT; ++j, q += 8) {
+    bfr[j][0] = repro::pack_bf16(static_cast<float>(q[0]), static_cast<float>(q[B_LD]));
+    bfr[j][1] = repro::pack_bf16(static_cast<float>(q[8 * B_LD]), static_cast<float>(q[9 * B_LD]));
+  }
+}
+
+// The shared-memory layout of an mma.sync tile's stages: A as [BM][BK]
+// (K contiguous) or [BK][BM]; B as [BN][BK], [BK][BN] bf16 or [BK][BN]
+// int8 (TB). Every stage starts 16-byte aligned.
+template <int BM, int BN, int BK, bool A_KM, bool B_NK, typename TB>
+struct Tiles {
+  static constexpr bool I8 = sizeof(TB) == 1;
+  static constexpr int A_LD = A_KM ? padded(BM) : padded(BK);
+  static constexpr int B_LD = I8 ? repro::padded_i8(BN) : B_NK ? padded(BK) : padded(BN);
+  static constexpr int A_BYTES = (A_KM ? BK : BM) * A_LD * 2;
+  static constexpr int B_BYTES = (B_NK ? BN : BK) * B_LD * (int)sizeof(TB);
+  static_assert(A_BYTES % 16 == 0 && B_BYTES % 16 == 0, "stages on 16-byte bounds");
+};
+
 // One block computes a BM x BN tile of C with (BM / WM) x (BN / WN) warps,
 // each a WM x WN sub-tile of (WM / 16) x (WN / 8) m16n8 accumulators.
-// A_KM: A is [K, M]; B_NK: B is [N, K].
-template <int BM, int BN, int BK, int WM, int WN, int STAGES, int MIN_BLOCKS, bool A_KM,
-          bool B_NK, typename TOut>
-__global__ void __launch_bounds__((BM / WM) * (BN / WN) * 32, MIN_BLOCKS)
-mma_matmul_kernel(Args p) {
+// A_KM: A is [K, M]; B_NK: B is [N, K]; TB: B's element type (bf16, or
+// int8 widened in the fragments); GATED: the dual GEMM, whose B tile holds
+// BN / 2 columns of Wg and then the same columns of Wu (every warp spans
+// the whole tile, so accumulator j and j + NT / 2 are g and u of one
+// column), and which writes BN / 2 columns of H.
+template <int BM, int BN, int BK, int WM, int WN, int STAGES, bool A_KM, bool B_NK, typename TB,
+          bool GATED, typename TOut>
+__device__ __forceinline__ void mma_tile(const Args& p) {
+  using T = Tiles<BM, BN, BK, A_KM, B_NK, TB>;
   constexpr int WARPS_N = BN / WN, THREADS = (BM / WM) * WARPS_N * 32;
   constexpr int MT = WM / 16, NT = WN / 8;
-  // shared tiles: A as [BM][BK] (K contiguous) or [BK][BM]; B as [BN][BK]
-  // or [BK][BN]
-  constexpr int A_LD = A_KM ? padded(BM) : padded(BK);
-  constexpr int B_LD = B_NK ? padded(BK) : padded(BN);
-  constexpr int A_ELEMS = (A_KM ? BK : BM) * A_LD, B_ELEMS = (B_NK ? BN : BK) * B_LD;
-  static_assert(NT == 1 || NT % 2 == 0, "B fragments load in pairs of n8 tiles");
+  static_assert(T::I8 || NT == 1 || NT % 2 == 0, "B fragments load in pairs of n8 tiles");
+  static_assert(!GATED || (WARPS_N == 1 && NT % 2 == 0 && !A_KM && !B_NK && !T::I8),
+                "a dual-GEMM warp holds g and u of the same columns");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* As = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Bs = As + STAGES * A_ELEMS;
+  unsigned char* As = smem_raw;
+  unsigned char* Bs = As + STAGES * T::A_BYTES;
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * (GATED ? BN / 2 : BN);
   const int kt_n = (p.K + BK - 1) / BK;
 
   auto load_stage = [&](int slot, int k0) {
-    bf16* a = As + slot * A_ELEMS;
-    bf16* b = Bs + slot * B_ELEMS;
+    bf16* a = reinterpret_cast<bf16*>(As + slot * T::A_BYTES);
+    unsigned char* b = Bs + slot * T::B_BYTES;
     if constexpr (A_KM)
       repro::load_tile<BK, BM, THREADS>(a, p.A, p.lda, k0, p.K, m0, p.M, p.a_vec, tid);
     else
       repro::load_tile<BM, BK, THREADS>(a, p.A, p.lda, m0, p.M, k0, p.K, p.a_vec, tid);
-    if constexpr (B_NK)
-      repro::load_tile<BN, BK, THREADS>(b, p.B, p.ldb, n0, p.N, k0, p.K, p.b_vec, tid);
-    else
-      repro::load_tile<BK, BN, THREADS>(b, p.B, p.ldb, k0, p.K, n0, p.N, p.b_vec, tid);
+    if constexpr (T::I8) {
+      repro::load_tile_i8<BK, BN, THREADS>(reinterpret_cast<int8_t*>(b),
+                                           static_cast<const int8_t*>(p.B), p.ldb, k0, p.K, n0,
+                                           p.N, p.b_vec, tid);
+    } else if constexpr (GATED) {
+      bf16* bb = reinterpret_cast<bf16*>(b);
+      repro::load_tile<BK, BN / 2, THREADS, T::B_LD>(bb, static_cast<const bf16*>(p.B), p.ldb,
+                                                     k0, p.K, n0, p.N, p.b_vec, tid);
+      repro::load_tile<BK, BN / 2, THREADS, T::B_LD>(bb + BN / 2, p.U, p.ldb, k0, p.K, n0, p.N,
+                                                     p.b_vec, tid);
+    } else if constexpr (B_NK) {
+      repro::load_tile<BN, BK, THREADS>(reinterpret_cast<bf16*>(b),
+                                        static_cast<const bf16*>(p.B), p.ldb, n0, p.N, k0, p.K,
+                                        p.b_vec, tid);
+    } else {
+      repro::load_tile<BK, BN, THREADS>(reinterpret_cast<bf16*>(b),
+                                        static_cast<const bf16*>(p.B), p.ldb, k0, p.K, n0, p.N,
+                                        p.b_vec, tid);
+    }
   };
 
   float acc[MT][NT][4];
@@ -230,17 +331,38 @@ mma_matmul_kernel(Args p) {
     if (next < kt_n) load_stage(next % STAGES, next * BK);
     repro::cp_async_commit();
 
-    const bf16* a = As + (kt % STAGES) * A_ELEMS;
-    const bf16* b = Bs + (kt % STAGES) * B_ELEMS;
+    const bf16* a = reinterpret_cast<const bf16*>(As + (kt % STAGES) * T::A_BYTES);
+    const unsigned char* b = Bs + (kt % STAGES) * T::B_BYTES;
+    // a decode tile's warp (one m16 tile) keeps its fragments in two
+    // register sets: k-step kk + 1's are read from shared memory ahead of
+    // kk's mma.sync, so their latency overlaps it (in the larger tiles
+    // the second set costs more than it hides)
+    constexpr int R = MT == 1 ? 2 : 1;
+    uint32_t af[R][MT][4], bfr[R][NT][2];
+    auto load_step = [&](int kk, int r) {
+      load_a_frags<MT, WM, T::A_LD, A_KM>(af[r], a, kk, wm, lane);
+      if constexpr (T::I8)
+        load_b_frags_i8<NT, WN, T::B_LD>(bfr[r], reinterpret_cast<const int8_t*>(b), kk, wn,
+                                         lane);
+      else
+        load_b_frags<NT, WN, T::B_LD, B_NK>(bfr[r], reinterpret_cast<const bf16*>(b), kk, wn,
+                                            lane);
+    };
+    if constexpr (R == 2) load_step(0, 0);
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       if (kt * BK + kk * 16 >= p.K) break;  // the k-order: ceil(K / 16) steps
-      uint32_t af[MT][4], bfr[NT][2];
-      load_frags<MT, NT, WM, WN, A_LD, B_LD, A_KM, B_NK>(af, bfr, a, b, kk, wm, wn, lane);
+      if constexpr (R == 2) {
+        if (kk + 1 < BK / 16) load_step(kk + 1, (kk + 1) % 2);
+      } else {
+        load_step(kk, 0);
+      }
+      const int r = kk % R;
 #pragma unroll
       for (int i = 0; i < MT; ++i)
 #pragma unroll
-        for (int j = 0; j < NT; ++j) repro::mma_bf16(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
+        for (int j = 0; j < NT; ++j)
+          repro::mma_bf16(acc[i][j], af[r][i], bfr[r][j][0], bfr[r][j][1]);
     }
   }
   repro::cp_async_wait<0>();
@@ -249,28 +371,57 @@ mma_matmul_kernel(Args p) {
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
     const int gm = m0 + wm * WM + i * 16 + g;
+    if constexpr (GATED) {
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int gn = n0 + wn * WN + j * 8 + 2 * t;
-      flush_pair<TOut>(p, acc[i][j][0], acc[i][j][1], gm, gn);
-      flush_pair<TOut>(p, acc[i][j][2], acc[i][j][3], gm + 8, gn);
+      for (int j = 0; j < NT / 2; ++j) {
+        const float(&gv)[4] = acc[i][j];
+        const float(&uv)[4] = acc[i][j + NT / 2];
+        const int gn = n0 + j * 8 + 2 * t;
+        flush_glu<TOut>(p, gv[0], gv[1], uv[0], uv[1], gm, gn);
+        flush_glu<TOut>(p, gv[2], gv[3], uv[2], uv[3], gm + 8, gn);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int gn = n0 + wn * WN + j * 8 + 2 * t;
+        flush_pair<TOut>(p, acc[i][j][0], acc[i][j][1], gm, gn);
+        flush_pair<TOut>(p, acc[i][j][2], acc[i][j][3], gm + 8, gn);
+      }
     }
   }
 }
 
+// The GEMM (TB = bf16) and the int8-weight GEMM (TB = int8_t) on mma.sync.
 template <int BM, int BN, int BK, int WM, int WN, int STAGES, int MIN_BLOCKS, bool A_KM,
-          bool B_NK, typename TOut>
+          bool B_NK, typename TOut, typename TB>
+__global__ void __launch_bounds__((BM / WM) * (BN / WN) * 32, MIN_BLOCKS)
+mma_matmul_kernel(Args p) {
+  mma_tile<BM, BN, BK, WM, WN, STAGES, A_KM, B_NK, TB, false, TOut>(p);
+}
+
+// The dual GEMM on mma.sync (row-major A, [K, N] Wg and Wu, bf16 H).
+template <int BM, int BN, int BK, int WM, int WN, int STAGES, int MIN_BLOCKS>
+__global__ void __launch_bounds__((BM / WM) * (BN / WN) * 32, MIN_BLOCKS)
+mma_gated_matmul_kernel(Args p) {
+  mma_tile<BM, BN, BK, WM, WN, STAGES, false, false, bf16, true, bf16>(p);
+}
+
+template <int BM, int BN, int BK, int WM, int WN, int STAGES, int MIN_BLOCKS, bool A_KM,
+          bool B_NK, typename TOut, typename TB = bf16, bool GATED = false>
 cudaError_t launch_plan(const Args& p, cudaStream_t s) {
-  constexpr int A_LD = A_KM ? padded(BM) : padded(BK);
-  constexpr int B_LD = B_NK ? padded(BK) : padded(BN);
-  constexpr int SMEM = STAGES * 2 * ((A_KM ? BK : BM) * A_LD + (B_NK ? BN : BK) * B_LD);
-  constexpr int THREADS = (BM / WM) * (BN / WN) * 32;
-  auto kernel = mma_matmul_kernel<BM, BN, BK, WM, WN, STAGES, MIN_BLOCKS, A_KM, B_NK, TOut>;
+  using T = Tiles<BM, BN, BK, A_KM, B_NK, TB>;
+  constexpr int SMEM = STAGES * (T::A_BYTES + T::B_BYTES);
+  constexpr int THREADS = (BM / WM) * (BN / WN) * 32, BN_OUT = GATED ? BN / 2 : BN;
+  void (*kernel)(Args);
+  if constexpr (GATED)
+    kernel = mma_gated_matmul_kernel<BM, BN, BK, WM, WN, STAGES, MIN_BLOCKS>;
+  else
+    kernel = mma_matmul_kernel<BM, BN, BK, WM, WN, STAGES, MIN_BLOCKS, A_KM, B_NK, TOut, TB>;
   // above 48 KB a block's shared memory must be asked for, once a kernel
   static const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (attr != cudaSuccess) return attr;
-  const dim3 grid((p.M + BM - 1) / BM, (p.N + BN - 1) / BN);
+  const dim3 grid((p.M + BM - 1) / BM, (p.N + BN_OUT - 1) / BN_OUT);
   kernel<<<grid, THREADS, SMEM, s>>>(p);
   return cudaGetLastError();
 }
@@ -282,23 +433,26 @@ cudaError_t launch_plan(const Args& p, cudaStream_t s) {
 // consumer warpgroups of 64 rows that wait on a stage's "full" mbarrier,
 // run its 4 m64nBNk16 steps (fewer at K's end) and, once the steps of the
 // stage before are done, release that stage on its "empty" mbarrier. No
-// block-wide barrier in the k-loop.
+// block-wide barrier in the k-loop. GATED (BN = 128 or 256): the dual
+// GEMM, whose B stage is BN / 2 columns of Wg (map_b) beside the same of
+// Wu (map_u); the block writes 128 x BN / 2 of H.
 constexpr int TMA_STAGES = 4, TMA_A = 128 * 64 * 2;  // bytes of an A stage
 
 template <int BN>
 constexpr int tma_smem() { return TMA_STAGES * (TMA_A + BN * 64 * 2) + 1024 + TMA_STAGES * 16; }
 
-template <int BN, bool A_KM, bool B_NK, typename TOut>
-__global__ void __launch_bounds__(384, 1)
-tma_matmul_kernel(const __grid_constant__ CUtensorMap map_a,
-                  const __grid_constant__ CUtensorMap map_b, Args p) {
+template <int BN, bool A_KM, bool B_NK, bool GATED, typename TOut>
+__device__ __forceinline__ void tma_tile(const CUtensorMap& map_a, const CUtensorMap& map_b,
+                                         const CUtensorMap& map_u, const Args& p) {
   constexpr int BK = 64, STAGES = TMA_STAGES, A_BYTES = TMA_A, B_BYTES = BN * BK * 2;
+  static_assert(!GATED || ((BN == 128 || BN == 256) && !A_KM && !B_NK),
+                "the dual GEMM's wide tile");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // the swizzle works on address bits: atoms must sit on 1024-byte bounds
   const uint32_t As = (repro::smem_u32(smem_raw) + 1023) & ~1023u, Bs = As + STAGES * A_BYTES;
   const uint32_t full = Bs + STAGES * B_BYTES, empty = full + STAGES * 8;  // mbarriers
   const int tid = threadIdx.x, wg = tid / 128;
-  const int m0 = blockIdx.x * 128, n0 = blockIdx.y * BN;
+  const int m0 = blockIdx.x * 128, n0 = blockIdx.y * (GATED ? BN / 2 : BN);
   const int kt_n = (p.K + BK - 1) / BK;
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -324,6 +478,12 @@ tma_matmul_kernel(const __grid_constant__ CUtensorMap map_a,
         }
         if (B_NK) {
           repro::tma_load_2d(b, &map_b, bar, k0, n0);
+        } else if (GATED) {  // BN / 2 columns of Wg, then the same of Wu
+#pragma unroll
+          for (int c = 0; c < BN / 128; ++c) {
+            repro::tma_load_2d(b + 8192 * c, &map_b, bar, n0 + 64 * c, k0);
+            repro::tma_load_2d(b + 8192 * (BN / 128 + c), &map_u, bar, n0 + 64 * c, k0);
+          }
         } else {
 #pragma unroll
           for (int c = 0; c < BN / 64; ++c)
@@ -366,12 +526,36 @@ tma_matmul_kernel(const __grid_constant__ CUtensorMap map_a,
   repro::wgmma_wait<0>();
 
   const int lane = ct % 32, g = lane / 4, t = lane % 4, gm = m0 + c * 64 + ct / 32 * 16 + g;
+  if constexpr (GATED) {  // group j of g pairs with group j + BN / 16 of u
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int gn = n0 + j * 8 + 2 * t;
-    flush_pair<TOut>(p, acc[4 * j], acc[4 * j + 1], gm, gn);
-    flush_pair<TOut>(p, acc[4 * j + 2], acc[4 * j + 3], gm + 8, gn);
+    for (int j = 0; j < BN / 16; ++j) {
+      const int gn = n0 + j * 8 + 2 * t, u = 4 * j + BN / 4;
+      flush_glu<TOut>(p, acc[4 * j], acc[4 * j + 1], acc[u], acc[u + 1], gm, gn);
+      flush_glu<TOut>(p, acc[4 * j + 2], acc[4 * j + 3], acc[u + 2], acc[u + 3], gm + 8, gn);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int gn = n0 + j * 8 + 2 * t;
+      flush_pair<TOut>(p, acc[4 * j], acc[4 * j + 1], gm, gn);
+      flush_pair<TOut>(p, acc[4 * j + 2], acc[4 * j + 3], gm + 8, gn);
+    }
   }
+}
+
+template <int BN, bool A_KM, bool B_NK, typename TOut>
+__global__ void __launch_bounds__(384, 1)
+tma_matmul_kernel(const __grid_constant__ CUtensorMap map_a,
+                  const __grid_constant__ CUtensorMap map_b, Args p) {
+  tma_tile<BN, A_KM, B_NK, false, TOut>(map_a, map_b, map_b, p);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(384, 1)
+tma_gated_matmul_kernel(const __grid_constant__ CUtensorMap map_a,
+                        const __grid_constant__ CUtensorMap map_g,
+                        const __grid_constant__ CUtensorMap map_u, Args p) {
+  tma_tile<BN, false, false, true, bf16>(map_a, map_g, map_u, p);
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -402,27 +586,37 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int rows, int cols, long
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int BN, bool A_KM, bool B_NK, typename TOut>
+template <int BN, bool A_KM, bool B_NK, typename TOut, bool GATED = false>
 cudaError_t launch_tma(const Args& p, cudaStream_t s) {
-  constexpr int SMEM = tma_smem<BN>();
-  auto kernel = tma_matmul_kernel<BN, A_KM, B_NK, TOut>;
+  constexpr int SMEM = tma_smem<BN>(), BN_OUT = GATED ? BN / 2 : BN;
+  const void* kernel;
+  if constexpr (GATED)
+    kernel = reinterpret_cast<const void*>(tma_gated_matmul_kernel<BN>);
+  else
+    kernel = reinterpret_cast<const void*>(tma_matmul_kernel<BN, A_KM, B_NK, TOut>);
   static const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (attr != cudaSuccess) return attr;
-  CUtensorMap map_a, map_b;
+  CUtensorMap map_a, map_b, map_u;
   cudaError_t err = A_KM ? make_map(&map_a, p.A, p.K, p.M, p.lda, 64)
                          : make_map(&map_a, p.A, p.M, p.K, p.lda, 128);
   if (err == cudaSuccess)
     err = B_NK ? make_map(&map_b, p.B, p.N, p.K, p.ldb, BN)
                : make_map(&map_b, p.B, p.K, p.N, p.ldb, 64);
+  if (err == cudaSuccess && GATED) err = make_map(&map_u, p.U, p.K, p.N, p.ldb, 64);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.M + 127) / 128, (p.N + BN - 1) / BN);
-  kernel<<<grid, 384, SMEM, s>>>(map_a, map_b, p);
+  const dim3 grid((p.M + 127) / 128, (p.N + BN_OUT - 1) / BN_OUT);
+  if constexpr (GATED)
+    tma_gated_matmul_kernel<BN><<<grid, 384, SMEM, s>>>(map_a, map_b, map_u, p);
+  else
+    tma_matmul_kernel<BN, A_KM, B_NK, TOut><<<grid, 384, SMEM, s>>>(map_a, map_b, p);
   return cudaGetLastError();
 }
 
-// The instance numbers of `kernels/matmul.py` `tile_plan`.
-enum Plan { ROWS16_N8 = 0, ROWS16_N32 = 1, WIDE = 2, WIDE192 = 3 };
+// The instance numbers of `kernels/matmul.py` `tile_plan`, `q_tile_plan`
+// and `gated_tile_plan` (ROWS16_N<w>: the decode tile, w output columns a
+// block).
+enum Plan { ROWS16_N8 = 0, ROWS16_N32 = 1, WIDE = 2, WIDE192 = 3, ROWS16_N16 = 4, WIDE256 = 5 };
 
 template <bool A_KM, bool B_NK, typename TOut>
 cudaError_t launch_layout(const Args& p, int plan, cudaStream_t s) {
@@ -436,6 +630,33 @@ cudaError_t launch_layout(const Args& p, int plan, cudaStream_t s) {
     default: return cudaErrorInvalidValue;
   }
   return launch_plan<128, 64, 64, 64, 32, 3, 2, A_KM, B_NK, TOut>(p, s);
+}
+
+// The int8-weight GEMM: the decode tile 8 or 16 columns wide, else the
+// 128 x 64 tile (WIDE; no TMA path for an int8 B).
+template <typename TOut>
+cudaError_t launch_q(const Args& p, int plan, cudaStream_t s) {
+  using I8 = int8_t;
+  switch (plan) {
+    case ROWS16_N8: return launch_plan<16, 8, 256, 16, 8, 4, 4, false, false, TOut, I8>(p, s);
+    case ROWS16_N16: return launch_plan<16, 16, 256, 16, 16, 4, 4, false, false, TOut, I8>(p, s);
+    case WIDE: return launch_plan<128, 64, 64, 64, 32, 3, 2, false, false, TOut, I8>(p, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The dual GEMM: the decode tile with 16 columns of each weight, the
+// TMA + wgmma tile with 64 (WIDE) or 128 (WIDE256) of each, or (an operand
+// TMA cannot take, K = 0) a 128-row mma.sync tile with 32 of each.
+cudaError_t launch_gated(const Args& p, int plan, cudaStream_t s) {
+  const bool tma = p.a_vec && p.b_vec && p.K > 0;
+  switch (plan) {
+    case ROWS16_N16: return launch_plan<16, 32, 128, 16, 32, 4, 4, false, false, bf16, bf16, true>(p, s);
+    case WIDE: if (tma) return launch_tma<128, false, false, bf16, true>(p, s); break;
+    case WIDE256: if (tma) return launch_tma<256, false, false, bf16, true>(p, s); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return launch_plan<128, 64, 64, 32, 64, 3, 2, false, false, bf16, bf16, true>(p, s);
 }
 
 template <typename TOut>
@@ -463,4 +684,35 @@ extern "C" int repro_matmul_tc(const void* a, const void* b, const void* e, void
   const cudaError_t err = out_bf16 ? launch_out<bf16>(p, a_km, b_nk, plan, s)
                                    : launch_out<float>(p, a_km, b_nk, plan, s);
   return static_cast<int>(err);
+}
+
+// a bf16 [M, K] row-major; bq int8 [K, N] row-major (ldb); scale f32 (N,);
+// c and e as repro_matmul_tc's.
+extern "C" int repro_matmul_q_tc(const void* a, const void* bq, const float* scale, const void* e,
+                                 void* c, int M, int N, int K, long long lda, long long ldb,
+                                 long long lde, int out_bf16, int e_bf16, int epilogue, int plan,
+                                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M == 0 || N == 0) return static_cast<int>(cudaGetLastError());
+  Args p{static_cast<const bf16*>(a), bq, e, c, M, N, K, lda, ldb, lde, e_bf16, epilogue,
+         reinterpret_cast<uintptr_t>(a) % 16 == 0 && lda % 8 == 0,
+         reinterpret_cast<uintptr_t>(bq) % 16 == 0 && ldb % 16 == 0};
+  p.S = scale;
+  const cudaError_t err = out_bf16 ? launch_q<bf16>(p, plan, s) : launch_q<float>(p, plan, s);
+  return static_cast<int>(err);
+}
+
+// a bf16 [M, K] row-major; g, u bf16 [K, N] row-major with one row stride
+// ldb; h bf16 [M, N] = silu(a g) * (a u).
+extern "C" int repro_gated_matmul_tc(const void* a, const void* g, const void* u, void* h, int M,
+                                     int N, int K, long long lda, long long ldb, int plan,
+                                     void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M == 0 || N == 0) return static_cast<int>(cudaGetLastError());
+  Args p{static_cast<const bf16*>(a), g, nullptr, h, M, N, K, lda, ldb, 0, 0, EP_NONE,
+         reinterpret_cast<uintptr_t>(a) % 16 == 0 && lda % 8 == 0,
+         reinterpret_cast<uintptr_t>(g) % 16 == 0 && reinterpret_cast<uintptr_t>(u) % 16 == 0 &&
+             ldb % 8 == 0};
+  p.U = static_cast<const bf16*>(u);
+  return static_cast<int>(launch_gated(p, plan, s));
 }

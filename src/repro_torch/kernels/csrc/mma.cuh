@@ -1,10 +1,10 @@
-// Building blocks of the port's tensor-core kernels (the bf16 GEMM of
-// matmul_tc.cu, the bf16 flash-attention forward and backward) and of the
-// decode kernel's staging: 16-byte and 4-byte cp.async with zero fill,
-// ldmatrix, mma.sync.m16n8k16 bf16 -> f32 and a tile
-// loader that masks ragged and unaligned edges; and, for the GEMM's wide
-// tile, wgmma.m64nNk16, its shared-memory descriptors, mbarriers and
-// TMA loads.
+// Building blocks of the port's tensor-core kernels (the bf16, dual and
+// int8-weight GEMMs of matmul_tc.cu, the bf16 flash-attention forward and
+// backward) and of the decode kernel's staging: 16-, 8- and 4-byte
+// cp.async with zero fill, ldmatrix, mma.sync.m16n8k16 bf16 -> f32 and
+// tile loaders (bf16 and int8) that mask ragged and unaligned edges; and,
+// for the GEMM's wide tile, wgmma.m64nNk16, its shared-memory
+// descriptors, mbarriers and TMA loads.
 //
 // Fragments (PTX ISA, mma.m16n8k16 with .bf16): lane = 4 g + t. A (16x16,
 // row) is 4 registers of 2 bf16: (row g, k 2t..2t+1), (g + 8, 2t..),
@@ -34,6 +34,12 @@ __host__ __device__ constexpr int padded(int cols) {
   return (cols + 7) / 8 % 2 == 1 ? (cols + 7) / 8 * 8 : (cols + 7) / 8 * 8 + 8;
 }
 
+// Row length (bytes) of a shared tile of `cols` int8 columns: an odd
+// number of 16-byte chunks, as `padded`; a row under 16 bytes as it is.
+__host__ __device__ constexpr int padded_i8(int cols) {
+  return cols < 16 ? cols : (cols / 16 % 2 == 1 ? cols : cols + 16);
+}
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -42,6 +48,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // `src_bytes` are zero-filled (0: nothing is read).
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(smem_u32(smem)), "l"(gmem), "r"(src_bytes) : "memory");
+}
+
+// 8 bytes the same way (src_bytes 0..8).
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
                ::"r"(smem_u32(smem)), "l"(gmem), "r"(src_bytes) : "memory");
 }
 
@@ -99,16 +111,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // Rows [r0, r0 + ROWS) x columns [c0, c0 + COLS) of a row-major bf16
 // matrix (row stride ld, `nrows` x `ncols`) into a shared tile of
-// ROWS x padded(COLS), by the NT threads: past the matrix's edge the tile
-// is zero. `vec`: the base pointer is 16-byte aligned and ld a multiple of
-// 8, so each 8-column chunk is one 16-byte cp.async (a ragged one reads
-// only its valid bytes, 0 for a chunk past the edge); otherwise each
-// element is loaded on its own (the slow path for unaligned operands).
-template <int ROWS, int COLS, int NT>
+// ROWS x LDS, by the NT threads: past the matrix's edge the tile is zero.
+// `vec`: the base pointer is 16-byte aligned and ld a multiple of 8, so
+// each 8-column chunk is one 16-byte cp.async (a ragged one reads only its
+// valid bytes, 0 for a chunk past the edge); otherwise each element is
+// loaded on its own (the slow path for unaligned operands).
+template <int ROWS, int COLS, int NT, int LDS = padded(COLS)>
 __device__ __forceinline__ void load_tile(bf16* tile, const bf16* __restrict__ src, long long ld,
                                           int r0, int nrows, int c0, int ncols, bool vec,
                                           int tid) {
-  constexpr int CH = COLS / 8, LDS = padded(COLS), RSTEP = NT / CH;
+  constexpr int CH = COLS / 8, RSTEP = NT / CH;
   static_assert(COLS % 8 == 0 && NT % CH == 0 && ROWS % RSTEP == 0,
                 "each thread copies one chunk column of ROWS / RSTEP rows");
   if (!vec) {  // a rolled loop, so that the 16-byte path stays a short run of code
@@ -125,6 +137,35 @@ __device__ __forceinline__ void load_tile(bf16* tile, const bf16* __restrict__ s
   for (int i = 0; i < ROWS / RSTEP; ++i) {
     const int r = tid / CH + i * RSTEP, gr = r0 + r, valid = gr < nrows ? cvalid : 0;
     cp_async16(tile + r * LDS + c, valid > 0 ? src + (long long)gr * ld + gc : src, 2 * valid);
+  }
+}
+
+// The same for an int8 matrix into a tile of ROWS x padded_i8(COLS)
+// bytes, in chunks of min(16, COLS) bytes. `vec`: the base pointer is
+// 16-byte aligned and ld a multiple of 16.
+template <int ROWS, int COLS, int NT>
+__device__ __forceinline__ void load_tile_i8(int8_t* tile, const int8_t* __restrict__ src,
+                                             long long ld, int r0, int nrows, int c0, int ncols,
+                                             bool vec, int tid) {
+  constexpr int CB = COLS < 16 ? COLS : 16, CH = COLS / CB, LDS = padded_i8(COLS),
+                RSTEP = NT / CH;
+  static_assert((CB == 8 || CB == 16) && COLS % CB == 0 && NT % CH == 0 && ROWS % RSTEP == 0,
+                "each thread copies one chunk column of ROWS / RSTEP rows");
+  if (!vec) {
+#pragma unroll 1
+    for (int idx = tid; idx < ROWS * COLS; idx += NT) {
+      const int r = idx / COLS, c = idx % COLS, gr = r0 + r, gc = c0 + c;
+      tile[r * LDS + c] = gr < nrows && gc < ncols ? src[(long long)gr * ld + gc] : int8_t(0);
+    }
+    return;
+  }
+  const int c = tid % CH * CB, gc = c0 + c, cvalid = min(CB, max(0, ncols - gc));
+#pragma unroll
+  for (int i = 0; i < ROWS / RSTEP; ++i) {
+    const int r = tid / CH + i * RSTEP, gr = r0 + r, valid = gr < nrows ? cvalid : 0;
+    const int8_t* from = valid > 0 ? src + (long long)gr * ld + gc : src;
+    if constexpr (CB == 16) cp_async16(tile + r * LDS + c, from, valid);
+    else cp_async8(tile + r * LDS + c, from, valid);
   }
 }
 
@@ -163,11 +204,11 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// d += A B for a 64 x 16 A and a 16 x N B, N = 128 or 192; TA / TB: A / B
+// d += A B for a 64 x 16 A and a 16 x N B, N = 128, 192 or 256; TA / TB: A / B
 // is MN-major.
 template <int N, int TA, int TB>
 __device__ __forceinline__ void wgmma_m64k16(float (&d)[N / 2], uint64_t da, uint64_t db) {
-  static_assert(N == 128 || N == 192, "the wide tile's widths");
+  static_assert(N == 128 || N == 192 || N == 256, "the wide tile's widths");
   if constexpr (N == 128) {
     asm volatile(
         "{\n"
@@ -178,7 +219,7 @@ __device__ __forceinline__ void wgmma_m64k16(float (&d)[N / 2], uint64_t da, uin
         "}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
-  } else {
+  } else if constexpr (N == 192) {
     asm volatile(
         "{\n"
         ".reg .pred p;\n"
@@ -187,6 +228,16 @@ __device__ __forceinline__ void wgmma_m64k16(float (&d)[N / 2], uint64_t da, uin
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, %96, %97, p, 1, 1, %99, %100;\n"
         "}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+  } else {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, %131, %132;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
         : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
   }
 }

@@ -1,6 +1,6 @@
-"""Wrappers of the tiled GEMM (`csrc/matmul_tc.cu` for bf16, on the
-tensor cores; `csrc/matmul.cu` for f32), int8-weight GEMM and dual-GEMM
-CUDA kernels (`csrc/matmul.cu`).
+"""Wrappers of the tiled GEMM, int8-weight GEMM and dual-GEMM CUDA
+kernels: bf16 activations on the tensor cores (`csrc/matmul_tc.cu`), f32
+on the FMA kernels (`csrc/matmul.cu`).
 
 `matmul_tiled` computes ``C[M,N] = epilogue(A[M,K] @ B[K,N])``,
 `matmul_q_tiled` ``epilogue((A @ Wq) * scale)`` for an int8 [K, N] Wq and
@@ -17,10 +17,13 @@ so the tied embedding feeds the logits GEMM and an activation feeds its
 weight gradient ``aᵀ @ g`` without a copy. The dual GEMM and the int8
 GEMM take a row-major A and [K, N] row-major weights.
 
-`tile_plan` picks the bf16 kernel's tile. Its k-order (the k-step and
-the split of K) depends on nothing; M picks only the row tile and its
-instruction, and N how wide a tile to take, so one output row has the
-same bits at every M.
+`tile_plan` picks the bf16 GEMM's tile, `q_tile_plan` the int8-weight
+GEMM's (the 16-row mma.sync decode tile, 8 or 16 columns wide by N, else
+a 128 x 64 mma.sync tile) and `gated_tile_plan` the dual GEMM's (the
+decode tile with 16 columns of each weight, else the TMA + wgmma tile, 64
+or 128 columns of H). Their k-order (the k-step and the split of K) is
+one constant; M picks only the row tile and its instruction, and N
+how wide a tile to take, so one output row has the same bits at every M.
 """
 
 from __future__ import annotations
@@ -38,12 +41,15 @@ _SIGNATURES = {
     "repro_matmul": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _I, _I, _I,
                      _I, _I, _P],
     "repro_matmul_q": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _I, _I,
-                       _I, _I, _P],
-    "repro_gated_matmul": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _P],
+                       _I, _P],
+    "repro_gated_matmul": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _P],
 }
 _TC_SIGNATURES = {
     "repro_matmul_tc": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _I, _I, _I,
                         _I, _I, _I, _P],
+    "repro_matmul_q_tc": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _I, _I,
+                          _I, _I, _P],
+    "repro_gated_matmul_tc": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _P],
 }
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -55,11 +61,16 @@ def _lib():
     return _build.load("matmul", _SIGNATURES)
 
 
+def _tc_lib():
+    return _build.load("matmul_tc", _TC_SIGNATURES)
+
+
 @dataclass(frozen=True)
 class TilePlan:
-    """A tile of the bf16 GEMM (`csrc/matmul_tc.cu`): `kernel` is the
-    instance the launcher runs; bm x bn outputs a block, bk a k-stage,
-    `stages` of them in flight, `mma` the tensor-core instruction.
+    """A tile of a bf16 GEMM (`csrc/matmul_tc.cu`): `kernel` is the
+    instance number the launcher takes; bm x bn outputs a block, bk a
+    k-stage, `stages` of them in flight, `mma` the tensor-core
+    instruction.
     `k_order` fixes how each output is summed: the k-step and the number
     of parts K is split into (summed in order). An m16n8k16 mma.sync step
     and an m64nNk16 wgmma step give the same bits (checked on the card),
@@ -84,6 +95,13 @@ _ROWS16_N32 = TilePlan(1, 16, 32, 128, 1, 4)
 _WIDE = TilePlan(2, 128, 128, 64, 12, 4, mma="wgmma.m64n128k16")
 _WIDE192 = TilePlan(3, 128, 192, 64, 12, 4, mma="wgmma.m64n192k16")
 _SMS = 132                      # H100 SXM: one wide block an SM
+# the int8-weight GEMM's decode tiles by width, and its 128 x 64 tile
+_Q_ROWS16 = {8: TilePlan(0, 16, 8, 256, 1, 4), 16: TilePlan(4, 16, 16, 256, 1, 4)}
+_Q_NARROW = TilePlan(2, 128, 64, 64, 4, 3)
+# the dual GEMM's (bn: columns of H a block, each from Wg and Wu)
+_GATED_ROWS16 = TilePlan(4, 16, 16, 128, 1, 4)
+_GATED_WIDE = {64: TilePlan(2, 128, 64, 64, 12, 4, mma="wgmma.m64n128k16"),
+               128: TilePlan(5, 128, 128, 64, 12, 4, mma="wgmma.m64n256k16")}
 
 
 def tile_plan(m: int, k: int, n: int, a_km: bool, b_nk: bool) -> TilePlan:
@@ -93,13 +111,38 @@ def tile_plan(m: int, k: int, n: int, a_km: bool, b_nk: bool) -> TilePlan:
     block (32 for the logits' width, to cut the block count), else the
     128-row TMA and wgmma tile, 192 columns wide where its waves of
     blocks take less time than 128's, else 128 (the launcher gives an
-    operand TMA cannot take to a 128 x 64 mma.sync tile)."""
+    operand TMA cannot take to a 128 x 64 mma.sync tile). The int8-weight
+    and dual GEMMs take the same decode tile and k-order from
+    `q_tile_plan` and `gated_tile_plan`."""
     if m <= 16:
         return _ROWS16_N32 if n >= 32768 else _ROWS16_N8
 
     def cost(bn):                # waves of blocks x the work of one
         return -(-(-(-m // 128) * -(-n // bn)) // _SMS) * bn
     return _WIDE192 if cost(192) < cost(128) else _WIDE
+
+
+def q_tile_plan(m: int, k: int, n: int) -> TilePlan:
+    """The int8-weight GEMM's tile: for decode (m <= 16) the 16-row
+    mma.sync tile, 8 int8 columns a block up to N = 1024 and 16 above (of
+    8, 16 and 32, the fastest at N = 1024 and 3072 on an H100, `PERF.md`;
+    the width changes only which columns share a block); else the
+    128 x 64 mma.sync tile. One k-order in every plan, as `tile_plan`'s."""
+    if m <= 16:
+        return _Q_ROWS16[8 if n <= 1024 else 16]
+    return _Q_NARROW
+
+
+def gated_tile_plan(m: int, k: int, n: int) -> TilePlan:
+    """The dual GEMM's tile: for decode (m <= 16) the 16-row mma.sync tile
+    with 16 columns of Wg and the same 16 of Wu; else the TMA + wgmma tile:
+    128 columns of each in one m64n256k16 step (128 x 128 of H a block)
+    where that grid fills every SM at least once, else 64 of each in one
+    m64n128k16 step (an operand TMA cannot take, or K = 0, goes to a
+    128-row mma.sync tile). One k-order in every plan, as `tile_plan`'s."""
+    if m <= 16:
+        return _GATED_ROWS16
+    return _GATED_WIDE[128 if -(-m // 128) * -(-n // 128) >= _SMS else 64]
 
 
 def _check_dtype(dtype: torch.dtype, what: str) -> None:
@@ -176,7 +219,7 @@ def matmul_tiled(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
                 None if e is None else e.data_ptr(), c.data_ptr(), m, n, k,
                 lda, ldb, lde, a_km, b_nk)
     if a.dtype == torch.bfloat16:        # the tensor cores
-        err = _build.load("matmul_tc", _TC_SIGNATURES).repro_matmul_tc(
+        err = _tc_lib().repro_matmul_tc(
             *operands, int(out_dtype == torch.bfloat16), e_bf16,
             EPILOGUES.index(epilogue),
             tile_plan(m, k, n, bool(a_km), bool(b_nk)).kernel,
@@ -216,12 +259,17 @@ def matmul_q_tiled(a: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, *,
     _check_cuda(a, wq, s, *([] if e is None else [e]))
     _check_a(a)
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    err = _lib().repro_matmul_q(
-        a.data_ptr(), wq.data_ptr(), s.data_ptr(),
-        None if e is None else e.data_ptr(), c.data_ptr(), m, n, k,
-        a.stride(0), wq.stride(0), lde, int(a.dtype == torch.bfloat16),
-        int(out_dtype == torch.bfloat16), e_bf16, EPILOGUES.index(epilogue),
-        _build.stream_ptr(a.device))
+    operands = (a.data_ptr(), wq.data_ptr(), s.data_ptr(),
+                None if e is None else e.data_ptr(), c.data_ptr(), m, n, k,
+                a.stride(0), wq.stride(0), lde,
+                int(out_dtype == torch.bfloat16), e_bf16,
+                EPILOGUES.index(epilogue))
+    if a.dtype == torch.bfloat16:        # the tensor cores
+        err = _tc_lib().repro_matmul_q_tc(
+            *operands, q_tile_plan(m, k, n).kernel,
+            _build.stream_ptr(a.device))
+    else:                                # f32: the FMA kernel
+        err = _lib().repro_matmul_q(*operands, _build.stream_ptr(a.device))
     LAUNCHES["matmul_q"] += 1
     _build.check(err, "matmul_q_tiled")
     return c
@@ -246,10 +294,14 @@ def gated_matmul_tiled(a: torch.Tensor, w_gate: torch.Tensor,
             raise ValueError("w_gate and w_up must be [K, N] row-major with "
                              "one row stride")
     c = torch.empty((m, n), dtype=a.dtype, device=a.device)
-    err = _lib().repro_gated_matmul(
-        a.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), c.data_ptr(),
-        m, n, k, a.stride(0), ldb, int(a.dtype == torch.bfloat16),
-        _build.stream_ptr(a.device))
+    operands = (a.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
+                c.data_ptr(), m, n, k, a.stride(0), ldb)
+    if a.dtype == torch.bfloat16:        # the tensor cores
+        err = _tc_lib().repro_gated_matmul_tc(
+            *operands, gated_tile_plan(m, k, n).kernel,
+            _build.stream_ptr(a.device))
+    else:                                # f32: the FMA kernel
+        err = _lib().repro_gated_matmul(*operands, _build.stream_ptr(a.device))
     LAUNCHES["gated_matmul"] += 1
     _build.check(err, "gated_matmul_tiled")
     return c

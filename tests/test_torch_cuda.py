@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: ragged edges, both A and B layouts, the bf16 GEMM's tensor-core
 tile plans (every row tile, unaligned operands, one row's bits at every
-M), int8 weights, strided cache
+M), int8 weights and the dual GEMM (their plan boundaries, offset views,
+K = 0, one row's bits at every M), strided cache
 views, page pools (bf16, f32 and int8 pages, shuffled, -1 past each
 prefix), GQA groups, idle and windowed slots, a decode row's bits at any
 batch, cache depth and page order, the training attention's forward and
@@ -359,14 +360,76 @@ def test_flash_attention_bwd_is_deterministic(dev):
         assert torch.equal(x, y)
 
 
+def _offset(x: torch.Tensor) -> torch.Tensor:
+    """x's values through a view whose base is one element into a buffer
+    and whose leading dim is 3 elements longer: an operand no 16-byte
+    load can take."""
+    big = torch.zeros((x.shape[0], x.shape[1] + 3), dtype=x.dtype,
+                      device=x.device)
+    big[:, 1:x.shape[1] + 1] = x
+    return big[:, 1:x.shape[1] + 1]
+
+
+# (M, K, N): ragged shapes, the decode tile's edges (M = 1, 16), the wide
+# tile's first and a ragged M (17, 130), the training shape (2048), K = 0
+GATED_SHAPES = [(5, 37, 19), (4, 1024, 3072), (70, 100, 65), (1, 1024, 3072),
+                (16, 1024, 3072), (17, 301, 1031), (130, 1024, 3072),
+                (2048, 1024, 3072), (4, 0, 3072), (2048, 0, 1024)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("mkn", [(5, 37, 19), (4, 1024, 3072), (70, 100, 65)])
+@pytest.mark.parametrize("mkn", GATED_SHAPES)
 def test_gated_matmul_kernel_matches_plain(dev, dtype, mkn):
+    """Every tile plan, each also through offset views of A and of the
+    two weights (one row stride): the element-by-element loads, and the
+    wide plan's mma.sync tile. K = 0 gives H = 0."""
     m, k, n = mkn
     a = _randn(m, k, dtype=dtype, dev=dev, seed=0)
-    wg = _randn(k, n, dtype=dtype, dev=dev, seed=1, scale=k ** -0.5)
-    wu = _randn(k, n, dtype=dtype, dev=dev, seed=2, scale=k ** -0.5)
-    _close(ops.gated_matmul(a, wg, wu), ref.gated_matmul_ref(a, wg, wu), dtype)
+    wg = _randn(k, n, dtype=dtype, dev=dev, seed=1, scale=max(k, 1) ** -0.5)
+    wu = _randn(k, n, dtype=dtype, dev=dev, seed=2, scale=max(k, 1) ** -0.5)
+    want = ref.gated_matmul_ref(a, wg, wu)
+    _close(ops.gated_matmul(a, wg, wu), want, dtype)
+    w = _offset(torch.cat([wg, wu], 1))
+    _close(ops.gated_matmul(_offset(a), w[:, :n], w[:, n:]), want, dtype)
+    if k == 0:
+        assert not ops.gated_matmul(a, wg, wu).any()
+
+
+@pytest.mark.parametrize("m, mma", [(17, "wgmma.m64n128k16"),
+                                    (2047, "wgmma.m64n256k16")])
+def test_gated_matmul_wide_tile_ragged_edges(dev, m, mma):
+    """The dual GEMM's TMA + wgmma tile at both widths (the plan takes
+    64 columns of each at M = 17, 128 at M = 2047), with ragged M, K and
+    N and leading dims padded to 16 bytes: the zero fill past the edges
+    of A and of both weights' boxes."""
+    from repro_torch.kernels import matmul as tmm
+    k, n = 301, 1031
+    assert tmm.gated_tile_plan(m, k, n).mma == mma
+    a = _randn(m, k + 3, dtype=torch.bfloat16, dev=dev, seed=0)[:, :k]
+    w = _randn(k, 2 * 1040, dtype=torch.bfloat16, dev=dev, seed=1,
+               scale=k ** -0.5)
+    wg, wu = w[:, :n], w[:, 1040:1040 + n]
+    got = ops.gated_matmul(a, wg, wu)
+    _close(got, ref.gated_matmul_ref(a, wg, wu), torch.bfloat16)
+
+
+@pytest.mark.parametrize("kn", [(1024, 3072)])
+def test_gated_matmul_is_batch_invariant(dev, kn):
+    """A row of H has the same bits at M = 4, 136 and 2048 as alone at
+    M = 1: the decode tile (mma.sync) and the wide tiles (wgmma, 64 and
+    128 columns of H) sum k in one order, and the flush is the same
+    arithmetic in all."""
+    k, n = kn
+    a = _randn(2048, k, dtype=torch.bfloat16, dev=dev, seed=0)
+    wg = _randn(k, n, dtype=torch.bfloat16, dev=dev, seed=1, scale=k ** -0.5)
+    wu = _randn(k, n, dtype=torch.bfloat16, dev=dev, seed=2, scale=k ** -0.5)
+    rows = [0, 3, 135, 2047]
+    alone = {r: ops.gated_matmul(a[r:r + 1], wg, wu) for r in rows}
+    for m in (4, 136, 2048):
+        h = ops.gated_matmul(a[:m], wg, wu)
+        for r in rows:
+            if r < m:
+                assert torch.equal(h[r:r + 1], alone[r]), (m, r)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -397,8 +460,13 @@ def test_flash_decode_kernel_matches_plain(dev, dtype, shape, window):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("epilogue", EPILOGUES)
 @pytest.mark.parametrize("mkn", [(5, 37, 19), (4, 1024, 3072), (70, 100, 65),
-                                 (129, 33, 257)])
+                                 (129, 33, 257), (1, 1024, 1024),
+                                 (16, 2048, 1024), (17, 301, 1031),
+                                 (130, 1024, 3072), (2048, 3072, 1024)])
 def test_matmul_q_kernel_matches_plain(dev, dtype, epilogue, mkn):
+    """Every tile plan (the decode tile's widths and edges at M = 1 and
+    16, the 128-row tile from M = 17), each also through offset views of
+    A and of the int8 weight: the element-by-element loads."""
     m, k, n = mkn
     a = _randn(m, k, dtype=dtype, dev=dev, seed=0)
     wq, scale = precision.quantize_int8(
@@ -409,11 +477,38 @@ def test_matmul_q_kernel_matches_plain(dev, dtype, epilogue, mkn):
     elif epilogue != "none":
         kw["bias"] = _randn(n, dtype=torch.float32, dev=dev, seed=3)
     for out_dtype in (dtype, torch.float32):
-        got = ops.matmul_q(a, wq, scale, out_dtype=out_dtype,
-                           epilogue=epilogue, **kw)
         want = ref.matmul_q_ref(a, wq, scale, out_dtype, epilogue,
                                 kw.get("bias"), kw.get("residual"))
-        _close(got, want, out_dtype if out_dtype == dtype else torch.float32)
+        for a_, wq_ in ((a, wq), (_offset(a), _offset(wq))):
+            got = ops.matmul_q(a_, wq_, scale, out_dtype=out_dtype,
+                               epilogue=epilogue, **kw)
+            _close(got, want,
+                   out_dtype if out_dtype == dtype else torch.float32)
+
+
+@pytest.mark.parametrize("kn", [(1024, 3072), (1024, 1024), (2048, 1024),
+                                (3072, 1024)])
+def test_matmul_q_is_batch_invariant(dev, kn):
+    """A row of C has the same bits at M = 4, 136 and 2048 as alone at
+    M = 1, with the residual epilogue, in bf16 and f32 out: the decode
+    tile and the 128-row tile sum k in one order (int8 widened to bf16,
+    k16 steps ascending), whatever the decode tile's width."""
+    k, n = kn
+    a = _randn(2048, k, dtype=torch.bfloat16, dev=dev, seed=0)
+    wq, scale = precision.quantize_int8(
+        _randn(k, n, dtype=torch.float32, dev=dev, seed=1, scale=k ** -0.5))
+    res = _randn(2048, n, dtype=torch.bfloat16, dev=dev, seed=2)
+    rows = [0, 3, 135, 2047]
+    for out_dtype in (torch.bfloat16, torch.float32):
+        def run(lo, hi):
+            return ops.matmul_q(a[lo:hi], wq, scale, out_dtype=out_dtype,
+                                epilogue="residual", residual=res[lo:hi])
+        alone = {r: run(r, r + 1) for r in rows}
+        for m in (4, 136, 2048):
+            c = run(0, m)
+            for r in rows:
+                if r < m:
+                    assert torch.equal(c[r:r + 1], alone[r]), (m, r, out_dtype)
 
 
 def _paged(k, v, ps, pos, seed, n_layers=2, layer=1):

@@ -182,32 +182,42 @@ def test_launch_counters_do_not_move_on_cpu():
 # gate/up and down projections and the tied-embedding logits (forward,
 # and W^T in the input gradients), the weight gradients (A as [K, M] with
 # K the tokens), mamba2-2.7b's in projections (z/x, then B/C/dt), its out
-# projection and its head
+# projection and its head; then the int8 model's separate Q and K/V
+# projections
 MAIN_GEMMS = [(1024, 4096, False, False), (2048, 1024, False, False),
               (1024, 3072, False, False), (3072, 1024, False, False),
               (1024, 152064, False, True), (3072, 1024, False, True),
               (1024, 3072, False, True), (2048, 3072, True, False),
               (2048, 1024, True, False), (2560, 10240, False, False),
               (2560, 336, False, False), (5120, 2560, False, False),
-              (2560, 50432, False, True)]
+              (2560, 50432, False, True), (1024, 2048, False, False),
+              (1024, 1024, False, False)]
 
 
 @pytest.mark.parametrize("k, n, a_km, b_nk", MAIN_GEMMS)
 def test_tile_plan_k_order_does_not_depend_on_m(k, n, a_km, b_nk):
     """One output row has the same bits at every batch only if the bf16
     GEMM sums it in one order at every M: M may pick the row tile (and
-    with it mma.sync or wgmma), never the k-step or a split of K."""
-    plans = {m: tmm.tile_plan(m, k, n, a_km, b_nk)
-             for m in (1, 4, 8, 15, 16, 17, 64, 136, 512, 2048, 8192)}
-    assert len({p.k_order for p in plans.values()}) == 1, plans
-    assert all(p.k_split == 1 for p in plans.values())
-    # the two instructions whose k16 steps give the same bits on the card
-    # (tests/test_torch_cuda.py::test_bf16_matmul_is_batch_invariant)
-    assert {p.mma for p in plans.values()} <= {"mma.sync.m16n8k16",
-                                               "wgmma.m64n128k16",
-                                               "wgmma.m64n192k16"}
-    assert {plans[m].bm for m in (1, 4, 16)} == {16}
-    assert all(p.bm >= 64 for m, p in plans.items() if m > 16)
+    with it mma.sync or wgmma), never the k-step or a split of K. The
+    same for the int8-weight and dual GEMMs (row-major operands only),
+    whose k-order is the GEMM's."""
+    ms = (1, 4, 8, 15, 16, 17, 64, 136, 512, 2048, 8192)
+    kinds = {"matmul": {m: tmm.tile_plan(m, k, n, a_km, b_nk) for m in ms}}
+    if not (a_km or b_nk):
+        kinds["matmul_q"] = {m: tmm.q_tile_plan(m, k, n) for m in ms}
+        kinds["gated_matmul"] = {m: tmm.gated_tile_plan(m, k, n) for m in ms}
+    orders = {p.k_order for plans in kinds.values() for p in plans.values()}
+    assert len(orders) == 1, kinds
+    for plans in kinds.values():
+        assert all(p.k_split == 1 for p in plans.values())
+        # the two instructions whose k16 steps give the same bits on the
+        # card (tests/test_torch_cuda.py::test_*_is_batch_invariant)
+        assert {p.mma for p in plans.values()} <= {"mma.sync.m16n8k16",
+                                                   "wgmma.m64n128k16",
+                                                   "wgmma.m64n192k16",
+                                                   "wgmma.m64n256k16"}
+        assert {plans[m].bm for m in (1, 4, 16)} == {16}
+        assert all(p.bm >= 64 for m, p in plans.items() if m > 16)
 
 
 # (pos, window) of a decode slot: idle, the first key, a split's last and
