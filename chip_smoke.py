@@ -10,8 +10,10 @@ Phases, in order; any failure propagates and the exit code is not 0:
      shapes of the main paths (qwen3-0.6b decode and prefill; dense, paged
      and int8; training attention, forward and backward; mamba2-2.7b's
      SSD intra-chunk work, ragged chunks, groups, bf16, a carried state,
-     strong decays and zamba2's d_state; the paper's naive GEMM at 4096^2
-     against the f64 product, and add, sub, mul and axpy bit for bit;
+     strong decays and zamba2's d_state; the paper's tiled GEMM (f32 and
+     bf16, with their TFLOP/s beside torch.matmul's) and naive GEMM at
+     4096^2, f32 against the f64 product, and add, sub, mul and axpy bit
+     for bit;
      the bf16 GEMM also at training's shapes, 2048 rows, in all four
      layouts, and the dual GEMM at 2048 rows beside a GEMM-only
      yardstick), with the max error beside its tolerance, and the median
@@ -597,7 +599,9 @@ class Smoke:
             del x, a, bm, cm
 
     def _kernels_paper(self, randn, tols, n=4096):
-        """The paper's kernels at its size n = 4096: the naive GEMM at n^2
+        """The paper's kernels at its size n = 4096: the tiled GEMM at n^2
+        (f32 held to the f64 product within atol K 2^-24, as the naive
+        one; bf16 to its plain version), the naive GEMM at n^2
         (f32 held to the f64 product within atol K 2^-24, K roundings of a
         partial sum of order 1; bf16 to its plain version), f64 at
         (n/4)^2 (atol K 2^-53) and a ragged f32 product; add, sub and mul
@@ -612,6 +616,28 @@ class Smoke:
 
         def name_size(dtype):
             return str(dtype).split(".")[-1], torch.finfo(dtype).bits // 8
+
+        # the tiled GEMM at the paper's size (Table 2's "tiled" column):
+        # f32 on the FMA kernel's wide tile, held to the f64 product; bf16
+        # on the tensor cores
+        for dtype in (f32, bf16):
+            dname, size = name_size(dtype)
+            a = randn(n, n, dtype=dtype)
+            b = randn(n, n, dtype=dtype, scale=n ** -0.5)
+            f64_product = lambda a=a, b=b: ref.matmul_ref(a.double(), b.double())
+            self._case(
+                "matmul", f"{dname} M={n} K={n} N={n}",
+                lambda a=a, b=b: ops.matmul(a, b),
+                lambda a=a, b=b: ref.fused_matmul_ref(a, b, dtype),
+                lambda a=a, b=b: torch.matmul(a, b),
+                3 * n * n * size, 2 * n ** 3, dname,
+                (n * 2.0 ** -24, 0.0) if dtype == f32 else tols[bf16],
+                reference=f64_product if dtype == f32 else None, n_time=10)
+            row = self.results["matmul"][-1]
+            print(f"      tiled matmul {dname} {n}^2: kernel "
+                  f"{2 * n ** 3 / row['ms'] / 1e9:.1f} TFLOP/s, torch.matmul "
+                  f"{2 * n ** 3 / row['library_ms'] / 1e9:.1f} TFLOP/s")
+            del a, b
 
         q = n // 4
         for m, k, nn, dtype, n_time in ((n, n, n, f32, 10), (n, n, n, bf16, 10),

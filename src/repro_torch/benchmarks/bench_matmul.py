@@ -39,11 +39,12 @@ def run(n: int, device) -> None:
                 f";paper_measured_s={ref};model/paper={t / ref:.3f}"))
     # the H100 at the tiled kernel's tile: bf16, and complex64 via gauss3
     # (3 real f32 GEMMs, not 4); f64 has no tiled kernel to model
+    tile = blocking.KERNEL_TILE
     t_bf16, t_f32 = (blocking.gemm_time_model(
-        m, m, m, size, blocking.KERNEL_TILE, chip=hw.H100)["t_total"]
-        for size in (2, 4))
+        m, m, m, size, tile, chip=hw.H100)["t_total"] for size in (2, 4))
     emit(f"matmul_model_h100-sxm_tiled_bf16_{m}", t_bf16,
-         f"gflops={2.0 * m ** 3 / t_bf16 / 1e9:.0f};block=64x64x32")
+         f"gflops={2.0 * m ** 3 / t_bf16 / 1e9:.0f};"
+         f"block={tile.bm}x{tile.bn}x{tile.bk}")
     emit(f"matmul_model_h100-sxm_tiled_complex64_gauss3_{m}", 3 * t_f32,
          "vs_naive4=1.33x")
 

@@ -8,8 +8,8 @@ For the paper's cards the chooser and the models give the JAX package's
 numbers (C2050 at 4096^2 f32: a 64x128x128 tile, 0.1334 s tiled and
 3.818 s naive), since it keeps the JAX chooser's (sublane, lane)
 alignment. The H100 rows model the port's real kernel tile instead,
-`KERNEL_TILE` (csrc/matmul.cu: 64x64 outputs, a k-step of 32), not the
-chooser's answer. Both models count device-memory bytes only: a block's
+`KERNEL_TILE` (csrc/matmul.cu's wide tile, which the f32 GEMM takes at
+4096^2: 128x128 outputs, a k-step of 16), not the chooser's answer. Both models count device-memory bytes only: a block's
 reuse through the L1 and L2 caches is not in them.
 """
 
@@ -34,8 +34,9 @@ class BlockConfig:
         return tiles + self.bm * self.bn * 4
 
 
-#: The tile of the port's tiled CUDA GEMM (csrc/matmul.cu BM, BN, BK).
-KERNEL_TILE = BlockConfig(64, 64, 32)
+#: The tile of the port's tiled f32 CUDA GEMM at the paper's size
+#: (csrc/matmul.cu WB x WB, WBK; `kernels.matmul.f32_tile_plan`).
+KERNEL_TILE = BlockConfig(128, 128, 16)
 
 
 def _round_up(x: int, m: int) -> int:

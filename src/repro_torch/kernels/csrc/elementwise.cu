@@ -8,13 +8,20 @@
 // one operation for every 3 elements moved: a 4096 x 4096 f32 add moves
 // 201 MB, 0.060 ms at the H100's 3.35 TB/s, and does 16.8 M operations.
 //
-// What the design does about it: the operands are taken flat (any shape,
-// contiguous), so every thread walks consecutive addresses in a
-// grid-stride loop. Where all three pointers are 16-byte aligned each
-// thread moves 16 bytes a load and a store (4 floats, 8 bf16 or 2
-// doubles), and the ragged tail is done one element a thread; otherwise
-// every element is. The grid stops at 32 blocks of 256 threads an SM,
-// enough loads in flight to cover the memory's latency.
+// What the design does about it: keep enough loads in flight to cover
+// the memory's latency, and spend nothing else. The operands are taken
+// flat (any shape, contiguous). Where all three pointers are 16-byte
+// aligned, each thread moves UNROLL vectors of 16 bytes (4 floats, 8 bf16
+// or 2 doubles) of each operand, all its loads issued before any
+// arithmetic, neighbouring threads on neighbouring vectors, and stores
+// with the streaming hint (__stcs: the result is not read again here);
+// the grid covers the operands once (no grid-stride loop), and the
+// ragged tail, under one vector, is done one element a thread by the
+// first block. Otherwise every element is moved alone, as many a thread
+// as the vector path moves, in the same pattern. On an H100 one vector a
+// thread (UNROLL = 1: two 16-byte loads in flight) timed best of 1, 2
+// and 4, 256 threads a block as well as 128 or 512, and the streaming
+// stores better than plain ones (experiments/probe_fma_kernels.py).
 //
 // Rounding matches PyTorch bit for bit: add, sub and mul are each one
 // correctly rounded operation (__fadd_rn and kin, which nvcc never
@@ -35,8 +42,7 @@ namespace {
 using repro::from_f32;
 using repro::to_f32;
 
-constexpr int THREADS = 256;
-constexpr long long MAX_BLOCKS = 132 * 32;
+constexpr int THREADS = 256, UNROLL = 1;
 
 enum Dtype { DT_F32 = 0, DT_BF16 = 1, DT_F64 = 2 };
 enum Op { OP_ADD = 0, OP_SUB = 1, OP_MUL = 2 };
@@ -71,32 +77,61 @@ template <> __device__ __forceinline__ __nv_bfloat16 cast_alpha<__nv_bfloat16>(d
   return from_f32<__nv_bfloat16>(__double2float_rn(a));
 }
 
-// One 16-byte vector of a, b (and c) per step of the loop, then the tail
-// (or everything, for unaligned operands) one element at a time. F maps
-// (element of a, element of b) to the element of c.
+// Elements a thread where the operands are not aligned: one at a time,
+// as many as the vector path moves a thread.
+template <typename T>
+__host__ __device__ constexpr int scalars_a_thread() { return UNROLL * 16 / sizeof(T); }
+
+// UNROLL 16-byte vectors of a and b per thread, all loaded before any is
+// used, then the tail; or, for unaligned operands, scalars_a_thread
+// elements a thread. F maps (element of a, element of b) to the element
+// of c.
 template <typename T, typename F>
 __device__ __forceinline__ void walk(const T* __restrict__ a, const T* __restrict__ b,
                                      T* __restrict__ c, long long n, int vec, F f) {
   constexpr int V = 16 / sizeof(T);
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  long long head = 0;
+  const long long first = (long long)blockIdx.x * THREADS * UNROLL + threadIdx.x;
   if (vec) {
     const long long nv = n / V;
-    for (long long i = tid; i < nv; i += stride) {
-      uint4 ra = reinterpret_cast<const uint4*>(a)[i];
-      uint4 rb = reinterpret_cast<const uint4*>(b)[i];
-      uint4 rc;
-      const T* pa = reinterpret_cast<const T*>(&ra);
-      const T* pb = reinterpret_cast<const T*>(&rb);
-      T* pc = reinterpret_cast<T*>(&rc);
+    uint4 ra[UNROLL], rb[UNROLL];
 #pragma unroll
-      for (int j = 0; j < V; ++j) pc[j] = f(pa[j], pb[j]);
-      reinterpret_cast<uint4*>(c)[i] = rc;
+    for (int u = 0; u < UNROLL; ++u) {
+      const long long i = first + u * THREADS;
+      if (i < nv) {
+        ra[u] = reinterpret_cast<const uint4*>(a)[i];
+        rb[u] = reinterpret_cast<const uint4*>(b)[i];
+      }
     }
-    head = nv * V;
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const long long i = first + u * THREADS;
+      if (i < nv) {
+        uint4 rc;
+        const T* pa = reinterpret_cast<const T*>(&ra[u]);
+        const T* pb = reinterpret_cast<const T*>(&rb[u]);
+        T* pc = reinterpret_cast<T*>(&rc);
+#pragma unroll
+        for (int j = 0; j < V; ++j) pc[j] = f(pa[j], pb[j]);
+        __stcs(reinterpret_cast<uint4*>(c) + i, rc);  // streaming: c is not read again
+      }
+    }
+    const long long i = nv * V + threadIdx.x;
+    if (blockIdx.x == 0 && i < n) c[i] = f(a[i], b[i]);
+  } else {
+    constexpr int E = scalars_a_thread<T>();
+    const long long first_e = (long long)blockIdx.x * THREADS * E + threadIdx.x;
+    T xa[E], xb[E];
+#pragma unroll
+    for (int u = 0; u < E; ++u) {
+      const long long i = first_e + u * THREADS;
+      if (i < n) xa[u] = a[i], xb[u] = b[i];
+    }
+#pragma unroll
+    for (int u = 0; u < E; ++u) {
+      const long long i = first_e + u * THREADS;
+      if (i < n) c[i] = f(xa[u], xb[u]);
+    }
   }
-  for (long long i = head + tid; i < n; i += stride) c[i] = f(a[i], b[i]);
 }
 
 template <typename T, int OP>
@@ -114,16 +149,20 @@ __global__ void __launch_bounds__(THREADS)
   walk(x, y, c, n, vec, [alpha](T xi, T yi) { return axpy1(alpha, xi, yi); });
 }
 
-int blocks_for(long long n, int vec, int itemsize) {
-  const long long units = vec ? n / (16 / itemsize) + 1 : n;
-  long long blocks = (units + THREADS - 1) / THREADS;
-  return static_cast<int>(blocks < MAX_BLOCKS ? blocks : MAX_BLOCKS);
+// Blocks that cover n once: UNROLL vectors, or scalars_a_thread elements,
+// a thread. A grid of vectors has a block at least, whose first threads
+// take the tail.
+template <typename T>
+int blocks_for(long long n, int vec) {
+  const long long per_block = (long long)THREADS * (vec ? UNROLL : scalars_a_thread<T>());
+  const long long units = vec ? n / (16 / sizeof(T)) : n;
+  return static_cast<int>(units > 0 ? (units + per_block - 1) / per_block : 1);
 }
 
 template <typename T>
 void launch_binary(const void* a, const void* b, void* c, long long n, int op, int vec,
                    cudaStream_t s) {
-  const int grid = blocks_for(n, vec, sizeof(T));
+  const int grid = blocks_for<T>(n, vec);
   const T* pa = static_cast<const T*>(a);
   const T* pb = static_cast<const T*>(b);
   T* pc = static_cast<T*>(c);
@@ -138,7 +177,7 @@ void launch_binary(const void* a, const void* b, void* c, long long n, int op, i
 template <typename T>
 void launch_axpy(const void* alpha_p, double alpha_v, const void* x, const void* y, void* c,
                  long long n, int vec, cudaStream_t s) {
-  axpy_kernel<T><<<blocks_for(n, vec, sizeof(T)), THREADS, 0, s>>>(
+  axpy_kernel<T><<<blocks_for<T>(n, vec), THREADS, 0, s>>>(
       static_cast<const T*>(alpha_p), alpha_v, static_cast<const T*>(x),
       static_cast<const T*>(y), static_cast<T*>(c), n, vec);
 }

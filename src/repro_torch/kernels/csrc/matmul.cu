@@ -6,37 +6,60 @@
 // Replaces the f32 instances of the Pallas kernels `matmul_tiled`
 // (_matmul_kernel), `matmul_q_tiled` (_matmul_q_kernel) and
 // `gated_matmul_tiled` (_gated_matmul_kernel) of
-// src/repro/kernels/matmul.py. It is the paper's Listing 4 on the hardware
-// family it was written for: 64x64 output tiles, a k-step of 32, A and B
-// tiles staged in shared memory as f32, __syncthreads() around each
-// stage, and an f32 accumulator in registers (4x4 outputs a thread) on the
-// FMA units. These kernels stay here on purpose: the f32 GEMM is Table 2's
-// f32 "tiled" route (the paper's shared-memory kernel, which Fig 8
-// measures), and the depth-2 f32 train and Mamba-2 steps are held to the
-// CPU at rtol 1e-4, which TF32 would not meet. The epilogue is applied
-// once, on the f32 accumulator, at the flush: none | bias | bias_gelu
-// (tanh form) | bias_silu | residual, then one rounding to the output
-// type. The int8 variant (`matmul_q`) is the same kernel with an int8
-// [K, N] B tile, widened to f32 as it is staged (|q| <= 127 is exact),
-// and the per-channel f32 scale multiplied onto the accumulator at the
-// flush, before the epilogue. The gated kernel stages one A tile against
-// two [K, N] weight tiles, keeps two accumulators, and stores silu(g) * u
-// without ever writing g or u.
+// src/repro/kernels/matmul.py. They stay on the FMA units on purpose: the
+// f32 GEMM is Table 2's f32 "tiled" route (the paper's Listing 4, the
+// shared-memory kernel that Fig 8 measures), and the depth-2 f32 train
+// and Mamba-2 steps are held to the CPU at rtol 1e-4, which TF32 would
+// not meet.
 //
-// Bound: at M = 512..2048 the f32 operation count, 67 TFLOP/s on the FMA
-// units; at M = 4 the weight's bytes. These kernels reach neither: at
-// M = 4 each block's serial k-loop, not the bytes, sets the time.
+// Bound: operations. A 4096^2 f32 GEMM is 137.4 GFLOP, 2.051 ms at the
+// H100's 67 TFLOP/s of f32 FMA; its bytes take 0.06 ms. So the kernel has
+// to keep the FMA pipes issuing: every other instruction (shared-memory
+// loads, address arithmetic, waits on device memory) is time lost.
+//
+// Two tiles, picked by `f32_tile_plan` (kernels/matmul.py):
+// - the wide tile, from 128 rows where its grid has a block for half the
+//   SMs at least: 128x128 outputs a block of 256 threads, 8x8 a thread as 2x2
+//   sub-tiles of 4x4 (rows 4 ty + {0..3, 64..67}, cols 4 tx + {0..3,
+//   64..67}; a warp is 4 x 8 threads), a k-step of 16, two blocks an SM.
+//   A and B are staged k-major (As[k][m], Bs[k][n]), so a thread reads
+//   its 8 rows and 8 columns of one k with four 16-byte loads, which a
+//   warp takes without a bank conflict: 4 loads for 64 FMAs (the 64x64
+//   tile: 5 for 16). Stage k + 1 is fetched while stage k computes (two
+//   buffers, one barrier a stage): an operand that lies k-major in
+//   memory (B as [K, N], A as a [K, M] view) by 16-byte cp.async straight
+//   into shared memory; one that must be transposed (A as [M, K], B as an
+//   [N, K] view) by 16-byte loads into registers, stored after the FMAs
+//   of stage k. An operand whose rows are not 16-byte aligned (offset
+//   views, a leading dim not a multiple of 4) takes the same path element
+//   by element (4-byte cp.async or scalar loads).
+// - the 64x64 tile, for small M and N (decode, a few hundred rows at a
+//   model's widths), where 128x128 blocks would leave SMs idle: 256
+//   threads, 4x4 outputs a thread (rows ty + 16 i, cols tx + 16 j), a
+//   k-step of 32, one synchronous stage between two barriers, the
+//   multiply-adds of rows past M skipped. The int8-weight GEMM and the
+//   dual GEMM keep this body in f32: no timed path runs them.
+//
+// Both tiles sum each output as acc = fmaf(a[k], b[k], acc) from 0, over
+// k in ascending order (the zero fill past K adds +0, which changes no
+// sum): no split of K, no atomic. So an output has the same bits in
+// either tile, at any M, in any layout. The epilogue is applied once, on
+// the f32 accumulator, at the flush: none | bias | bias_gelu (tanh
+// form) | bias_silu | residual, then one rounding to the output type. The
+// int8 variant (`matmul_q`) stages an int8 [K, N] B tile, widened to f32
+// (|q| <= 127 is exact), and multiplies the per-channel f32 scale onto
+// the accumulator at the flush, before the epilogue. The gated kernel
+// stages one A tile against two [K, N] weight tiles, keeps two
+// accumulators, and stores silu(g) * u without ever writing g or u.
 //
 // Edges are masked in the kernel (no padding on the host). The f32 GEMM
 // reads B either as [K, N] row-major or as [N, K] (`b_nk`) and A either as
-// [M, K] row-major or as [K, M] (`a_km`); the int8 B is [K, N]. There is
-// no split-K and no atomic: each output's sum runs over k in ascending
-// order whatever M is, so a row computes the same bits at batch 1 as at
-// batch 4.
+// [M, K] row-major or as [K, M] (`a_km`); the int8 B is [K, N].
 
 #include <stdint.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -58,6 +81,19 @@ __device__ __forceinline__ float gelu_tanh(float x) {
 __device__ __forceinline__ float load_any(const void* p, int is_bf16, long long i) {
   return is_bf16 ? to_f32(static_cast<const __nv_bfloat16*>(p)[i])
                  : static_cast<const float*>(p)[i];
+}
+
+// The epilogue of output (gm, gn) on its f32 sum v.
+__device__ __forceinline__ float finish(float v, const void* E, int e_bf16, long long lde,
+                                        int epilogue, int gm, int gn) {
+  if (epilogue == EP_RESIDUAL) {
+    v += load_any(E, e_bf16, (long long)gm * lde + gn);
+  } else if (epilogue != EP_NONE) {
+    v += load_any(E, e_bf16, gn);
+    if (epilogue == EP_BIAS_GELU) v = gelu_tanh(v);
+    else if (epilogue == EP_BIAS_SILU) v = silu(v);
+  }
+  return v;
 }
 
 template <typename TIn, bool KM = false>
@@ -143,14 +179,152 @@ matmul_kernel(const TIn* __restrict__ A, const TB* __restrict__ B, const float* 
       if (gn >= N) continue;
       float v = acc[i][j];
       if (S != nullptr) v *= S[gn];  // dequantize before the epilogue
-      if (epilogue == EP_RESIDUAL) {
-        v += load_any(E, e_bf16, (long long)gm * lde + gn);
-      } else if (epilogue != EP_NONE) {
-        v += load_any(E, e_bf16, gn);
-        if (epilogue == EP_BIAS_GELU) v = gelu_tanh(v);
-        else if (epilogue == EP_BIAS_SILU) v = silu(v);
-      }
-      C[(long long)gm * N + gn] = from_f32<TOut>(v);
+      C[(long long)gm * N + gn] = from_f32<TOut>(finish(v, E, e_bf16, lde, epilogue, gm, gn));
+    }
+  }
+}
+
+// ---- the wide tile: 128x128 outputs a block, 8x8 a thread, k-step 16 ----
+
+constexpr int WB = 128, WBK = 16, WLD = WB + 4;  // WLD: a padded row of As/Bs
+constexpr int WSTAGE = WBK * WLD;                // floats of one k-stage of A or B
+
+// One k-stage of an operand that lies k-major (element (k, c) at
+// X[k * ld + c]: B as [K, N], A as a [K, M] view): WBK rows of WB, copied
+// as they lie by cp.async, 16 bytes at a time where `vec` (ld % 4 == 0
+// and a 16-byte aligned base), else 4; zero past the edges.
+__device__ __forceinline__ void stage_kmajor(float* S, const float* X, int extent, int K,
+                                             long long ld, int c0, int k0, int tid, int vec) {
+  if (vec) {
+#pragma unroll
+    for (int i = 0; i < WBK * WB / 4 / THREADS; ++i) {
+      const int idx = tid + i * THREADS;
+      const int k = idx / (WB / 4), c = idx % (WB / 4) * 4;
+      const int gk = k0 + k, gc = c0 + c;
+      const int n = gk < K ? min(4, max(0, extent - gc)) : 0;
+      repro::cp_async16(S + k * WLD + c, n > 0 ? X + (long long)gk * ld + gc : X, 4 * n);
+    }
+  } else {
+#pragma unroll 4
+    for (int i = 0; i < WBK * WB / THREADS; ++i) {
+      const int idx = tid + i * THREADS;
+      const int k = idx / WB, c = idx % WB;
+      const int gk = k0 + k, gc = c0 + c;
+      const bool in = gk < K && gc < extent;
+      repro::cp_async4(S + k * WLD + c, in ? X + (long long)gk * ld + gc : X, in ? 4 : 0);
+    }
+  }
+}
+
+// The same stage of an operand that lies c-major (element (k, c) at
+// X[c * ld + k]: A as [M, K], B as an [N, K] view), fetched into
+// registers (four consecutive k of two rows a thread, 16 bytes a load
+// where `vec` and all four exist) ...
+__device__ __forceinline__ void fetch_cmajor(float (&r)[2][4], const float* X, int extent, int K,
+                                             long long ld, int c0, int k0, int tid, int vec) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int idx = tid + i * THREADS;
+    const int c = idx / (WBK / 4), k = idx % (WBK / 4) * 4;
+    const int gc = c0 + c, gk = k0 + k;
+    const float* p = X + (long long)gc * ld + gk;
+    if (vec && gc < extent && gk + 3 < K) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+      r[i][0] = v.x, r[i][1] = v.y, r[i][2] = v.z, r[i][3] = v.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) r[i][j] = gc < extent && gk + j < K ? __ldg(p + j) : 0.f;
+    }
+  }
+}
+
+// ... and stored k-major once the stage before it has been used.
+__device__ __forceinline__ void store_cmajor(float* S, const float (&r)[2][4], int tid) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int idx = tid + i * THREADS;
+    const int c = idx / (WBK / 4), k = idx % (WBK / 4) * 4;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) S[(k + j) * WLD + c] = r[i][j];
+  }
+}
+
+// NK: B is [N, K]; KM: A is [K, M]. vec_a, vec_b: the operand's rows are
+// 16-byte aligned.
+template <typename TOut, bool NK, bool KM>
+__global__ void __launch_bounds__(THREADS, 2)
+matmul_wide_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                   const void* __restrict__ E, TOut* __restrict__ C, int M, int N, int K,
+                   long long lda, long long ldb, long long lde, int e_bf16, int epilogue,
+                   int vec_a, int vec_b) {
+  __shared__ __align__(16) float As[2][WSTAGE];
+  __shared__ __align__(16) float Bs[2][WSTAGE];
+  // a warp is 4 x 8 threads: as fast as 2 x 16 on an H100 in three
+  // layouts and 11% faster with A as [M, K] and B as [N, K]; with 2 x 16
+  // ptxas spilled registers in two instances (experiments/probe_fma_kernels.py)
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int tx = lane % 8 + 8 * (warp % 2), ty = lane / 8 + 4 * (warp / 2);
+  const int m0 = blockIdx.y * WB, n0 = blockIdx.x * WB;
+  float ra[2][4], rb[2][4];  // the next stage of a c-major operand
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  // start stage t's copies into buffer t % 2; `settle` stores its
+  // registers there
+  auto fetch = [&](int t) {
+    const int k0 = t * WBK;
+    if constexpr (KM) stage_kmajor(As[t & 1], A, M, K, lda, m0, k0, tid, vec_a);
+    else fetch_cmajor(ra, A, M, K, lda, m0, k0, tid, vec_a);
+    if constexpr (NK) fetch_cmajor(rb, B, N, K, ldb, n0, k0, tid, vec_b);
+    else stage_kmajor(Bs[t & 1], B, N, K, ldb, n0, k0, tid, vec_b);
+    repro::cp_async_commit();
+  };
+  auto settle = [&](int t) {
+    if constexpr (!KM) store_cmajor(As[t & 1], ra, tid);
+    if constexpr (NK) store_cmajor(Bs[t & 1], rb, tid);
+  };
+
+  const int stages = (K + WBK - 1) / WBK;
+  if (stages > 0) {
+    fetch(0);
+    settle(0);
+  }
+  for (int t = 0; t < stages; ++t) {
+    repro::cp_async_wait<0>();
+    __syncthreads();  // stage t is in; every thread is done with stage t - 1
+    if (t + 1 < stages) fetch(t + 1);
+    const float* as = As[t & 1];
+    const float* bs = Bs[t & 1];
+#pragma unroll
+    for (int kk = 0; kk < WBK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(as + kk * WLD + 4 * ty);
+      const float4 a1 = *reinterpret_cast<const float4*>(as + kk * WLD + 64 + 4 * ty);
+      const float4 b0 = *reinterpret_cast<const float4*>(bs + kk * WLD + 4 * tx);
+      const float4 b1 = *reinterpret_cast<const float4*>(bs + kk * WLD + 64 + 4 * tx);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    if (t + 1 < stages) settle(t + 1);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int gm = m0 + 4 * ty + i % 4 + 64 * (i / 4);
+    if (gm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int gn = n0 + 4 * tx + j % 4 + 64 * (j / 4);
+      if (gn < N)
+        C[(long long)gm * N + gn] =
+            from_f32<TOut>(finish(acc[i][j], E, e_bf16, lde, epilogue, gm, gn));
     }
   }
 }
@@ -212,28 +386,41 @@ gated_matmul_kernel(const T* __restrict__ A, const T* __restrict__ G, const T* _
   }
 }
 
-template <typename TIn, typename TOut, bool NK, bool KM>
-void launch_matmul_layout(const void* a, const void* b, const void* e, void* c, int M, int N,
-                          int K, long long lda, long long ldb, long long lde, int e_bf16,
-                          int epilogue, cudaStream_t s) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  matmul_kernel<TIn, TIn, TOut, NK, KM><<<grid, THREADS, 0, s>>>(
-      static_cast<const TIn*>(a), static_cast<const TIn*>(b), nullptr, e, static_cast<TOut*>(c),
-      M, N, K, lda, ldb, lde, e_bf16, epilogue);
+// rows of a 16-byte aligned base and a leading dim of whole 16 bytes
+int aligned16(const void* p, long long ld) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && ld % 4 == 0;
 }
 
-template <typename TIn, typename TOut>
+template <typename TOut, bool NK, bool KM>
+void launch_matmul_layout(const void* a, const void* b, const void* e, void* c, int M, int N,
+                          int K, long long lda, long long ldb, long long lde, int e_bf16,
+                          int epilogue, int tile, cudaStream_t s) {
+  const float* pa = static_cast<const float*>(a);
+  const float* pb = static_cast<const float*>(b);
+  if (tile == 1) {
+    const dim3 grid((N + WB - 1) / WB, (M + WB - 1) / WB);
+    matmul_wide_kernel<TOut, NK, KM><<<grid, THREADS, 0, s>>>(
+        pa, pb, e, static_cast<TOut*>(c), M, N, K, lda, ldb, lde, e_bf16, epilogue,
+        aligned16(a, lda), aligned16(b, ldb));
+  } else {
+    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+    matmul_kernel<float, float, TOut, NK, KM><<<grid, THREADS, 0, s>>>(
+        pa, pb, nullptr, e, static_cast<TOut*>(c), M, N, K, lda, ldb, lde, e_bf16, epilogue);
+  }
+}
+
+template <typename TOut>
 void launch_matmul(const void* a, const void* b, const void* e, void* c, int M, int N, int K,
                    long long lda, long long ldb, long long lde, int a_km, int b_nk, int e_bf16,
-                   int epilogue, cudaStream_t s) {
+                   int epilogue, int tile, cudaStream_t s) {
   if (a_km && b_nk)
-    launch_matmul_layout<TIn, TOut, true, true>(a, b, e, c, M, N, K, lda, ldb, lde, e_bf16, epilogue, s);
+    launch_matmul_layout<TOut, true, true>(a, b, e, c, M, N, K, lda, ldb, lde, e_bf16, epilogue, tile, s);
   else if (a_km)
-    launch_matmul_layout<TIn, TOut, false, true>(a, b, e, c, M, N, K, lda, ldb, lde, e_bf16, epilogue, s);
+    launch_matmul_layout<TOut, false, true>(a, b, e, c, M, N, K, lda, ldb, lde, e_bf16, epilogue, tile, s);
   else if (b_nk)
-    launch_matmul_layout<TIn, TOut, true, false>(a, b, e, c, M, N, K, lda, ldb, lde, e_bf16, epilogue, s);
+    launch_matmul_layout<TOut, true, false>(a, b, e, c, M, N, K, lda, ldb, lde, e_bf16, epilogue, tile, s);
   else
-    launch_matmul_layout<TIn, TOut, false, false>(a, b, e, c, M, N, K, lda, ldb, lde, e_bf16, epilogue, s);
+    launch_matmul_layout<TOut, false, false>(a, b, e, c, M, N, K, lda, ldb, lde, e_bf16, epilogue, tile, s);
 }
 
 template <typename TOut>
@@ -248,16 +435,18 @@ void launch_matmul_q(const void* a, const void* bq, const float* scale, const vo
 
 }  // namespace
 
-// f32 operands; bf16 ones go to repro_matmul_tc (matmul_tc.cu).
+// f32 operands; bf16 ones go to repro_matmul_tc (matmul_tc.cu). tile: 0
+// the 64x64 tile, 1 the wide one (`f32_tile_plan`).
 extern "C" int repro_matmul(const void* a, const void* b, const void* e, void* c, int M, int N,
                             int K, long long lda, long long ldb, long long lde, int a_km,
-                            int b_nk, int out_bf16, int e_bf16, int epilogue, void* stream) {
+                            int b_nk, int out_bf16, int e_bf16, int epilogue, int tile,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M > 0 && N > 0) {
     if (out_bf16)
-      launch_matmul<float, __nv_bfloat16>(a, b, e, c, M, N, K, lda, ldb, lde, a_km, b_nk, e_bf16, epilogue, s);
+      launch_matmul<__nv_bfloat16>(a, b, e, c, M, N, K, lda, ldb, lde, a_km, b_nk, e_bf16, epilogue, tile, s);
     else
-      launch_matmul<float, float>(a, b, e, c, M, N, K, lda, ldb, lde, a_km, b_nk, e_bf16, epilogue, s);
+      launch_matmul<float>(a, b, e, c, M, N, K, lda, ldb, lde, a_km, b_nk, e_bf16, epilogue, tile, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,8 +17,9 @@ so the tied embedding feeds the logits GEMM and an activation feeds its
 weight gradient ``aᵀ @ g`` without a copy. The dual GEMM and the int8
 GEMM take a row-major A and [K, N] row-major weights.
 
-`tile_plan` picks the bf16 GEMM's tile, `q_tile_plan` the int8-weight
-GEMM's (the 16-row mma.sync decode tile, 8 or 16 columns wide by N, else
+`f32_tile_plan` picks the f32 GEMM's tile (128 x 128 from 128 rows where
+that grid busies half the SMs, else 64 x 64), `tile_plan` the bf16 GEMM's,
+`q_tile_plan` the int8-weight GEMM's (the 16-row mma.sync decode tile, 8 or 16 columns wide by N, else
 a 128 x 64 mma.sync tile) and `gated_tile_plan` the dual GEMM's (the
 decode tile with 16 columns of each weight, else the TMA + wgmma tile, 64
 or 128 columns of H). Their k-order (the k-step and the split of K) is
@@ -39,7 +40,7 @@ from repro_torch.kernels.ref import EPILOGUES
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "repro_matmul": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _I, _I, _I,
-                     _I, _I, _P],
+                     _I, _I, _I, _P],
     "repro_matmul_q": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _I, _I,
                        _I, _P],
     "repro_gated_matmul": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _P],
@@ -67,10 +68,10 @@ def _tc_lib():
 
 @dataclass(frozen=True)
 class TilePlan:
-    """A tile of a bf16 GEMM (`csrc/matmul_tc.cu`): `kernel` is the
-    instance number the launcher takes; bm x bn outputs a block, bk a
-    k-stage, `stages` of them in flight, `mma` the tensor-core
-    instruction.
+    """A tile of a GEMM (bf16: `csrc/matmul_tc.cu`; f32: `csrc/matmul.cu`):
+    `kernel` is the instance number the launcher takes; bm x bn outputs a
+    block, bk a k-stage, `stages` of them in flight, `mma` the tensor-core
+    instruction ("fma" for the f32 kernels' FMA units).
     `k_order` fixes how each output is summed: the k-step and the number
     of parts K is split into (summed in order). An m16n8k16 mma.sync step
     and an m64nNk16 wgmma step give the same bits (checked on the card),
@@ -95,6 +96,9 @@ _ROWS16_N32 = TilePlan(1, 16, 32, 128, 1, 4)
 _WIDE = TilePlan(2, 128, 128, 64, 12, 4, mma="wgmma.m64n128k16")
 _WIDE192 = TilePlan(3, 128, 192, 64, 12, 4, mma="wgmma.m64n192k16")
 _SMS = 132                      # H100 SXM: one wide block an SM
+# the f32 GEMM's FMA tiles (`csrc/matmul.cu`), which sum one k at a time
+_F32_64 = TilePlan(0, 64, 64, 32, 8, 1, mma="fma", k_step=1)
+_F32_WIDE = TilePlan(1, 128, 128, 16, 8, 2, mma="fma", k_step=1)
 # the int8-weight GEMM's decode tiles by width, and its 128 x 64 tile
 _Q_ROWS16 = {8: TilePlan(0, 16, 8, 256, 1, 4), 16: TilePlan(4, 16, 16, 256, 1, 4)}
 _Q_NARROW = TilePlan(2, 128, 64, 64, 4, 3)
@@ -102,6 +106,21 @@ _Q_NARROW = TilePlan(2, 128, 64, 64, 4, 3)
 _GATED_ROWS16 = TilePlan(4, 16, 16, 128, 1, 4)
 _GATED_WIDE = {64: TilePlan(2, 128, 64, 64, 12, 4, mma="wgmma.m64n128k16"),
                128: TilePlan(5, 128, 128, 64, 12, 4, mma="wgmma.m64n256k16")}
+
+
+def f32_tile_plan(m: int, k: int, n: int) -> TilePlan:
+    """The f32 GEMM's tile: 128 x 128 outputs a block (8 x 8 a thread,
+    two blocks an SM) where M fills its rows and its grid has a block for
+    half the SMs at least, else 64 x 64 (4 x 4 a thread), which skips the
+    multiply-adds of rows past M (decode) and whose four times as many
+    blocks keep more SMs busy at a few hundred rows. On an H100 at
+    K = 1024 the wide tile is 25% faster at 96 wide blocks, but at 48 it
+    gains 5% with a bias and loses as much with a gelu or silu flush (64
+    outputs a thread), `experiments/probe_fma_kernels.py`. Both tiles sum
+    each output one k at a time in ascending order, so the plan changes
+    no bits: one k-order in every plan, whatever (m, k, n) and layout."""
+    wide_blocks = -(-m // 128) * -(-n // 128)
+    return _F32_WIDE if m >= 128 and wide_blocks >= _SMS // 2 else _F32_64
 
 
 def tile_plan(m: int, k: int, n: int, a_km: bool, b_nk: bool) -> TilePlan:
@@ -224,10 +243,11 @@ def matmul_tiled(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
             EPILOGUES.index(epilogue),
             tile_plan(m, k, n, bool(a_km), bool(b_nk)).kernel,
             _build.stream_ptr(a.device))
-    else:                                # f32: the FMA kernel
+    else:                                # f32: the FMA kernels
         err = _lib().repro_matmul(
             *operands, int(out_dtype == torch.bfloat16), e_bf16,
-            EPILOGUES.index(epilogue), _build.stream_ptr(a.device))
+            EPILOGUES.index(epilogue), f32_tile_plan(m, k, n).kernel,
+            _build.stream_ptr(a.device))
     LAUNCHES["matmul"] += 1
     _build.check(err, "matmul_tiled")
     return c

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: ragged edges, both A and B layouts, the bf16 GEMM's tensor-core
-tile plans (every row tile, unaligned operands, one row's bits at every
-M), int8 weights and the dual GEMM (their plan boundaries, offset views,
+tile plans and the f32 GEMM's two tiles (every row tile, unaligned
+operands, K = 0, one row's bits at every M), int8 weights and the dual GEMM (their plan boundaries, offset views,
 K = 0, one row's bits at every M), strided cache
 views, page pools (bf16, f32 and int8 pages, shuffled, -1 past each
 prefix), GQA groups, idle and windowed slots, a decode row's bits at any
@@ -100,27 +100,31 @@ def test_matmul_transposed_a_matches_plain(dev, dtype, epilogue, mkn, b_nk):
 LAYOUTS = [(False, False), (False, True), (True, False), (True, True)]
 
 
-def _gemm_operands(dev, m, k, n, a_km, b_nk, seed=0):
-    """A [m, k] and B [k, n] in bf16 as row-major tensors or as transpose
-    views (A of a [k, m] tensor, B of an [n, k] one)."""
-    a = _randn(k, m, dtype=torch.bfloat16, dev=dev, seed=seed).t() if a_km \
-        else _randn(m, k, dtype=torch.bfloat16, dev=dev, seed=seed)
-    b = _randn(n, k, dtype=torch.bfloat16, dev=dev, seed=seed + 1,
-               scale=k ** -0.5).t() if b_nk \
-        else _randn(k, n, dtype=torch.bfloat16, dev=dev, seed=seed + 1,
-                    scale=k ** -0.5)
+def _gemm_operands(dev, m, k, n, a_km, b_nk, seed=0, dtype=torch.bfloat16,
+                   off=0, pad=0):
+    """A [m, k] and B [k, n] as row-major tensors or as transpose views (A
+    of a [k, m] tensor, B of an [n, k] one), `off` elements into rows `pad`
+    longer than they need (off 1: no row is 16-byte aligned)."""
+    a = _randn(k, m + off + pad, dtype=dtype, dev=dev,
+               seed=seed)[:, off:off + m].t() if a_km \
+        else _randn(m, k + off + pad, dtype=dtype, dev=dev,
+                    seed=seed)[:, off:off + k]
+    b = _randn(n, k + off + pad, dtype=dtype, dev=dev, seed=seed + 1,
+               scale=k ** -0.5)[:, off:off + k].t() if b_nk \
+        else _randn(k, n + off + pad, dtype=dtype, dev=dev, seed=seed + 1,
+                    scale=k ** -0.5)[:, off:off + n]
     return a, b
 
 
-def _epilogue_kw(dev, epilogue, m, n):
+def _epilogue_kw(dev, epilogue, m, n, dtype=torch.bfloat16):
     if epilogue == "residual":
-        return {"residual": _randn(m, n, dtype=torch.bfloat16, dev=dev, seed=2)}
+        return {"residual": _randn(m, n, dtype=dtype, dev=dev, seed=2)}
     if epilogue != "none":
         return {"bias": _randn(n, dtype=torch.float32, dev=dev, seed=3)}
     return {}
 
 
-def _check_bf16_matmul(a, b, epilogue, kw):
+def _check_matmul(a, b, epilogue, kw):
     for out_dtype in (torch.bfloat16, torch.float32):
         got = ops.matmul(a, b, out_dtype=out_dtype, epilogue=epilogue, **kw)
         want = ref.fused_matmul_ref(a, b, out_dtype, epilogue,
@@ -135,7 +139,7 @@ def test_bf16_matmul_on_tensor_cores_matches_plain(dev, m, layout, epilogue):
     """Every row tile of the tensor-core GEMM, each layout, odd K and N."""
     k, n = 301, 259
     a, b = _gemm_operands(dev, m, k, n, *layout)
-    _check_bf16_matmul(a, b, epilogue, _epilogue_kw(dev, epilogue, m, n))
+    _check_matmul(a, b, epilogue, _epilogue_kw(dev, epilogue, m, n))
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
@@ -143,7 +147,7 @@ def test_bf16_matmul_on_tensor_cores_matches_plain(dev, m, layout, epilogue):
 def test_bf16_matmul_wide_n_matches_plain(dev, m, layout):
     """The 32-column decode tile of the logits' width, ragged N."""
     a, b = _gemm_operands(dev, m, 96, 32771, *layout)
-    _check_bf16_matmul(a, b, "none", {})
+    _check_matmul(a, b, "none", {})
 
 
 @pytest.mark.parametrize("epilogue", ["none", "residual"])
@@ -161,7 +165,7 @@ def test_bf16_matmul_wide_tile_ragged_edges(dev, m, layout, epilogue):
                scale=k ** -0.5)[:, :k].t() if b_nk \
         else _randn(k, n + 9, dtype=torch.bfloat16, dev=dev, seed=1,
                     scale=k ** -0.5)[:, :n]
-    _check_bf16_matmul(a, b, epilogue, _epilogue_kw(dev, epilogue, m, n))
+    _check_matmul(a, b, epilogue, _epilogue_kw(dev, epilogue, m, n))
 
 
 @pytest.mark.parametrize("epilogue", ["bias", "residual"])
@@ -170,7 +174,7 @@ def test_bf16_matmul_of_empty_k_is_the_epilogue(dev, m, epilogue):
     """K = 0: every tile plan flushes the epilogue of a zero sum."""
     a = torch.empty((m, 0), dtype=torch.bfloat16, device=dev)
     b = torch.empty((0, 1024), dtype=torch.bfloat16, device=dev)
-    _check_bf16_matmul(a, b, epilogue, _epilogue_kw(dev, epilogue, m, 1024))
+    _check_matmul(a, b, epilogue, _epilogue_kw(dev, epilogue, m, 1024))
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
@@ -186,7 +190,7 @@ def test_bf16_matmul_reads_unaligned_operands(dev, mn, layout):
                scale=k ** -0.5)[:, 1:k + 1].t() if b_nk \
         else _randn(k, n + 3, dtype=torch.bfloat16, dev=dev, seed=1,
                     scale=k ** -0.5)[:, 1:n + 1]
-    _check_bf16_matmul(a, b, "residual", _epilogue_kw(dev, "residual", m, n))
+    _check_matmul(a, b, "residual", _epilogue_kw(dev, "residual", m, n))
 
 
 @pytest.mark.parametrize("kn", [(1024, 1024), (3072, 1024), (1024, 40960),
@@ -205,6 +209,70 @@ def test_bf16_matmul_is_batch_invariant(dev, layout, kn):
         alone = {r: ops.matmul(a[r:r + 1], b, out_dtype=out_dtype)
                  for r in rows}
         for m in (4, 136, 2048):
+            c = ops.matmul(a[:m], b, out_dtype=out_dtype)
+            for r in rows:
+                if r < m:
+                    assert torch.equal(c[r:r + 1], alone[r]), (m, r, out_dtype)
+
+
+# (M, K, N, the f32 tile's rows): ragged M, N and K (K not a multiple of
+# either tile's k-step, and under one k-step) on the 64x64 and the wide
+# tile
+F32_SHAPES = [(5, 37, 19, 64), (70, 1001, 65, 64), (1000, 1001, 1100, 128),
+              (130, 9, 6000, 128), (257, 300, 3001, 128)]
+
+
+@pytest.mark.parametrize("epilogue", EPILOGUES)
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("shape", F32_SHAPES)
+def test_f32_matmul_tiles_match_plain(dev, shape, layout, epilogue):
+    """Both f32 tiles (`f32_tile_plan`) in every layout, with every
+    epilogue, to f32 and bf16."""
+    from repro_torch.kernels import matmul as tmm
+    m, k, n, bm = shape
+    assert tmm.f32_tile_plan(m, k, n).bm == bm
+    a, b = _gemm_operands(dev, m, k, n, *layout, dtype=torch.float32)
+    _check_matmul(a, b, epilogue,
+                  _epilogue_kw(dev, epilogue, m, n, torch.float32))
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("mn", [(4, 45), (1000, 1100)])
+def test_f32_matmul_reads_unaligned_operands(dev, mn, layout):
+    """Rows one element into a buffer and of odd length: each operand
+    element by element (4-byte cp.async or scalar loads), both tiles."""
+    (m, n), k = mn, 77
+    a, b = _gemm_operands(dev, m, k, n, *layout, dtype=torch.float32, off=1,
+                          pad=2)
+    _check_matmul(a, b, "residual",
+                  _epilogue_kw(dev, "residual", m, n, torch.float32))
+
+
+@pytest.mark.parametrize("epilogue", ["bias", "residual"])
+@pytest.mark.parametrize("m", [4, 1024])
+def test_f32_matmul_of_empty_k_is_the_epilogue(dev, m, epilogue):
+    """K = 0: both f32 tiles flush the epilogue of a zero sum."""
+    n = 1100
+    a = torch.empty((m, 0), dtype=torch.float32, device=dev)
+    b = torch.empty((0, n), dtype=torch.float32, device=dev)
+    _check_matmul(a, b, epilogue,
+                  _epilogue_kw(dev, epilogue, m, n, torch.float32))
+
+
+@pytest.mark.parametrize("k", [1000, 4096])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_f32_matmul_is_batch_invariant(dev, layout, k):
+    """A row of the f32 GEMM has the same bits at M = 4, 136, 1024 and
+    4096 as alone at M = 1, in every layout, at a ragged K and at the
+    paper's 4096: the 64x64 tile (M <= 1024 here) and the wide one (M =
+    4096) sum each output in one order."""
+    n = 1024
+    a, b = _gemm_operands(dev, 4096, k, n, *layout, dtype=torch.float32)
+    rows = [0, 3, 135, 4095]
+    for out_dtype in (torch.float32, torch.bfloat16):
+        alone = {r: ops.matmul(a[r:r + 1], b, out_dtype=out_dtype)
+                 for r in rows}
+        for m in (4, 136, 1024, 4096):
             c = ops.matmul(a[:m], b, out_dtype=out_dtype)
             for r in rows:
                 if r < m:

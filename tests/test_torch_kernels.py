@@ -220,6 +220,24 @@ def test_tile_plan_k_order_does_not_depend_on_m(k, n, a_km, b_nk):
         assert all(p.bm >= 64 for m, p in plans.items() if m > 16)
 
 
+@pytest.mark.parametrize("k, n", sorted({(k, n) for k, n, _, _ in MAIN_GEMMS}
+                                        | {(4096, 4096), (1000, 700)}))
+def test_f32_tile_plan_k_order_does_not_depend_on_m(k, n):
+    """The f32 GEMM (`csrc/matmul.cu`) sums each output one k at a time
+    in ascending order in both of its tiles, with no split of K, so a row
+    has the same bits at every M: M and N pick only the tile (the 64 x 64
+    one for decode and few rows, the 128 x 128 one where its grid is
+    wide enough, the paper's 4096^2 included)."""
+    ms = (1, 4, 8, 16, 17, 64, 136, 512, 2048, 4096, 8192)
+    plans = {m: tmm.f32_tile_plan(m, k, n) for m in ms}
+    assert {p.k_order for p in plans.values()} == {(1, 1)}
+    assert {p.mma for p in plans.values()} == {"fma"}
+    assert {(p.kernel, p.bm, p.bn) for p in plans.values()} <= {
+        (0, 64, 64), (1, 128, 128)}
+    assert all(plans[m].bm == 64 for m in (1, 4, 8, 16, 17, 64))
+    assert tmm.f32_tile_plan(4096, 4096, 4096).bm == 128
+
+
 # (pos, window) of a decode slot: idle, the first key, a split's last and
 # first key, mid-cache, the cache's last key, windows that start inside a
 # split, a window shorter than a split

@@ -21,6 +21,7 @@ Stated tolerances:
 
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -45,6 +46,7 @@ from repro.kernels.matmul_naive import matmul_naive as jmatmul_naive
 from repro_torch.configs.paper_gemm import CONFIG as PAPER
 from repro_torch.core import blocking, gemm, hw, intensity, precision
 from repro_torch.kernels import elementwise as kew
+from repro_torch.kernels import matmul as kmm
 from repro_torch.kernels import matmul_naive as kmmn
 from repro_torch.kernels import ops, ref
 
@@ -370,7 +372,16 @@ def test_paper_chips_differ_from_jax_only_in_f64_rate_by_design():
             assert getattr(tc, field) == getattr(jc, field)
         assert tc.smem_bytes == jc.vmem_bytes
     assert hw.DEFAULT_CHIP is hw.H100
-    assert blocking.KERNEL_TILE == blocking.BlockConfig(64, 64, 32)
+    # the tile of the f32 GEMM at the paper's 4096^2: csrc/matmul.cu's
+    # wide tile, which f32_tile_plan picks there
+    assert blocking.KERNEL_TILE == blocking.BlockConfig(128, 128, 16)
+    src = (Path(kmm.__file__).parent / "csrc" / "matmul.cu").read_text()
+    wb, wbk = re.search(r"constexpr int WB = (\d+), WBK = (\d+)", src).groups()
+    assert blocking.KERNEL_TILE == blocking.BlockConfig(int(wb), int(wb),
+                                                        int(wbk))
+    plan = kmm.f32_tile_plan(4096, 4096, 4096)
+    assert blocking.KERNEL_TILE == blocking.BlockConfig(plan.bm, plan.bn,
+                                                        plan.bk)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64", "complex64",
@@ -430,7 +441,7 @@ def test_paper_entry_point_runs_on_cpu_and_models_as_the_example(capsys):
         shown = name + (f" ({cfg.bm}x{cfg.bn}x{cfg.bk} tile)" if cfg else "")
         assert f"{shown:38s}{r['seconds']:10.4f}{ref_s:10.2f}" in out
     assert [(r["chip"], r["route"], r["block"]) for r in got[3:]] == [
-        ("h100-sxm", "naive", None), ("h100-sxm", "tiled", "64x64x32")]
+        ("h100-sxm", "naive", None), ("h100-sxm", "tiled", "128x128x16")]
 
 
 @pytest.mark.parametrize("bench,names", [
