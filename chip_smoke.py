@@ -71,6 +71,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 FLUSH_BYTES = 64 << 20                                  # > the 50 MB L2
 SLEEP_HZ = 2.0e9              # torch.cuda._sleep cycles a second, at least
+TF32_PEAK = 495e12            # H100 SXM, dense TF32 tensor cores (data sheet)
 
 
 def card_line() -> str:
@@ -186,12 +187,15 @@ class Smoke:
                 for ev in events]
 
     def _case(self, kernel, label, run_kernel, run_plain, run_library,
-              nbytes, flops, dtype, tol, reference=None, n_time=50):
+              nbytes, flops, dtype, tol, reference=None, n_time=50,
+              peak=None, note=""):
         """Compare, then time. tol = (atol, rtol) on |kernel - plain|, or
         a list of them for a kernel of several outputs. run_library: a
         callable to time, or a time measured by the caller, or None.
         reference: a callable whose result (of a wider dtype) the kernel
-        is held against in place of the plain version's."""
+        is held against in place of the plain version's. peak: the FLOP/s
+        of the kernel's route, where it is not the card's rate for dtype;
+        note: printed at the end of the line."""
         torch = self.torch
         got = run_kernel()
         torch.cuda.synchronize()
@@ -223,7 +227,8 @@ class Smoke:
         plain_ms, ms, *lib = self._time_turns(timed, n=n_time)
         lib_ms = lib[0] if lib else run_library
         t_bytes = nbytes / self.chip.hbm_bw * 1e3
-        t_ops = flops / self.chip.peak_flops(getattr(torch, dtype).itemsize) * 1e3
+        t_ops = flops / (peak or self.chip.peak_flops(
+            getattr(torch, dtype).itemsize)) * 1e3
         row = dict(label=label, max_abs_err=max_err, tol=tol, ms=ms,
                    plain_ms=plain_ms, library_ms=lib_ms,
                    bound_ms=max(t_bytes, t_ops),
@@ -235,7 +240,7 @@ class Smoke:
         print(f"      {kernel:19s} {label:44s} err {max_err:.2e} "
               f"(atol {atol:g} rtol {rtol:g})  kernel {ms:.4f} ms  "
               f"plain {plain_ms:.4f}  library {lib}  bound {row['bound_ms']:.4f} "
-              f"({row['bound_by']}){rate}")
+              f"({row['bound_by']}){rate}{note}")
 
     def phase_kernels(self):
         torch = self.torch
@@ -532,8 +537,14 @@ class Smoke:
         against the plain chunked scan, y in the input dtype. x ~ N(0, 1),
         B and C scaled so that C . B ~ N(0, 1), -a ~ U(0.01, 0.5). The
         bound counts each input and output once, and the unmasked
-        products: the causal half of C B^T and of S x, and the state. No
-        single PyTorch call computes SSD, so there is no library time."""
+        products: the causal half of C B^T and of S x, and the state. f32
+        operands at the kernel's route, three TF32 tensor-core passes a
+        product (3xTF32); bf16 ones at the card's bf16 tensor rate, one
+        pass for C B^T and two for S x and the state, whose f32 side
+        (S, B w) takes at most two bf16 parts; the scan's own products at
+        the f32 FMA rate. The bound of the FMA route (every product at 67
+        TFLOP/s) is printed beside it. No single PyTorch call computes
+        SSD, so there is no library time."""
         torch = self.torch
         from repro_torch.kernels import ops, ref
         from repro_torch.kernels import ssd as kssd
@@ -565,37 +576,52 @@ class Smoke:
             x, a, bm, cm = inputs(b, l, h, g, p, n, dtype, decay)
             nc = l // q
             pairs = q * (q + 1) // 2
-            flops = b * h * nc * (2 * pairs * n + 2 * pairs * p + 2 * q * n * p)
+            cb_flops = b * h * nc * 2 * pairs * n
+            flops = cb_flops + b * h * nc * (2 * pairs * p + 2 * q * n * p)
             # the scan adds the state -> output products and the recurrence
             scan_flops = 2 * b * h * (l + nc) * n * p
+            t_route = 3 * flops / TF32_PEAK if dtype == f32 else \
+                (cb_flops + 2 * (flops - cb_flops)) / self.chip.peak_flops(2)
+            fma = self.chip.peak_flops_f32
+
+            def route(nbytes, scan=0):
+                """_case's peak and note for a case that moves nbytes and
+                adds `scan` FLOP at the FMA rate."""
+                fma_ms = max(nbytes / self.chip.hbm_bw,
+                             (flops + scan) / fma) * 1e3
+                return dict(peak=(flops + scan) / (t_route + scan / fma),
+                            note=f"; FMA-route bound {fma_ms:.4f}")
             in_bytes = (x.numel() + bm.numel() + cm.numel()) * size \
                 + a.numel() * 4
+            scan_bytes = in_bytes + b * h * p * n * 4 + x.numel() * size
             label = (f"{dname} B={b} L={l} H={h} G={g} P={p} N={n} "
                      f"chunk={q}" + (f" a=-{decay:g}" if decay else ""))
             if with_state:
                 s0 = torch.randn((b, h, p, n), generator=gen, device=self.dev)
+                nbytes = in_bytes + s0.numel() * 8 + x.numel() * size
                 self._case(
                     "ssd", label + " scan from init_state",
                     lambda: ops.ssd(x, a, bm, cm, q, init_state=s0),
                     lambda: ref.ssd_chunked_ref(x, a, bm, cm, q, s0),
-                    None, in_bytes + s0.numel() * 8 + x.numel() * size,
-                    flops + scan_flops, "float32",
-                    [tols[dtype], tols[f32]])
+                    None, nbytes, flops + scan_flops, "float32",
+                    [tols[dtype], tols[f32]],
+                    **route(nbytes, scan_flops))
                 continue
+            nbytes = in_bytes + x.numel() * 4 + b * h * nc * n * p * 4
             self._case(
                 "ssd", label,
                 lambda: kssd.ssd_intra_chunk(x, a, bm, cm, q),
                 lambda: ref.ssd_intra_chunk_ref(x, a, bm, cm, q),
-                None, in_bytes + x.numel() * 4 + b * h * nc * n * p * 4,
-                flops, "float32", tols[f32])
+                None, nbytes, flops, "float32", tols[f32],
+                **route(nbytes))
             if dtype == bf16 or decay:
                 self._case(
                     "ssd", label + " scan",
                     lambda: ops.ssd(x, a, bm, cm, q),
                     lambda: ref.ssd_chunked_ref(x, a, bm, cm, q),
-                    None, in_bytes + b * h * p * n * 4 + x.numel() * size,
-                    flops + scan_flops, "float32",
-                    [tols[dtype], tols[f32]])
+                    None, scan_bytes, flops + scan_flops, "float32",
+                    [tols[dtype], tols[f32]],
+                    **route(scan_bytes, scan_flops))
             del x, a, bm, cm
 
     def _kernels_paper(self, randn, tols, n=4096):

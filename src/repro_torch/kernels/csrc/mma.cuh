@@ -1,7 +1,8 @@
 // Building blocks of the port's tensor-core kernels (the bf16, dual and
 // int8-weight GEMMs of matmul_tc.cu, the bf16 flash-attention forward and
-// backward) and of the decode kernel's staging: 16-, 8- and 4-byte
-// cp.async with zero fill, ldmatrix, mma.sync.m16n8k16 bf16 -> f32 and
+// backward, the SSD kernel) and of the decode kernel's staging: 16-, 8-
+// and 4-byte cp.async with zero fill, ldmatrix, mma.sync.m16n8k16 bf16 ->
+// f32, mma.sync.m16n8k8 tf32 -> f32 with the hi + lo split of an f32, and
 // tile loaders (bf16 and int8) that mask ragged and unaligned edges; and,
 // for the GEMM's wide tile, wgmma.m64nNk16, its shared-memory
 // descriptors, mbarriers and TMA loads.
@@ -101,6 +102,35 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += A B, one m16n8k8 step on tf32 operands with an f32 accumulator.
+// Fragments (PTX ISA, mma.m16n8k8 with .tf32): lane = 4 g + t. A (16x8,
+// row) is 4 registers: (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4). B
+// (8x8, col) is 2: (t, g), (t + 4, g). C/D as m16n8k16's. The unit reads
+// the top 19 bits of each operand register (sign, exponent, 10 mantissa
+// bits) and ignores the other 13.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An f32 as hi + lo, two tf32 operands, for the 3xTF32 product
+// a b ~ a_hi b_hi + a_hi b_lo + a_lo b_hi. hi is x truncated to tf32 (its
+// low 13 bits cleared, as CUTLASS's fast 3xTF32 rounds the big part);
+// lo = x - hi is exact in f32, |lo| < 2^-10 |x|, and the unit reads its
+// top 11 significant bits. So the two parts hold x to ~2^-20 |x|, and the
+// product is within ~2^-19 |a b|, against 2^-11 for one tf32 pass. Two
+// instructions (a mask and a subtraction); Veltkamp's rounded split takes
+// four and cvt.rna.tf32.f32 is slower still on an H100
+// (`experiments/probe_ssd_kernels.py`).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi)));
 }
 
 // Two f32 as one register of two bf16 (round to nearest even), lo first.

@@ -285,18 +285,19 @@ def ssd_chunked_ref(x, a, b, c, chunk: int, init_state=None):
 
 
 def ssd_intra_chunk_ref(x, a, b, c, chunk: int):
-    """What the SSD kernel computes, chunk by chunk, in f32: with
-    cs = cumsum(a) over a chunk and head h reading group h // (H / G),
+    """What the SSD kernel computes, chunk by chunk, in f32 (f64 for f64
+    x, a reference for the kernel's f32 error): with cs = cumsum(a) over
+    a chunk and head h reading group h // (H / G),
         y_diag[i] = sum_{j <= i} (C_i . B_j) exp(cs_i - cs_j) x_j
         state     = sum_j (B_j exp(cs_last - cs_j))^T x_j       (N, P)
     for x (B, L, H, P), a (B, L, H), b/c (B, L, G, N), L a multiple of
-    chunk. Returns (y_diag (B, L, H, P) f32, states (B, H, nc, N, P)
-    f32)."""
+    chunk. Returns (y_diag (B, L, H, P), states (B, H, nc, N, P)), f32
+    (f64 for f64 x)."""
     bsz, l, h, p = x.shape
     g, n = b.shape[-2:]
     rep = h // g
     nc = l // chunk
-    f = torch.float32
+    f = _acc_dtype(x.dtype)
     xc = x.to(f).reshape(bsz, nc, chunk, h, p)
     ac = a.to(f).reshape(bsz, nc, chunk, h).transpose(2, 3)    # (B,nc,H,Q)
     bc = b.to(f).reshape(bsz, nc, chunk, g, n).repeat_interleave(rep, 3)

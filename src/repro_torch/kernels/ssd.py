@@ -23,14 +23,29 @@ from repro_torch.kernels import ref as _ref
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "repro_ssd_intra_chunk": [_P] * 6 + [_I] * 7 + [_L] * 12 + [_I, _P],
+    "repro_ssd_intra_chunk": [_P] * 6 + [_I] * 7 + [_L] * 12 + [_I] * 2
+    + [_P],
 }
 _PMAX, _NMAX, _QMAX = 128, 256, 2048
+
+
+def _aligned(*ts) -> bool:
+    """Every base and (batch, time, head) stride 16-byte aligned: the
+    kernel's cp.async path, else its plain copy."""
+    return all(t.data_ptr() % 16 == 0
+               and all(s * t.element_size() % 16 == 0 for s in t.stride()[:3])
+               for t in ts)
 
 #: Kernel launches, counted where the wrapper launches its kernel: one an
 #: `ssd_intra_chunk` call, which computes y_diag and the states in one
 #: grid.
 LAUNCHES = {"ssd": 0}
+
+
+def _check_cuda(*ts) -> None:
+    for t in ts:
+        if t.device.type != "cuda" or t.device != ts[0].device:
+            raise ValueError("every operand must be on one CUDA device")
 
 
 def ssd_intra_chunk(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -56,10 +71,9 @@ def ssd_intra_chunk(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         raise TypeError(f"x, b and c must all be float32 or all bfloat16, got "
                         f"{x.dtype}/{b.dtype}/{c.dtype}")
     a = a.float()
-    for t in (x, a, b, c):
-        if t.device.type != "cuda" or t.device != x.device:
-            raise ValueError("every operand must be on one CUDA device")
-        if t.dim() == 4 and t.stride(3) != 1:
+    _check_cuda(x, a, b, c)
+    for t in (x, b, c):
+        if t.stride(3) != 1:
             raise ValueError("the last dim of x, b and c must be contiguous")
     nc = l // chunk
     y = torch.empty((bsz, l, h, p), dtype=torch.float32, device=x.device)
@@ -73,7 +87,8 @@ def ssd_intra_chunk(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         a.stride(0), a.stride(1), a.stride(2),
         b.stride(0), b.stride(1), b.stride(2),
         c.stride(0), c.stride(1), c.stride(2),
-        int(x.dtype == torch.bfloat16), _build.stream_ptr(x.device))
+        int(_aligned(x, b, c)), int(x.dtype == torch.bfloat16),
+        _build.stream_ptr(x.device))
     LAUNCHES["ssd"] += 1
     _build.check(err, "ssd_intra_chunk")
     return y, states
@@ -84,7 +99,8 @@ def _intra_chunk(x, a, b, c, chunk):
     x, b and c not all of one kernel dtype go to the kernel as float32,
     which every float up to float32 casts to exactly."""
     if x.device.type == "cpu":
-        return _ref.ssd_intra_chunk_ref(x, a, b, c, chunk)
+        y, states = _ref.ssd_intra_chunk_ref(x, a, b, c, chunk)
+        return y.float(), states.float()       # the kernel's f32 outputs
     if x.dtype == torch.float64:
         raise TypeError("the CUDA SSD kernel computes in float32; float64 "
                         "runs through ref.ssd_chunked_ref on the CPU")

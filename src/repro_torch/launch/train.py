@@ -7,10 +7,11 @@
 
 Trains qwen3-0.6b (or its `--reduced` test config) from random weights
 (`torch.Generator().manual_seed(--seed)`) on `SyntheticLM` batches with
-AdamW and a cosine schedule. Runs on the card unless `--device cpu` is
-given, and raises where there is no card. Not ported yet: the JAX
-launcher's --backend, --autotune, --model-parallel, --compress,
---ckpt-dir and --fail-at.
+AdamW and a cosine schedule. `--arch` offers the archs whose family
+`models.model` trains (`TRAIN_FAMILIES`). Runs on the card unless
+`--device cpu` is given, and raises where there is no card. Not ported
+yet: the JAX launcher's --backend, --autotune, --model-parallel,
+--compress, --ckpt-dir and --fail-at.
 """
 
 from __future__ import annotations
@@ -24,13 +25,17 @@ from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.core.device import resolve_device
 from repro_torch.core.tree import leaves
 from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.models.model import TRAIN_FAMILIES
 from repro_torch.optim.adamw import AdamW, cosine_schedule
 from repro_torch.training import train_loop as TL
+
+TRAIN_ARCHS = tuple(a for a in ARCH_NAMES
+                    if get_config(a).family in TRAIN_FAMILIES)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-0.6b", choices=ARCH_NAMES)
+    ap.add_argument("--arch", default="qwen3-0.6b", choices=TRAIN_ARCHS)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)

@@ -153,12 +153,17 @@ def _logits(cfg, params, x):
     return logits
 
 
+#: The families that `forward` and `loss_fn` train; the launcher offers
+#: only their archs. ssm (Mamba-2) serves but does not train yet.
+TRAIN_FAMILIES = ("dense",)
+
+
 def forward(cfg, params, batch):
     """Full-sequence f32 logits (B, T, padded_vocab) of batch["tokens"]
     (B, T), the pad classes masked to -1e30: the training forward, with
     cache-less causal attention. (The JAX package's `forward` also
     returns an aux dict, which is empty for the dense family.)"""
-    if cfg.family != "dense":
+    if cfg.family not in TRAIN_FAMILIES:
         raise NotImplementedError(f"training (forward, loss_fn) is ported for "
                                   f"the dense family only, not {cfg.name} "
                                   f"({cfg.family})")

@@ -4,12 +4,19 @@ Request lifecycle (one slot = one batch row of the decode step):
 
         submit            slot free & arrived          len == max_new
     req ------> WAITING ----------------------> ACTIVE --------------> FINISHED
-                          admit = prefill(1xL)         evict: pos[slot] = -1,
-                          + copy into slot row         slot back in free pool
+                          admit = prefill(1xL)    |    evict: pos[slot] = -1,
+                          + copy into slot row    |    slot back in free pool
+                                                  | a non-finite logits row
+                                                  +----------> QUARANTINED
 
 Every decode step runs the model once over ALL slots with a per-slot
 position vector `pos: (S,) int32`; idle slots carry pos = -1, so their
-cache rows are left alone and their logits are discarded.
+cache rows are left alone and their logits are discarded. Each row is
+checked before it is sampled, at admission and at every decode step: a
+row that is not all finite ends only its own request (QUARANTINED, with
+`error` set, counted in the report's "quarantined") and frees its slot
+and pages, as the JAX engine does; the other slots' rows never mix with
+it, so their streams go on unchanged.
 
 Admission prefills the prompt at batch 1 into a fresh one-slot cache,
 over a length bucketed down to a multiple of `PREFILL_CHUNK`; the
@@ -56,7 +63,8 @@ from repro_torch.core import precision
 from repro_torch.core.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.serving.kv_pool import KVPagePool, KVPoolExhausted
-from repro_torch.serving.request import FINISHED, Request, percentile
+from repro_torch.serving.request import (FINISHED, QUARANTINED, Request,
+                                         percentile)
 from repro_torch.serving.sampler import greedy
 from repro_torch.serving.scheduler import SlotScheduler
 
@@ -171,6 +179,7 @@ class ServingEngine:
         self.decode_time = 0.0
         self.decode_slot_steps = 0     # sum of active slots over steps
         self.tokens_emitted = 0
+        self.quarantined = 0
         self.peak_occupancy = 0
         self._step_times: List[float] = []
 
@@ -272,6 +281,10 @@ class ServingEngine:
         self.prefill_time += time.perf_counter() - t0
         self.prefill_tokens += L
         now = self._now()
+        if not np.isfinite(row).all():
+            self._quarantine(req, slot, now,
+                             "non-finite logits at admission prefill")
+            return
         tok = greedy(row)
         req.t_first_token = now
         req.generated.append(tok)
@@ -282,21 +295,30 @@ class ServingEngine:
             self._pos[slot] = L
             self._tokens[slot, 0] = tok
 
-    def _release(self, req: Request, slot: int, now: float) -> None:
+    def _release(self, req: Request, slot: int, now: float,
+                 status: str = FINISHED) -> None:
         """Free the slot and its KV pages (shared pages drop one
         reference; their other holders keep the bytes)."""
-        self.scheduler.release(slot, FINISHED)
+        self.scheduler.release(slot, status)
         if self.pool is not None:
             self.pool.release_slot(slot)
         self._pos[slot] = -1
         self._tokens[slot, 0] = 0
         req.t_finished = now
 
+    def _quarantine(self, req: Request, slot: int, now: float,
+                    error: str) -> None:
+        """End only this request, on a logits row that is not finite."""
+        req.error = error
+        self.quarantined += 1
+        self._release(req, slot, now, QUARANTINED)
+
     # -- decode --------------------------------------------------------
     def _decode_once(self) -> None:
         active = self.scheduler.active
         if not active:
             raise ValueError("decode step with no active slots")
+        step_idx = self.decode_steps
         if self.pool is not None:
             # make each slot's write position private before the step
             # writes it: a shared page is copied (CoW), a page past the
@@ -321,6 +343,10 @@ class ServingEngine:
         now = self._now()
         for slot in sorted(active):
             req = active[slot]
+            if not np.isfinite(rows[slot]).all():
+                self._quarantine(req, slot, now, f"non-finite logits at "
+                                 f"decode step {step_idx}")
+                continue
             tok = greedy(rows[slot])
             req.generated.append(tok)
             self.tokens_emitted += 1
@@ -381,6 +407,7 @@ class ServingEngine:
             "ttft_p50_s": percentile(ttft, 50),
             "ttft_p95_s": percentile(ttft, 95),
             "peak_occupancy": self.peak_occupancy,
+            "quarantined": self.quarantined,
             "decode_step_p50_s": percentile(self._step_times, 50),
             "decode_step_p99_s": percentile(self._step_times, 99),
         }

@@ -1,7 +1,8 @@
 """Request lifecycle and per-request stats.
 
-A request moves WAITING -> ACTIVE -> FINISHED. While ACTIVE it owns one
-cache slot (a batch row of the engine's KV cache); on finish the slot
+A request moves WAITING -> ACTIVE -> FINISHED, or to QUARANTINED when
+its logits turn non-finite (`error` says where). While ACTIVE it owns one
+cache slot (a batch row of the engine's KV cache); on either end the slot
 is released and the next waiting request is admitted into it while the
 other slots keep decoding.
 """
@@ -16,6 +17,7 @@ import numpy as np
 WAITING = "waiting"
 ACTIVE = "active"
 FINISHED = "finished"
+QUARANTINED = "quarantined"
 
 
 @dataclasses.dataclass
@@ -32,6 +34,7 @@ class Request:
     t_admitted: Optional[float] = None
     t_first_token: Optional[float] = None
     t_finished: Optional[float] = None
+    error: Optional[str] = None        # why the request was quarantined
 
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt, np.int32).reshape(-1)

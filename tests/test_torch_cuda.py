@@ -888,6 +888,82 @@ def test_ssd_kernel_is_deterministic(dev):
         assert all(torch.equal(u, v) for u, v in zip(first, again))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [SSD_SHAPES[0], SSD_SHAPES[1],
+                                   SSD_SHAPES[-1]])
+def test_ssd_is_batch_invariant(dev, dtype, shape):
+    """Each element of a batch of 2 and of 3 gives its batch-1 bits, for
+    y_diag and the states: the kernel's partition of a (batch, head,
+    chunk) unit depends on (Q, N, P) only, and each output is summed by
+    one warp in one order."""
+    from repro_torch.kernels import ssd as kssd
+    _, l, h, g, p, n, chunk = shape
+    x, a, bm, cm = _ssd_inputs(dev, (3, l, h, g, p, n, chunk), dtype)
+    alone = [kssd.ssd_intra_chunk(*(t[i:i + 1].contiguous()
+                                    for t in (x, a, bm, cm)), chunk)
+             for i in range(3)]
+    for bsz in (2, 3):
+        got = kssd.ssd_intra_chunk(x[:bsz], a[:bsz], bm[:bsz], cm[:bsz],
+                                   chunk)
+        for i in range(bsz):
+            assert all(torch.equal(u[i:i + 1], v)
+                       for u, v in zip(got, alone[i])), (bsz, i)
+
+
+def test_ssd_f32_is_not_tf32(dev):
+    """The f32 kernel at the main path's shape against the plain version
+    on f64 copies of its inputs: its max error is within 4x the plain f32
+    version's (one tf32 pass, ~3 digits, is far outside)."""
+    from repro_torch.kernels import ssd as kssd
+    shape = SSD_SHAPES[0]
+    x, a, bm, cm = _ssd_inputs(dev, shape)
+    chunk = shape[-1]
+    exact = ref.ssd_intra_chunk_ref(x.double(), a.double(), bm.double(),
+                                    cm.double(), chunk)
+    got = kssd.ssd_intra_chunk(x, a, bm, cm, chunk)
+    plain = ref.ssd_intra_chunk_ref(x, a, bm, cm, chunk)
+    for k, p_, e in zip(got, plain, exact):
+        err_k = (k.double() - e).abs().max().item()
+        err_p = (p_.double() - e).abs().max().item()
+        assert err_k <= 4 * err_p, (err_k, err_p)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 128, 6, 2, 64, 128, 64),
+                                   (1, 96, 3, 1, 40, 20, 96),
+                                   (1, 256, 4, 1, 128, 256, 256)])
+def test_ssd_unpaired_and_wide_heads_match_plain(dev, dtype, shape):
+    """The kernel's other instances: an odd number of heads to a group
+    (each block serves one head, not a pair), a ragged P and N, and P =
+    128 with N = 256 (one head a block, the widest tiles)."""
+    from repro_torch.kernels import ssd as kssd
+    x, a, bm, cm = _ssd_inputs(dev, shape, dtype)
+    chunk = shape[-1]
+    got = kssd.ssd_intra_chunk(x, a, bm, cm, chunk)
+    want = ref.ssd_intra_chunk_ref(x, a, bm, cm, chunk)
+    for g_, w_ in zip(got, want):
+        _close(g_, w_, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_unaligned_operands_take_the_plain_copy(dev, dtype):
+    """x, B and C one element off a 16-byte boundary, with odd strides:
+    the kernel stages them by a plain copy instead of cp.async."""
+    from repro_torch.kernels import ssd as kssd
+    b, l, h, g, p, n, chunk = 1, 200, 8, 2, 64, 128, 200
+    xw = _randn(b, l, h, p + 1, dtype=dtype, dev=dev, seed=0)
+    bcw = _randn(b, l, g, 2 * n + 1, dtype=dtype, dev=dev, seed=2,
+                 scale=n ** -0.25)
+    x, bm, cm = xw[..., 1:], bcw[..., 1:n + 1], bcw[..., n + 1:]
+    a = -(0.01 + 0.49 * torch.rand((b, l, h), device=dev,
+                                   generator=torch.Generator(device=dev)
+                                   .manual_seed(1)))
+    got = kssd.ssd_intra_chunk(x, a, bm, cm, chunk)
+    want = ref.ssd_intra_chunk_ref(x, a, bm, cm, chunk)
+    for g_, w_ in zip(got, want):
+        _close(g_, w_, torch.float32)
+
+
 def test_ssd_on_card_refuses_a_gradient(dev):
     from repro_torch.core import ssd as core_ssd
     x, a, bm, cm = _ssd_inputs(dev, SSD_SHAPES[-1])

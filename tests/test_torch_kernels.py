@@ -6,6 +6,7 @@ Tolerance: float32 on both sides, atol = rtol = 1e-5. The two compute
 the same function; the only difference is the order of the sums.
 """
 
+import ctypes
 import re
 from pathlib import Path
 
@@ -20,6 +21,7 @@ from repro.kernels import ops as jops
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import matmul as tmm
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssd as kssd
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 PALLAS = Policy(backend="pallas", interpret=True)
@@ -303,3 +305,45 @@ def test_decode_split_merge_is_the_softmax(pos, window):
             / sum(l_ * wi for (_, l_, _), wi in zip(parts, w))
     want = ref.attention_fwd_ref(q, k, v, window=window, q_offset=pos)
     torch.testing.assert_close(o.reshape(1, 1, 4, 16), want, **TOL)
+
+
+def test_ssd_launch_takes_the_cp_async_path_only_when_aligned(monkeypatch):
+    """What the wrapper hands the kernel: the shape as given at B = 1,
+    H = 80 and at B = 3, H = 8, the cp.async path only for 16-byte aligned
+    operands, and one launch counted a call."""
+    calls = []
+
+    class Lib:
+        @staticmethod
+        def repro_ssd_intra_chunk(*args):
+            calls.append(dict(b=args[6], h=args[8], q=args[12],
+                              vec=args[25], bf16=args[26]))
+            return 0
+
+    monkeypatch.setattr(kssd, "_check_cuda", lambda *ts: None)
+    monkeypatch.setattr(kssd._build, "load", lambda name, sig: Lib)
+    monkeypatch.setattr(kssd._build, "stream_ptr", lambda dev: None)
+    monkeypatch.setitem(kssd.LAUNCHES, "ssd", 0)
+    for bsz, h in ((1, 80), (3, 8)):
+        x = torch.zeros(bsz, 512, h, 64)
+        bc = torch.zeros(bsz, 512, 1, 128)
+        kssd.ssd_intra_chunk(x, torch.zeros(bsz, 512, h), bc, bc, 256)
+    xw = torch.zeros(1, 512, 8, 65)
+    kssd.ssd_intra_chunk(xw[..., 1:], torch.zeros(1, 512, 8), bc[:1],
+                         bc[:1], 256)
+    assert kssd.LAUNCHES["ssd"] == 3
+    assert [(c["b"], c["h"], c["q"], c["vec"], c["bf16"]) for c in calls] \
+        == [(1, 80, 256, 1, 0), (3, 8, 256, 1, 0), (1, 8, 256, 0, 0)]
+
+
+def test_ssd_signature_matches_the_c_entry_point():
+    """The wrapper's ctypes signature has the C entry point's parameters,
+    pointers, ints and long longs in its order: the source cannot be
+    compiled here, so a mismatch would show only on the card."""
+    src = (Path(kssd.__file__).parent / "csrc" / "ssd.cu").read_text()
+    params = re.search(r'extern "C" int repro_ssd_intra_chunk\((.*?)\)',
+                       src, re.S).group(1).split(",")
+    kinds = {"int": ctypes.c_int, "long long": ctypes.c_longlong}
+    want = [ctypes.c_void_p if "*" in q
+            else kinds[q.strip().rsplit(" ", 1)[0]] for q in params]
+    assert kssd._SIGNATURES["repro_ssd_intra_chunk"] == want

@@ -398,6 +398,21 @@ def test_train_cli_runs_on_the_cpu(capsys):
     assert "step     1 loss" in out and "final loss" in out
 
 
+def test_train_cli_offers_only_the_archs_it_can_train(capsys):
+    """mamba2-2.7b serves but `model.forward` does not train it yet, so
+    argparse refuses it; qwen3-0.6b is still offered (and trains)."""
+    assert "mamba2-2.7b" not in train_cli.TRAIN_ARCHS
+    assert "qwen3-0.6b" in train_cli.TRAIN_ARCHS
+    with pytest.raises(SystemExit):
+        train_cli.main(["--arch", "mamba2-2.7b", "--reduced", "--device",
+                        "cpu", "--steps", "1"])
+    assert "invalid choice: 'mamba2-2.7b'" in capsys.readouterr().err
+    losses = train_cli.main(["--arch", "qwen3-0.6b", "--reduced", "--device",
+                             "cpu", "--steps", "1", "--batch", "1", "--seq",
+                             "8", "--warmup", "1"])
+    assert len(losses) == 1 and np.isfinite(losses[0])
+
+
 def test_train_cli_without_device_raises_where_there_is_no_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default runs on it")
