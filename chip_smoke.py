@@ -22,16 +22,22 @@ Phases, in order; any failure propagates and the exit code is not 0:
      beside the least time the card could take; a bf16 page pool must
      give the dense decode kernel's bits;
   4. the dense slice at full width: qwen3-0.6b (28 layers, random weights
-     from a seed) served by the engine on 4 slots to 8 requests, with
-     every kernel's launches counted over that run; a torch.profiler trace
-     of decode steps at 4 busy slots (the card's busy time a step, by
-     kernel, against the step's wall time; each kernel of the step must
-     show in it); then two requests whose
+     from a seed) served by the engine on 4 slots to 8 requests, its
+     decode and prefill-remainder steps replays of CUDA graphs captured
+     at construction (the capture time and the graphs' memory printed),
+     with every kernel's launches counted over that run (a replay counts
+     what its capture launched); one replay at 4 busy slots against an
+     eager decode step on a clone of the engine's state, bit for bit; a
+     torch.profiler trace of decode steps at 4 busy slots (the card's
+     busy time a step, by kernel, against the step's wall time and the
+     decode p50; one graph launch a step and no kernel wrapper called;
+     each kernel of the step must show in it); then two requests whose
      engine streams must equal whole-prompt prefill plus batch-1 decode;
   5. the paged slices at full width: phase 4's trace on a bf16 page pool
      must give phase 4's streams bit for bit; a prefix-heavy chat trace on
      an int8 page pool with int8 weights (prefix pages shared), with
-     exact launch counts, speed, memory and the pool's report; and that
+     exact launch counts, speed, memory and the pool's report, a replay
+     against the eager step and a trace as phase 4's; and that
      configuration's streams at 4 slots equal to each request alone;
   6. training at full width: 8 AdamW steps of qwen3-0.6b (f32 params,
      bf16 activations) at batch 4 x 512 tokens, with exact launch counts
@@ -46,9 +52,11 @@ Phases, in order; any failure propagates and the exit code is not 0:
      weights from a seed) served by the engine on 4 slots to 8 requests
      whose prompts take every prefill branch, with exact launch counts
      (the SSD kernel in every admission prefill), each stream equal to
-     the request run alone at batch 1, speed, memory and a torch.profiler
-     trace of decode steps and of a 512-token prefill; then a depth-2
-     prefill and decode in f32 on the card against the same on the CPU;
+     the request run alone at batch 1, speed, memory, a replay against
+     the eager step and a torch.profiler trace of decode steps as phase
+     4's, and of a 512-token prefill; the memory back after the engine
+     goes; then a depth-2 prefill and decode in f32 on the card against
+     the same on the CPU;
   8. the paper's experiment at its size, 4096^2: Table 2 through the
      measurement `launch.paper` prints (`benchmarks.common.measure`: float,
      double and complex-float through the naive kernel, the GEMM
@@ -60,6 +68,7 @@ Phases, in order; any failure propagates and the exit code is not 0:
   9. a JSON line of the kernels, the card line, and the result line.
 """
 
+import contextlib
 import json
 import math
 import statistics
@@ -754,6 +763,7 @@ class Smoke:
               f"weights ready in {time.perf_counter() - t0:.1f} s; "
               f"8 requests, prompts {[len(it.prompt) for it in work]}, gen 32, "
               f"4 slots, max_len {engine.max_len}")
+        _print_capture(engine)
         torch.cuda.reset_peak_memory_stats()
         reqs = [engine.submit(it.prompt, it.gen) for it in work]
         ops.reset_launch_counts()
@@ -789,17 +799,21 @@ class Smoke:
         self.engine = engine
         self.work, self.max_len = work, engine.max_len
         self.dense_streams = [list(r.generated) for r in reqs]
+        self.serve_p50 = report["decode_step_p50_s"]
 
     def phase_trace(self):
-        self._trace(self.engine, expect=("matmul", "gated_matmul",
-                                         "flash_decode"))
+        self._trace(self.engine, self.serve_p50,
+                    expect=("matmul", "gated_matmul", "flash_decode"))
 
-    def _trace(self, eng, n_steps=6, expect=()):
-        """Trace decode steps of `eng` with 4 slots busy at a depth of
-        ~260: the card's busy time a step, by kernel, beside the step's
-        wall time on the host clock (the profiler's own host cost
-        included, so the idle share read here is an upper bound). Each
-        kernel group in `expect` must show in the trace."""
+    def _trace(self, eng, p50_s, n_steps=6, expect=()):
+        """Decode steps of `eng` with 4 slots busy at a depth of ~260: first
+        one replay against an eager step (`_check_replay`), then a trace:
+        the card's busy time a step, by kernel, beside the step's wall
+        time on the host clock (the profiler's own host cost included, so
+        the idle share read here is an upper bound) and the decode p50 of
+        the phase's unprofiled run (`p50_s`). Each kernel group in
+        `expect` must show in the trace; a step must be one graph launch
+        and call no kernel wrapper."""
         torch = self.torch
         import numpy as np
         from torch.profiler import ProfilerActivity, profile
@@ -809,16 +823,65 @@ class Smoke:
                        n_steps + 2)
         eng.step()                      # admits all four, one decode step
         assert eng.scheduler.n_active == 4, eng.scheduler.n_active
+        self._check_replay(eng)
         first = len(eng._step_times)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with _wrapper_calls() as calls, \
+                profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA]) as prof:
             for _ in range(n_steps):
                 eng.step()
             torch.cuda.synchronize()
         eng.run()
+        assert not calls, f"a replayed step called kernel wrappers: {calls}"
         wall_ms = sum(eng._step_times[first:first + n_steps]) / n_steps * 1e3
-        _print_trace(prof, f"{n_steps} decode steps at 4 slots", wall_ms,
-                     n_steps, expect)
+        busy = _print_trace(prof, f"{n_steps} decode steps at 4 slots",
+                            wall_ms, n_steps, expect)
+        api, host_us = {}, {}
+        for e in prof.events():
+            if e.name.startswith(("cuda", "cu")) and "Launch" in e.name:
+                api[e.name] = api.get(e.name, 0) + 1
+                host_us[e.name] = (host_us.get(e.name, 0.0)
+                                   + e.time_range.elapsed_us())
+        graphs = sum(n for name, n in api.items() if "GraphLaunch" in name)
+        calls = ", ".join(f"{name} {n / n_steps:g} a step "
+                          f"({host_us[name] / n:.1f} us each on the host)"
+                          for name, n in api.items())
+        print(f"      replays: launch calls in the trace: {calls or 'none'}; "
+              f"no kernel wrapper called; decode step p50 "
+              f"{p50_s * 1e3:.2f} ms (the unprofiled run) against card "
+              f"busy {'not measured' if busy is None else f'{busy:.3f} ms'}"
+              f" a step")
+        if api:
+            assert graphs == n_steps, (graphs, n_steps, api)
+
+    def _check_replay(self, eng):
+        """One replay of `eng`'s decode graph against an eager decode_step
+        from a clone of the same state: logits and every cache leaf bit
+        for bit. The state is put back after, so the streams go on as if
+        the check had not run."""
+        torch = self.torch
+        from repro_torch.core.tree import leaves
+        from repro_torch.models import model as M
+        if eng.pool is not None:
+            eng._prepare_pages(eng.scheduler.active)
+        eng._step_tokens.copy_(eng._tokens_h)
+        eng._step_pos.copy_(eng._pos_h)
+        before = [t.clone() for t in leaves(eng.cache)]
+        state = _clone_tree(eng.cache)
+        got = eng._step().clone()
+        want, state = M.decode_step(eng.cfg, eng.params,
+                                    eng._step_tokens.clone(),
+                                    eng._step_pos.clone(), state)
+        same = torch.equal(got, want) and all(
+            torch.equal(a, b) for a, b in zip(leaves(eng.cache),
+                                              leaves(state)))
+        for t, old in zip(leaves(eng.cache), before):
+            t.copy_(old)
+        assert same, "a replayed decode step differs from the eager step"
+        print(f"      replay: one decode step at {eng.scheduler.n_active} "
+              f"busy slots equals an eager decode_step on a clone of the "
+              f"engine's state, logits and {len(before)} cache leaves bit "
+              f"for bit")
 
     def phase_batching(self):
         """The engine (batch-1 prefill, then decode at 4 slots with a
@@ -920,6 +983,7 @@ class Smoke:
         torch.cuda.empty_cache()
         weights = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
+        _print_capture(eng)
         reqs, rep, launches = self._run_counted(eng, work)
         peak = torch.cuda.max_memory_allocated()
         want = self._want_launches(eng, reqs, {"matmul_q": 7 * L,
@@ -943,7 +1007,8 @@ class Smoke:
               f"the run (weights + pool) {weights / 2 ** 30:.3f} GiB, "
               f"max_memory_allocated {peak / 2 ** 30:.3f} GiB")
         print(f"      kv pool: {json.dumps(kv)}")
-        self._trace(eng, expect=("matmul", "matmul_q", "flash_decode_paged"))
+        self._trace(eng, rep["decode_step_p50_s"],
+                    expect=("matmul", "matmul_q", "flash_decode_paged"))
 
         # 3. batch invariance there: 4 slots against each request alone
         rng = np.random.default_rng(3)
@@ -1211,6 +1276,7 @@ class Smoke:
               f"{time.perf_counter() - t0:.1f} s ({weights / 2 ** 30:.3f} GiB "
               f"on the card, bf16); {len(prompts)} requests, prompts "
               f"{lengths}, gen {gen}, 4 slots, max_len {eng.max_len}")
+        _print_capture(eng)
         torch.cuda.reset_peak_memory_stats()
         reqs = [eng.submit(pr, gen) for pr in prompts]
         ops.reset_launch_counts()
@@ -1248,10 +1314,15 @@ class Smoke:
                 (req.rid, len(prompt))
         print(f"      the {len(reqs)} engine streams (decode at 4 slots) equal "
               f"each request run alone at batch 1, token for token")
-        self._trace(eng, n_steps=4, expect=("matmul",))
+        self._trace(eng, report["decode_step_p50_s"], n_steps=4,
+                    expect=("matmul",))
         self._trace_prefill(eng, prompts[5])
         del eng
         torch.cuda.empty_cache()
+        print(f"      after the engine: memory_allocated "
+              f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB, "
+              f"memory_reserved {torch.cuda.memory_reserved() / 2 ** 30:.3f} "
+              f"GiB (the graphs' pools freed with it)")
 
     def _alone(self, eng, prompt, n_new):
         """Greedy tokens of `prompt` run alone as `eng` admits it: a
@@ -1453,6 +1524,43 @@ class Smoke:
         return rows
 
 
+def _print_capture(eng) -> None:
+    print(f"      steps: the decode and prefill-remainder steps captured in "
+          f"CUDA graphs in {eng.capture_s:.2f} s (warm-ups included), "
+          f"graph pools {eng.graph_pool_bytes / 2 ** 20:.2f} MiB")
+
+
+def _clone_tree(tree):
+    return {k: _clone_tree(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+@contextlib.contextmanager
+def _wrapper_calls():
+    """Count the Python calls of the serving kernels' wrappers while the
+    block runs (a replayed step makes none); yields the list of names."""
+    from repro_torch.kernels import flash_attention, matmul, ssd
+    calls, saved = [], []
+    for mod, names in ((matmul, ("matmul_tiled", "matmul_q_tiled",
+                                 "gated_matmul_tiled")),
+                       (flash_attention, ("flash_decode",
+                                          "flash_decode_paged")),
+                       (ssd, ("ssd_chunked",))):
+        for name in names:
+            fn = getattr(mod, name)
+            saved.append((mod, name, fn))
+
+            def counted(*args, _fn=fn, _name=name, **kw):
+                calls.append(_name)
+                return _fn(*args, **kw)
+            setattr(mod, name, counted)
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
 def _no_launches(**counts) -> dict:
     """Every kernel's launch count 0, but for `counts`."""
     from repro_torch.kernels import ops
@@ -1460,11 +1568,12 @@ def _no_launches(**counts) -> dict:
 
 
 def _print_trace(prof, what: str, wall_ms: float, n: int = 1,
-                 expect=()) -> None:
+                 expect=()):
     """The card's busy time in a torch.profiler trace of `n` repeats of
     `what`, by kernel group with its launches, against the wall time of
     one (the profiler's own host cost included, so the idle share read
-    here is an upper bound). Each group in `expect` must show in it."""
+    here is an upper bound). Each group in `expect` must show in it.
+    Returns the busy ms of one repeat (None: no device time recorded)."""
     from torch.autograd import DeviceType
     busy, count = {}, {}
     for e in prof.events():
@@ -1476,7 +1585,7 @@ def _print_trace(prof, what: str, wall_ms: float, n: int = 1,
     if not busy:
         print("      trace: the profiler recorded no device time "
               "(not measured)")
-        return
+        return None
     each = " a step" if n > 1 else ""
     total = sum(busy.values()) / n
     parts = ", ".join(f"{g} {busy[g] / n:.3f} ms ({count[g] // n} launches)"
@@ -1486,6 +1595,7 @@ def _print_trace(prof, what: str, wall_ms: float, n: int = 1,
           f"{1 - total / wall_ms:.3f}")
     missing = set(expect) - set(busy)
     assert not missing, f"{what}: no {sorted(missing)} kernel in the trace"
+    return total
 
 
 def _kernel_group(name: str) -> str:

@@ -321,3 +321,15 @@ def reset_launch_counts() -> None:
     for counts in _COUNTERS:
         for name in counts:
             counts[name] = 0
+
+
+def add_launch_counts(counts: dict) -> None:
+    """Add {kernel: n} to the launch counts (n may be negative). A CUDA
+    graph's replay launches the kernels its capture recorded without
+    calling their wrappers, so the serving engine adds them here."""
+    unknown = set(counts) - set(launch_counts())
+    if unknown:
+        raise KeyError(f"no launch counter for {sorted(unknown)}")
+    for c in _COUNTERS:
+        for name in c:
+            c[name] += counts.get(name, 0)

@@ -18,10 +18,24 @@ row that is not all finite ends only its own request (QUARANTINED, with
 and pages, as the JAX engine does; the other slots' rows never mix with
 it, so their streams go on unchanged.
 
-Admission prefills the prompt at batch 1 into a fresh one-slot cache,
-over a length bucketed down to a multiple of `PREFILL_CHUNK`; the
-remaining tokens run as one-token steps at a scalar position, and the
-sub-cache is then copied into the slot's row.
+Admission prefills the prompt at batch 1 into the engine's one-slot
+sub-cache, zeroed first, over a length bucketed down to a multiple of
+`PREFILL_CHUNK`; the remaining tokens run as one-token steps at a (1,)
+position vector, and the sub-cache is then copied into the slot's row.
+
+The steps (`_build_steps`), as the JAX engine jits its serve step: the
+decode step over all slots (`_step`) and the admission's one-token
+remainder step (`_remainder_step`) each read only tensors the engine
+owns for its life: the params, the cache (its page table too) or the
+sub-cache, and static token and position tensors, which a step fills
+with `copy_` from the host state before it runs. On the card each step
+is captured once, at construction with every slot idle, in a CUDA graph
+(`_CapturedStep`), and a step is a replay: one launch where eager
+PyTorch dispatches thousands of ops. On the CPU the engine calls the
+same functions directly. A step that cannot be captured (a host sync in
+it, for one) raises RuntimeError from the constructor: the card never
+runs a step eagerly. The admission prefill stays eager (a graph per
+prompt length would cost a memory pool each).
 
 Paged mode (kv_layout="paged"): the per-slot cache rows are replaced by
 a fixed pool of KV pages and a per-slot page table
@@ -61,6 +75,7 @@ import torch
 
 from repro_torch.core import precision
 from repro_torch.core.device import resolve_device
+from repro_torch.kernels import ops as kops
 from repro_torch.models import model as M
 from repro_torch.serving.kv_pool import KVPagePool, KVPoolExhausted
 from repro_torch.serving.request import (FINISHED, QUARANTINED, Request,
@@ -79,6 +94,10 @@ IDLE_SLEEP_S = 1e-3
 DEFAULT_PAGE_SIZE = 16
 KV_LAYOUTS = ("dense", "paged")
 QUANT_MODES = ("off", *precision.QUANT_MODES)
+# Eager runs of a step on a side stream before its capture: the first
+# builds and loads the kernels and sets their attributes, host work that
+# a capture must not see.
+WARMUP_RUNS = 2
 
 
 def _place(tree, device, dtype):
@@ -166,9 +185,22 @@ class ServingEngine:
         else:
             self.cache = M.init_cache(cfg, max_slots, max_len, self.device)
 
-        # per-slot host state (pos < 0 = idle slot)
-        self._tokens = np.zeros((max_slots, 1), np.int64)
-        self._pos = np.full((max_slots,), -1, np.int32)
+        # per-slot host state (pos < 0 = idle slot), pinned on the card;
+        # a step copies it into its static device tensors
+        pin = self.device.type == "cuda"
+        self._tokens_h = torch.zeros((max_slots, 1), dtype=torch.int64,
+                                     pin_memory=pin)
+        self._pos_h = torch.full((max_slots,), -1, dtype=torch.int32,
+                                 pin_memory=pin)
+        self._tokens, self._pos = self._tokens_h.numpy(), self._pos_h.numpy()
+        self._step_tokens = torch.zeros_like(self._tokens_h, device=self.device)
+        self._step_pos = torch.full_like(self._pos_h, -1, device=self.device)
+        # the admission's sub-cache and the remainder step's inputs
+        self._sub = M.init_cache(cfg, 1, max_len, self.device)
+        self._rem_token = torch.zeros((1, 1), dtype=torch.int64,
+                                      device=self.device)
+        self._rem_pos = torch.full((1,), -1, dtype=torch.int32,
+                                   device=self.device)
 
         self.requests: List[Request] = []
         self._next_rid = 0
@@ -182,6 +214,43 @@ class ServingEngine:
         self.quarantined = 0
         self.peak_occupancy = 0
         self._step_times: List[float] = []
+        self.capture_s = 0.0           # _build_steps' warm-ups and captures
+        self.graph_pool_bytes = 0      # the graphs' private memory pools
+        self._build_steps()
+
+    # -- the steps -----------------------------------------------------
+    def _decode_fn(self):
+        """One token for every slot from the static inputs, into the
+        cache in place; (S, 1, padded_vocab) f32 logits."""
+        logits, _ = M.decode_step(self.cfg, self.params, self._step_tokens,
+                                  self._step_pos, self.cache)
+        return logits
+
+    def _remainder_fn(self):
+        """One prompt token at batch 1 into the sub-cache, at the (1,)
+        position vector (the per-slot path of a decode step)."""
+        logits, _ = M.decode_step(self.cfg, self.params, self._rem_token,
+                                  self._rem_pos, self._sub)
+        return logits
+
+    def _build_steps(self) -> None:
+        """Make `_step` and `_remainder_step`: on the card, CUDA graphs of
+        `_decode_fn` and `_remainder_fn`, captured while every slot is
+        idle (pos = -1, so the warm-ups and captures write no KV row; an
+        ssm state steps only idle rows, which admission overwrites); on
+        the CPU, the functions themselves."""
+        if self.device.type != "cuda":
+            self._step, self._remainder_step = \
+                self._decode_fn, self._remainder_fn
+            return
+        t0 = time.perf_counter()
+        self._step = _CapturedStep(self._decode_fn, self.device,
+                                   "the decode step")
+        self._remainder_step = _CapturedStep(self._remainder_fn, self.device,
+                                             "the prefill-remainder step")
+        self.capture_s = time.perf_counter() - t0
+        self.graph_pool_bytes = (self._step.pool_bytes
+                                 + self._remainder_step.pool_bytes)
 
     # -- submission ----------------------------------------------------
     def submit(self, prompt, max_new_tokens: int, *,
@@ -238,11 +307,11 @@ class ServingEngine:
             leaf[:, dst] = leaf[:, src]
 
     def _sync_table(self) -> None:
-        """Mirror the host page table to the card when the pool has
+        """Mirror the host page table into the cache's table tensor, in
+        place (the captured step reads that tensor), when the pool has
         changed it since the last step."""
         if self.pool.version != self._table_version:
-            self.cache["table"] = torch.tensor(self.pool.table,
-                                               device=self.device)
+            self.cache["table"].copy_(torch.from_numpy(self.pool.table))
             self._table_version = self.pool.version
 
     def _copy_prefill(self, slot: int, sub, plan) -> None:
@@ -269,12 +338,15 @@ class ServingEngine:
         L = len(ctx)
         lb = L - (L % PREFILL_CHUNK) or L   # bucket down; short prompts exact
         tokens = torch.as_tensor(ctx, dtype=torch.long, device=self.device)
-        sub = M.init_cache(self.cfg, 1, self.max_len, self.device)
-        logits, sub = M.prefill(self.cfg, self.params,
-                                {"tokens": tokens[None, :lb]}, sub)
+        sub = self._sub
+        for leaf in sub.values():
+            leaf.zero_()
+        logits, _ = M.prefill(self.cfg, self.params,
+                              {"tokens": tokens[None, :lb]}, sub)
         for i in range(lb, L):         # remainder: one-token steps
-            logits, sub = M.decode_step(self.cfg, self.params,
-                                        tokens[None, i:i + 1], i, sub)
+            self._rem_token.copy_(tokens[None, i:i + 1])
+            self._rem_pos.fill_(i)
+            logits = self._remainder_step()
         self._copy_prefill(slot, sub, plan)
 
         row = logits[0, -1, :self.cfg.vocab].cpu().numpy()   # sync point
@@ -314,25 +386,28 @@ class ServingEngine:
         self._release(req, slot, now, QUARANTINED)
 
     # -- decode --------------------------------------------------------
+    def _prepare_pages(self, active) -> None:
+        """Make each active slot's write position private before the step
+        writes it: a shared page is copied (CoW), a page past the mapped
+        prefix comes from the admission's reservation; then sync the
+        table. Eager, on the stream the step replays on."""
+        for slot in active:
+            w = self.pool.prepare_write(slot, int(self._pos[slot]))
+            if w is not None and w.kind == "cow":
+                self._copy_page(w.src, w.dst)
+        self._sync_table()
+
     def _decode_once(self) -> None:
         active = self.scheduler.active
         if not active:
             raise ValueError("decode step with no active slots")
         step_idx = self.decode_steps
         if self.pool is not None:
-            # make each slot's write position private before the step
-            # writes it: a shared page is copied (CoW), a page past the
-            # mapped prefix comes from the admission's reservation
-            for slot in active:
-                w = self.pool.prepare_write(slot, int(self._pos[slot]))
-                if w is not None and w.kind == "cow":
-                    self._copy_page(w.src, w.dst)
-            self._sync_table()
+            self._prepare_pages(active)
         t0 = time.perf_counter()
-        tokens = torch.as_tensor(self._tokens, device=self.device)
-        pos = torch.as_tensor(self._pos, device=self.device)
-        logits, self.cache = M.decode_step(self.cfg, self.params, tokens,
-                                           pos, self.cache)
+        self._step_tokens.copy_(self._tokens_h, non_blocking=True)
+        self._step_pos.copy_(self._pos_h, non_blocking=True)
+        logits = self._step()
         rows = logits[:, -1, :self.cfg.vocab].cpu().numpy()  # sync point
         dt = time.perf_counter() - t0
         self.decode_time += dt
@@ -414,3 +489,67 @@ class ServingEngine:
         if self.pool is not None:
             out["kv_pool"] = self.pool.report()
         return out
+
+
+class _CapturedStep:
+    """`fn()` captured in a CUDA graph on `device`, the counterpart of a
+    jitted step. `fn` reads and writes only tensors that outlive the
+    graph (the params, a cache, static inputs). Calling this replays on
+    the current stream the kernels `fn` launched, against the same
+    tensors, and returns the tensor `fn` returned, which the replay
+    rewrites. A replay calls no kernel wrapper, so it adds the launches
+    that the capture counted to `ops.launch_counts()`; the counts of the
+    warm-up runs and of the capture itself are taken out. Raises
+    RuntimeError when `fn` cannot be captured: nothing falls back to
+    running it eagerly."""
+
+    def __init__(self, fn, device, what: str):
+        start = kops.launch_counts()
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        try:
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP_RUNS):
+                    fn()
+            torch.cuda.synchronize(device)
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(device)
+            warm = kops.launch_counts()
+            self.graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.stream(side):
+                    self.graph.capture_begin()
+                    try:
+                        self.out = fn()
+                    except BaseException:
+                        _end_broken_capture(self.graph)
+                        raise
+                    self.graph.capture_end()
+            except RuntimeError as e:
+                raise RuntimeError(
+                    f"capturing {what} in a CUDA graph failed: the step "
+                    f"must launch its work on the current stream with no "
+                    f"host sync (.item(), .cpu(), a shape that depends on "
+                    f"the data, torch.cuda.synchronize); the cause is "
+                    f"above") from e
+        finally:
+            done = kops.launch_counts()
+            kops.add_launch_counts({k: start[k] - n for k, n in done.items()})
+        self.launches = {k: done[k] - warm[k] for k in done
+                         if done[k] != warm[k]}
+        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+
+    def __call__(self) -> torch.Tensor:
+        self.graph.replay()
+        kops.add_launch_counts(self.launches)
+        return self.out
+
+
+def _end_broken_capture(graph) -> None:
+    """End a capture that an error in the captured code broke. The caller
+    raises that error on; capture_end's own, that the capture is invalid,
+    says nothing more, so it is dropped."""
+    try:
+        graph.capture_end()
+    except RuntimeError:
+        pass

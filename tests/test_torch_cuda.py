@@ -12,7 +12,9 @@ backward), the SSD
 intra-chunk kernel (ragged chunks, groups read through strides, bf16
 inputs, a carried state, strong decays), the paper's naive GEMM and
 elementwise kernels (add, sub, mul and axpy bit for bit), whole decode
-steps, dense, paged and Mamba-2, and a whole train step.
+steps, dense, paged and Mamba-2, a whole train step, and the serving
+engine's steps as CUDA graphs (a replay against the eager step bit for
+bit, launch counts, no wrapper called, a capture that syncs refused).
 
 Marked `cuda`; each test skips where there is no CUDA device. On the
 card: `PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py`.
@@ -31,6 +33,7 @@ from repro_torch.core.tree import leaves
 from repro_torch.kernels import ops, ref
 from repro_torch.models import model as M
 from repro_torch.optim.adamw import AdamW
+from repro_torch.serving import ServingEngine
 from repro_torch.training import train_loop as TL
 
 pytestmark = pytest.mark.cuda
@@ -1144,6 +1147,195 @@ def test_dense_q_on_card_refuses_a_gradient(dev):
         args = {"x": x, "scale": scale, **kw}
         with pytest.raises(NotImplementedError, match="forward only"):
             gemm.dense_q(args.pop("x"), wq, args.pop("scale"), **args)
+
+
+# ----------------------------------------------------------------------
+# the serving engine's steps as CUDA graphs
+# ----------------------------------------------------------------------
+
+# the three serving paths, on reduced configs in the serving dtype (bf16)
+SERVE_PATHS = {
+    "dense": ("qwen3-0.6b", {}),
+    "paged-int8": ("qwen3-0.6b", dict(kv_layout="paged", quant_kv="int8",
+                                      quant="int8", page_size=8)),
+    "mamba2": ("mamba2-2.7b", {}),
+}
+# prompts with remainder tokens (13, 21), a whole bucket (16) and one
+# shorter than a bucket (5, prefilled exactly)
+SERVE_LENGTHS = (13, 21, 16, 5)
+
+
+def _serving(dev, path, max_slots=2, max_len=48):
+    arch, kw = SERVE_PATHS[path]
+    cfg = get_config(arch, reduced=True)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    eng = ServingEngine(cfg, params, max_slots=max_slots, max_len=max_len,
+                        device=dev, **kw)
+    g = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=g).numpy()
+               for n in SERVE_LENGTHS]
+    return eng, prompts
+
+
+def _clone(tree):
+    return {k: _clone(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+def _assert_same(got, want):
+    for k, v in want.items():
+        if isinstance(v, dict):
+            _assert_same(got[k], v)
+        else:
+            assert torch.equal(got[k], v), k
+
+
+def _no_launches(**counts):
+    return {**dict.fromkeys(ops.launch_counts(), 0), **counts}
+
+
+@pytest.mark.parametrize("path", list(SERVE_PATHS))
+def test_replayed_steps_equal_eager_steps_bit_for_bit(dev, path):
+    """After admissions (remainder tokens included) and decode steps, one
+    replay of the decode graph gives an eager decode_step's logits and
+    cache from a clone of the same state, bit for bit; a replay of the
+    remainder graph gives the eager step's at the (1,) position vector
+    and at the same position as a Python int (the slice write)."""
+    eng, prompts = _serving(dev, path)
+    cfg, params = eng.cfg, eng.params
+    for p in prompts[:2]:
+        eng.submit(p, 6)
+    eng.step()                          # both admitted, one decode step
+    eng.step()
+    assert eng.scheduler.n_active == 2
+    if eng.pool is not None:
+        eng._prepare_pages(eng.scheduler.active)
+    eng._step_tokens.copy_(eng._tokens_h)
+    eng._step_pos.copy_(eng._pos_h)
+    tok, pos = eng._step_tokens.clone(), eng._step_pos.clone()
+    state = _clone(eng.cache)
+    got = eng._step().clone()
+    want, state = M.decode_step(cfg, params, tok, pos, state)
+    assert torch.equal(got, want)
+    _assert_same(eng.cache, state)
+
+    toks = torch.as_tensor(prompts[0], dtype=torch.long, device=dev)[None]
+    for leaf in eng._sub.values():
+        leaf.zero_()
+    M.prefill(cfg, params, {"tokens": toks[:, :8]}, eng._sub)
+    vec, scalar = _clone(eng._sub), _clone(eng._sub)
+    for i in range(8, toks.shape[1]):
+        eng._rem_token.copy_(toks[:, i:i + 1])
+        eng._rem_pos.fill_(i)
+        got = eng._remainder_step().clone()
+        want, vec = M.decode_step(cfg, params, toks[:, i:i + 1],
+                                  eng._rem_pos.clone(), vec)
+        assert torch.equal(got, want), i
+        want, scalar = M.decode_step(cfg, params, toks[:, i:i + 1], i, scalar)
+        assert torch.equal(got, want), i
+        _assert_same(eng._sub, vec)
+        _assert_same(eng._sub, scalar)
+
+
+@pytest.mark.parametrize("path", list(SERVE_PATHS))
+def test_replays_count_the_eager_launches(dev, path):
+    """Launches over a run equal the eager formula: every prefill and
+    every one-token step (decode, or an admission's remainder token)
+    runs the path's GEMMs; the remainder steps decode on the dense
+    sub-cache, the decode steps on the cache or the pool."""
+    eng, prompts = _serving(dev, path)
+    reqs = [eng.submit(p, 4) for p in prompts]
+    ops.reset_launch_counts()
+    eng.run()
+    torch.cuda.synchronize()
+    assert all(len(r.generated) == 4 for r in reqs)
+    L, n = eng.cfg.n_layers, len(reqs)
+    rem = sum(len(p) % 8 for p in prompts if len(p) >= 8)
+    one = eng.decode_steps + rem
+    if path == "mamba2":
+        want = _no_launches(matmul=(5 * L + 1) * n + (3 * L + 1) * one,
+                            ssd=L * n)
+    elif path == "dense":
+        want = _no_launches(matmul=(5 * L + 1) * (one + n),
+                            gated_matmul=L * (one + n), flash_decode=L * one)
+    else:
+        want = _no_launches(matmul_q=7 * L * (one + n), matmul=one + n,
+                            flash_decode=L * rem,
+                            flash_decode_paged=L * eng.decode_steps)
+    assert ops.launch_counts() == want
+
+
+def test_a_replayed_step_calls_no_kernel_wrapper(dev, monkeypatch):
+    """A step is a replay: the kernel wrappers are not called, and the
+    counts grow by what the capture recorded (141/28/28 at full width;
+    5L + 1 GEMMs, L dual GEMMs and L decode attentions a step)."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import matmul as kmm
+    eng, prompts = _serving(dev, "dense")
+    L = eng.cfg.n_layers
+    step = {"matmul": 5 * L + 1, "gated_matmul": L, "flash_decode": L}
+    assert eng._step.launches == step and eng._remainder_step.launches == step
+    eng.submit(prompts[0], 4)
+    eng.step()
+    calls = []
+    for mod, name in ((kmm, "matmul_tiled"), (kmm, "gated_matmul_tiled"),
+                      (kfa, "flash_decode")):
+        def counted(*args, _fn=getattr(mod, name), _name=name, **kw):
+            calls.append(_name)
+            return _fn(*args, **kw)
+        monkeypatch.setattr(mod, name, counted)
+    before = ops.launch_counts()
+    eng.step()
+    eng._remainder_step()
+    torch.cuda.synchronize()
+    assert calls == []
+    assert ops.launch_counts() == {k: n + 2 * step.get(k, 0)
+                                   for k, n in before.items()}
+    M.decode_step(eng.cfg, eng.params, eng._step_tokens.clone(),
+                  eng._step_pos.clone(), _clone(eng.cache))
+    # an eager step goes through the wrappers that the replays skipped
+    assert sorted(set(calls)) == ["flash_decode", "gated_matmul_tiled",
+                                  "matmul_tiled"]
+
+
+def test_a_host_sync_in_the_step_makes_the_constructor_raise(dev,
+                                                             monkeypatch):
+    """A step path that syncs with the host (one op patched to call
+    torch.cuda.synchronize) cannot be captured: the constructor raises
+    and nothing runs the step eagerly. The launch counts and the current
+    stream are as before, and the card captures the next engine."""
+    from repro_torch.models import layers as L
+    cfg = get_config("qwen3-0.6b", reduced=True)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    rmsnorm = L.rmsnorm_apply
+
+    def syncing(*args, **kw):
+        torch.cuda.synchronize()
+        return rmsnorm(*args, **kw)
+    before = ops.launch_counts()
+    monkeypatch.setattr(L, "rmsnorm_apply", syncing)
+    with pytest.raises(RuntimeError, match="capturing the decode step"):
+        ServingEngine(cfg, params, max_slots=2, max_len=32, device=dev)
+    monkeypatch.undo()
+    assert ops.launch_counts() == before
+    assert torch.cuda.current_stream(dev) == torch.cuda.default_stream(dev)
+    eng = ServingEngine(cfg, params, max_slots=2, max_len=32, device=dev)
+    req = eng.submit(torch.arange(13).numpy(), 3)
+    eng.run()
+    assert len(req.generated) == 3
+
+
+def test_an_engine_frees_its_graphs(dev):
+    """Deleting an engine frees its graphs' memory with its caches."""
+    cfg = get_config("qwen3-0.6b", reduced=True)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    eng = ServingEngine(cfg, params, max_slots=2, max_len=32, device=dev)
+    assert eng.graph_pool_bytes > 0 and eng.capture_s > 0
+    del eng
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(dev) == base
 
 
 def _to(tree, device):

@@ -180,6 +180,22 @@ def test_launch_counters_do_not_move_on_cpu():
                                    "axpy": 0}
 
 
+def test_add_launch_counts_adds_by_kernel_and_refuses_unknown_names():
+    """A CUDA graph's replay adds the launches its capture counted, and
+    a capture takes its own out again (negative counts)."""
+    ops.reset_launch_counts()
+    ops.add_launch_counts({"matmul": 141, "flash_decode": 28})
+    ops.add_launch_counts({"matmul": 141, "gated_matmul": 28})
+    want = dict.fromkeys(ops.launch_counts(), 0)
+    want.update(matmul=282, gated_matmul=28, flash_decode=28)
+    assert ops.launch_counts() == want
+    ops.add_launch_counts({k: -n for k, n in want.items()})
+    assert set(ops.launch_counts().values()) == {0}
+    with pytest.raises(KeyError, match="flash_decode_ragged"):
+        ops.add_launch_counts({"flash_decode_ragged": 1})
+    assert set(ops.launch_counts().values()) == {0}
+
+
 # (K, N, a_km, b_nk) of the main paths' bf16 GEMMs: qwen3-0.6b's QKV, O,
 # gate/up and down projections and the tied-embedding logits (forward,
 # and W^T in the input gradients), the weight gradients (A as [K, M] with

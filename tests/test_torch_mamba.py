@@ -8,7 +8,9 @@ plain reference of the Pallas kernel (`test_torch_ssd.py` holds the port's
 scan against the kernel in interpret mode too).
 
 Stated tolerances: float32 atol = rtol = 1e-5 for a block, 1e-4 for the
-model's logits and states (as the dense model's tests). bfloat16: atol =
+model's logits and states (as the dense model's tests); the engine's
+streams token for token, over one round of requests and over two (the
+second on the first's sub-state and step inputs). bfloat16: atol =
 rtol = 2^-5 (four bf16 roundings at 1.0) for a block, because XLA's bf16
 elementwise ops (silu, the gated norm's input) round at other places
 than PyTorch's (the projections and the prefill conv agree bit for
@@ -251,6 +253,37 @@ def test_engine_streams_match_jax_engine(lengths, gens, max_len):
     want = streams(JaxEngine(jcfg, jparams, max_slots=2, max_len=max_len))
     got = streams(ServingEngine(cfg, params, max_slots=2, max_len=max_len,
                                 device="cpu"))
+    assert got == want
+
+
+def test_engine_serves_two_rounds_as_the_jax_engine():
+    """One engine serves 4 requests over 2 slots, then 4 more once they
+    have finished (remainder tokens in both rounds, a prompt shorter
+    than the conv width in the second), on the sub-state and step
+    inputs of the first round: each round's streams equal those of one
+    JAX engine serving the same two rounds, token for token."""
+    jcfg = dataclasses.replace(jax_get_config(ARCH, reduced=True),
+                               dtype="float32")
+    cfg = dataclasses.replace(get_config(ARCH, reduced=True), dtype="float32")
+    jparams = _jax_params(jcfg)
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    rng = np.random.default_rng(9)
+    rounds = [[rng.integers(0, cfg.vocab, (n,)).astype(np.int32)
+               for n in lengths] for lengths in ([13, 24, 5, 19], [11, 2, 30, 9])]
+    gens = [4, 3, 5, 4]
+
+    def serve(engine):
+        out = []
+        for prompts in rounds:
+            reqs = [engine.submit(p, g) for p, g in zip(prompts, gens)]
+            engine.run()
+            assert all(len(r.generated) == r.max_new_tokens for r in reqs)
+            out.append([r.generated for r in reqs])
+        return out
+
+    want = serve(JaxEngine(jcfg, jparams, max_slots=2, max_len=48))
+    got = serve(ServingEngine(cfg, params, max_slots=2, max_len=48,
+                              device="cpu"))
     assert got == want
 
 

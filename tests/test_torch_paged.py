@@ -10,7 +10,9 @@ kernel's plain version atol = rtol = 1e-5 (the same function, sums in
 another order); logits atol = 1e-4; int8 pool entries within 1 and their
 scales at rtol = 1e-5 (a scale is the max over an f32 row whose sums
 may round differently, so an int8 value can land one step away); the
-engine's greedy streams token for token.
+engine's greedy streams token for token, over one round of requests and
+over two (the second on the first's buffers), and its page table
+tensor synced in place, the one a captured decode step reads.
 """
 
 import dataclasses
@@ -339,3 +341,60 @@ def test_serve_cli_paged_int8_smoke(capsys):
     text = capsys.readouterr().out
     assert "kv pool:" in text and out["n_finished"] == 4
     assert out["kv_pool"]["shared_page_hits"] > 0
+
+
+def test_engine_paged_int8_serves_two_rounds_as_the_jax_engine(model):
+    """int8 pages and int8 weights, 2 slots, 8-token pages: one engine
+    serves a round of requests sharing a 13-token prefix (copy-on-write
+    of the shared tail page), then, once it has drained, a second round
+    sharing another prefix, remainder tokens in both; each round's
+    streams and the pool's report equal one JAX engine's over the same
+    two rounds."""
+    jcfg, cfg = model["jcfg"], model["cfg"]
+    rounds = [prefix_heavy_trace(cfg, 4, rng=np.random.default_rng(seed),
+                                 prefix_len=n, suffix_range=(0, 3), gen=4)
+              for seed, n in ((5, 13), (8, 11))]
+
+    def serve(engine):
+        out = []
+        for trace in rounds:
+            reqs = [engine.submit(it.prompt, it.gen) for it in trace]
+            engine.run()
+            assert all(len(r.generated) == r.max_new_tokens for r in reqs)
+            out.append([r.generated for r in reqs])
+        return out, engine.pool.report()
+
+    want = serve(JaxEngine(jcfg, model["jparams"], max_slots=2, max_len=24,
+                           page_size=8,
+                           policy=Policy(backend="pallas", interpret=True,
+                                         kv_layout="paged", quant_kv="int8",
+                                         quant="int8")))
+    got = serve(ServingEngine(cfg, model["params"], max_slots=2, max_len=24,
+                              device="cpu", kv_layout="paged",
+                              quant_kv="int8", quant="int8", page_size=8))
+    assert got == want
+    assert got[1]["cow_copies"] > 0 and got[1]["shared_page_hits"] > 0
+
+
+def test_page_table_is_synced_in_place(model):
+    """The cache's table tensor keeps its storage across admissions,
+    copy-on-write and releases, and equals the pool's host table at
+    every decode step."""
+    cfg = model["cfg"]
+    trace = prefix_heavy_trace(cfg, 5, rng=np.random.default_rng(6),
+                               prefix_len=13, suffix_range=(0, 0), gen=5)
+    eng = ServingEngine(cfg, model["params"], max_slots=2, max_len=24,
+                        device="cpu", kv_layout="paged", page_size=8)
+    table = eng.cache["table"]
+    ptr, step, versions = table.data_ptr(), eng._step, []
+
+    def checked():
+        assert eng.cache["table"] is table and table.data_ptr() == ptr
+        np.testing.assert_array_equal(table.numpy(), eng.pool.table)
+        versions.append(eng.pool.version)
+        return step()
+    eng._step = checked
+    _run(eng, trace)
+    rep = eng.pool.report()
+    assert rep["cow_copies"] > 0 and rep["shared_page_hits"] > 0, rep
+    assert len(set(versions)) > 2, versions   # the table changed between steps

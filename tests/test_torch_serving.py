@@ -2,6 +2,11 @@
 weights and trace: 4 prompts (lengths 8, 24, 13, 40; 13 runs the
 prefill-remainder steps) over 2 slots, so requests 2 and 3 are admitted
 mid-stream into freed slots. Greedy streams must be token-identical.
+The engine's steps (the decode step and the admission's remainder step,
+which the card captures in CUDA graphs) run here as plain calls: they
+must take the scalar-position step's bits, read only the engine's
+static tensors, and serve a second round of requests on the buffers of
+the first as the JAX engine serves it.
 
 Both engines run in float32; the JAX one under
 `Policy(backend="pallas", interpret=True)`, the port's on the CPU.
@@ -10,6 +15,7 @@ Both engines run in float32; the JAX one under
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -23,6 +29,7 @@ from repro.serving import make_sampler as jax_make_sampler
 from repro.serving.workload import synthetic_trace as jax_synthetic_trace
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_config
+from repro_torch.core.tree import leaves
 from repro_torch.launch import serve
 from repro_torch.models import model as M
 from repro_torch.serving import ServingEngine, greedy, synthetic_trace
@@ -30,6 +37,10 @@ from repro_torch.serving.request import QUARANTINED
 
 LENGTHS = [8, 24, 13, 40]
 GENS = [5, 4, 7, 6]
+# a second round, admitted once the first has drained: remainders 3, 5,
+# none (shorter than a bucket) and 6
+LENGTHS_2 = [11, 21, 6, 30]
+ATOL = 1e-4
 
 
 def _streams(engine, prompts):
@@ -221,3 +232,89 @@ def test_nan_prefill_row_quarantines_only_its_request(monkeypatch):
     assert report["quarantined"] == 1
     assert report["n_finished"] == len(reqs) - 1
     _assert_freed(eng)
+
+
+def test_remainder_step_equals_the_scalar_step_bit_for_bit():
+    """The engine's remainder step (batch 1, its (1,) position vector:
+    the per-slot cache write and decode attention, what the card
+    captures) against the one-token step at a Python-int position (the
+    slice write), on the same sub-cache, for 5 remainder tokens: logits
+    and sub-cache bit for bit. Both equal the JAX package's decode_step
+    at that position within atol 1e-4."""
+    jcfg, jparams, cfg, params, prompts = _reduced_f32()
+    prompt = prompts[2]                          # 13 tokens: 8 + 5
+    eng = _engine(cfg, params, "dense")
+    toks = torch.from_numpy(prompt).long()[None]
+    M.prefill(cfg, eng.params, {"tokens": toks[:, :8]}, eng._sub)
+    scalar = {k: v.clone() for k, v in eng._sub.items()}
+    with Policy(backend="pallas", interpret=True).scope():
+        _, jcache = JM.prefill(jcfg, jparams,
+                               {"tokens": jnp.asarray(prompt[None, :8])},
+                               JM.init_cache(jcfg, 1, eng.max_len))
+        for i in range(8, len(prompt)):
+            eng._rem_token.copy_(toks[:, i:i + 1])
+            eng._rem_pos.fill_(i)
+            got = eng._remainder_step()
+            want, scalar = M.decode_step(cfg, eng.params, toks[:, i:i + 1], i,
+                                         scalar)
+            assert torch.equal(got, want), i
+            for k in scalar:
+                assert torch.equal(eng._sub[k], scalar[k]), (i, k)
+            jlog, jcache = JM.decode_step(jcfg, jparams,
+                                          jnp.asarray(prompt[None, i:i + 1]),
+                                          jnp.int32(i), jcache)
+            np.testing.assert_allclose(got.numpy(), np.asarray(jlog),
+                                       atol=ATOL, rtol=0)
+    for k in ("k", "v"):
+        np.testing.assert_allclose(eng._sub[k].numpy(), np.asarray(jcache[k]),
+                                   atol=ATOL, rtol=0)
+
+
+def test_engine_serves_two_rounds_as_the_jax_engine():
+    """One engine serves the 4 requests, then 4 more (remainder tokens in
+    both rounds) once the first have finished, on the sub-cache and step
+    inputs the first round used: each round's streams equal those of one
+    JAX engine serving the same two rounds, token for token."""
+    jcfg, jparams, cfg, params, prompts = _reduced_f32()
+    rng = np.random.default_rng(7)
+    second = [rng.integers(0, cfg.vocab, (n,)).astype(np.int32)
+              for n in LENGTHS_2]
+
+    def rounds(eng):
+        out = []
+        for batch in (prompts, second):
+            reqs = [eng.submit(p, g) for p, g in zip(batch, GENS)]
+            eng.run()
+            assert all(len(r.generated) == r.max_new_tokens for r in reqs)
+            out.append([r.generated for r in reqs])
+        return out
+
+    want = rounds(_jax_engine(jcfg, jparams, "dense"))
+    got = rounds(_engine(cfg, params, "dense"))
+    assert got == want
+
+
+@pytest.mark.parametrize("kv_layout", ["dense", "paged"])
+def test_steps_run_on_the_engines_static_tensors(kv_layout, monkeypatch):
+    """What a captured graph needs: every decode step and every remainder
+    step calls decode_step on the same token, position and cache
+    tensors (the paged table included), whose storage never moves, and
+    at a position vector, never a Python int."""
+    cfg = get_config("qwen3-0.6b", reduced=True)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(42)
+    prompts = [rng.integers(0, cfg.vocab, (n,)).astype(np.int32)
+               for n in LENGTHS]
+    eng = _engine(cfg, params, kv_layout)
+    seen = {}
+    decode_step = M.decode_step
+
+    def recording(cfg_, params_, tokens, pos, cache):
+        assert isinstance(pos, torch.Tensor) and pos.dim() == 1
+        seen.setdefault(tokens.shape[0], set()).add(
+            tuple(t.data_ptr() for t in (tokens, pos, *leaves(cache))))
+        return decode_step(cfg_, params_, tokens, pos, cache)
+    monkeypatch.setattr(M, "decode_step", recording)
+    _run(eng, prompts)
+    assert sorted(seen) == [1, eng.max_slots]     # remainder and decode steps
+    assert all(len(ptrs) == 1 for ptrs in seen.values()), seen
