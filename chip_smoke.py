@@ -20,7 +20,10 @@ Phases, in order; any failure propagates and the exit code is not 0:
      time of the kernel, the plain version and one PyTorch library call,
      timed in turns with only the card's time inside each event pair,
      beside the least time the card could take; a bf16 page pool must
-     give the dense decode kernel's bits;
+     give the dense decode kernel's bits; the decode kernels' multi-row
+     form (a verify step: 4 slots x 5 rows, dense, bf16 and int8 pools)
+     against its plain version, each row equal to the one-row kernel at
+     its position bit for bit;
   4. the dense slice at full width: qwen3-0.6b (28 layers, random weights
      from a seed) served by the engine on 4 slots to 8 requests, its
      decode and prefill-remainder steps replays of CUDA graphs captured
@@ -39,7 +42,21 @@ Phases, in order; any failure propagates and the exit code is not 0:
      exact launch counts, speed, memory and the pool's report, a replay
      against the eager step and a trace as phase 4's; and that
      configuration's streams at 4 slots equal to each request alone;
-  6. training at full width: 8 AdamW steps of qwen3-0.6b (f32 params,
+  6. the request surface at full width (qwen3-0.6b, 28 layers, bf16):
+     (a) speculative decoding, greedy, phase 4's 8 requests on 4 slots,
+     spec_k 4, the target as its own draft and a seed-1 draft, on the
+     dense cache and a bf16 pool: every stream equals phase 4's, the
+     self-draft accepts every proposal, each request's target cache rows
+     equal the plain engine's bit for bit; the verify launches a round,
+     the round's p50 beside phase 4's decode step and a round's logits
+     copy; (b) one paged run of a bursty trace (priorities 0/1) on a pool
+     that forces preemption, on a clock of one unit a step: a waiter
+     expired by its deadline, a waiting and an active request cancelled,
+     an eos token; every finished stream equals its request alone and
+     every page returns; twice with a temperature sampler over the top
+     50: the same streams, each token in its row's top 50; then on the
+     wall clock: tok/s, time to first token and the deadline miss rate;
+  7. training at full width: 8 AdamW steps of qwen3-0.6b (f32 params,
      bf16 activations) at batch 4 x 512 tokens, with exact launch counts
      a step, finite losses and grad norms, a falling loss, speed, memory
      and a torch.profiler trace of a step; the first 4 steps again
@@ -48,7 +65,7 @@ Phases, in order; any failure propagates and the exit code is not 0:
      version, each final loss beside the kernels'; then a whole step at
      depth 2 in f32 on the card against the same
      step on the CPU;
-  7. Mamba-2 serving at full width: mamba2-2.7b (64 layers, random
+  8. Mamba-2 serving at full width: mamba2-2.7b (64 layers, random
      weights from a seed) served by the engine on 4 slots to 8 requests
      whose prompts take every prefill branch, with exact launch counts
      (the SSD kernel in every admission prefill), each stream equal to
@@ -57,7 +74,7 @@ Phases, in order; any failure propagates and the exit code is not 0:
      4's, and of a 512-token prefill; the memory back after the engine
      goes; then a depth-2 prefill and decode in f32 on the card against
      the same on the CPU;
-  8. the paper's experiment at its size, 4096^2: Table 2 through the
+  9. the paper's experiment at its size, 4096^2: Table 2 through the
      measurement `launch.paper` prints (`benchmarks.common.measure`: float,
      double and complex-float through the naive kernel, the GEMM
      chokepoint (the tiled kernel; f64 the plain f64 product) and
@@ -65,7 +82,7 @@ Phases, in order; any failure propagates and the exit code is not 0:
      paper's seconds; the naive/tiled ratio beside the paper's 3.0x), Fig 9 through `benchmarks.bench_add`'s
      (add, sub and axpy in GB/s beside 3.35 TB/s), with exact launch
      counts; then the roofline model of the paper's cards and the H100;
-  9. a JSON line of the kernels, the card line, and the result line.
+  10. a JSON line of the kernels, the card line, and the result line.
 """
 
 import contextlib
@@ -109,12 +126,13 @@ def main() -> int:
     smoke.phase_trace()
     smoke.phase_batching()
     smoke.phase_paged()
+    smoke.phase_spec()
     smoke.phase_train()
     smoke.phase_train_vs_cpu()
     smoke.phase_mamba()
     smoke.phase_mamba_vs_cpu()
     smoke.phase_paper()
-    print("[9/9] result")
+    print("[10/10] result")
     print(json.dumps({"kernels": smoke.kernel_rows()}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
@@ -135,7 +153,7 @@ class Smoke:
     # -- 1. card ------------------------------------------------------
     def phase_card(self):
         torch = self.torch
-        print(f"[1/9] card: {card_line()}")
+        print(f"[1/10] card: {card_line()}")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         print(f"      torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -147,7 +165,7 @@ class Smoke:
         from repro_torch.kernels import _build
         t0 = time.perf_counter()
         libs = _build.build_all()
-        print(f"[2/9] build: {sorted(libs)} from "
+        print(f"[2/10] build: {sorted(libs)} from "
               f"{_build.CSRC.relative_to(ROOT)} in "
               f"{time.perf_counter() - t0:.1f} s (nvcc "
               f"{' '.join(_build.NVCC_FLAGS)})")
@@ -255,7 +273,7 @@ class Smoke:
         torch = self.torch
         from repro_torch.kernels import ops, ref
         F = torch.nn.functional
-        print("[3/9] kernels against their plain versions (median of 50, "
+        print("[3/10] kernels against their plain versions (median of 50, "
               "L2 flushed, in turns, card time only)")
         gen = torch.Generator(device=self.dev).manual_seed(0)
 
@@ -362,6 +380,7 @@ class Smoke:
                     4 * sum(keys) * h * d, dname, tol)
             del q, kc, vc
         self._kernels_int8_and_paged(randn, tols[torch.bfloat16])
+        self._kernels_decode_rows(randn, tols[torch.bfloat16])
         self._kernels_attention(randn, tols)
         self._kernels_ssd(gen, tols)
         self._kernels_paper(randn, tols)
@@ -489,6 +508,111 @@ class Smoke:
                     None, nbytes, 4 * keys * h * d, "bfloat16", tol)
         print("      flash_decode_paged on a bf16 pool equals flash_decode on "
               "the dense cache, bit for bit (window None and 512)")
+
+    def _kernels_decode_rows(self, randn, tol, b_=4, t=5, tk=2048):
+        """The decode kernels' multi-row form, a verify step's attention
+        (4 slots x 5 rows: the pending token and 4 proposals; one slot
+        idle, one with 3 real rows), bf16, dense and through a page table
+        (bf16 and int8 pools), against the plain version; each row equal
+        to the one-row kernel at its position bit for bit, and a bf16
+        pool to the dense cache. The library yardstick is SDPA with a
+        (B, 1, t, Tk) bool mask (its fully masked rows NaN there)."""
+        torch = self.torch
+        from repro_torch.core import precision
+        from repro_torch.kernels import ops, ref
+        F = torch.nn.functional
+        dtype = torch.bfloat16
+        h, hkv, d, ps = 16, 8, 128, 16
+        pp = tk // ps
+        pos_list, nv_list = [-1, 0, 700, tk - t], [t, t, 3, t]
+        q = randn(b_, t, h, d, dtype=dtype)
+        kc = randn(b_, tk, hkv, d, dtype=dtype)
+        vc = randn(b_, tk, hkv, d, dtype=dtype)
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=self.dev)
+        n_valid = torch.tensor(nv_list, dtype=torch.int32, device=self.dev)
+        perm = torch.randperm(b_ * pp, generator=torch.Generator()
+                              .manual_seed(1)).to(self.dev)
+        kp = torch.empty((b_ * pp, ps, hkv, d), dtype=dtype, device=self.dev)
+        vp = torch.empty_like(kp)
+        kp[perm] = kc.reshape(b_ * pp, ps, hkv, d)
+        vp[perm] = vc.reshape(b_ * pp, ps, hkv, d)
+        table = perm.reshape(b_, pp).to(torch.int32)
+        for i, (p, n) in enumerate(zip(pos_list, nv_list)):
+            table[i, max(p + n - 1, -1) // ps + 1:] = -1
+        k8, ks = precision.quantize_kv(kp)
+        v8, vs = precision.quantize_kv(vp)
+        ks, vs = ks.transpose(1, 2).contiguous(), vs.transpose(1, 2).contiguous()
+        pools = {"bf16": (kp, vp, {}, 2), "int8": (k8, v8, dict(ks=ks, vs=vs), 1)}
+        for window in (None, 512):
+            # the rows each real row sees, and the union a slot stages
+            rows = [(p + r, max(0, p + r - window + 1) if window else 0)
+                    for p, n in zip(pos_list, nv_list) if p >= 0
+                    for r in range(n)]
+            seen = sum(hi - lo + 1 for hi, lo in rows)
+            union = sum(p + n - (max(0, p - window + 1) if window else 0)
+                        for p, n in zip(pos_list, nv_list) if p >= 0)
+            pages = sum((p + n - 1) // ps - (max(0, p - window + 1)
+                                             if window else 0) // ps + 1
+                        for p, n in zip(pos_list, nv_list) if p >= 0)
+            mask = torch.zeros((b_, 1, t, tk), dtype=torch.bool,
+                               device=self.dev)
+            for i, (p, n) in enumerate(zip(pos_list, nv_list)):
+                for r in range(n if p >= 0 else 0):
+                    lo = max(0, p + r - window + 1) if window else 0
+                    mask[i, 0, r, lo:p + r + 1] = True
+            dense = ops.flash_decode(q, kc, vc, pos=pos, window=window,
+                                     n_valid=n_valid)
+            rows8 = ops.flash_decode_paged(q, k8, v8, table, pos=pos,
+                                           window=window, ks=ks, vs=vs,
+                                           n_valid=n_valid)
+            for r in range(t):
+                pr = torch.where((pos >= 0) & (r < n_valid), pos + r, -1) \
+                    .to(torch.int32)
+                one = ops.flash_decode(q[:, r:r + 1].contiguous(), kc, vc,
+                                       pos=pr, window=window)
+                assert torch.equal(dense[:, r], one[:, 0]), \
+                    f"row {r} != the one-row kernel at pos + {r}"
+                one8 = ops.flash_decode_paged(
+                    q[:, r:r + 1].contiguous(), k8, v8, table, pos=pr,
+                    window=window, ks=ks, vs=vs)
+                assert torch.equal(rows8[:, r], one8[:, 0]), \
+                    f"int8 pool: row {r} != the one-row kernel at pos + {r}"
+            assert torch.equal(ops.flash_decode_paged(
+                q, kp, vp, table, pos=pos, window=window, n_valid=n_valid),
+                dense), "paged bf16 pool rows != dense cache rows"
+            io = 2 * q.numel() * 2 + b_ * 8                # q, o, pos, n_valid
+            self._case(
+                "flash_decode_rows",
+                f"bfloat16 B={b_} t={t} H={h} Hkv={hkv} D={d} Tk={tk} "
+                f"window={window}",
+                lambda w_=window: ops.flash_decode(q, kc, vc, pos=pos,
+                                                   window=w_, n_valid=n_valid),
+                lambda w_=window: ref.decode_rows_ref(q, kc, vc, pos=pos,
+                                                      window=w_,
+                                                      n_valid=n_valid),
+                lambda m_=mask: _sdpa(torch, F, q, kc, vc, m_),
+                io + 2 * union * hkv * d * 2, 4 * seen * h * d,
+                "bfloat16", tol)
+            for pool, (k_, v_, kw, elem) in pools.items():
+                self._case(
+                    "flash_decode_paged_rows",
+                    f"bfloat16 {pool} pool B={b_} t={t} H={h} Hkv={hkv} "
+                    f"D={d} ps={ps} pp={pp} window={window}",
+                    lambda k_=k_, v_=v_, kw=kw, w_=window:
+                        ops.flash_decode_paged(q, k_, v_, table, pos=pos,
+                                               window=w_, n_valid=n_valid,
+                                               **kw),
+                    lambda k_=k_, v_=v_, kw=kw, w_=window:
+                        ref.flash_decode_paged_ref(q, k_, v_, table, pos=pos,
+                                                   window=w_, n_valid=n_valid,
+                                                   **kw),
+                    None, io + pages * 4
+                    + 2 * union * hkv * (d * elem + (4 if kw else 0)),
+                    4 * seen * h * d, "bfloat16", tol)
+        print(f"      decode rows: each of the {t} rows of a slot equals the "
+              f"one-row kernel at pos + r bit for bit (dense and int8 "
+              f"pool), and a bf16 pool the dense cache (window None and "
+              f"512)")
 
     def _kernels_attention(self, randn, tols):
         """flash_attention and flash_attention_bwd at the training shape
@@ -757,7 +881,7 @@ class Smoke:
                                device=self.dev)
         del params                      # the engine keeps its bf16 copy
         torch.cuda.synchronize()
-        print(f"[4/9] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
+        print(f"[4/10] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
               f"heads {cfg.n_heads}/{cfg.n_kv_heads}x{cfg.resolved_head_dim} "
               f"d_ff {cfg.d_ff} vocab {cfg.vocab}->{cfg.padded_vocab}; "
               f"weights ready in {time.perf_counter() - t0:.1f} s; "
@@ -961,7 +1085,7 @@ class Smoke:
         assert launches == want, (launches, want)
         got = [r.generated for r in reqs]
         assert got == self.dense_streams, "paged bf16 streams != dense streams"
-        print(f"[5/9] paged bf16 KV (page 16, {rep['kv_pool']['n_pages']} "
+        print(f"[5/10] paged bf16 KV (page 16, {rep['kv_pool']['n_pages']} "
               f"pages): phase 4's {len(reqs)} streams, token for token; "
               f"launches {launches} ({eng.decode_steps} decode steps at "
               f"141/28/28 each); prefill {rep['prefill_tok_s']:.1f} tok/s, "
@@ -1032,7 +1156,258 @@ class Smoke:
               f"requests (prompts {[len(p) for p in prompts]}, {n_new} "
               f"tokens) at 4 slots equal each alone in a 1-slot engine")
 
-    # -- 6. training at full width -----------------------------------
+    # -- 6. the request surface at full width --------------------------
+    def _serve_rows(self, eng, work, rows):
+        """Serve `work` (all at t = 0) with the launch counts set to 0 just
+        before; keep each request's target cache rows up to its last fed
+        token in `rows[rid]`, taken as its slot is released (from the
+        slot's cache row, or through its page table). Returns (requests,
+        report, launches)."""
+        torch = self.torch
+        from repro_torch.kernels import ops
+        release = eng._release
+
+        def keep(req, slot, now, *more):
+            n = req.prompt_len + req.n_generated - 1
+            if eng.pool is None:
+                rows[req.rid] = {k: v[:, slot, :n].clone()
+                                 for k, v in eng.cache.items()}
+            else:
+                ps, pages = eng.page_size, eng.cache["pages"]
+                phys = torch.as_tensor(eng.pool.table[slot], dtype=torch.long,
+                                       device=self.dev)
+                p = torch.arange(n, device=self.dev)
+                rows[req.rid] = {k: pages[k][:, phys[p // ps], p % ps].clone()
+                                 for k in ("k", "v")}
+            release(req, slot, now, *more)
+        eng._release = keep
+        reqs = [eng.submit(it.prompt, it.gen) for it in work]
+        ops.reset_launch_counts()
+        report = eng.run()
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        assert report["n_finished"] == len(reqs), report
+        return reqs, report, launches
+
+    def phase_spec(self):
+        """(a) Greedy speculative decoding at full width: phase 4's 8
+        requests on 4 slots, spec_k 4, the target as its own draft and a
+        draft of seed-1 weights, on the dense cache and a bf16 page pool.
+        Every stream must equal phase 4's, the self-draft must accept every
+        proposal, and each request's target cache rows up to its last fed
+        token must equal the plain engine's bit for bit."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.models import model as M
+        from repro_torch.serving import ServingEngine
+        cfg = get_config("qwen3-0.6b")
+        L = cfg.n_layers
+        params = M.init_params(cfg, torch.Generator().manual_seed(0), self.dev)
+        other = M.init_params(cfg, torch.Generator().manual_seed(1), self.dev)
+        print(f"[6/10] the request surface at full width ({cfg.name}, "
+              f"{L} layers, bf16, random weights)")
+        want = {}
+        eng = ServingEngine(cfg, params, max_slots=4, max_len=self.max_len,
+                            device=self.dev)
+        reqs, _, _ = self._serve_rows(eng, self.work, want)
+        assert [r.generated for r in reqs] == self.dense_streams
+        del eng
+        self.spec_launches = {}
+        for layout in ("dense", "paged"):
+            for name, draft in (("self", params), ("seed-1", other)):
+                eng = ServingEngine(cfg, params, max_slots=4,
+                                    max_len=self.max_len, device=self.dev,
+                                    kv_layout=layout, draft=(cfg, draft),
+                                    spec_k=4)
+                got = {}
+                reqs, rep, launches = self._serve_rows(eng, self.work, got)
+                streams = [r.generated for r in reqs]
+                assert streams == self.dense_streams, \
+                    f"{layout} {name}-draft streams != phase 4's"
+                rate = rep["spec_acceptance_rate"]
+                if name == "self":
+                    assert rate == 1.0, rate
+                for rid, w in want.items():
+                    for k in ("k", "v"):
+                        assert torch.equal(got[rid][k], w[k]), \
+                            f"{layout} {name}: request {rid} {k} rows differ"
+                rows = "flash_decode_rows" if layout == "dense" \
+                    else "flash_decode_paged_rows"
+                rounds = rep["spec_rounds"]
+                assert launches[rows] == L * rounds, (launches, rounds)
+                for k in ("matmul", "gated_matmul", "flash_decode"):
+                    assert launches[k] > 0, launches
+                if name == "self":
+                    self.spec_launches[rows] = launches[rows]
+                print(f"      (a) spec {layout}, {name} draft, k=4: 8 streams "
+                      f"= phase 4's token for token, target rows = the plain "
+                      f"engine's bit for bit; {rounds} rounds, acceptance "
+                      f"{rate:.3f} ({rep['spec_accepted']}/"
+                      f"{rep['spec_proposed']}), tokens/slot-step "
+                      f"{rep['tokens_per_step']:.2f}; {rows} "
+                      f"{launches[rows] // rounds} a round; round p50 "
+                      f"{rep['decode_step_p50_s'] * 1e3:.2f} ms p99 "
+                      f"{rep['decode_step_p99_s'] * 1e3:.2f} (phase 4's "
+                      f"decode step p50 {self.serve_p50 * 1e3:.2f}); draft "
+                      f"{rep['draft_time_s'] * 1e3:.0f} ms of "
+                      f"{sum(eng._step_times) * 1e3:.0f} ms of rounds; "
+                      f"decode {rep['decode_tok_s']:.1f} slot-steps/s, "
+                      f"ttft p50 {rep['ttft_p50_s'] * 1e3:.0f} ms, latency "
+                      f"p50 {rep['latency_p50_s'] * 1e3:.0f} ms")
+                if layout == "dense" and name == "self":
+                    _print_capture(eng)
+                del eng, got
+        # the round's host copy: (4, 5, vocab) f32 logits rows
+        x = torch.zeros((4, 5, cfg.padded_vocab), device=self.dev)
+        times = []
+        for _ in range(11):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x[:, :, :cfg.vocab].cpu()
+            times.append(time.perf_counter() - t0)
+        print(f"      a round's logits copy to the host ({4 * 5 * cfg.vocab * 4 / 1e6:.1f} MB): "
+              f"median {statistics.median(times) * 1e3:.2f} ms of 11")
+        del params, other, want
+        self._requests(cfg)
+
+    def _requests(self, cfg):
+        """(b) One paged run (a bf16 pool small enough to force
+        preemption) of a bursty trace with priority levels (0, 1), on a
+        clock that advances one unit a step: a waiter with a deadline that
+        expires, one waiting and one active request cancelled, an eos
+        token (phase 4's request 5 is in the trace, its stream cut there).
+        Greedy, every finished stream (the preempted ones, and those
+        admitted after the cancels) equals its request served alone, and
+        every page is back in the pool at the end. With a temperature
+        sampler over the top 50, the same run twice gives the same
+        streams, every token in its row's top 50. Then the trace on the
+        wall clock, sampled."""
+        torch = self.torch
+        import numpy as np
+        from repro_torch.models import model as M
+        from repro_torch.serving import (Sampler, SamplerConfig, ServingEngine,
+                                         bursty_trace)
+        params = M.init_params(cfg, torch.Generator().manual_seed(0), self.dev)
+        work = bursty_trace(cfg, 12, rng=np.random.default_rng(5),
+                            len_range=(64, 256), gen=24, arrival_rate=0.25,
+                            burst_mean=4.0, priority_levels=(0, 1))
+        first, stream = self.work[5], self.dense_streams[5]
+        eos = stream[4]
+        cut = stream.index(eos) + 1
+        kw = dict(max_slots=4, max_len=320, device=self.dev,
+                  kv_layout="paged", page_size=16, kv_pool_pages=48,
+                  eos_id=eos, preempt_backoff=2.0)
+
+        class TopK(Sampler):
+            """Temperature over the top 50; each token checked in its row's
+            top 50."""
+            def __call__(self, logits):
+                tok = super().__call__(logits)
+                kth = np.partition(logits, -50)[-50]
+                assert logits[tok] >= kth, "a sampled token outside the top 50"
+                return tok
+
+        def run(sampler, step_clock=True):
+            eng = ServingEngine(cfg, params, sampler=sampler, **kw)
+            reqs = [eng.submit(first.prompt, 32, priority=1)]
+            reqs += [eng.submit(it.prompt, it.gen, arrival_time=it.arrival,
+                                priority=it.priority) for it in work]
+            if not step_clock:
+                return eng, reqs, eng.run(), {}
+            now = [0.0]
+            eng._now = lambda: now[0]
+            marks = {}
+            for i in range(3000):
+                sch = eng.scheduler
+                if i == 2:
+                    # it arrives between two steps and its deadline passes
+                    # before the next: the next step drops it unadmitted
+                    marks["deadline"] = eng.submit(
+                        work[0].prompt, 8, arrival_time=now[0] + 0.5,
+                        deadline=now[0] + 0.75)
+                if "cancel" not in marks and i >= 8 and sch.n_waiting \
+                        and sch.n_active:
+                    waiting = min(sch._waiting, key=lambda r: r.rid)
+                    active = max(sch.active.values(), key=lambda r: r.rid)
+                    assert eng.cancel(waiting.rid) and eng.cancel(active.rid)
+                    marks["cancel"] = (now[0], waiting, active)
+                more = eng.step()
+                now[0] += 1.0
+                if not more:
+                    break
+            else:
+                raise AssertionError("the step-clock run did not drain")
+            torch.cuda.synchronize()
+            return eng, reqs + [marks["deadline"]], eng.report(), marks
+
+        eng, reqs, rep, marks = run(Sampler())
+        pool = eng.pool.report()
+        assert (eng.pool.refcount == 0).all() and eng.pool.n_reserved == 0
+        assert pool["pages_free"] == pool["n_pages"], pool
+        assert rep["preempted"] >= 1 and rep["cancelled"] == 2, rep
+        assert marks["deadline"].status == "expired", marks["deadline"].status
+        t_cancel = marks["cancel"][0]
+        assert reqs[0].generated == stream[:cut], \
+            "the eos request's stream is not phase 4's cut at eos"
+        checked = after = preempted = 0
+        for r in reqs:
+            if r.status != "finished":
+                continue
+            want = self._alone(eng, r.prompt, r.max_new_tokens)
+            if eos in want:
+                want = want[:want.index(eos) + 1]
+            assert r.generated == want, f"request {r.rid} != served alone"
+            checked += 1
+            after += r.t_admitted is not None and r.t_admitted > t_cancel
+            preempted += r.preemptions > 0
+        assert after >= 1 and preempted >= 1, (after, preempted)
+        print(f"      (b) requests, step clock, greedy: {len(reqs)} requests "
+              f"(bursty, priorities 0/1, a 24-token gen; phase 4's request 5 "
+              f"with eos {eos}, cut after {cut} tokens), pool "
+              f"{pool['n_pages']} pages of 16: {rep['n_finished']} finished, "
+              f"{rep['preempted']} preemptions ({preempted} requests), "
+              f"{rep['cancelled']} cancelled, {rep['expired']} expired; "
+              f"{checked} finished streams = each served alone ({preempted} "
+              f"preempted, {after} admitted after the cancels); every page "
+              f"back in the pool; decode steps {rep['decode_steps']}")
+        del eng
+        runs = []
+        for _ in range(2):
+            e, rs, rp, _ = run(TopK(SamplerConfig("temperature", 1.0, 50),
+                                    seed=0))
+            assert (e.pool.refcount == 0).all() and e.pool.n_reserved == 0
+            runs.append([(r.status, r.generated) for r in rs])
+            del e
+        assert runs[0] == runs[1], "one seed gave two sampled runs"
+        print(f"      (b) temperature 1.0, top-k 50, seed 0, step clock: two "
+              f"runs gave the same {len(runs[0])} streams; every sampled "
+              f"token in its row's top 50; {rp['n_finished']} finished, "
+              f"{rp['preempted']} preemptions, every page back")
+        kw.pop("eos_id")
+        work = bursty_trace(cfg, 12, rng=np.random.default_rng(5),
+                            len_range=(64, 256), gen=24, arrival_rate=8.0,
+                            burst_mean=4.0, deadline=1.5,
+                            priority_levels=(0, 1))
+        eng = ServingEngine(cfg, params, sampler=TopK(
+            SamplerConfig("temperature", 1.0, 50), seed=0), **kw)
+        reqs = [eng.submit(it.prompt, it.gen, arrival_time=it.arrival,
+                           deadline=it.deadline, priority=it.priority)
+                for it in work]
+        rep = eng.run()
+        torch.cuda.synchronize()
+        print(f"      (b) wall clock: 12 bursty requests at 8 req/s (groups "
+              f"of 1 + Poisson(3)), deadline 1.5 s after arrival, priorities "
+              f"0/1, temperature top-k 50: decode {rep['decode_tok_s']:.1f} "
+              f"tok/s (occupancy {rep['mean_occupancy']:.2f}/4), decode step "
+              f"p50 {rep['decode_step_p50_s'] * 1e3:.2f} ms, ttft p50 "
+              f"{rep['ttft_p50_s'] * 1e3:.0f} ms p95 "
+              f"{rep['ttft_p95_s'] * 1e3:.0f} ms, deadline miss rate "
+              f"{rep['deadline_miss_rate']:.3f}, {rep['n_finished']} "
+              f"finished, {rep['expired']} expired, {rep['preempted']} "
+              f"preemptions, goodput {rep['goodput']:.3f}")
+        del eng, params
+
+    # -- 7. training at full width -----------------------------------
     def phase_train(self, steps=8, batch=4, seq=512):
         """8 AdamW steps of qwen3-0.6b at full width and depth: f32
         params, bf16 activations, random weights from seed 0, SyntheticLM
@@ -1084,7 +1459,7 @@ class Smoke:
             before = now
         self.train_launches = ops.launch_counts()
         peak = torch.cuda.max_memory_allocated()
-        print(f"[6/9] training {cfg.name} at full width ({L} layers, "
+        print(f"[7/10] training {cfg.name} at full width ({L} layers, "
               f"{n_params / 1e6:.1f}M f32 params, bf16 activations): "
               f"{steps} AdamW steps at batch {batch} x {seq}")
         for i in range(steps):
@@ -1235,7 +1610,7 @@ class Smoke:
               f"rel diff {abs(loss - loss_c) / loss_c:.2e} / "
               f"{abs(gn - gn_c) / gn_c:.2e} (rtol {tol:g})")
 
-    # -- 7. Mamba-2 serving at full width -------------------------------
+    # -- 8. Mamba-2 serving at full width -------------------------------
     def phase_mamba(self):
         """mamba2-2.7b served on 4 slots to 8 requests, 32 tokens each.
         The prompts take every prefill branch: 2 (shorter than the conv
@@ -1268,7 +1643,7 @@ class Smoke:
         torch.cuda.empty_cache()
         weights = torch.cuda.memory_allocated()
         sc = cfg.ssm
-        print(f"[7/9] {cfg.name}: {L} layers d_model {cfg.d_model} d_inner "
+        print(f"[8/10] {cfg.name}: {L} layers d_model {cfg.d_model} d_inner "
               f"{sc.expand * cfg.d_model} ({sc.expand * cfg.d_model // sc.head_dim}"
               f" SSD heads of {sc.head_dim}) d_state {sc.d_state} groups "
               f"{sc.n_groups} conv {sc.conv_width} chunk {sc.chunk} vocab "
@@ -1418,7 +1793,7 @@ class Smoke:
               f"({tp * 1e3:.0f} ms): logits and states within rtol {tol:g}; "
               f"max |diff| / max |value| {worst:.2e}")
 
-    # -- 8. the paper's experiment ---------------------------------------
+    # -- 9. the paper's experiment ---------------------------------------
     def phase_paper(self, n=4096, iters=3):
         """Table 2 and Figs 8-9 at the paper's size through the port's
         entry points: the measurement `launch.paper` prints (float, double
@@ -1430,7 +1805,7 @@ class Smoke:
         from repro_torch.benchmarks import bench_add, common
         from repro_torch.kernels import ops
         from repro_torch.launch import paper
-        print(f"[8/9] the paper's experiment at n={n} (Table 2, Figs 8-9)")
+        print(f"[9/10] the paper's experiment at n={n} (Table 2, Figs 8-9)")
         ops.reset_launch_counts()
         gemm_rows = common.measure(n, self.dev, iters=iters)
         add_rows = bench_add.measure(n, self.dev)
@@ -1456,7 +1831,7 @@ class Smoke:
         assert self.paper_launches == want, (self.paper_launches, want)
         paper.print_model()
 
-    # -- 9. the kernels line --------------------------------------------
+    # -- 10. the kernels line --------------------------------------------
     def kernel_rows(self):
         """One row per kernel: its launches on the main path, the max error
         over every case, and the times of its main-path decode shape."""
@@ -1477,6 +1852,15 @@ class Smoke:
                 "src/repro_torch/kernels/csrc/flash_decode.cu",
                 "src/repro/kernels/flash_attention.py:716",
                 "bfloat16 int8 pool B=4 H=16 Hkv=8 D=128 ps=16 pp=128 "
+                "window=None"),
+            "flash_decode_rows": (
+                "src/repro_torch/kernels/csrc/flash_decode.cu",
+                "src/repro/kernels/flash_attention.py:529",
+                "bfloat16 B=4 t=5 H=16 Hkv=8 D=128 Tk=2048 window=None"),
+            "flash_decode_paged_rows": (
+                "src/repro_torch/kernels/csrc/flash_decode.cu",
+                "src/repro/kernels/flash_attention.py:716",
+                "bfloat16 bf16 pool B=4 t=5 H=16 Hkv=8 D=128 ps=16 pp=128 "
                 "window=None"),
             "flash_attention": (
                 "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1500,9 +1884,11 @@ class Smoke:
                      "float32 4096x4096, alpha a number"),
         }
         # launches: the dense kernels' from phase 4's run, the int8 path's
-        # from phase 5's int8 run, the training kernels' from phase 6's,
-        # the SSD kernel's from phase 7's, the paper's kernels from phase 8's
-        counts = {**self.launches,
+        # from phase 5's int8 run, the multi-row decode forms' from phase
+        # 6's self-draft runs (dense, bf16 pool), the training kernels'
+        # from phase 7's, the SSD kernel's from phase 8's, the paper's
+        # kernels from phase 9's
+        counts = {**self.launches, **self.spec_launches,
                   **{k: self.paper_launches[k]
                      for k in ("matmul_naive", "binary_op", "axpy")},
                   **{k: self.paged_launches[k]

@@ -1,5 +1,6 @@
-// Decode attention: one new query token per slot against the slot's KV
-// cache, dense or paged.
+// Decode attention: the new query tokens of each slot against the slot's
+// KV cache, dense or paged. One token a slot is a decode step; t > 1 is a
+// speculative verify step (the pending token and the draft's proposals).
 //
 // Replaces the Pallas kernels `flash_decode` (_flash_decode_kernel) and
 // `flash_decode_paged` (_flash_decode_paged_kernel) of
@@ -8,6 +9,12 @@
 // an f32 softmax; q is scaled by D^-0.5 before the dot; a slot with pos < 0
 // (idle) sees no key and gets a zero output; pos past Tk is clamped to the
 // cache's last key.
+//
+// Multi-row form: q carries Tq rows a slot, and row r sits at position
+// pos[b] + r: it attends keys [max(0, pos[b] + r - window + 1), pos[b] + r]
+// and is what the one-row kernel gives at pos[b] + r, bit for bit. Rows
+// r >= n_valid[b] (all Tq valid without n_valid), and every row of an idle
+// slot, give zeros.
 //
 // Where a key row lives is the only difference between the two entry
 // points, so the kernel body is templated on it:
@@ -61,6 +68,15 @@
 // (tests/test_torch_cuda.py::test_flash_decode_is_batch_invariant). The
 // FMA units suffice: with 2 query rows a KV head the tensor cores buy
 // nothing, and the bound is bytes.
+//
+// The multi-row form keeps that design: a block stages its split's keys
+// once, the union of what its slot's valid rows see, and then runs each
+// row in turn through the same scoring, softmax and sum, over that row's
+// own clipped key range [j0, j1] of the split, into the row's own
+// partial; the merge takes each row's own splits. So a row's arithmetic,
+// its splits and their order are those of the one-row kernel at its
+// position, and a verify step writes the decode step's bits
+// (tests/test_torch_cuda.py::test_flash_decode_rows_match_one_row).
 
 #include <stdint.h>
 
@@ -113,7 +129,8 @@ __device__ __forceinline__ void stage_rows(unsigned char* dst, const TP* __restr
 }
 
 // One (split, KV head, slot): the split's partial (m, l, acc[D]) of each of
-// the g query heads, at part_acc/part_ml[(b H + h) ns + split].
+// the g query heads of each of the slot's valid rows r, at
+// part_acc/part_ml[((b Tq + r) H + h) ns + split].
 // PAGED: rows through the page table; SCALED: int8 rows with f32 scales.
 // Strides: dense k_s0/k_st/k_sh = batch/time/head of the cache; paged
 // k_s0/k_st/k_sh = page/row/head of the pool (the same for v).
@@ -122,9 +139,10 @@ __global__ void __launch_bounds__(THREADS)
 flash_decode_kernel(const T* __restrict__ q, const TP* __restrict__ k,
                     const TP* __restrict__ v, const float* __restrict__ ks,
                     const float* __restrict__ vs, const int* __restrict__ table,
-                    const int* __restrict__ pos, float* __restrict__ part_acc,
-                    float* __restrict__ part_ml, int H, int Hkv, int D, int Tk, int ps,
-                    long long q_sb, long long q_sh, long long k_s0, long long k_st,
+                    const int* __restrict__ pos, const int* __restrict__ n_valid,
+                    float* __restrict__ part_acc, float* __restrict__ part_ml, int Tq, int H,
+                    int Hkv, int D, int Tk, int ps, long long q_sb, long long q_st,
+                    long long q_sh, long long k_s0, long long k_st,
                     long long k_sh, long long v_s0, long long v_st, long long v_sh,
                     long long c_page, long long c_head, int window, float scale, bool vec) {
   constexpr int E = 16 / sizeof(TP);       // elements of a 16-byte chunk
@@ -135,11 +153,13 @@ flash_decode_kernel(const T* __restrict__ q, const TP* __restrict__ k,
   __shared__ float prob[GB][SPLIT];
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z, ns = gridDim.x;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, g = H / Hkv;
-  const int p = pos[b];
-  const int hi = min(p, Tk - 1), lo = window > 0 ? max(0, p - window + 1) : 0;
+  const int p0 = pos[b], nv = n_valid ? min(n_valid[b], Tq) : Tq;
+  if (p0 < 0 || nv <= 0) return;           // an idle slot
+  // the keys of the split that some valid row sees: [J0, J1]
+  const int hi_all = min(p0 + nv - 1, Tk - 1), lo_all = window > 0 ? max(0, p0 - window + 1) : 0;
   const int t0 = split * SPLIT;
-  const int j0 = max(lo, t0) - t0, j1 = min(hi, t0 + SPLIT - 1) - t0;
-  if (p < 0 || j0 > j1) return;            // the split misses [lo, pos]
+  const int J0 = max(lo_all, t0) - t0, J1 = min(hi_all, t0 + SPLIT - 1) - t0;
+  if (J0 > J1) return;                     // the split misses every row's keys
   const int rb = row_bytes(D, sizeof(TP)), nch = (D + E - 1) / E;
   unsigned char* Ks = smem;
   unsigned char* Vs = smem + SPLIT * rb;
@@ -147,7 +167,7 @@ flash_decode_kernel(const T* __restrict__ q, const TP* __restrict__ k,
   // where each key's rows live, the page table read once
   long long phys = 0;
   int off = 0;
-  if (tid >= j0 && tid <= j1) {            // THREADS >= SPLIT
+  if (tid >= J0 && tid <= J1) {            // THREADS >= SPLIT
     const int t = t0 + tid;
     if constexpr (PAGED) {
       // -1 (unmapped) reads page 0, as the plain version's clamp does
@@ -161,28 +181,37 @@ flash_decode_kernel(const T* __restrict__ q, const TP* __restrict__ k,
     }
   }
   __syncthreads();
-  stage_rows(Ks, k, koff, j0, j1, D, rb, vec);
+  stage_rows(Ks, k, koff, J0, J1, D, rb, vec);
   repro::cp_async_commit();
-  stage_rows(Vs, v, voff, j0, j1, D, rb, vec);
+  stage_rows(Vs, v, voff, J0, J1, D, rb, vec);
   repro::cp_async_commit();
   if constexpr (SCALED) {
-    if (tid >= j0 && tid <= j1) {
+    if (tid >= J0 && tid <= J1) {
       ksc[tid] = ks[phys * c_page + hk * c_head + off];
       vsc[tid] = vs[phys * c_page + hk * c_head + off];
     }
   }
 
   const int j = warp * (SPLIT / WARPS) + lane / LPK, half = lane % LPK;
+  bool first = true;                       // the block's first pass
+  for (int r = 0; r < nv; ++r) {
+  // row r: the one-row kernel's body at position p, over its own [j0, j1]
+  const int p = p0 + r;
+  const int hi = min(p, Tk - 1), lo = window > 0 ? max(0, p - window + 1) : 0;
+  const int j0 = max(lo, t0) - t0, j1 = min(hi, t0 + SPLIT - 1) - t0;
+  if (j0 > j1) continue;                   // row r sees no key of the split
   const bool valid = j >= j0 && j <= j1;
+  const long long qrow = (long long)b * Tq + r;
   for (int hb = 0; hb < g; hb += GB) {
     const int ng = min(GB, g - hb);
-    if (hb > 0) __syncthreads();           // the last group's readers are done
+    if (!first) __syncthreads();           // the last pass's readers are done
     for (int idx = tid; idx < GB * nch * E; idx += THREADS) {
       const int hh = idx / (nch * E), d = idx % (nch * E);
       qs[hh][d] = hh < ng && d < D
-                      ? to_f32(q[b * q_sb + (hk * g + hb + hh) * q_sh + d]) * scale : 0.f;
+                      ? to_f32(q[b * q_sb + r * q_st + (hk * g + hb + hh) * q_sh + d]) * scale
+                      : 0.f;
     }
-    if (hb == 0) repro::cp_async_wait<1>();  // K has landed; V may be in flight
+    if (first) repro::cp_async_wait<1>();  // K has landed; V may be in flight
     __syncthreads();
 
     // scores: lane half `half` of key j sums its chunks in ascending order
@@ -223,12 +252,12 @@ flash_decode_kernel(const T* __restrict__ q, const TP* __restrict__ k,
       prob[warp][lane] = pa;
       prob[warp][lane + 32] = pc;
       if (lane == 0) {
-        const long long row = ((long long)b * H + hk * g + hb + warp) * ns + split;
+        const long long row = (qrow * H + hk * g + hb + warp) * ns + split;
         part_ml[2 * row] = m;
         part_ml[2 * row + 1] = l;
       }
     }
-    if (hb == 0) repro::cp_async_wait<0>();  // V has landed
+    if (first) repro::cp_async_wait<0>();  // V has landed
     __syncthreads();
 
     // acc = sum p V over the split's keys, ascending
@@ -241,21 +270,24 @@ flash_decode_kernel(const T* __restrict__ q, const TP* __restrict__ k,
         if constexpr (SCALED) vx *= vsc[jj];
         acc = fmaf(prob[hh][jj], vx, acc);
       }
-      part_acc[(((long long)b * H + hk * g + hb + hh) * ns + split) * D + d] = acc;
+      part_acc[((qrow * H + hk * g + hb + hh) * ns + split) * D + d] = acc;
     }
+    first = false;
+  }
   }
 }
 
-// One query row (b, h): its splits merged in ascending order. Instanced
+// One query row (b, r, h): its splits merged in ascending order. Instanced
 // with the split kernel's template arguments, so that a trace tells the
 // dense merge from the paged one.
 template <typename T, typename TP, bool PAGED, bool SCALED>
 __global__ void __launch_bounds__(THREADS)
 flash_decode_merge_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-                          const int* __restrict__ pos, T* __restrict__ o, int H, int D, int Tk,
-                          int ns, int window) {
-  const int bh = blockIdx.x, b = bh / H;
-  const int p = pos[b];
+                          const int* __restrict__ pos, const int* __restrict__ n_valid,
+                          T* __restrict__ o, int Tq, int H, int D, int Tk, int ns, int window) {
+  const int bh = blockIdx.x, b = bh / (Tq * H), r = bh / H % Tq;   // bh = (b Tq + r) H + h
+  const int nv = n_valid ? min(n_valid[b], Tq) : Tq;
+  const int p = pos[b] < 0 || r >= nv ? -1 : pos[b] + r;
   const int hi = min(p, Tk - 1), lo = window > 0 ? max(0, p - window + 1) : 0;
   T* orow = o + (long long)bh * D;
   if (p < 0 || hi < lo) {                  // no key: a zero row
@@ -289,8 +321,9 @@ flash_decode_merge_kernel(const float* __restrict__ part_acc, const float* __res
 
 template <typename T, typename TP, bool PAGED, bool SCALED>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* ks, const float* vs,
-                   const int* table, const int* pos, void* o, float* scratch, int B, int H,
-                   int Hkv, int D, int Tk, int ps, long long q_sb, long long q_sh, long long k_s0,
+                   const int* table, const int* pos, const int* n_valid, void* o, float* scratch,
+                   int B, int Tq, int H, int Hkv, int D, int Tk, int ps, long long q_sb,
+                   long long q_st, long long q_sh, long long k_s0,
                    long long k_st, long long k_sh, long long v_s0, long long v_st, long long v_sh,
                    long long c_page, long long c_head, int window, float scale, cudaStream_t s) {
   // above 48 KB a block's shared memory must be asked for, once a kernel
@@ -300,7 +333,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* ks,
   if (attr != cudaSuccess) return attr;
   const int ns = (Tk + SPLIT - 1) / SPLIT;
   float* part_acc = scratch;
-  float* part_ml = scratch + (long long)B * H * ns * D;
+  float* part_ml = scratch + (long long)B * Tq * H * ns * D;
   constexpr int A = 16 / sizeof(TP);       // elements of 16 bytes
   const bool vec = ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16 == 0) &&
                    ((k_s0 | k_st | k_sh | v_s0 | v_st | v_sh) % A == 0);
@@ -308,44 +341,50 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* ks,
     flash_decode_kernel<T, TP, PAGED, SCALED>
         <<<dim3(ns, Hkv, B), THREADS, 2 * SPLIT * row_bytes(D, sizeof(TP)), s>>>(
             static_cast<const T*>(q), static_cast<const TP*>(k), static_cast<const TP*>(v), ks,
-            vs, table, pos, part_acc, part_ml, H, Hkv, D, Tk, ps, q_sb, q_sh, k_s0, k_st, k_sh,
-            v_s0, v_st, v_sh, c_page, c_head, window, scale, vec);
+            vs, table, pos, n_valid, part_acc, part_ml, Tq, H, Hkv, D, Tk, ps, q_sb, q_st, q_sh,
+            k_s0, k_st, k_sh, v_s0, v_st, v_sh, c_page, c_head, window, scale, vec);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  flash_decode_merge_kernel<T, TP, PAGED, SCALED><<<B * H, THREADS, 0, s>>>(
-      part_acc, part_ml, pos, static_cast<T*>(o), H, D, Tk, ns, window);
+  flash_decode_merge_kernel<T, TP, PAGED, SCALED><<<B * Tq * H, THREADS, 0, s>>>(
+      part_acc, part_ml, pos, n_valid, static_cast<T*>(o), Tq, H, D, Tk, ns, window);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// scratch: B H ceil(Tk / SPLIT) (D + 2) floats, the splits' partials.
+// q [B, Tq, H, D] (strides q_sb, q_st, q_sh), o contiguous [B, Tq, H, D];
+// n_valid: (B,) rows a slot, or null for all Tq. scratch: B Tq H
+// ceil(Tk / SPLIT) (D + 2) floats, the splits' partials.
 extern "C" int repro_flash_decode(const void* q, const void* k, const void* v, const int* pos,
-                                  void* o, float* scratch, int B, int H, int Hkv, int D, int Tk,
-                                  long long q_sb, long long q_sh, long long k_sb, long long k_st,
+                                  const int* n_valid, void* o, float* scratch, int B, int Tq,
+                                  int H, int Hkv, int D, int Tk, long long q_sb, long long q_st,
+                                  long long q_sh, long long k_sb, long long k_st,
                                   long long k_sh, long long v_sb, long long v_st, long long v_sh,
                                   int window, float scale, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0 || H == 0) return static_cast<int>(cudaGetLastError());
   const cudaError_t err =
       bf16 ? launch<__nv_bfloat16, __nv_bfloat16, false, false>(
-                 q, k, v, nullptr, nullptr, nullptr, pos, o, scratch, B, H, Hkv, D, Tk, 1, q_sb,
-                 q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, 0, 0, window, scale, s)
-           : launch<float, float, false, false>(q, k, v, nullptr, nullptr, nullptr, pos, o,
-                                                scratch, B, H, Hkv, D, Tk, 1, q_sb, q_sh, k_sb,
-                                                k_st, k_sh, v_sb, v_st, v_sh, 0, 0, window,
-                                                scale, s);
+                 q, k, v, nullptr, nullptr, nullptr, pos, n_valid, o, scratch, B, Tq, H, Hkv, D,
+                 Tk, 1, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, 0, 0, window, scale,
+                 s)
+           : launch<float, float, false, false>(q, k, v, nullptr, nullptr, nullptr, pos, n_valid,
+                                                o, scratch, B, Tq, H, Hkv, D, Tk, 1, q_sb, q_st,
+                                                q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, 0, 0,
+                                                window, scale, s);
   return static_cast<int>(err);
 }
 
 // pool: the query's type, or int8 (int8_pool) with the f32 scale planes
 // ks/vs. Strides: page, row and head of the pools (k and v alike), page
-// and head of the scale planes (row stride 1). scratch as above, Tk = pp ps.
+// and head of the scale planes (row stride 1). q, o, n_valid and scratch
+// as above, Tk = pp ps.
 extern "C" int repro_flash_decode_paged(const void* q, const void* kp, const void* vp,
                                         const float* ks, const float* vs, const int* table,
-                                        const int* pos, void* o, float* scratch, int B, int H,
-                                        int Hkv, int D, int pp, int ps, long long q_sb,
+                                        const int* pos, const int* n_valid, void* o,
+                                        float* scratch, int B, int Tq, int H, int Hkv, int D,
+                                        int pp, int ps, long long q_sb, long long q_st,
                                         long long q_sh, long long s_page, long long s_row,
                                         long long s_head, long long c_page, long long c_head,
                                         int window, float scale, int bf16, int int8_pool,
@@ -355,22 +394,20 @@ extern "C" int repro_flash_decode_paged(const void* q, const void* kp, const voi
   if (B == 0 || H == 0) return static_cast<int>(cudaGetLastError());
   cudaError_t err;
   if (bf16 && int8_pool)
-    err = launch<__nv_bfloat16, int8_t, true, true>(q, kp, vp, ks, vs, table, pos, o, scratch, B,
-                                                    H, Hkv, D, Tk, ps, q_sb, q_sh, s_page, s_row,
-                                                    s_head, s_page, s_row, s_head, c_page,
-                                                    c_head, window, scale, s);
+    err = launch<__nv_bfloat16, int8_t, true, true>(
+        q, kp, vp, ks, vs, table, pos, n_valid, o, scratch, B, Tq, H, Hkv, D, Tk, ps, q_sb, q_st,
+        q_sh, s_page, s_row, s_head, s_page, s_row, s_head, c_page, c_head, window, scale, s);
   else if (bf16)
     err = launch<__nv_bfloat16, __nv_bfloat16, true, false>(
-        q, kp, vp, nullptr, nullptr, table, pos, o, scratch, B, H, Hkv, D, Tk, ps, q_sb, q_sh,
-        s_page, s_row, s_head, s_page, s_row, s_head, 0, 0, window, scale, s);
+        q, kp, vp, nullptr, nullptr, table, pos, n_valid, o, scratch, B, Tq, H, Hkv, D, Tk, ps,
+        q_sb, q_st, q_sh, s_page, s_row, s_head, s_page, s_row, s_head, 0, 0, window, scale, s);
   else if (int8_pool)
-    err = launch<float, int8_t, true, true>(q, kp, vp, ks, vs, table, pos, o, scratch, B, H, Hkv,
-                                            D, Tk, ps, q_sb, q_sh, s_page, s_row, s_head, s_page,
-                                            s_row, s_head, c_page, c_head, window, scale, s);
+    err = launch<float, int8_t, true, true>(
+        q, kp, vp, ks, vs, table, pos, n_valid, o, scratch, B, Tq, H, Hkv, D, Tk, ps, q_sb, q_st,
+        q_sh, s_page, s_row, s_head, s_page, s_row, s_head, c_page, c_head, window, scale, s);
   else
-    err = launch<float, float, true, false>(q, kp, vp, nullptr, nullptr, table, pos, o, scratch,
-                                            B, H, Hkv, D, Tk, ps, q_sb, q_sh, s_page, s_row,
-                                            s_head, s_page, s_row, s_head, 0, 0, window, scale,
-                                            s);
+    err = launch<float, float, true, false>(
+        q, kp, vp, nullptr, nullptr, table, pos, n_valid, o, scratch, B, Tq, H, Hkv, D, Tk, ps,
+        q_sb, q_st, q_sh, s_page, s_row, s_head, s_page, s_row, s_head, 0, 0, window, scale, s);
   return static_cast<int>(err);
 }

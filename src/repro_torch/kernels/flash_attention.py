@@ -13,6 +13,9 @@ launches its kernel, or raises; the CPU paths are the plain versions in
 `flash_attention_bwd` run on the tensor cores, f32 on the FMA kernels of
 the same source. The decode wrappers launch two kernels a call: one that
 sums each split of DECODE_SPLIT keys, and one that merges a row's splits.
+They take one query row a slot (a decode step) or several (the
+multi-row form of a speculative verify step: row r at pos + r, each the
+one-row kernel's bits at its position), and count the two forms apart.
 """
 
 from __future__ import annotations
@@ -25,8 +28,8 @@ from repro_torch.kernels import _build
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    "repro_flash_decode": [_P] * 6 + [_I] * 5 + [_L] * 8 + [_I, _F, _I, _P],
-    "repro_flash_decode_paged": [_P] * 9 + [_I] * 6 + [_L] * 7
+    "repro_flash_decode": [_P] * 7 + [_I] * 6 + [_L] * 9 + [_I, _F, _I, _P],
+    "repro_flash_decode_paged": [_P] * 10 + [_I] * 7 + [_L] * 8
     + [_I, _F, _I, _I, _P],
 }
 _FA_SIGNATURES = {
@@ -43,8 +46,10 @@ DECODE_SPLIT = 64
 
 #: Kernel launches, counted where each wrapper launches its kernels: one
 #: a call (`flash_attention_bwd` for its two sweeps, the decode wrappers
-#: for their split and merge kernels).
+#: for their split and merge kernels). A decode wrapper's call with more
+#: than one query row a slot counts under its `_rows` name.
 LAUNCHES = {"flash_decode": 0, "flash_decode_paged": 0,
+            "flash_decode_rows": 0, "flash_decode_paged_rows": 0,
             "flash_attention": 0, "flash_attention_bwd": 0}
 
 
@@ -138,8 +143,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _check_q(q: torch.Tensor, hkv: int, d: int) -> None:
     b, tq, h, dq = q.shape
-    if tq != 1:
-        raise ValueError(f"decode attention is q_len=1 only: {tuple(q.shape)}")
+    if tq < 1:
+        raise ValueError(f"decode attention needs a query row: {tuple(q.shape)}")
     if dq != d:
         raise ValueError(f"q head_dim {dq} != the cache's {d}")
     if h % hkv:
@@ -177,26 +182,43 @@ def decode_splits(pos: int, window: int | None, tk: int) -> list:
             for s in range(lo // n, hi // n + 1)]
 
 
-def decode_scratch_floats(b: int, h: int, d: int, tk: int) -> int:
-    """f32 values of the decode kernel's scratch: each (slot, query head,
-    split) of a tk-key cache keeps its partial acc[d], m and l."""
-    return b * h * -(-tk // DECODE_SPLIT) * (d + 2)
+def decode_scratch_floats(b: int, h: int, d: int, tk: int, t: int = 1) -> int:
+    """f32 values of the decode kernel's scratch: each (slot, query row,
+    query head, split) of a tk-key cache keeps its partial acc[d], m and
+    l."""
+    return b * t * h * -(-tk // DECODE_SPLIT) * (d + 2)
 
 
-def _decode_scratch(b, h, d, tk, device) -> torch.Tensor:
-    return torch.empty(decode_scratch_floats(b, h, d, tk),
+def _decode_scratch(b, h, d, tk, t, device) -> torch.Tensor:
+    return torch.empty(decode_scratch_floats(b, h, d, tk, t),
                        dtype=torch.float32, device=device)
 
 
+def _n_valid_vector(n_valid, b: int, device):
+    """n_valid as an int32 (B,) tensor on the card, or None (every row)."""
+    if n_valid is None:
+        return None
+    if not isinstance(n_valid, torch.Tensor) or n_valid.dim() != 1 \
+            or n_valid.shape[0] != b or n_valid.device != device:
+        raise ValueError(f"n_valid must be a ({b},) tensor on {device}")
+    return n_valid.to(torch.int32).contiguous()
+
+
+def _count(name: str, t: int) -> None:
+    LAUNCHES[name if t == 1 else name + "_rows"] += 1
+
+
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                 pos, window: int | None = None) -> torch.Tensor:
+                 pos, window: int | None = None,
+                 n_valid: torch.Tensor | None = None) -> torch.Tensor:
     """Each slot's query attends its cache prefix [pos - window + 1, pos]
     (the whole prefix without a window). pos: an int, broadcast to every
     slot, or a (B,) int tensor on the card; pos < 0 gives a zero row.
-    q is scaled by head_dim ** -0.5 before the dot. Two launches: the
-    splits' partials (`decode_splits`), then their merge; counted as
-    one."""
-    b, _, h, d = q.shape
+    q [B, T, H, D]: row r of a slot sits at pos + r; rows r >= n_valid
+    (a (B,) int tensor on the card; None: all T) give zero rows. q is
+    scaled by head_dim ** -0.5 before the dot. Two launches: the splits'
+    partials (`decode_splits`), then their merge; counted as one."""
+    b, tq, h, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     if k.shape != v.shape or k.shape[0] != b:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
@@ -211,16 +233,18 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if t.stride(3) != 1:
             raise ValueError("the head dim must be contiguous")
     pos = _pos_vector(pos, b, q.device)
-    o = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
-    scratch = _decode_scratch(b, h, d, tk, q.device)
+    nv = _n_valid_vector(n_valid, b, q.device)
+    o = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+    scratch = _decode_scratch(b, h, d, tk, tq, q.device)
     lib = _build.load("flash_decode", _SIGNATURES)
     err = lib.repro_flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-        o.data_ptr(), scratch.data_ptr(), b, h, hkv, d, tk,
-        q.stride(0), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
+        None if nv is None else nv.data_ptr(), o.data_ptr(),
+        scratch.data_ptr(), b, tq, h, hkv, d, tk, q.stride(0), q.stride(1),
+        q.stride(2), k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2), int(window or 0), d ** -0.5,
         int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device))
-    LAUNCHES["flash_decode"] += 1
+    _count("flash_decode", tq)
     _build.check(err, "flash_decode")
     return o
 
@@ -228,15 +252,16 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_decode_paged(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
                        table: torch.Tensor, *, pos, window: int | None = None,
                        ks: torch.Tensor | None = None,
-                       vs: torch.Tensor | None = None) -> torch.Tensor:
+                       vs: torch.Tensor | None = None,
+                       n_valid: torch.Tensor | None = None) -> torch.Tensor:
     """flash_decode against a page pool: logical key t of slot b lives in
     pool page table[b, t // page_size], row t % page_size. kp/vp
     [P, page_size, Hkv, D] in q's dtype, or int8 with ks/vs
     [P, Hkv, page_size] float32 scales (dequantized in f32 before the
-    dot). table: (B, pp) int32 on the card. pos as in `flash_decode`,
-    and the same splits and merge, so a bf16 pool gives the dense
-    kernel's bits."""
-    b, _, h, d = q.shape
+    dot). table: (B, pp) int32 on the card. q, pos and n_valid as in
+    `flash_decode`, and the same splits and merge, so a bf16 pool gives
+    the dense kernel's bits."""
+    b, tq, h, d = q.shape
     if kp.dim() != 4 or kp.shape != vp.shape:
         raise ValueError(f"kp {tuple(kp.shape)}, vp {tuple(vp.shape)}")
     _, ps, hkv, _ = kp.shape
@@ -274,19 +299,21 @@ def flash_decode_paged(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     if q.stride(3) != 1:
         raise ValueError("q's head dim must be contiguous")
     pos = _pos_vector(pos, b, q.device)
-    o = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
-    scratch = _decode_scratch(b, h, d, table.shape[1] * ps, q.device)
+    nv = _n_valid_vector(n_valid, b, q.device)
+    o = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+    scratch = _decode_scratch(b, h, d, table.shape[1] * ps, tq, q.device)
     lib = _build.load("flash_decode", _SIGNATURES)
     err = lib.repro_flash_decode_paged(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
         ks.data_ptr() if int8_pool else None,
         vs.data_ptr() if int8_pool else None, table.data_ptr(),
-        pos.data_ptr(), o.data_ptr(), scratch.data_ptr(), b, h, hkv, d,
-        table.shape[1], ps,
-        q.stride(0), q.stride(2), kp.stride(0), kp.stride(1), kp.stride(2),
+        pos.data_ptr(), None if nv is None else nv.data_ptr(), o.data_ptr(),
+        scratch.data_ptr(), b, tq, h, hkv, d, table.shape[1], ps,
+        q.stride(0), q.stride(1), q.stride(2),
+        kp.stride(0), kp.stride(1), kp.stride(2),
         c_page, c_head, int(window or 0), d ** -0.5,
         int(q.dtype == torch.bfloat16), int(int8_pool),
         _build.stream_ptr(q.device))
-    LAUNCHES["flash_decode_paged"] += 1
+    _count("flash_decode_paged", tq)
     _build.check(err, "flash_decode_paged")
     return o

@@ -10,6 +10,7 @@ there is no fallback from a failing kernel to its plain version.
     matmul_q            matmul.matmul_q_tiled                ref.matmul_q_ref
     gated_matmul        matmul.gated_matmul_tiled            ref.gated_matmul_ref
     flash_decode        flash_attention.flash_decode         ref.attention_fwd_ref
+                                                             (ref.decode_rows_ref)
     flash_decode_paged  flash_attention.flash_decode_paged   ref.flash_decode_paged_ref
     flash_attention_fwd flash_attention.flash_attention      ref.flash_attention_fwd_ref
     flash_attention_bwd flash_attention.flash_attention_bwd  ref.flash_attention_bwd_ref
@@ -144,32 +145,48 @@ def gated_matmul(a: torch.Tensor, w_gate: torch.Tensor,
     return _ref.gated_matmul_ref(a, w_gate, w_up)
 
 
+def _check_decode_q(q: torch.Tensor, n_valid) -> None:
+    if q.dim() != 4 or q.shape[1] < 1:
+        raise ValueError(f"decode attention takes q [B, T, H, D], got "
+                         f"{tuple(q.shape)}")
+    if n_valid is not None and (n_valid.dim() != 1
+                                or n_valid.shape[0] != q.shape[0]):
+        raise ValueError(f"n_valid {tuple(n_valid.shape)} is not one count "
+                         f"a slot for {q.shape[0]} slots")
+
+
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                 pos=0, window: int | None = None) -> torch.Tensor:
-    """Decode attention, q [B, 1, H, D] against the cache [B, Tk, Hkv, D]:
+                 pos=0, window: int | None = None,
+                 n_valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Decode attention, q [B, T, H, D] against the cache [B, Tk, Hkv, D]:
     each slot's query attends its prefix [0, pos] (the last `window` keys
     of it with a window). pos: an int or a (B,) vector; a slot with
-    pos < 0 is idle and gets a zero row."""
-    if q.dim() != 4 or q.shape[1] != 1:
-        raise ValueError(f"flash_decode is q_len=1 only: {tuple(q.shape)}")
+    pos < 0 is idle and gets zero rows. T > 1 (a speculative verify
+    step): row r sits at pos + r and is the one-row result at that
+    position, bit for bit; rows r >= n_valid (a (B,) vector; None: all
+    T) give zero rows."""
+    _check_decode_q(q, n_valid)
     if _on_card(q):
-        return _fa.flash_decode(q, k, v, pos=pos, window=window)
-    return _ref.attention_fwd_ref(q, k, v, window=window, q_offset=pos)
+        return _fa.flash_decode(q, k, v, pos=pos, window=window,
+                                n_valid=n_valid)
+    if q.shape[1] == 1 and n_valid is None:
+        return _ref.attention_fwd_ref(q, k, v, window=window, q_offset=pos)
+    return _ref.decode_rows_ref(q, k, v, pos=pos, window=window,
+                                n_valid=n_valid)
 
 
 def flash_decode_paged(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
                        table: torch.Tensor, *, pos=0,
                        window: int | None = None,
                        ks: torch.Tensor | None = None,
-                       vs: torch.Tensor | None = None) -> torch.Tensor:
+                       vs: torch.Tensor | None = None,
+                       n_valid: torch.Tensor | None = None) -> torch.Tensor:
     """Decode attention against a page pool (the `serving.kv_pool`
     layout): slot b's logical page j lives at pool page table[b, j], -1
     unmapped. kp/vp [P, page_size, Hkv, D]; an int8 pool comes with its
-    [P, Hkv, page_size] f32 scale planes ks/vs. The pos, window and
-    idle-slot contract of `flash_decode`."""
-    if q.dim() != 4 or q.shape[1] != 1:
-        raise ValueError(f"flash_decode_paged is q_len=1 only: "
-                         f"{tuple(q.shape)}")
+    [P, Hkv, page_size] f32 scale planes ks/vs. The pos, window, rows
+    and idle-slot contract of `flash_decode`."""
+    _check_decode_q(q, n_valid)
     if kp.dim() != 4 or kp.shape != vp.shape:
         raise ValueError(f"kp {tuple(kp.shape)} and vp {tuple(vp.shape)} "
                          f"must be equal [P, page_size, Hkv, D] pools")
@@ -181,9 +198,11 @@ def flash_decode_paged(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
                          f"{'given' if ks is not None else 'missing'}")
     if _on_card(q):
         return _fa.flash_decode_paged(q, kp, vp, table, pos=pos,
-                                      window=window, ks=ks, vs=vs)
+                                      window=window, ks=ks, vs=vs,
+                                      n_valid=n_valid)
     return _ref.flash_decode_paged_ref(q, kp, vp, table, pos=pos,
-                                       window=window, ks=ks, vs=vs)
+                                       window=window, ks=ks, vs=vs,
+                                       n_valid=n_valid)
 
 
 def _check_bthd(q, k, v) -> None:

@@ -138,6 +138,23 @@ def attention_fwd_ref(q, k, v, *, window=None, q_offset=0):
     return out.to(q.dtype)
 
 
+def decode_rows_ref(q, k, v, *, pos=0, window=None, n_valid=None):
+    """The decode kernel's multi-row form: q [B, T, H, D], row r of slot b
+    at position pos[b] + r. Each row is `attention_fwd_ref` of that row
+    alone at its position, the one-row contract and its bits; rows
+    r >= n_valid[b] (None: all T), and every row of a slot with pos < 0,
+    give zero rows. Returns [B, T, H, D] in q's dtype."""
+    b, t = q.shape[:2]
+    pos = torch.as_tensor(pos, device=q.device).long().reshape(-1).expand(b)
+    nv = t if n_valid is None else torch.as_tensor(n_valid, device=q.device)
+    rows = []
+    for r in range(t):
+        p = torch.where((pos >= 0) & (r < nv), pos + r, -1)
+        rows.append(attention_fwd_ref(q[:, r:r + 1].contiguous(), k, v,
+                                      window=window, q_offset=p))
+    return torch.cat(rows, 1)
+
+
 _LSE_EMPTY = 1e30     # logsumexp of a row that sees no key
 
 
@@ -216,13 +233,16 @@ def paged_gather_ref(kp, table, scales=None):
 
 
 def flash_decode_paged_ref(q, kp, vp, table, *, pos=0, window=None,
-                           ks=None, vs=None):
+                           ks=None, vs=None, n_valid=None):
     """Decode attention through a page table: gather (and dequantize)
-    each slot's pages, then `attention_fwd_ref` at q_offset=pos.
-    q [B, 1, H, D]; returns [B, 1, H, D] in q's dtype."""
+    each slot's pages, then `attention_fwd_ref` at q_offset=pos for one
+    row a slot, or `decode_rows_ref` for q [B, T, H, D] or with n_valid.
+    Returns q's shape in q's dtype."""
     k = paged_gather_ref(kp, table, ks)
     v = paged_gather_ref(vp, table, vs)
-    return attention_fwd_ref(q, k, v, window=window, q_offset=pos)
+    if q.shape[1] == 1 and n_valid is None:
+        return attention_fwd_ref(q, k, v, window=window, q_offset=pos)
+    return decode_rows_ref(q, k, v, pos=pos, window=window, n_valid=n_valid)
 
 
 # ----------------------------------------------------------------------

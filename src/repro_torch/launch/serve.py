@@ -22,7 +22,23 @@ Mamba-2 (attention-free; its recurrent state takes no page pool or int8):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
         --requests 8 --max-slots 4 --prompt-len-min 64 --prompt-len-max 512
 
-Weights are random, drawn from a torch.Generator seeded with --seed.
+Bursty arrivals with two priority levels, deadlines 2 s after arrival and
+a temperature sampler over the 50 likeliest tokens:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --requests 16 \
+        --workload bursty --arrival-rate 4 --priority-levels 0,1 \
+        --deadline 2 --sampler temperature --top-k 50
+
+Speculative decoding (a draft proposes --spec-k tokens a round, the
+target verifies them in one forward; --check-exact holds the greedy
+streams to a dense engine's without a draft):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --requests 8 \
+        --workload prefix_heavy --kv-layout paged --draft qwen3-0.6b \
+        --spec-k 4 --check-exact
+
+Weights are random, drawn from a torch.Generator seeded with --seed (a
+draft's with --seed + 1).
 """
 
 from __future__ import annotations
@@ -35,40 +51,61 @@ import torch
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.core.device import resolve_device
 from repro_torch.models import model as M
-from repro_torch.serving import (ServingEngine, prefix_heavy_trace,
+from repro_torch.serving import (TRACES, ServingEngine, make_sampler,
+                                 make_trace, prefix_heavy_trace,
                                  synthetic_trace)
 from repro_torch.serving.engine import check_modes
-from repro_torch.serving.request import FINISHED
+from repro_torch.serving.request import FINISHED, TERMINAL
 
 
 def build_workload(cfg, args, rng):
-    """Prefix-heavy chat when --prefix-len is set, the mixed-length trace
-    when --requests is set, else the uniform batch."""
+    """A named scenario of the trace registry when --workload is set;
+    else prefix-heavy chat when --prefix-len is set, the mixed-length
+    trace when --requests is set, else the uniform batch. Deadlines,
+    priorities and fixed-size bursts apply to all of them (the bursty
+    scenario draws its own group sizes)."""
+    ft = dict(deadline=args.deadline or None,
+              priority_levels=tuple(int(p) for p in
+                                    args.priority_levels.split(",")),
+              burst_size=args.burst_size)
+    if args.workload:
+        n = args.requests or args.batch
+        kw = dict(gen=args.gen, arrival_rate=args.arrival_rate, **ft)
+        if args.workload == "bursty":
+            kw.pop("burst_size")
+        return make_trace(args.workload, cfg, n, rng=rng, **kw)
     if args.prefix_len:
         return prefix_heavy_trace(cfg, args.requests or args.batch, rng=rng,
                                   prefix_len=args.prefix_len,
                                   suffix_range=(args.suffix_min,
                                                 args.suffix_max),
-                                  gen=args.gen)
+                                  gen=args.gen,
+                                  arrival_rate=args.arrival_rate, **ft)
     if args.requests:
         return synthetic_trace(cfg, args.requests, rng=rng,
                                len_range=(args.prompt_len_min,
                                           args.prompt_len_max),
-                               gen=args.gen)
+                               gen=args.gen, arrival_rate=args.arrival_rate,
+                               **ft)
     return synthetic_trace(cfg, args.batch, rng=rng,
                            len_range=(args.prompt_len, args.prompt_len),
-                           gen=args.gen)
+                           gen=args.gen, arrival_rate=0.0, **ft)
 
 
 def check_outputs(cfg, engine, requests):
-    """Every request finished with its full quota of real vocab ids."""
+    """Every request ended; a FINISHED one generated its whole quota (or
+    stopped at eos); every emitted token is a real vocab id, and the
+    engine's token count is the streams'."""
     for req in requests:
         toks = np.asarray(req.generated)
-        assert req.status == FINISHED, (req.rid, req.status)
-        assert toks.size == req.max_new_tokens, \
-            (req.rid, toks.size, req.max_new_tokens)
-        assert ((toks >= 0) & (toks < cfg.vocab)).all(), \
-            (req.rid, toks.min(), toks.max(), cfg.vocab)
+        assert req.status in TERMINAL, (req.rid, req.status)
+        if req.status == FINISHED:
+            assert toks.size == req.max_new_tokens or (
+                engine.eos_id is not None and toks[-1] == engine.eos_id), \
+                (req.rid, toks.size, req.max_new_tokens)
+        if toks.size:
+            assert ((toks >= 0) & (toks < cfg.vocab)).all(), \
+                (req.rid, toks.min(), toks.max(), cfg.vocab)
     assert sum(r.n_generated for r in requests) == engine.tokens_emitted
     assert engine.scheduler.n_active == 0 and engine.scheduler.n_waiting == 0
 
@@ -80,6 +117,8 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=0,
                     help="number of requests in the mixed-length trace "
                          "(0 = uniform single-batch mode)")
+    ap.add_argument("--arrival-rate", type=float, default=0.0,
+                    help="Poisson arrival rate in req/s (0 = all at t=0)")
     ap.add_argument("--max-slots", type=int, default=0,
                     help="cache slot pool size (default: --batch, or 4)")
     ap.add_argument("--prompt-len-min", type=int, default=8)
@@ -89,6 +128,12 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=16,
                     help="tokens to generate per request")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sampler", choices=("greedy", "temperature"),
+                    default="greedy")
+    ap.add_argument("--temperature", type=float, default=1.0)
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="temperature sampling over the k likeliest tokens "
+                         "(0 = the whole vocab)")
     ap.add_argument("--kv-layout", choices=("dense", "paged"),
                     default="dense",
                     help="KV cache layout: per-slot rows, or a shared "
@@ -105,10 +150,34 @@ def main(argv=None):
                          "workload to the prefix-heavy chat trace")
     ap.add_argument("--suffix-min", type=int, default=2)
     ap.add_argument("--suffix-max", type=int, default=12)
+    ap.add_argument("--workload", choices=sorted(TRACES), default="",
+                    help="named scenario of the trace registry (overrides "
+                         "the implicit choice of trace)")
+    ap.add_argument("--draft", choices=ARCH_NAMES, default="",
+                    help="draft model arch: speculative decoding (the "
+                         "draft proposes --spec-k tokens a round, the "
+                         "target verifies them in one forward)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="draft tokens proposed a round")
+    ap.add_argument("--check-exact", action="store_true",
+                    help="serve the trace again on a dense engine without "
+                         "a draft and require the same token streams "
+                         "(greedy only)")
+    ap.add_argument("--deadline", type=float, default=0.0,
+                    help="deadline a request, seconds after its arrival "
+                         "(0 = none)")
+    ap.add_argument("--priority-levels", type=str, default="0",
+                    help="comma-separated priority levels drawn uniformly "
+                         "a request (e.g. '0,1')")
+    ap.add_argument("--burst-size", type=int, default=1,
+                    help="requests an arrival burst (> 1 = bursty "
+                         "arrivals at the same long-run rate)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the CUDA kernels) or cpu (their plain "
                          "PyTorch versions)")
     args = ap.parse_args(argv)
+    if args.check_exact and args.sampler != "greedy":
+        ap.error("--check-exact requires --sampler greedy")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
@@ -120,12 +189,23 @@ def main(argv=None):
 
     params = M.init_params(cfg, torch.Generator().manual_seed(args.seed),
                            device)
+    draft = None
+    if args.draft:
+        dcfg = get_config(args.draft, reduced=args.reduced)
+        draft = (dcfg, M.init_params(
+            dcfg, torch.Generator().manual_seed(args.seed + 1), device))
+    sampler = make_sampler(args.sampler, temperature=args.temperature,
+                           top_k=args.top_k, seed=args.seed)
     engine = ServingEngine(cfg, params, max_slots=max_slots, max_len=max_len,
                            device=device, kv_layout=args.kv_layout,
                            quant_kv=args.quant_kv, page_size=args.page_size,
-                           kv_pool_pages=args.kv_pool_pages or None)
-    del params
-    requests = [engine.submit(it.prompt, it.gen, arrival_time=it.arrival)
+                           kv_pool_pages=args.kv_pool_pages or None,
+                           sampler=sampler, draft=draft, spec_k=args.spec_k)
+    del draft
+    if not args.check_exact:
+        del params
+    requests = [engine.submit(it.prompt, it.gen, arrival_time=it.arrival,
+                              deadline=it.deadline, priority=it.priority)
                 for it in work]
     report = engine.run()
 
@@ -134,7 +214,7 @@ def main(argv=None):
         ttft = f"{r.ttft*1e3:7.1f}ms" if r.ttft is not None else "   --  "
         print(f"req {r.rid:3d} prompt={r.prompt_len:3d} "
               f"gen={r.n_generated:3d} ttft={ttft} latency={lat} "
-              f"[{r.status}]")
+              f"[{r.status}]" + (f" {r.error}" if r.error else ""))
     print(f"arch={cfg.name} slots={max_slots} requests={len(requests)} "
           f"prefill {report['prefill_tok_s']:.1f} tok/s, "
           f"decode {report['decode_tok_s']:.1f} tok/s "
@@ -142,6 +222,19 @@ def main(argv=None):
           f"latency p50 {report['latency_p50_s']*1e3:.0f}ms "
           f"p95 {report['latency_p95_s']*1e3:.0f}ms, "
           f"ttft p50 {report['ttft_p50_s']*1e3:.0f}ms")
+    print(f"requests: goodput {report['goodput']:.2f} "
+          f"({report['useful_tokens']}/{engine.tokens_emitted} tokens), "
+          f"expired {report['expired']}, cancelled {report['cancelled']}, "
+          f"preempted {report['preempted']}, "
+          f"quarantined {report['quarantined']}, "
+          f"deadline-miss rate {report['deadline_miss_rate']:.2f}")
+    if "spec_acceptance_rate" in report:
+        print(f"speculative: draft={args.draft} k={args.spec_k}, "
+              f"{report['spec_rounds']} rounds, acceptance "
+              f"{report['spec_acceptance_rate']:.2f} "
+              f"({report['spec_accepted']}/{report['spec_proposed']}), "
+              f"tokens/step {report['tokens_per_step']:.2f}, "
+              f"draft time {report['draft_time_s']*1e3:.0f}ms")
     if "kv_pool" in report:
         kv = report["kv_pool"]
         print(f"kv pool: {kv['n_pages']} pages x {kv['page_size']} tok, "
@@ -151,7 +244,27 @@ def main(argv=None):
               f"{kv['cow_copies']} CoW copies")
     check_outputs(cfg, engine, requests)
 
-    if not args.requests and not args.prefix_len:
+    if args.check_exact:
+        # the same trace on a dense engine without a draft: the paged,
+        # speculative engine must emit the same greedy streams
+        del engine
+        ref = ServingEngine(cfg, params, max_slots=max_slots,
+                            max_len=max_len, device=device)
+        ref_reqs = [ref.submit(it.prompt, it.gen, arrival_time=it.arrival)
+                    for it in work]
+        ref.run()
+        n_cmp = 0
+        for a, b in zip(requests, ref_reqs):
+            if a.status != FINISHED:
+                continue
+            assert a.generated == b.generated, \
+                (a.rid, a.generated, b.generated)
+            n_cmp += 1
+        assert n_cmp > 0, "no finished requests to compare"
+        print(f"check-exact: {n_cmp} token streams match the dense "
+              f"engine without a draft")
+
+    if not args.requests and not args.prefix_len and not args.workload:
         gen = np.stack([np.asarray(r.generated, np.int32) for r in requests])
         print("generated ids[0,:16]:", gen[0, :16].tolist())
         return gen

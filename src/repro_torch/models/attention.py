@@ -6,11 +6,14 @@ Four paths:
     the flash_attention_bwd kernel, as the JAX package's `_attention_fused`
     custom VJP routes it; the kernel takes any T (JAX routes only T its
     blocks divide, `_flash_shapes_ok`, and the rest to the chunked path);
-  * a one-token decode step on a dense cache goes to the flash_decode
-    kernel, which reads each slot's cache prefix in place;
-  * a one-token decode step on a page pool (`kv_table` given) goes to
-    the flash_decode_paged kernel, which reads each slot's pages in
-    place through the table;
+  * a decode step on a dense cache (one token a slot at a per-slot
+    position), or a speculative verify step (t tokens a slot, n_valid of
+    them real), goes to the flash_decode kernel, which reads each slot's
+    cache prefix in place; row r of a verify step is the decode step's
+    result at pos + r, bit for bit;
+  * the same on a page pool (`kv_table` given) goes to the
+    flash_decode_paged kernel, which reads each slot's pages in place
+    through the table;
   * prefill into a cache takes `chunked_attention`, an online softmax
     over KV chunks in plain PyTorch, as the JAX package runs masked
     prefill in plain XLA.
@@ -99,10 +102,11 @@ class _AttentionFused(torch.autograd.Function):
 
 def attention(q, k, v, *, window, chunk, q_offset=0, kv_len=None,
               io_dtype=torch.float32, decode: bool = False):
-    """The attention chokepoint: a decode step (t == 1, kv_len = pos + 1)
-    runs the flash_decode kernel; cache-less self-attention (no kv_len,
-    q_offset 0) the flash_attention kernel and its backward; prefill into
-    a cache the chunked path."""
+    """The attention chokepoint of the contiguous paths: a one-token step
+    at an int position (kv_len = pos + 1) runs the flash_decode kernel;
+    cache-less self-attention (no kv_len, q_offset 0) the flash_attention
+    kernel and its backward; prefill into a cache the chunked path. (The
+    per-slot paths call the decode kernels themselves.)"""
     if decode and q.shape[1] == 1:
         return kops.flash_decode(q, k, v, pos=q_offset, window=window)
     if kv_len is None and isinstance(q_offset, int) and q_offset == 0:
@@ -140,31 +144,99 @@ def _project_kv(p, x, cfg):
     return k, v
 
 
-def _write_rows(cache, k, v, pos):
-    """Write each slot's new row at its own position. A slot with pos < 0
-    is idle, and a position past the cache is dropped, as the JAX
-    package's scatter drops it: such a slot's row is rewritten with its
-    own old value, so no host sync is needed to find the active slots."""
+def _row_positions(pos, t: int, n_valid, device):
+    """The positions pos[b] + r of each slot's t new rows, (B, t) long, and
+    the mask of the real ones: pos >= 0 and r < n_valid[b] (all t rows
+    without n_valid)."""
+    pos = pos.to(device, torch.long)[:, None]
+    r = torch.arange(t, device=device)[None]
+    n = t if n_valid is None else n_valid.to(device)[:, None]
+    return pos + r, (pos >= 0) & (r < n)
+
+
+def _scatter_rows(c, idx, keep, new) -> None:
+    """c[idx] = new where keep, for a tuple `idx` of (N,) index tensors
+    (and slices) and an (N,) mask: the rows keep drops are written
+    nowhere, as the JAX package's scatter with mode="drop" writes them.
+    Without a host sync: each dropped row repeats the write of one donor
+    row (the first kept one, or row 0 rewriting its own old value when
+    none is kept), so every duplicated index carries one value and the
+    scatter is deterministic; kept rows write distinct places."""
+    n = keep.shape[0]
+    donor = torch.argmax(keep.to(torch.int8))
+    sel = torch.where(keep, torch.arange(n, device=keep.device), donor)
+    old = c[idx]
+    val = torch.where(keep.view(n, *([1] * (old.dim() - 1))),
+                      new.to(c.dtype), old)
+    c[tuple(i[sel] if isinstance(i, torch.Tensor) else i
+            for i in idx)] = val[sel]
+
+
+def _write_rows(cache, k, v, pos, n_valid=None):
+    """Write slot b's new rows r = 0 .. t - 1 at positions pos[b] + r of
+    its cache row. A slot with pos < 0 is idle; rows r >= n_valid[b] and
+    positions past the cache are dropped (`_scatter_rows`). One row a
+    slot (a decode step) takes the short path: each slot writes its own
+    place, a dropped slot its own old value, so no place is written
+    twice and no donor is needed."""
+    b, t = k.shape[:2]
     tmax = cache["k"].shape[1]
-    pos = pos.to(k.device, torch.long)
-    keep = ((pos >= 0) & (pos < tmax))[:, None, None]
-    bidx = torch.arange(k.shape[0], device=k.device)
-    widx = pos.clamp(0, tmax - 1)
+    if t == 1 and n_valid is None:
+        pos = pos.to(k.device, torch.long)
+        keep = ((pos >= 0) & (pos < tmax))[:, None, None]
+        bidx = torch.arange(b, device=k.device)
+        widx = pos.clamp(0, tmax - 1)
+        for name, new in (("k", k), ("v", v)):
+            c = cache[name]
+            c[bidx, widx] = torch.where(keep, new[:, 0].to(c.dtype),
+                                        c[bidx, widx])
+        return
+    wpos, keep = _row_positions(pos, t, n_valid, k.device)
+    keep = (keep & (wpos < tmax)).reshape(-1)
+    bidx = torch.arange(b, device=k.device).repeat_interleave(t)
+    widx = wpos.reshape(-1).clamp(0, tmax - 1)
     for name, new in (("k", k), ("v", v)):
-        c = cache[name]
-        c[bidx, widx] = torch.where(keep, new[:, 0].to(c.dtype), c[bidx, widx])
+        _scatter_rows(cache[name], (bidx, widx), keep,
+                      new.reshape(b * t, *new.shape[2:]))
 
 
-def _write_pages(pool, table, k, v, pos):
-    """Write each slot's new row at (table[b, pos // ps], pos % ps) of the
-    layer's pool, quantized on an int8 pool (scales into ks/vs[phys, :,
-    off]). A slot with pos < 0, pos past the table or an unmapped (-1)
-    write page writes nothing, as the JAX package's scatter with
-    mode="drop" writes nothing. Without a host sync: each dropped slot
+def _write_pages(pool, table, k, v, pos, n_valid=None):
+    """Write slot b's new rows r = 0 .. t - 1 at (table[b, p // ps], p % ps)
+    of the layer's pool, p = pos[b] + r, quantized on an int8 pool (scales
+    into ks/vs[phys, :, off]). A slot with pos < 0, rows r >= n_valid[b],
+    a position past the table and an unmapped (-1) page write nothing
+    (`_scatter_rows`); kept rows write private pages (the engine's
+    prepare_write), so no two of them meet. One row a slot (a decode
+    step) takes the short path of the same rule."""
+    b, t = k.shape[:2]
+    ps = pool["k"].shape[1]
+    pp = table.shape[1]
+    if t == 1 and n_valid is None:
+        _write_page_rows(pool, table, k, v, pos)
+        return
+    wpos, keep = _row_positions(pos, t, n_valid, k.device)
+    bidx = torch.arange(b, device=k.device)[:, None]
+    j = (wpos.clamp(min=0) // ps).clamp(max=pp - 1)
+    phys = table[bidx, j].long()
+    keep = (keep & (wpos < pp * ps) & (phys >= 0)).reshape(-1)
+    phys = phys.clamp(min=0).reshape(-1)
+    off = (wpos.clamp(min=0) % ps).reshape(-1)
+    rows = {"k": k.reshape(b * t, *k.shape[2:]),
+            "v": v.reshape(b * t, *v.shape[2:])}          # (B t, Hkv, D)
+    if "ks" in pool:
+        for name in ("k", "v"):
+            q, s = precision.quantize_kv(rows[name])      # s: (B t, Hkv)
+            rows[name], rows[name + "s"] = q, s
+    for name, new in rows.items():
+        idx = (phys, slice(None), off) if name in ("ks", "vs") \
+            else (phys, off)
+        _scatter_rows(pool[name], idx, keep, new)
+
+
+def _write_page_rows(pool, table, k, v, pos):
+    """`_write_pages` for one row a slot, in fewer ops: each dropped slot
     repeats the write of one donor slot (the first kept one, or slot 0
-    rewriting its own old values when none is kept), so every duplicated
-    index carries one value and the scatter is deterministic; kept slots
-    write private pages (the engine's prepare_write), so theirs differ."""
+    rewriting its own old values when none is kept)."""
     ps = pool["k"].shape[1]
     nb, pp = table.shape
     pos = pos.to(k.device, torch.long)
@@ -193,15 +265,16 @@ def _write_pages(pool, table, k, v, pos):
 
 
 def attn_apply(p, x, cfg, *, cache: Optional[dict] = None, cache_pos=None,
-               kv_table=None):
+               kv_table=None, n_valid=None):
     """Returns (out, cache). Without a cache: causal self-attention over
     x's own tokens (training). cache: {"k", "v"} [B, Tmax, Hkv, Dh],
     updated in place at cache_pos: an int (every row at one offset, a slice
-    update) or, for a one-token step, a (B,) vector of per-slot positions
-    (continuous batching; pos < 0 = idle slot, its rows untouched).
-    With kv_table (B, pp), cache is the layer's page pool {"k", "v":
-    [P, page_size, Hkv, Dh][, "ks", "vs": [P, Hkv, page_size]]}, and the
-    step is one token a slot at a per-slot cache_pos."""
+    update) or a (B,) vector of per-slot positions (continuous batching;
+    pos < 0 = idle slot, its rows untouched): token r of slot b at
+    pos[b] + r, and with n_valid (B,) only its first n_valid[b] tokens
+    written and attended (a verify step). With kv_table (B, pp), cache is
+    the layer's page pool {"k", "v": [P, page_size, Hkv, Dh][, "ks",
+    "vs": [P, Hkv, page_size]]}, at a per-slot cache_pos."""
     b, t, _ = x.shape
     dh = cfg.resolved_head_dim
     q = L.dense_apply(p["wq"], x).reshape(b, t, cfg.n_heads, dh)
@@ -211,11 +284,9 @@ def attn_apply(p, x, cfg, *, cache: Optional[dict] = None, cache_pos=None,
     k, v = _project_kv(p, x, cfg)
 
     pos_vec = isinstance(cache_pos, torch.Tensor) and cache_pos.dim() == 1
-    if pos_vec and t != 1:
-        raise ValueError(f"a per-slot cache_pos takes one token a slot, "
-                         f"got {t}")
-    if kv_table is not None and not pos_vec:
-        raise ValueError("a paged KV cache takes a per-slot cache_pos")
+    if (kv_table is not None or n_valid is not None) and not pos_vec:
+        raise ValueError("a paged KV cache and n_valid take a per-slot "
+                         "cache_pos")
     positions = L.default_positions(
         b, t, cache_pos if cache_pos is not None else 0, device=x.device)
     if cfg.use_rope:
@@ -223,15 +294,15 @@ def attn_apply(p, x, cfg, *, cache: Optional[dict] = None, cache_pos=None,
         k = L.apply_rope(k, positions, cfg.rope_theta)
 
     if cache is not None and kv_table is not None:
-        _write_pages(cache, kv_table, k, v, cache_pos)
+        _write_pages(cache, kv_table, k, v, cache_pos, n_valid)
         out = kops.flash_decode_paged(q, cache["k"], cache["v"], kv_table,
                                       pos=cache_pos, window=cfg.window,
-                                      ks=cache.get("ks"), vs=cache.get("vs"))
+                                      ks=cache.get("ks"), vs=cache.get("vs"),
+                                      n_valid=n_valid)
     elif cache is not None and pos_vec:
-        _write_rows(cache, k, v, cache_pos)
-        out = attention(q, cache["k"], cache["v"], window=cfg.window,
-                        chunk=cfg.attn_chunk, q_offset=cache_pos,
-                        io_dtype=io_dtype, decode=True)
+        _write_rows(cache, k, v, cache_pos, n_valid)
+        out = kops.flash_decode(q, cache["k"], cache["v"], pos=cache_pos,
+                                window=cfg.window, n_valid=n_valid)
     elif cache is not None:
         pos = int(cache_pos)
         cache["k"][:, pos:pos + t] = k.to(cache["k"].dtype)

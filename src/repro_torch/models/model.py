@@ -7,6 +7,7 @@
                               pages_per_slot, quant_kv=..., device=...)
     logits, cache = prefill(cfg, params, batch, cache)
     logits, cache = decode_step(cfg, params, token, pos, cache)   # or pcache
+    logits, cache = verify_step(cfg, params, tokens, pos, n_tok, cache)
     logits = forward(cfg, params, batch)                # training
     loss, metrics = loss_fn(cfg, params, batch)         # differentiable
 
@@ -221,4 +222,33 @@ def decode_step(cfg, params, token, pos, cache):
     else:
         x, cache = T.stack_apply(params["layers"], x, cfg, caches=cache,
                                  cache_pos=pos)
+    return _logits(cfg, params, x), cache
+
+
+def verify_step(cfg, params, tokens, pos, n_tok, cache):
+    """A speculative verify step, one forward over t tokens a slot.
+
+    tokens: (B, t) int, a slot's pending token and its draft proposals;
+    pos: (B,) int tensor, the position of tokens[:, 0] (pos < 0: idle
+    slot); n_tok: (B,) int tensor, the real tokens a slot: rows past it
+    neither write the cache nor attend, and their logits rows are
+    garbage. `cache` is a dense or a paged cache (int8 pages too),
+    updated in place. Returns ((B, t, padded_vocab) f32 logits, cache):
+    row j scores the token at pos + j + 1. Its attention is the decode
+    kernel's multi-row form, so row j and the cache rows it writes are
+    those of a decode step at pos + j, bit for bit, as its GEMMs' rows
+    are at any row count. The dense family only, as the JAX package's
+    `verify_step` refuses the families without an attention cache."""
+    if cfg.family != "dense":
+        raise ValueError(f"speculative verification needs an attention "
+                         f"cache (family dense), not {cfg.name} "
+                         f"({cfg.family})")
+    x = L.embed_apply(params["embed"], tokens, dtype=getattr(torch, cfg.dtype))
+    if "pages" in cache:
+        x, _ = T.stack_apply(params["layers"], x, cfg, caches=cache["pages"],
+                             cache_pos=pos, kv_table=cache["table"],
+                             n_valid=n_tok)
+    else:
+        x, cache = T.stack_apply(params["layers"], x, cfg, caches=cache,
+                                 cache_pos=pos, n_valid=n_tok)
     return _logits(cfg, params, x), cache

@@ -35,11 +35,12 @@ def block_init(generator, cfg, *, device):
     }
 
 
-def block_apply(p, x, cfg, *, cache=None, cache_pos=None, kv_table=None):
+def block_apply(p, x, cfg, *, cache=None, cache_pos=None, kv_table=None,
+                n_valid=None):
     """Returns (x, cache)."""
     h, cache = A.attn_apply(p["attn"], L.rmsnorm_apply(p["attn_norm"], x),
                             cfg, cache=cache, cache_pos=cache_pos,
-                            kv_table=kv_table)
+                            kv_table=kv_table, n_valid=n_valid)
     x = x + h
     # the skip connection rides the down-projection's flush (residual)
     out = F.mlp_apply(p["mlp"], L.rmsnorm_apply(p["mlp_norm"], x), cfg,
@@ -69,17 +70,19 @@ def _unstack(tree, n):
 
 
 def stack_apply(params, x, cfg, *, caches=None, cache_pos=None,
-                kv_table=None):
+                kv_table=None, n_valid=None):
     """Returns (x, caches). Without caches this is the training forward
     (cache-less causal attention). kv_table (paged decode) has no layer
     dim: a logical page is the same physical page in every layer's pool,
-    so every layer gets the same table."""
+    so every layer gets the same table. n_valid: a verify step's real
+    tokens a slot (models.attention.attn_apply)."""
     n = params["attn_norm"]["scale"].shape[0]
     layers = _unstack(params, n)
     per_cache = [None] * n if caches is None else _unstack(caches, n)
     for i in range(n):
         x, _ = block_apply(layers[i], x, cfg, cache=per_cache[i],
-                           cache_pos=cache_pos, kv_table=kv_table)
+                           cache_pos=cache_pos, kv_table=kv_table,
+                           n_valid=n_valid)
     return x, caches
 
 

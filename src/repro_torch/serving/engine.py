@@ -2,66 +2,93 @@
 
 Request lifecycle (one slot = one batch row of the decode step):
 
-        submit            slot free & arrived          len == max_new
-    req ------> WAITING ----------------------> ACTIVE --------------> FINISHED
-                          admit = prefill(1xL)    |    evict: pos[slot] = -1,
-                          + copy into slot row    |    slot back in free pool
-                                                  | a non-finite logits row
-                                                  +----------> QUARANTINED
+        submit          slot free & eligible        max_new tokens or eos
+    req ------> WAITING -------------------> ACTIVE ---------------------> FINISHED
+                 |   ^    admit = prefill(1xL)  |  |
+                 |   |    + copy into slot row  |  +-- cancel(rid) ------> CANCELLED
+                 |   +---- preempted (paged) ---+  +-- non-finite row ---> QUARANTINED
+                 +-- deadline passed -----------------------------------> EXPIRED
+                 +-- cancel(rid) ---------------------------------------> CANCELLED
 
 Every decode step runs the model once over ALL slots with a per-slot
 position vector `pos: (S,) int32`; idle slots carry pos = -1, so their
 cache rows are left alone and their logits are discarded. Each row is
-checked before it is sampled, at admission and at every decode step: a
-row that is not all finite ends only its own request (QUARANTINED, with
-`error` set, counted in the report's "quarantined") and frees its slot
-and pages, as the JAX engine does; the other slots' rows never mix with
-it, so their streams go on unchanged.
+checked before it is sampled, at admission and at every step: a row that
+is not all finite ends only its own request (QUARANTINED, with `error`
+set), as the JAX engine does; the other slots' rows never mix with it.
+Tokens are chosen on the host by a `sampler.Sampler` (greedy by
+default; temperature and top-k); a request ends at `max_new_tokens` or
+at `eos_id`.
 
 Admission prefills the prompt at batch 1 into the engine's one-slot
 sub-cache, zeroed first, over a length bucketed down to a multiple of
-`PREFILL_CHUNK`; the remaining tokens run as one-token steps at a (1,)
+`prefill_chunk`; the remaining tokens run as one-token steps at a (1,)
 position vector, and the sub-cache is then copied into the slot's row.
 
+Deadlines, cancel and preemption, as the JAX engine has them: each step
+first drops the waiters whose deadline has passed (EXPIRED; a request
+already admitted is never dropped). `cancel(rid)` ends a waiting or an
+active request at once and frees its slot and pages. In paged mode a
+FCFS head that the pool cannot take preempts the lowest-priority, then
+youngest, active request that it strictly outranks and that has retries
+left (`preempt_retry_budget`): its pages go back to the pool, and it
+waits again at its rid's place, eligible after a backoff that doubles
+with each preemption (`preempt_backoff`). Equal priorities never
+preempt; the head waits. A resumed request recomputes its context
+(recompute-on-resume) by the route of its first admission, the prompt's
+bucket prefilled and the rest run through the remainder step, its
+generated tokens included, so every row it writes has the bits the
+uninterrupted run wrote (the JAX engine prefills the whole context).
+
+Speculative decoding (`draft=(cfg, params)`): each step is a round. The
+draft (`serving.spec.SpecDecoder`) proposes up to `spec_k` tokens a
+slot; the target's verify step (`models.model.verify_step`) scores the
+pending token and the proposals of every slot in one forward, whose
+attention is the decode kernel's multi-row form, so each of its rows
+and the cache rows it writes are a decode step's bits; the sampler's
+leftover/residual rule (`speculative_accept`) emits 1 .. k + 1 tokens a
+slot, and the eos token truncates a round. Rollback is positional (see
+serving.spec). In paged mode every page a round may write is made
+private (copy-on-write) before the verify step runs.
+
 The steps (`_build_steps`), as the JAX engine jits its serve step: the
-decode step over all slots (`_step`) and the admission's one-token
-remainder step (`_remainder_step`) each read only tensors the engine
-owns for its life: the params, the cache (its page table too) or the
-sub-cache, and static token and position tensors, which a step fills
-with `copy_` from the host state before it runs. On the card each step
-is captured once, at construction with every slot idle, in a CUDA graph
-(`_CapturedStep`), and a step is a replay: one launch where eager
-PyTorch dispatches thousands of ops. On the CPU the engine calls the
-same functions directly. A step that cannot be captured (a host sync in
-it, for one) raises RuntimeError from the constructor: the card never
-runs a step eagerly. The admission prefill stays eager (a graph per
-prompt length would cost a memory pool each).
+decode step over all slots (`_step`), the admission's one-token
+remainder step (`_remainder_step`) and, with a draft, the verify step
+over static (S, k + 1) tokens (`_verify_step`) each read only tensors
+the engine owns for its life: the params, the cache (its page table
+too) or the sub-cache, and static token, position and count tensors,
+which a step fills with `copy_` from the host state before it runs. On
+the card each step is captured once, at construction with every slot
+idle, in a CUDA graph (`steps.CapturedStep`), as are the draft's, and a
+step is a replay. On the CPU the engine calls the same functions
+directly. A step that cannot be captured (a host sync in it, for one)
+raises RuntimeError from the constructor: the card never runs a step
+eagerly. The admission prefill stays eager.
 
 Paged mode (kv_layout="paged"): the per-slot cache rows are replaced by
 a fixed pool of KV pages and a per-slot page table
 (models.init_paged_cache + serving.kv_pool). Admission still prefills
 into a dense batch-1 sub-cache, but copies it out page by page
 (`_write_page`), and pages whose content hash matches a resident prompt
-page are shared instead of written. Before each decode step
-`pool.prepare_write` makes every slot's write page private: a write
-into a shared page becomes a copy-on-write (`_copy_page`). Admission
-waits while the pool cannot guarantee a request's whole write range.
-quant_kv="int8" stores pages as int8 with per-(position, head) scales,
-quantized at page write; quant="int8" quantizes the dense weights once,
-at construction (the embedding stays in the compute dtype).
+page are shared instead of written. Before each step `pool.prepare_write`
+makes every page a slot may write private: a write into a shared page
+becomes a copy-on-write (`_copy_page`). Admission waits while the pool
+cannot guarantee a request's whole write range. quant_kv="int8" stores
+pages as int8 with per-(position, head) scales, quantized at page write;
+quant="int8" quantizes the dense weights once, at construction (the
+embedding stays in the compute dtype).
 
 Family ssm (Mamba-2): a slot's cache row is its recurrent state (the SSD
 state and the conv tails of every layer), which admission copies in
-leaf by leaf. The state has no positions, so neither a page pool nor
-int8 weights or pages apply, and max_len only bounds what a request may
-ask for. A decode step steps every row, an idle slot's on garbage that
-its next admission overwrites, as in the JAX engine.
+leaf by leaf. The state has no positions, so neither a page pool, int8
+weights or pages, nor a verify step apply, and max_len only bounds what
+a request may ask for. A decode step steps every row, an idle slot's on
+garbage that its next admission overwrites, as in the JAX engine.
 
-These are the dense, paged and int8 paths of the JAX package's
-`ServingEngine`, with the policy fields kv_layout / quant_kv / quant as
-constructor arguments. A kernel fault propagates: there is no retry and
-no degraded backend; preemption is not ported, so a head that the pool
-cannot take waits for pages to free.
+These are the JAX package's `ServingEngine` paths, with the policy
+fields kv_layout / quant_kv / quant as constructor arguments. A kernel
+fault propagates: there is no retry and no degraded backend, and the
+chaos injector is not ported.
 """
 
 from __future__ import annotations
@@ -75,17 +102,19 @@ import torch
 
 from repro_torch.core import precision
 from repro_torch.core.device import resolve_device
-from repro_torch.kernels import ops as kops
 from repro_torch.models import model as M
 from repro_torch.serving.kv_pool import KVPagePool, KVPoolExhausted
-from repro_torch.serving.request import (FINISHED, QUARANTINED, Request,
-                                         percentile)
-from repro_torch.serving.sampler import greedy
+from repro_torch.serving.request import (ACTIVE, CANCELLED, FINISHED,
+                                         QUARANTINED, TERMINAL, WAITING,
+                                         Request, percentile)
+from repro_torch.serving.sampler import Sampler
 from repro_torch.serving.scheduler import SlotScheduler
+from repro_torch.serving.spec import SpecDecoder
+from repro_torch.serving.steps import CapturedStep, on_device, place_params
 
 # Admission prefill buckets prompt lengths down to a multiple of this
 # (remainder tokens run through one-token steps).
-PREFILL_CHUNK = 8
+DEFAULT_PREFILL_CHUNK = 8
 # An engine with no slot busy sleeps this long, at least, between polls
 # for the next arrival.
 IDLE_SLEEP_S = 1e-3
@@ -94,26 +123,6 @@ IDLE_SLEEP_S = 1e-3
 DEFAULT_PAGE_SIZE = 16
 KV_LAYOUTS = ("dense", "paged")
 QUANT_MODES = ("off", *precision.QUANT_MODES)
-# Eager runs of a step on a side stream before its capture: the first
-# builds and loads the kernels and sets their attributes, host work that
-# a capture must not see.
-WARMUP_RUNS = 2
-
-
-def _place(tree, device, dtype):
-    """The params on `device`, float matrix weights ("w" leaves) in the
-    compute dtype; norm scales and the int8 weights' leaves ("w_q" int8,
-    "w_scale" f32) as they are. The JAX package casts each weight to the
-    activation dtype on every call; casting once here gives the same
-    values."""
-    return {k: _place(v, device, dtype) if isinstance(v, dict)
-            else v.to(device, dtype if k == "w" else v.dtype)
-            for k, v in tree.items()}
-
-
-def _on(tree, device):
-    return {k: _on(v, device) if isinstance(v, dict) else v.to(device)
-            for k, v in tree.items()}
 
 
 def check_modes(cfg, kv_layout: str, quant_kv: str, quant: str) -> None:
@@ -143,15 +152,23 @@ class ServingEngine:
                  device=None, kv_layout: str = "dense",
                  quant_kv: str = "off", quant: str = "off",
                  page_size: int = DEFAULT_PAGE_SIZE,
-                 kv_pool_pages: Optional[int] = None):
+                 kv_pool_pages: Optional[int] = None,
+                 sampler: Optional[Sampler] = None,
+                 prefill_chunk: int = DEFAULT_PREFILL_CHUNK,
+                 eos_id: Optional[int] = None,
+                 preempt_retry_budget: int = 2,
+                 preempt_backoff: float = 0.02,
+                 draft=None, spec_k: int = 4,
+                 draft_sampler: Optional[Sampler] = None):
         check_modes(cfg, kv_layout, quant_kv, quant)
         paged = kv_layout == "paged"
         self.cfg = cfg
         self.device = resolve_device(device)
         if quant == "int8":
             # quantize the f32 weights once, before any cast, on the card
-            params = M.quantize_params(_on(params, self.device))
-        self.params = _place(params, self.device, getattr(torch, cfg.dtype))
+            params = M.quantize_params(on_device(params, self.device))
+        self.params = place_params(params, self.device,
+                                   getattr(torch, cfg.dtype))
         self.max_slots = max_slots
         # chunked_attention needs kv lengths beyond attn_chunk to be
         # chunk multiples; max_len is trace-dependent, so round it up (an
@@ -166,7 +183,12 @@ class ServingEngine:
         elif cfg.family != "ssm" and max_len > a and max_len % a:
             max_len += a - max_len % a
         self.max_len = max_len
+        self.prefill_chunk = max(1, prefill_chunk)
+        self.eos_id = eos_id
+        self.sampler = sampler or Sampler()
         self.scheduler = SlotScheduler(max_slots)
+        self.preempt_retry_budget = preempt_retry_budget
+        self.preempt_backoff = preempt_backoff
 
         self.page_size = page_size if paged else None
         self.pool: Optional[KVPagePool] = None
@@ -202,6 +224,36 @@ class ServingEngine:
         self._rem_pos = torch.full((1,), -1, dtype=torch.int32,
                                    device=self.device)
 
+        # speculative decoding: the draft, and the verify step's (S, k+1)
+        # tokens and (S,) real-token counts (its positions are _step_pos)
+        self.spec: Optional[SpecDecoder] = None
+        self.spec_k = spec_k
+        self.spec_rounds = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        if draft is not None:
+            if cfg.family != "dense":
+                raise ValueError(
+                    f"speculative decoding needs a verify-capable target "
+                    f"(dense), not {cfg.family!r}")
+            draft_cfg, draft_params = draft
+            if draft_cfg.vocab != cfg.vocab:
+                raise ValueError(
+                    f"draft vocab {draft_cfg.vocab} != target vocab "
+                    f"{cfg.vocab}: acceptance compares distributions "
+                    f"over the same token space")
+            self.spec = SpecDecoder(
+                draft_cfg, draft_params, max_slots=max_slots,
+                max_len=self.max_len, spec_k=spec_k, sampler=draft_sampler,
+                prefill_chunk=self.prefill_chunk, device=self.device)
+            self._vtokens_h = torch.zeros((max_slots, spec_k + 1),
+                                          dtype=torch.int64, pin_memory=pin)
+            self._ntok_h = torch.zeros((max_slots,), dtype=torch.int32,
+                                       pin_memory=pin)
+            self._v_tokens = torch.zeros_like(self._vtokens_h,
+                                              device=self.device)
+            self._v_ntok = torch.zeros_like(self._ntok_h, device=self.device)
+
         self.requests: List[Request] = []
         self._next_rid = 0
         self._t0: Optional[float] = None
@@ -211,10 +263,13 @@ class ServingEngine:
         self.decode_time = 0.0
         self.decode_slot_steps = 0     # sum of active slots over steps
         self.tokens_emitted = 0
-        self.quarantined = 0
         self.peak_occupancy = 0
         self._step_times: List[float] = []
-        self.capture_s = 0.0           # _build_steps' warm-ups and captures
+        self.expired = 0
+        self.cancelled = 0
+        self.preempted = 0             # preemption events (a request may repeat)
+        self.quarantined = 0
+        self.capture_s = 0.0           # every graph's warm-ups and capture
         self.graph_pool_bytes = 0      # the graphs' private memory pools
         self._build_steps()
 
@@ -233,28 +288,45 @@ class ServingEngine:
                                   self._rem_pos, self._sub)
         return logits
 
+    def _verify_fn(self):
+        """The pending token and the draft's proposals of every slot, at
+        its position, into the cache in place; (S, k + 1, padded_vocab)
+        f32 logits."""
+        logits, _ = M.verify_step(self.cfg, self.params, self._v_tokens,
+                                  self._step_pos, self._v_ntok, self.cache)
+        return logits
+
     def _build_steps(self) -> None:
-        """Make `_step` and `_remainder_step`: on the card, CUDA graphs of
-        `_decode_fn` and `_remainder_fn`, captured while every slot is
+        """Make `_step`, `_remainder_step` and, with a draft,
+        `_verify_step`: on the card, CUDA graphs of `_decode_fn`,
+        `_remainder_fn` and `_verify_fn`, captured while every slot is
         idle (pos = -1, so the warm-ups and captures write no KV row; an
         ssm state steps only idle rows, which admission overwrites); on
-        the CPU, the functions themselves."""
+        the CPU, the functions themselves. The capture time and the
+        graphs' pools count the draft's graphs too."""
+        steps = [("_step", self._decode_fn, "the decode step"),
+                 ("_remainder_step", self._remainder_fn,
+                  "the prefill-remainder step")]
+        if self.spec is not None:
+            steps.append(("_verify_step", self._verify_fn, "the verify step"))
         if self.device.type != "cuda":
-            self._step, self._remainder_step = \
-                self._decode_fn, self._remainder_fn
+            for name, fn, _ in steps:
+                setattr(self, name, fn)
             return
         t0 = time.perf_counter()
-        self._step = _CapturedStep(self._decode_fn, self.device,
-                                   "the decode step")
-        self._remainder_step = _CapturedStep(self._remainder_fn, self.device,
-                                             "the prefill-remainder step")
+        for name, fn, what in steps:
+            step = CapturedStep(fn, self.device, what)
+            setattr(self, name, step)
+            self.graph_pool_bytes += step.pool_bytes
         self.capture_s = time.perf_counter() - t0
-        self.graph_pool_bytes = (self._step.pool_bytes
-                                 + self._remainder_step.pool_bytes)
+        if self.spec is not None:
+            self.capture_s += self.spec.capture_s
+            self.graph_pool_bytes += self.spec.graph_pool_bytes
 
     # -- submission ----------------------------------------------------
     def submit(self, prompt, max_new_tokens: int, *,
-               arrival_time: float = 0.0) -> Request:
+               arrival_time: float = 0.0, deadline: Optional[float] = None,
+               priority: int = 0) -> Request:
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size + max_new_tokens > self.max_len:
             raise ValueError(
@@ -274,7 +346,9 @@ class ServingEngine:
                     f"{max_new_tokens} @ page_size {ps}, the write range "
                     f"reserved) but the pool only has {self.pool.n_pages}")
         req = Request(rid=self._next_rid, prompt=prompt,
-                      max_new_tokens=max_new_tokens, arrival_time=arrival_time)
+                      max_new_tokens=max_new_tokens,
+                      arrival_time=arrival_time, deadline=deadline,
+                      priority=priority)
         self._next_rid += 1
         self.requests.append(req)
         self.scheduler.submit(req)
@@ -327,23 +401,29 @@ class ServingEngine:
 
     # -- admission (prefill path) ---------------------------------------
     def _admit(self, req: Request) -> None:
+        """Prefill `req` into a free slot and sample its next token. A
+        resumed (preempted) request recomputes its whole context, prompt
+        plus the tokens generated before, by its first admission's route:
+        the prompt's bucket prefilled, every later token through the
+        remainder step (recompute-on-resume)."""
         slot = self.scheduler.admit(req)
-        ctx = req.prompt
+        ctx = req.context_tokens()
         plan = None
         if self.pool is not None:
-            plan = self.pool.admit_slot(slot, ctx, req.max_new_tokens)
-        req.t_admitted = self._now()
+            plan = self.pool.admit_slot(slot, ctx, req.remaining_tokens)
+        if req.t_admitted is None:
+            req.t_admitted = self._now()
         t0 = time.perf_counter()
 
-        L = len(ctx)
-        lb = L - (L % PREFILL_CHUNK) or L   # bucket down; short prompts exact
+        L = req.prompt_len
+        lb = L - (L % self.prefill_chunk) or L   # bucket down; short prompts exact
         tokens = torch.as_tensor(ctx, dtype=torch.long, device=self.device)
         sub = self._sub
         for leaf in sub.values():
             leaf.zero_()
         logits, _ = M.prefill(self.cfg, self.params,
                               {"tokens": tokens[None, :lb]}, sub)
-        for i in range(lb, L):         # remainder: one-token steps
+        for i in range(lb, len(ctx)):    # remainder: one-token steps
             self._rem_token.copy_(tokens[None, i:i + 1])
             self._rem_pos.fill_(i)
             logits = self._remainder_step()
@@ -351,31 +431,44 @@ class ServingEngine:
 
         row = logits[0, -1, :self.cfg.vocab].cpu().numpy()   # sync point
         self.prefill_time += time.perf_counter() - t0
-        self.prefill_tokens += L
+        self.prefill_tokens += len(ctx)
         now = self._now()
         if not np.isfinite(row).all():
             self._quarantine(req, slot, now,
                              "non-finite logits at admission prefill")
             return
-        tok = greedy(row)
-        req.t_first_token = now
+        tok = self.sampler(row)
+        if req.t_first_token is None:
+            req.t_first_token = now
         req.generated.append(tok)
         self.tokens_emitted += 1
-        if req.n_generated >= req.max_new_tokens:
+        if self._done(req, tok):
             self._release(req, slot, now)
         else:
-            self._pos[slot] = L
+            self._pos[slot] = len(ctx)
             self._tokens[slot, 0] = tok
+            if self.spec is not None:
+                # the draft's cache rows 0 .. len(ctx) - 1; its first round
+                # feeds the pending token at len(ctx)
+                self.spec.admit(slot, ctx)
 
-    def _release(self, req: Request, slot: int, now: float,
-                 status: str = FINISHED) -> None:
-        """Free the slot and its KV pages (shared pages drop one
-        reference; their other holders keep the bytes)."""
-        self.scheduler.release(slot, status)
+    def _done(self, req: Request, tok: int) -> bool:
+        return (req.n_generated >= req.max_new_tokens
+                or (self.eos_id is not None and tok == self.eos_id))
+
+    # -- release / cancellation / preemption ----------------------------
+    def _free_slot(self, slot: int) -> None:
         if self.pool is not None:
             self.pool.release_slot(slot)
         self._pos[slot] = -1
         self._tokens[slot, 0] = 0
+
+    def _release(self, req: Request, slot: int, now: float,
+                 status: str = FINISHED) -> None:
+        """Free the slot and its KV pages into a terminal state (shared
+        pages drop one reference; their other holders keep the bytes)."""
+        self.scheduler.release(slot, status)
+        self._free_slot(slot)
         req.t_finished = now
 
     def _quarantine(self, req: Request, slot: int, now: float,
@@ -385,16 +478,68 @@ class ServingEngine:
         self.quarantined += 1
         self._release(req, slot, now, QUARANTINED)
 
+    def cancel(self, rid: int) -> bool:
+        """Cancel a request by id: a waiter leaves the queue, an active
+        request gives up its slot and KV pages at once. Returns False
+        when the request is already terminal; raises ValueError for an
+        unknown id."""
+        req = next((r for r in self.requests if r.rid == rid), None)
+        if req is None:
+            raise ValueError(f"unknown request id {rid}")
+        if req.status in TERMINAL:
+            return False
+        now = self._now()
+        if req.status == WAITING:
+            self.scheduler.remove_waiting(req)
+            req.status = CANCELLED
+            req.t_finished = now
+        elif req.status == ACTIVE:
+            self._release(req, req.slot, now, CANCELLED)
+        self.cancelled += 1
+        return True
+
+    def _preempt_slot(self, slot: int) -> None:
+        """Send the request in `slot` back to the waiting queue, its pages
+        back to the pool. Its resume backoff doubles with each
+        preemption, so a starved victim cannot thrash admission."""
+        req = self.scheduler.active[slot]
+        backoff = self.preempt_backoff * (2 ** req.preemptions)
+        req.preemptions += 1
+        self.preempted += 1
+        self.scheduler.preempt(slot, resume_at=self._now() + backoff)
+        self._free_slot(slot)
+
+    def _preempt_for(self, head: Request) -> bool:
+        """Preempt a victim so that `head` may be admitted: the
+        lowest-priority, then youngest (latest admitted) active request
+        with retries left that the head STRICTLY outranks. Equal
+        priorities defer (the head waits). False when there is none."""
+        cands = [(r.priority, -(r.t_admitted or 0.0), slot)
+                 for slot, r in self.scheduler.active.items()
+                 if r.preemptions < self.preempt_retry_budget
+                 and r.priority < head.priority]
+        if not cands:
+            return False
+        cands.sort()
+        self._preempt_slot(cands[0][2])
+        return True
+
     # -- decode --------------------------------------------------------
-    def _prepare_pages(self, active) -> None:
-        """Make each active slot's write position private before the step
-        writes it: a shared page is copied (CoW), a page past the mapped
-        prefix comes from the admission's reservation; then sync the
-        table. Eager, on the stream the step replays on."""
+    def _prepare_pages(self, active, n_tok=None) -> None:
+        """Make every page an active slot's step writes private before the
+        step writes it (positions pos .. pos + n_tok[slot] - 1; one row a
+        slot without n_tok): a shared page is copied (CoW), a page past
+        the mapped prefix comes from the admission's reservation, which
+        covers a whole round; then sync the table. Eager, on the stream
+        the step replays on."""
+        ps = self.page_size
         for slot in active:
-            w = self.pool.prepare_write(slot, int(self._pos[slot]))
-            if w is not None and w.kind == "cow":
-                self._copy_page(w.src, w.dst)
+            p0 = int(self._pos[slot])
+            p1 = p0 + (1 if n_tok is None else int(n_tok[slot])) - 1
+            for j in range(p0 // ps, p1 // ps + 1):
+                w = self.pool.prepare_write(slot, j * ps)
+                if w is not None and w.kind == "cow":
+                    self._copy_page(w.src, w.dst)
         self._sync_table()
 
     def _decode_once(self) -> None:
@@ -422,30 +567,114 @@ class ServingEngine:
                 self._quarantine(req, slot, now, f"non-finite logits at "
                                  f"decode step {step_idx}")
                 continue
-            tok = greedy(rows[slot])
+            tok = self.sampler(rows[slot])
             req.generated.append(tok)
             self.tokens_emitted += 1
-            if req.n_generated >= req.max_new_tokens:
+            if self._done(req, tok):
                 self._release(req, slot, now)
             else:
                 self._pos[slot] += 1
                 self._tokens[slot, 0] = tok
 
+    # -- speculative decode: a draft round and one verify step -----------
+    def _spec_decode_once(self) -> None:
+        """One round: the draft proposes up to spec_k tokens a slot, the
+        verify step scores the pending token and the proposals of every
+        slot at once, and the acceptance rule emits 1 .. k + 1 tokens a
+        slot (eos cuts a round short). Nothing is rolled back: a rejected
+        proposal's cache rows lie past the slot's new pending position,
+        where no step attends, and the next round overwrites them."""
+        active = self.scheduler.active
+        if not active:
+            raise ValueError("decode step with no active slots")
+        step_idx = self.decode_steps
+        k = self.spec_k
+        k_vec = np.zeros(self.max_slots, np.int32)
+        for slot, req in active.items():
+            # a slot near its budget proposes fewer: tokens past max_new
+            # would be drafted only to be dropped
+            k_vec[slot] = min(k, req.remaining_tokens - 1)
+        t0 = time.perf_counter()
+        drafts, qprobs = self.spec.draft_round(self._tokens, self._pos,
+                                               k_vec)
+        vtokens, n_tok = self._vtokens_h.numpy(), self._ntok_h.numpy()
+        vtokens[:, 0] = self._tokens[:, 0]
+        vtokens[:, 1:] = drafts
+        n_tok[:] = np.where(self._pos >= 0, k_vec + 1, 0)
+        if self.pool is not None:
+            self._prepare_pages(active, n_tok)
+        self._v_tokens.copy_(self._vtokens_h, non_blocking=True)
+        self._step_pos.copy_(self._pos_h, non_blocking=True)
+        self._v_ntok.copy_(self._ntok_h, non_blocking=True)
+        logits = self._verify_step()
+        rows = logits[:, :, :self.cfg.vocab].cpu().numpy()   # sync point
+        dt = time.perf_counter() - t0
+        self.decode_time += dt
+        self._step_times.append(dt)
+        self.decode_steps += 1
+        self.spec_rounds += 1
+        self.decode_slot_steps += len(active)
+        self.peak_occupancy = max(self.peak_occupancy, len(active))
+        now = self._now()
+        for slot in sorted(active):
+            req = active[slot]
+            nt = int(n_tok[slot])
+            if not np.isfinite(rows[slot, :nt]).all():
+                self._quarantine(req, slot, now, f"non-finite logits at "
+                                 f"decode step {step_idx}")
+                continue
+            kk = nt - 1
+            emitted, n_acc = self.sampler.speculative_accept(
+                rows[slot, :nt], drafts[slot, :kk],
+                None if qprobs is None else qprobs[slot, :kk])
+            req.draft_proposed += kk
+            req.draft_accepted += n_acc
+            self.spec_proposed += kk
+            self.spec_accepted += n_acc
+            n_cons = 0
+            finished = False
+            for tok in emitted:
+                req.generated.append(tok)
+                self.tokens_emitted += 1
+                n_cons += 1
+                if self._done(req, tok):   # eos truncates mid-round
+                    finished = True
+                    break
+            if finished:
+                self._release(req, slot, now)
+            else:
+                self._pos[slot] += n_cons
+                self._tokens[slot, 0] = emitted[n_cons - 1]
+
     # -- driving -------------------------------------------------------
     def step(self) -> bool:
-        """Admit every ready request the pool can take (FCFS: a head that
-        does not fit waits), then run one decode step if any slot is
-        active. Returns False when all work is drained."""
+        """Drop the expired waiters, admit every ready request the pool
+        can take (preempting for a pool-starved FCFS head where a victim
+        exists; otherwise the head waits), then run one decode step (a
+        round, with a draft) if any slot is active. Returns False when
+        all work is drained."""
         while True:
-            req = self.scheduler.next_admission(self._now())
+            now = self._now()
+            for req in self.scheduler.drop_expired(now):
+                req.t_finished = now
+                self.expired += 1
+            req = self.scheduler.next_admission(now)
             if req is None:
                 break
-            if self.pool is not None and not self.pool.can_admit(
-                    req.prompt, req.max_new_tokens):
-                break               # the head waits for pages to free
+            if self.pool is not None:
+                ok = self.pool.can_admit(req.context_tokens(),
+                                         req.remaining_tokens)
+                while not ok and self._preempt_for(req):
+                    ok = self.pool.can_admit(req.context_tokens(),
+                                             req.remaining_tokens)
+                if not ok:
+                    break           # the head waits for pages to free
             self._admit(req)
         if self.scheduler.n_active:
-            self._decode_once()
+            if self.spec is not None:
+                self._spec_decode_once()
+            else:
+                self._decode_once()
         return self.scheduler.has_work()
 
     def run(self) -> Dict[str, Any]:
@@ -464,6 +693,19 @@ class ServingEngine:
         done = [r for r in self.requests if r.status == FINISHED]
         lat = [r.latency for r in done]
         ttft = [r.ttft for r in done]
+        n_emitted = sum(r.n_generated for r in self.requests)
+        assert n_emitted == self.tokens_emitted, \
+            (n_emitted, self.tokens_emitted)
+        waits = [r.t_admitted - r.arrival_time for r in self.requests
+                 if r.t_admitted is not None]
+        # goodput: only the tokens of requests that FINISHED (by their
+        # deadline, where they had one) were worth emitting; a resume's
+        # recomputation shows in prefill_tokens, never as a token twice
+        useful = sum(r.n_generated for r in done
+                     if r.missed_deadline is not True)
+        deadlined = [r for r in self.requests
+                     if r.deadline is not None and r.status in TERMINAL]
+        missed = [r for r in deadlined if r.missed_deadline]
         decode_tokens = self.tokens_emitted - len(
             [r for r in self.requests if r.t_first_token is not None])
         out = {
@@ -482,74 +724,30 @@ class ServingEngine:
             "ttft_p50_s": percentile(ttft, 50),
             "ttft_p95_s": percentile(ttft, 95),
             "peak_occupancy": self.peak_occupancy,
-            "quarantined": self.quarantined,
             "decode_step_p50_s": percentile(self._step_times, 50),
             "decode_step_p99_s": percentile(self._step_times, 99),
+            "admission_wait_p50_s": percentile(waits, 50),
+            "admission_wait_p99_s": percentile(waits, 99),
+            "expired": self.expired,
+            "cancelled": self.cancelled,
+            "preempted": self.preempted,
+            "quarantined": self.quarantined,
+            "useful_tokens": useful,
+            "goodput": useful / max(self.tokens_emitted, 1),
+            "deadline_miss_rate": (len(missed) / len(deadlined)
+                                   if deadlined else float("nan")),
+            # tokens a slot-step: 1.0 for plain decode (less quarantines),
+            # above it when speculation pays
+            "tokens_per_step": decode_tokens / max(self.decode_slot_steps, 1),
         }
+        if self.spec is not None:
+            out["spec_rounds"] = self.spec_rounds
+            out["spec_proposed"] = self.spec_proposed
+            out["spec_accepted"] = self.spec_accepted
+            out["spec_acceptance_rate"] = (self.spec_accepted
+                                           / max(self.spec_proposed, 1))
+            out["draft_time_s"] = self.spec.draft_time
+            out["draft_prefill_time_s"] = self.spec.prefill_time
         if self.pool is not None:
             out["kv_pool"] = self.pool.report()
         return out
-
-
-class _CapturedStep:
-    """`fn()` captured in a CUDA graph on `device`, the counterpart of a
-    jitted step. `fn` reads and writes only tensors that outlive the
-    graph (the params, a cache, static inputs). Calling this replays on
-    the current stream the kernels `fn` launched, against the same
-    tensors, and returns the tensor `fn` returned, which the replay
-    rewrites. A replay calls no kernel wrapper, so it adds the launches
-    that the capture counted to `ops.launch_counts()`; the counts of the
-    warm-up runs and of the capture itself are taken out. Raises
-    RuntimeError when `fn` cannot be captured: nothing falls back to
-    running it eagerly."""
-
-    def __init__(self, fn, device, what: str):
-        start = kops.launch_counts()
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        try:
-            with torch.cuda.stream(side):
-                for _ in range(WARMUP_RUNS):
-                    fn()
-            torch.cuda.synchronize(device)
-            torch.cuda.empty_cache()
-            reserved = torch.cuda.memory_reserved(device)
-            warm = kops.launch_counts()
-            self.graph = torch.cuda.CUDAGraph()
-            try:
-                with torch.cuda.stream(side):
-                    self.graph.capture_begin()
-                    try:
-                        self.out = fn()
-                    except BaseException:
-                        _end_broken_capture(self.graph)
-                        raise
-                    self.graph.capture_end()
-            except RuntimeError as e:
-                raise RuntimeError(
-                    f"capturing {what} in a CUDA graph failed: the step "
-                    f"must launch its work on the current stream with no "
-                    f"host sync (.item(), .cpu(), a shape that depends on "
-                    f"the data, torch.cuda.synchronize); the cause is "
-                    f"above") from e
-        finally:
-            done = kops.launch_counts()
-            kops.add_launch_counts({k: start[k] - n for k, n in done.items()})
-        self.launches = {k: done[k] - warm[k] for k in done
-                         if done[k] != warm[k]}
-        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
-
-    def __call__(self) -> torch.Tensor:
-        self.graph.replay()
-        kops.add_launch_counts(self.launches)
-        return self.out
-
-
-def _end_broken_capture(graph) -> None:
-    """End a capture that an error in the captured code broke. The caller
-    raises that error on; capture_end's own, that the capture is invalid,
-    says nothing more, so it is dropped."""
-    try:
-        graph.capture_end()
-    except RuntimeError:
-        pass

@@ -24,6 +24,7 @@ may differ by one rounding of the f32 result (rtol 2^-7) plus atol 1e-3.
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -200,10 +201,11 @@ def test_bf16_matmul_reads_unaligned_operands(dev, mn, layout):
                                 (1024, 1536)])
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_bf16_matmul_is_batch_invariant(dev, layout, kn):
-    """A row of C has the same bits at M = 4, 136 and 2048 as alone at
+    """A row of C has the same bits at M = 4, 20, 136 and 2048 as alone at
     M = 1 (each tile plan sums k in one order), in every layout, at the
     main path's (K, N), at the logits' decode tile and at the 192-wide
-    tile (N = 1536 at M = 2048)."""
+    tile (N = 1536 at M = 2048). M = 20 is a verify step's (4 slots x 5
+    tokens), past the decode tile's 16 rows."""
     k, n = kn
     a_km, b_nk = layout
     a, b = _gemm_operands(dev, 2048, k, n, a_km, b_nk)
@@ -211,7 +213,7 @@ def test_bf16_matmul_is_batch_invariant(dev, layout, kn):
     for out_dtype in (torch.bfloat16, torch.float32):
         alone = {r: ops.matmul(a[r:r + 1], b, out_dtype=out_dtype)
                  for r in rows}
-        for m in (4, 136, 2048):
+        for m in (4, 20, 136, 2048):
             c = ops.matmul(a[:m], b, out_dtype=out_dtype)
             for r in rows:
                 if r < m:
@@ -486,17 +488,17 @@ def test_gated_matmul_wide_tile_ragged_edges(dev, m, mma):
 
 @pytest.mark.parametrize("kn", [(1024, 3072)])
 def test_gated_matmul_is_batch_invariant(dev, kn):
-    """A row of H has the same bits at M = 4, 136 and 2048 as alone at
-    M = 1: the decode tile (mma.sync) and the wide tiles (wgmma, 64 and
-    128 columns of H) sum k in one order, and the flush is the same
-    arithmetic in all."""
+    """A row of H has the same bits at M = 4, 20 (a verify step), 136 and
+    2048 as alone at M = 1: the decode tile (mma.sync) and the wide tiles
+    (wgmma, 64 and 128 columns of H) sum k in one order, and the flush is
+    the same arithmetic in all."""
     k, n = kn
     a = _randn(2048, k, dtype=torch.bfloat16, dev=dev, seed=0)
     wg = _randn(k, n, dtype=torch.bfloat16, dev=dev, seed=1, scale=k ** -0.5)
     wu = _randn(k, n, dtype=torch.bfloat16, dev=dev, seed=2, scale=k ** -0.5)
     rows = [0, 3, 135, 2047]
     alone = {r: ops.gated_matmul(a[r:r + 1], wg, wu) for r in rows}
-    for m in (4, 136, 2048):
+    for m in (4, 20, 136, 2048):
         h = ops.gated_matmul(a[:m], wg, wu)
         for r in rows:
             if r < m:
@@ -560,10 +562,11 @@ def test_matmul_q_kernel_matches_plain(dev, dtype, epilogue, mkn):
 @pytest.mark.parametrize("kn", [(1024, 3072), (1024, 1024), (2048, 1024),
                                 (3072, 1024)])
 def test_matmul_q_is_batch_invariant(dev, kn):
-    """A row of C has the same bits at M = 4, 136 and 2048 as alone at
-    M = 1, with the residual epilogue, in bf16 and f32 out: the decode
-    tile and the 128-row tile sum k in one order (int8 widened to bf16,
-    k16 steps ascending), whatever the decode tile's width."""
+    """A row of C has the same bits at M = 4, 20 (a verify step), 136 and
+    2048 as alone at M = 1, with the residual epilogue, in bf16 and f32
+    out: the decode tile and the 128-row tile sum k in one order (int8
+    widened to bf16, k16 steps ascending), whatever the decode tile's
+    width."""
     k, n = kn
     a = _randn(2048, k, dtype=torch.bfloat16, dev=dev, seed=0)
     wq, scale = precision.quantize_int8(
@@ -575,7 +578,7 @@ def test_matmul_q_is_batch_invariant(dev, kn):
             return ops.matmul_q(a[lo:hi], wq, scale, out_dtype=out_dtype,
                                 epilogue="residual", residual=res[lo:hi])
         alone = {r: run(r, r + 1) for r in rows}
-        for m in (4, 136, 2048):
+        for m in (4, 20, 136, 2048):
             c = run(0, m)
             for r in rows:
                 if r < m:
@@ -647,6 +650,72 @@ def test_flash_decode_paged_equals_dense_bit_for_bit(dev, dtype):
             ops.flash_decode(q, k, v, pos=pos, window=window))
 
 
+def _rows_case(dev, layout, dtype, shape, seed=0):
+    """A multi-row decode case: q [B, 5, H, D], slots idle, young, deep and
+    at the cache's end, n_valid 5, 3, 5, 1; `run(q, pos, n_valid)` on
+    the dense cache or a shuffled pool (in q's dtype, or int8 with
+    scales) mapped up to each slot's last row."""
+    b, tk, h, hkv, d, ps = shape
+    t = 5
+    q = _randn(b, t, h, d, dtype=dtype, dev=dev, seed=seed)
+    k = _randn(b, tk, hkv, d, dtype=dtype, dev=dev, seed=seed + 1)
+    v = _randn(b, tk, hkv, d, dtype=dtype, dev=dev, seed=seed + 2)
+    pos = torch.tensor([-1, 3, tk // 2, tk - 1][:b], dtype=torch.int32,
+                       device=dev)
+    n_valid = torch.tensor([5, 3, 5, 1][:b], dtype=torch.int32, device=dev)
+    if layout == "dense":
+        def run(qq, p, nv=None, window=None, plain=False):
+            fn = ref.decode_rows_ref if plain else ops.flash_decode
+            return fn(qq, k, v, pos=p, window=window, n_valid=nv)
+        return q, pos, n_valid, run
+    kp, vp, table = _paged(k, v, ps, (pos + t - 1).clamp(max=tk - 1), seed=3)
+    kw = {}
+    if layout == "paged-int8":
+        (kp, ks), (vp, vs) = precision.quantize_kv(kp), precision.quantize_kv(vp)
+        kw = dict(ks=ks.transpose(1, 2).contiguous(),
+                  vs=vs.transpose(1, 2).contiguous())
+
+    def run(qq, p, nv=None, window=None, plain=False):
+        fn = ref.flash_decode_paged_ref if plain else ops.flash_decode_paged
+        return fn(qq, kp, vp, table, pos=p, window=window, n_valid=nv, **kw)
+    return q, pos, n_valid, run
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged", "paged-int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 40, 4, 4, 16, 8),
+                                   (4, 256, 16, 8, 128, 16)])
+@pytest.mark.parametrize("window", [None, 7])
+def test_flash_decode_rows_match_plain(dev, layout, dtype, shape, window):
+    """The decode kernels' multi-row form (a verify step: 5 rows a slot,
+    some past n_valid) against its plain version; rows past n_valid and
+    an idle slot's rows are zeros."""
+    q, pos, n_valid, run = _rows_case(dev, layout, dtype, shape)
+    got = run(q, pos, n_valid, window)
+    _close(got, run(q, pos, n_valid, window, plain=True), dtype)
+    for s in range(q.shape[0]):
+        for r in range(q.shape[1]):
+            if pos[s] < 0 or r >= n_valid[s]:
+                assert not got[s, r].any(), (s, r)
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged", "paged-int8"])
+@pytest.mark.parametrize("window", [None, 512])
+def test_flash_decode_rows_match_one_row(dev, layout, window):
+    """Row r of the multi-row kernel is the one-row kernel at pos + r, bit
+    for bit, at the main path's shape (4 slots, 16 query and 8 KV heads
+    of 128, 2048 keys, bf16): the verify step writes and reads the
+    decode step's bits."""
+    q, pos, n_valid, run = _rows_case(dev, layout, torch.bfloat16,
+                                      (4, 2048, 16, 8, 128, 16))
+    got = run(q, pos, n_valid, window)
+    for r in range(q.shape[1]):
+        p = torch.where((pos >= 0) & (r < n_valid), pos + r, -1) \
+            .to(torch.int32)
+        one = run(q[:, r:r + 1].contiguous(), p, window=window)
+        assert torch.equal(got[:, r], one[:, 0]), r
+
+
 @pytest.mark.parametrize("layout", ["dense", "paged-bfloat16", "paged-int8"])
 @pytest.mark.parametrize("window", [None, 512])
 def test_flash_decode_is_batch_invariant(dev, layout, window):
@@ -704,6 +773,9 @@ def test_each_wrapper_counts_one_launch(dev):
     ops.flash_decode(q, kv, kv, pos=2)
     table = torch.zeros(1, 1, dtype=torch.int32, device=dev)
     ops.flash_decode_paged(q, kv, kv, table, pos=2)
+    q3 = torch.ones(1, 3, 2, 16, device=dev)
+    ops.flash_decode(q3, kv, kv, pos=0)
+    ops.flash_decode_paged(q3, kv, kv, table, pos=0)
     o, lse = ops.flash_attention_fwd(kv, kv, kv)
     ops.flash_attention_bwd(kv, kv, kv, o, o, lse)
     ops.ssd(torch.ones(1, 4, 2, 3, device=dev), -torch.ones(1, 4, 2, device=dev),
@@ -714,6 +786,8 @@ def test_each_wrapper_counts_one_launch(dev):
     assert ops.launch_counts() == {"matmul": 1, "matmul_q": 1,
                                    "gated_matmul": 1, "flash_decode": 1,
                                    "flash_decode_paged": 1,
+                                   "flash_decode_rows": 1,
+                                   "flash_decode_paged_rows": 1,
                                    "flash_attention": 1,
                                    "flash_attention_bwd": 1, "ssd": 1,
                                    "matmul_naive": 1, "binary_op": 1,
@@ -1342,3 +1416,68 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+@pytest.mark.parametrize("kv_layout", ["dense", "paged"])
+def test_spec_engine_streams_equal_the_plain_engines(dev, kv_layout):
+    """The speculative engine on the card, its decode, remainder and
+    verify steps and the draft's two steps replays of CUDA graphs: with
+    the target as its own draft and with a draft of other weights, its
+    greedy streams equal the plain engine's, the self-draft accepts every
+    proposal, and each round launches one multi-row decode attention a
+    layer."""
+    cfg = get_config("qwen3-0.6b", reduced=True)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    other = M.init_params(cfg, torch.Generator().manual_seed(1), dev)
+    g = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=g).numpy()
+               for n in SERVE_LENGTHS]
+    kw = dict(max_slots=2, max_len=48, device=dev, kv_layout=kv_layout,
+              page_size=8)
+
+    def streams(**more):
+        eng = ServingEngine(cfg, params, **kw, **more)
+        reqs = [eng.submit(p, 7) for p in prompts]
+        ops.reset_launch_counts()
+        rep = eng.run()
+        torch.cuda.synchronize()
+        return [r.generated for r in reqs], rep, ops.launch_counts()
+
+    want, _, _ = streams()
+    for draft, full in ((params, True), (other, False)):
+        got, rep, launches = streams(draft=(cfg, draft), spec_k=4)
+        assert got == want
+        assert (rep["spec_acceptance_rate"] == 1.0) == full
+        name = "flash_decode_rows" if kv_layout == "dense" \
+            else "flash_decode_paged_rows"
+        assert launches[name] == cfg.n_layers * rep["spec_rounds"]
+
+
+def test_replayed_verify_step_equals_the_eager_step_bit_for_bit(dev):
+    """One replay of the verify graph, mid-run on a page pool, gives an
+    eager verify_step's logits and pool from a clone of the same state,
+    bit for bit."""
+    cfg = get_config("qwen3-0.6b", reduced=True)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    eng = ServingEngine(cfg, params, max_slots=2, max_len=48, device=dev,
+                        kv_layout="paged", page_size=8,
+                        draft=(cfg, params), spec_k=4)
+    g = torch.Generator().manual_seed(2)
+    for n in SERVE_LENGTHS[:2]:
+        eng.submit(torch.randint(0, cfg.vocab, (n,), generator=g).numpy(), 12)
+    eng.step()
+    assert eng.scheduler.n_active == 2
+    k_vec = np.full(2, 4, np.int32)
+    drafts, _ = eng.spec.draft_round(eng._tokens, eng._pos, k_vec)
+    vt, nt = eng._vtokens_h.numpy(), eng._ntok_h.numpy()
+    vt[:, 0], vt[:, 1:], nt[:] = eng._tokens[:, 0], drafts, 5
+    eng._prepare_pages(eng.scheduler.active, nt)
+    eng._v_tokens.copy_(eng._vtokens_h)
+    eng._step_pos.copy_(eng._pos_h)
+    eng._v_ntok.copy_(eng._ntok_h)
+    state = _clone(eng.cache)
+    args = (eng._v_tokens.clone(), eng._step_pos.clone(), eng._v_ntok.clone())
+    got = eng._verify_step().clone()
+    want, _ = M.verify_step(cfg, eng.params, *args, state)
+    assert torch.equal(got, want)
+    _assert_same(eng.cache, state)

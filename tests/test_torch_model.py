@@ -153,8 +153,24 @@ def test_cache_write_skips_idle_slots_and_drops_rows_past_the_end():
 
 
 def test_per_slot_pos_takes_one_token_a_slot(setup):
+    """Two tokens a slot at a per-slot position are two one-token steps:
+    token r of slot 0 lands at S + r, its cache rows those of the
+    one-token step at S + r bit for bit, and its logits row that step's
+    to within f32 rounding (on the CPU the tied logits GEMM, a transposed
+    operand, takes another kernel at 2 rows than at 4); the idle slot
+    (pos -1) writes nothing."""
+    cfg, params = setup["cfg"], setup["params"]
     cache = {k: v.clone() for k, v in setup["cache"].items()}
-    with pytest.raises(ValueError, match="one token a slot"):
-        M.decode_step(setup["cfg"], setup["params"],
-                      torch.zeros((B, 2), dtype=torch.long),
-                      torch.tensor([S, -1], dtype=torch.int32), cache)
+    steps = {k: v.clone() for k, v in setup["cache"].items()}
+    toks = torch.tensor([[3, 5], [7, 9]], dtype=torch.long)
+    got, _ = M.decode_step(cfg, params, toks,
+                           torch.tensor([S, -1], dtype=torch.int32), cache)
+    for r in range(2):
+        want, _ = M.decode_step(cfg, params, toks[:, r:r + 1],
+                                torch.tensor([S + r, -1], dtype=torch.int32),
+                                steps)
+        torch.testing.assert_close(got[0, r], want[0, 0], atol=1e-5,
+                                   rtol=0)
+    for name in cache:
+        assert torch.equal(cache[name], steps[name]), name
+        assert torch.equal(cache[name][:, 1], setup["cache"][name][:, 1])

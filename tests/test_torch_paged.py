@@ -120,8 +120,9 @@ def test_flash_decode_paged_refuses_bad_operands():
     kp = torch.zeros(3, 4, 1, 8)
     table = torch.zeros(1, 2, dtype=torch.int32)
     s = torch.ones(3, 1, 4)
-    with pytest.raises(ValueError, match="q_len=1"):
-        ops.flash_decode_paged(torch.zeros(1, 2, 2, 8), kp, kp, table)
+    with pytest.raises(ValueError, match="n_valid"):
+        ops.flash_decode_paged(torch.zeros(1, 2, 2, 8), kp, kp, table,
+                               n_valid=torch.ones(2, dtype=torch.int32))
     with pytest.raises(ValueError, match="int8 pool"):
         ops.flash_decode_paged(q, kp, kp, table, ks=s, vs=s)
     with pytest.raises(ValueError, match="int8 pool"):
