@@ -8,7 +8,9 @@ Phases, in order; any failure propagates and the exit code is not 0:
      all at once, with ptxas' register and shared-memory report;
   3. kernels: each CUDA kernel against its plain PyTorch version at the
      shapes of the main paths (qwen3-0.6b decode and prefill; dense, paged
-     and int8; training attention, forward and backward; mamba2-2.7b's
+     and int8; zamba2-1.2b's decode GEMMs, dual GEMM and decode attention
+     (32 heads of 64, one a KV head); the int8 Mamba in_proj of zamba2
+     and mamba2-2.7b; training attention, forward and backward; mamba2-2.7b's
      SSD intra-chunk work, ragged chunks, groups, bf16, a carried state,
      strong decays and zamba2's d_state; the paper's tiled GEMM (f32 and
      bf16, with their TFLOP/s beside torch.matmul's) and naive GEMM at
@@ -72,9 +74,22 @@ Phases, in order; any failure propagates and the exit code is not 0:
      the request run alone at batch 1, speed, memory, a replay against
      the eager step and a torch.profiler trace of decode steps as phase
      4's, and of a 512-token prefill; the memory back after the engine
-     goes; then a depth-2 prefill and decode in f32 on the card against
-     the same on the CPU;
-  9. the paper's experiment at its size, 4096^2: Table 2 through the
+     goes; the same trace with int8 weights (matmul_q counted exactly,
+     each stream equal to the request alone, the decode p50 beside the
+     bf16 run's, a replay and a trace); then a depth-2 prefill and decode
+     in f32 on the card against the same on the CPU;
+  9. hybrid serving at full width: zamba2-1.2b (36 Mamba-2 layers in 6
+     segments, one shared attention block with a LoRA a segment, random
+     weights and lora_b from seeds) served by the engine on 4 slots to 8
+     requests of 64-512 tokens that take every prefill branch, in bf16
+     and with int8 weights: exact launch counts (ssd in every admission
+     prefill, flash_decode at D = 64 in every step; matmul_q with int8),
+     each stream equal to the request alone at batch 1, a replay against
+     the eager step, a trace of decode steps, decode p50 and p99, time to
+     first token, peak memory, the capture time and graph pools, and the
+     memory back after each engine; then a depth-2 (two segments)
+     prefill and decode in f32 on the card against the CPU;
+  10. the paper's experiment at its size, 4096^2: Table 2 through the
      measurement `launch.paper` prints (`benchmarks.common.measure`: float,
      double and complex-float through the naive kernel, the GEMM
      chokepoint (the tiled kernel; f64 the plain f64 product) and
@@ -82,7 +97,8 @@ Phases, in order; any failure propagates and the exit code is not 0:
      paper's seconds; the naive/tiled ratio beside the paper's 3.0x), Fig 9 through `benchmarks.bench_add`'s
      (add, sub and axpy in GB/s beside 3.35 TB/s), with exact launch
      counts; then the roofline model of the paper's cards and the H100;
-  10. a JSON line of the kernels, the card line, and the result line.
+  11. a JSON line of the kernels (each with its launches on every main
+     path), the card line, and the result line.
 """
 
 import contextlib
@@ -131,8 +147,10 @@ def main() -> int:
     smoke.phase_train_vs_cpu()
     smoke.phase_mamba()
     smoke.phase_mamba_vs_cpu()
+    smoke.phase_hybrid()
+    smoke.phase_hybrid_vs_cpu()
     smoke.phase_paper()
-    print("[10/10] result")
+    print("[11/11] result")
     print(json.dumps({"kernels": smoke.kernel_rows()}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
@@ -153,7 +171,7 @@ class Smoke:
     # -- 1. card ------------------------------------------------------
     def phase_card(self):
         torch = self.torch
-        print(f"[1/10] card: {card_line()}")
+        print(f"[1/11] card: {card_line()}")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         print(f"      torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -165,7 +183,7 @@ class Smoke:
         from repro_torch.kernels import _build
         t0 = time.perf_counter()
         libs = _build.build_all()
-        print(f"[2/10] build: {sorted(libs)} from "
+        print(f"[2/11] build: {sorted(libs)} from "
               f"{_build.CSRC.relative_to(ROOT)} in "
               f"{time.perf_counter() - t0:.1f} s (nvcc "
               f"{' '.join(_build.NVCC_FLAGS)})")
@@ -273,7 +291,7 @@ class Smoke:
         torch = self.torch
         from repro_torch.kernels import ops, ref
         F = torch.nn.functional
-        print("[3/10] kernels against their plain versions (median of 50, "
+        print("[3/11] kernels against their plain versions (median of 50, "
               "L2 flushed, in turns, card time only)")
         gen = torch.Generator(device=self.dev).manual_seed(0)
 
@@ -352,33 +370,41 @@ class Smoke:
                           f"N={2 * n}: {ms:.4f} ms, "
                           f"{4 * m * n * k / ms / 1e9:.1f} TFLOP/s")
                     del wgu
-            # -- flash_decode: 4 slots, one idle, against a 2048-deep cache
-            b_, h, hkv, d, tk = 4, 16, 8, 128, 2048
+            # -- flash_decode: 4 slots, one idle, against a 2048-deep cache,
+            #    at qwen3-0.6b's heads and at zamba2's (32 of 64, one query
+            #    head a KV head)
+            b_, tk = 4, 2048
             pos_list = [-1, 0, 700, 2047]
-            q = randn(b_, 1, h, d, dtype=dtype)
-            kc = randn(b_, tk, hkv, d, dtype=dtype)
-            vc = randn(b_, tk, hkv, d, dtype=dtype)
             pos = torch.tensor(pos_list, dtype=torch.int32, device=self.dev)
-            for window in (None, 512):
-                keys = [0 if p < 0 else min(p + 1, window or p + 1)
-                        for p in pos_list]
-                lo = [max(0, p - window + 1) if window else 0 for p in pos_list]
-                mask = torch.zeros((b_, 1, 1, tk), dtype=torch.bool,
-                                   device=self.dev)
-                for i, p in enumerate(pos_list):
-                    mask[i, ..., lo[i]:p + 1] = True
-                self._case(
-                    "flash_decode",
-                    f"{dname} B={b_} H={h} Hkv={hkv} D={d} Tk={tk} "
-                    f"window={window}",
-                    lambda w_=window: ops.flash_decode(q, kc, vc, pos=pos,
-                                                       window=w_),
-                    lambda w_=window: ref.attention_fwd_ref(
-                        q, kc, vc, window=w_, q_offset=pos),
-                    lambda m_=mask: _sdpa(torch, F, q, kc, vc, m_),
-                    (2 * q.numel() + 2 * sum(keys) * hkv * d) * size,
-                    4 * sum(keys) * h * d, dname, tol)
-            del q, kc, vc
+            for h, hkv, d, windows in ((16, 8, 128, (None, 512)),
+                                       (32, 32, 64, (None,))):
+                q = randn(b_, 1, h, d, dtype=dtype)
+                kc = randn(b_, tk, hkv, d, dtype=dtype)
+                vc = randn(b_, tk, hkv, d, dtype=dtype)
+                for window in windows:
+                    keys = [0 if p < 0 else min(p + 1, window or p + 1)
+                            for p in pos_list]
+                    lo = [max(0, p - window + 1) if window else 0
+                          for p in pos_list]
+                    mask = torch.zeros((b_, 1, 1, tk), dtype=torch.bool,
+                                       device=self.dev)
+                    for i, p in enumerate(pos_list):
+                        mask[i, ..., lo[i]:p + 1] = True
+                    self._case(
+                        "flash_decode",
+                        f"{dname} B={b_} H={h} Hkv={hkv} D={d} Tk={tk} "
+                        f"window={window}",
+                        lambda q=q, kc=kc, vc=vc, w_=window: ops.flash_decode(
+                            q, kc, vc, pos=pos, window=w_),
+                        lambda q=q, kc=kc, vc=vc, w_=window:
+                            ref.attention_fwd_ref(q, kc, vc, window=w_,
+                                                  q_offset=pos),
+                        lambda q=q, kc=kc, vc=vc, m_=mask: _sdpa(
+                            torch, F, q, kc, vc, m_),
+                        (2 * q.numel() + 2 * sum(keys) * hkv * d) * size,
+                        4 * sum(keys) * h * d, dname, tol)
+                del q, kc, vc
+        self._kernels_hybrid(randn, tols[torch.bfloat16])
         self._kernels_int8_and_paged(randn, tols[torch.bfloat16])
         self._kernels_decode_rows(randn, tols[torch.bfloat16])
         self._kernels_attention(randn, tols)
@@ -423,6 +449,41 @@ class Smoke:
                 tols[out], n_time=20)
             del a, b, r
 
+    def _kernels_hybrid(self, randn, tol, m=4):
+        """The bf16 GEMMs of a zamba2 decode step (4 slots) that no other
+        path runs at these widths: the Mamba in_proj (N = 8192), in_proj_bc
+        (N = 2GN + H = 192) and out_proj (K = 4096), the shared block's
+        in_proj (K = 2d = 4096), the LoRA pair (rank 32), the logits
+        (N = 32000), and the shared SwiGLU's dual GEMM at d_ff 8192; each
+        beside torch.matmul in turns."""
+        torch = self.torch
+        from repro_torch.kernels import ops, ref
+        dtype = torch.bfloat16
+        for k, n, what in ((2048, 8192, "Mamba in_proj"),
+                           (2048, 192, "Mamba in_proj_bc"),
+                           (4096, 2048, "Mamba out_proj, shared in_proj"),
+                           (2048, 32, "LoRA a"), (32, 2048, "LoRA b"),
+                           (2048, 32000, "logits, f32 out")):
+            out = torch.float32 if n == 32000 else dtype
+            a = randn(m, k, dtype=dtype)
+            b = randn(k, n, dtype=dtype, scale=k ** -0.5)
+            self._case(
+                "matmul", f"bfloat16 M={m} K={k} N={n} none ({what})",
+                lambda a=a, b=b, o=out: ops.matmul(a, b, out_dtype=o),
+                lambda a=a, b=b, o=out: ref.fused_matmul_ref(a, b, o),
+                lambda a=a, b=b: torch.matmul(a, b),
+                (m * k + k * n) * 2 + m * n * out.itemsize, 2 * m * n * k,
+                "bfloat16", tol if out == dtype else (1e-4, 1e-4))
+        k, n = 2048, 8192
+        a = randn(m, k, dtype=dtype)
+        wg = randn(k, n, dtype=dtype, scale=k ** -0.5)
+        wu = randn(k, n, dtype=dtype, scale=k ** -0.5)
+        self._case(
+            "gated_matmul", f"bfloat16 M={m} K={k} N={n} (shared SwiGLU)",
+            lambda: ops.gated_matmul(a, wg, wu),
+            lambda: ref.gated_matmul_ref(a, wg, wu), None,
+            (m * k + 2 * k * n + m * n) * 2, 4 * m * n * k, "bfloat16", tol)
+
     def _kernels_int8_and_paged(self, randn, tol):
         """matmul_q at the int8 main path's shapes and flash_decode_paged
         on bf16 and int8 pools, bf16 activations."""
@@ -439,6 +500,10 @@ class Smoke:
         cases += [(m, 3072, 1024, "residual") for m in (4, 256)]
         cases += [(m, 1024, 3072, ep) for m in (4, 256)
                   for ep in ("bias", "bias_gelu", "bias_silu")]
+        # the int8 Mamba in_proj at decode: zamba2's and mamba2-2.7b's;
+        # zamba2's shared in_proj (K = 4096) and its logits
+        cases += [(4, 2048, 8192, "none"), (4, 2560, 10240, "none"),
+                  (4, 4096, 2048, "none"), (4, 2048, 32000, "none")]
         for m, k, n, ep in cases:
             a = randn(m, k, dtype=dtype)
             wq, scale = precision.quantize_int8(
@@ -881,7 +946,7 @@ class Smoke:
                                device=self.dev)
         del params                      # the engine keeps its bf16 copy
         torch.cuda.synchronize()
-        print(f"[4/10] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
+        print(f"[4/11] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
               f"heads {cfg.n_heads}/{cfg.n_kv_heads}x{cfg.resolved_head_dim} "
               f"d_ff {cfg.d_ff} vocab {cfg.vocab}->{cfg.padded_vocab}; "
               f"weights ready in {time.perf_counter() - t0:.1f} s; "
@@ -1085,7 +1150,7 @@ class Smoke:
         assert launches == want, (launches, want)
         got = [r.generated for r in reqs]
         assert got == self.dense_streams, "paged bf16 streams != dense streams"
-        print(f"[5/10] paged bf16 KV (page 16, {rep['kv_pool']['n_pages']} "
+        print(f"[5/11] paged bf16 KV (page 16, {rep['kv_pool']['n_pages']} "
               f"pages): phase 4's {len(reqs)} streams, token for token; "
               f"launches {launches} ({eng.decode_steps} decode steps at "
               f"141/28/28 each); prefill {rep['prefill_tok_s']:.1f} tok/s, "
@@ -1204,7 +1269,7 @@ class Smoke:
         L = cfg.n_layers
         params = M.init_params(cfg, torch.Generator().manual_seed(0), self.dev)
         other = M.init_params(cfg, torch.Generator().manual_seed(1), self.dev)
-        print(f"[6/10] the request surface at full width ({cfg.name}, "
+        print(f"[6/11] the request surface at full width ({cfg.name}, "
               f"{L} layers, bf16, random weights)")
         want = {}
         eng = ServingEngine(cfg, params, max_slots=4, max_len=self.max_len,
@@ -1459,7 +1524,7 @@ class Smoke:
             before = now
         self.train_launches = ops.launch_counts()
         peak = torch.cuda.max_memory_allocated()
-        print(f"[7/10] training {cfg.name} at full width ({L} layers, "
+        print(f"[7/11] training {cfg.name} at full width ({L} layers, "
               f"{n_params / 1e6:.1f}M f32 params, bf16 activations): "
               f"{steps} AdamW steps at batch {batch} x {seq}")
         for i in range(steps):
@@ -1623,7 +1688,6 @@ class Smoke:
         torch = self.torch
         import numpy as np
         from repro_torch.configs import get_config
-        from repro_torch.kernels import ops
         from repro_torch.models import model as M
         from repro_torch.serving import ServingEngine
         cfg = get_config("mamba2-2.7b")
@@ -1643,7 +1707,7 @@ class Smoke:
         torch.cuda.empty_cache()
         weights = torch.cuda.memory_allocated()
         sc = cfg.ssm
-        print(f"[8/10] {cfg.name}: {L} layers d_model {cfg.d_model} d_inner "
+        print(f"[8/11] {cfg.name}: {L} layers d_model {cfg.d_model} d_inner "
               f"{sc.expand * cfg.d_model} ({sc.expand * cfg.d_model // sc.head_dim}"
               f" SSD heads of {sc.head_dim}) d_state {sc.d_state} groups "
               f"{sc.n_groups} conv {sc.conv_width} chunk {sc.chunk} vocab "
@@ -1652,43 +1716,12 @@ class Smoke:
               f"on the card, bf16); {len(prompts)} requests, prompts "
               f"{lengths}, gen {gen}, 4 slots, max_len {eng.max_len}")
         _print_capture(eng)
-        torch.cuda.reset_peak_memory_stats()
-        reqs = [eng.submit(pr, gen) for pr in prompts]
-        ops.reset_launch_counts()
-        report = eng.run()
-        torch.cuda.synchronize()
-        self.mamba_launches = ops.launch_counts()
-        peak = torch.cuda.max_memory_allocated()
-        assert report["n_finished"] == len(reqs), report
-        for r in reqs:
-            assert len(r.generated) == gen, (r.rid, r.generated)
-            assert all(0 <= t < cfg.vocab for t in r.generated), r.generated
         rem = sum(n % 8 if n >= 8 else 0 for n in lengths)
-        one_token = eng.decode_steps + rem
-        want = {k: 0 for k in self.mamba_launches}
-        want.update(matmul=(5 * L + 1) * len(reqs) + (3 * L + 1) * one_token,
-                    ssd=L * len(reqs))
-        print(f"      launches {self.mamba_launches} (expected {want}: "
-              f"{len(reqs)} admission prefills at 321/64, {rem} remainder "
-              f"tokens and {eng.decode_steps} decode steps at 193/0)")
-        assert self.mamba_launches == want, (self.mamba_launches, want)
-        print(f"      prefill {report['prefill_tok_s']:.1f} tok/s, decode "
-              f"{report['decode_tok_s']:.1f} tok/s (occupancy "
-              f"{report['mean_occupancy']:.2f}/4), decode step p50 "
-              f"{report['decode_step_p50_s'] * 1e3:.2f} ms p99 "
-              f"{report['decode_step_p99_s'] * 1e3:.2f} ms, latency p50 "
-              f"{report['latency_p50_s'] * 1e3:.0f} ms p95 "
-              f"{report['latency_p95_s'] * 1e3:.0f} ms, ttft p50 "
-              f"{report['ttft_p50_s'] * 1e3:.0f} ms; max_memory_allocated "
-              f"{peak / 2 ** 30:.3f} GiB")
-
-        # each stream equals the request run alone at batch 1: the same
-        # bucketed prefill and remainder steps, then batch-1 decode
-        for req, prompt in zip(reqs, prompts):
-            assert req.generated == self._alone(eng, prompt, gen), \
-                (req.rid, len(prompt))
-        print(f"      the {len(reqs)} engine streams (decode at 4 slots) equal "
-              f"each request run alone at batch 1, token for token")
+        self.mamba_launches, report = self._serve_recurrent(
+            eng, prompts, gen, lambda e: _no_launches(
+                matmul=(5 * L + 1) * len(lengths)
+                + (3 * L + 1) * (e.decode_steps + rem), ssd=L * len(lengths)),
+            "bf16")
         self._trace(eng, report["decode_step_p50_s"], n_steps=4,
                     expect=("matmul",))
         self._trace_prefill(eng, prompts[5])
@@ -1698,6 +1731,75 @@ class Smoke:
               f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB, "
               f"memory_reserved {torch.cuda.memory_reserved() / 2 ** 30:.3f} "
               f"GiB (the graphs' pools freed with it)")
+
+        # int8 weights: the stacked in_proj, in_proj_bc, out_proj and
+        # lm_head through matmul_q, as many as the bf16 run's GEMMs. The
+        # f32 params are made again from their seed, so that the peaks of
+        # both runs measure the engine alone.
+        params = M.init_params(cfg, torch.Generator().manual_seed(0), self.dev)
+        eng = ServingEngine(cfg, params, max_slots=4,
+                            max_len=max(lengths) + gen, device=self.dev,
+                            quant="int8")
+        del params
+        torch.cuda.empty_cache()
+        _print_capture(eng)
+        self.mamba_int8_launches, rep8 = self._serve_recurrent(
+            eng, prompts, gen, lambda e: _no_launches(
+                matmul_q=(5 * L + 1) * len(lengths)
+                + (3 * L + 1) * (e.decode_steps + rem), ssd=L * len(lengths)),
+            "int8 weights", report["decode_step_p50_s"])
+        self._trace(eng, rep8["decode_step_p50_s"], n_steps=4,
+                    expect=("matmul_q",))
+        del eng
+        torch.cuda.empty_cache()
+
+    def _serve_recurrent(self, eng, prompts, gen, want_fn, what,
+                         p50_bf16=None):
+        """Serve `prompts` on `eng`, `gen` tokens each, with the launch
+        counts set to 0 just before and read just after: they must be
+        `want_fn(eng)`, and every stream the request run alone at batch 1
+        (`_alone`). Prints the counts, speed and peak memory (the decode
+        p50 beside `p50_bf16`, the bf16 run's, where given). Returns
+        (launches, report)."""
+        torch = self.torch
+        from repro_torch.kernels import ops
+        torch.cuda.reset_peak_memory_stats()
+        reqs = [eng.submit(pr, gen) for pr in prompts]
+        ops.reset_launch_counts()
+        report = eng.run()
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        assert report["n_finished"] == len(reqs), report
+        for r in reqs:
+            assert len(r.generated) == gen, (what, r.rid, r.generated)
+            assert all(0 <= t < eng.cfg.vocab for t in r.generated), \
+                r.generated
+        want = want_fn(eng)
+        print(f"      {what}: launches {launches} (expected {want}: "
+              f"{len(reqs)} admission prefills, "
+              f"{sum(n % 8 for n in map(len, prompts) if n >= 8)} remainder "
+              f"tokens, {eng.decode_steps} decode steps)")
+        assert launches == want, (what, launches, want)
+        beside = "" if p50_bf16 is None \
+            else f" (bf16 weights {p50_bf16 * 1e3:.2f} ms)"
+        print(f"      {what}: prefill {report['prefill_tok_s']:.1f} tok/s, "
+              f"decode {report['decode_tok_s']:.1f} tok/s (occupancy "
+              f"{report['mean_occupancy']:.2f}/4), decode step p50 "
+              f"{report['decode_step_p50_s'] * 1e3:.2f} ms{beside} p99 "
+              f"{report['decode_step_p99_s'] * 1e3:.2f} ms, latency p50 "
+              f"{report['latency_p50_s'] * 1e3:.0f} ms p95 "
+              f"{report['latency_p95_s'] * 1e3:.0f} ms, ttft p50 "
+              f"{report['ttft_p50_s'] * 1e3:.0f} ms p95 "
+              f"{report['ttft_p95_s'] * 1e3:.0f} ms; max_memory_allocated "
+              f"{peak / 2 ** 30:.3f} GiB")
+        for req, prompt in zip(reqs, prompts):
+            assert req.generated == self._alone(eng, prompt, gen), \
+                (what, req.rid, len(prompt))
+        print(f"      {what}: the {len(reqs)} engine streams (decode at 4 "
+              f"slots) equal each request run alone at batch 1, token for "
+              f"token")
+        return launches, report
 
     def _alone(self, eng, prompt, n_new):
         """Greedy tokens of `prompt` run alone as `eng` admits it: a
@@ -1793,7 +1895,183 @@ class Smoke:
               f"({tp * 1e3:.0f} ms): logits and states within rtol {tol:g}; "
               f"max |diff| / max |value| {worst:.2e}")
 
-    # -- 9. the paper's experiment ---------------------------------------
+    # -- 9. Zamba2 hybrid serving at full width -------------------------
+    def _hybrid_params(self, cfg, device):
+        """Random params from seed 0 and a lora_b drawn from seed 1: its
+        init is zeros, and a LoRA path that computes nothing would pass
+        every check."""
+        torch = self.torch
+        from repro_torch.models import model as M
+        params = M.init_params(cfg, torch.Generator().manual_seed(0), device)
+        lb = params["hybrid"]["lora_b"]
+        params["hybrid"]["lora_b"] = (
+            torch.randn(lb.shape, generator=torch.Generator().manual_seed(1))
+            * lb.shape[1] ** -0.5).to(lb)
+        return params
+
+    @staticmethod
+    def _hybrid_want(eng, lengths, int8):
+        """Launch counts of a hybrid run. A segment runs its Mamba layers
+        (5 GEMMs at prefill with the SSD scan, 3 a one-token step), the
+        shared in_proj, the LoRA pair, QKV/O, the SwiGLU dual GEMM and the
+        down projection, and at a one-token step flash_decode; then the
+        logits. With int8 weights the shared block, its in_proj and the
+        logits take matmul_q (the dual GEMM as two), and the 4-D Mamba
+        stacks and the LoRA pairs stay on the bf16 GEMM."""
+        cfg = eng.cfg
+        a, seg, n = cfg.attn_every, cfg.n_layers // cfg.attn_every, len(lengths)
+        one = eng.decode_steps + sum(x % 8 for x in lengths if x >= 8)
+        want = _no_launches(flash_decode=seg * one, ssd=cfg.n_layers * n)
+        if int8:
+            want.update(matmul=seg * (5 * a + 2) * n + seg * (3 * a + 2) * one,
+                        matmul_q=(8 * seg + 1) * (n + one))
+        else:
+            want.update(matmul=(seg * (5 * a + 8) + 1) * n
+                        + (seg * (3 * a + 8) + 1) * one,
+                        gated_matmul=seg * (n + one))
+        return want
+
+    def phase_hybrid(self):
+        """zamba2-1.2b served on 4 slots to 8 requests, 32 tokens each, in
+        bf16 and with int8 weights. The prompts take every prefill branch
+        of its chunk of 128: 64 and 97 (shorter than a chunk; 97 a bucket
+        remainder), 128, 256 and 512 (whole chunks), 200, 333 and 397
+        (ragged, padded; 333 and 397 remainders). Each run: exact launch
+        counts (the SSD kernel in every admission prefill, flash_decode at
+        D = 64 in every step), each stream equal to the request alone, a
+        replay against the eager step and a trace of decode steps; the
+        memory back after each engine goes."""
+        torch = self.torch
+        import numpy as np
+        from repro_torch.configs import get_config
+        from repro_torch.core.tree import leaves
+        from repro_torch.serving import ServingEngine
+        cfg = get_config("zamba2-1.2b")
+        sc, dh = cfg.ssm, cfg.resolved_head_dim
+        seg = cfg.n_layers // cfg.attn_every
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        params = self._hybrid_params(cfg, self.dev)
+        n_params = sum(t.numel() for t in leaves(params))
+        lengths = [64, 97, 128, 200, 256, 333, 397, 512]
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+                   for n in lengths]
+        gen = 32
+        eng = ServingEngine(cfg, params, max_slots=4,
+                            max_len=max(lengths) + gen, device=self.dev)
+        del params                      # the engine keeps its bf16 copy
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        engine_bytes = torch.cuda.memory_allocated() - base
+        print(f"[9/11] {cfg.name}: {cfg.n_layers} Mamba-2 layers in {seg} "
+              f"segments of {cfg.attn_every}, d_model {cfg.d_model} d_inner "
+              f"{sc.expand * cfg.d_model} ({sc.expand * cfg.d_model // sc.head_dim}"
+              f" SSD heads of {sc.head_dim}) d_state {sc.d_state} conv "
+              f"{sc.conv_width} chunk {sc.chunk}; one shared attention block "
+              f"after each segment (heads {cfg.n_heads}/{cfg.n_kv_heads}x{dh}, "
+              f"d_ff {cfg.d_ff}, in_proj {2 * cfg.d_model}->{cfg.d_model}, "
+              f"LoRA rank {cfg.shared_attn_lora_rank} a segment, lora_b "
+              f"random); vocab {cfg.vocab}; {n_params / 1e9:.3f} G params "
+              f"ready in {time.perf_counter() - t0:.1f} s; the engine's bf16 "
+              f"weights and caches {engine_bytes / 2 ** 30:.3f} GiB on the "
+              f"card; {len(prompts)} requests, prompts {lengths}, gen {gen}, "
+              f"4 slots, max_len {eng.max_len}")
+        _print_capture(eng)
+        self.hybrid_launches, report = self._serve_recurrent(
+            eng, prompts, gen, lambda e: self._hybrid_want(e, lengths, False),
+            "bf16")
+        self._trace(eng, report["decode_step_p50_s"], n_steps=4,
+                    expect=("matmul", "gated_matmul", "flash_decode"))
+        del eng
+        self._memory_back(base, "bf16")
+
+        # the f32 params made again from their seeds, so that the peaks
+        # of both runs measure the engine alone
+        params = self._hybrid_params(cfg, self.dev)
+        eng = ServingEngine(cfg, params, max_slots=4,
+                            max_len=max(lengths) + gen, device=self.dev,
+                            quant="int8")
+        del params
+        torch.cuda.empty_cache()
+        _print_capture(eng)
+        self.hybrid_int8_launches, rep8 = self._serve_recurrent(
+            eng, prompts, gen, lambda e: self._hybrid_want(e, lengths, True),
+            "int8 weights", report["decode_step_p50_s"])
+        self._trace(eng, rep8["decode_step_p50_s"], n_steps=4,
+                    expect=("matmul", "matmul_q", "flash_decode"))
+        del eng
+        self._memory_back(base, "int8 weights")
+
+    def _memory_back(self, base, what):
+        """Once the caller has dropped its engine, the card's allocated
+        memory must come back to `base`, what it was before the engine and
+        its f32 params were made."""
+        torch = self.torch
+        import gc
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        now = torch.cuda.memory_allocated()
+        print(f"      {what}: after the engine goes, memory_allocated "
+              f"{now / 2 ** 30:.3f} GiB (before it {base / 2 ** 30:.3f} GiB), "
+              f"memory_reserved {torch.cuda.memory_reserved() / 2 ** 30:.3f} "
+              f"GiB")
+        assert now == base, (what, now, base)
+
+    def phase_hybrid_vs_cpu(self, length=300, steps=4, tol=1e-4):
+        """zamba2-1.2b at full width and depth 2 (two segments of one Mamba
+        layer: both LoRA pairs, both KV caches), f32 activations, lora_b
+        random: a prefill of a 300-token prompt (two whole chunks and a
+        padded ragged one) and 4 decode steps on the card (the CUDA
+        kernels) and on the CPU (their plain versions) from the same
+        weights: logits and every cache leaf within rtol 1e-4, atol 1e-4 x
+        the largest |value| (f32 sums in another order)."""
+        torch = self.torch
+        import dataclasses
+        from repro_torch.configs import get_config
+        from repro_torch.core.tree import leaves, tree_map
+        from repro_torch.models import model as M
+        cfg = dataclasses.replace(get_config("zamba2-1.2b"), n_layers=2,
+                                  attn_every=1, dtype="float32")
+        params = self._hybrid_params(cfg, "cpu")
+        toks = torch.randint(0, cfg.vocab, (1, length + steps),
+                             generator=torch.Generator().manual_seed(1))
+        # a KV length past attn_chunk is a whole number of chunks
+        a = cfg.attn_chunk
+        max_len = length + steps if length + steps <= a \
+            else -(-(length + steps) // a) * a
+        out = []
+        for dev in (self.dev, torch.device("cpu")):
+            p = tree_map(lambda x: x.to(dev), params)
+            cache = M.init_cache(cfg, 1, max_len, dev)
+            t0 = time.perf_counter()
+            logits, cache = M.prefill(cfg, p, {"tokens": toks[:, :length]
+                                               .to(dev)}, cache)
+            logs = [logits]
+            for i in range(steps):
+                logits, cache = M.decode_step(
+                    cfg, p, toks[:, length + i:length + i + 1].to(dev),
+                    length + i, cache)
+                logs.append(logits)
+            got = [t.cpu() for t in logs] + [v.cpu() for v in leaves(cache)]
+            out.append((got, time.perf_counter() - t0))
+        (card, tc), (cpu, tp) = out
+        worst = 0.0
+        for x, y in zip(card, cpu):
+            assert torch.isfinite(x).all(), "non-finite output on the card"
+            scale = y.abs().max().item()
+            torch.testing.assert_close(x, y, rtol=tol, atol=tol * scale)
+            worst = max(worst, ((x - y).abs().max() / scale).item())
+        print(f"      depth 2 (2 segments of 1 Mamba layer), f32, a {length}-"
+              f"token prefill and {steps} decode steps: card ({tc * 1e3:.0f} "
+              f"ms) against CPU ({tp * 1e3:.0f} ms): logits, KV caches and "
+              f"states within rtol {tol:g}; max |diff| / max |value| "
+              f"{worst:.2e}")
+
+    # -- 10. the paper's experiment ---------------------------------------
     def phase_paper(self, n=4096, iters=3):
         """Table 2 and Figs 8-9 at the paper's size through the port's
         entry points: the measurement `launch.paper` prints (float, double
@@ -1805,7 +2083,7 @@ class Smoke:
         from repro_torch.benchmarks import bench_add, common
         from repro_torch.kernels import ops
         from repro_torch.launch import paper
-        print(f"[9/10] the paper's experiment at n={n} (Table 2, Figs 8-9)")
+        print(f"[10/11] the paper's experiment at n={n} (Table 2, Figs 8-9)")
         ops.reset_launch_counts()
         gemm_rows = common.measure(n, self.dev, iters=iters)
         add_rows = bench_add.measure(n, self.dev)
@@ -1896,6 +2174,17 @@ class Smoke:
                   **{k: self.train_launches[k]
                      for k in ("flash_attention", "flash_attention_bwd")},
                   "ssd": self.mamba_launches["ssd"]}
+        # and each main path's own run, counted from 0 (the multi-row
+        # decode forms' from phase 6 only)
+        paths = {"qwen3-0.6b": self.launches,
+                 "qwen3-0.6b paged int8": self.paged_launches,
+                 "qwen3-0.6b speculative": self.spec_launches,
+                 "qwen3-0.6b training": self.train_launches,
+                 "mamba2-2.7b": self.mamba_launches,
+                 "mamba2-2.7b int8": self.mamba_int8_launches,
+                 "zamba2-1.2b": self.hybrid_launches,
+                 "zamba2-1.2b int8": self.hybrid_int8_launches,
+                 "paper": self.paper_launches}
         rows = []
         for name, (source, replaces, label) in meta.items():
             cases = self.results[name]
@@ -1906,7 +2195,9 @@ class Smoke:
                 "max_abs_err": max(c["max_abs_err"] for c in cases),
                 "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                 "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
-                "library_ms": rep["library_ms"], "shape": label})
+                "library_ms": rep["library_ms"], "shape": label,
+                "launches_by_path": {p: c[name] for p, c in paths.items()
+                                     if c.get(name)}})
         return rows
 
 

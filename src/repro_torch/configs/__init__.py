@@ -1,5 +1,6 @@
 """Config registry of the archs the port serves: the dense decoder
-qwen3-0.6b and the attention-free Mamba-2 mamba2-2.7b.
+qwen3-0.6b, the attention-free Mamba-2 mamba2-2.7b and the hybrid
+zamba2-1.2b (a Mamba-2 backbone with one shared attention block).
 
 `get_config(name)` returns the full published config; `get_config(name,
 reduced=True)` the CPU test derivative.
@@ -7,10 +8,11 @@ reduced=True)` the CPU test derivative.
 
 from __future__ import annotations
 
-from repro_torch.configs import mamba2_2_7b, qwen3_0_6b
+from repro_torch.configs import mamba2_2_7b, qwen3_0_6b, zamba2_1_2b
 from repro_torch.configs.base import ModelConfig, SSMConfig
 
-_REGISTRY = {m.CONFIG.name: m.CONFIG for m in (mamba2_2_7b, qwen3_0_6b)}
+_REGISTRY = {m.CONFIG.name: m.CONFIG
+             for m in (mamba2_2_7b, qwen3_0_6b, zamba2_1_2b)}
 
 ARCH_NAMES = tuple(sorted(_REGISTRY))
 
@@ -19,8 +21,8 @@ def get_config(name: str, reduced: bool = False) -> ModelConfig:
     try:
         cfg = _REGISTRY[name]
     except KeyError:
-        raise ValueError(f"the port serves {ARCH_NAMES} (families dense "
-                         f"and ssm), not {name!r}") from None
+        raise ValueError(f"the port serves {ARCH_NAMES} (families dense, "
+                         f"ssm and hybrid), not {name!r}") from None
     return cfg.reduced() if reduced else cfg
 
 

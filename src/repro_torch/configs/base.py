@@ -26,7 +26,7 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense | ssm (the families the port serves)
+    family: str                     # dense | ssm | hybrid (the families the port serves)
     n_layers: int
     d_model: int
     n_heads: int
@@ -41,8 +41,10 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     use_rope: bool = True
     tie_embeddings: bool = False
-    # Mamba-2 blocks (family ssm)
+    # Mamba-2 blocks (families ssm and hybrid)
     ssm: Optional[SSMConfig] = None
+    attn_every: int = 0             # hybrid: shared attn block period (Zamba2)
+    shared_attn_lora_rank: int = 0  # Zamba2 per-invocation LoRA on shared block
     # block flavour
     norm: str = "rms"
     mlp: str = "swiglu"
@@ -84,6 +86,8 @@ class ModelConfig:
         if self.ssm is not None:
             kw["ssm"] = dataclasses.replace(
                 self.ssm, d_state=16, head_dim=8, chunk=16)
+        if self.attn_every:
+            kw["attn_every"] = 2
         if self.window is not None:
             kw["window"] = 32
         return dataclasses.replace(self, **kw)

@@ -17,9 +17,13 @@ prompt; prefix pages are shared, and copied on write):
     PYTHONPATH=src python -m repro_torch.launch.serve --kv-layout paged \
         --quant-kv int8 --prefix-len 392
 
-Mamba-2 (attention-free; its recurrent state takes no page pool or int8):
+Mamba-2 (attention-free), and Zamba2 (a Mamba-2 backbone with one shared
+attention block, its KV caches dense); their recurrent state takes no
+page pool or int8 pages:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
+        --requests 8 --max-slots 4 --prompt-len-min 64 --prompt-len-max 512
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
         --requests 8 --max-slots 4 --prompt-len-min 64 --prompt-len-max 512
 
 Bursty arrivals with two priority levels, deadlines 2 s after arrival and

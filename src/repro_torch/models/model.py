@@ -1,4 +1,5 @@
-"""Top-level model API of the port, families `dense` and `ssm`:
+"""Top-level model API of the port, families `dense`, `ssm` and
+`hybrid`:
 
     params = init_params(cfg, generator, device)
     qparams = quantize_params(params)          # int8 dense weights
@@ -15,9 +16,12 @@ Params carry the keys, shapes, scales and param_dtype of the JAX
 package's `init_params`; `repro_torch.bridge` converts those leaf for
 leaf. Caches are updated in place (see models.attention). The ssm
 family's cache is its recurrent state: the SSD state and the two conv
-tails of every layer. It serves (prefill, decode_step) on a dense
-state: the page pool, int8 weights and training (forward, loss_fn) are
-the dense family's only.
+tails of every layer. The hybrid family (Zamba2) keeps that state for
+each Mamba layer, stacked (n_seg, attn_every, B, ...), beside the
+shared attention block's KV cache of each segment, (n_seg, B, Tmax,
+Hkv, Dh). Both serve (prefill, decode_step) on dense caches, with float
+or int8 weights; the page pool, the verify step and training (forward,
+loss_fn) are the dense family's only.
 """
 
 from __future__ import annotations
@@ -33,12 +37,16 @@ from repro_torch.models import transformer as T
 
 
 def _check_family(cfg) -> None:
+    hybrid = (cfg.family == "hybrid" and cfg.ssm is not None
+              and cfg.mlp == "swiglu" and cfg.attn_every > 0
+              and cfg.n_layers % cfg.attn_every == 0)
     if cfg.norm != "rms" or not (
             (cfg.family == "dense" and cfg.mlp == "swiglu")
-            or (cfg.family == "ssm" and cfg.ssm is not None)):
-        raise ValueError(f"the port serves dense swiglu/rms decoders and "
-                         f"rms Mamba-2 stacks (ssm), not {cfg.name} "
-                         f"({cfg.family})")
+            or (cfg.family == "ssm" and cfg.ssm is not None) or hybrid):
+        raise ValueError(f"the port serves dense swiglu/rms decoders, rms "
+                         f"Mamba-2 stacks (ssm) and Mamba-2 stacks in whole "
+                         f"segments with a shared swiglu block (hybrid), "
+                         f"not {cfg.name} ({cfg.family})")
 
 
 def init_params(cfg, generator: torch.Generator, device=None) -> Dict[str, Any]:
@@ -57,6 +65,8 @@ def init_params(cfg, generator: torch.Generator, device=None) -> Dict[str, Any]:
                                     dtype=dtype, device=device)
     if cfg.family == "ssm":
         p["layers"] = T.ssm_stack_init(generator, cfg, device=device)
+    elif cfg.family == "hybrid":
+        p["hybrid"] = T.hybrid_init(generator, cfg, device=device)
     else:
         p["layers"] = T.stack_init(generator, cfg, device=device)
     return p
@@ -72,11 +82,11 @@ def quantize_params(params):
     "b"?}) outside QUANT_EXCLUDE becomes {"w_q", "w_scale", "b"?}
     (layers.dense_quantize); dense_apply / gated_apply then route those
     layers through core.gemm.dense_q. Quantize the f32 params, before
-    any cast, as the JAX engine does. int8 weights on the ssm family are
-    not ported."""
-    if "mamba" in params.get("layers", {}):
-        raise NotImplementedError("int8 weights are ported for the dense "
-                                  "family only, not for Mamba-2 (ssm) params")
+    any cast, as the JAX engine does. As the JAX package's walk: a
+    mamba2 model's 3D stacks and lm_head are quantized; a hybrid's
+    (n_seg, attn_every, K, N) Mamba stacks are 4D and stay float, so
+    its shared block, the block's input projection and lm_head are;
+    raw arrays (the hybrid's lora_a / lora_b) stay float."""
 
     def rec(node, name):
         if isinstance(node, dict):
@@ -94,17 +104,27 @@ def init_cache(cfg, batch: int, max_len: int, device=None):
     """Dense: the (L, B, max_len, Hkv, Dh) K and V caches. ssm: each
     layer's recurrent state, {"ssd": (L, B, H, P, N) f32, "conv":
     (L, B, W - 1, d_inner), "conv_bc": (L, B, W - 1, 2GN)}, whatever
-    max_len."""
+    max_len. hybrid: {"mamba": that state with (n_seg, attn_every) in
+    place of L, "attn": {"k", "v": (n_seg, B, max_len, Hkv, Dh)}}."""
     device = resolve_device(device)
-    if cfg.family == "ssm":
-        st = S.mamba_init_state(cfg, batch, device=device,
-                                dtype=getattr(torch, cfg.dtype))
-        return {k: v.new_zeros((cfg.n_layers, *v.shape))
-                for k, v in st.items()}
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
     dtype = getattr(torch, cfg.dtype)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    def kv(layers):
+        shape = (layers, batch, max_len, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    if cfg.family in ("ssm", "hybrid"):
+        st = S.mamba_init_state(cfg, batch, device=device, dtype=dtype)
+        if cfg.family == "ssm":
+            return {k: v.new_zeros((cfg.n_layers, *v.shape))
+                    for k, v in st.items()}
+        n_seg = cfg.n_layers // cfg.attn_every
+        return {"mamba": {k: v.new_zeros((n_seg, cfg.attn_every, *v.shape))
+                          for k, v in st.items()},
+                "attn": kv(n_seg)}
+    return kv(cfg.n_layers)
 
 
 def init_paged_cache(cfg, n_pages: int, page_size: int, max_slots: int,
@@ -121,7 +141,7 @@ def init_paged_cache(cfg, n_pages: int, page_size: int, max_slots: int,
     scale planes; the decode kernel dequantizes on f32."""
     _check_family(cfg)
     if cfg.family != "dense":
-        raise ValueError(f"a paged KV cache is for attention caches; "
+        raise ValueError(f"a paged KV cache serves the dense family; "
                          f"{cfg.name} ({cfg.family}) keeps a recurrent state")
     device = resolve_device(device)
     hkv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
@@ -155,7 +175,8 @@ def _logits(cfg, params, x):
 
 
 #: The families that `forward` and `loss_fn` train; the launcher offers
-#: only their archs. ssm (Mamba-2) serves but does not train yet.
+#: only their archs. ssm (Mamba-2) and hybrid (Zamba2) serve but do not
+#: train yet.
 TRAIN_FAMILIES = ("dense",)
 
 
@@ -191,12 +212,16 @@ def loss_fn(cfg, params, batch):
 def prefill(cfg, params, batch, cache, pos: int = 0):
     """Run the prompt batch["tokens"] (B, T) through the model, writing
     the cache from `pos` (ssm: the state the prompt ends in, which the
-    prompt computes from a zero state). Returns (last-position f32
-    logits, cache)."""
+    prompt computes from a zero state; hybrid: that state and the shared
+    block's KV rows). Returns (last-position f32 logits, cache)."""
     x = L.embed_apply(params["embed"], batch["tokens"],
                       dtype=getattr(torch, cfg.dtype))
     if cfg.family == "ssm":
         x, cache = T.ssm_stack_apply(params["layers"], x, cfg, states=cache)
+    elif cfg.family == "hybrid":
+        x, _, _ = T.hybrid_apply(params["hybrid"], x, cfg, emb0=x,
+                                 attn_caches=cache["attn"], cache_pos=pos,
+                                 mamba_states=cache["mamba"])
     else:
         x, cache = T.stack_apply(params["layers"], x, cfg, caches=cache,
                                  cache_pos=pos)
@@ -210,11 +235,17 @@ def decode_step(cfg, params, token, pos, cache):
     (init_cache) or a paged one (init_paged_cache, which takes a per-slot
     pos). ssm: the state steps one token in every row; pos is not read,
     so an idle slot's row steps on garbage, which its next admission
-    overwrites. Returns (f32 logits, cache)."""
+    overwrites. hybrid: its Mamba state steps so, and its KV rows are
+    written and read at pos as the dense family's. Returns (f32 logits,
+    cache)."""
     x = L.embed_apply(params["embed"], token, dtype=getattr(torch, cfg.dtype))
     if cfg.family == "ssm":
         x, cache = T.ssm_stack_apply(params["layers"], x, cfg, states=cache,
                                      decode=True)
+    elif cfg.family == "hybrid":
+        x, _, _ = T.hybrid_apply(params["hybrid"], x, cfg, emb0=x,
+                                 attn_caches=cache["attn"], cache_pos=pos,
+                                 mamba_states=cache["mamba"], decode=True)
     elif "pages" in cache:
         # the layer-less table goes to every layer's pool
         x, _ = T.stack_apply(params["layers"], x, cfg, caches=cache["pages"],
@@ -238,11 +269,11 @@ def verify_step(cfg, params, tokens, pos, n_tok, cache):
     kernel's multi-row form, so row j and the cache rows it writes are
     those of a decode step at pos + j, bit for bit, as its GEMMs' rows
     are at any row count. The dense family only, as the JAX package's
-    `verify_step` refuses the families without an attention cache."""
+    `verify_step` refuses the families that keep a recurrent state."""
     if cfg.family != "dense":
         raise ValueError(f"speculative verification needs an attention "
-                         f"cache (family dense), not {cfg.name} "
-                         f"({cfg.family})")
+                         f"cache alone (family dense), not {cfg.name} "
+                         f"({cfg.family}), which keeps a recurrent state")
     x = L.embed_apply(params["embed"], tokens, dtype=getattr(torch, cfg.dtype))
     if "pages" in cache:
         x, _ = T.stack_apply(params["layers"], x, cfg, caches=cache["pages"],

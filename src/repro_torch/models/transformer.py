@@ -1,5 +1,6 @@
 """The decoder stacks: pre-norm blocks of attention and a SwiGLU MLP
-(family dense), and pre-norm Mamba-2 blocks (family ssm).
+(family dense), pre-norm Mamba-2 blocks (family ssm), and Zamba2's
+Mamba-2 backbone with one shared attention block (family hybrid).
 
 Params are stacked with a leading layer dim, as the JAX package's
 `stack_init` builds them, and `stack_apply` loops over that dim in
@@ -15,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import gemm
+from repro_torch.core.tree import tree_map
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
 from repro_torch.models import layers as L
@@ -118,3 +121,68 @@ def ssm_stack_apply(params, x, cfg, *, states=None, decode=False):
                 per_state[i][k].copy_(v)
         x = x + h
     return x, states
+
+
+# ----------------------------------------------------------------------
+# Zamba2 hybrid stack
+# ----------------------------------------------------------------------
+
+def hybrid_init(generator, cfg, *, device):
+    """The Mamba layers stacked as (n_seg, attn_every, ...), one shared
+    block with its 2d -> d input projection, and each segment's LoRA pair
+    (lora_b zeros, as the JAX package initialises it)."""
+    n_seg = cfg.n_layers // cfg.attn_every
+    dtype = getattr(torch, cfg.param_dtype)
+    mamba = tree_map(
+        lambda a: a.reshape(n_seg, cfg.attn_every, *a.shape[1:]),
+        ssm_stack_init(generator, cfg, device=device))
+    p = {"mamba": mamba,
+         "shared": {"in_proj": L.dense_init(generator, 2 * cfg.d_model,
+                                            cfg.d_model, dtype=dtype,
+                                            device=device),
+                    "block": block_init(generator, cfg, device=device)}}
+    r = cfg.shared_attn_lora_rank
+    if r:
+        a = torch.randn((n_seg, cfg.d_model, r), generator=generator,
+                        dtype=torch.float32, device=generator.device)
+        p["lora_a"] = (a * cfg.d_model ** -0.5).to(device=device, dtype=dtype)
+        p["lora_b"] = torch.zeros(
+            (n_seg, r, cfg.n_heads * cfg.resolved_head_dim), dtype=dtype,
+            device=device)
+    return p
+
+
+def hybrid_apply(params, x, cfg, *, emb0, attn_caches=None, cache_pos=None,
+                 mamba_states=None, decode=False):
+    """Returns (x, attn_caches, mamba_states). Each segment runs its
+    attn_every Mamba layers (`ssm_stack_apply`: prefill, collecting the
+    states into `mamba_states` when given, or a decode step from them),
+    then the shared block on in_proj(cat([x, emb0])), emb0 the embedding
+    of this call's tokens, plus the segment's LoRA delta
+    rmsnorm(attn_norm, xin) @ lora_a[s] @ lora_b[s]; the block's output
+    (which carries xin) is added to x, as the reference adds it.
+    attn_caches: stacked (n_seg, B, Tmax, Hkv, Dh) KV caches, written at
+    cache_pos as `block_apply` writes them; both caches in place."""
+    n_seg = cfg.n_layers // cfg.attn_every
+    segs = _unstack(params["mamba"], n_seg)
+    states = [None] * n_seg if mamba_states is None \
+        else _unstack(mamba_states, n_seg)
+    caches = [None] * n_seg if attn_caches is None \
+        else _unstack(attn_caches, n_seg)
+    shared = params["shared"]
+    bp = shared["block"]
+    for s in range(n_seg):
+        x, _ = ssm_stack_apply(segs[s], x, cfg, states=states[s],
+                               decode=decode)
+        xin = L.dense_apply(shared["in_proj"], torch.cat([x, emb0], dim=-1))
+        xo, _ = block_apply(bp, xin, cfg, cache=caches[s],
+                            cache_pos=cache_pos)
+        if cfg.shared_attn_lora_rank:
+            # (xn @ a) @ b, the order XLA contracts the reference's
+            # three-operand einsum in, each product rounded to xin's dtype
+            xn = L.rmsnorm_apply(bp["attn_norm"], xin)
+            xo = xo + gemm.matmul(
+                gemm.matmul(xn, params["lora_a"][s].to(xin.dtype)),
+                params["lora_b"][s].to(xin.dtype))
+        x = x + xo
+    return x, attn_caches, mamba_states

@@ -74,16 +74,24 @@ page are shared instead of written. Before each step `pool.prepare_write`
 makes every page a slot may write private: a write into a shared page
 becomes a copy-on-write (`_copy_page`). Admission waits while the pool
 cannot guarantee a request's whole write range. quant_kv="int8" stores
-pages as int8 with per-(position, head) scales, quantized at page write;
+pages as int8 with per-(position, head) scales, quantized at page write.
+
 quant="int8" quantizes the dense weights once, at construction (the
-embedding stays in the compute dtype).
+embedding stays in the compute dtype), for every family, as the JAX
+engine does: `models.model.quantize_params` says which weights.
 
 Family ssm (Mamba-2): a slot's cache row is its recurrent state (the SSD
 state and the conv tails of every layer), which admission copies in
 leaf by leaf. The state has no positions, so neither a page pool, int8
-weights or pages, nor a verify step apply, and max_len only bounds what
-a request may ask for. A decode step steps every row, an idle slot's on
-garbage that its next admission overwrites, as in the JAX engine.
+pages nor a verify step apply, and max_len only bounds what a request
+may ask for. A decode step steps every row, an idle slot's on garbage
+that its next admission overwrites, as in the JAX engine. Family hybrid
+(Zamba2): that state for every Mamba layer, and the shared attention
+block's KV cache of every segment, written at pos as the dense family's
+(max_len rounds as theirs); neither a page pool, int8 pages nor a
+verify step apply either. A leaf's slot axis is where the engine's cache
+and the one-slot sub-cache differ (axis 2 of a hybrid's Mamba leaves,
+axis 1 of the rest), and admission copies each leaf along its own.
 
 These are the JAX package's `ServingEngine` paths, with the policy
 fields kv_layout / quant_kv / quant as constructor arguments. A kernel
@@ -102,6 +110,7 @@ import torch
 
 from repro_torch.core import precision
 from repro_torch.core.device import resolve_device
+from repro_torch.core.tree import leaves
 from repro_torch.models import model as M
 from repro_torch.serving.kv_pool import KVPagePool, KVPoolExhausted
 from repro_torch.serving.request import (ACTIVE, CANCELLED, FINISHED,
@@ -136,15 +145,27 @@ def check_modes(cfg, kv_layout: str, quant_kv: str, quant: str) -> None:
             raise ValueError(f"unknown {name} {mode!r}; expected one "
                              f"of {QUANT_MODES}")
     paged = kv_layout == "paged"
-    if cfg.family == "ssm" and (paged or quant_kv != "off" or quant != "off"):
+    if cfg.family in ("ssm", "hybrid") and (paged or quant_kv != "off"):
         raise ValueError(
-            f"{cfg.name} ({cfg.family}) keeps a recurrent state, not a KV "
-            f"cache: kv_layout='paged', quant_kv and quant apply to the "
-            f"dense family only")
+            f"{cfg.name} ({cfg.family}) keeps a recurrent state: "
+            f"kv_layout='paged' and quant_kv apply to the dense family "
+            f"only")
     if quant_kv != "off" and not paged:
         raise ValueError(
             "quant_kv applies to KV pages; it requires "
             "kv_layout='paged' (dense caches stay full precision)")
+
+
+def _slot_axis(big, one):
+    """The axis along which a cache leaf indexes slots: where the
+    engine's max_slots cache differs from the one-slot sub-cache. None:
+    no axis differs (max_slots 1), and the whole leaf is the slot's."""
+    diffs = [i for i, (a, b) in enumerate(zip(big, one)) if a != b]
+    if len(diffs) > 1:
+        raise ValueError(f"a cache leaf of shape {tuple(big)} differs from "
+                         f"its one-slot shape {tuple(one)} on axes {diffs}; "
+                         f"a slot's copy needs one")
+    return diffs[0] if diffs else None
 
 
 class ServingEngine:
@@ -217,8 +238,12 @@ class ServingEngine:
         self._tokens, self._pos = self._tokens_h.numpy(), self._pos_h.numpy()
         self._step_tokens = torch.zeros_like(self._tokens_h, device=self.device)
         self._step_pos = torch.full_like(self._pos_h, -1, device=self.device)
-        # the admission's sub-cache and the remainder step's inputs
+        # the admission's sub-cache, each dense cache leaf's slot axis, and
+        # the remainder step's inputs
         self._sub = M.init_cache(cfg, 1, max_len, self.device)
+        self._slot_axes = None if paged else [
+            _slot_axis(big.shape, one.shape)
+            for big, one in zip(leaves(self.cache), leaves(self._sub))]
         self._rem_token = torch.zeros((1, 1), dtype=torch.int64,
                                       device=self.device)
         self._rem_pos = torch.full((1,), -1, dtype=torch.int32,
@@ -300,8 +325,8 @@ class ServingEngine:
         """Make `_step`, `_remainder_step` and, with a draft,
         `_verify_step`: on the card, CUDA graphs of `_decode_fn`,
         `_remainder_fn` and `_verify_fn`, captured while every slot is
-        idle (pos = -1, so the warm-ups and captures write no KV row; an
-        ssm state steps only idle rows, which admission overwrites); on
+        idle (pos = -1, so the warm-ups and captures write no KV row; a
+        Mamba state steps only idle rows, which admission overwrites); on
         the CPU, the functions themselves. The capture time and the
         graphs' pools count the draft's graphs too."""
         steps = [("_step", self._decode_fn, "the decode step"),
@@ -389,12 +414,17 @@ class ServingEngine:
             self._table_version = self.pool.version
 
     def _copy_prefill(self, slot: int, sub, plan) -> None:
-        """Dense: the slot's row of every leaf (K and V, or an ssm
-        state's leaves). Paged: each freshly allocated prompt page; pages
-        shared with a resident prefix are never rewritten."""
+        """Dense: the slot's row of every leaf (K and V, a recurrent
+        state's leaves, or both), along the leaf's slot axis. Paged: each
+        freshly allocated prompt page; pages shared with a resident
+        prefix are never rewritten."""
         if self.pool is None:
-            for name, leaf in sub.items():
-                self.cache[name][:, slot] = leaf[:, 0]
+            for leaf, one, ax in zip(leaves(self.cache), leaves(sub),
+                                     self._slot_axes):
+                if ax is None:
+                    leaf.copy_(one)
+                else:
+                    leaf.select(ax, slot).copy_(one.select(ax, 0))
             return
         for j, phys in plan.private:
             self._write_page(sub, phys, j * self.page_size)
@@ -419,7 +449,7 @@ class ServingEngine:
         lb = L - (L % self.prefill_chunk) or L   # bucket down; short prompts exact
         tokens = torch.as_tensor(ctx, dtype=torch.long, device=self.device)
         sub = self._sub
-        for leaf in sub.values():
+        for leaf in leaves(sub):
             leaf.zero_()
         logits, _ = M.prefill(self.cfg, self.params,
                               {"tokens": tokens[None, :lb]}, sub)

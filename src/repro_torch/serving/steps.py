@@ -21,14 +21,19 @@ from repro_torch.kernels import ops as kops
 WARMUP_RUNS = 2
 
 
+#: The leaves `place_params` casts to the compute dtype: float matrix
+#: weights, and a hybrid's LoRA pairs.
+_CAST = ("w", "lora_a", "lora_b")
+
+
 def place_params(tree, device, dtype):
-    """The params on `device`, float matrix weights ("w" leaves) in the
-    compute dtype; norm scales and the int8 weights' leaves ("w_q" int8,
-    "w_scale" f32) as they are. The JAX package casts each weight to the
-    activation dtype on every call; casting once here gives the same
-    values."""
+    """The params on `device`, float matrix weights ("w" leaves, and a
+    hybrid's "lora_a" / "lora_b") in the compute dtype; norm scales and
+    the int8 weights' leaves ("w_q" int8, "w_scale" f32) as they are.
+    The JAX package casts each weight to the activation dtype on every
+    call; casting once here gives the same values."""
     return {k: place_params(v, device, dtype) if isinstance(v, dict)
-            else v.to(device, dtype if k == "w" else v.dtype)
+            else v.to(device, dtype if k in _CAST else v.dtype)
             for k, v in tree.items()}
 
 

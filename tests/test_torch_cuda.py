@@ -507,11 +507,13 @@ def test_gated_matmul_is_batch_invariant(dev, kn):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(3, 37, 4, 4, 16), (4, 100, 8, 2, 64),
-                                   (2, 300, 16, 8, 128), (2, 130, 16, 2, 64)])
+                                   (2, 300, 16, 8, 128), (2, 130, 16, 2, 64),
+                                   (4, 2048, 32, 32, 64)])
 @pytest.mark.parametrize("window", [None, 7])
 def test_flash_decode_kernel_matches_plain(dev, dtype, shape, window):
     """GQA groups 1, 2, 4 and 8 (more query heads than a block takes in
-    one pass over its staged rows)."""
+    one pass over its staged rows), and zamba2's decode shape: 32 heads of
+    64, one query head a KV head, 2048 keys deep."""
     b, tk, h, hkv, d = shape
     q = _randn(b, 1, h, d, dtype=dtype, dev=dev, seed=0)
     # the cache as the model holds it: one layer's view of (L, B, T, Hkv, D)
@@ -535,11 +537,17 @@ def test_flash_decode_kernel_matches_plain(dev, dtype, shape, window):
 @pytest.mark.parametrize("mkn", [(5, 37, 19), (4, 1024, 3072), (70, 100, 65),
                                  (129, 33, 257), (1, 1024, 1024),
                                  (16, 2048, 1024), (17, 301, 1031),
-                                 (130, 1024, 3072), (2048, 3072, 1024)])
+                                 (130, 1024, 3072), (2048, 3072, 1024),
+                                 (4, 2048, 8192), (4, 2560, 10240),
+                                 (4, 4096, 2048), (4, 2560, 336),
+                                 (300, 2048, 8192)])
 def test_matmul_q_kernel_matches_plain(dev, dtype, epilogue, mkn):
     """Every tile plan (the decode tile's widths and edges at M = 1 and
     16, the 128-row tile from M = 17), each also through offset views of
-    A and of the int8 weight: the element-by-element loads."""
+    A and of the int8 weight: the element-by-element loads; and the
+    int8 Mamba projections at decode and prefill (zamba2's and
+    mamba2-2.7b's in_proj, zamba2's shared in_proj at K = 4096, mamba2's
+    in_proj_bc)."""
     m, k, n = mkn
     a = _randn(m, k, dtype=dtype, dev=dev, seed=0)
     wq, scale = precision.quantize_int8(
@@ -560,7 +568,7 @@ def test_matmul_q_kernel_matches_plain(dev, dtype, epilogue, mkn):
 
 
 @pytest.mark.parametrize("kn", [(1024, 3072), (1024, 1024), (2048, 1024),
-                                (3072, 1024)])
+                                (3072, 1024), (2048, 8192), (2560, 10240)])
 def test_matmul_q_is_batch_invariant(dev, kn):
     """A row of C has the same bits at M = 4, 20 (a verify step), 136 and
     2048 as alone at M = 1, with the residual epilogue, in bf16 and f32
@@ -724,7 +732,18 @@ def test_flash_decode_is_batch_invariant(dev, layout, window):
     pos + 1 keys (whole pages for a pool) or of 2048, and with its pages
     in another order: the engine's "streams equal each request alone"
     gate rests on it."""
-    b, tk, h, hkv, d, ps = 4, 2048, 16, 8, 128, 16
+    _check_decode_batch_invariance(dev, layout, window, 16, 8, 128)
+
+
+@pytest.mark.parametrize("window", [None, 512])
+def test_flash_decode_is_batch_invariant_at_zamba2_heads(dev, window):
+    """The same at zamba2's decode shape (32 heads of 64, one query head a
+    KV head), on the dense cache that the hybrid serves from."""
+    _check_decode_batch_invariance(dev, "dense", window, 32, 32, 64)
+
+
+def _check_decode_batch_invariance(dev, layout, window, h, hkv, d):
+    b, tk, ps = 4, 2048, 16
     q = _randn(b, 1, h, d, dtype=torch.bfloat16, dev=dev, seed=0)
     k = _randn(b, tk, hkv, d, dtype=torch.bfloat16, dev=dev, seed=1)
     v = _randn(b, tk, hkv, d, dtype=torch.bfloat16, dev=dev, seed=2)
@@ -1233,6 +1252,9 @@ SERVE_PATHS = {
     "paged-int8": ("qwen3-0.6b", dict(kv_layout="paged", quant_kv="int8",
                                       quant="int8", page_size=8)),
     "mamba2": ("mamba2-2.7b", {}),
+    "hybrid": ("zamba2-1.2b", {}),
+    "mamba2-int8": ("mamba2-2.7b", dict(quant="int8")),
+    "hybrid-int8": ("zamba2-1.2b", dict(quant="int8")),
 }
 # prompts with remainder tokens (13, 21), a whole bucket (16) and one
 # shorter than a bucket (5, prefilled exactly)
@@ -1243,6 +1265,12 @@ def _serving(dev, path, max_slots=2, max_len=48):
     arch, kw = SERVE_PATHS[path]
     cfg = get_config(arch, reduced=True)
     params = M.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    if cfg.family == "hybrid":
+        # lora_b starts at zeros: draw it, so the LoRA path computes
+        lb = params["hybrid"]["lora_b"]
+        params["hybrid"]["lora_b"] = _randn(*lb.shape, dtype=lb.dtype,
+                                            dev=dev, seed=9,
+                                            scale=lb.shape[1] ** -0.5)
     eng = ServingEngine(cfg, params, max_slots=max_slots, max_len=max_len,
                         device=dev, **kw)
     g = torch.Generator().manual_seed(2)
@@ -1294,7 +1322,7 @@ def test_replayed_steps_equal_eager_steps_bit_for_bit(dev, path):
     _assert_same(eng.cache, state)
 
     toks = torch.as_tensor(prompts[0], dtype=torch.long, device=dev)[None]
-    for leaf in eng._sub.values():
+    for leaf in leaves(eng._sub):
         leaf.zero_()
     M.prefill(cfg, params, {"tokens": toks[:, :8]}, eng._sub)
     vec, scalar = _clone(eng._sub), _clone(eng._sub)
@@ -1329,6 +1357,24 @@ def test_replays_count_the_eager_launches(dev, path):
     if path == "mamba2":
         want = _no_launches(matmul=(5 * L + 1) * n + (3 * L + 1) * one,
                             ssd=L * n)
+    elif path == "mamba2-int8":
+        want = _no_launches(matmul_q=(5 * L + 1) * n + (3 * L + 1) * one,
+                            ssd=L * n)
+    elif path.startswith("hybrid"):
+        # a segment: its Mamba layers (5 GEMMs at prefill, 3 a step), the
+        # shared in_proj, the LoRA pair, QKV/O, the SwiGLU and down; with
+        # int8 weights the block, its in_proj and lm_head take matmul_q
+        # (the dual GEMM as two) and the Mamba stacks and LoRA stay bf16
+        a, seg = eng.cfg.attn_every, L // eng.cfg.attn_every
+        attn = dict(flash_decode=seg * one, ssd=L * n)
+        if path == "hybrid":
+            want = _no_launches(matmul=seg * (5 * a + 8) * n + n
+                                + (seg * (3 * a + 8) + 1) * one,
+                                gated_matmul=seg * (n + one), **attn)
+        else:
+            want = _no_launches(matmul=seg * (5 * a + 2) * n
+                                + seg * (3 * a + 2) * one,
+                                matmul_q=(8 * seg + 1) * (n + one), **attn)
     elif path == "dense":
         want = _no_launches(matmul=(5 * L + 1) * (one + n),
                             gated_matmul=L * (one + n), flash_decode=L * one)
@@ -1416,6 +1462,37 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+def test_hybrid_prefill_and_decode_on_card_match_cpu(dev):
+    """The reduced zamba2 at 4 layers (two segments) in f32, a random
+    lora_b: a prefill of a ragged prompt and two decode steps at a
+    per-slot position vector (slot 1 idle at the second) on the card
+    against the same on the CPU: logits of the active rows, the KV
+    caches, and slot 0's Mamba state."""
+    cfg = dataclasses.replace(get_config("zamba2-1.2b", reduced=True),
+                              n_layers=4, dtype="float32")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    lb = params["hybrid"]["lora_b"]
+    params["hybrid"]["lora_b"] = torch.randn(
+        lb.shape, generator=torch.Generator().manual_seed(3)) \
+        * lb.shape[1] ** -0.5
+    tokens = torch.randint(0, cfg.vocab, (2, 21),
+                           generator=torch.Generator().manual_seed(1))
+    out = {}
+    for d in ("cpu", "cuda"):
+        p = _to(params, d)
+        cache = M.init_cache(cfg, 2, 32, d)
+        logs = [M.prefill(cfg, p, {"tokens": tokens.to(d)}, cache)[0]]
+        for i, pos in enumerate(([21, 21], [22, -1])):
+            pos = torch.tensor(pos, dtype=torch.int32, device=d)
+            logs.append(M.decode_step(cfg, p, tokens[:, i:i + 1].to(d), pos,
+                                      cache)[0][:2 - i])
+        out[d] = [t.cpu() for t in logs] \
+            + [t.cpu() for t in leaves(cache["attn"])] \
+            + [t[:, :, :1].cpu() for t in leaves(cache["mamba"])]
+    for x, y in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(x, y, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("kv_layout", ["dense", "paged"])

@@ -290,7 +290,7 @@ def test_engine_serves_two_rounds_as_the_jax_engine():
 def test_ssm_refuses_what_it_does_not_serve():
     cfg = get_config(ARCH, reduced=True)
     params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    for kw in (dict(kv_layout="paged"), dict(quant="int8"),
+    for kw in (dict(kv_layout="paged"), dict(kv_layout="paged", quant="int8"),
                dict(kv_layout="paged", quant_kv="int8")):
         with pytest.raises(ValueError, match="recurrent state"):
             ServingEngine(cfg, params, max_slots=1, max_len=16, device="cpu",
@@ -298,11 +298,29 @@ def test_ssm_refuses_what_it_does_not_serve():
     with pytest.raises(ValueError, match="recurrent state"):
         M.init_paged_cache(cfg, 4, 8, 1, 2, device="cpu")
     with pytest.raises(NotImplementedError, match="dense family"):
-        M.quantize_params(params)
-    with pytest.raises(NotImplementedError, match="dense family"):
         M.forward(cfg, params, {"tokens": torch.zeros(1, 4, dtype=torch.long)})
     eng = ServingEngine(cfg, params, max_slots=1, max_len=70, device="cpu")
     assert eng.max_len == 70            # no attn_chunk rounding for a state
+
+
+def test_ssm_serves_int8_weights():
+    """quant="int8" quantizes the stacked Mamba projections and lm_head
+    (the embedding, norms, convs and A_log / D / dt_bias stay float), and
+    the engine serves on them; `test_torch_quant.py` holds the streams to
+    the JAX engine's."""
+    cfg = get_config(ARCH, reduced=True)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    eng = ServingEngine(cfg, params, max_slots=2, max_len=32, device="cpu",
+                        quant="int8")
+    mamba = eng.params["layers"]["mamba"]
+    for name in ("in_proj", "in_proj_bc", "out_proj"):
+        assert mamba[name]["w_q"].dtype == torch.int8, name
+    assert eng.params["lm_head"]["w_q"].dtype == torch.int8
+    assert mamba["conv_w"].is_floating_point()
+    reqs = [eng.submit(np.arange(n, dtype=np.int32) % cfg.vocab, 4)
+            for n in (5, 13)]
+    eng.run()
+    assert all(len(r.generated) == 4 for r in reqs)
 
 
 def test_serve_cli_mamba2(capsys):

@@ -1,7 +1,11 @@
 """The port's int8 path against the JAX package's: the quantizers, the
 int8-weight GEMM's plain version against the Pallas kernel in interpret
 mode, the quantized dense layer, a decode step on quantized params, and
-the serving engine with int8 weights over a paged KV pool.
+the serving engine with int8 weights over a paged KV pool; and int8
+weights on the ssm (mamba2) and hybrid (zamba2, at 4 layers with a
+random lora_b) families: the quantized param trees, prefill and decode
+steps, and the ssm engine's streams (`test_torch_hybrid.py` holds the
+hybrid engine's), against the JAX package under its default policy.
 
 Both sides run in float32 on the same numpy inputs; the JAX side under
 `Policy(backend="pallas", interpret=True)`. Tolerances: the quantizers
@@ -29,6 +33,7 @@ from repro.serving import ServingEngine as JaxEngine
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_config
 from repro_torch.core import gemm, precision
+from repro_torch.core.tree import leaves
 from repro_torch.kernels import ops, ref
 from repro_torch.models import model as M
 from repro_torch.serving import ServingEngine
@@ -245,4 +250,126 @@ def test_engine_int8_weights_paged_streams_match_jax_engine(model):
                         page_size=8)
     assert eng.params["layers"]["attn"]["wq"]["w_q"].dtype == torch.int8
     assert eng.params["layers"]["attn"]["wq"]["w_scale"].dtype == torch.float32
+    assert run(eng) == want
+
+
+# ----------------------------------------------------------------------
+# int8 weights on the ssm and hybrid families
+# ----------------------------------------------------------------------
+
+RECURRENT = {"mamba2-2.7b": {}, "zamba2-1.2b": dict(n_layers=4)}
+
+
+@pytest.fixture(scope="module", params=list(RECURRENT))
+def recurrent(request):
+    """float32 reduced mamba2, and zamba2 at 4 layers (two segments) with
+    a seeded random lora_b, on the JAX package's weights."""
+    arch = request.param
+    kw = dict(RECURRENT[arch], dtype="float32")
+    jcfg = dataclasses.replace(jax_get_config(arch, reduced=True), **kw)
+    cfg = dataclasses.replace(get_config(arch, reduced=True), **kw)
+    jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    if cfg.family == "hybrid":
+        # lora_b starts at zeros: draw it, so the LoRA path computes
+        lb = jparams["hybrid"]["lora_b"]
+        jparams["hybrid"]["lora_b"] = jnp.asarray(
+            np.random.default_rng(7).normal(size=lb.shape)
+            * lb.shape[1] ** -0.5, lb.dtype)
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    return dict(arch=arch, jcfg=jcfg, cfg=cfg, jparams=jparams,
+                params=params)
+
+
+def test_quantize_params_of_recurrent_families_matches_reference(recurrent):
+    """The same keys and shapes as the reference's walk, int8 values and
+    scales bit for bit: mamba2's 3D stacks and lm_head quantized; zamba2's
+    4-D Mamba stacks and LoRA pairs left float (the walk quantizes 2D and
+    3D weights only), its shared block, in_proj and lm_head quantized."""
+    mine = M.quantize_params(recurrent["params"])
+    ref = JM.quantize_params(recurrent["jparams"])
+    flat = jax.tree_util.tree_flatten_with_path(ref)[0]
+    assert len(flat) == len(leaves(mine))
+    n_int8 = 0
+    for path, leaf in flat:
+        node = mine
+        for key in path:
+            node = node[key.key]
+        _equal(node, leaf)
+        n_int8 += node.dtype == torch.int8
+    assert mine["lm_head"]["w_q"].dtype == torch.int8
+    if recurrent["cfg"].family == "ssm":
+        # in_proj, in_proj_bc, out_proj (stacked), and lm_head
+        assert n_int8 == 4
+        assert mine["layers"]["mamba"]["in_proj"]["w_scale"].shape \
+            == (2, 1, mine["layers"]["mamba"]["in_proj"]["w_q"].shape[-1])
+    else:
+        hp = mine["hybrid"]
+        # in_proj, q, k, v, o, gate, up, down, and lm_head
+        assert n_int8 == 9
+        assert hp["mamba"]["mamba"]["in_proj"]["w"].dim() == 4
+        assert hp["mamba"]["mamba"]["in_proj"]["w"].dtype == torch.float32
+        assert hp["lora_a"].dtype == hp["lora_b"].dtype == torch.float32
+
+
+def test_quantized_recurrent_prefill_and_decode_match_reference(recurrent):
+    """prefill of 20 tokens and 2 decode steps at a per-slot position
+    vector, on quantized params: logits (atol 1e-4) and every cache leaf
+    (atol = rtol = 1e-4)."""
+    cfg, jcfg = recurrent["cfg"], recurrent["jcfg"]
+    tokens = np.random.default_rng(4).integers(
+        0, cfg.vocab, (2, 20)).astype(np.int32)
+    jq = JM.quantize_params(recurrent["jparams"])
+    jlog, jc = JM.prefill(jcfg, jq, {"tokens": jnp.asarray(tokens)},
+                          JM.init_cache(jcfg, 2, 32))
+    jlogs = [jlog]
+    for i in range(2):
+        jl, jc = JM.decode_step(jcfg, jq, jnp.asarray(tokens[:, i:i + 1]),
+                                jnp.full((2,), 20 + i, jnp.int32), jc)
+        jlogs.append(jl)
+    q = M.quantize_params(recurrent["params"])
+    cache = M.init_cache(cfg, 2, 32, "cpu")
+    log, _ = M.prefill(cfg, q, {"tokens": torch.from_numpy(tokens).long()},
+                       cache)
+    logs = [log]
+    for i in range(2):
+        log, _ = M.decode_step(cfg, q, torch.from_numpy(tokens[:, i:i + 1])
+                               .long(), torch.full((2,), 20 + i,
+                                                   dtype=torch.int32), cache)
+        logs.append(log)
+    for got, want in zip(logs, jlogs):
+        np.testing.assert_allclose(got[..., :cfg.vocab].numpy(),
+                                   np.asarray(want)[..., :cfg.vocab],
+                                   atol=ATOL, rtol=0)
+    for path, leaf in jax.tree_util.tree_flatten_with_path(jc)[0]:
+        node = cache
+        for key in path:
+            node = node[key.key]
+        np.testing.assert_allclose(node.numpy(), np.asarray(leaf),
+                                   atol=ATOL, rtol=ATOL)
+
+
+def test_engine_int8_weights_ssm_streams_match_jax_engine():
+    """mamba2 with quant="int8" on both engines: 4 prompts on 2 slots (13
+    and 21 run remainder steps), the greedy streams token for token."""
+    arch = "mamba2-2.7b"
+    jcfg = dataclasses.replace(jax_get_config(arch, reduced=True),
+                               dtype="float32")
+    cfg = dataclasses.replace(get_config(arch, reduced=True), dtype="float32")
+    jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    rng = np.random.default_rng(42)
+    prompts = [rng.integers(0, cfg.vocab, (n,)).astype(np.int32)
+               for n in (8, 13, 21, 5)]
+    gens = [3, 4, 9, 2]
+
+    def run(engine):
+        reqs = [engine.submit(p, g) for p, g in zip(prompts, gens)]
+        assert engine.run()["n_finished"] == len(reqs)
+        return [r.generated for r in reqs]
+
+    want = run(JaxEngine(jcfg, jparams, max_slots=2, max_len=48,
+                         policy=Policy(quant="int8")))
+    eng = ServingEngine(cfg, params, max_slots=2, max_len=48, device="cpu",
+                        quant="int8")
+    assert eng.params["layers"]["mamba"]["out_proj"]["w_q"].dtype == torch.int8
     assert run(eng) == want
