@@ -17,9 +17,12 @@ Phases, in order; any failure propagates and the exit code is not 0:
      4096^2, f32 against the f64 product, and add, sub, mul and axpy bit
      for bit;
      the bf16 GEMM also at training's shapes, 2048 rows, in all four
-     layouts, and the dual GEMM at 2048 rows beside a GEMM-only
-     yardstick), with the max error beside its tolerance, and the median
-     time of the kernel, the plain version and one PyTorch library call,
+     layouts (qwen3-0.6b's, mamba2-2.7b's and zamba2-1.2b's widths, the
+     in_proj_bc GEMMs of N = 336 and 192 among them), the dual GEMM at
+     2048 rows (qwen3-0.6b's and zamba2-1.2b's) beside a GEMM-only
+     yardstick, training attention at zamba2-1.2b's shared block, 32
+     heads of 64, and SSD at training's batch of 4 x 512), with the max error
+     beside its tolerance, and the median time of the kernel, the plain version and one PyTorch library call,
      timed in turns with only the card's time inside each event pair,
      beside the least time the card could take; a bf16 page pool must
      give the dense decode kernel's bits; the decode kernels' multi-row
@@ -59,15 +62,30 @@ Phases, in order; any failure propagates and the exit code is not 0:
      50: the same streams, each token in its row's top 50; then on the
      wall clock: tok/s, time to first token and the deadline miss rate;
   7. training at full width: 8 AdamW steps of qwen3-0.6b (f32 params,
-     bf16 activations) at batch 4 x 512 tokens, with exact launch counts
-     a step, finite losses and grad norms, a falling loss, speed, memory
-     and a torch.profiler trace of a step; the first 4 steps again
-     through the plain versions on the card, step 0 held to the kernels';
-     the 8 steps from 3 seeds with only the dual GEMM through its plain
-     version, each final loss beside the kernels'; then a whole step at
-     depth 2 in f32 on the card against the same
-     step on the CPU;
-  8. Mamba-2 serving at full width: mamba2-2.7b (64 layers, random
+     bf16 activations, each block rematerialised) at batch 4 x 512
+     tokens, with exact launch counts a step (the recompute's included),
+     finite losses and grad norms, a falling loss, speed, memory and a
+     torch.profiler trace of a step; the 8 steps without remat from the
+     same state, step 0's loss equal bit for bit, both peaks and steady
+     step times; the first 4 steps again through the plain versions on
+     the card, step 0 held to the kernels'; the 8 steps with only the
+     dual GEMM through its plain version, the final loss beside the
+     kernels'; then a whole step at depth 2 in f32 on the card against
+     the same step on the CPU;
+  8. training the Mamba-2 families at full width: zamba2-1.2b (36 layers
+     in 6 segments, lora_b from a seed) and mamba2-2.7b (64 layers), f32
+     params, bf16 activations, 8 donated AdamW steps at batch 4 x 512
+     (nothing cut: mamba2's peak is ~48 GiB), each Mamba-2 layer
+     rematerialised: exact launch counts a step (the recompute's
+     included), finite and falling losses, speed, memory, a trace of a
+     step with the plain SSD backward as a group of its own, the 8 steps
+     without remat from the same state (step 0's loss equal bit for bit,
+     its grad norm within rtol 1e-5, both peaks and steady step times),
+     and the first 4 (zamba2) and 2 (mamba2) steps through the plain
+     versions on the card, step 0's loss and grad norm within rtol 1e-3
+     of the kernels'; then a whole f32 step of each at depth 2 on the
+     card against the same step on the CPU;
+  9. Mamba-2 serving at full width: mamba2-2.7b (64 layers, random
      weights from a seed) served by the engine on 4 slots to 8 requests
      whose prompts take every prefill branch, with exact launch counts
      (the SSD kernel in every admission prefill), each stream equal to
@@ -78,7 +96,7 @@ Phases, in order; any failure propagates and the exit code is not 0:
      each stream equal to the request alone, the decode p50 beside the
      bf16 run's, a replay and a trace); then a depth-2 prefill and decode
      in f32 on the card against the same on the CPU;
-  9. hybrid serving at full width: zamba2-1.2b (36 Mamba-2 layers in 6
+  10. hybrid serving at full width: zamba2-1.2b (36 Mamba-2 layers in 6
      segments, one shared attention block with a LoRA a segment, random
      weights and lora_b from seeds) served by the engine on 4 slots to 8
      requests of 64-512 tokens that take every prefill branch, in bf16
@@ -89,7 +107,7 @@ Phases, in order; any failure propagates and the exit code is not 0:
      first token, peak memory, the capture time and graph pools, and the
      memory back after each engine; then a depth-2 (two segments)
      prefill and decode in f32 on the card against the CPU;
-  10. the paper's experiment at its size, 4096^2: Table 2 through the
+  11. the paper's experiment at its size, 4096^2: Table 2 through the
      measurement `launch.paper` prints (`benchmarks.common.measure`: float,
      double and complex-float through the naive kernel, the GEMM
      chokepoint (the tiled kernel; f64 the plain f64 product) and
@@ -97,7 +115,7 @@ Phases, in order; any failure propagates and the exit code is not 0:
      paper's seconds; the naive/tiled ratio beside the paper's 3.0x), Fig 9 through `benchmarks.bench_add`'s
      (add, sub and axpy in GB/s beside 3.35 TB/s), with exact launch
      counts; then the roofline model of the paper's cards and the H100;
-  11. a JSON line of the kernels (each with its launches on every main
+  12. a JSON line of the kernels (each with its launches on every main
      path), the card line, and the result line.
 """
 
@@ -134,23 +152,21 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    t0 = time.perf_counter()
     smoke = Smoke(torch)
-    smoke.phase_card()
-    smoke.phase_build()
-    smoke.phase_kernels()
-    smoke.phase_serve()
-    smoke.phase_trace()
-    smoke.phase_batching()
-    smoke.phase_paged()
-    smoke.phase_spec()
-    smoke.phase_train()
-    smoke.phase_train_vs_cpu()
-    smoke.phase_mamba()
-    smoke.phase_mamba_vs_cpu()
-    smoke.phase_hybrid()
-    smoke.phase_hybrid_vs_cpu()
-    smoke.phase_paper()
-    print("[11/11] result")
+    for phase in (smoke.phase_card, smoke.phase_build, smoke.phase_kernels,
+                  smoke.phase_serve, smoke.phase_trace, smoke.phase_batching,
+                  smoke.phase_paged, smoke.phase_spec, smoke.phase_train,
+                  smoke.phase_train_vs_cpu, smoke.phase_train_recurrent,
+                  smoke.phase_mamba, smoke.phase_mamba_vs_cpu,
+                  smoke.phase_hybrid, smoke.phase_hybrid_vs_cpu,
+                  smoke.phase_paper):
+        t = time.perf_counter()
+        phase()
+        print(f"      ({phase.__name__}: {time.perf_counter() - t:.1f} s; "
+              f"{time.perf_counter() - t0:.0f} s since the start)")
+    print(f"[12/12] result ({time.perf_counter() - t0:.0f} s since the "
+          f"start)")
     print(json.dumps({"kernels": smoke.kernel_rows()}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
@@ -167,11 +183,12 @@ class Smoke:
         self.chip = hw.H100    # the card's peaks: device memory, FLOP/s by dtype
         self.results = {}      # kernel name -> list of case dicts
         self.launches = {}
+        self.host_params = {}  # config name -> its seeded params on the host
 
     # -- 1. card ------------------------------------------------------
     def phase_card(self):
         torch = self.torch
-        print(f"[1/11] card: {card_line()}")
+        print(f"[1/12] card: {card_line()}")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         print(f"      torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -183,7 +200,7 @@ class Smoke:
         from repro_torch.kernels import _build
         t0 = time.perf_counter()
         libs = _build.build_all()
-        print(f"[2/11] build: {sorted(libs)} from "
+        print(f"[2/12] build: {sorted(libs)} from "
               f"{_build.CSRC.relative_to(ROOT)} in "
               f"{time.perf_counter() - t0:.1f} s (nvcc "
               f"{' '.join(_build.NVCC_FLAGS)})")
@@ -291,7 +308,7 @@ class Smoke:
         torch = self.torch
         from repro_torch.kernels import ops, ref
         F = torch.nn.functional
-        print("[3/11] kernels against their plain versions (median of 50, "
+        print("[3/12] kernels against their plain versions (median of 50, "
               "L2 flushed, in turns, card time only)")
         gen = torch.Generator(device=self.dev).manual_seed(0)
 
@@ -348,9 +365,12 @@ class Smoke:
             if dtype == torch.bfloat16:
                 self._kernels_matmul_training(randn, tols)
             # -- gated_matmul: the SwiGLU gate/up at decode, prefill and
-            #    (bf16) training's 4 x 512 tokens
-            for m in (4, 256) + ((2048,) if dtype == torch.bfloat16 else ()):
-                k, n = 1024, 3072
+            #    (bf16) training's 4 x 512 tokens, qwen3-0.6b's and (bf16,
+            #    training) zamba2-1.2b's shared SwiGLU (d_ff 8192)
+            shapes = [(m, 1024, 3072) for m in (4, 256)]
+            if dtype == torch.bfloat16:
+                shapes += [(2048, 1024, 3072), (2048, 2048, 8192)]
+            for m, k, n in shapes:
                 a = randn(m, k, dtype=dtype)
                 wg = randn(k, n, dtype=dtype, scale=k ** -0.5)
                 wu = randn(k, n, dtype=dtype, scale=k ** -0.5)
@@ -413,11 +433,20 @@ class Smoke:
 
     def _kernels_matmul_training(self, randn, tols, m=2048):
         """The bf16 GEMM at training's and a long prefill's shapes (4 x 512
-        tokens), in every layout the step runs: the up projection, the
-        down projection with its residual, the tied-embedding logits (W as
-        an [N, K] operand, f32 out), an input gradient (W^T: B as [N, K])
-        and a weight gradient (a^T g: A as [K, M], K the tokens), each
-        beside torch.matmul (addmm with the residual) in turns."""
+        tokens), in every layout the step runs: qwen3-0.6b's up projection,
+        down projection with its residual, tied-embedding logits (W as an
+        [N, K] operand, f32 out), an input gradient (W^T: B as [N, K]) and
+        a weight gradient (a^T g: A as [K, M], K the tokens); mamba2-2.7b's
+        in_proj and out_proj, the input gradient of in_proj and the weight
+        gradients of both, in_proj_bc (N = 2GN + H = 336, no multiple of
+        the tile) with its input gradient (K = 336) and weight gradient,
+        and the untied lm_head's logits (f32 out); zamba2-1.2b's Mamba
+        in_proj, in_proj_bc (N = 192) and out_proj (the shared in_proj's
+        K = 4096 too), the shared block's Q/K/V/O, down projection with
+        its residual and LoRA pair, the input and weight gradients of
+        in_proj, in_proj_bc and the down projection, and the lm_head's
+        logits; each beside torch.matmul (addmm with the residual) in
+        turns."""
         torch = self.torch
         from repro_torch.kernels import ops, ref
         bf16, f32 = torch.bfloat16, torch.float32
@@ -430,7 +459,51 @@ class Smoke:
                  ("dX of up, [N,K] B", (m, 3072, 1024), False, True, "none",
                   bf16),
                  ("dW of up, [K,M] A", (1024, m, 3072), True, False, "none",
-                  bf16)]
+                  bf16),
+                 ("mamba2 in_proj", (m, 2560, 10240), False, False, "none",
+                  bf16),
+                 ("mamba2 out_proj", (m, 5120, 2560), False, False, "none",
+                  bf16),
+                 ("dX of mamba2 in_proj, [N,K] B", (m, 10240, 2560), False,
+                  True, "none", bf16),
+                 ("dW of mamba2 in_proj, [K,M] A", (2560, m, 10240), True,
+                  False, "none", bf16),
+                 ("dW of mamba2 out_proj, [K,M] A", (5120, m, 2560), True,
+                  False, "none", bf16),
+                 ("mamba2 in_proj_bc", (m, 2560, 336), False, False, "none",
+                  bf16),
+                 ("dX of mamba2 in_proj_bc, [N,K] B", (m, 336, 2560), False,
+                  True, "none", bf16),
+                 ("dW of mamba2 in_proj_bc, [K,M] A", (2560, m, 336), True,
+                  False, "none", bf16),
+                 ("mamba2 lm_head logits, f32 out", (m, 2560, 50432), False,
+                  False, "none", f32),
+                 ("zamba2 Mamba in_proj", (m, 2048, 8192), False, False,
+                  "none", bf16),
+                 ("zamba2 in_proj_bc", (m, 2048, 192), False, False, "none",
+                  bf16),
+                 ("zamba2 Mamba out_proj, shared in_proj", (m, 4096, 2048),
+                  False, False, "none", bf16),
+                 ("zamba2 Q/K/V/O", (m, 2048, 2048), False, False, "none",
+                  bf16),
+                 ("zamba2 down + residual", (m, 8192, 2048), False, False,
+                  "residual", bf16),
+                 ("zamba2 LoRA a", (m, 2048, 32), False, False, "none", bf16),
+                 ("zamba2 LoRA b", (m, 32, 2048), False, False, "none", bf16),
+                 ("dX of zamba2 Mamba in_proj, [N,K] B", (m, 8192, 2048),
+                  False, True, "none", bf16),
+                 ("dW of zamba2 Mamba in_proj, [K,M] A", (2048, m, 8192),
+                  True, False, "none", bf16),
+                 ("dX of zamba2 in_proj_bc, [N,K] B", (m, 192, 2048), False,
+                  True, "none", bf16),
+                 ("dW of zamba2 in_proj_bc, [K,M] A", (2048, m, 192), True,
+                  False, "none", bf16),
+                 ("dX of zamba2 down, [N,K] B", (m, 2048, 8192), False, True,
+                  "none", bf16),
+                 ("dW of zamba2 down, [K,M] A", (8192, m, 2048), True, False,
+                  "none", bf16),
+                 ("zamba2 lm_head logits, f32 out", (m, 2048, 32000), False,
+                  False, "none", f32)]
         for what, (mm, k, n), a_km, b_nk, ep, out in cases:
             a = randn(k, mm, dtype=bf16).t() if a_km else randn(mm, k, dtype=bf16)
             b = randn(n, k, dtype=bf16, scale=k ** -0.5).t() if b_nk \
@@ -682,17 +755,25 @@ class Smoke:
     def _kernels_attention(self, randn, tols):
         """flash_attention and flash_attention_bwd at the training shape
         (B=4, T=512, 16 query / 8 KV heads of 128, causal), with a window
-        of 128 and at a ragged T=500, in bf16 and f32. The bound counts
+        of 128 and at a ragged T=500, in bf16 and f32; and at zamba2-1.2b's
+        shared block (32 query and KV heads of 64), bf16. The bound counts
         the unmasked (query, key) pairs only; the library yardsticks are
         SDPA's forward, and its forward + backward less its forward."""
         torch = self.torch
         from repro_torch.kernels import ops, ref
         F = torch.nn.functional
-        b_, h, hkv, d = 4, 16, 8, 128
-        for dtype in (torch.bfloat16, torch.float32):
+        b_ = 4
+        bf16, f32 = torch.bfloat16, torch.float32
+        # (dtype, H, Hkv, D, (T, window) cases): qwen3-0.6b's heads in bf16
+        # and f32; zamba2-1.2b's shared block (32 heads of 64, one query
+        # head a KV head), bf16
+        qwen3 = ((512, None), (512, 128), (500, None))
+        for dtype, h, hkv, d, shapes in ((bf16, 16, 8, 128, qwen3),
+                                         (f32, 16, 8, 128, qwen3),
+                                         (bf16, 32, 32, 64, ((512, None),))):
             dname = str(dtype).split(".")[-1]
             size = torch.finfo(dtype).bits // 8
-            for t, window in ((512, None), (512, 128), (500, None)):
+            for t, window in shapes:
                 q = randn(b_, t, h, d, dtype=dtype)
                 k = randn(b_, t, hkv, d, dtype=dtype)
                 v = randn(b_, t, hkv, d, dtype=dtype)
@@ -732,7 +813,9 @@ class Smoke:
         """ssd_intra_chunk against its plain version (y_diag and the chunk
         states, both f32, so f32 tolerance also for bf16 inputs), and the
         whole scan (ops.ssd: the kernel, then the inter-chunk recurrence)
-        against the plain chunked scan, y in the input dtype. x ~ N(0, 1),
+        against the plain chunked scan, y in the input dtype (for bf16
+        inputs, strong decays and training's batch of 4 x 512 at
+        mamba2-2.7b's and zamba2-1.2b's heads). x ~ N(0, 1),
         B and C scaled so that C . B ~ N(0, 1), -a ~ U(0.01, 0.5). The
         bound counts each input and output once, and the unmasked
         products: the causal half of C B^T and of S x, and the state. f32
@@ -767,7 +850,11 @@ class Smoke:
                  (1, 8, 80, 1, 64, 128, 8, f32, None, False),
                  (1, 2, 80, 1, 64, 128, 2, f32, None, False),
                  (2, 512, 8, 2, 64, 128, 256, f32, None, False),
-                 (1, 512, 64, 1, 64, 64, 128, f32, None, False)]
+                 (1, 512, 64, 1, 64, 64, 128, f32, None, False),
+                 # training's batch 4 x 512, f32 inputs (mamba_apply scales
+                 # x by dt in f32): mamba2-2.7b's and zamba2-1.2b's heads
+                 (4, 512, 80, 1, 64, 128, 256, f32, None, False),
+                 (4, 512, 64, 1, 64, 64, 128, f32, None, False)]
         for b, l, h, g, p, n, q, dtype, decay, with_state in cases:
             dname = str(dtype).split(".")[-1]
             size = torch.finfo(dtype).bits // 8
@@ -812,7 +899,7 @@ class Smoke:
                 lambda: ref.ssd_intra_chunk_ref(x, a, bm, cm, q),
                 None, nbytes, flops, "float32", tols[f32],
                 **route(nbytes))
-            if dtype == bf16 or decay:
+            if dtype == bf16 or decay or b == 4:
                 self._case(
                     "ssd", label + " scan",
                     lambda: ops.ssd(x, a, bm, cm, q),
@@ -946,7 +1033,7 @@ class Smoke:
                                device=self.dev)
         del params                      # the engine keeps its bf16 copy
         torch.cuda.synchronize()
-        print(f"[4/11] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
+        print(f"[4/12] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
               f"heads {cfg.n_heads}/{cfg.n_kv_heads}x{cfg.resolved_head_dim} "
               f"d_ff {cfg.d_ff} vocab {cfg.vocab}->{cfg.padded_vocab}; "
               f"weights ready in {time.perf_counter() - t0:.1f} s; "
@@ -1150,7 +1237,7 @@ class Smoke:
         assert launches == want, (launches, want)
         got = [r.generated for r in reqs]
         assert got == self.dense_streams, "paged bf16 streams != dense streams"
-        print(f"[5/11] paged bf16 KV (page 16, {rep['kv_pool']['n_pages']} "
+        print(f"[5/12] paged bf16 KV (page 16, {rep['kv_pool']['n_pages']} "
               f"pages): phase 4's {len(reqs)} streams, token for token; "
               f"launches {launches} ({eng.decode_steps} decode steps at "
               f"141/28/28 each); prefill {rep['prefill_tok_s']:.1f} tok/s, "
@@ -1269,7 +1356,7 @@ class Smoke:
         L = cfg.n_layers
         params = M.init_params(cfg, torch.Generator().manual_seed(0), self.dev)
         other = M.init_params(cfg, torch.Generator().manual_seed(1), self.dev)
-        print(f"[6/11] the request surface at full width ({cfg.name}, "
+        print(f"[6/12] the request surface at full width ({cfg.name}, "
               f"{L} layers, bf16, random weights)")
         want = {}
         eng = ServingEngine(cfg, params, max_slots=4, max_len=self.max_len,
@@ -1476,45 +1563,89 @@ class Smoke:
     def phase_train(self, steps=8, batch=4, seq=512):
         """8 AdamW steps of qwen3-0.6b at full width and depth: f32
         params, bf16 activations, random weights from seed 0, SyntheticLM
-        batches from seed 0, lr 1e-3 with 2 warmup steps, clip 1.0. The
-        loss must end below where it began. It does not within 4 steps:
-        Adam's first steps, near sign(g) times lr for every weight, lift
-        it (12.29 to 16.79 by step 3, through the kernels and through the
-        plain versions alike, `_train_plain`), and it falls from step 4
-        on."""
+        batches from seed 0, lr 1e-3 with 2 warmup steps, clip 1.0, each
+        block rematerialised (the config's remat "full"). The loss must
+        end below where it began. It does not within 4 steps: Adam's first
+        steps, near sign(g) times lr for every weight, lift it (12.29 to
+        16.79 by step 3, through the kernels and through the plain versions
+        alike, `_train_plain`), and it falls from step 4 on. Then the 8
+        steps with remat "none" from the same state and batches."""
         torch = self.torch
         from repro_torch.configs import get_config
-        from repro_torch.core.tree import leaves
-        from repro_torch.data.pipeline import SyntheticLM
-        from repro_torch.kernels import ops
         from repro_torch.optim.adamw import AdamW, cosine_schedule
         from repro_torch.training import train_loop as TL
         cfg = get_config("qwen3-0.6b")
         L = cfg.n_layers
         torch.cuda.empty_cache()
         opt = AdamW(lr=cosine_schedule(1e-3, 2, steps), clip_norm=1.0)
-        state = TL.init_state(cfg, opt, torch.Generator().manual_seed(0),
-                              self.dev)
-        step_fn = TL.make_train_step(cfg, opt)
-        data = SyntheticLM(vocab=cfg.vocab, seq_len=seq, batch=batch, seed=0)
-        batches = [{k: torch.as_tensor(v, dtype=torch.long, device=self.dev)
-                    for k, v in data.batch_at(i).items()}
-                   for i in range(steps + 1)]
-        n_params = sum(x.numel() for x in leaves(state.params))
+
+        def make_state():
+            return TL.init_state(cfg, opt, torch.Generator().manual_seed(0),
+                                 self.dev)
+        batches = self._train_batches(cfg, steps + 1, batch, seq)
+        print(f"[7/12] training {cfg.name} at full width ({L} layers, bf16 "
+              f"activations, remat {cfg.remat}): {steps} AdamW steps at batch "
+              f"{batch} x {seq}")
         # a step: the forward's 141 GEMMs, 28 dual GEMMs and 28 attentions;
-        # the backward's 2 GEMMs for each of the 141 (dx, dw) plus 4 for
-        # each dual GEMM (its gate/up recompute and their dw; dx of the two
-        # branches is 2 more), and 28 attention backwards
-        want = _no_launches(matmul=(5 * L + 1) * 3 + 6 * L, gated_matmul=L,
-                            flash_attention=L, flash_attention_bwd=L)
+        # remat runs each block's forward again before its backward (140
+        # GEMMs: the logits GEMM is outside the blocks; 28 dual GEMMs, 28
+        # attentions); the backward's 2 GEMMs for each of the 141 (dx, dw)
+        # plus 4 for each dual GEMM (its gate/up recompute and their dw;
+        # dx of the two branches is 2 more), and 28 attention backwards
+        want = _no_launches(matmul=(5 * L + 1) * 3 + 6 * L + 5 * L,
+                            gated_matmul=2 * L, flash_attention=2 * L,
+                            flash_attention_bwd=L)
+        run = self._train_run(TL.make_train_step(cfg, opt), make_state,
+                              batches[:steps], want)
+        self.train_launches = run["launches"]
+        self._trace_train_step(run["step_fn"], run.pop("state"),
+                               batches[steps])
+        self._remat_none(cfg, opt, make_state, batches[:steps], run,
+                         donate=False)
+        self._train_plain(cfg, opt, make_state, batches, run, 4)
+        self._train_gated_plain(cfg, opt, make_state, batches[:steps],
+                                run["losses"][-1])
+
+    def _train_batches(self, cfg, n, batch, seq, seed=0):
+        from repro_torch.data.pipeline import SyntheticLM
+        data = SyntheticLM(vocab=cfg.vocab, seq_len=seq, batch=batch,
+                           seed=seed)
+        return [{k: self.torch.as_tensor(v, dtype=self.torch.long,
+                                         device=self.dev)
+                 for k, v in data.batch_at(i).items()} for i in range(n)]
+
+    def _train_run(self, step_fn, make_state, batches, want):
+        """The steps of `step_fn` from `make_state()`, one a batch, the
+        launch counts set to 0 just before and read after each step: each
+        step's counts must be `want`, every loss and grad norm finite, the
+        last loss below the first. Prints the state's size, each step and
+        the steady step time (the median after step 0), tok/s and
+        max_memory_allocated. Returns the state, step_fn, losses, norms,
+        steady seconds, peak bytes and the run's launch counts."""
+        torch = self.torch
+        import gc
+        from repro_torch.core.tree import leaves
+        from repro_torch.kernels import ops
+        tokens = batches[0]["tokens"].numel()
+        gc.collect()                      # earlier phases' cycles
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        state = make_state()
+        n_params = sum(x.numel() for x in leaves(state.params))
+        print(f"      {n_params / 1e9:.3f} G f32 params; the "
+              f"params and AdamW moments "
+              f"{(torch.cuda.memory_allocated() - held) / 2 ** 30:.3f} GiB on "
+              f"the card, made in {time.perf_counter() - t0:.1f} s")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         losses, norms, times, per_step = [], [], [], []
         before = ops.launch_counts()
-        for i in range(steps):
+        for b in batches:
             t0 = time.perf_counter()
-            state, met = step_fn(state, batches[i])
+            state, met = step_fn(state, b)
             losses.append(float(met["loss"]))
             norms.append(float(met["grad_norm"]))
             torch.cuda.synchronize()
@@ -1522,158 +1653,312 @@ class Smoke:
             now = ops.launch_counts()
             per_step.append({k: now[k] - before[k] for k in now})
             before = now
-        self.train_launches = ops.launch_counts()
+        launches = ops.launch_counts()
         peak = torch.cuda.max_memory_allocated()
-        print(f"[7/11] training {cfg.name} at full width ({L} layers, "
-              f"{n_params / 1e6:.1f}M f32 params, bf16 activations): "
-              f"{steps} AdamW steps at batch {batch} x {seq}")
-        for i in range(steps):
+        for i, t in enumerate(times):
             print(f"      step {i}: loss {losses[i]:.4f} grad norm "
-                  f"{norms[i]:.4f} wall {times[i] * 1e3:.1f} ms "
-                  f"({batch * seq / times[i]:.0f} tok/s)")
+                  f"{norms[i]:.4f} wall {t * 1e3:.1f} ms ({tokens / t:.0f} "
+                  f"tok/s)")
             assert per_step[i] == want, (i, per_step[i], want)
         assert all(map(math.isfinite, losses + norms)), (losses, norms)
         assert losses[-1] < losses[0], losses
         steady = statistics.median(times[1:])
-        print(f"      launches a step {want} (each step exactly); over the "
-              f"run {self.train_launches}; steady step {steady * 1e3:.1f} ms, "
-              f"{batch * seq / steady:.0f} tok/s; max_memory_allocated "
-              f"{peak / 2 ** 30:.3f} GiB")
-        self._trace_train_step(step_fn, state, batches[steps])
-        del state
-        self._train_plain(cfg, opt, batches, losses, norms)
-        self._train_gated_plain(cfg, opt, steps, batch, seq, losses[-1])
+        print(f"      launches a step {_nonzero(want)} (each step exactly); "
+              f"over the run {_nonzero(launches)}; steady step "
+              f"{steady * 1e3:.1f} ms, {tokens / steady:.0f} tok/s; "
+              f"max_memory_allocated {peak / 2 ** 30:.3f} GiB ("
+              f"{held / 2 ** 30:.3f} GiB of it held before the state was "
+              f"made)")
+        return dict(state=state, step_fn=step_fn, losses=losses, norms=norms,
+                    steady=steady, peak=peak, launches=launches)
 
-    def _train_plain(self, cfg, opt, batches, losses, norms, steps=4,
-                     rtol=1e-3):
-        """The first steps again from the same weights, with the kernel
-        dispatchers sent to the plain PyTorch versions on the card: step
-        0's loss and grad norm (no update yet) agree with the kernels'
-        within rtol 1e-3 (bf16 activations rounded at other places);
-        later steps are printed beside the kernels' (Adam's sign-like
-        first steps amplify those differences)."""
+    def _remat_none(self, cfg, opt, make_state, batches, run, donate,
+                    rtol=1e-5):
+        """The run's steps again with remat "none", from the state and on
+        the batches the run (`_train_run`'s, remat "full") took: step 0's
+        loss must be the run's bit for bit (the forward launches the same
+        kernels on the same inputs; remat changes only what the backward
+        keeps), its grad norm within rtol 1e-5 (the embedding's
+        scatter-add is unordered on the card). Prints both peaks and both
+        steady step times, each the median after step 0 of as many steps
+        in this call. The caller has dropped the run's state."""
+        torch = self.torch
+        import dataclasses
+        import gc
+        from repro_torch.training import train_loop as TL
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        state = make_state()
+        step_fn = TL.make_train_step(dataclasses.replace(cfg, remat="none"),
+                                     opt, donate=donate)
+        out, times = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            state, met = step_fn(state, b)
+            out.append((float(met["loss"]), float(met["grad_norm"])))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        del state
+        torch.cuda.empty_cache()
+        (loss, gn), steady = out[0], statistics.median(times[1:])
+        print(f"      remat none, from the same state and batches: step 0 "
+              f"loss {loss:.6f} grad norm {gn:.6f} (remat full "
+              f"{run['losses'][0]:.6f} / {run['norms'][0]:.6f}); steady "
+              f"step {steady * 1e3:.1f} ms against full's "
+              f"{run['steady'] * 1e3:.1f} (median of steps 1-"
+              f"{len(times) - 1} each; full/none "
+              f"{run['steady'] / steady:.3f}); max_memory_allocated "
+              f"{peak / 2 ** 30:.3f} GiB ({held / 2 ** 30:.3f} GiB of it held "
+              f"before the state was made; full {run['peak'] / 2 ** 30:.3f})")
+        assert loss == run["losses"][0], (loss, run["losses"][0])
+        assert abs(gn - run["norms"][0]) <= rtol * run["norms"][0], \
+            (gn, run["norms"][0])
+        return dict(peak=peak, steady=steady)
+
+    def _train_plain(self, cfg, opt, make_state, batches, run, steps,
+                     donate=False, rtol=1e-3):
+        """The run's first `steps` steps again from its weights
+        (`make_state`), with the kernel dispatchers sent to the plain
+        PyTorch versions on the card: step 0's loss and grad norm (no
+        update yet) agree with the kernels' within rtol 1e-3 (bf16
+        activations rounded at other places); later steps are printed
+        beside the kernels' (Adam's sign-like first steps amplify those
+        differences, and the plain run shows the kernels' jumps of the
+        loss where they come from the optimizer)."""
         torch = self.torch
         from repro_torch.kernels import ops
         from repro_torch.training import train_loop as TL
+        losses, norms = run["losses"], run["norms"]
         on_card = ops._on_card
         ops._on_card = lambda t: False
         try:
-            state = TL.init_state(cfg, opt, torch.Generator().manual_seed(0),
-                                  self.dev)
-            step_fn = TL.make_train_step(cfg, opt)
+            state = make_state()
+            step_fn = TL.make_train_step(cfg, opt, donate=donate)
             plain = []
             for i in range(steps):
+                t0 = time.perf_counter()
                 state, met = step_fn(state, batches[i])
-                plain.append((float(met["loss"]), float(met["grad_norm"])))
+                plain.append((float(met["loss"]), float(met["grad_norm"]),
+                              time.perf_counter() - t0))
         finally:
             ops._on_card = on_card
         del state
         torch.cuda.empty_cache()
-        for i, (loss, gn) in enumerate(plain):
+        for i, (loss, gn, t) in enumerate(plain):
             print(f"      plain versions, step {i}: loss {loss:.4f} grad norm "
-                  f"{gn:.4f} (kernels {losses[i]:.4f} / {norms[i]:.4f})")
+                  f"{gn:.4f} (kernels {losses[i]:.4f} / {norms[i]:.4f}); "
+                  f"wall {t * 1e3:.0f} ms")
         assert abs(plain[0][0] - losses[0]) <= rtol * abs(losses[0]), plain
         assert abs(plain[0][1] - norms[0]) <= rtol * abs(norms[0]), plain
 
-    def _train_gated_plain(self, cfg, opt, steps, batch, seq, final0,
-                           seeds=(0, 1, 2)):
+    def _train_gated_plain(self, cfg, opt, make_state, batches, final):
         """How far the dual GEMM's summation order alone moves the final
-        loss: the same steps from seeds 0-2 (weights and batches) through
-        the kernels and again with only the dual GEMM sent to its plain
-        version on the card (another order of the same exact products),
-        each seed's two final losses and their gap printed. Seed 0's
-        kernel run is the one above (`final0`). No bound: Adam's first,
-        sign-like steps amplify any rounding difference."""
+        loss: the run's steps again from its weights with only the dual
+        GEMM sent to its plain version on the card (another order of the
+        same exact products), the final loss printed beside the run's
+        (`final`). No bound: Adam's first, sign-like steps amplify any
+        rounding difference."""
         torch = self.torch
-        from repro_torch.data.pipeline import SyntheticLM
         from repro_torch.kernels import ops, ref
         from repro_torch.training import train_loop as TL
         kernel = ops.gated_matmul
-        step_fn = TL.make_train_step(cfg, opt)
-        gaps = []
-        for seed in seeds:
-            data = SyntheticLM(vocab=cfg.vocab, seq_len=seq, batch=batch,
-                               seed=seed)
-            final = {"kernel": final0} if seed == 0 else {}
-            for how in ("kernel", "plain"):
-                if how in final:
-                    continue
-                ops.gated_matmul = kernel if how == "kernel" \
-                    else ref.gated_matmul_ref
-                try:
-                    state = TL.init_state(
-                        cfg, opt, torch.Generator().manual_seed(seed),
-                        self.dev)
-                    for i in range(steps):
-                        state, met = step_fn(state, {
-                            k: torch.as_tensor(v, dtype=torch.long,
-                                               device=self.dev)
-                            for k, v in data.batch_at(i).items()})
-                    final[how] = float(met["loss"])
-                finally:
-                    ops.gated_matmul = kernel
-                del state
-                torch.cuda.empty_cache()
-            assert all(map(math.isfinite, final.values())), (seed, final)
-            gaps.append(final["kernel"] - final["plain"])
-            print(f"      seed {seed}, loss after {steps} steps: kernels "
-                  f"{final['kernel']:.4f}, dual GEMM through its plain "
-                  f"version {final['plain']:.4f} (gap {gaps[-1]:+.4f})")
-        print(f"      the dual GEMM's summation order moves the final loss "
-              f"by {min(gaps):+.4f} to {max(gaps):+.4f} over seeds {seeds}")
+        ops.gated_matmul = ref.gated_matmul_ref
+        try:
+            state, step_fn = make_state(), TL.make_train_step(cfg, opt)
+            for b in batches:
+                state, met = step_fn(state, b)
+            plain = float(met["loss"])
+        finally:
+            ops.gated_matmul = kernel
+        del state
+        torch.cuda.empty_cache()
+        assert math.isfinite(plain), plain
+        print(f"      loss after {len(batches)} steps: kernels {final:.4f}, "
+              f"dual GEMM through its plain version {plain:.4f} (gap "
+              f"{final - plain:+.4f})")
 
-    def _trace_train_step(self, step_fn, state, batch):
+    def _trace_train_step(self, step_fn, state, batch,
+                          expect=("matmul", "gated_matmul", "flash_attention",
+                                  "flash_attention_bwd")):
         """One more step under torch.profiler: the card's busy time, by
-        kernel group, against the step's wall time."""
+        kernel group (the SSD Function's backward, the plain chunked scan
+        differentiated by autograd, and the AdamW update each a group of
+        their own), against the step's wall time."""
         torch = self.torch
-        from torch.profiler import ProfilerActivity, profile
+        from torch.profiler import ProfilerActivity, profile, record_function
+        from repro_torch.optim.adamw import AdamW
+        update = AdamW.update
+
+        def named_update(opt, *args, **kw):
+            with record_function("AdamW.update"):
+                return update(opt, *args, **kw)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            step_fn(state, batch)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        AdamW.update = named_update
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                step_fn(state, batch)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            AdamW.update = update
         _print_trace(prof, "a train step", wall_ms,
-                     expect=("matmul", "gated_matmul", "flash_attention",
-                             "flash_attention_bwd"))
+                     expect=expect + ("adamw update",),
+                     own={"_SSDBackward": "ssd backward (plain)",
+                          "AdamW.update": "adamw update"})
 
     def phase_train_vs_cpu(self, batch=2, seq=256, tol=1e-4):
-        """A whole train step at full width, depth 2, f32 activations, on
-        the card (the CUDA kernels) and on the CPU (their plain versions)
-        from the same weights and batch: the loss and the global grad norm
-        agree within rtol 1e-4 (f32 sums in another order)."""
-        torch = self.torch
+        """A whole train step of qwen3-0.6b at full width, depth 2, f32
+        activations, on the card and on the CPU (`_train_step_vs_cpu`)."""
         import dataclasses
         from repro_torch.configs import get_config
-        from repro_torch.core.tree import tree_map
-        from repro_torch.data.pipeline import SyntheticLM
-        from repro_torch.models import model as M
-        from repro_torch.optim.adamw import AdamW
-        from repro_torch.training import train_loop as TL
         cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=2,
                                   dtype="float32")
+        self._train_step_vs_cpu(cfg, batch, seq, tol, "depth 2")
+
+    def _train_step_vs_cpu(self, cfg, batch, seq, tol, what):
+        """One donated AdamW step on the card (the CUDA kernels) and on the
+        CPU (their plain versions) from the same weights (seed 0; a
+        hybrid's lora_b from seed 1) and batch: the loss and the global
+        grad norm agree within rtol `tol` (f32 sums in another order)."""
+        torch = self.torch
+        from repro_torch.core.tree import tree_map
+        from repro_torch.data.pipeline import SyntheticLM
+        from repro_torch.optim.adamw import AdamW
+        from repro_torch.training import train_loop as TL
         opt = AdamW(lr=1e-3, clip_norm=1.0)
-        params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        params = self._train_params(cfg, "cpu")
         data = SyntheticLM(vocab=cfg.vocab, seq_len=seq, batch=batch, seed=0)
         out = []
         for dev in (self.dev, torch.device("cpu")):
-            p = tree_map(lambda x: x.to(dev), params)
+            p = tree_map(lambda x: x.to(dev, copy=True), params)
             state = TL.TrainState(p, opt.init(p))
             b = {k: torch.as_tensor(v, dtype=torch.long, device=dev)
                  for k, v in data.batch_at(0).items()}
             t0 = time.perf_counter()
-            state, met = TL.make_train_step(cfg, opt)(state, b)
+            state, met = TL.make_train_step(cfg, opt, donate=True)(state, b)
             out.append((float(met["loss"]), float(met["grad_norm"]),
                         time.perf_counter() - t0))
+            del state, p
         (loss, gn, tc), (loss_c, gn_c, tp) = out
         assert abs(loss - loss_c) <= tol * abs(loss_c), (loss, loss_c)
         assert abs(gn - gn_c) <= tol * abs(gn_c), (gn, gn_c)
-        print(f"      depth 2, f32, batch {batch} x {seq}, one step: card "
-              f"loss {loss:.6f} grad norm {gn:.6f} ({tc * 1e3:.0f} ms); CPU "
-              f"loss {loss_c:.6f} grad norm {gn_c:.6f} ({tp * 1e3:.0f} ms); "
-              f"rel diff {abs(loss - loss_c) / loss_c:.2e} / "
+        print(f"      {cfg.name} {what}, f32, batch {batch} x {seq}, one step: "
+              f"card loss {loss:.6f} grad norm {gn:.6f} ({tc * 1e3:.0f} ms); "
+              f"CPU loss {loss_c:.6f} grad norm {gn_c:.6f} ({tp * 1e3:.0f} "
+              f"ms); rel diff {abs(loss - loss_c) / loss_c:.2e} / "
               f"{abs(gn - gn_c) / gn_c:.2e} (rtol {tol:g})")
+
+    def _seed_params(self, cfg):
+        """A fresh copy on the card of cfg's random params (`_train_params`
+        on the card), drawn at the first call for cfg's name and kept on
+        the host for the next: drawing mamba2-2.7b's 2.8 G params takes
+        ~25 s, a copy ~2 s."""
+        from repro_torch.core.tree import tree_map
+        if cfg.name not in self.host_params:
+            self.host_params[cfg.name] = tree_map(
+                lambda t: t.to("cpu", copy=True),
+                self._train_params(cfg, self.dev))
+        return tree_map(lambda t: t.to(self.dev, copy=True),
+                        self.host_params[cfg.name])
+
+    def _train_params(self, cfg, device):
+        """Random params from seed 0 (a hybrid's lora_b from seed 1)."""
+        from repro_torch.models import model as M
+        if cfg.family == "hybrid":
+            return self._hybrid_params(cfg, device)
+        return M.init_params(cfg, self.torch.Generator().manual_seed(0),
+                             device)
+
+    # -- 8. training the Mamba-2 families at full width -----------------
+    def phase_train_recurrent(self, steps=8, batch=4, seq=512, tol=1e-4):
+        """zamba2-1.2b at full width and depth and mamba2-2.7b at full
+        width (`_train_recurrent`; their first 4 and 2 steps again through
+        the plain versions, which show the loss's jumps at steps 1-3 as
+        the kernels do), then one whole f32 step of each at
+        depth 2 (zamba2: two segments of one Mamba layer) on the card
+        against the same step on the CPU, at one ragged sequence of 300
+        tokens."""
+        import dataclasses
+        from repro_torch.configs import get_config
+        print("[8/12] training the Mamba-2 families at full width")
+        self.zamba_train_launches = self._train_recurrent(
+            get_config("zamba2-1.2b"), steps, batch, seq, plain_steps=4)
+        self.mamba_train_launches = self._train_recurrent(
+            get_config("mamba2-2.7b"), steps, batch, seq, plain_steps=2)
+        for cfg in (dataclasses.replace(get_config("mamba2-2.7b"), n_layers=2,
+                                        dtype="float32"),
+                    dataclasses.replace(get_config("zamba2-1.2b"), n_layers=2,
+                                        attn_every=1, dtype="float32")):
+            self._train_step_vs_cpu(cfg, 1, 300, tol, "depth 2")
+
+    def _train_recurrent(self, cfg, steps, batch, seq, plain_steps):
+        """`steps` donated AdamW steps at full width (f32 params, bf16
+        activations, random weights from seed 0 and a hybrid's lora_b from
+        seed 1, SyntheticLM batches from seed 0, lr 1e-3 with 2 warmup
+        steps, clip 1.0), each Mamba-2 layer rematerialised (remat
+        "full"): exact launch counts a step, finite and falling losses,
+        speed, memory, the state's bytes, a trace of a step with the plain
+        SSD backward as a group of its own; then the steps again with
+        remat "none" from the same state and batches, and the first
+        `plain_steps` through the plain versions on the card (step 0 held
+        to the kernels'). Returns the run's launch counts."""
+        from repro_torch.optim.adamw import AdamW, cosine_schedule
+        from repro_torch.training import train_loop as TL
+        opt = AdamW(lr=cosine_schedule(1e-3, 2, steps), clip_norm=1.0)
+
+        def make_state():
+            params = self._seed_params(cfg)
+            return TL.TrainState(params, opt.init(params))
+        sc, seg = cfg.ssm, (cfg.n_layers // cfg.attn_every
+                            if cfg.attn_every else 0)
+        shared = (f", one shared attention block after each of {seg} "
+                  f"segments (LoRA rank {cfg.shared_attn_lora_rank}, lora_b "
+                  f"random)" if seg else "")
+        print(f"      {cfg.name}: {cfg.n_layers} Mamba-2 layers, d_model "
+              f"{cfg.d_model} d_inner {sc.expand * cfg.d_model} d_state "
+              f"{sc.d_state} chunk {sc.chunk}{shared}; bf16 activations, "
+              f"remat {cfg.remat}; {steps} donated AdamW steps at batch "
+              f"{batch} x {seq}")
+        batches = self._train_batches(cfg, steps + 1, batch, seq)
+        run = self._train_run(TL.make_train_step(cfg, opt, donate=True),
+                              make_state, batches[:steps],
+                              self._recurrent_train_want(cfg))
+        expect = ("matmul", "ssd", "ssd backward (plain)") + (
+            ("gated_matmul", "flash_attention", "flash_attention_bwd")
+            if seg else ())
+        self._trace_train_step(run["step_fn"], run.pop("state"),
+                               batches[steps], expect)
+        self._remat_none(cfg, opt, make_state, batches[:steps], run,
+                         donate=True)
+        self._train_plain(cfg, opt, make_state, batches, run, plain_steps,
+                          donate=True)
+        return run["launches"]
+
+    @staticmethod
+    def _recurrent_train_want(cfg):
+        """Launch counts of a train step of the ssm or hybrid family under
+        remat "full". A Mamba-2 layer runs 3 GEMMs (in_proj, in_proj_bc,
+        out_proj) and the SSD kernel in its forward, all again in its
+        recompute, and 2 GEMMs (dx, dw) for each of the 3 in its backward
+        (the SSD backward differentiates the plain scan: no kernel): 12
+        GEMMs and 2 `ssd`. A hybrid segment's shared part (not
+        rematerialised): 8 GEMMs (in_proj, Q, K, V, O, the down
+        projection, the LoRA pair), the dual GEMM and the attention
+        forward; in the backward 16 GEMMs for those 8, 6 for the dual GEMM
+        (its gate/up recompute and their dw; dx of both branches) and the
+        attention backward: 30 GEMMs. The logits: 1 GEMM and 2 in the
+        backward."""
+        n = cfg.n_layers
+        seg = n // cfg.attn_every if cfg.attn_every else 0
+        return _no_launches(matmul=12 * n + 30 * seg + 3, ssd=2 * n,
+                            gated_matmul=seg, flash_attention=seg,
+                            flash_attention_bwd=seg)
 
     # -- 8. Mamba-2 serving at full width -------------------------------
     def phase_mamba(self):
@@ -1688,13 +1973,12 @@ class Smoke:
         torch = self.torch
         import numpy as np
         from repro_torch.configs import get_config
-        from repro_torch.models import model as M
         from repro_torch.serving import ServingEngine
         cfg = get_config("mamba2-2.7b")
         L = cfg.n_layers
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        params = M.init_params(cfg, torch.Generator().manual_seed(0), self.dev)
+        params = self._seed_params(cfg)
         lengths = [2, 13, 200, 256, 397, 512, 97, 333]
         rng = np.random.default_rng(0)
         prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
@@ -1707,7 +1991,7 @@ class Smoke:
         torch.cuda.empty_cache()
         weights = torch.cuda.memory_allocated()
         sc = cfg.ssm
-        print(f"[8/11] {cfg.name}: {L} layers d_model {cfg.d_model} d_inner "
+        print(f"[9/12] {cfg.name}: {L} layers d_model {cfg.d_model} d_inner "
               f"{sc.expand * cfg.d_model} ({sc.expand * cfg.d_model // sc.head_dim}"
               f" SSD heads of {sc.head_dim}) d_state {sc.d_state} groups "
               f"{sc.n_groups} conv {sc.conv_width} chunk {sc.chunk} vocab "
@@ -1734,9 +2018,9 @@ class Smoke:
 
         # int8 weights: the stacked in_proj, in_proj_bc, out_proj and
         # lm_head through matmul_q, as many as the bf16 run's GEMMs. The
-        # f32 params are made again from their seed, so that the peaks of
+        # f32 params are copied to the card again, so that the peaks of
         # both runs measure the engine alone.
-        params = M.init_params(cfg, torch.Generator().manual_seed(0), self.dev)
+        params = self._seed_params(cfg)
         eng = ServingEngine(cfg, params, max_slots=4,
                             max_len=max(lengths) + gen, device=self.dev,
                             quant="int8")
@@ -1953,7 +2237,7 @@ class Smoke:
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
-        params = self._hybrid_params(cfg, self.dev)
+        params = self._seed_params(cfg)
         n_params = sum(t.numel() for t in leaves(params))
         lengths = [64, 97, 128, 200, 256, 333, 397, 512]
         rng = np.random.default_rng(0)
@@ -1966,7 +2250,7 @@ class Smoke:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         engine_bytes = torch.cuda.memory_allocated() - base
-        print(f"[9/11] {cfg.name}: {cfg.n_layers} Mamba-2 layers in {seg} "
+        print(f"[10/12] {cfg.name}: {cfg.n_layers} Mamba-2 layers in {seg} "
               f"segments of {cfg.attn_every}, d_model {cfg.d_model} d_inner "
               f"{sc.expand * cfg.d_model} ({sc.expand * cfg.d_model // sc.head_dim}"
               f" SSD heads of {sc.head_dim}) d_state {sc.d_state} conv "
@@ -1988,9 +2272,9 @@ class Smoke:
         del eng
         self._memory_back(base, "bf16")
 
-        # the f32 params made again from their seeds, so that the peaks
-        # of both runs measure the engine alone
-        params = self._hybrid_params(cfg, self.dev)
+        # the f32 params copied to the card again, so that the peaks of
+        # both runs measure the engine alone
+        params = self._seed_params(cfg)
         eng = ServingEngine(cfg, params, max_slots=4,
                             max_len=max(lengths) + gen, device=self.dev,
                             quant="int8")
@@ -2083,7 +2367,7 @@ class Smoke:
         from repro_torch.benchmarks import bench_add, common
         from repro_torch.kernels import ops
         from repro_torch.launch import paper
-        print(f"[10/11] the paper's experiment at n={n} (Table 2, Figs 8-9)")
+        print(f"[11/12] the paper's experiment at n={n} (Table 2, Figs 8-9)")
         ops.reset_launch_counts()
         gemm_rows = common.measure(n, self.dev, iters=iters)
         add_rows = bench_add.measure(n, self.dev)
@@ -2164,8 +2448,8 @@ class Smoke:
         # launches: the dense kernels' from phase 4's run, the int8 path's
         # from phase 5's int8 run, the multi-row decode forms' from phase
         # 6's self-draft runs (dense, bf16 pool), the training kernels'
-        # from phase 7's, the SSD kernel's from phase 8's, the paper's
-        # kernels from phase 9's
+        # from phase 7's, the SSD kernel's from phase 9's, the paper's
+        # kernels from phase 11's
         counts = {**self.launches, **self.spec_launches,
                   **{k: self.paper_launches[k]
                      for k in ("matmul_naive", "binary_op", "axpy")},
@@ -2180,6 +2464,8 @@ class Smoke:
                  "qwen3-0.6b paged int8": self.paged_launches,
                  "qwen3-0.6b speculative": self.spec_launches,
                  "qwen3-0.6b training": self.train_launches,
+                 "zamba2-1.2b training": self.zamba_train_launches,
+                 "mamba2-2.7b training": self.mamba_train_launches,
                  "mamba2-2.7b": self.mamba_launches,
                  "mamba2-2.7b int8": self.mamba_int8_launches,
                  "zamba2-1.2b": self.hybrid_launches,
@@ -2238,6 +2524,10 @@ def _wrapper_calls():
             setattr(mod, name, fn)
 
 
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
 def _no_launches(**counts) -> dict:
     """Every kernel's launch count 0, but for `counts`."""
     from repro_torch.kernels import ops
@@ -2245,18 +2535,35 @@ def _no_launches(**counts) -> dict:
 
 
 def _print_trace(prof, what: str, wall_ms: float, n: int = 1,
-                 expect=()):
+                 expect=(), own=None):
     """The card's busy time in a torch.profiler trace of `n` repeats of
     `what`, by kernel group with its launches, against the wall time of
     one (the profiler's own host cost included, so the idle share read
-    here is an upper bound). Each group in `expect` must show in it.
-    Returns the busy ms of one repeat (None: no device time recorded)."""
+    here is an upper bound). own: {name of a host op or annotation:
+    group}, the kernels launched below such an op (an autograd node's
+    backward, say) form a group of their own (a kernel carries the
+    correlation id of its launch call on the host, cudaLaunchKernel and
+    the like, whose parents are the ops it ran under). Each group in
+    `expect` must show in it. Returns the busy ms of one repeat (None: no
+    device time recorded)."""
     from torch.autograd import DeviceType
-    busy, count = {}, {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+    own = own or {}
+    events = prof.events()
+    owner = {}       # correlation id of a launch call -> the group it is in
+    for e in events if own else ():
+        if e.device_type != DeviceType.CPU or not e.name.startswith("cu"):
             continue
-        group = _kernel_group(e.name)
+        p = e.cpu_parent
+        while p is not None and e.id not in owner:
+            owner.update({e.id: g for k, g in own.items() if k in p.name})
+            p = p.cpu_parent
+    busy, count = {}, {}
+    for e in events:
+        # an annotation's span on the card is not a kernel
+        if e.device_type != DeviceType.CUDA or e.name in own \
+                or getattr(e, "is_user_annotation", False):
+            continue
+        group = owner.get(e.id) or _kernel_group(e.name)
         busy[group] = busy.get(group, 0.0) + e.time_range.elapsed_us() / 1e3
         count[group] = count.get(group, 0) + 1
     if not busy:

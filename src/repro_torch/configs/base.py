@@ -13,6 +13,12 @@ import dataclasses
 from typing import Optional
 
 
+#: The `remat` policies the port takes: "none" keeps every activation
+#: for the backward, "full" keeps each layer's input and recomputes the
+#: rest, as the JAX package's `jax.checkpoint` without a policy does.
+REMAT_POLICIES = ("none", "full")
+
+
 @dataclasses.dataclass(frozen=True)
 class SSMConfig:
     d_state: int = 128
@@ -54,8 +60,19 @@ class ModelConfig:
     vocab_pad_to: int = 256         # Megatron-style vocab padding
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
+    # activation checkpointing of each layer in training: none | full
+    # (the reference's "dots" policy is not ported)
+    remat: str = "full"
     # chunk of the chunked online-softmax attention (prefill)
     attn_chunk: int = 2048
+
+    def __post_init__(self):
+        if self.remat not in REMAT_POLICIES:
+            what = ("is not ported (it saves the GEMMs' outputs, which the "
+                    "GEMM chokepoint would have to save itself)"
+                    if self.remat == "dots" else "is unknown")
+            raise ValueError(f"remat={self.remat!r} {what}; the port "
+                             f"takes {REMAT_POLICIES}")
 
     @property
     def resolved_head_dim(self) -> int:

@@ -5,13 +5,15 @@
     PYTHONPATH=src python -m repro_torch.launch.train --steps 4 \
         --batch 4 --seq 512                              # full width, on the card
 
-Trains qwen3-0.6b (or its `--reduced` test config) from random weights
-(`torch.Generator().manual_seed(--seed)`) on `SyntheticLM` batches with
-AdamW and a cosine schedule. `--arch` offers the archs whose family
-`models.model` trains (`TRAIN_FAMILIES`). Runs on the card unless
-`--device cpu` is given, and raises where there is no card. Not ported
-yet: the JAX launcher's --backend, --autotune, --model-parallel,
---compress, --ckpt-dir and --fail-at.
+Trains `--arch` (qwen3-0.6b, mamba2-2.7b or zamba2-1.2b: the archs whose
+family `models.model` trains, `TRAIN_FAMILIES`), or its `--reduced` test
+config, from random weights (`torch.Generator().manual_seed(--seed)`) on
+`SyntheticLM` batches with AdamW and a cosine schedule. The step updates
+the train state in place (`make_train_step(donate=True)`), as the JAX
+launcher donates it. Runs on the card unless `--device cpu` is given,
+and raises where there is no card. Not ported yet: the JAX launcher's
+--backend, --autotune, --model-parallel, --compress, --ckpt-dir,
+--ckpt-every and --fail-at.
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ def main(argv=None):
                 clip_norm=1.0)
     state = TL.init_state(cfg, opt, torch.Generator().manual_seed(args.seed),
                           device)
-    step_fn = TL.make_train_step(cfg, opt, accum=args.accum)
+    step_fn = TL.make_train_step(cfg, opt, accum=args.accum, donate=True)
     data = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq, batch=args.batch,
                        seed=args.seed)
     n_params = sum(x.numel() for x in leaves(state.params))

@@ -20,8 +20,9 @@ tails of every layer. The hybrid family (Zamba2) keeps that state for
 each Mamba layer, stacked (n_seg, attn_every, B, ...), beside the
 shared attention block's KV cache of each segment, (n_seg, B, Tmax,
 Hkv, Dh). Both serve (prefill, decode_step) on dense caches, with float
-or int8 weights; the page pool, the verify step and training (forward,
-loss_fn) are the dense family's only.
+or int8 weights; the page pool and the verify step are the dense
+family's only. All three families train (forward, loss_fn), each layer
+rematerialised in the backward as `cfg.remat` says (models.transformer).
 """
 
 from __future__ import annotations
@@ -175,23 +176,25 @@ def _logits(cfg, params, x):
 
 
 #: The families that `forward` and `loss_fn` train; the launcher offers
-#: only their archs. ssm (Mamba-2) and hybrid (Zamba2) serve but do not
-#: train yet.
-TRAIN_FAMILIES = ("dense",)
+#: only their archs.
+TRAIN_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def forward(cfg, params, batch):
     """Full-sequence f32 logits (B, T, padded_vocab) of batch["tokens"]
     (B, T), the pad classes masked to -1e30: the training forward, with
-    cache-less causal attention. (The JAX package's `forward` also
-    returns an aux dict, which is empty for the dense family.)"""
-    if cfg.family not in TRAIN_FAMILIES:
-        raise NotImplementedError(f"training (forward, loss_fn) is ported for "
-                                  f"the dense family only, not {cfg.name} "
-                                  f"({cfg.family})")
+    cache-less causal attention (dense, and the hybrid's shared block)
+    and the Mamba-2 layers' scans from a zero state (ssm, hybrid). (The
+    JAX package's `forward` also returns an aux dict, which is empty for
+    these families.)"""
     x = L.embed_apply(params["embed"], batch["tokens"],
                       dtype=getattr(torch, cfg.dtype))
-    x, _ = T.stack_apply(params["layers"], x, cfg)
+    if cfg.family == "ssm":
+        x, _ = T.ssm_stack_apply(params["layers"], x, cfg)
+    elif cfg.family == "hybrid":
+        x, _, _ = T.hybrid_apply(params["hybrid"], x, cfg, emb0=x)
+    else:
+        x, _ = T.stack_apply(params["layers"], x, cfg)
     return _logits(cfg, params, x)
 
 

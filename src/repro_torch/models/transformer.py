@@ -8,20 +8,41 @@ Python where the reference scans. The stacked leaves stay the leaves of
 the param tree: layer i works on views of row i, so a gradient comes back
 as one tensor per stacked leaf, as the reference's scan gives it. Caches
 keep their (L, B, T, Hkv, D) layout (page pools their (L, P, page_size,
-Hkv, D) one), updated in place. Rematerialisation (the reference's
-`remat`) is not ported: the backward keeps every layer's activations.
+Hkv, D) one), updated in place.
+
+Rematerialisation follows the reference's `remat` (`_maybe_remat`): with
+`cfg.remat == "full"` each dense block, each Mamba-2 layer of the ssm
+stack and each Mamba-2 layer inside a hybrid segment (not the shared
+block) runs under `torch.utils.checkpoint` when autograd records it, so
+the backward keeps only each layer's input and runs the layer's forward
+again, the same kernels on the same inputs, before its backward. A call
+that autograd does not record (serving, the engine's CUDA-graph
+captures) never goes through it.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import gemm
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import leaves, tree_map
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
+
+
+def _maybe_remat(fn, cfg, params):
+    """fn, or fn under activation checkpointing where cfg.remat is "full"
+    and autograd records a call on `params` (grad enabled, a leaf that
+    requires grad): the counterpart of the reference's `jax.checkpoint`
+    of a layer body, which saves nothing inside it."""
+    if cfg.remat == "none" or not (torch.is_grad_enabled() and any(
+            t.requires_grad for t in leaves(params))):
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                    preserve_rng_state=False)
 
 
 def _norm_init(cfg, device):
@@ -82,10 +103,15 @@ def stack_apply(params, x, cfg, *, caches=None, cache_pos=None,
     n = params["attn_norm"]["scale"].shape[0]
     layers = _unstack(params, n)
     per_cache = [None] * n if caches is None else _unstack(caches, n)
+
+    def body(lp, xc, cache):
+        return block_apply(lp, xc, cfg, cache=cache, cache_pos=cache_pos,
+                           kv_table=kv_table, n_valid=n_valid)[0]
+
+    if caches is None:
+        body = _maybe_remat(body, cfg, params)
     for i in range(n):
-        x, _ = block_apply(layers[i], x, cfg, cache=per_cache[i],
-                           cache_pos=cache_pos, kv_table=kv_table,
-                           n_valid=n_valid)
+        x = body(layers[i], x, per_cache[i])
     return x, caches
 
 
@@ -109,17 +135,23 @@ def ssm_stack_apply(params, x, cfg, *, states=None, decode=False):
     n = params["norm"]["scale"].shape[0]
     layers = _unstack(params, n)
     per_state = [None] * n if states is None else _unstack(states, n)
-    for i in range(n):
-        xin = L.rmsnorm_apply(layers[i]["norm"], x)
+
+    def body(lp, xc, state):
+        xin = L.rmsnorm_apply(lp["norm"], xc)
         if decode:
-            h, new = S.mamba_decode(layers[i]["mamba"], xin, cfg, per_state[i])
+            h, new = S.mamba_decode(lp["mamba"], xin, cfg, state)
         else:
-            h, new = S.mamba_apply(layers[i]["mamba"], xin, cfg,
+            h, new = S.mamba_apply(lp["mamba"], xin, cfg,
                                    return_state=states is not None)
+        return xc + h, new
+
+    if not decode:
+        body = _maybe_remat(body, cfg, params)
+    for i in range(n):
+        x, new = body(layers[i], x, per_state[i])
         if new is not None:
             for k, v in new.items():
                 per_state[i][k].copy_(v)
-        x = x + h
     return x, states
 
 

@@ -4,7 +4,12 @@ package's `optim/adamw.py` on param trees of tensors.
 Plain PyTorch ops, as the JAX package runs them in XLA: a handful of
 elementwise passes a leaf, bound by the bytes of params, grads and the
 two moments. `update` is functional, as the reference is: it returns new
-params and a new state and leaves its inputs as they were.
+params and a new state and leaves its inputs as they were. With
+`donate=True`, the counterpart of the JAX launcher's donated train
+state, it writes the new params and moments into the state's own tensors
+and scales the grads in place, a slice of each leaf at a time
+(`_slices`), so that no new tree and no temporary the size of a leaf is
+made; the arithmetic of each element is the same, so are the bits.
 """
 
 from __future__ import annotations
@@ -46,45 +51,77 @@ class AdamW:
         return self.lr(step) if callable(self.lr) else self.lr
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params):
+    def update(self, grads, state: AdamWState, params, *, donate=False):
         """(new params, new state, the global grad norm before clipping).
         Weight decay applies to the leaves of two or more dims only (not
-        to norms or biases)."""
+        to norms or biases). donate: the new params, m and v are written
+        into `params`, `state.m` and `state.v` (returned), and `grads` is
+        scaled in place; the caller reads none of them as the old values
+        again."""
         step = state.step + 1
         gnorm = global_norm(grads)
+        scale = None
         if self.clip_norm is not None:
             scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
-            grads = tree_map(lambda g: g * scale, grads)
 
         b1, b2 = self.b1, self.b2
         dt = getattr(torch, self.state_dtype)
-        m = tree_map(lambda mm, g: (b1 * mm.float()
-                                    + (1 - b1) * g.float()).to(dt),
-                     state.m, grads)
-        v = tree_map(lambda vv, g: (b2 * vv.float()
-                                    + (1 - b2) * torch.square(g.float())
-                                    ).to(dt),
-                     state.v, grads)
         stepf = step.float()
         bc1 = 1 - b1 ** stepf
         bc2 = 1 - b2 ** stepf
         lr = self._lr(step)
 
-        def upd(p, mm, vv):
+        def leaf(p, g, mm, vv):
+            """(new p, new m, new v) of one leaf (or a slice of one)."""
+            if scale is not None:
+                g = g.mul_(scale) if donate else g * scale
+            mm = (b1 * mm.float() + (1 - b1) * g.float()).to(dt)
+            vv = (b2 * vv.float() + (1 - b2) * torch.square(g.float())).to(dt)
             mhat = mm.float() / bc1
             vhat = vv.float() / bc2
             delta = mhat / (torch.sqrt(vhat) + self.eps)
             if self.weight_decay and p.dim() >= 2:
                 delta = delta + self.weight_decay * p.float()
-            return (p.float() - lr * delta).to(p.dtype)
+            return (p.float() - lr * delta).to(p.dtype), mm, vv
 
-        new_params = tree_map(upd, params, m, v)
-        return new_params, AdamWState(step=step, m=m, v=v), gnorm
+        if not donate:
+            out = tree_map(leaf, params, grads, state.m, state.v)
+            new_p, m, v = (tree_map(lambda t, i=i: t[i], out)
+                           for i in range(3))
+            return new_p, AdamWState(step=step, m=m, v=v), gnorm
+
+        for p, g, mm, vv in zip(*map(leaves, (params, grads, state.m,
+                                              state.v))):
+            # a (1, ...) slice keeps p.dim(), which decides weight decay
+            for sl in _slices(p):
+                new = leaf(p[sl], g[sl], mm[sl], vv[sl])
+                for dst, src in zip((p, mm, vv), new):
+                    dst[sl].copy_(src)
+        state.step.copy_(step)
+        return params, state, gnorm
+
+
+#: The most elements an in-place update or the norm takes of a leaf at a
+#: time (64 MiB of f32).
+SLICE_ELEMS = 1 << 24
+
+
+def _slices(x: torch.Tensor) -> list:
+    """Index tuples that cover x in slices of whole rows along dim 0, each
+    of at most SLICE_ELEMS elements (one row where a row is larger); a
+    leaf of fewer than two dims is one slice."""
+    if x.dim() < 2 or x.numel() <= SLICE_ELEMS:
+        return [(slice(None),)]
+    rows = max(1, SLICE_ELEMS // (x.numel() // x.shape[0]))
+    return [(slice(i, i + rows),) for i in range(0, x.shape[0], rows)]
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+    """sqrt of the sum of squares of every leaf, in f32, each leaf's sum
+    taken over `_slices` of it, so no temporary is the size of a large
+    leaf."""
+    return torch.sqrt(sum(sum(torch.sum(torch.square(x[sl].float()))
+                              for sl in _slices(x))
                           for x in leaves(tree)))
 
 

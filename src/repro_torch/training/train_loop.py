@@ -1,15 +1,19 @@
 """The train step: the JAX package's `training/train_loop.py` for the
-dense family, in PyTorch.
+dense, ssm and hybrid families, in PyTorch.
 
     state = init_state(cfg, optimizer, generator, device)
-    step = make_train_step(cfg, optimizer, accum=2)
+    step = make_train_step(cfg, optimizer, accum=2, donate=True)
     state, metrics = step(state, batch)
 
 A step takes the loss and its gradients (the forward and the backward
 run through the CUDA kernels on the card: the GEMM chokepoint's autograd
-Functions and the flash attention pair), accumulates them over `accum`
+Functions, the flash attention pair and the SSD Function, each layer
+rematerialised as `cfg.remat` says), accumulates them over `accum`
 microbatches of the batch, and takes one AdamW step with global-norm
-clipping. Gradient compression (`compress`) is not ported yet.
+clipping. With `donate=True`, the counterpart of the JAX launcher's
+`donate_argnums=(0,)`, the step updates the state's tensors in place
+(`AdamW.update(donate=True)`) and returns them. Gradient compression
+(`compress`) is not ported yet.
 """
 
 from __future__ import annotations
@@ -55,11 +59,15 @@ def _split(batch, accum: int):
             for i in range(accum)]
 
 
-def make_train_step(cfg, optimizer: AdamW, *, accum: int = 1):
+def make_train_step(cfg, optimizer: AdamW, *, accum: int = 1,
+                    donate: bool = False):
     """step(state, batch) -> (state, metrics). batch: {"tokens", "labels"}
     (B, T) integer tensors on the params' device. metrics: the last
     microbatch's loss_fn metrics with "ce_loss" and "loss" the mean over
-    the microbatches, and "grad_norm" before clipping, as tensors."""
+    the microbatches, and "grad_norm" before clipping, as tensors.
+    donate: the returned state is the given one, updated in place (the
+    same bits as the functional step's); the caller must not read the old
+    state again."""
 
     def train_step(state: TrainState, batch):
         if accum == 1:
@@ -71,12 +79,14 @@ def make_train_step(cfg, optimizer: AdamW, *, accum: int = 1):
                                device=batch["tokens"].device)
             for mb in _split(batch, accum):
                 l, metrics, g = _loss_and_grads(cfg, state.params, mb)
-                grads = tree_map(torch.add, grads, g)
+                tree_map(lambda acc, x: acc.add_(x), grads, g)
+                del g
                 loss = loss + l
-            grads = tree_map(lambda g: g / accum, grads)
+            tree_map(lambda g: g.div_(accum), grads)
             loss = loss / accum
             metrics = dict(metrics, ce_loss=loss)
-        params, opt, gnorm = optimizer.update(grads, state.opt, state.params)
+        params, opt, gnorm = optimizer.update(grads, state.opt, state.params,
+                                              donate=donate)
         return TrainState(params, opt), dict(metrics, grad_norm=gnorm,
                                              loss=loss)
 

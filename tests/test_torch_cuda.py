@@ -30,7 +30,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core import precision
-from repro_torch.core.tree import leaves
+from repro_torch.core.tree import leaves, tree_map
 from repro_torch.kernels import ops, ref
 from repro_torch.models import model as M
 from repro_torch.optim.adamw import AdamW
@@ -913,6 +913,46 @@ def test_train_step_on_card_matches_cpu(dev, accum):
         torch.testing.assert_close(x, y, atol=1e-5, rtol=1e-4)
 
 
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-1.2b"])
+def test_recurrent_train_step_on_card_matches_cpu(dev, arch):
+    """The reduced mamba2 and zamba2 (4 layers: two segments, lora_b from a
+    seed) in f32, at a ragged 40 tokens (the SSD chunk pads): two donated
+    AdamW steps of two microbatches each on the card (the GEMM autograd,
+    the SSD Function and, for zamba2, the flash attention pair on their
+    kernels, each layer rematerialised) against the same on the CPU:
+    losses, grad norms and the first step's gradients agree."""
+    cfg = dataclasses.replace(get_config(arch, reduced=True), dtype="float32")
+    if cfg.family == "hybrid":
+        cfg = dataclasses.replace(cfg, n_layers=4)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    if cfg.family == "hybrid":
+        lb = params["hybrid"]["lora_b"]
+        params["hybrid"]["lora_b"] = torch.randn(
+            lb.shape, generator=torch.Generator().manual_seed(3)) \
+            * lb.shape[1] ** -0.5
+    batch = {"tokens": torch.randint(0, cfg.vocab, (4, 40), generator=
+                                     torch.Generator().manual_seed(1))}
+    batch["labels"] = batch["tokens"].roll(-1, 1)
+    batch["labels"][:, -1] = -1
+    opt = AdamW(lr=1e-3)
+    out = {}
+    for d in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(d, copy=True), params)  # donated below
+        b = _to(batch, d)
+        _, _, grads = TL._loss_and_grads(cfg, p, b)
+        step = TL.make_train_step(cfg, opt, accum=2, donate=True)
+        state = TL.TrainState(p, opt.init(p))
+        mets = []
+        for _ in range(2):
+            state, met = step(state, b)
+            mets.append([float(met["loss"]), float(met["grad_norm"])])
+        out[d] = (mets, _to(grads, "cpu"))
+    torch.testing.assert_close(torch.tensor(out["cuda"][0]),
+                               torch.tensor(out["cpu"][0]), atol=0, rtol=1e-5)
+    for x, y in zip(leaves(out["cuda"][1]), leaves(out["cpu"][1])):
+        torch.testing.assert_close(x, y, atol=1e-5, rtol=1e-4)
+
+
 # (B, L, H, G, P, N, chunk): mamba2-2.7b's prefill at L = 512, one ragged
 # chunk of 200, chunks of 8 and 2, groups of 4 heads read through strides,
 # zamba2's d_state 64 and chunk 128
@@ -1061,10 +1101,50 @@ def test_ssd_unaligned_operands_take_the_plain_copy(dev, dtype):
 
 
 def test_ssd_on_card_refuses_a_gradient(dev):
+    """A recorded call on the card no longer refuses: it goes through the
+    SSD Function (the kernel's forward), and its gradients equal autograd
+    of the plain chunked scan on the card."""
+    _ssd_grads_match_plain(dev, SSD_SHAPES[-1], with_state=True)
+
+
+def _ssd_grads_match_plain(dev, shape, with_state=False, decay=(0.01, 0.5)):
+    """The gradients of x, a, b, c (and the initial state) through
+    core.ssd.ssd on the card against torch.autograd of ref.ssd_chunked_ref
+    on the card, for the same random cotangents of y and the final
+    state: the Function's backward differentiates that composition, so
+    they agree to the order of f32 sums (rtol 1e-5, atol 1e-5 x the
+    largest |gradient|); y and the state against the plain scan."""
     from repro_torch.core import ssd as core_ssd
-    x, a, bm, cm = _ssd_inputs(dev, SSD_SHAPES[-1])
-    with pytest.raises(NotImplementedError, match="training"):
-        core_ssd.ssd(x.requires_grad_(), a, bm, cm, 16)
+    b, l, h, _, p, n, chunk = shape
+    ins = list(_ssd_inputs(dev, shape, decay=decay))
+    ins.append(_randn(b, h, p, n, dtype=torch.float32, dev=dev, seed=4)
+               if with_state else torch.zeros(b, h, p, n, device=dev))
+    gy = _randn(b, l, h, p, dtype=torch.float32, dev=dev, seed=5)
+    gs = _randn(b, h, p, n, dtype=torch.float32, dev=dev, seed=6)
+    grads = {}
+    for how in ("card", "plain"):
+        ts = [t.detach().requires_grad_() for t in ins]
+        fn = core_ssd.ssd if how == "card" else ref.ssd_chunked_ref
+        y, s = fn(*ts[:4], chunk, ts[4])
+        grads[how] = ([y.detach(), s.detach()]
+                      + list(torch.autograd.grad((y, s), ts, (gy, gs))))
+    for got, want in zip(grads["card"][:2], grads["plain"][:2]):
+        _close(got, want, torch.float32)
+    for got, want in zip(grads["card"][2:], grads["plain"][2:]):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * want.abs().max().item())
+
+
+# phase 3's SSD shapes: mamba2-2.7b at 512 tokens, a ragged chunk of 200,
+# zamba2's d_state 64 and chunk 128, strong decays (a = -20)
+@pytest.mark.parametrize("shape, with_state, decay", [
+    (SSD_SHAPES[0], False, (0.01, 0.5)), (SSD_SHAPES[0], True, (0.01, 0.5)),
+    (SSD_SHAPES[1], False, (0.01, 0.5)), (SSD_SHAPES[5], True, (0.01, 0.5)),
+    (SSD_SHAPES[0], False, (20.0, 20.0))])
+def test_ssd_gradients_on_card_match_plain_autograd(dev, shape, with_state,
+                                                    decay):
+    _ssd_grads_match_plain(dev, shape, with_state, decay)
 
 
 @pytest.mark.parametrize("d", [64, 1024, 2560, 5120])

@@ -338,8 +338,10 @@ def test_hybrid_refuses_what_it_does_not_serve():
                       torch.zeros(1, dtype=torch.int32),
                       torch.ones(1, dtype=torch.int32),
                       M.init_cache(cfg, 1, 8, "cpu"))
-    with pytest.raises(NotImplementedError, match="dense family"):
-        M.forward(cfg, params, {"tokens": torch.zeros(1, 4, dtype=torch.long)})
+    logits = M.forward(cfg, params,
+                       {"tokens": torch.zeros(1, 4, dtype=torch.long)})
+    assert logits.shape == (1, 4, cfg.padded_vocab)
+    assert torch.isfinite(logits[..., :cfg.vocab]).all()
     with pytest.raises(ValueError, match="whole segments"):
         M.init_params(dataclasses.replace(cfg, n_layers=3),
                       torch.Generator().manual_seed(0), "cpu")

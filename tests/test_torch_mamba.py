@@ -297,8 +297,10 @@ def test_ssm_refuses_what_it_does_not_serve():
                           **kw)
     with pytest.raises(ValueError, match="recurrent state"):
         M.init_paged_cache(cfg, 4, 8, 1, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="dense family"):
-        M.forward(cfg, params, {"tokens": torch.zeros(1, 4, dtype=torch.long)})
+    logits = M.forward(cfg, params,
+                       {"tokens": torch.zeros(1, 4, dtype=torch.long)})
+    assert logits.shape == (1, 4, cfg.padded_vocab)
+    assert torch.isfinite(logits[..., :cfg.vocab]).all()
     eng = ServingEngine(cfg, params, max_slots=1, max_len=70, device="cpu")
     assert eng.max_len == 70            # no attn_chunk rounding for a state
 

@@ -282,8 +282,9 @@ def test_forward_and_loss_match_jax(model):
 def test_training_attention_takes_the_fused_pair_and_prefill_does_not(
         model, monkeypatch):
     """The cache-less forward routes every layer's attention to the flash
-    forward and its backward to flash_attention_bwd; prefill into a cache
-    keeps the chunked path."""
+    forward (twice a layer under remat: the forward and its recompute)
+    and its backward to flash_attention_bwd; prefill into a cache keeps
+    the chunked path."""
     calls = {"fwd": 0, "bwd": 0}
     fwd, bwd = ops.flash_attention_fwd, ops.flash_attention_bwd
 
@@ -300,7 +301,8 @@ def test_training_attention_takes_the_fused_pair_and_prefill_does_not(
     M.prefill(cfg, params, batch, M.init_cache(cfg, BATCH, SEQ, "cpu"))
     assert calls == {"fwd": 0, "bwd": 0}
     TL._loss_and_grads(cfg, params, batch)
-    assert calls == {"fwd": cfg.n_layers, "bwd": cfg.n_layers}
+    # cfg.remat "full": each block's forward runs again in the backward
+    assert calls == {"fwd": 2 * cfg.n_layers, "bwd": cfg.n_layers}
 
 
 def test_gradients_match_jax_leaf_for_leaf(model):
@@ -339,6 +341,85 @@ def test_three_train_steps_match_jax(model):
         assert (err > 2e-6).mean() <= 1e-3, (key, int((err > 2e-6).sum()))
     _close_trees(state.opt.m, jstate.opt.m, **MTOL)
     _close_trees(state.opt.v, jstate.opt.v, atol=1e-7, rtol=1e-4)
+
+
+def test_remat_full_gives_the_bits_of_none(model, monkeypatch):
+    """The config's remat "full" (the reference's default) checkpoints each
+    dense block: the loss and every gradient are those of "none" bit for
+    bit, and the recompute runs each block's attention forward again."""
+    calls = {"fwd": 0}
+    fwd = ops.flash_attention_fwd
+
+    def counted(*a, **kw):
+        calls["fwd"] += 1
+        return fwd(*a, **kw)
+
+    monkeypatch.setattr(ops, "flash_attention_fwd", counted)
+    params = _bridge(model["jstate"].params)
+    batch = _torch_batch(model["batches"][1])
+    out = {}
+    for remat, fwd_calls in (("full", 2), ("none", 1)):
+        calls["fwd"] = 0
+        loss, _, grads = TL._loss_and_grads(
+            dataclasses.replace(model["cfg"], remat=remat), params, batch)
+        assert calls["fwd"] == fwd_calls * model["cfg"].n_layers
+        out[remat] = [loss] + leaves(grads)
+    assert all(torch.equal(u, v) for u, v in zip(out["full"], out["none"]))
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_donated_step_equals_the_functional_step_in_place(model, accum):
+    """Two donated steps give the functional steps' params, moments, step
+    and metrics bit for bit, in the tensors the state started in."""
+    def fresh():
+        p = _bridge(model["jstate"].params)
+        return TL.TrainState(p, model["opt"].init(p))
+
+    def storage(state):
+        return [t.data_ptr() for t in leaves(state.params)
+                + leaves(state.opt.m) + leaves(state.opt.v)]
+
+    cfg, opt = model["cfg"], model["opt"]
+    functional, donated = fresh(), fresh()
+    before = storage(donated)
+    f_step = TL.make_train_step(cfg, opt, accum=accum)
+    d_step = TL.make_train_step(cfg, opt, accum=accum, donate=True)
+    for batch in model["batches"][:2]:
+        functional, f_met = f_step(functional, _torch_batch(batch))
+        donated, d_met = d_step(donated, _torch_batch(batch))
+        for key in f_met:
+            assert torch.equal(f_met[key], d_met[key]), key
+    assert storage(donated) == before
+    assert int(donated.opt.step) == 2
+    for tree in ("params", "m", "v"):
+        get = (lambda s: s.params) if tree == "params" \
+            else (lambda s, t=tree: getattr(s.opt, t))
+        assert all(torch.equal(u, v) for u, v in zip(
+            leaves(get(functional)), leaves(get(donated)))), tree
+
+
+def test_donated_update_slices_a_large_leaf(monkeypatch):
+    """A leaf past SLICE_ELEMS is updated (and its norm summed) a slice
+    of rows at a time: the same bits as the functional update."""
+    monkeypatch.setattr(adamw, "SLICE_ELEMS", 24)
+    rng = np.random.default_rng(6)
+    params = {"w": rng.standard_normal((7, 3, 4)).astype(np.float32),
+              "b": rng.standard_normal((30,)).astype(np.float32)}
+    assert len(adamw._slices(torch.from_numpy(params["w"]))) == 4
+    opt = adamw.AdamW(lr=1e-2, clip_norm=0.5)
+    f_p = params_from_numpy(params, "cpu")
+    d_p = params_from_numpy(params, "cpu")
+    f_s, d_s = opt.init(f_p), opt.init(d_p)
+    for _ in range(2):
+        g = {k: rng.standard_normal(v.shape).astype(np.float32)
+             for k, v in params.items()}
+        f_p, f_s, f_norm = opt.update(params_from_numpy(g, "cpu"), f_s, f_p)
+        d_p, d_s, d_norm = opt.update(params_from_numpy(g, "cpu"), d_s, d_p,
+                                      donate=True)
+        assert torch.equal(f_norm, d_norm)
+    for u, v in zip(leaves(f_p) + leaves(f_s.m) + leaves(f_s.v),
+                    leaves(d_p) + leaves(d_s.m) + leaves(d_s.v)):
+        assert torch.equal(u, v)
 
 
 # -- optimizer, schedule, data, launcher ------------------------------------
@@ -399,18 +480,21 @@ def test_train_cli_runs_on_the_cpu(capsys):
 
 
 def test_train_cli_offers_only_the_archs_it_can_train(capsys):
-    """mamba2-2.7b serves but `model.forward` does not train it yet, so
-    argparse refuses it; qwen3-0.6b is still offered (and trains)."""
-    assert "mamba2-2.7b" not in train_cli.TRAIN_ARCHS
-    assert "qwen3-0.6b" in train_cli.TRAIN_ARCHS
+    """Every arch of the three families that `model.forward` trains is
+    offered, and each takes one reduced step on the CPU; an arch that is
+    not registered is refused by argparse."""
+    assert set(train_cli.TRAIN_ARCHS) >= {"qwen3-0.6b", "mamba2-2.7b",
+                                          "zamba2-1.2b"}
+    for arch in ("qwen3-0.6b", "mamba2-2.7b", "zamba2-1.2b"):
+        losses = train_cli.main(["--arch", arch, "--reduced", "--device",
+                                 "cpu", "--steps", "1", "--batch", "1",
+                                 "--seq", "8", "--warmup", "1"])
+        assert len(losses) == 1 and np.isfinite(losses[0])
+        assert f"arch={arch}-reduced" in capsys.readouterr().out
     with pytest.raises(SystemExit):
-        train_cli.main(["--arch", "mamba2-2.7b", "--reduced", "--device",
-                        "cpu", "--steps", "1"])
-    assert "invalid choice: 'mamba2-2.7b'" in capsys.readouterr().err
-    losses = train_cli.main(["--arch", "qwen3-0.6b", "--reduced", "--device",
-                             "cpu", "--steps", "1", "--batch", "1", "--seq",
-                             "8", "--warmup", "1"])
-    assert len(losses) == 1 and np.isfinite(losses[0])
+        train_cli.main(["--arch", "llama-0b", "--reduced", "--device", "cpu",
+                        "--steps", "1"])
+    assert "invalid choice: 'llama-0b'" in capsys.readouterr().err
 
 
 def test_train_cli_without_device_raises_where_there_is_no_card():
