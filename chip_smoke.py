@@ -12,8 +12,13 @@ Phases, in order; any failure propagates and the exit code is not 0:
      (32 heads of 64, one a KV head); the int8 Mamba in_proj of zamba2
      and mamba2-2.7b; training attention, forward and backward; mamba2-2.7b's
      SSD intra-chunk work, ragged chunks, groups, bf16, a carried state,
-     strong decays and zamba2's d_state; the paper's tiled GEMM (f32 and
-     bf16, with their TFLOP/s beside torch.matmul's) and naive GEMM at
+     strong decays and zamba2's d_state; the dense configs' and
+     qwen2-vl-2b's decode GEMMs (the QKV bias epilogue, bf16 and int8
+     weights), dual GEMMs at d_ff 8960-27392, logits, and decode attention
+     at groups of 6, 4, 48 and 1 query heads a KV head, one-row, paged and
+     multi-row, with batch invariance at groups 6 and 48; the paper's
+     tiled GEMM (f32 and bf16, with their TFLOP/s beside torch.matmul's)
+     and naive GEMM at
      4096^2, f32 against the f64 product, and add, sub, mul and axpy bit
      for bit;
      the bf16 GEMM also at training's shapes, 2048 rows, in all four
@@ -49,8 +54,10 @@ Phases, in order; any failure propagates and the exit code is not 0:
      configuration's streams at 4 slots equal to each request alone;
   6. the request surface at full width (qwen3-0.6b, 28 layers, bf16):
      (a) speculative decoding, greedy, phase 4's 8 requests on 4 slots,
-     spec_k 4, the target as its own draft and a seed-1 draft, on the
-     dense cache and a bf16 pool: every stream equals phase 4's, the
+     spec_k 4, the target as its own draft on the dense cache and a bf16
+     pool, and a seed-1 draft on the dense cache (its run on the pool is
+     cut for time; the CPU tests hold it): every stream equals phase
+     4's, the
      self-draft accepts every proposal, each request's target cache rows
      equal the plain engine's bit for bit; the verify launches a round,
      the round's p50 beside phase 4's decode step and a round's logits
@@ -65,49 +72,72 @@ Phases, in order; any failure propagates and the exit code is not 0:
      bf16 activations, each block rematerialised) at batch 4 x 512
      tokens, with exact launch counts a step (the recompute's included),
      finite losses and grad norms, a falling loss, speed, memory and a
-     torch.profiler trace of a step; the 8 steps without remat from the
-     same state, step 0's loss equal bit for bit, both peaks and steady
-     step times; the first 4 steps again through the plain versions on
-     the card, step 0 held to the kernels'; the 8 steps with only the
-     dual GEMM through its plain version, the final loss beside the
-     kernels'; then a whole step at depth 2 in f32 on the card against
-     the same step on the CPU;
+     torch.profiler trace of a step; the first 4 steps without remat from
+     the same state, step 0's loss equal bit for bit, both peaks and
+     steady step times; the first 2 steps again through the plain
+     versions on the card, step 0 held to the kernels'; the first 4 steps
+     with only the dual GEMM through its plain version, the loss after
+     them beside the kernels' (cut for time from 8, 4 and 8 steps: their
+     findings stand in PERF.md); then a whole step at depth 2 in f32 on
+     the card against the same step on the CPU;
   8. training the Mamba-2 families at full width: zamba2-1.2b (36 layers
      in 6 segments, lora_b from a seed) and mamba2-2.7b (64 layers), f32
-     params, bf16 activations, 8 donated AdamW steps at batch 4 x 512
-     (nothing cut: mamba2's peak is ~48 GiB), each Mamba-2 layer
-     rematerialised: exact launch counts a step (the recompute's
-     included), finite and falling losses, speed, memory, a trace of a
-     step with the plain SSD backward as a group of its own, the 8 steps
-     without remat from the same state (step 0's loss equal bit for bit,
+     params, bf16 activations, 16 donated AdamW steps at batch 4 x 512
+     (mamba2's peak is ~48 GiB), each Mamba-2 layer rematerialised: exact
+     launch counts a step (the recompute's included), finite losses whose
+     mean over the last 4 steps lies below the mean over the first 4
+     (`loss_falls`: over 8 steps a last-against-first gate passed or
+     failed with the weights' draw), speed, memory, a trace of a step
+     with the plain SSD backward as a group of its own, zamba2's first 4
+     steps without remat from the same state (step 0's loss equal bit for bit,
      its grad norm within rtol 1e-5, both peaks and steady step times),
-     and the first 4 (zamba2) and 2 (mamba2) steps through the plain
+     and the first 2 (zamba2) and 1 (mamba2) steps through the plain
      versions on the card, step 0's loss and grad norm within rtol 1e-3
-     of the kernels'; then a whole f32 step of each at depth 2 on the
-     card against the same step on the CPU;
+     of the kernels' (cut for time from 8 steps without remat and 4 and
+     2 plain ones, mamba2's steps without remat and both whole f32 steps
+     at depth 2 against the CPU: their findings stand in PERF.md, and
+     tests/test_torch_cuda.py holds the depth-2 steps on the card);
   9. Mamba-2 serving at full width: mamba2-2.7b (64 layers, random
      weights from a seed) served by the engine on 4 slots to 8 requests
      whose prompts take every prefill branch, with exact launch counts
      (the SSD kernel in every admission prefill), each stream equal to
-     the request run alone at batch 1, speed, memory, a replay against
-     the eager step and a torch.profiler trace of decode steps as phase
-     4's, and of a 512-token prefill; the memory back after the engine
-     goes; the same trace with int8 weights (matmul_q counted exactly,
-     each stream equal to the request alone, the decode p50 beside the
-     bf16 run's, a replay and a trace); then a depth-2 prefill and decode
-     in f32 on the card against the same on the CPU;
+     the request served alone at batch 1 (by a 1-slot engine, as in
+     phases 10 and 11: cut for time from eager steps, some 4,000 small
+     launches each), speed, memory, a replay against the eager step and a
+     torch.profiler trace of decode steps as phase 4's, and of a
+     512-token prefill; the memory back after the engine goes; the same
+     trace with int8 weights (matmul_q counted exactly, each stream equal
+     to the request alone, the decode p50 beside the bf16 run's; its
+     replay and trace cut for time); then a depth-2 prefill and decode in
+     f32 on the card against the same on the CPU;
   10. hybrid serving at full width: zamba2-1.2b (36 Mamba-2 layers in 6
      segments, one shared attention block with a LoRA a segment, random
      weights and lora_b from seeds) served by the engine on 4 slots to 8
      requests of 64-512 tokens that take every prefill branch, in bf16
      and with int8 weights: exact launch counts (ssd in every admission
      prefill, flash_decode at D = 64 in every step; matmul_q with int8),
-     each stream equal to the request alone at batch 1, a replay against
-     the eager step, a trace of decode steps, decode p50 and p99, time to
-     first token, peak memory, the capture time and graph pools, and the
-     memory back after each engine; then a depth-2 (two segments)
+     each stream equal to the request alone at batch 1 (a 1-slot
+     engine), a replay against the eager step and a trace of decode steps
+     (bf16 only; the int8 run's cut for time), decode p50 and p99, time
+     to first token, peak memory, the capture time and graph pools, and
+     the memory back after each engine; then a depth-2 (two segments)
      prefill and decode in f32 on the card against the CPU;
-  11. the paper's experiment at its size, 4096^2: Table 2 through the
+  11. the dense configs and vlm at full width, random weights drawn on
+     the card and held in bf16, the QKV biases random: qwen2-vl-2b (28
+     layers, 12/2 heads, QKV biases, M-RoPE) served on 4 slots to 8
+     requests of 64-512 tokens, 32 generated each, on the dense cache,
+     a bf16 page pool (the same streams) and as a speculative target with
+     itself as the draft (every proposal accepted, the same streams); a
+     multimodal prompt (a 16 x 16 image's patch embeddings at (t, h, w)
+     positions between text) through prefill and decode at depth 2 in
+     f32 on the card against the CPU; granite-3-8b (40 layers, full
+     depth) in bf16 and with int8 weights, granite-20b (MQA: 48 query
+     heads over 1 KV head) and qwen1.5-32b (MHA, QKV biases; and int8
+     weights) at 8 layers, 4 requests each. Each run: exact launch counts
+     and the bias epilogue's, each stream equal to its request alone at
+     batch 1, a replay against the eager step, a trace, decode p50 and
+     p99, time to first token, peak memory and capture time;
+  12. the paper's experiment at its size, 4096^2: Table 2 through the
      measurement `launch.paper` prints (`benchmarks.common.measure`: float,
      double and complex-float through the naive kernel, the GEMM
      chokepoint (the tiled kernel; f64 the plain f64 product) and
@@ -115,7 +145,7 @@ Phases, in order; any failure propagates and the exit code is not 0:
      paper's seconds; the naive/tiled ratio beside the paper's 3.0x), Fig 9 through `benchmarks.bench_add`'s
      (add, sub and axpy in GB/s beside 3.35 TB/s), with exact launch
      counts; then the roofline model of the paper's cards and the H100;
-  12. a JSON line of the kernels (each with its launches on every main
+  13. a JSON line of the kernels (each with its launches on every main
      path), the card line, and the result line.
 """
 
@@ -160,12 +190,12 @@ def main() -> int:
                   smoke.phase_train_vs_cpu, smoke.phase_train_recurrent,
                   smoke.phase_mamba, smoke.phase_mamba_vs_cpu,
                   smoke.phase_hybrid, smoke.phase_hybrid_vs_cpu,
-                  smoke.phase_paper):
+                  smoke.phase_dense_configs, smoke.phase_paper):
         t = time.perf_counter()
         phase()
         print(f"      ({phase.__name__}: {time.perf_counter() - t:.1f} s; "
               f"{time.perf_counter() - t0:.0f} s since the start)")
-    print(f"[12/12] result ({time.perf_counter() - t0:.0f} s since the "
+    print(f"[13/13] result ({time.perf_counter() - t0:.0f} s since the "
           f"start)")
     print(json.dumps({"kernels": smoke.kernel_rows()}))
     print(f"card: {card_line()}")
@@ -188,7 +218,7 @@ class Smoke:
     # -- 1. card ------------------------------------------------------
     def phase_card(self):
         torch = self.torch
-        print(f"[1/12] card: {card_line()}")
+        print(f"[1/13] card: {card_line()}")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         print(f"      torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -200,7 +230,7 @@ class Smoke:
         from repro_torch.kernels import _build
         t0 = time.perf_counter()
         libs = _build.build_all()
-        print(f"[2/12] build: {sorted(libs)} from "
+        print(f"[2/13] build: {sorted(libs)} from "
               f"{_build.CSRC.relative_to(ROOT)} in "
               f"{time.perf_counter() - t0:.1f} s (nvcc "
               f"{' '.join(_build.NVCC_FLAGS)})")
@@ -308,7 +338,7 @@ class Smoke:
         torch = self.torch
         from repro_torch.kernels import ops, ref
         F = torch.nn.functional
-        print("[3/12] kernels against their plain versions (median of 50, "
+        print("[3/13] kernels against their plain versions (median of 50, "
               "L2 flushed, in turns, card time only)")
         gen = torch.Generator(device=self.dev).manual_seed(0)
 
@@ -425,6 +455,7 @@ class Smoke:
                         4 * sum(keys) * h * d, dname, tol)
                 del q, kc, vc
         self._kernels_hybrid(randn, tols[torch.bfloat16])
+        self._kernels_dense_configs(randn, tols[torch.bfloat16])
         self._kernels_int8_and_paged(randn, tols[torch.bfloat16])
         self._kernels_decode_rows(randn, tols[torch.bfloat16])
         self._kernels_attention(randn, tols)
@@ -556,6 +587,235 @@ class Smoke:
             lambda: ops.gated_matmul(a, wg, wu),
             lambda: ref.gated_matmul_ref(a, wg, wu), None,
             (m * k + 2 * k * n + m * n) * 2, 4 * m * n * k, "bfloat16", tol)
+
+    def _kernels_dense_configs(self, randn, tol, m=4):
+        """The kernels of the dense configs' and qwen2-vl-2b's decode
+        steps (4 slots, bf16): each
+        dense layer's GEMM, the QKV projections of qwen2-vl-2b and
+        qwen1.5-32b with the bias epilogue (a bf16 bias, as the served
+        params hold it; int8 weights through matmul_q too), the down
+        projection with its residual, the dual GEMM at d_ff 8960, 12800,
+        24576 and 27392, and the logits (qwen2-vl-2b's tied N = 152064,
+        the others' [K, N] lm_head); decode attention at their groups, 6
+        (12 query heads over 2 KV heads), 4 (32 over 8), 48 (MQA) and 1
+        (MHA, 40 heads), one-row on the dense cache, through a bf16 page
+        table and multi-row (a verify step) at qwen2-vl-2b's; and at the
+        groups of 6 and 48, where a block's last pass over its staged
+        rows takes 2 and the 12th of 4 query heads, each slot's row alone
+        at B = 1 and in the reversed batch equal to its row in the batch,
+        bit for bit."""
+        torch = self.torch
+        from repro_torch.core import precision
+        from repro_torch.kernels import ops, ref
+        dtype = torch.bfloat16
+        # (name, d_model, heads, kv heads, d_ff, logits N, tied, qkv bias)
+        configs = (("qwen2-vl-2b", 1536, 12, 2, 8960, 152064, True, True),
+                   ("granite-3-8b", 4096, 32, 8, 12800, 49408, False, False),
+                   ("granite-20b", 6144, 48, 1, 24576, 49152, False, False),
+                   ("qwen1.5-32b", 5120, 40, 40, 27392, 152064, False, True))
+        for name, d, h, hkv, ff, nv, tied, bias in configs:
+            gemms = [(d, h * 128, "bias" if bias else "none", "Q"),
+                     (d, hkv * 128, "bias" if bias else "none", "K, V"),
+                     (h * 128, d, "none", "O"),
+                     (ff, d, "residual", "down")]
+            for k, n, ep, what in gemms:
+                a = randn(m, k, dtype=dtype)
+                b = randn(k, n, dtype=dtype, scale=k ** -0.5)
+                kw, e_bytes = {}, 0
+                if ep == "residual":
+                    kw["residual"] = randn(m, n, dtype=dtype)
+                    e_bytes = m * n * 2
+                elif ep == "bias":
+                    kw["bias"] = randn(n, dtype=dtype, scale=0.1)
+                    e_bytes = n * 2
+                lib = {"none": lambda a=a, b=b: torch.matmul(a, b)}.get(
+                    ep, lambda a=a, b=b, e=kw.get("bias",
+                                                  kw.get("residual")):
+                    torch.addmm(e, a, b))
+                self._case(
+                    "matmul", f"bfloat16 M={m} K={k} N={n} {ep} "
+                    f"({name} {what})",
+                    lambda a=a, b=b, kw=kw, ep=ep: ops.matmul(
+                        a, b, epilogue=ep, **kw),
+                    lambda a=a, b=b, kw=kw, ep=ep: ref.fused_matmul_ref(
+                        a, b, dtype, ep, kw.get("bias"),
+                        kw.get("residual")),
+                    lib, (m * k + k * n + m * n) * 2 + e_bytes,
+                    2 * m * n * k, "bfloat16", tol, n_time=20)
+                if ep == "bias":
+                    wq, scale = precision.quantize_int8(b.float())
+                    self._case(
+                        "matmul_q", f"bfloat16 M={m} K={k} N={n} int8 "
+                        f"W bias ({name} {what})",
+                        lambda a=a, wq=wq, s=scale, kw=kw: ops.matmul_q(
+                            a, wq, s, epilogue="bias", **kw),
+                        lambda a=a, wq=wq, s=scale, kw=kw:
+                            ref.matmul_q_ref(a, wq, s, dtype, "bias",
+                                             **kw),
+                        None, m * k * 2 + k * n + n * 4 + m * n * 2
+                        + e_bytes, 2 * m * n * k, "bfloat16", tol, n_time=20)
+                del a, b, kw
+            a = randn(m, d, dtype=dtype)
+            wg = randn(d, ff, dtype=dtype, scale=d ** -0.5)
+            wu = randn(d, ff, dtype=dtype, scale=d ** -0.5)
+            self._case(
+                "gated_matmul", f"bfloat16 M={m} K={d} N={ff} ({name})",
+                lambda a=a, wg=wg, wu=wu: ops.gated_matmul(a, wg, wu),
+                lambda a=a, wg=wg, wu=wu: ref.gated_matmul_ref(a, wg, wu),
+                None, (m * d + 2 * d * ff + m * ff) * 2,
+                4 * m * ff * d, "bfloat16", tol, n_time=20)
+            del a, wg, wu
+            # the logits, f32 out: x @ W_emb^T (tied) or x @ W_lm_head
+            x = randn(m, d, dtype=dtype)
+            w = randn(nv, d, dtype=dtype, scale=d ** -0.5)
+            w = w.t() if tied else w.t().contiguous()
+            self._case(
+                "matmul", f"bfloat16 M={m} K={d} N={nv} "
+                f"{'[N,K]' if tied else '[K,N]'} B, f32 out ({name} logits)",
+                lambda: ops.matmul(x, w, out_dtype=torch.float32),
+                lambda: ref.fused_matmul_ref(x, w, torch.float32),
+                lambda: torch.matmul(x, w),
+                (m * d + d * nv) * 2 + m * nv * 4, 2 * m * nv * d,
+                "bfloat16", (1e-4, 1e-4), n_time=20)
+            del x, w
+            self._decode_cases(randn, tol, h, hkv, paged=name == "qwen2-vl-2b",
+                               what=name)
+        for h, hkv in ((12, 2), (48, 1)):
+            self._decode_batch_invariance(randn, h, hkv)
+
+    def _decode_cases(self, randn, tol, h, hkv, paged, what, d=128, tk=2048):
+        """flash_decode at (h, hkv) heads of d, 4 slots against a tk-deep
+        cache at pos [-1, 0, 700, tk - 1]; with `paged`, the same through
+        a bf16 page table (whose output must be the dense kernel's bits)
+        and the multi-row form (5 rows a slot, n_valid [5, 5, 3, 5])."""
+        torch = self.torch
+        from repro_torch.kernels import ops, ref
+        F = torch.nn.functional
+        dtype = torch.bfloat16
+        b_, ps, t = 4, 16, 5
+        pos_list, nv_list = [-1, 0, 700, tk - t], [t, t, 3, t]
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=self.dev)
+        q = randn(b_, t, h, d, dtype=dtype)
+        kc = randn(b_, tk, hkv, d, dtype=dtype)
+        vc = randn(b_, tk, hkv, d, dtype=dtype)
+        q1 = q[:, :1].contiguous()
+        keys = sum(p + 1 for p in pos_list if p >= 0)
+        mask = torch.zeros((b_, 1, 1, tk), dtype=torch.bool, device=self.dev)
+        for i, p in enumerate(pos_list):
+            mask[i, ..., :p + 1] = True
+        label = f"bfloat16 B={b_} H={h} Hkv={hkv} D={d} Tk={tk} ({what})"
+        self._case(
+            "flash_decode", label,
+            lambda: ops.flash_decode(q1, kc, vc, pos=pos),
+            lambda: ref.attention_fwd_ref(q1, kc, vc, q_offset=pos),
+            lambda: _sdpa(torch, F, q1, kc, vc, mask),
+            (2 * q1.numel() + 2 * keys * hkv * d) * 2 + b_ * 4,
+            4 * keys * h * d, "bfloat16", tol, n_time=20)
+        if not paged:
+            return
+        pp = tk // ps
+        perm = torch.randperm(b_ * pp, generator=torch.Generator()
+                              .manual_seed(2)).to(self.dev)
+        kp = torch.empty((b_ * pp, ps, hkv, d), dtype=dtype, device=self.dev)
+        vp = torch.empty_like(kp)
+        kp[perm] = kc.reshape(b_ * pp, ps, hkv, d)
+        vp[perm] = vc.reshape(b_ * pp, ps, hkv, d)
+        table = perm.reshape(b_, pp).to(torch.int32)
+        for i, (p, n) in enumerate(zip(pos_list, nv_list)):
+            table[i, max(p + n - 1, -1) // ps + 1:] = -1
+        assert torch.equal(ops.flash_decode_paged(q1, kp, vp, table, pos=pos),
+                           ops.flash_decode(q1, kc, vc, pos=pos)), \
+            f"{what}: a bf16 pool's output != the dense cache's bits"
+        pages = sum(p // ps + 1 for p in pos_list if p >= 0)
+        self._case(
+            "flash_decode_paged", f"bfloat16 bf16 pool B={b_} H={h} "
+            f"Hkv={hkv} D={d} ps={ps} pp={pp} ({what})",
+            lambda: ops.flash_decode_paged(q1, kp, vp, table, pos=pos),
+            lambda: ref.flash_decode_paged_ref(q1, kp, vp, table, pos=pos),
+            None, (2 * q1.numel() + 2 * keys * hkv * d) * 2 + pages * 4
+            + b_ * 4, 4 * keys * h * d, "bfloat16", tol, n_time=20)
+        n_valid = torch.tensor(nv_list, dtype=torch.int32, device=self.dev)
+        seen = sum(p + r + 1 for p, n in zip(pos_list, nv_list) if p >= 0
+                   for r in range(n))
+        union = sum(p + n for p, n in zip(pos_list, nv_list) if p >= 0)
+        rmask = torch.zeros((b_, 1, t, tk), dtype=torch.bool,
+                            device=self.dev)
+        for i, (p, n) in enumerate(zip(pos_list, nv_list)):
+            for r in range(n if p >= 0 else 0):
+                rmask[i, 0, r, :p + r + 1] = True
+        got = ops.flash_decode(q, kc, vc, pos=pos, n_valid=n_valid)
+        for r in range(t):
+            pr = torch.where((pos >= 0) & (r < n_valid), pos + r, -1) \
+                .to(torch.int32)
+            one = ops.flash_decode(q[:, r:r + 1].contiguous(), kc, vc, pos=pr)
+            assert torch.equal(got[:, r], one[:, 0]), \
+                f"{what}: row {r} != the one-row kernel at pos + {r}"
+        self._case(
+            "flash_decode_rows", f"bfloat16 B={b_} t={t} H={h} Hkv={hkv} "
+            f"D={d} Tk={tk} ({what})",
+            lambda: ops.flash_decode(q, kc, vc, pos=pos, n_valid=n_valid),
+            lambda: ref.decode_rows_ref(q, kc, vc, pos=pos, n_valid=n_valid),
+            lambda: _sdpa(torch, F, q, kc, vc, rmask),
+            (2 * q.numel() + 2 * union * hkv * d) * 2 + b_ * 8,
+            4 * seen * h * d, "bfloat16", tol, n_time=20)
+
+    def _decode_batch_invariance(self, randn, h, hkv, d=128, tk=2048):
+        """flash_decode and flash_decode_paged (bf16 and int8 pools) at
+        (h, hkv): each slot's output row at B = 4 (depths -1, 63, 700,
+        2047) equals its row in the reversed batch and alone at B = 1,
+        against the whole cache and its own prefix (whole pages), bit for
+        bit."""
+        torch = self.torch
+        from repro_torch.core import precision
+        from repro_torch.kernels import ops
+        dtype = torch.bfloat16
+        b_, ps = 4, 16
+        pos_list = [-1, 63, 700, tk - 1]
+        q = randn(b_, 1, h, d, dtype=dtype)
+        k = randn(b_, tk, hkv, d, dtype=dtype)
+        v = randn(b_, tk, hkv, d, dtype=dtype)
+
+        def run(layout, rows, depth, seed):
+            pos = torch.tensor([pos_list[i] for i in rows], dtype=torch.int32,
+                               device=self.dev)
+            qb = q[rows].contiguous()
+            kb, vb = k[rows, :depth].contiguous(), v[rows, :depth].contiguous()
+            if layout == "dense":
+                return ops.flash_decode(qb, kb, vb, pos=pos)
+            n, pp = len(rows), depth // ps
+            perm = torch.randperm(n * pp, generator=torch.Generator()
+                                  .manual_seed(seed)).to(self.dev)
+            kp = torch.empty((n * pp, ps, hkv, d), dtype=dtype,
+                             device=self.dev)
+            vp = torch.empty_like(kp)
+            kp[perm] = kb.reshape(n * pp, ps, hkv, d)
+            vp[perm] = vb.reshape(n * pp, ps, hkv, d)
+            table = perm.reshape(n, pp).to(torch.int32)
+            kw = {}
+            if layout == "int8":
+                (kp, ks), (vp, vs) = (precision.quantize_kv(kp),
+                                      precision.quantize_kv(vp))
+                kw = dict(ks=ks.transpose(1, 2).contiguous(),
+                          vs=vs.transpose(1, 2).contiguous())
+            return ops.flash_decode_paged(qb, kp, vp, table, pos=pos, **kw)
+
+        for layout in ("dense", "bf16", "int8"):
+            together = run(layout, [0, 1, 2, 3], tk, 3)
+            reverse = run(layout, [3, 2, 1, 0], tk, 4).flip(0)
+            assert not together[0].any(), "an idle slot must give zeros"
+            for i, p in enumerate(pos_list):
+                assert torch.equal(reverse[i], together[i]), (layout, i)
+                if p < 0:
+                    continue
+                shallow = -(-(p + 1) // ps) * ps
+                for depth, seed in ((tk, 5), (shallow, 6)):
+                    assert torch.equal(run(layout, [i], depth, seed)[0],
+                                       together[i]), (h, hkv, layout, i, depth)
+        print(f"      decode attention at {h} query heads over {hkv} KV heads "
+              f"(a group of {h // hkv}): each slot's row alone at B = 1 "
+              f"(the whole cache and its own prefix) and in the reversed "
+              f"batch equals its row at B = 4, bit for bit, on the dense "
+              f"cache, a bf16 pool and an int8 pool")
 
     def _kernels_int8_and_paged(self, randn, tol):
         """matmul_q at the int8 main path's shapes and flash_decode_paged
@@ -1033,7 +1293,7 @@ class Smoke:
                                device=self.dev)
         del params                      # the engine keeps its bf16 copy
         torch.cuda.synchronize()
-        print(f"[4/12] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
+        print(f"[4/13] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
               f"heads {cfg.n_heads}/{cfg.n_kv_heads}x{cfg.resolved_head_dim} "
               f"d_ff {cfg.d_ff} vocab {cfg.vocab}->{cfg.padded_vocab}; "
               f"weights ready in {time.perf_counter() - t0:.1f} s; "
@@ -1237,7 +1497,7 @@ class Smoke:
         assert launches == want, (launches, want)
         got = [r.generated for r in reqs]
         assert got == self.dense_streams, "paged bf16 streams != dense streams"
-        print(f"[5/12] paged bf16 KV (page 16, {rep['kv_pool']['n_pages']} "
+        print(f"[5/13] paged bf16 KV (page 16, {rep['kv_pool']['n_pages']} "
               f"pages): phase 4's {len(reqs)} streams, token for token; "
               f"launches {launches} ({eng.decode_steps} decode steps at "
               f"141/28/28 each); prefill {rep['prefill_tok_s']:.1f} tok/s, "
@@ -1343,11 +1603,13 @@ class Smoke:
 
     def phase_spec(self):
         """(a) Greedy speculative decoding at full width: phase 4's 8
-        requests on 4 slots, spec_k 4, the target as its own draft and a
-        draft of seed-1 weights, on the dense cache and a bf16 page pool.
-        Every stream must equal phase 4's, the self-draft must accept every
-        proposal, and each request's target cache rows up to its last fed
-        token must equal the plain engine's bit for bit."""
+        requests on 4 slots, spec_k 4, the target as its own draft on the
+        dense cache and a bf16 page pool, a draft of seed-1 weights on the
+        dense cache (its run on the pool is cut for time: the CPU tests
+        hold its rows). Every stream must equal phase 4's, the self-draft
+        must accept every proposal, and each request's target cache rows
+        up to its last fed token must equal the plain engine's bit for
+        bit."""
         torch = self.torch
         from repro_torch.configs import get_config
         from repro_torch.models import model as M
@@ -1356,7 +1618,7 @@ class Smoke:
         L = cfg.n_layers
         params = M.init_params(cfg, torch.Generator().manual_seed(0), self.dev)
         other = M.init_params(cfg, torch.Generator().manual_seed(1), self.dev)
-        print(f"[6/12] the request surface at full width ({cfg.name}, "
+        print(f"[6/13] the request surface at full width ({cfg.name}, "
               f"{L} layers, bf16, random weights)")
         want = {}
         eng = ServingEngine(cfg, params, max_slots=4, max_len=self.max_len,
@@ -1367,6 +1629,8 @@ class Smoke:
         self.spec_launches = {}
         for layout in ("dense", "paged"):
             for name, draft in (("self", params), ("seed-1", other)):
+                if (layout, name) == ("paged", "seed-1"):
+                    continue                 # cut for time (PERF.md)
                 eng = ServingEngine(cfg, params, max_slots=4,
                                     max_len=self.max_len, device=self.dev,
                                     kv_layout=layout, draft=(cfg, draft),
@@ -1568,8 +1832,9 @@ class Smoke:
         end below where it began. It does not within 4 steps: Adam's first
         steps, near sign(g) times lr for every weight, lift it (12.29 to
         16.79 by step 3, through the kernels and through the plain versions
-        alike, `_train_plain`), and it falls from step 4 on. Then the 8
-        steps with remat "none" from the same state and batches."""
+        alike), and it falls from step 4 on. Then the first 4 steps with
+        remat "none" from the same state and batches, the first 2 through
+        the plain versions and the first 4 with the dual GEMM plain."""
         torch = self.torch
         from repro_torch.configs import get_config
         from repro_torch.optim.adamw import AdamW, cosine_schedule
@@ -1583,7 +1848,7 @@ class Smoke:
             return TL.init_state(cfg, opt, torch.Generator().manual_seed(0),
                                  self.dev)
         batches = self._train_batches(cfg, steps + 1, batch, seq)
-        print(f"[7/12] training {cfg.name} at full width ({L} layers, bf16 "
+        print(f"[7/13] training {cfg.name} at full width ({L} layers, bf16 "
               f"activations, remat {cfg.remat}): {steps} AdamW steps at batch "
               f"{batch} x {seq}")
         # a step: the forward's 141 GEMMs, 28 dual GEMMs and 28 attentions;
@@ -1600,11 +1865,11 @@ class Smoke:
         self.train_launches = run["launches"]
         self._trace_train_step(run["step_fn"], run.pop("state"),
                                batches[steps])
-        self._remat_none(cfg, opt, make_state, batches[:steps], run,
+        self._remat_none(cfg, opt, make_state, batches[:4], run,
                          donate=False)
-        self._train_plain(cfg, opt, make_state, batches, run, 4)
-        self._train_gated_plain(cfg, opt, make_state, batches[:steps],
-                                run["losses"][-1])
+        self._train_plain(cfg, opt, make_state, batches, run, 2)
+        self._train_gated_plain(cfg, opt, make_state, batches[:4],
+                                run["losses"][3])
 
     def _train_batches(self, cfg, n, batch, seq, seed=0):
         from repro_torch.data.pipeline import SyntheticLM
@@ -1614,11 +1879,12 @@ class Smoke:
                                          device=self.dev)
                  for k, v in data.batch_at(i).items()} for i in range(n)]
 
-    def _train_run(self, step_fn, make_state, batches, want):
+    def _train_run(self, step_fn, make_state, batches, want, falls=None):
         """The steps of `step_fn` from `make_state()`, one a batch, the
         launch counts set to 0 just before and read after each step: each
         step's counts must be `want`, every loss and grad norm finite, the
-        last loss below the first. Prints the state's size, each step and
+        last loss below the first (or, given `falls`, `falls(losses)`
+        true: `loss_falls`). Prints the state's size, each step and
         the steady step time (the median after step 0), tok/s and
         max_memory_allocated. Returns the state, step_fn, losses, norms,
         steady seconds, peak bytes and the run's launch counts."""
@@ -1661,7 +1927,15 @@ class Smoke:
                   f"tok/s)")
             assert per_step[i] == want, (i, per_step[i], want)
         assert all(map(math.isfinite, losses + norms)), (losses, norms)
-        assert losses[-1] < losses[0], losses
+        if falls is None:
+            assert losses[-1] < losses[0], losses
+        else:
+            lead, trail, ok = falls(losses)
+            print(f"      falling-loss gate: the mean of the last "
+                  f"{len(losses) // 4} losses {trail:.4f} below the mean of "
+                  f"the first {len(losses) // 4} {lead:.4f}: "
+                  f"{'holds' if ok else 'FAILS'}")
+            assert ok, losses
         steady = statistics.median(times[1:])
         print(f"      launches a step {_nonzero(want)} (each step exactly); "
               f"over the run {_nonzero(launches)}; steady step "
@@ -1876,36 +2150,33 @@ class Smoke:
                              device)
 
     # -- 8. training the Mamba-2 families at full width -----------------
-    def phase_train_recurrent(self, steps=8, batch=4, seq=512, tol=1e-4):
+    def phase_train_recurrent(self, steps=16, batch=4, seq=512):
         """zamba2-1.2b at full width and depth and mamba2-2.7b at full
-        width (`_train_recurrent`; their first 4 and 2 steps again through
-        the plain versions, which show the loss's jumps at steps 1-3 as
-        the kernels do), then one whole f32 step of each at
-        depth 2 (zamba2: two segments of one Mamba layer) on the card
-        against the same step on the CPU, at one ragged sequence of 300
-        tokens."""
-        import dataclasses
+        width (`_train_recurrent`, 16 steps each, held to `loss_falls`;
+        zamba2's first 4 without remat, and their first 2 and 1 steps
+        through the plain versions). Their whole f32 steps at depth 2 on
+        the card against the CPU are tests/test_torch_cuda.py's
+        `test_recurrent_train_step_on_card_matches_cpu` (cut here for
+        time)."""
         from repro_torch.configs import get_config
-        print("[8/12] training the Mamba-2 families at full width")
+        print("[8/13] training the Mamba-2 families at full width")
         self.zamba_train_launches = self._train_recurrent(
-            get_config("zamba2-1.2b"), steps, batch, seq, plain_steps=4)
+            get_config("zamba2-1.2b"), steps, batch, seq, plain_steps=2)
         self.mamba_train_launches = self._train_recurrent(
-            get_config("mamba2-2.7b"), steps, batch, seq, plain_steps=2)
-        for cfg in (dataclasses.replace(get_config("mamba2-2.7b"), n_layers=2,
-                                        dtype="float32"),
-                    dataclasses.replace(get_config("zamba2-1.2b"), n_layers=2,
-                                        attn_every=1, dtype="float32")):
-            self._train_step_vs_cpu(cfg, 1, 300, tol, "depth 2")
+            get_config("mamba2-2.7b"), steps, batch, seq, plain_steps=1,
+            remat_none=False)
 
-    def _train_recurrent(self, cfg, steps, batch, seq, plain_steps):
+    def _train_recurrent(self, cfg, steps, batch, seq, plain_steps,
+                         remat_none=True):
         """`steps` donated AdamW steps at full width (f32 params, bf16
         activations, random weights from seed 0 and a hybrid's lora_b from
         seed 1, SyntheticLM batches from seed 0, lr 1e-3 with 2 warmup
-        steps, clip 1.0), each Mamba-2 layer rematerialised (remat
-        "full"): exact launch counts a step, finite and falling losses,
-        speed, memory, the state's bytes, a trace of a step with the plain
-        SSD backward as a group of its own; then the steps again with
-        remat "none" from the same state and batches, and the first
+        steps and a cosine over `steps`, clip 1.0), each Mamba-2 layer
+        rematerialised (remat "full"): exact launch counts a step, finite
+        losses that fall by `loss_falls`, speed, memory, the state's
+        bytes, a trace of a step with the plain SSD backward as a group of
+        its own; then (`remat_none`) the first 4 steps again with remat
+        "none" from the same state and batches, and the first
         `plain_steps` through the plain versions on the card (step 0 held
         to the kernels'). Returns the run's launch counts."""
         from repro_torch.optim.adamw import AdamW, cosine_schedule
@@ -1928,14 +2199,16 @@ class Smoke:
         batches = self._train_batches(cfg, steps + 1, batch, seq)
         run = self._train_run(TL.make_train_step(cfg, opt, donate=True),
                               make_state, batches[:steps],
-                              self._recurrent_train_want(cfg))
+                              self._recurrent_train_want(cfg),
+                              falls=loss_falls)
         expect = ("matmul", "ssd", "ssd backward (plain)") + (
             ("gated_matmul", "flash_attention", "flash_attention_bwd")
             if seg else ())
         self._trace_train_step(run["step_fn"], run.pop("state"),
                                batches[steps], expect)
-        self._remat_none(cfg, opt, make_state, batches[:steps], run,
-                         donate=True)
+        if remat_none:
+            self._remat_none(cfg, opt, make_state, batches[:4], run,
+                             donate=True)
         self._train_plain(cfg, opt, make_state, batches, run, plain_steps,
                           donate=True)
         return run["launches"]
@@ -1960,7 +2233,7 @@ class Smoke:
                             gated_matmul=seg, flash_attention=seg,
                             flash_attention_bwd=seg)
 
-    # -- 8. Mamba-2 serving at full width -------------------------------
+    # -- 9. Mamba-2 serving at full width -------------------------------
     def phase_mamba(self):
         """mamba2-2.7b served on 4 slots to 8 requests, 32 tokens each.
         The prompts take every prefill branch: 2 (shorter than the conv
@@ -1991,7 +2264,7 @@ class Smoke:
         torch.cuda.empty_cache()
         weights = torch.cuda.memory_allocated()
         sc = cfg.ssm
-        print(f"[9/12] {cfg.name}: {L} layers d_model {cfg.d_model} d_inner "
+        print(f"[9/13] {cfg.name}: {L} layers d_model {cfg.d_model} d_inner "
               f"{sc.expand * cfg.d_model} ({sc.expand * cfg.d_model // sc.head_dim}"
               f" SSD heads of {sc.head_dim}) d_state {sc.d_state} groups "
               f"{sc.n_groups} conv {sc.conv_width} chunk {sc.chunk} vocab "
@@ -2001,7 +2274,7 @@ class Smoke:
               f"{lengths}, gen {gen}, 4 slots, max_len {eng.max_len}")
         _print_capture(eng)
         rem = sum(n % 8 if n >= 8 else 0 for n in lengths)
-        self.mamba_launches, report = self._serve_recurrent(
+        self.mamba_launches, report = self._serve_checked(
             eng, prompts, gen, lambda e: _no_launches(
                 matmul=(5 * L + 1) * len(lengths)
                 + (3 * L + 1) * (e.decode_steps + rem), ssd=L * len(lengths)),
@@ -2027,26 +2300,29 @@ class Smoke:
         del params
         torch.cuda.empty_cache()
         _print_capture(eng)
-        self.mamba_int8_launches, rep8 = self._serve_recurrent(
+        self.mamba_int8_launches, _ = self._serve_checked(
             eng, prompts, gen, lambda e: _no_launches(
                 matmul_q=(5 * L + 1) * len(lengths)
                 + (3 * L + 1) * (e.decode_steps + rem), ssd=L * len(lengths)),
             "int8 weights", report["decode_step_p50_s"])
-        self._trace(eng, rep8["decode_step_p50_s"], n_steps=4,
-                    expect=("matmul_q",))
         del eng
         torch.cuda.empty_cache()
 
-    def _serve_recurrent(self, eng, prompts, gen, want_fn, what,
+    def _serve_checked(self, eng, prompts, gen, want_fn, what,
                          p50_bf16=None):
         """Serve `prompts` on `eng`, `gen` tokens each, with the launch
         counts set to 0 just before and read just after: they must be
-        `want_fn(eng)`, and every stream the request run alone at batch 1
-        (`_alone`). Prints the counts, speed and peak memory (the decode
-        p50 beside `p50_bf16`, the bf16 run's, where given). Returns
-        (launches, report)."""
+        `want_fn(eng)`, and every stream the request run alone at batch 1:
+        served by a 1-slot engine on `eng`'s weights, one request at a
+        time (its steps are graph replays too, where `_alone` steps
+        eagerly: a Mamba-2 model's eager step is some 4,000 small
+        launches; each replay equals its eager step, `_check_replay`).
+        Prints the counts, speed and peak memory (the decode p50 beside
+        `p50_bf16`, the bf16 run's, where given). Returns (launches,
+        report)."""
         torch = self.torch
         from repro_torch.kernels import ops
+        from repro_torch.serving import ServingEngine
         torch.cuda.reset_peak_memory_stats()
         reqs = [eng.submit(pr, gen) for pr in prompts]
         ops.reset_launch_counts()
@@ -2077,12 +2353,16 @@ class Smoke:
               f"{report['ttft_p50_s'] * 1e3:.0f} ms p95 "
               f"{report['ttft_p95_s'] * 1e3:.0f} ms; max_memory_allocated "
               f"{peak / 2 ** 30:.3f} GiB")
-        for req, prompt in zip(reqs, prompts):
-            assert req.generated == self._alone(eng, prompt, gen), \
+        one = ServingEngine(eng.cfg, eng.params, max_slots=1,
+                            max_len=eng.max_len, device=self.dev)
+        alone = [one.submit(pr, gen) for pr in prompts]
+        one.run()
+        for req, solo, prompt in zip(reqs, alone, prompts):
+            assert req.generated == solo.generated, \
                 (what, req.rid, len(prompt))
         print(f"      {what}: the {len(reqs)} engine streams (decode at 4 "
-              f"slots) equal each request run alone at batch 1, token for "
-              f"token")
+              f"slots) equal each request served alone at batch 1 (a "
+              f"1-slot engine), token for token")
         return launches, report
 
     def _alone(self, eng, prompt, n_new):
@@ -2179,7 +2459,7 @@ class Smoke:
               f"({tp * 1e3:.0f} ms): logits and states within rtol {tol:g}; "
               f"max |diff| / max |value| {worst:.2e}")
 
-    # -- 9. Zamba2 hybrid serving at full width -------------------------
+    # -- 10. Zamba2 hybrid serving at full width ------------------------
     def _hybrid_params(self, cfg, device):
         """Random params from seed 0 and a lora_b drawn from seed 1: its
         init is zeros, and a LoRA path that computes nothing would pass
@@ -2250,7 +2530,7 @@ class Smoke:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         engine_bytes = torch.cuda.memory_allocated() - base
-        print(f"[10/12] {cfg.name}: {cfg.n_layers} Mamba-2 layers in {seg} "
+        print(f"[10/13] {cfg.name}: {cfg.n_layers} Mamba-2 layers in {seg} "
               f"segments of {cfg.attn_every}, d_model {cfg.d_model} d_inner "
               f"{sc.expand * cfg.d_model} ({sc.expand * cfg.d_model // sc.head_dim}"
               f" SSD heads of {sc.head_dim}) d_state {sc.d_state} conv "
@@ -2264,7 +2544,7 @@ class Smoke:
               f"card; {len(prompts)} requests, prompts {lengths}, gen {gen}, "
               f"4 slots, max_len {eng.max_len}")
         _print_capture(eng)
-        self.hybrid_launches, report = self._serve_recurrent(
+        self.hybrid_launches, report = self._serve_checked(
             eng, prompts, gen, lambda e: self._hybrid_want(e, lengths, False),
             "bf16")
         self._trace(eng, report["decode_step_p50_s"], n_steps=4,
@@ -2281,11 +2561,9 @@ class Smoke:
         del params
         torch.cuda.empty_cache()
         _print_capture(eng)
-        self.hybrid_int8_launches, rep8 = self._serve_recurrent(
+        self.hybrid_int8_launches, _ = self._serve_checked(
             eng, prompts, gen, lambda e: self._hybrid_want(e, lengths, True),
             "int8 weights", report["decode_step_p50_s"])
-        self._trace(eng, rep8["decode_step_p50_s"], n_steps=4,
-                    expect=("matmul", "matmul_q", "flash_decode"))
         del eng
         self._memory_back(base, "int8 weights")
 
@@ -2355,7 +2633,302 @@ class Smoke:
               f"states within rtol {tol:g}; max |diff| / max |value| "
               f"{worst:.2e}")
 
-    # -- 10. the paper's experiment ---------------------------------------
+    # -- 11. the dense configs and vlm at full width ------------------------
+    def _config_params(self, cfg):
+        """cfg's random params drawn on the card from a CUDA generator of
+        seed 0 and held in bf16 (the engine's compute dtype, so its cast
+        makes no copy; granite-3-8b's f32 params alone would take 33
+        GB), the QKV biases, which init_params starts at zeros, from one
+        of seed 1 (a bias of zeros passes any check)."""
+        torch = self.torch
+        import dataclasses
+        from repro_torch.models import model as M
+        params = M.init_params(
+            dataclasses.replace(cfg, param_dtype="bfloat16"),
+            torch.Generator(device=self.dev).manual_seed(0), self.dev)
+        gen = torch.Generator(device=self.dev).manual_seed(1)
+        attn = params["layers"]["attn"]
+        for name in ("wq", "wk", "wv"):
+            if "b" in attn[name]:
+                b = attn[name]["b"]
+                attn[name]["b"] = (torch.randn(
+                    b.shape, generator=gen, device=self.dev) * 0.1).to(b.dtype)
+        return params
+
+    @staticmethod
+    def _dense_want(eng, prompts, int8=False, tied=True):
+        """Launch counts of a run of a dense-family model on a dense cache:
+        every admission prefill and every one-token step (a decode step,
+        or an admission's remainder token) runs 5 GEMMs a layer (Q, K, V,
+        O, the down projection with its residual; Q, K, V with the bias
+        epilogue where the config has QKV biases), the dual GEMM and the
+        logits; a one-token step adds decode attention a layer. With int8
+        weights each layer runs 7 int8-weight GEMMs (the dual GEMM as
+        two), and so does an untied lm_head."""
+        L = eng.cfg.n_layers
+        rem = sum(len(p) % 8 for p in prompts if len(p) >= 8)
+        one = eng.decode_steps + rem
+        runs = one + len(prompts)
+        want = _no_launches(flash_decode=L * one)
+        if int8:
+            want.update(matmul_q=(7 * L + (0 if tied else 1)) * runs,
+                        matmul=runs if tied else 0)
+        else:
+            want.update(matmul=(5 * L + 1) * runs, gated_matmul=L * runs)
+        return want
+
+    def _bias_epilogues(self, eng, prompt):
+        """GEMM launches with the bias epilogue in one eager prefill of
+        `prompt` at batch 1 and one eager decode step after it, counted at
+        the wrappers: 3 a layer (Q, K, V) in each where the config has QKV
+        biases, else none."""
+        torch = self.torch
+        from repro_torch.kernels import matmul as mm
+        from repro_torch.models import model as M
+        seen = []
+        saved = mm.matmul_tiled, mm.matmul_q_tiled
+
+        def wrap(fn):
+            def counted(*args, **kw):
+                seen.append(kw.get("epilogue", "none"))
+                return fn(*args, **kw)
+            return counted
+        mm.matmul_tiled, mm.matmul_q_tiled = map(wrap, saved)
+        try:
+            toks = torch.as_tensor(prompt, dtype=torch.long, device=self.dev)
+            cache = M.init_cache(eng.cfg, 1, eng.max_len, self.dev)
+            _, cache = M.prefill(eng.cfg, eng.params, {"tokens": toks[None]},
+                                 cache)
+            n_pre = seen.count("bias")
+            M.decode_step(eng.cfg, eng.params, toks[None, :1], len(prompt),
+                          cache)
+        finally:
+            mm.matmul_tiled, mm.matmul_q_tiled = saved
+        want = 3 * eng.cfg.n_layers if eng.cfg.qkv_bias else 0
+        assert (n_pre, seen.count("bias") - n_pre) == (want, want), \
+            (n_pre, seen.count("bias") - n_pre, want)
+        return want
+
+    def _serve_config(self, cfg, params, work, what, int8=False, trace=2):
+        """One engine run of `work` on 4 slots (dense cache) of cfg from
+        `params` (bf16 weights, or int8 with `int8`): the capture, exact
+        launch counts, the bias epilogue's launches (`_bias_epilogues`),
+        every stream equal to its request alone at batch 1, speed, time to
+        first token and memory (`_serve_checked`), then a replay against
+        the eager step and a trace of `trace` decode steps (`_trace`).
+        Returns (engine, launches, report)."""
+        from repro_torch.serving import ServingEngine
+        max_len = -(-max(len(it.prompt) + it.gen for it in work) // 16) * 16
+        eng = ServingEngine(cfg, params, max_slots=4, max_len=max_len,
+                            device=self.dev, quant="int8" if int8 else "off")
+        _print_capture(eng)
+        prompts = [it.prompt for it in work]
+        tied = cfg.tie_embeddings
+        launches, report = self._serve_checked(
+            eng, prompts, work[0].gen,
+            lambda e: self._dense_want(e, prompts, int8, tied), what)
+        n_bias = self._bias_epilogues(eng, prompts[0])
+        print(f"      {what}: the bias epilogue: {n_bias} GEMM launches of "
+              f"an eager prefill, and {n_bias} of an eager decode step "
+              f"(Q, K and V of each of {cfg.n_layers} layers)")
+        self._trace(eng, report["decode_step_p50_s"], n_steps=trace,
+                    expect=("matmul_q" if int8 else "gated_matmul",
+                            "flash_decode"))
+        return eng, launches, report
+
+    def phase_dense_configs(self, cut_depth=8):
+        """qwen2-vl-2b (vlm) at full width and depth: 8 requests of 64-512
+        prompt tokens on 4 slots, 32 generated each, on the dense cache
+        (`_serve_config`), then on a bf16 page pool (phase 4's streams bit
+        for bit), then as a speculative target with itself as the draft (k
+        = 4: every proposal accepted, the same streams); then a multimodal
+        prompt (text, a 16 x 16 image's patch embeddings at their (t, h,
+        w) positions, text) through prefill and decode steps at depth 2 in
+        f32 on the card against the CPU. granite-3-8b at full width and
+        depth, 4 requests, in bf16 and with int8 weights; granite-20b
+        (MQA) and qwen1.5-32b (MHA, QKV biases) at full width and
+        `cut_depth` layers (their full depths, about 28 G and 34 G params,
+        do not fit one card beside their caches), 4 requests each, and
+        qwen1.5-32b's again with int8 weights (matmul_q with the bias
+        epilogue). Every model's params are drawn on the card and held in
+        bf16 (`_config_params`); the memory comes back after each."""
+        torch = self.torch
+        import dataclasses
+        import numpy as np
+        from repro_torch.configs import get_config
+        from repro_torch.core.tree import leaves
+        from repro_torch.serving import ServingEngine, synthetic_trace
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        self.config_launches = {}
+
+        def header(cfg, params, t0, depth=""):
+            n = sum(t.numel() for t in leaves(params))
+            mrope = f", M-RoPE {cfg.mrope_sections}" \
+                if cfg.mrope_sections else ""
+            print(f"      {cfg.name}{depth}: {cfg.n_layers} layers d_model "
+                  f"{cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads}x"
+                  f"{cfg.resolved_head_dim} (a group of "
+                  f"{cfg.n_heads // cfg.n_kv_heads}) d_ff {cfg.d_ff} vocab "
+                  f"{cfg.vocab}->{cfg.padded_vocab}"
+                  f"{', QKV biases' if cfg.qkv_bias else ''}"
+                  f"{mrope}"
+                  f"{', tied embeddings' if cfg.tie_embeddings else ''}; "
+                  f"{n / 1e9:.3f} G params drawn on the card (seed 0, QKV "
+                  f"biases seed 1), held in bf16 "
+                  f"({torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB on "
+                  f"the card), in {time.perf_counter() - t0:.1f} s")
+
+        # -- qwen2-vl-2b: dense, paged bf16, speculative; multimodal
+        cfg = get_config("qwen2-vl-2b")
+        L = cfg.n_layers
+        print(f"[11/13] the dense configs and vlm at full width (random "
+              f"weights, bf16, 4 slots, 32 tokens a request)")
+        t0 = time.perf_counter()
+        params = self._config_params(cfg)
+        header(cfg, params, t0)
+        work = synthetic_trace(cfg, 8, rng=np.random.default_rng(0),
+                               len_range=(64, 512), gen=32)
+        print(f"      {cfg.name}: {len(work)} requests, prompts "
+              f"{[len(it.prompt) for it in work]}")
+        eng, launches, report = self._serve_config(
+            cfg, params, work, f"{cfg.name} dense", trace=4)
+        self.config_launches[cfg.name] = launches
+        streams = [list(r.generated) for r in eng.requests[:len(work)]]
+        max_len = eng.max_len
+        del eng
+        eng = ServingEngine(cfg, params, max_slots=4, max_len=max_len,
+                            device=self.dev, kv_layout="paged")
+        reqs, rep, launches = self._run_counted(eng, work)
+        want = self._want_launches(eng, reqs, {"matmul": 5 * L + 1,
+                                               "gated_matmul": L})
+        assert launches == want, (launches, want)
+        assert [r.generated for r in reqs] == streams, \
+            "paged bf16 streams != the dense cache's"
+        self.config_launches[cfg.name + " paged"] = launches
+        print(f"      {cfg.name} paged bf16 KV (page 16, "
+              f"{rep['kv_pool']['n_pages']} pages): the dense run's "
+              f"{len(reqs)} streams, token for token; launches "
+              f"{_nonzero(launches)} (exact); decode step p50 "
+              f"{rep['decode_step_p50_s'] * 1e3:.2f} ms p99 "
+              f"{rep['decode_step_p99_s'] * 1e3:.2f} ms, ttft p50 "
+              f"{rep['ttft_p50_s'] * 1e3:.0f} ms")
+        del eng
+        eng = ServingEngine(cfg, params, max_slots=4, max_len=max_len,
+                            device=self.dev, draft=(cfg, params), spec_k=4)
+        reqs, rep, launches = self._run_counted(eng, work)
+        assert [r.generated for r in reqs] == streams, \
+            "speculative streams != the dense run's"
+        assert rep["spec_acceptance_rate"] == 1.0, rep["spec_acceptance_rate"]
+        assert launches["flash_decode_rows"] == L * rep["spec_rounds"], \
+            (launches, rep["spec_rounds"])
+        self.config_launches[cfg.name + " speculative"] = launches
+        print(f"      {cfg.name} speculative, itself the draft, k=4: the "
+              f"dense run's streams; {rep['spec_rounds']} rounds, "
+              f"acceptance {rep['spec_acceptance_rate']:.3f} "
+              f"({rep['spec_accepted']}/{rep['spec_proposed']}), "
+              f"flash_decode_rows {L} a round; round p50 "
+              f"{rep['decode_step_p50_s'] * 1e3:.2f} ms (the dense decode "
+              f"step's {report['decode_step_p50_s'] * 1e3:.2f}); capture "
+              f"{eng.capture_s:.2f} s")
+        del eng, params
+        self._memory_back(base, cfg.name)
+        self._multimodal_vs_cpu(cfg)
+
+        # -- granite-3-8b at full depth (bf16, int8); granite-20b and
+        #    qwen1.5-32b at `cut_depth` layers
+        runs = (("granite-3-8b", None, True),
+                ("granite-20b", cut_depth, False),
+                ("qwen1.5-32b", cut_depth, True))
+        for name, depth, int8 in runs:
+            cfg = get_config(name)
+            full = cfg.n_layers
+            if depth is not None:
+                cfg = dataclasses.replace(cfg, n_layers=depth)
+            t0 = time.perf_counter()
+            params = self._config_params(cfg)
+            header(cfg, params, t0, "" if depth is None
+                   else f" ({depth} of its {full} layers)")
+            work = synthetic_trace(cfg, 4, rng=np.random.default_rng(0),
+                                   len_range=(64, 512), gen=32)
+            print(f"      {cfg.name}: {len(work)} requests, prompts "
+                  f"{[len(it.prompt) for it in work]}")
+            key = name if depth is None else f"{name} ({depth} layers)"
+            eng, self.config_launches[key], report = self._serve_config(
+                cfg, params, work, f"{name} bf16")
+            del eng
+            if int8:
+                eng, self.config_launches[key + " int8"], _ = \
+                    self._serve_config(cfg, params, work, f"{name} int8 "
+                                       f"weights", int8=True)
+                del eng
+            del params
+            self._memory_back(base, name)
+
+    def _multimodal_vs_cpu(self, cfg, steps=4, tol=1e-4):
+        """qwen2-vl-2b at full width and depth 2, f32: a multimodal prompt
+        (8 text tokens, a 16 x 16 image's 256 patch embeddings at their
+        (t, h, w) positions, 16 text tokens) through prefill, then 4 text
+        decode steps (t = h = w = pos), on the card (the CUDA kernels) and
+        on the CPU (their plain versions) from the same weights: logits
+        and the KV cache within rtol 1e-4, atol 1e-4 x the largest |value|;
+        and the patch embeddings move the logits."""
+        torch = self.torch
+        import dataclasses
+        import numpy as np
+        from repro_torch.core.tree import leaves, tree_map
+        from repro_torch.data.pipeline import multimodal_prompt
+        from repro_torch.models import model as M
+        cfg = dataclasses.replace(cfg, n_layers=2, dtype="float32",
+                                  param_dtype="float32")
+        params = tree_map(lambda t: t.float().cpu(), self._config_params(cfg))
+        b = multimodal_prompt(np.random.default_rng(0), cfg.vocab,
+                              cfg.d_model, before=8, grid=(16, 16), after=16)
+        t = b["tokens"].shape[1]
+        nxt = np.random.default_rng(1).integers(0, cfg.vocab, (1, steps))
+        # a KV length past attn_chunk is a whole number of chunks
+        a = cfg.attn_chunk
+        max_len = t + steps if t + steps <= a else -(-(t + steps) // a) * a
+        out = []
+        for dev in (self.dev, torch.device("cpu")):
+            p = tree_map(lambda x: x.to(dev), params)
+            batch = {"tokens": torch.as_tensor(b["tokens"], dtype=torch.long),
+                     "patch_embeds": torch.as_tensor(b["patch_embeds"]),
+                     "positions": torch.as_tensor(b["positions"],
+                                                  dtype=torch.long)}
+            batch = {k: v.to(dev) for k, v in batch.items()}
+            t0 = time.perf_counter()
+            cache = M.init_cache(cfg, 1, max_len, dev)
+            logits, cache = M.prefill(cfg, p, batch, cache)
+            logs = [logits]
+            for i in range(steps):
+                tok = torch.as_tensor(nxt[:, i:i + 1], dtype=torch.long,
+                                      device=dev)
+                logits, cache = M.decode_step(cfg, p, tok, t + i, cache)
+                logs.append(logits)
+            got = [x.cpu() for x in logs] + [v.cpu() for v in leaves(cache)]
+            out.append((got, time.perf_counter() - t0))
+            if dev == self.dev:
+                text, _ = M.prefill(cfg, p, {"tokens": batch["tokens"]},
+                                    M.init_cache(cfg, 1, max_len, dev))
+                moved = (text - logs[0]).abs().max().item()
+        (card, tc), (cpu, tp) = out
+        worst = 0.0
+        for x, y in zip(card, cpu):
+            assert torch.isfinite(x).all(), "non-finite output on the card"
+            scale = y.abs().max().item()
+            torch.testing.assert_close(x, y, rtol=tol, atol=tol * scale)
+            worst = max(worst, ((x - y).abs().max() / scale).item())
+        assert moved > 1e-3, moved
+        print(f"      {cfg.name} multimodal, depth 2, f32: a {t}-token prompt "
+              f"(8 text, 16 x 16 patches at (t, h, w), 16 text) and {steps} "
+              f"decode steps: card ({tc * 1e3:.0f} ms) against CPU "
+              f"({tp * 1e3:.0f} ms): logits and KV cache within rtol {tol:g}; "
+              f"max |diff| / max |value| {worst:.2e}; the image moves the "
+              f"last logits by up to {moved:.3f} against the tokens alone")
+
+    # -- 12. the paper's experiment ---------------------------------------
     def phase_paper(self, n=4096, iters=3):
         """Table 2 and Figs 8-9 at the paper's size through the port's
         entry points: the measurement `launch.paper` prints (float, double
@@ -2367,7 +2940,7 @@ class Smoke:
         from repro_torch.benchmarks import bench_add, common
         from repro_torch.kernels import ops
         from repro_torch.launch import paper
-        print(f"[11/12] the paper's experiment at n={n} (Table 2, Figs 8-9)")
+        print(f"[12/13] the paper's experiment at n={n} (Table 2, Figs 8-9)")
         ops.reset_launch_counts()
         gemm_rows = common.measure(n, self.dev, iters=iters)
         add_rows = bench_add.measure(n, self.dev)
@@ -2393,7 +2966,7 @@ class Smoke:
         assert self.paper_launches == want, (self.paper_launches, want)
         paper.print_model()
 
-    # -- 10. the kernels line --------------------------------------------
+    # -- 13. the kernels line --------------------------------------------
     def kernel_rows(self):
         """One row per kernel: its launches on the main path, the max error
         over every case, and the times of its main-path decode shape."""
@@ -2470,6 +3043,7 @@ class Smoke:
                  "mamba2-2.7b int8": self.mamba_int8_launches,
                  "zamba2-1.2b": self.hybrid_launches,
                  "zamba2-1.2b int8": self.hybrid_int8_launches,
+                 **self.config_launches,
                  "paper": self.paper_launches}
         rows = []
         for name, (source, replaces, label) in meta.items():
@@ -2522,6 +3096,26 @@ def _wrapper_calls():
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+
+
+#: The fewest steps the falling-loss gate takes: over 8 steps at lr 1e-3,
+#: Adam's first, nearly sign(g)-sized steps lifted a zamba2 loss drawn
+#: from another generator above its start (10.909 to 11.547), the plain
+#: versions alike, so a last-against-first gate judged the draw.
+GATE_STEPS = 16
+
+
+def loss_falls(losses):
+    """The falling-loss gate of a training run of at least GATE_STEPS
+    steps: the mean loss of its last quarter of steps below the mean of
+    its first quarter. Returns (leading mean, trailing mean, holds)."""
+    if len(losses) < GATE_STEPS:
+        raise ValueError(f"the gate takes {GATE_STEPS} steps or more, got "
+                         f"{len(losses)}")
+    q = len(losses) // 4
+    lead = statistics.fmean(losses[:q])
+    trail = statistics.fmean(losses[-q:])
+    return lead, trail, trail < lead
 
 
 def _nonzero(counts: dict) -> dict:

@@ -16,6 +16,9 @@ warmup steps, clip 1.0) on `SyntheticLM(seed=0)` batches
 and wall time and the run's `max_memory_allocated`. `--plain` sends
 every kernel dispatcher to its plain PyTorch version on the card, so a
 trajectory can be set beside the kernels' from the same weights. A run
+of 16 steps or more is held to `chip_smoke.loss_falls`, phase 8's
+falling-loss gate (the mean of the last quarter of the losses below the
+mean of the first), and its verdict printed. A run
 that runs out of memory prints the peak it reached and the error, and
 the next run starts from a freed card. Exits 2 without a card.
 """
@@ -27,6 +30,9 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import GATE_STEPS, loss_falls  # noqa: E402
 
 RUNS = ("zamba2-1.2b:4:full:donate,zamba2-1.2b:4:none:donate,"
         "zamba2-1.2b:4:full:functional,mamba2-2.7b:4:full:donate,"
@@ -67,15 +73,23 @@ def run(torch, arch, batch, remat, donate, steps, seq, draw="cpu",
         held = torch.cuda.memory_allocated() - base
         step = TL.make_train_step(cfg, opt, donate=donate)
         data = SyntheticLM(vocab=cfg.vocab, seq_len=seq, batch=batch, seed=0)
+        losses = []
         for i in range(steps):
             b = {k: torch.as_tensor(v, dtype=torch.long, device=dev)
                  for k, v in data.batch_at(i).items()}
             t0 = time.perf_counter()
             state, met = step(state, b)
             loss, gn = float(met["loss"]), float(met["grad_norm"])
+            losses.append(loss)
             torch.cuda.synchronize()
             print(f"  {label}: step {i} loss {loss:.6f} grad norm {gn:.6f} "
                   f"wall {(time.perf_counter() - t0) * 1e3:.1f} ms",
+                  flush=True)
+        if steps >= GATE_STEPS:
+            lead, trail, ok = loss_falls(losses)
+            print(f"{label}: falling-loss gate: mean of the last "
+                  f"{steps // 4} losses {trail:.6f}, of the first "
+                  f"{steps // 4} {lead:.6f}: {'holds' if ok else 'fails'}",
                   flush=True)
         print(f"{label}: state {held / 2 ** 30:.3f} GiB, max_memory_allocated "
               f"{(torch.cuda.max_memory_allocated() - base) / 2 ** 30:.3f} "

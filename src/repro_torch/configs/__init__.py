@@ -1,5 +1,7 @@
-"""Config registry of the archs the port serves: the dense decoder
-qwen3-0.6b, the attention-free Mamba-2 mamba2-2.7b and the hybrid
+"""Config registry of the archs the port serves: the dense decoders
+qwen3-0.6b, granite-3-8b, granite-20b (MQA) and qwen1.5-32b (MHA, QKV
+bias), the vision-language decoder qwen2-vl-2b (M-RoPE, patch
+embeddings), the attention-free Mamba-2 mamba2-2.7b and the hybrid
 zamba2-1.2b (a Mamba-2 backbone with one shared attention block).
 
 `get_config(name)` returns the full published config; `get_config(name,
@@ -8,11 +10,14 @@ reduced=True)` the CPU test derivative.
 
 from __future__ import annotations
 
-from repro_torch.configs import mamba2_2_7b, qwen3_0_6b, zamba2_1_2b
+from repro_torch.configs import (granite_3_8b, granite_20b, mamba2_2_7b,
+                                 qwen1_5_32b, qwen2_vl_2b, qwen3_0_6b,
+                                 zamba2_1_2b)
 from repro_torch.configs.base import ModelConfig, SSMConfig
 
 _REGISTRY = {m.CONFIG.name: m.CONFIG
-             for m in (mamba2_2_7b, qwen3_0_6b, zamba2_1_2b)}
+             for m in (granite_3_8b, granite_20b, mamba2_2_7b, qwen1_5_32b,
+                       qwen2_vl_2b, qwen3_0_6b, zamba2_1_2b)}
 
 ARCH_NAMES = tuple(sorted(_REGISTRY))
 
@@ -22,7 +27,7 @@ def get_config(name: str, reduced: bool = False) -> ModelConfig:
         cfg = _REGISTRY[name]
     except KeyError:
         raise ValueError(f"the port serves {ARCH_NAMES} (families dense, "
-                         f"ssm and hybrid), not {name!r}") from None
+                         f"vlm, ssm and hybrid), not {name!r}") from None
     return cfg.reduced() if reduced else cfg
 
 

@@ -10,7 +10,7 @@ field. `reduced()` derives the same CPU test config as the reference's.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 #: The `remat` policies the port takes: "none" keeps every activation
@@ -32,7 +32,7 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense | ssm | hybrid (the families the port serves)
+    family: str                     # dense | ssm | hybrid | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -46,6 +46,9 @@ class ModelConfig:
     qkv_bias: bool = False
     rope_theta: float = 10_000.0
     use_rope: bool = True
+    # vlm (Qwen2-VL): the (temporal, height, width) sections of the
+    # head_dim / 2 rotary frequency slots, each turned by its own stream
+    mrope_sections: Optional[Tuple[int, int, int]] = None
     tie_embeddings: bool = False
     # Mamba-2 blocks (families ssm and hybrid)
     ssm: Optional[SSMConfig] = None
@@ -100,6 +103,8 @@ class ModelConfig:
             vocab=256,
             attn_chunk=64,
         )
+        if self.mrope_sections is not None:
+            kw["mrope_sections"] = (2, 3, 3)   # head_dim 16: 8 slots
         if self.ssm is not None:
             kw["ssm"] = dataclasses.replace(
                 self.ssm, d_state=16, head_dim=8, chunk=16)

@@ -265,8 +265,12 @@ def _write_page_rows(pool, table, k, v, pos):
 
 
 def attn_apply(p, x, cfg, *, cache: Optional[dict] = None, cache_pos=None,
-               kv_table=None, n_valid=None):
-    """Returns (out, cache). Without a cache: causal self-attention over
+               kv_table=None, n_valid=None, positions=None):
+    """Returns (out, cache). positions: the RoPE positions of x's tokens,
+    (B, T), or (B, T, 3) M-RoPE streams (cfg.mrope_sections); None: token
+    r of row b at cache_pos (+ r), or at r without a cache. They turn q
+    and k only: the cache is written at cache_pos all the same, as the
+    JAX package writes it. Without a cache: causal self-attention over
     x's own tokens (training). cache: {"k", "v"} [B, Tmax, Hkv, Dh],
     updated in place at cache_pos: an int (every row at one offset, a slice
     update) or a (B,) vector of per-slot positions (continuous batching;
@@ -287,11 +291,12 @@ def attn_apply(p, x, cfg, *, cache: Optional[dict] = None, cache_pos=None,
     if (kv_table is not None or n_valid is not None) and not pos_vec:
         raise ValueError("a paged KV cache and n_valid take a per-slot "
                          "cache_pos")
-    positions = L.default_positions(
-        b, t, cache_pos if cache_pos is not None else 0, device=x.device)
+    if positions is None:
+        positions = L.default_positions(
+            b, t, cache_pos if cache_pos is not None else 0, device=x.device)
     if cfg.use_rope:
-        q = L.apply_rope(q, positions, cfg.rope_theta)
-        k = L.apply_rope(k, positions, cfg.rope_theta)
+        q = L.apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = L.apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
 
     if cache is not None and kv_table is not None:
         _write_pages(cache, kv_table, k, v, cache_pos, n_valid)

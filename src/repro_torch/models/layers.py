@@ -110,7 +110,8 @@ def embed_attend(p, x):
 
 
 # ----------------------------------------------------------------------
-# Rotary embeddings (half-split, as the JAX package applies them)
+# Rotary embeddings (half-split, as the JAX package applies them), and
+# Qwen2-VL's M-RoPE
 # ----------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -119,13 +120,28 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: [B, T, H, D]; positions: [B, T]. The two halves of the head dim
-    rotate as (re, im) pairs, not interleaved lanes."""
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               mrope_sections=None) -> torch.Tensor:
+    """x: [B, T, H, D]; positions: [B, T], or [B, T, 3] (M-RoPE, with
+    `mrope_sections`). The two halves of the head dim rotate as (re, im)
+    pairs, not interleaved lanes. M-RoPE (Qwen2-VL) cuts the d/2
+    frequency slots into (temporal, height, width) sections, each turned
+    by its own position stream; a text token carries t = h = w, whose
+    angles are plain RoPE's, bit for bit."""
     d = x.shape[-1]
     freqs = rope_freqs(d, theta, device=x.device)
-    ang = positions[..., None].float() * freqs              # [B, T, d/2]
+    if positions.dim() == 2:
+        ang = positions[..., None].float() * freqs          # [B, T, d/2]
+    else:
+        if mrope_sections is None or sum(mrope_sections) != d // 2:
+            raise ValueError(f"(B, T, 3) positions need mrope_sections "
+                             f"summing to {d // 2}, got {mrope_sections}")
+        parts, start = [], 0
+        for i, sec in enumerate(mrope_sections):
+            parts.append(positions[..., i, None].float()
+                         * freqs[start:start + sec])
+            start += sec
+        ang = torch.cat(parts, dim=-1)                      # [B, T, d/2]
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)

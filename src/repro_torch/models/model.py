@@ -1,4 +1,4 @@
-"""Top-level model API of the port, families `dense`, `ssm` and
+"""Top-level model API of the port, families `dense`, `vlm`, `ssm` and
 `hybrid`:
 
     params = init_params(cfg, generator, device)
@@ -12,9 +12,21 @@
     logits = forward(cfg, params, batch)                # training
     loss, metrics = loss_fn(cfg, params, batch)         # differentiable
 
+A batch is {"tokens": (B, T)}, with "labels" for loss_fn, and may carry
+"positions", the tokens' RoPE positions, (B, T) or, for vlm, the
+(B, T, 3) (t, h, w) M-RoPE streams; the cache is written at `pos` all
+the same. A vlm batch may carry "patch_embeds" (B, T, d_model), the
+stub vision frontend's output aligned with the tokens (zeros at text
+positions), added to the token embeddings. vlm decode and verify steps
+turn a text token at position p by t = h = w = p, built from the
+position tensor the step reads (so a captured step takes its positions
+from that tensor at every replay).
+
 Params carry the keys, shapes, scales and param_dtype of the JAX
 package's `init_params`; `repro_torch.bridge` converts those leaf for
-leaf. Caches are updated in place (see models.attention). The ssm
+leaf. Caches are updated in place (see models.attention). The vlm
+family (Qwen2-VL's text decoder) is the dense family's stack with QKV
+biases and M-RoPE, on the same caches and steps. The ssm
 family's cache is its recurrent state: the SSD state and the two conv
 tails of every layer. The hybrid family (Zamba2) keeps that state for
 each Mamba layer, stacked (n_seg, attn_every, B, ...), beside the
@@ -37,17 +49,22 @@ from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
 
 
+#: The families whose cache is attention KV alone: they take a page pool
+#: and a verify step.
+KV_FAMILIES = ("dense", "vlm")
+
+
 def _check_family(cfg) -> None:
     hybrid = (cfg.family == "hybrid" and cfg.ssm is not None
               and cfg.mlp == "swiglu" and cfg.attn_every > 0
               and cfg.n_layers % cfg.attn_every == 0)
     if cfg.norm != "rms" or not (
-            (cfg.family == "dense" and cfg.mlp == "swiglu")
+            (cfg.family in KV_FAMILIES and cfg.mlp == "swiglu")
             or (cfg.family == "ssm" and cfg.ssm is not None) or hybrid):
-        raise ValueError(f"the port serves dense swiglu/rms decoders, rms "
-                         f"Mamba-2 stacks (ssm) and Mamba-2 stacks in whole "
-                         f"segments with a shared swiglu block (hybrid), "
-                         f"not {cfg.name} ({cfg.family})")
+        raise ValueError(f"the port serves dense and vlm swiglu/rms "
+                         f"decoders, rms Mamba-2 stacks (ssm) and Mamba-2 "
+                         f"stacks in whole segments with a shared swiglu "
+                         f"block (hybrid), not {cfg.name} ({cfg.family})")
 
 
 def init_params(cfg, generator: torch.Generator, device=None) -> Dict[str, Any]:
@@ -141,9 +158,10 @@ def init_paged_cache(cfg, n_pages: int, page_size: int, max_slots: int,
     quant_kv="int8" stores int8 pages with per-(position, head) f32
     scale planes; the decode kernel dequantizes on f32."""
     _check_family(cfg)
-    if cfg.family != "dense":
-        raise ValueError(f"a paged KV cache serves the dense family; "
-                         f"{cfg.name} ({cfg.family}) keeps a recurrent state")
+    if cfg.family not in KV_FAMILIES:
+        raise ValueError(f"a paged KV cache serves the families "
+                         f"{KV_FAMILIES}; {cfg.name} ({cfg.family}) keeps a "
+                         f"recurrent state")
     device = resolve_device(device)
     hkv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
     shape = (cfg.n_layers, n_pages, page_size, hkv, dh)
@@ -164,6 +182,26 @@ def init_paged_cache(cfg, n_pages: int, page_size: int, max_slots: int,
                                 dtype=torch.int32, device=device)}
 
 
+def _embed_inputs(cfg, params, batch):
+    """The token embeddings of batch["tokens"] in the compute dtype, plus
+    a vlm batch's "patch_embeds" in that dtype."""
+    dtype = getattr(torch, cfg.dtype)
+    x = L.embed_apply(params["embed"], batch["tokens"], dtype=dtype)
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        x = x + batch["patch_embeds"].to(dtype)
+    return x
+
+
+def _text_positions(cfg, b: int, t: int, pos, device):
+    """A vlm step's M-RoPE positions, (B, t, 3): t = h = w = pos (+ r for
+    row r), from an int or a (B,) position tensor (no host sync); None
+    for the other families, whose positions come from the cache's."""
+    if cfg.family != "vlm" or cfg.mrope_sections is None:
+        return None
+    return L.default_positions(b, t, pos, device=device)[..., None] \
+        .expand(b, t, 3)
+
+
 def _logits(cfg, params, x):
     x = L.rmsnorm_apply(params["final_norm"], x)
     if cfg.tie_embeddings:
@@ -176,25 +214,26 @@ def _logits(cfg, params, x):
 
 
 #: The families that `forward` and `loss_fn` train; the launcher offers
-#: only their archs.
+#: only their archs. (Both take a vlm batch too, but vlm training on the
+#: card is not checked yet, so the launcher does not offer it.)
 TRAIN_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def forward(cfg, params, batch):
     """Full-sequence f32 logits (B, T, padded_vocab) of batch["tokens"]
     (B, T), the pad classes masked to -1e30: the training forward, with
-    cache-less causal attention (dense, and the hybrid's shared block)
-    and the Mamba-2 layers' scans from a zero state (ssm, hybrid). (The
-    JAX package's `forward` also returns an aux dict, which is empty for
-    these families.)"""
-    x = L.embed_apply(params["embed"], batch["tokens"],
-                      dtype=getattr(torch, cfg.dtype))
+    cache-less causal attention (dense and vlm, at batch["positions"]
+    where given, and the hybrid's shared block) and the Mamba-2 layers'
+    scans from a zero state (ssm, hybrid). (The JAX package's `forward`
+    also returns an aux dict, which is empty for these families.)"""
+    x = _embed_inputs(cfg, params, batch)
     if cfg.family == "ssm":
         x, _ = T.ssm_stack_apply(params["layers"], x, cfg)
     elif cfg.family == "hybrid":
         x, _, _ = T.hybrid_apply(params["hybrid"], x, cfg, emb0=x)
     else:
-        x, _ = T.stack_apply(params["layers"], x, cfg)
+        x, _ = T.stack_apply(params["layers"], x, cfg,
+                             positions=batch.get("positions"))
     return _logits(cfg, params, x)
 
 
@@ -214,11 +253,11 @@ def loss_fn(cfg, params, batch):
 
 def prefill(cfg, params, batch, cache, pos: int = 0):
     """Run the prompt batch["tokens"] (B, T) through the model, writing
-    the cache from `pos` (ssm: the state the prompt ends in, which the
-    prompt computes from a zero state; hybrid: that state and the shared
+    the cache from `pos` (dense and vlm: turned by batch["positions"]
+    where given; ssm: the state the prompt ends in, which the prompt
+    computes from a zero state; hybrid: that state and the shared
     block's KV rows). Returns (last-position f32 logits, cache)."""
-    x = L.embed_apply(params["embed"], batch["tokens"],
-                      dtype=getattr(torch, cfg.dtype))
+    x = _embed_inputs(cfg, params, batch)
     if cfg.family == "ssm":
         x, cache = T.ssm_stack_apply(params["layers"], x, cfg, states=cache)
     elif cfg.family == "hybrid":
@@ -227,7 +266,8 @@ def prefill(cfg, params, batch, cache, pos: int = 0):
                                  mamba_states=cache["mamba"])
     else:
         x, cache = T.stack_apply(params["layers"], x, cfg, caches=cache,
-                                 cache_pos=pos)
+                                 cache_pos=pos,
+                                 positions=batch.get("positions"))
     return _logits(cfg, params, x[:, -1:]), cache
 
 
@@ -239,9 +279,10 @@ def decode_step(cfg, params, token, pos, cache):
     pos). ssm: the state steps one token in every row; pos is not read,
     so an idle slot's row steps on garbage, which its next admission
     overwrites. hybrid: its Mamba state steps so, and its KV rows are
-    written and read at pos as the dense family's. Returns (f32 logits,
-    cache)."""
+    written and read at pos as the dense family's. vlm: as dense, the
+    token turned by t = h = w = pos. Returns (f32 logits, cache)."""
     x = L.embed_apply(params["embed"], token, dtype=getattr(torch, cfg.dtype))
+    positions = _text_positions(cfg, token.shape[0], 1, pos, x.device)
     if cfg.family == "ssm":
         x, cache = T.ssm_stack_apply(params["layers"], x, cfg, states=cache,
                                      decode=True)
@@ -252,10 +293,11 @@ def decode_step(cfg, params, token, pos, cache):
     elif "pages" in cache:
         # the layer-less table goes to every layer's pool
         x, _ = T.stack_apply(params["layers"], x, cfg, caches=cache["pages"],
-                             cache_pos=pos, kv_table=cache["table"])
+                             cache_pos=pos, kv_table=cache["table"],
+                             positions=positions)
     else:
         x, cache = T.stack_apply(params["layers"], x, cfg, caches=cache,
-                                 cache_pos=pos)
+                                 cache_pos=pos, positions=positions)
     return _logits(cfg, params, x), cache
 
 
@@ -271,18 +313,22 @@ def verify_step(cfg, params, tokens, pos, n_tok, cache):
     row j scores the token at pos + j + 1. Its attention is the decode
     kernel's multi-row form, so row j and the cache rows it writes are
     those of a decode step at pos + j, bit for bit, as its GEMMs' rows
-    are at any row count. The dense family only, as the JAX package's
-    `verify_step` refuses the families that keep a recurrent state."""
-    if cfg.family != "dense":
+    are at any row count. vlm: row j turned by t = h = w = pos + j. The
+    dense and vlm families only, as the JAX package's `verify_step`
+    refuses the families that keep a recurrent state."""
+    if cfg.family not in KV_FAMILIES:
         raise ValueError(f"speculative verification needs an attention "
-                         f"cache alone (family dense), not {cfg.name} "
-                         f"({cfg.family}), which keeps a recurrent state")
+                         f"cache alone (families {KV_FAMILIES}), not "
+                         f"{cfg.name} ({cfg.family}), which keeps a "
+                         f"recurrent state")
     x = L.embed_apply(params["embed"], tokens, dtype=getattr(torch, cfg.dtype))
+    positions = _text_positions(cfg, *tokens.shape, pos, x.device)
     if "pages" in cache:
         x, _ = T.stack_apply(params["layers"], x, cfg, caches=cache["pages"],
                              cache_pos=pos, kv_table=cache["table"],
-                             n_valid=n_tok)
+                             n_valid=n_tok, positions=positions)
     else:
         x, cache = T.stack_apply(params["layers"], x, cfg, caches=cache,
-                                 cache_pos=pos, n_valid=n_tok)
+                                 cache_pos=pos, n_valid=n_tok,
+                                 positions=positions)
     return _logits(cfg, params, x), cache

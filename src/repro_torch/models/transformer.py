@@ -60,11 +60,12 @@ def block_init(generator, cfg, *, device):
 
 
 def block_apply(p, x, cfg, *, cache=None, cache_pos=None, kv_table=None,
-                n_valid=None):
-    """Returns (x, cache)."""
+                n_valid=None, positions=None):
+    """Returns (x, cache). positions: RoPE positions (attn_apply)."""
     h, cache = A.attn_apply(p["attn"], L.rmsnorm_apply(p["attn_norm"], x),
                             cfg, cache=cache, cache_pos=cache_pos,
-                            kv_table=kv_table, n_valid=n_valid)
+                            kv_table=kv_table, n_valid=n_valid,
+                            positions=positions)
     x = x + h
     # the skip connection rides the down-projection's flush (residual)
     out = F.mlp_apply(p["mlp"], L.rmsnorm_apply(p["mlp_norm"], x), cfg,
@@ -94,19 +95,21 @@ def _unstack(tree, n):
 
 
 def stack_apply(params, x, cfg, *, caches=None, cache_pos=None,
-                kv_table=None, n_valid=None):
+                kv_table=None, n_valid=None, positions=None):
     """Returns (x, caches). Without caches this is the training forward
     (cache-less causal attention). kv_table (paged decode) has no layer
     dim: a logical page is the same physical page in every layer's pool,
     so every layer gets the same table. n_valid: a verify step's real
-    tokens a slot (models.attention.attn_apply)."""
+    tokens a slot; positions: the tokens' RoPE positions, (B, T) or
+    (B, T, 3), None for the default (models.attention.attn_apply)."""
     n = params["attn_norm"]["scale"].shape[0]
     layers = _unstack(params, n)
     per_cache = [None] * n if caches is None else _unstack(caches, n)
 
     def body(lp, xc, cache):
         return block_apply(lp, xc, cfg, cache=cache, cache_pos=cache_pos,
-                           kv_table=kv_table, n_valid=n_valid)[0]
+                           kv_table=kv_table, n_valid=n_valid,
+                           positions=positions)[0]
 
     if caches is None:
         body = _maybe_remat(body, cfg, params)

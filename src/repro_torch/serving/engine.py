@@ -92,6 +92,11 @@ block's KV cache of every segment, written at pos as the dense family's
 verify step apply either. A leaf's slot axis is where the engine's cache
 and the one-slot sub-cache differ (axis 2 of a hybrid's Mamba leaves,
 axis 1 of the rest), and admission copies each leaf along its own.
+Family vlm (Qwen2-VL's text decoder) takes every path of the dense
+family: a text request's prompt is prefilled at plain positions and
+each later token turned by t = h = w = pos (models.model), which is
+plain RoPE, as in the JAX engine; neither engine takes patch
+embeddings in a request.
 
 These are the JAX package's `ServingEngine` paths, with the policy
 fields kv_layout / quant_kv / quant as constructor arguments. A kernel
@@ -145,11 +150,11 @@ def check_modes(cfg, kv_layout: str, quant_kv: str, quant: str) -> None:
             raise ValueError(f"unknown {name} {mode!r}; expected one "
                              f"of {QUANT_MODES}")
     paged = kv_layout == "paged"
-    if cfg.family in ("ssm", "hybrid") and (paged or quant_kv != "off"):
+    if cfg.family not in M.KV_FAMILIES and (paged or quant_kv != "off"):
         raise ValueError(
             f"{cfg.name} ({cfg.family}) keeps a recurrent state: "
-            f"kv_layout='paged' and quant_kv apply to the dense family "
-            f"only")
+            f"kv_layout='paged' and quant_kv apply to the families "
+            f"{M.KV_FAMILIES} only")
     if quant_kv != "off" and not paged:
         raise ValueError(
             "quant_kv applies to KV pages; it requires "
@@ -257,10 +262,10 @@ class ServingEngine:
         self.spec_proposed = 0
         self.spec_accepted = 0
         if draft is not None:
-            if cfg.family != "dense":
+            if cfg.family not in M.KV_FAMILIES:
                 raise ValueError(
                     f"speculative decoding needs a verify-capable target "
-                    f"(dense), not {cfg.family!r}")
+                    f"{M.KV_FAMILIES}, not {cfg.family!r}")
             draft_cfg, draft_params = draft
             if draft_cfg.vocab != cfg.vocab:
                 raise ValueError(

@@ -49,8 +49,8 @@ __all__ = ["SpecDecoder"]
 class SpecDecoder:
     """Draft-model runner for speculative decoding.
 
-    cfg, params:  the DRAFT model (a dense config whose vocab is the
-                  target's; the engine checks that).
+    cfg, params:  the DRAFT model (a dense or vlm config whose vocab is
+                  the target's; the engine checks that).
     max_slots:    the engine's slot count (slot ids are shared).
     max_len:      the engine's (rounded) max_len; the draft cache adds
                   `spec_k` rows of headroom.
@@ -63,9 +63,9 @@ class SpecDecoder:
     def __init__(self, cfg, params, *, max_slots: int, max_len: int,
                  spec_k: int = 4, sampler: Optional[Sampler] = None,
                  prefill_chunk: int = 8, device=None):
-        if cfg.family != "dense":
+        if cfg.family not in M.KV_FAMILIES:
             raise ValueError(f"draft model must be an attention-cache "
-                             f"family (dense), not {cfg.family!r}")
+                             f"family {M.KV_FAMILIES}, not {cfg.family!r}")
         if spec_k < 1:
             raise ValueError(f"spec_k must be >= 1, got {spec_k}")
         self.cfg = cfg

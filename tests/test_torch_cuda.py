@@ -567,6 +567,47 @@ def test_matmul_q_kernel_matches_plain(dev, dtype, epilogue, mkn):
                    out_dtype if out_dtype == dtype else torch.float32)
 
 
+#: The QKV projections with bias of the configs with qkv_bias, at decode:
+#: qwen2-vl-2b's Q (K = N = 1536) and K/V (N = 256), qwen1.5-32b's Q/K/V
+#: (K = N = 5120).
+QKV_BIAS_KN = [(1536, 1536), (1536, 256), (5120, 5120)]
+
+
+@pytest.mark.parametrize("kn", QKV_BIAS_KN)
+@pytest.mark.parametrize("m", [1, 4, 20])
+def test_bias_epilogue_at_decode_shapes(dev, kn, m):
+    """The bf16 GEMM and the int8-weight GEMM with the bias epilogue at a
+    decode step's rows (4 slots; 20: a verify step of 5 rows a slot)
+    against their plain versions, bf16 out, the bias in f32 (the served
+    params keep it so) and in bf16; each row the bits of the same row
+    alone (M = 1)."""
+    k, n = kn
+    a = _randn(m, k, dtype=torch.bfloat16, dev=dev, seed=0)
+    w = _randn(k, n, dtype=torch.float32, dev=dev, seed=1, scale=k ** -0.5)
+    wq, scale = precision.quantize_int8(w)
+    w = w.to(torch.bfloat16)
+    for bias_dtype in (torch.float32, torch.bfloat16):
+        _check_bias_rows(a, w, wq, scale, _randn(
+            n, dtype=bias_dtype, dev=dev, seed=2))
+
+
+def _check_bias_rows(a, w, wq, scale, bias):
+    m = a.shape[0]
+    got = ops.matmul(a, w, epilogue="bias", bias=bias)
+    _close(got, ref.fused_matmul_ref(a, w, torch.bfloat16, "bias", bias),
+           torch.bfloat16)
+    got_q = ops.matmul_q(a, wq, scale, out_dtype=torch.bfloat16,
+                         epilogue="bias", bias=bias)
+    _close(got_q, ref.matmul_q_ref(a, wq, scale, torch.bfloat16, "bias",
+                                   bias), torch.bfloat16)
+    for r in (0, m - 1):
+        assert torch.equal(got[r:r + 1], ops.matmul(
+            a[r:r + 1], w, epilogue="bias", bias=bias)), r
+        assert torch.equal(got_q[r:r + 1], ops.matmul_q(
+            a[r:r + 1], wq, scale, out_dtype=torch.bfloat16, epilogue="bias",
+            bias=bias)), r
+
+
 @pytest.mark.parametrize("kn", [(1024, 3072), (1024, 1024), (2048, 1024),
                                 (3072, 1024), (2048, 8192), (2560, 10240)])
 def test_matmul_q_is_batch_invariant(dev, kn):
@@ -740,6 +781,45 @@ def test_flash_decode_is_batch_invariant_at_zamba2_heads(dev, window):
     """The same at zamba2's decode shape (32 heads of 64, one query head a
     KV head), on the dense cache that the hybrid serves from."""
     _check_decode_batch_invariance(dev, "dense", window, 32, 32, 64)
+
+
+#: Query heads over KV heads (of 128) in the decode steps of the dense
+#: configs: qwen2-vl-2b 12/2 (a group of 6: a pass of 4 query heads over
+#: the staged rows, then one of 2), granite-3-8b 32/8, granite-20b 48/1
+#: (MQA: 12 passes) and qwen1.5-32b 40/40 (MHA).
+CONFIG_HEADS = [(12, 2), (32, 8), (48, 1), (40, 40)]
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged", "paged-int8"])
+@pytest.mark.parametrize("heads", CONFIG_HEADS)
+def test_flash_decode_matches_plain_at_the_configs_heads(dev, layout, heads):
+    """The one-row and the multi-row form (5 rows a slot, some past
+    n_valid) against their plain versions at the dense configs' groups,
+    bf16, 4 slots of up to 300 keys: the last pass of a group that 4 does
+    not divide covers its remaining heads; rows past n_valid and an idle
+    slot give zeros."""
+    h, hkv = heads
+    q, pos, n_valid, run = _rows_case(dev, layout, torch.bfloat16,
+                                      (4, 304, h, hkv, 128, 16))
+    got = run(q, pos, n_valid)
+    _close(got, run(q, pos, n_valid, plain=True), torch.bfloat16)
+    for s in range(q.shape[0]):
+        for r in range(q.shape[1]):
+            if pos[s] < 0 or r >= n_valid[s]:
+                assert not got[s, r].any(), (s, r)
+    one = run(q[:, :1].contiguous(), pos)
+    _close(one, run(q[:, :1].contiguous(), pos, plain=True), torch.bfloat16)
+    assert torch.equal(one[:, 0], got[:, 0])
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged-bfloat16", "paged-int8"])
+@pytest.mark.parametrize("heads", [(12, 2), (48, 1)])
+def test_flash_decode_is_batch_invariant_at_groups_of_6_and_48(dev, layout,
+                                                               heads):
+    """The same batch invariance at qwen2-vl-2b's group of 6 and
+    granite-20b's of 48 (MQA), where a block takes its query heads in
+    passes of 4 and the last pass is short (6) or one of 12 (48)."""
+    _check_decode_batch_invariance(dev, layout, None, *heads, 128)
 
 
 def _check_decode_batch_invariance(dev, layout, window, h, hkv, d):

@@ -174,3 +174,62 @@ def test_per_slot_pos_takes_one_token_a_slot(setup):
     for name in cache:
         assert torch.equal(cache[name], steps[name]), name
         assert torch.equal(cache[name][:, 1], setup["cache"][name][:, 1])
+
+
+# ----------------------------------------------------------------------
+# batch["positions"]: RoPE at the given positions, the cache at pos
+# ----------------------------------------------------------------------
+
+def _run(pkg, fn, setup, batch):
+    """forward's logits, or prefill's logits and cache, of `batch` in the
+    JAX package (pkg "jax", under the pallas policy) or the port."""
+    if pkg == "jax":
+        jb = {k: jnp.asarray(v) for k, v in batch.items()}
+        with PALLAS.scope():
+            if fn == "forward":
+                return JM.forward(setup["jcfg"], setup["jparams"], jb)[0], None
+            return JM.prefill(setup["jcfg"], setup["jparams"], jb,
+                              JM.init_cache(setup["jcfg"], B, MAX_LEN))
+    tb = {k: torch.from_numpy(v).long() for k, v in batch.items()}
+    if fn == "forward":
+        return M.forward(setup["cfg"], setup["params"], tb), None
+    return M.prefill(setup["cfg"], setup["params"], tb,
+                     M.init_cache(setup["cfg"], B, MAX_LEN, "cpu"))
+
+
+@pytest.mark.parametrize("fn", ["forward", "prefill"])
+def test_shifted_positions_match_reference(setup, fn):
+    """A batch whose (B, S) positions are shifted and differ per row (row
+    0 from 5, row 1 from 11, each with a gap of 3 after its fourth token,
+    so that distances change too): q and k turn by them in both packages,
+    and the prefill writes the cache at pos 0 all the same. Logits (and
+    the cache) within atol 1e-4, and not the default positions' logits."""
+    tokens = np.random.default_rng(7).integers(0, setup["cfg"].vocab, (B, S)) \
+        .astype(np.int32)
+    gap = np.where(np.arange(S) >= 4, 3, 0)
+    positions = (np.arange(S)[None] + gap + np.array([[5], [11]])) \
+        .astype(np.int32)
+    batch = {"tokens": tokens, "positions": positions}
+    got, cache = _run("torch", fn, setup, batch)
+    want, jcache = _run("jax", fn, setup, batch)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+    if fn == "prefill":
+        _close_caches(cache, jcache)
+    default, _ = _run("torch", fn, setup, {"tokens": tokens})
+    assert (got - default).abs().max() > 1e-3
+
+
+@pytest.mark.parametrize("fn", ["forward", "prefill"])
+def test_default_positions_keep_the_bits(setup, fn):
+    """Without a positions key, a token turns by its place (from pos 0):
+    the logits and cache of the batch with those positions given, bit for
+    bit."""
+    tokens = np.random.default_rng(8).integers(0, setup["cfg"].vocab, (B, S)) \
+        .astype(np.int32)
+    given = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S)).copy()
+    a, ca = _run("torch", fn, setup, {"tokens": tokens})
+    b, cb = _run("torch", fn, setup, {"tokens": tokens, "positions": given})
+    assert torch.equal(a, b)
+    if fn == "prefill":
+        for name in ("k", "v"):
+            assert torch.equal(ca[name], cb[name]), name
