@@ -16,7 +16,14 @@ Phases, in order; any failure propagates and the exit code is not 0:
      qwen2-vl-2b's decode GEMMs (the QKV bias epilogue, bf16 and int8
      weights), dual GEMMs at d_ff 8960-27392, logits, and decode attention
      at groups of 6, 4, 48 and 1 query heads a KV head, one-row, paged and
-     multi-row, with batch invariance at groups 6 and 48; the paper's
+     multi-row, with batch invariance at groups 6 and 48; the moe family's
+     batched GEMM and dual GEMM over expert banks (mixtral-8x22b's E = 8 at
+     M = 4 and 160, arctic-480b's E = 128 at M = 4 and 8, bf16; E = 4 in
+     f32), each expert equal to the 2-D kernel's output bit for bit, an
+     expert's rows at M = 4 equal at M = 20, torch.bmm the down
+     projection's yardstick; decode attention at mixtral's 48/8 heads with
+     its 4096 window over 6144 keys and at arctic's group of 7 (56/8:
+     one-row, paged, multi-row, batch invariance); the paper's
      tiled GEMM (f32 and bf16, with their TFLOP/s beside torch.matmul's)
      and naive GEMM at
      4096^2, f32 against the f64 product, and add, sub, mul and axpy bit
@@ -137,7 +144,20 @@ Phases, in order; any failure propagates and the exit code is not 0:
      and the bias epilogue's, each stream equal to its request alone at
      batch 1, a replay against the eager step, a trace, decode p50 and
      p99, time to first token, peak memory and capture time;
-  12. the paper's experiment at its size, 4096^2: Table 2 through the
+  12. the moe family at full width, random weights drawn on the card in
+     bf16 (the router f32): mixtral-8x22b at 8 of its 56 layers (41 GB)
+     serving phase 4's trace on the dense cache and a bf16 page pool (the
+     same streams), one request of 4,608 prompt tokens past its 4096
+     window (its stream equal to eager prefill and decode), and int8
+     weights on an int8 pool (4 requests); arctic-480b at 2 of its 35
+     layers (55.6 GB), 4 requests. Each run: exact launch counts (one
+     batched dual GEMM and one batched GEMM a layer a step, the f32 router
+     GEMM), each stream equal to its request on a 1-slot engine, a replay
+     against the eager step, a trace, decode p50 and p99, time to first
+     token, peak memory, the memory back after each engine and each
+     model; then both at the reduced widths
+     and depth 2 in f32 on the card against the CPU (the same routing);
+  13. the paper's experiment at its size, 4096^2: Table 2 through the
      measurement `launch.paper` prints (`benchmarks.common.measure`: float,
      double and complex-float through the naive kernel, the GEMM
      chokepoint (the tiled kernel; f64 the plain f64 product) and
@@ -145,7 +165,7 @@ Phases, in order; any failure propagates and the exit code is not 0:
      paper's seconds; the naive/tiled ratio beside the paper's 3.0x), Fig 9 through `benchmarks.bench_add`'s
      (add, sub and axpy in GB/s beside 3.35 TB/s), with exact launch
      counts; then the roofline model of the paper's cards and the H100;
-  13. a JSON line of the kernels (each with its launches on every main
+  14. a JSON line of the kernels (each with its launches on every main
      path), the card line, and the result line.
 """
 
@@ -190,12 +210,13 @@ def main() -> int:
                   smoke.phase_train_vs_cpu, smoke.phase_train_recurrent,
                   smoke.phase_mamba, smoke.phase_mamba_vs_cpu,
                   smoke.phase_hybrid, smoke.phase_hybrid_vs_cpu,
-                  smoke.phase_dense_configs, smoke.phase_paper):
+                  smoke.phase_dense_configs, smoke.phase_moe,
+                  smoke.phase_paper):
         t = time.perf_counter()
         phase()
         print(f"      ({phase.__name__}: {time.perf_counter() - t:.1f} s; "
               f"{time.perf_counter() - t0:.0f} s since the start)")
-    print(f"[13/13] result ({time.perf_counter() - t0:.0f} s since the "
+    print(f"[14/14] result ({time.perf_counter() - t0:.0f} s since the "
           f"start)")
     print(json.dumps({"kernels": smoke.kernel_rows()}))
     print(f"card: {card_line()}")
@@ -218,7 +239,7 @@ class Smoke:
     # -- 1. card ------------------------------------------------------
     def phase_card(self):
         torch = self.torch
-        print(f"[1/13] card: {card_line()}")
+        print(f"[1/14] card: {card_line()}")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         print(f"      torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -230,7 +251,7 @@ class Smoke:
         from repro_torch.kernels import _build
         t0 = time.perf_counter()
         libs = _build.build_all()
-        print(f"[2/13] build: {sorted(libs)} from "
+        print(f"[2/14] build: {sorted(libs)} from "
               f"{_build.CSRC.relative_to(ROOT)} in "
               f"{time.perf_counter() - t0:.1f} s (nvcc "
               f"{' '.join(_build.NVCC_FLAGS)})")
@@ -338,7 +359,7 @@ class Smoke:
         torch = self.torch
         from repro_torch.kernels import ops, ref
         F = torch.nn.functional
-        print("[3/13] kernels against their plain versions (median of 50, "
+        print("[3/14] kernels against their plain versions (median of 50, "
               "L2 flushed, in turns, card time only)")
         gen = torch.Generator(device=self.dev).manual_seed(0)
 
@@ -456,6 +477,7 @@ class Smoke:
                 del q, kc, vc
         self._kernels_hybrid(randn, tols[torch.bfloat16])
         self._kernels_dense_configs(randn, tols[torch.bfloat16])
+        self._kernels_moe(randn, tols)
         self._kernels_int8_and_paged(randn, tols[torch.bfloat16])
         self._kernels_decode_rows(randn, tols[torch.bfloat16])
         self._kernels_attention(randn, tols)
@@ -682,6 +704,111 @@ class Smoke:
                                what=name)
         for h, hkv in ((12, 2), (48, 1)):
             self._decode_batch_invariance(randn, h, hkv)
+
+    #: (what, dtype, experts, d_model, d_ff, row counts) of `_kernels_moe`
+    MOE_BANKS = (("mixtral-8x22b", "bfloat16", 8, 6144, 16384, (4, 160)),
+                 ("arctic-480b", "bfloat16", 128, 7168, 4864, (4, 8)),
+                 ("f32", "float32", 4, 1024, 2048, (4, 160)))
+
+    def _kernels_moe(self, randn, tols, banks=MOE_BANKS, tk=6144):
+        """The moe family's kernels: the batched dual GEMM and GEMM over
+        the expert banks at mixtral-8x22b's decode (E = 8, M = 4 slots an
+        expert) and prefill (M = 160: a 512-token bucket's 2 groups of 80
+        slots) shapes and arctic-480b's (E = 128, M = 4 and 8), bf16, and
+        at E = 4 in f32; each against its plain version, each expert's
+        output equal to the 2-D kernel's on its operands bit for bit, an
+        expert's first 4 rows at M = 4 equal to the same rows at M = 20
+        (the decode tile against the wide one), torch.bmm the down
+        projection's yardstick. Then decode attention at mixtral's 48/8
+        heads with its window of 4096 over 6144 keys, and at arctic's 56/8
+        (a group of 7: passes of 4 and 3 query heads), one-row, through a
+        bf16 pool and multi-row, with its batch invariance."""
+        torch = self.torch
+        from repro_torch.kernels import ops, ref
+        F = torch.nn.functional
+        gen = torch.Generator(device=self.dev).manual_seed(7)
+
+        def bank(e, k, n, dtype):
+            """(e, k, n), each matrix drawn in f32 and cast in turn (an
+            arctic bank is 8.9 GB in bf16, twice that in f32)."""
+            out = torch.empty((e, k, n), dtype=dtype, device=self.dev)
+            for m in out:
+                m.copy_(torch.randn((k, n), generator=gen, device=self.dev)
+                        * k ** -0.5)
+            return out
+
+        for what, dname, e, d, f, ms in banks:
+            dtype = getattr(torch, dname)
+            size, tol = dtype.itemsize, tols[dtype]
+            n_time = 10 if e > 8 else 20
+            wg, wu, wd = bank(e, d, f, dtype), bank(e, d, f, dtype), \
+                bank(e, f, d, dtype)
+            for m in ms:
+                a = randn(e, m, d, dtype=dtype)
+                h = randn(e, m, f, dtype=dtype)
+                self._case(
+                    "gated_matmul_batched",
+                    f"{dname} E={e} M={m} K={d} N={f} ({what})",
+                    lambda a=a: ops.gated_matmul_batched(a, wg, wu),
+                    lambda a=a: ref.gated_matmul_batched_ref(a, wg, wu),
+                    None, (e * m * d + 2 * e * d * f + e * m * f) * size,
+                    4 * e * m * f * d, dname, tol, n_time=n_time)
+                self._case(
+                    "matmul_batched", f"{dname} E={e} M={m} K={f} N={d} "
+                    f"({what} down)",
+                    lambda h=h: ops.matmul_batched(h, wd),
+                    lambda h=h: ref.matmul_batched_ref(h, wd),
+                    lambda h=h: torch.bmm(h, wd),
+                    (e * m * f + e * f * d + e * m * d) * size,
+                    2 * e * m * d * f, dname, tol, n_time=n_time)
+                got_g = ops.gated_matmul_batched(a, wg, wu)
+                got_d = ops.matmul_batched(h, wd)
+                for x in range(e):
+                    assert torch.equal(got_g[x], ops.gated_matmul(
+                        a[x], wg[x], wu[x])), (what, m, x, "gated")
+                    assert torch.equal(got_d[x], ops.matmul(h[x], wd[x])), \
+                        (what, m, x, "down")
+                del got_g, got_d
+            a20 = randn(e, 20, d, dtype=dtype)
+            h20 = randn(e, 20, f, dtype=dtype)
+            assert torch.equal(
+                ops.gated_matmul_batched(a20, wg, wu)[:, :4],
+                ops.gated_matmul_batched(a20[:, :4].contiguous(), wg, wu)), what
+            assert torch.equal(ops.matmul_batched(h20, wd)[:, :4],
+                               ops.matmul_batched(h20[:, :4].contiguous(),
+                                                  wd)), what
+            print(f"      batched {what}: every expert's output equals the "
+                  f"2-D kernel's on its operands, bit for bit, at M = "
+                  f"{', '.join(map(str, ms))}; an expert's first 4 rows at "
+                  f"M = 4 equal the same rows at M = 20")
+            del wg, wu, wd, a, h, a20, h20
+            torch.cuda.empty_cache()
+        # -- decode attention: mixtral's 48/8 with its window past 4096
+        #    keys, arctic's group of 7
+        dtype, tol = torch.bfloat16, tols[torch.bfloat16]
+        b_, window = 4, 4096
+        pos_list = [-1, 100, 4500, tk - 1]
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=self.dev)
+        h, hkv, d = 48, 8, 128
+        q = randn(b_, 1, h, d, dtype=dtype)
+        kc = randn(b_, tk, hkv, d, dtype=dtype)
+        vc = randn(b_, tk, hkv, d, dtype=dtype)
+        keys = sum(min(p + 1, window) for p in pos_list if p >= 0)
+        mask = torch.zeros((b_, 1, 1, tk), dtype=torch.bool, device=self.dev)
+        for i, p in enumerate(pos_list):
+            mask[i, ..., max(0, p - window + 1):p + 1] = True
+        self._case(
+            "flash_decode", f"bfloat16 B={b_} H={h} Hkv={hkv} D={d} Tk={tk} "
+            f"window={window} (mixtral-8x22b)",
+            lambda: ops.flash_decode(q, kc, vc, pos=pos, window=window),
+            lambda: ref.attention_fwd_ref(q, kc, vc, window=window,
+                                          q_offset=pos),
+            lambda: _sdpa(torch, F, q, kc, vc, mask),
+            (2 * q.numel() + 2 * keys * hkv * d) * 2 + b_ * 4,
+            4 * keys * h * d, "bfloat16", tol, n_time=20)
+        del q, kc, vc, mask
+        self._decode_cases(randn, tol, 56, 8, paged=True, what="arctic-480b")
+        self._decode_batch_invariance(randn, 56, 8)
 
     def _decode_cases(self, randn, tol, h, hkv, paged, what, d=128, tk=2048):
         """flash_decode at (h, hkv) heads of d, 4 slots against a tk-deep
@@ -1293,7 +1420,7 @@ class Smoke:
                                device=self.dev)
         del params                      # the engine keeps its bf16 copy
         torch.cuda.synchronize()
-        print(f"[4/13] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
+        print(f"[4/14] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
               f"heads {cfg.n_heads}/{cfg.n_kv_heads}x{cfg.resolved_head_dim} "
               f"d_ff {cfg.d_ff} vocab {cfg.vocab}->{cfg.padded_vocab}; "
               f"weights ready in {time.perf_counter() - t0:.1f} s; "
@@ -1497,7 +1624,7 @@ class Smoke:
         assert launches == want, (launches, want)
         got = [r.generated for r in reqs]
         assert got == self.dense_streams, "paged bf16 streams != dense streams"
-        print(f"[5/13] paged bf16 KV (page 16, {rep['kv_pool']['n_pages']} "
+        print(f"[5/14] paged bf16 KV (page 16, {rep['kv_pool']['n_pages']} "
               f"pages): phase 4's {len(reqs)} streams, token for token; "
               f"launches {launches} ({eng.decode_steps} decode steps at "
               f"141/28/28 each); prefill {rep['prefill_tok_s']:.1f} tok/s, "
@@ -1618,7 +1745,7 @@ class Smoke:
         L = cfg.n_layers
         params = M.init_params(cfg, torch.Generator().manual_seed(0), self.dev)
         other = M.init_params(cfg, torch.Generator().manual_seed(1), self.dev)
-        print(f"[6/13] the request surface at full width ({cfg.name}, "
+        print(f"[6/14] the request surface at full width ({cfg.name}, "
               f"{L} layers, bf16, random weights)")
         want = {}
         eng = ServingEngine(cfg, params, max_slots=4, max_len=self.max_len,
@@ -1848,7 +1975,7 @@ class Smoke:
             return TL.init_state(cfg, opt, torch.Generator().manual_seed(0),
                                  self.dev)
         batches = self._train_batches(cfg, steps + 1, batch, seq)
-        print(f"[7/13] training {cfg.name} at full width ({L} layers, bf16 "
+        print(f"[7/14] training {cfg.name} at full width ({L} layers, bf16 "
               f"activations, remat {cfg.remat}): {steps} AdamW steps at batch "
               f"{batch} x {seq}")
         # a step: the forward's 141 GEMMs, 28 dual GEMMs and 28 attentions;
@@ -2159,7 +2286,7 @@ class Smoke:
         `test_recurrent_train_step_on_card_matches_cpu` (cut here for
         time)."""
         from repro_torch.configs import get_config
-        print("[8/13] training the Mamba-2 families at full width")
+        print("[8/14] training the Mamba-2 families at full width")
         self.zamba_train_launches = self._train_recurrent(
             get_config("zamba2-1.2b"), steps, batch, seq, plain_steps=2)
         self.mamba_train_launches = self._train_recurrent(
@@ -2264,7 +2391,7 @@ class Smoke:
         torch.cuda.empty_cache()
         weights = torch.cuda.memory_allocated()
         sc = cfg.ssm
-        print(f"[9/13] {cfg.name}: {L} layers d_model {cfg.d_model} d_inner "
+        print(f"[9/14] {cfg.name}: {L} layers d_model {cfg.d_model} d_inner "
               f"{sc.expand * cfg.d_model} ({sc.expand * cfg.d_model // sc.head_dim}"
               f" SSD heads of {sc.head_dim}) d_state {sc.d_state} groups "
               f"{sc.n_groups} conv {sc.conv_width} chunk {sc.chunk} vocab "
@@ -2309,17 +2436,17 @@ class Smoke:
         torch.cuda.empty_cache()
 
     def _serve_checked(self, eng, prompts, gen, want_fn, what,
-                         p50_bf16=None):
+                         p50_bf16=None, alone_kw=None):
         """Serve `prompts` on `eng`, `gen` tokens each, with the launch
         counts set to 0 just before and read just after: they must be
         `want_fn(eng)`, and every stream the request run alone at batch 1:
-        served by a 1-slot engine on `eng`'s weights, one request at a
-        time (its steps are graph replays too, where `_alone` steps
-        eagerly: a Mamba-2 model's eager step is some 4,000 small
-        launches; each replay equals its eager step, `_check_replay`).
-        Prints the counts, speed and peak memory (the decode p50 beside
-        `p50_bf16`, the bf16 run's, where given). Returns (launches,
-        report)."""
+        served by a 1-slot engine on `eng`'s weights (with the engine
+        options `alone_kw`: a page pool's), one request at a time (its
+        steps are graph replays too, where `_alone` steps eagerly: a
+        Mamba-2 model's eager step is some 4,000 small launches; each
+        replay equals its eager step, `_check_replay`). Prints the counts,
+        speed and peak memory (the decode p50 beside `p50_bf16`, the bf16
+        run's, where given). Returns (launches, report)."""
         torch = self.torch
         from repro_torch.kernels import ops
         from repro_torch.serving import ServingEngine
@@ -2354,7 +2481,8 @@ class Smoke:
               f"{report['ttft_p95_s'] * 1e3:.0f} ms; max_memory_allocated "
               f"{peak / 2 ** 30:.3f} GiB")
         one = ServingEngine(eng.cfg, eng.params, max_slots=1,
-                            max_len=eng.max_len, device=self.dev)
+                            max_len=eng.max_len, device=self.dev,
+                            **(alone_kw or {}))
         alone = [one.submit(pr, gen) for pr in prompts]
         one.run()
         for req, solo, prompt in zip(reqs, alone, prompts):
@@ -2530,7 +2658,7 @@ class Smoke:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         engine_bytes = torch.cuda.memory_allocated() - base
-        print(f"[10/13] {cfg.name}: {cfg.n_layers} Mamba-2 layers in {seg} "
+        print(f"[10/14] {cfg.name}: {cfg.n_layers} Mamba-2 layers in {seg} "
               f"segments of {cfg.attn_every}, d_model {cfg.d_model} d_inner "
               f"{sc.expand * cfg.d_model} ({sc.expand * cfg.d_model // sc.head_dim}"
               f" SSD heads of {sc.head_dim}) d_state {sc.d_state} conv "
@@ -2783,7 +2911,7 @@ class Smoke:
         # -- qwen2-vl-2b: dense, paged bf16, speculative; multimodal
         cfg = get_config("qwen2-vl-2b")
         L = cfg.n_layers
-        print(f"[11/13] the dense configs and vlm at full width (random "
+        print(f"[11/14] the dense configs and vlm at full width (random "
               f"weights, bf16, 4 slots, 32 tokens a request)")
         t0 = time.perf_counter()
         params = self._config_params(cfg)
@@ -2928,6 +3056,288 @@ class Smoke:
               f"max |diff| / max |value| {worst:.2e}; the image moves the "
               f"last logits by up to {moved:.3f} against the tokens alone")
 
+    # -- 12. the moe family at full width --------------------------------
+    @staticmethod
+    def _moe_per_step(cfg, int8=False):
+        """GEMM launches of one prefill or one-token step of a moe model:
+        a layer runs Q, K, V and O, the f32 router GEMM, the batched dual
+        GEMM and the batched down GEMM (Arctic: its dense branch, a dual
+        GEMM and a GEMM), and the step the lm_head's logits. With int8
+        weights Q, K, V, O, the lm_head and the dense branch (its dual GEMM
+        as two) take the int8-weight GEMM; the router and the banks stay
+        float, as the reference's walk leaves them."""
+        L = cfg.n_layers
+        dense = bool(cfg.moe.dense_ff)
+        want = {"matmul_batched": L, "gated_matmul_batched": L}
+        if int8:
+            want.update(matmul=L, matmul_q=4 * L + 1 + 3 * L * dense)
+        else:
+            want.update(matmul=5 * L + 1 + L * dense)
+            if dense:
+                want["gated_matmul"] = L
+        return want
+
+    def _serve_moe(self, cfg, params, work, what, trace=2, expect=(),
+                   **kw):
+        """One engine run of `work` on 4 slots of cfg from `params` (engine
+        options `kw`: a page pool, int8 pages, int8 weights) through
+        `_serve_checked` (exact launch counts, `_moe_per_step`; speed,
+        time to first token, peak memory; every stream equal to its
+        request on a 1-slot engine of the same cache layout), then a
+        replay against the eager step and a trace of `trace` decode steps
+        in which the groups `expect` must show (`_trace`). Returns
+        (engine, launches, report, streams)."""
+        from repro_torch.serving import ServingEngine
+        max_len = -(-max(len(it.prompt) + it.gen for it in work) // 16) * 16
+        eng = ServingEngine(cfg, params, max_slots=4, max_len=max_len,
+                            device=self.dev, **kw)
+        _print_capture(eng)
+        prompts = [it.prompt for it in work]
+        per_step = self._moe_per_step(cfg, kw.get("quant") == "int8")
+
+        def want(e):
+            L = cfg.n_layers
+            rem = sum(len(p) % 8 for p in prompts if len(p) >= 8)
+            runs = e.decode_steps + rem + len(prompts)
+            w = _no_launches(**{k: n * runs for k, n in per_step.items()})
+            if e.pool is None:
+                w["flash_decode"] = L * (rem + e.decode_steps)
+            else:
+                w.update(flash_decode=L * rem,
+                         flash_decode_paged=L * e.decode_steps)
+            return w
+
+        alone_kw = {k: v for k, v in kw.items() if k != "quant"}
+        if eng.pool is not None:         # a request reserves its write range
+            alone_kw["kv_pool_pages"] = eng.pool.n_pages
+        launches, report = self._serve_checked(
+            eng, prompts, work[0].gen, want, what, alone_kw=alone_kw)
+        streams = [list(r.generated) for r in eng.requests[:len(work)]]
+        self._trace(eng, report["decode_step_p50_s"], n_steps=trace,
+                    expect=expect)
+        return eng, launches, report, streams
+
+    def phase_moe(self, mixtral_layers=8, arctic_layers=2):
+        """The moe family at full width, random weights drawn on the card
+        (a CUDA generator of seed 0) in bf16 but the f32 router, 4 slots,
+        32 tokens a request. mixtral-8x22b at `mixtral_layers` of its 56
+        layers (5.0 GB a layer in bf16: its 56 do not fit one card): phase
+        4's trace (8 requests of 64-512 tokens) on the dense cache and on a
+        bf16 page pool (the same streams); one request of 4,608 prompt
+        tokens and 32 new ones, past the 4096-token window, its stream
+        equal to its eager prefill and batch-1 decode steps; int8 weights
+        on an int8 pool, 4 requests. arctic-480b at `arctic_layers` of its
+        35 (27.3 GB a layer), 4 requests on the dense cache. Each engine
+        run (`_serve_moe`): exact launch counts, one batched dual GEMM and
+        one batched GEMM a layer a step; each stream equal to its request
+        alone; a replay against the eager step; a trace; decode p50 and
+        p99, time to first token, peak memory, capture time; the memory
+        back to the params' own after each engine, and to the phase's
+        start after each model. Then both at the reduced widths and depth
+        2, f32, on the card against the CPU (`_moe_vs_cpu`)."""
+        torch = self.torch
+        import dataclasses
+        import numpy as np
+        from repro_torch.configs import get_config
+        from repro_torch.core.tree import leaves
+        from repro_torch.serving import synthetic_trace
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        self.moe_launches = {}
+        print(f"[12/14] the moe family at full width (random weights drawn "
+              f"on the card, bf16 but the f32 router, 4 slots, 32 tokens a "
+              f"request)")
+
+        def model(name, depth):
+            cfg = get_config(name)
+            full = cfg.n_layers
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+            t0 = time.perf_counter()
+            params = self._config_params(cfg)
+            torch.cuda.synchronize()
+            n = sum(t.numel() for t in leaves(params))
+            mc = cfg.moe
+            print(f"      {name} ({depth} of its {full} layers): d_model "
+                  f"{cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads}x"
+                  f"{cfg.resolved_head_dim} (a group of "
+                  f"{cfg.n_heads // cfg.n_kv_heads}) d_ff {cfg.d_ff}, "
+                  f"{mc.n_experts} experts top-{mc.top_k} capacity factor "
+                  f"{mc.capacity_factor} groups of {mc.group_size}"
+                  f"{f', dense branch {mc.dense_ff}' if mc.dense_ff else ''}"
+                  f"{f', window {cfg.window}' if cfg.window else ''}, vocab "
+                  f"{cfg.vocab}->{cfg.padded_vocab}; {n / 1e9:.3f} G params "
+                  f"drawn on the card ({torch.cuda.memory_allocated() / 2 ** 30:.3f} "
+                  f"GiB) in {time.perf_counter() - t0:.1f} s")
+            return cfg, params
+
+        # -- mixtral-8x22b: dense, bf16 pool, past the window, int8; after
+        #    each engine the memory comes back to the params' own
+        name = "mixtral-8x22b"
+        cfg, params = model(name, mixtral_layers)
+        held = torch.cuda.memory_allocated()
+        work = synthetic_trace(cfg, 8, rng=np.random.default_rng(0),
+                               len_range=(64, 512), gen=32)
+        print(f"      {name}: {len(work)} requests, prompts "
+              f"{[len(it.prompt) for it in work]}")
+        key = f"{name} ({mixtral_layers} layers)"
+        eng, self.moe_launches[key], report, streams = self._serve_moe(
+            cfg, params, work, f"{name} dense", trace=4,
+            expect=("gated_matmul_batched", "matmul_batched", "flash_decode"))
+        self.moe_p50 = {key: report["decode_step_p50_s"]}
+        del eng
+        self._memory_back(held, f"{name} dense")
+        eng, self.moe_launches[key + " paged"], rep, paged = self._serve_moe(
+            cfg, params, work, f"{name} paged bf16", kv_layout="paged",
+            expect=("gated_matmul_batched", "matmul_batched",
+                    "flash_decode_paged"))
+        assert paged == streams, "paged bf16 streams != the dense cache's"
+        print(f"      {name} paged bf16 KV ({rep['kv_pool']['n_pages']} "
+              f"pages of 16): the dense run's {len(streams)} streams, token "
+              f"for token")
+        del eng
+        self._memory_back(held, f"{name} paged bf16")
+        self._moe_long(cfg, params)
+        self._memory_back(held, f"{name} past the window")
+        eng, self.moe_launches[key + " int8"], rep, _ = self._serve_moe(
+            cfg, params, work[:4], f"{name} int8 weights, int8 pool",
+            kv_layout="paged", quant_kv="int8", quant="int8",
+            expect=("matmul_q", "gated_matmul_batched", "matmul_batched",
+                    "flash_decode_paged"))
+        print(f"      {name} int8: decode step p50 "
+              f"{rep['decode_step_p50_s'] * 1e3:.2f} ms (bf16 weights, dense "
+              f"cache: {report['decode_step_p50_s'] * 1e3:.2f} ms)")
+        del eng
+        self._memory_back(held, f"{name} int8")
+        del params
+        self._memory_back(base, name)
+
+        # -- arctic-480b: dense cache
+        name = "arctic-480b"
+        cfg, params = model(name, arctic_layers)
+        held = torch.cuda.memory_allocated()
+        work = synthetic_trace(cfg, 4, rng=np.random.default_rng(0),
+                               len_range=(64, 512), gen=32)
+        print(f"      {name}: {len(work)} requests, prompts "
+              f"{[len(it.prompt) for it in work]}")
+        key = f"{name} ({arctic_layers} layers)"
+        eng, self.moe_launches[key], report, _ = self._serve_moe(
+            cfg, params, work, f"{name} dense", expect=(
+                "gated_matmul_batched", "matmul_batched", "gated_matmul",
+                "flash_decode"))
+        self.moe_p50[key] = report["decode_step_p50_s"]
+        del eng
+        self._memory_back(held, f"{name} dense")
+        del params
+        self._memory_back(base, name)
+        for name in ("mixtral-8x22b", "arctic-480b"):
+            self._moe_vs_cpu(name)
+
+    def _moe_long(self, cfg, params, prompt_len=4608, gen=32):
+        """One request of `prompt_len` tokens and `gen` new ones on a
+        4-slot engine, past the window: its admission prefills the whole
+        prompt (a 4608 bucket: 18 groups of 256 tokens, 80 slots an
+        expert a group) and its decode attends the last `window` keys;
+        exact launch counts, and its stream equal to an eager prefill and
+        batch-1 decode steps (`_alone`)."""
+        torch = self.torch
+        import numpy as np
+        from repro_torch.kernels import ops
+        from repro_torch.serving import ServingEngine
+        assert prompt_len > cfg.window, (prompt_len, cfg.window)
+        prompt = np.random.default_rng(5).integers(
+            0, cfg.vocab, prompt_len).astype(np.int32)
+        eng = ServingEngine(cfg, params, max_slots=4,
+                            max_len=prompt_len + gen, device=self.dev)
+        torch.cuda.reset_peak_memory_stats()
+        req = eng.submit(prompt, gen)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        L = cfg.n_layers
+        runs = eng.decode_steps + 1 + prompt_len % 8
+        want = _no_launches(**{k: n * runs for k, n in
+                               self._moe_per_step(cfg).items()},
+                            flash_decode=L * (runs - 1))
+        assert launches == want, (launches, want)
+        assert len(req.generated) == gen
+        assert req.generated == self._alone(eng, prompt, gen), \
+            "the long request's stream != its eager prefill and decode"
+        print(f"      {cfg.name}: one request of {prompt_len} prompt tokens "
+              f"and {gen} new (positions up to {prompt_len + gen - 1}, past "
+              f"the {cfg.window}-token window), max_len {eng.max_len}: "
+              f"launches {_nonzero(launches)} (exact); ttft "
+              f"{req.ttft * 1e3:.0f} ms, {wall:.2f} s in all, "
+              f"max_memory_allocated {peak / 2 ** 30:.3f} GiB; its stream "
+              f"equals an eager prefill and batch-1 decode, token for token")
+        del eng
+
+    def _moe_vs_cpu(self, name, length=300, steps=4, tol=1e-4):
+        """`name` at its reduced widths and depth 2 (4 experts, groups of
+        32; mixtral's window 32), f32: a prefill of a `length`-token
+        prompt and `steps` decode steps on the card (the CUDA kernels) and
+        on the CPU (their plain versions) from the same weights: every
+        layer's routing (expert ids and kept assignments) equal, logits and
+        the KV cache within rtol 1e-4, atol 1e-4 x the largest |value|."""
+        torch = self.torch
+        import dataclasses
+        from repro_torch.configs import get_config
+        from repro_torch.core.tree import leaves, tree_map
+        from repro_torch.models import model as M
+        from repro_torch.models import moe as MoE
+        cfg = dataclasses.replace(get_config(name, reduced=True),
+                                  dtype="float32")
+        params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        toks = torch.randint(0, cfg.vocab, (1, length + steps),
+                             generator=torch.Generator().manual_seed(1))
+        a = cfg.attn_chunk
+        max_len = -(-(length + steps) // a) * a
+        route, out = MoE._route, []
+        try:
+            for dev in (self.dev, torch.device("cpu")):
+                seen = []
+
+                def record(*args, **kw):
+                    r = route(*args, **kw)
+                    seen.append((r[3].cpu(), r[5].cpu()))
+                    return r
+                MoE._route = record
+                p = tree_map(lambda x: x.to(dev), params)
+                cache = M.init_cache(cfg, 1, max_len, dev)
+                logits, cache = M.prefill(cfg, p, {"tokens": toks[:, :length]
+                                                   .to(dev)}, cache)
+                logs = [logits]
+                for i in range(steps):
+                    logits, cache = M.decode_step(
+                        cfg, p, toks[:, length + i:length + i + 1].to(dev),
+                        length + i, cache)
+                    logs.append(logits)
+                out.append(([t.cpu() for t in logs]
+                            + [v.cpu() for v in leaves(cache)], seen))
+        finally:
+            MoE._route = route
+        (card, card_routes), (cpu, cpu_routes) = out
+        assert len(card_routes) == len(cpu_routes) == 2 * (1 + steps)
+        dropped = 0
+        for (ti, kp), (tj, kq) in zip(card_routes, cpu_routes):
+            assert torch.equal(ti, tj) and torch.equal(kp, kq), name
+            dropped += int((~kq).sum())
+        worst = 0.0
+        for x, y in zip(card, cpu):
+            assert torch.isfinite(x).all(), "non-finite output on the card"
+            scale = y.abs().max().item()
+            torch.testing.assert_close(x, y, rtol=tol, atol=tol * scale)
+            worst = max(worst, ((x - y).abs().max() / scale).item())
+        print(f"      {cfg.name}, depth 2, f32: a {length}-token prefill and "
+              f"{steps} decode steps on the card against the CPU: every "
+              f"layer's expert ids and kept assignments equal ({dropped} "
+              f"assignments dropped), logits and KV cache within rtol "
+              f"{tol:g}; max |diff| / max |value| {worst:.2e}")
+
     # -- 12. the paper's experiment ---------------------------------------
     def phase_paper(self, n=4096, iters=3):
         """Table 2 and Figs 8-9 at the paper's size through the port's
@@ -2940,7 +3350,7 @@ class Smoke:
         from repro_torch.benchmarks import bench_add, common
         from repro_torch.kernels import ops
         from repro_torch.launch import paper
-        print(f"[12/13] the paper's experiment at n={n} (Table 2, Figs 8-9)")
+        print(f"[13/14] the paper's experiment at n={n} (Table 2, Figs 8-9)")
         ops.reset_launch_counts()
         gemm_rows = common.measure(n, self.dev, iters=iters)
         add_rows = bench_add.measure(n, self.dev)
@@ -2977,6 +3387,14 @@ class Smoke:
             "gated_matmul": ("src/repro_torch/kernels/csrc/matmul_tc.cu",
                              "src/repro/kernels/matmul.py:360",
                              "bfloat16 M=4 K=1024 N=3072"),
+            "matmul_batched": (
+                "src/repro_torch/kernels/csrc/matmul_tc.cu",
+                "src/repro/kernels/matmul.py:244",
+                "bfloat16 E=8 M=4 K=16384 N=6144 (mixtral-8x22b down)"),
+            "gated_matmul_batched": (
+                "src/repro_torch/kernels/csrc/matmul_tc.cu",
+                "src/repro/kernels/matmul.py:360",
+                "bfloat16 E=8 M=4 K=6144 N=16384 (mixtral-8x22b)"),
             "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
                              "src/repro/kernels/flash_attention.py:529",
                              "bfloat16 B=4 H=16 Hkv=8 D=128 Tk=2048 window=None"),
@@ -3021,9 +3439,13 @@ class Smoke:
         # launches: the dense kernels' from phase 4's run, the int8 path's
         # from phase 5's int8 run, the multi-row decode forms' from phase
         # 6's self-draft runs (dense, bf16 pool), the training kernels'
-        # from phase 7's, the SSD kernel's from phase 9's, the paper's
-        # kernels from phase 11's
+        # from phase 7's, the SSD kernel's from phase 9's, the batched
+        # GEMMs' from phase 12's mixtral run (dense cache), the paper's
+        # kernels from phase 13's
+        moe = self.moe_launches[next(iter(self.moe_launches))]
         counts = {**self.launches, **self.spec_launches,
+                  **{k: moe[k] for k in ("matmul_batched",
+                                         "gated_matmul_batched")},
                   **{k: self.paper_launches[k]
                      for k in ("matmul_naive", "binary_op", "axpy")},
                   **{k: self.paged_launches[k]
@@ -3044,6 +3466,7 @@ class Smoke:
                  "zamba2-1.2b": self.hybrid_launches,
                  "zamba2-1.2b int8": self.hybrid_int8_launches,
                  **self.config_launches,
+                 **self.moe_launches,
                  "paper": self.paper_launches}
         rows = []
         for name, (source, replaces, label) in meta.items():
@@ -3079,7 +3502,8 @@ def _wrapper_calls():
     from repro_torch.kernels import flash_attention, matmul, ssd
     calls, saved = [], []
     for mod, names in ((matmul, ("matmul_tiled", "matmul_q_tiled",
-                                 "gated_matmul_tiled")),
+                                 "gated_matmul_tiled", "matmul_batched_tiled",
+                                 "gated_matmul_batched_tiled")),
                        (flash_attention, ("flash_decode",
                                           "flash_decode_paged")),
                        (ssd, ("ssd_chunked",))):
@@ -3179,6 +3603,10 @@ def _print_trace(prof, what: str, wall_ms: float, n: int = 1,
 def _kernel_group(name: str) -> str:
     """A profiler kernel name's group: one of the port's kernels (by the
     template arguments of its instantiation), memcpy, or other."""
+    if "gated_matmul_batched" in name:    # the batched forms (expert banks)
+        return "gated_matmul_batched"
+    if "matmul_batched" in name:
+        return "matmul_batched"
     if "gated_matmul_kernel" in name:     # mma_, tma_ (bf16) and FMA (f32)
         return "gated_matmul"
     if "matmul_kernel" in name:           # mma_, tma_ (bf16) and FMA (f32);

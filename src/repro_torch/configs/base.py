@@ -1,7 +1,7 @@
 """Model/runtime configuration of the PyTorch port.
 
-A copy of the JAX package's `ModelConfig` and `SSMConfig` (its own
-module, so the port imports nothing of `repro`), cut to the fields that
+A copy of the JAX package's `ModelConfig`, `MoEConfig` and `SSMConfig`
+(its own module, so the port imports nothing of `repro`), cut to the fields that
 describe the models the port serves: each keeps its name and default
 there, so a config built here and one built there compare field by
 field. `reduced()` derives the same CPU test config as the reference's.
@@ -20,6 +20,22 @@ REMAT_POLICIES = ("none", "full")
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+    group_size: int = 256           # tokens per routing group (GShard-style)
+    dense_ff: int = 0               # Arctic: parallel dense-residual FFN width
+    router_z_coef: float = 1e-3
+    load_balance_coef: float = 1e-2
+    # "einsum": the reference's GShard one-hot dispatch and combine, whose
+    #   combine weights are rounded to the activation dtype; "gather": its
+    #   index-based form, f32 combine weights. The port gathers by index
+    #   in both, rounding the weights as the mode says (models.moe).
+    dispatch: str = "einsum"
+
+
+@dataclasses.dataclass(frozen=True)
 class SSMConfig:
     d_state: int = 128
     head_dim: int = 64
@@ -32,7 +48,7 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense | ssm | hybrid | vlm
+    family: str                     # dense | moe | ssm | hybrid | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -50,6 +66,8 @@ class ModelConfig:
     # head_dim / 2 rotary frequency slots, each turned by its own stream
     mrope_sections: Optional[Tuple[int, int, int]] = None
     tie_embeddings: bool = False
+    # mixture-of-experts FFN (family moe)
+    moe: Optional[MoEConfig] = None
     # Mamba-2 blocks (families ssm and hybrid)
     ssm: Optional[SSMConfig] = None
     attn_every: int = 0             # hybrid: shared attn block period (Zamba2)
@@ -105,6 +123,14 @@ class ModelConfig:
         )
         if self.mrope_sections is not None:
             kw["mrope_sections"] = (2, 3, 3)   # head_dim 16: 8 slots
+        if self.moe is not None:
+            kw["moe"] = dataclasses.replace(
+                self.moe,
+                n_experts=min(self.moe.n_experts, 4),
+                top_k=min(self.moe.top_k, 2),
+                group_size=32,
+                dense_ff=64 if self.moe.dense_ff else 0,
+            )
         if self.ssm is not None:
             kw["ssm"] = dataclasses.replace(
                 self.ssm, d_state=16, head_dim=8, chunk=16)

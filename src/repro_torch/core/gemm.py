@@ -33,6 +33,14 @@ package's `_dense_q_vjp`) are not ported yet, so a call there that
 autograd would record raises rather than record nothing. On the CPU the
 plain version is ordinary PyTorch, which autograd differentiates as it
 is.
+
+`matmul` and `gated_mlp` also take a bank of weights, b or w (E, K, N)
+against a (E, M, K): the MoE expert GEMMs, which the JAX package vmaps
+over its 2D chokepoint. They run the batched forms of the kernels, one
+launch for all E experts (`kernels.ops.matmul_batched`,
+`gated_matmul_batched`). Forward only on the card, as `dense_q` (the
+banks' backward GEMMs come with moe training); on the CPU autograd
+differentiates the plain versions.
 """
 
 from __future__ import annotations
@@ -96,8 +104,30 @@ class _Matmul(torch.autograd.Function):
         return (*_matmul_grads(a, b, g, ctx.needs_input_grad[:2]), None)
 
 
+def _forward_only_on_card(what: str, *operands) -> None:
+    if operands[0].device.type == "cuda" and _recorded(*operands):
+        raise NotImplementedError(
+            f"{what} on the card is forward only: its backward comes with "
+            f"the training of the family that runs it")
+
+
+def _batched(what: str, a, ws, out_dtype):
+    if a.dim() != 3:
+        raise ValueError(f"{what} against a bank {tuple(ws[0].shape)} takes "
+                         f"a (E, M, K), got {tuple(a.shape)}")
+    if out_dtype not in (None, a.dtype):
+        raise ValueError(f"{what} against a bank gives a's dtype {a.dtype}, "
+                         f"not {out_dtype}")
+    _forward_only_on_card(what, a, *ws)
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
-    """A @ B for a: (..., M, K), b: (K, N)."""
+    """A @ B for a: (..., M, K), b: (K, N); or for a bank b (E, K, N)
+    against a (E, M, K), each expert's product in a's dtype, through the
+    batched kernel (forward only on the card)."""
+    if b.dim() == 3:
+        _batched("matmul", a, (b,), out_dtype)
+        return _ops.matmul_batched(a, b)
     a2 = _fold(a)
     out = _Matmul.apply(a2, b, out_dtype) if _recorded(a2, b) \
         else _matmul_2d(a2, b, out_dtype)
@@ -230,7 +260,12 @@ class _GatedMLP(torch.autograd.Function):
 def gated_mlp(x: torch.Tensor, w_gate: torch.Tensor,
               w_up: torch.Tensor) -> torch.Tensor:
     """silu(x @ w_gate) * (x @ w_up), the SwiGLU hidden phase, as one
-    dual-GEMM kernel."""
+    dual-GEMM kernel; for banks w_gate, w_up (E, K, F) against x (E, M, K),
+    each expert's through the batched dual GEMM (forward only on the
+    card)."""
+    if w_gate.dim() == 3:
+        _batched("gated_mlp", x, (w_gate, w_up), None)
+        return _ops.gated_matmul_batched(x, w_gate, w_up)
     x2 = _fold(x)
     out = _GatedMLP.apply(x2, w_gate, w_up) if _recorded(x2, w_gate, w_up) \
         else _ops.gated_matmul(x2, w_gate, w_up)

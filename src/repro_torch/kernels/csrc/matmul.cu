@@ -55,6 +55,12 @@
 // Edges are masked in the kernel (no padding on the host). The f32 GEMM
 // reads B either as [K, N] row-major or as [N, K] (`b_nk`) and A either as
 // [M, K] row-major or as [K, M] (`a_km`); the int8 B is [K, N].
+//
+// The batched forms of the f32 GEMM and the dual GEMM (the MoE expert
+// banks, the vmapped Pallas kernels' counterpart: a bank of E row-major
+// matrices, one launch for all) run expert blockIdx.z's operands through
+// the same tile, so an expert's output is the 2-D kernel's on its operands,
+// bit for bit. They serve the f32 checks of the moe family on the card.
 
 #include <stdint.h>
 
@@ -131,10 +137,11 @@ __device__ __forceinline__ void load_b(float (*Bs)[BN + 1], const TB* B, int N, 
 // TB: B's element type (TIn, or int8_t with the per-channel scale S).
 // NK: B is [N, K]; KM: A is [K, M].
 template <typename TIn, typename TB, typename TOut, bool NK, bool KM>
-__global__ void __launch_bounds__(THREADS)
-matmul_kernel(const TIn* __restrict__ A, const TB* __restrict__ B, const float* __restrict__ S,
-              const void* __restrict__ E, TOut* __restrict__ C, int M, int N, int K,
-              long long lda, long long ldb, long long lde, int e_bf16, int epilogue) {
+__device__ __forceinline__ void matmul_tile(const TIn* __restrict__ A, const TB* __restrict__ B,
+                                            const float* __restrict__ S,
+                                            const void* __restrict__ E, TOut* __restrict__ C,
+                                            int M, int N, int K, long long lda, long long ldb,
+                                            long long lde, int e_bf16, int epilogue) {
   __shared__ float As[BM][BK + 1];
   __shared__ float Bs[BK][BN + 1];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
@@ -182,6 +189,26 @@ matmul_kernel(const TIn* __restrict__ A, const TB* __restrict__ B, const float* 
       C[(long long)gm * N + gn] = from_f32<TOut>(finish(v, E, e_bf16, lde, epilogue, gm, gn));
     }
   }
+}
+
+template <typename TIn, typename TB, typename TOut, bool NK, bool KM>
+__global__ void __launch_bounds__(THREADS)
+matmul_kernel(const TIn* __restrict__ A, const TB* __restrict__ B, const float* __restrict__ S,
+              const void* __restrict__ E, TOut* __restrict__ C, int M, int N, int K,
+              long long lda, long long ldb, long long lde, int e_bf16, int epilogue) {
+  matmul_tile<TIn, TB, TOut, NK, KM>(A, B, S, E, C, M, N, K, lda, ldb, lde, e_bf16, epilogue);
+}
+
+// The batched forms (the expert banks, row-major, f32, no epilogue): expert
+// blockIdx.z's operands sa, sb (A, B and U) and M * N (C) elements on, the
+// 2-D kernel's tile on them.
+__global__ void __launch_bounds__(THREADS)
+matmul_batched_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                      float* __restrict__ C, int M, int N, int K, long long lda, long long ldb,
+                      long long sa, long long sb) {
+  const long long z = blockIdx.z;
+  matmul_tile<float, float, float, false, false>(A + z * sa, B + z * sb, nullptr, nullptr,
+                                                 C + z * M * N, M, N, K, lda, ldb, 0, 0, EP_NONE);
 }
 
 // ---- the wide tile: 128x128 outputs a block, 8x8 a thread, k-step 16 ----
@@ -252,11 +279,12 @@ __device__ __forceinline__ void store_cmajor(float* S, const float (&r)[2][4], i
 // NK: B is [N, K]; KM: A is [K, M]. vec_a, vec_b: the operand's rows are
 // 16-byte aligned.
 template <typename TOut, bool NK, bool KM>
-__global__ void __launch_bounds__(THREADS, 2)
-matmul_wide_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                   const void* __restrict__ E, TOut* __restrict__ C, int M, int N, int K,
-                   long long lda, long long ldb, long long lde, int e_bf16, int epilogue,
-                   int vec_a, int vec_b) {
+__device__ __forceinline__ void matmul_wide_tile(const float* __restrict__ A,
+                                                 const float* __restrict__ B,
+                                                 const void* __restrict__ E, TOut* __restrict__ C,
+                                                 int M, int N, int K, long long lda,
+                                                 long long ldb, long long lde, int e_bf16,
+                                                 int epilogue, int vec_a, int vec_b) {
   __shared__ __align__(16) float As[2][WSTAGE];
   __shared__ __align__(16) float Bs[2][WSTAGE];
   // a warp is 4 x 8 threads: as fast as 2 x 16 on an H100 in three
@@ -329,10 +357,29 @@ matmul_wide_kernel(const float* __restrict__ A, const float* __restrict__ B,
   }
 }
 
+template <typename TOut, bool NK, bool KM>
+__global__ void __launch_bounds__(THREADS, 2)
+matmul_wide_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                   const void* __restrict__ E, TOut* __restrict__ C, int M, int N, int K,
+                   long long lda, long long ldb, long long lde, int e_bf16, int epilogue,
+                   int vec_a, int vec_b) {
+  matmul_wide_tile<TOut, NK, KM>(A, B, E, C, M, N, K, lda, ldb, lde, e_bf16, epilogue, vec_a,
+                                 vec_b);
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+matmul_batched_wide_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                           float* __restrict__ C, int M, int N, int K, long long lda,
+                           long long ldb, long long sa, long long sb, int vec_a, int vec_b) {
+  const long long z = blockIdx.z;
+  matmul_wide_tile<float, false, false>(A + z * sa, B + z * sb, nullptr, C + z * M * N, M, N, K,
+                                        lda, ldb, 0, 0, EP_NONE, vec_a, vec_b);
+}
+
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-gated_matmul_kernel(const T* __restrict__ A, const T* __restrict__ G, const T* __restrict__ U,
-                    T* __restrict__ C, int M, int N, int K, long long lda, long long ldb) {
+__device__ __forceinline__ void gated_tile(const T* __restrict__ A, const T* __restrict__ G,
+                                           const T* __restrict__ U, T* __restrict__ C, int M,
+                                           int N, int K, long long lda, long long ldb) {
   __shared__ float As[BM][BK + 1];
   __shared__ float Gs[BK][BN + 1];
   __shared__ float Us[BK][BN + 1];
@@ -384,6 +431,21 @@ gated_matmul_kernel(const T* __restrict__ A, const T* __restrict__ G, const T* _
       if (gn < N) C[(long long)gm * N + gn] = from_f32<T>(silu(accg[i][j]) * accu[i][j]);
     }
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+gated_matmul_kernel(const T* __restrict__ A, const T* __restrict__ G, const T* __restrict__ U,
+                    T* __restrict__ C, int M, int N, int K, long long lda, long long ldb) {
+  gated_tile<T>(A, G, U, C, M, N, K, lda, ldb);
+}
+
+__global__ void __launch_bounds__(THREADS)
+gated_matmul_batched_kernel(const float* __restrict__ A, const float* __restrict__ G,
+                            const float* __restrict__ U, float* __restrict__ C, int M, int N,
+                            int K, long long lda, long long ldb, long long sa, long long sb) {
+  const long long z = blockIdx.z;
+  gated_tile<float>(A + z * sa, G + z * sb, U + z * sb, C + z * M * N, M, N, K, lda, ldb);
 }
 
 // rows of a 16-byte aligned base and a leading dim of whole 16 bytes
@@ -475,6 +537,45 @@ extern "C" int repro_gated_matmul(const void* a, const void* g, const void* u, v
     gated_matmul_kernel<float><<<grid, THREADS, 0, s>>>(
         static_cast<const float*>(a), static_cast<const float*>(g), static_cast<const float*>(u),
         static_cast<float*>(c), M, N, K, lda, ldb);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The batched forms over E experts (`blockIdx.z`), f32: a [E, M, K], b (g,
+// u) [E, K, N] banks, row-major with row strides lda, ldb and expert
+// strides sa, sb; c [E, M, N] contiguous. tile: `f32_tile_plan`'s for one
+// expert's (M, K, N). bf16 goes to repro_*_batched_tc (matmul_tc.cu).
+extern "C" int repro_matmul_batched(const void* a, const void* b, void* c, int E, int M, int N,
+                                    int K, long long lda, long long ldb, long long sa,
+                                    long long sb, int tile, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (E > 0 && M > 0 && N > 0) {
+    const float* pa = static_cast<const float*>(a);
+    const float* pb = static_cast<const float*>(b);
+    float* pc = static_cast<float*>(c);
+    if (tile == 1) {
+      const dim3 grid((N + WB - 1) / WB, (M + WB - 1) / WB, E);
+      matmul_batched_wide_kernel<<<grid, THREADS, 0, s>>>(
+          pa, pb, pc, M, N, K, lda, ldb, sa, sb, aligned16(a, lda) && sa % 4 == 0,
+          aligned16(b, ldb) && sb % 4 == 0);
+    } else {
+      const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, E);
+      matmul_batched_kernel<<<grid, THREADS, 0, s>>>(pa, pb, pc, M, N, K, lda, ldb, sa, sb);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int repro_gated_matmul_batched(const void* a, const void* g, const void* u, void* c,
+                                          int E, int M, int N, int K, long long lda,
+                                          long long ldb, long long sa, long long sb,
+                                          void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (E > 0 && M > 0 && N > 0) {
+    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, E);
+    gated_matmul_batched_kernel<<<grid, THREADS, 0, s>>>(
+        static_cast<const float*>(a), static_cast<const float*>(g), static_cast<const float*>(u),
+        static_cast<float*>(c), M, N, K, lda, ldb, sa, sb);
   }
   return static_cast<int>(cudaGetLastError());
 }

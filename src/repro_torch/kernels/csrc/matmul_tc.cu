@@ -74,6 +74,17 @@
 // 192-wide tile takes M=1024 N=3072 from 1.45 waves to 1), each epilogue
 // unhidden, and each tile re-reads its A rows and B columns from L2.
 //
+// Batched forms (the MoE expert banks; the counterpart of the JAX package's
+// vmapped `matmul_tiled` and `gated_matmul_tiled`): one launch for E
+// experts, blockIdx.z the expert, a pointer offset an expert for A, B, U and
+// C on the mma.sync tiles, rank-3 TMA maps (columns, rows, experts) on the
+// wgmma tile. Each expert runs the tile plan the 2-D plan function picks
+// for its (M, K, N), the same code on its own operands, so an expert's
+// output is the 2-D kernel's on them, bit for bit. A decode step's bank
+// GEMM (M = 4 slots an expert) is bound by the bank's bytes: mixtral's
+// dual GEMM (2 x 8 x 6144 x 16384 bf16, 3.2 GB) takes at least 0.96 ms a
+// layer at 3.35 TB/s.
+//
 // Batch invariance: every plan of the three GEMMs sums each output in one
 // order, fixed by K alone: ceil(K / 16) k-steps of 16 in ascending order
 // from a zero f32 accumulator, steps past K skipped, no split of K across
@@ -126,7 +137,25 @@ struct Args {
   bool a_vec, b_vec;  // 16-byte aligned bases and a leading dim of 16 bytes' multiple
   const bf16* U = nullptr;   // the dual GEMM's Wu (B's row stride)
   const float* S = nullptr;  // the int8 weight's (N,) scale
+  // a batched launch (the expert banks): blockIdx.z is the expert, and sa,
+  // sb, sc one expert's elements of A, of B (and U) and of C
+  int batch = 1;
+  long long sa = 0, sb = 0, sc = 0;
 };
+
+// The operands of expert blockIdx.z of a batched launch: a pointer offset
+// each, so that an expert's blocks run the 2-D kernel's tile on its own
+// matrices and give that kernel's bits.
+template <typename TOut>
+__device__ __forceinline__ Args expert(const Args& p) {
+  const long long z = blockIdx.z;
+  Args q = p;
+  q.A = p.A + z * p.sa;
+  q.B = static_cast<const bf16*>(p.B) + z * p.sb;
+  if (p.U != nullptr) q.U = p.U + z * p.sb;
+  q.C = static_cast<TOut*>(p.C) + z * p.sc;
+  return q;
+}
 
 // silu(g) * u on the dual GEMM's f32 accumulators.
 __device__ __forceinline__ float glu(float g, float u) { return __fmul_rn(silu(g), u); }
@@ -406,14 +435,33 @@ mma_gated_matmul_kernel(Args p) {
   mma_tile<BM, BN, BK, WM, WN, STAGES, false, false, bf16, true, bf16>(p);
 }
 
+// The batched forms of both (a bank of row-major [K, N] bf16 weights, one
+// expert a blockIdx.z): the same tiles on each expert's operands.
+template <int BM, int BN, int BK, int WM, int WN, int STAGES, int MIN_BLOCKS, typename TOut>
+__global__ void __launch_bounds__((BM / WM) * (BN / WN) * 32, MIN_BLOCKS)
+mma_matmul_batched_kernel(Args p) {
+  mma_tile<BM, BN, BK, WM, WN, STAGES, false, false, bf16, false, TOut>(expert<TOut>(p));
+}
+
+template <int BM, int BN, int BK, int WM, int WN, int STAGES, int MIN_BLOCKS>
+__global__ void __launch_bounds__((BM / WM) * (BN / WN) * 32, MIN_BLOCKS)
+mma_gated_matmul_batched_kernel(Args p) {
+  mma_tile<BM, BN, BK, WM, WN, STAGES, false, false, bf16, true, bf16>(expert<bf16>(p));
+}
+
 template <int BM, int BN, int BK, int WM, int WN, int STAGES, int MIN_BLOCKS, bool A_KM,
-          bool B_NK, typename TOut, typename TB = bf16, bool GATED = false>
+          bool B_NK, typename TOut, typename TB = bf16, bool GATED = false, bool BATCHED = false>
 cudaError_t launch_plan(const Args& p, cudaStream_t s) {
   using T = Tiles<BM, BN, BK, A_KM, B_NK, TB>;
+  static_assert(!BATCHED || (!A_KM && !B_NK && !T::I8), "a batched launch reads bf16 banks");
   constexpr int SMEM = STAGES * (T::A_BYTES + T::B_BYTES);
   constexpr int THREADS = (BM / WM) * (BN / WN) * 32, BN_OUT = GATED ? BN / 2 : BN;
   void (*kernel)(Args);
-  if constexpr (GATED)
+  if constexpr (BATCHED && GATED)
+    kernel = mma_gated_matmul_batched_kernel<BM, BN, BK, WM, WN, STAGES, MIN_BLOCKS>;
+  else if constexpr (BATCHED)
+    kernel = mma_matmul_batched_kernel<BM, BN, BK, WM, WN, STAGES, MIN_BLOCKS, TOut>;
+  else if constexpr (GATED)
     kernel = mma_gated_matmul_kernel<BM, BN, BK, WM, WN, STAGES, MIN_BLOCKS>;
   else
     kernel = mma_matmul_kernel<BM, BN, BK, WM, WN, STAGES, MIN_BLOCKS, A_KM, B_NK, TOut, TB>;
@@ -421,7 +469,7 @@ cudaError_t launch_plan(const Args& p, cudaStream_t s) {
   static const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (attr != cudaSuccess) return attr;
-  const dim3 grid((p.M + BM - 1) / BM, (p.N + BN_OUT - 1) / BN_OUT);
+  const dim3 grid((p.M + BM - 1) / BM, (p.N + BN_OUT - 1) / BN_OUT, p.batch);
   kernel<<<grid, THREADS, SMEM, s>>>(p);
   return cudaGetLastError();
 }
@@ -435,13 +483,16 @@ cudaError_t launch_plan(const Args& p, cudaStream_t s) {
 // stage before are done, release that stage on its "empty" mbarrier. No
 // block-wide barrier in the k-loop. GATED (BN = 128 or 256): the dual
 // GEMM, whose B stage is BN / 2 columns of Wg (map_b) beside the same of
-// Wu (map_u); the block writes 128 x BN / 2 of H.
+// Wu (map_u); the block writes 128 x BN / 2 of H. BATCHED: the maps are
+// rank 3 (columns, rows, experts), and a block loads expert blockIdx.z's
+// boxes (a box of a flat 2-D map of E x rows would read into the next
+// expert's rows).
 constexpr int TMA_STAGES = 4, TMA_A = 128 * 64 * 2;  // bytes of an A stage
 
 template <int BN>
 constexpr int tma_smem() { return TMA_STAGES * (TMA_A + BN * 64 * 2) + 1024 + TMA_STAGES * 16; }
 
-template <int BN, bool A_KM, bool B_NK, bool GATED, typename TOut>
+template <int BN, bool A_KM, bool B_NK, bool GATED, typename TOut, bool BATCHED = false>
 __device__ __forceinline__ void tma_tile(const CUtensorMap& map_a, const CUtensorMap& map_b,
                                          const CUtensorMap& map_u, const Args& p) {
   constexpr int BK = 64, STAGES = TMA_STAGES, A_BYTES = TMA_A, B_BYTES = BN * BK * 2;
@@ -468,26 +519,31 @@ __device__ __forceinline__ void tma_tile(const CUtensorMap& map_a, const CUtenso
       for (int kt = 0; kt < kt_n; ++kt) {
         const int s = kt % STAGES, k0 = kt * BK;
         const uint32_t bar = full + 8 * s, a = As + s * A_BYTES, b = Bs + s * B_BYTES;
+        auto load = [&](uint32_t dst, const CUtensorMap* map, int c0, int c1) {
+          if constexpr (BATCHED)
+            repro::tma_load_3d(dst, map, bar, c0, c1, blockIdx.z);
+          else
+            repro::tma_load_2d(dst, map, bar, c0, c1);
+        };
         repro::mbar_wait(empty + 8 * s, ((kt / STAGES) & 1) ^ 1);
         repro::mbar_arrive_tx(bar, A_BYTES + B_BYTES);
         if (A_KM) {  // 64-wide atom columns along M, 8 KB each
-          repro::tma_load_2d(a, &map_a, bar, m0, k0);
-          repro::tma_load_2d(a + 8192, &map_a, bar, m0 + 64, k0);
+          load(a, &map_a, m0, k0);
+          load(a + 8192, &map_a, m0 + 64, k0);
         } else {
-          repro::tma_load_2d(a, &map_a, bar, k0, m0);
+          load(a, &map_a, k0, m0);
         }
         if (B_NK) {
-          repro::tma_load_2d(b, &map_b, bar, k0, n0);
+          load(b, &map_b, k0, n0);
         } else if (GATED) {  // BN / 2 columns of Wg, then the same of Wu
 #pragma unroll
           for (int c = 0; c < BN / 128; ++c) {
-            repro::tma_load_2d(b + 8192 * c, &map_b, bar, n0 + 64 * c, k0);
-            repro::tma_load_2d(b + 8192 * (BN / 128 + c), &map_u, bar, n0 + 64 * c, k0);
+            load(b + 8192 * c, &map_b, n0 + 64 * c, k0);
+            load(b + 8192 * (BN / 128 + c), &map_u, n0 + 64 * c, k0);
           }
         } else {
 #pragma unroll
-          for (int c = 0; c < BN / 64; ++c)
-            repro::tma_load_2d(b + 8192 * c, &map_b, bar, n0 + 64 * c, k0);
+          for (int c = 0; c < BN / 64; ++c) load(b + 8192 * c, &map_b, n0 + 64 * c, k0);
         }
       }
     }
@@ -558,15 +614,32 @@ tma_gated_matmul_kernel(const __grid_constant__ CUtensorMap map_a,
   tma_tile<BN, false, false, true, bf16>(map_a, map_g, map_u, p);
 }
 
+template <int BN, typename TOut>
+__global__ void __launch_bounds__(384, 1)
+tma_matmul_batched_kernel(const __grid_constant__ CUtensorMap map_a,
+                          const __grid_constant__ CUtensorMap map_b, Args p) {
+  tma_tile<BN, false, false, false, TOut, true>(map_a, map_b, map_b, expert<TOut>(p));
+}
+
+template <int BN>
+__global__ void __launch_bounds__(384, 1)
+tma_gated_matmul_batched_kernel(const __grid_constant__ CUtensorMap map_a,
+                                const __grid_constant__ CUtensorMap map_g,
+                                const __grid_constant__ CUtensorMap map_u, Args p) {
+  tma_tile<BN, false, false, true, bf16, true>(map_a, map_g, map_u, expert<bf16>(p));
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
 // A TMA map of a row-major bf16 matrix of `rows` x `cols` (row stride ld),
-// in boxes of box_rows x 64 columns, 128-byte swizzled, zero past its edge.
+// in boxes of box_rows x 64 columns, 128-byte swizzled, zero past its edge;
+// with batch > 0, of a bank of `batch` such matrices batch_ld elements
+// apart (rank 3, a box one matrix deep).
 cudaError_t make_map(CUtensorMap* map, const void* ptr, int rows, int cols, long long ld,
-                     int box_rows) {
+                     int box_rows, int batch = 0, long long batch_ld = 0) {
   // libcuda's own entry point (the runtime API has no tensor-map encoder),
   // from the copy the CUDA runtime has loaded
   static EncodeTiled encode = [] {
@@ -576,37 +649,48 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int rows, int cols, long
                           : reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
   }();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows}, steps[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
-                            strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+  const cuuint64_t batches = batch > 0 ? batch : 1;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, batches};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)batch_ld * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1}, steps[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, batch > 0 ? 3 : 2,
+                            const_cast<void*>(ptr), dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int BN, bool A_KM, bool B_NK, typename TOut, bool GATED = false>
+template <int BN, bool A_KM, bool B_NK, typename TOut, bool GATED = false, bool BATCHED = false>
 cudaError_t launch_tma(const Args& p, cudaStream_t s) {
+  static_assert(!BATCHED || (!A_KM && !B_NK), "a batched launch reads row-major banks");
   constexpr int SMEM = tma_smem<BN>(), BN_OUT = GATED ? BN / 2 : BN;
   const void* kernel;
-  if constexpr (GATED)
+  if constexpr (BATCHED && GATED)
+    kernel = reinterpret_cast<const void*>(tma_gated_matmul_batched_kernel<BN>);
+  else if constexpr (BATCHED)
+    kernel = reinterpret_cast<const void*>(tma_matmul_batched_kernel<BN, TOut>);
+  else if constexpr (GATED)
     kernel = reinterpret_cast<const void*>(tma_gated_matmul_kernel<BN>);
   else
     kernel = reinterpret_cast<const void*>(tma_matmul_kernel<BN, A_KM, B_NK, TOut>);
   static const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (attr != cudaSuccess) return attr;
+  const int nb = BATCHED ? p.batch : 0;  // rank-3 maps over the experts
   CUtensorMap map_a, map_b, map_u;
   cudaError_t err = A_KM ? make_map(&map_a, p.A, p.K, p.M, p.lda, 64)
-                         : make_map(&map_a, p.A, p.M, p.K, p.lda, 128);
+                         : make_map(&map_a, p.A, p.M, p.K, p.lda, 128, nb, p.sa);
   if (err == cudaSuccess)
     err = B_NK ? make_map(&map_b, p.B, p.N, p.K, p.ldb, BN)
-               : make_map(&map_b, p.B, p.K, p.N, p.ldb, 64);
-  if (err == cudaSuccess && GATED) err = make_map(&map_u, p.U, p.K, p.N, p.ldb, 64);
+               : make_map(&map_b, p.B, p.K, p.N, p.ldb, 64, nb, p.sb);
+  if (err == cudaSuccess && GATED) err = make_map(&map_u, p.U, p.K, p.N, p.ldb, 64, nb, p.sb);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.M + 127) / 128, (p.N + BN_OUT - 1) / BN_OUT);
-  if constexpr (GATED)
+  const dim3 grid((p.M + 127) / 128, (p.N + BN_OUT - 1) / BN_OUT, p.batch);
+  if constexpr (BATCHED && GATED)
+    tma_gated_matmul_batched_kernel<BN><<<grid, 384, SMEM, s>>>(map_a, map_b, map_u, p);
+  else if constexpr (BATCHED)
+    tma_matmul_batched_kernel<BN, TOut><<<grid, 384, SMEM, s>>>(map_a, map_b, p);
+  else if constexpr (GATED)
     tma_gated_matmul_kernel<BN><<<grid, 384, SMEM, s>>>(map_a, map_b, map_u, p);
   else
     tma_matmul_kernel<BN, A_KM, B_NK, TOut><<<grid, 384, SMEM, s>>>(map_a, map_b, p);
@@ -618,18 +702,23 @@ cudaError_t launch_tma(const Args& p, cudaStream_t s) {
 // block).
 enum Plan { ROWS16_N8 = 0, ROWS16_N32 = 1, WIDE = 2, WIDE192 = 3, ROWS16_N16 = 4, WIDE256 = 5 };
 
-template <bool A_KM, bool B_NK, typename TOut>
+// BATCHED: the batched GEMM (row-major banks), each expert on the plan the
+// 2-D GEMM takes for its (M, K, N).
+template <bool A_KM, bool B_NK, typename TOut, bool BATCHED = false>
 cudaError_t launch_layout(const Args& p, int plan, cudaStream_t s) {
+  using B = bf16;
   // TMA takes 16-byte aligned operands and K > 0; the narrow tile the rest
   const bool tma = p.a_vec && p.b_vec && p.K > 0;
   switch (plan) {
-    case ROWS16_N8: return launch_plan<16, 8, 256, 16, 8, 4, 4, A_KM, B_NK, TOut>(p, s);
-    case ROWS16_N32: return launch_plan<16, 32, 128, 16, 32, 4, 4, A_KM, B_NK, TOut>(p, s);
-    case WIDE: if (tma) return launch_tma<128, A_KM, B_NK, TOut>(p, s); break;
-    case WIDE192: if (tma) return launch_tma<192, A_KM, B_NK, TOut>(p, s); break;
+    case ROWS16_N8:
+      return launch_plan<16, 8, 256, 16, 8, 4, 4, A_KM, B_NK, TOut, B, false, BATCHED>(p, s);
+    case ROWS16_N32:
+      return launch_plan<16, 32, 128, 16, 32, 4, 4, A_KM, B_NK, TOut, B, false, BATCHED>(p, s);
+    case WIDE: if (tma) return launch_tma<128, A_KM, B_NK, TOut, false, BATCHED>(p, s); break;
+    case WIDE192: if (tma) return launch_tma<192, A_KM, B_NK, TOut, false, BATCHED>(p, s); break;
     default: return cudaErrorInvalidValue;
   }
-  return launch_plan<128, 64, 64, 64, 32, 3, 2, A_KM, B_NK, TOut>(p, s);
+  return launch_plan<128, 64, 64, 64, 32, 3, 2, A_KM, B_NK, TOut, B, false, BATCHED>(p, s);
 }
 
 // The int8-weight GEMM: the decode tile 8 or 16 columns wide, else the
@@ -648,15 +737,25 @@ cudaError_t launch_q(const Args& p, int plan, cudaStream_t s) {
 // The dual GEMM: the decode tile with 16 columns of each weight, the
 // TMA + wgmma tile with 64 (WIDE) or 128 (WIDE256) of each, or (an operand
 // TMA cannot take, K = 0) a 128-row mma.sync tile with 32 of each.
+// BATCHED: its batched form over banks of Wg and Wu.
+template <bool BATCHED = false>
 cudaError_t launch_gated(const Args& p, int plan, cudaStream_t s) {
+  using B = bf16;
   const bool tma = p.a_vec && p.b_vec && p.K > 0;
   switch (plan) {
-    case ROWS16_N16: return launch_plan<16, 32, 128, 16, 32, 4, 4, false, false, bf16, bf16, true>(p, s);
-    case WIDE: if (tma) return launch_tma<128, false, false, bf16, true>(p, s); break;
-    case WIDE256: if (tma) return launch_tma<256, false, false, bf16, true>(p, s); break;
+    case ROWS16_N16:
+      return launch_plan<16, 32, 128, 16, 32, 4, 4, false, false, B, B, true, BATCHED>(p, s);
+    case WIDE: if (tma) return launch_tma<128, false, false, B, true, BATCHED>(p, s); break;
+    case WIDE256: if (tma) return launch_tma<256, false, false, B, true, BATCHED>(p, s); break;
     default: return cudaErrorInvalidValue;
   }
-  return launch_plan<128, 64, 64, 32, 64, 3, 2, false, false, bf16, bf16, true>(p, s);
+  return launch_plan<128, 64, 64, 32, 64, 3, 2, false, false, B, B, true, BATCHED>(p, s);
+}
+
+// a 16-byte aligned base, and row and expert strides of whole 16 bytes (a
+// bank of stride 0, one matrix for every expert, takes no TMA map)
+bool vec16(const void* p, long long ld, long long sz) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && ld % 8 == 0 && sz % 8 == 0 && sz != 0;
 }
 
 template <typename TOut>
@@ -715,4 +814,33 @@ extern "C" int repro_gated_matmul_tc(const void* a, const void* g, const void* u
              ldb % 8 == 0};
   p.U = static_cast<const bf16*>(u);
   return static_cast<int>(launch_gated(p, plan, s));
+}
+
+// The batched forms over E experts (`blockIdx.z`): a bf16 [E, M, K], b (and
+// u) bf16 [E, K, N] banks, row-major with row strides lda, ldb and expert
+// strides sa, sb; c bf16 [E, M, N] contiguous. c[e] = a[e] b[e] (no
+// epilogue); h[e] = silu(a[e] g[e]) * (a[e] u[e]). plan: the instance
+// `tile_plan` (`gated_tile_plan`) chose for one expert's (M, K, N).
+extern "C" int repro_matmul_batched_tc(const void* a, const void* b, void* c, int E, int M, int N,
+                                       int K, long long lda, long long ldb, long long sa,
+                                       long long sb, int plan, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (E == 0 || M == 0 || N == 0) return static_cast<int>(cudaGetLastError());
+  Args p{static_cast<const bf16*>(a), b, nullptr, c, M, N, K, lda, ldb, 0, 0, EP_NONE,
+         vec16(a, lda, sa), vec16(b, ldb, sb)};
+  p.batch = E, p.sa = sa, p.sb = sb, p.sc = (long long)M * N;
+  return static_cast<int>(launch_layout<false, false, bf16, true>(p, plan, s));
+}
+
+extern "C" int repro_gated_matmul_batched_tc(const void* a, const void* g, const void* u, void* h,
+                                             int E, int M, int N, int K, long long lda,
+                                             long long ldb, long long sa, long long sb, int plan,
+                                             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (E == 0 || M == 0 || N == 0) return static_cast<int>(cudaGetLastError());
+  Args p{static_cast<const bf16*>(a), g, nullptr, h, M, N, K, lda, ldb, 0, 0, EP_NONE,
+         vec16(a, lda, sa), vec16(g, ldb, sb) && vec16(u, ldb, sb)};
+  p.U = static_cast<const bf16*>(u);
+  p.batch = E, p.sa = sa, p.sb = sb, p.sc = (long long)M * N;
+  return static_cast<int>(launch_gated<true>(p, plan, s));
 }

@@ -310,4 +310,14 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map, uint3
       ::"r"(dst), "l"(map), "r"(bar), "r"(c0), "r"(c1) : "memory");
 }
 
+// The same from a rank-3 map (columns, rows, a batch index c2: one
+// expert's matrix of a bank).
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map, uint32_t bar, int c0,
+                                            int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n"
+      ::"r"(dst), "l"(map), "r"(bar), "r"(c0), "r"(c1), "r"(c2) : "memory");
+}
+
 }  // namespace repro

@@ -6,7 +6,12 @@ on the FMA kernels (`csrc/matmul.cu`).
 `matmul_q_tiled` ``epilogue((A @ Wq) * scale)`` for an int8 [K, N] Wq and
 its (N,) per-channel scale, and `gated_matmul_tiled`
 ``silu(A @ Wg) * (A @ Wu)``; they replace the Pallas kernels of the same
-names in the JAX package. Each takes tensors on the
+names in the JAX package. `matmul_batched_tiled` and
+`gated_matmul_batched_tiled` are the batched forms of the GEMM and the
+dual GEMM over a bank of E row-major matrices (the MoE expert banks), one
+launch for all E where the JAX package vmaps its kernels over the
+experts: each expert runs the 2-D kernel's tile plan for its (M, K, N),
+so its output is the 2-D kernel's on its operands, bit for bit. Each takes tensors on the
 card and launches its kernel, or raises: the CPU path is the plain
 version in `kernels.ref`, chosen by `kernels.ops` for CPU tensors.
 
@@ -44,6 +49,10 @@ _SIGNATURES = {
     "repro_matmul_q": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _I, _I,
                        _I, _P],
     "repro_gated_matmul": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _P],
+    "repro_matmul_batched": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _I,
+                             _P],
+    "repro_gated_matmul_batched": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L,
+                                   _L, _L, _P],
 }
 _TC_SIGNATURES = {
     "repro_matmul_tc": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _I, _I, _I,
@@ -51,11 +60,16 @@ _TC_SIGNATURES = {
     "repro_matmul_q_tc": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _I, _I,
                           _I, _I, _P],
     "repro_gated_matmul_tc": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _P],
+    "repro_matmul_batched_tc": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L,
+                                _I, _P],
+    "repro_gated_matmul_batched_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L,
+                                      _L, _L, _I, _P],
 }
 _DTYPES = (torch.float32, torch.bfloat16)
 
 #: Kernel launches, counted where each wrapper launches its kernel.
-LAUNCHES = {"matmul": 0, "matmul_q": 0, "gated_matmul": 0}
+LAUNCHES = {"matmul": 0, "matmul_q": 0, "gated_matmul": 0,
+            "matmul_batched": 0, "gated_matmul_batched": 0}
 
 
 def _lib():
@@ -324,4 +338,92 @@ def gated_matmul_tiled(a: torch.Tensor, w_gate: torch.Tensor,
         err = _lib().repro_gated_matmul(*operands, _build.stream_ptr(a.device))
     LAUNCHES["gated_matmul"] += 1
     _build.check(err, "gated_matmul_tiled")
+    return c
+
+
+#: The most experts one batched launch takes (blockIdx.z).
+MAX_EXPERTS = 65535
+
+
+def _check_bank(x: torch.Tensor, name: str, e: int) -> None:
+    """x must be an (e, R, C) bank of row-major matrices: a contiguous last
+    dim, each matrix's rows one stride apart and the matrices another."""
+    if x.dim() != 3 or x.shape[0] != e:
+        raise ValueError(f"{name} must be a bank of {e} matrices (E, R, C), "
+                         f"got shape {tuple(x.shape)}")
+    if x.stride(2) != 1:
+        raise ValueError(f"{name}'s matrices must be row-major, got strides "
+                         f"{x.stride()}")
+
+
+def _check_batch(a: torch.Tensor, ws, what: str) -> int:
+    e = a.shape[0] if a.dim() == 3 else -1
+    for name, x in (("A", a), *ws):
+        _check_bank(x, name, e)
+    if e > MAX_EXPERTS:
+        raise ValueError(f"{what}: at most {MAX_EXPERTS} experts a launch, "
+                         f"got {e}")
+    _check_dtype(a.dtype, "A")
+    for name, w in ws:
+        if w.dtype != a.dtype:
+            raise TypeError(f"A is {a.dtype} but {name} is {w.dtype}")
+    _check_cuda(a, *(w for _, w in ws))
+    return e
+
+
+def matmul_batched_tiled(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C[e] = A[e] @ B[e] on the card, in A's dtype, for a bank A (E, M, K)
+    and a bank B (E, K, N) of row-major matrices: one launch, an expert a
+    blockIdx.z, each on the plan `tile_plan` (bf16) or `f32_tile_plan`
+    (f32) picks for (M, K, N)."""
+    e = _check_batch(a, (("B", b),), "matmul_batched_tiled")
+    _, m, k = a.shape
+    if b.shape[1] != k:
+        raise ValueError(f"shapes {tuple(a.shape)} @ {tuple(b.shape)}")
+    n = b.shape[2]
+    c = torch.empty((e, m, n), dtype=a.dtype, device=a.device)
+    operands = (a.data_ptr(), b.data_ptr(), c.data_ptr(), e, m, n, k,
+                a.stride(1), b.stride(1), a.stride(0), b.stride(0))
+    if a.dtype == torch.bfloat16:        # the tensor cores
+        err = _tc_lib().repro_matmul_batched_tc(
+            *operands, tile_plan(m, k, n, False, False).kernel,
+            _build.stream_ptr(a.device))
+    else:                                # f32: the FMA kernels
+        err = _lib().repro_matmul_batched(
+            *operands, f32_tile_plan(m, k, n).kernel,
+            _build.stream_ptr(a.device))
+    LAUNCHES["matmul_batched"] += 1
+    _build.check(err, "matmul_batched_tiled")
+    return c
+
+
+def gated_matmul_batched_tiled(a: torch.Tensor, w_gate: torch.Tensor,
+                               w_up: torch.Tensor) -> torch.Tensor:
+    """H[e] = silu(A[e] @ Wg[e]) * (A[e] @ Wu[e]) on the card, in A's dtype,
+    for a bank A (E, M, K) and banks Wg, Wu (E, K, N) of one layout: one
+    launch, an expert a blockIdx.z, each on the plan `gated_tile_plan`
+    picks for (M, K, N) (bf16; f32 takes the FMA kernel)."""
+    e = _check_batch(a, (("w_gate", w_gate), ("w_up", w_up)),
+                     "gated_matmul_batched_tiled")
+    _, m, k = a.shape
+    if w_gate.shape != w_up.shape or w_gate.shape[1] != k:
+        raise ValueError(f"shapes {tuple(a.shape)}, {tuple(w_gate.shape)}, "
+                         f"{tuple(w_up.shape)}")
+    if w_gate.stride() != w_up.stride():
+        raise ValueError(f"w_gate and w_up must share their strides, got "
+                         f"{w_gate.stride()} and {w_up.stride()}")
+    n = w_gate.shape[2]
+    c = torch.empty((e, m, n), dtype=a.dtype, device=a.device)
+    operands = (a.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
+                c.data_ptr(), e, m, n, k, a.stride(1), w_gate.stride(1),
+                a.stride(0), w_gate.stride(0))
+    if a.dtype == torch.bfloat16:        # the tensor cores
+        err = _tc_lib().repro_gated_matmul_batched_tc(
+            *operands, gated_tile_plan(m, k, n).kernel,
+            _build.stream_ptr(a.device))
+    else:                                # f32: the FMA kernel
+        err = _lib().repro_gated_matmul_batched(
+            *operands, _build.stream_ptr(a.device))
+    LAUNCHES["gated_matmul_batched"] += 1
+    _build.check(err, "gated_matmul_batched_tiled")
     return c

@@ -9,6 +9,9 @@ there is no fallback from a failing kernel to its plain version.
     matmul              matmul.matmul_tiled                  ref.fused_matmul_ref
     matmul_q            matmul.matmul_q_tiled                ref.matmul_q_ref
     gated_matmul        matmul.gated_matmul_tiled            ref.gated_matmul_ref
+    matmul_batched      matmul.matmul_batched_tiled          ref.matmul_batched_ref
+    gated_matmul_batched
+                        matmul.gated_matmul_batched_tiled    ref.gated_matmul_batched_ref
     flash_decode        flash_attention.flash_decode         ref.attention_fwd_ref
                                                              (ref.decode_rows_ref)
     flash_decode_paged  flash_attention.flash_decode_paged   ref.flash_decode_paged_ref
@@ -143,6 +146,36 @@ def gated_matmul(a: torch.Tensor, w_gate: torch.Tensor,
     if _on_card(a):
         return _mm.gated_matmul_tiled(a, w_gate, w_up)
     return _ref.gated_matmul_ref(a, w_gate, w_up)
+
+
+def _check_banks(a, *ws) -> None:
+    """a (E, M, K) against banks (E, K, N) of one shape."""
+    if a.dim() != 3 or any(w.dim() != 3 or w.shape != ws[0].shape
+                           for w in ws) or ws[0].shape[0] != a.shape[0] \
+            or ws[0].shape[1] != a.shape[2]:
+        raise ValueError(f"a bank GEMM takes a (E, M, K) against (E, K, N) "
+                         f"banks, got {tuple(a.shape)} and "
+                         f"{[tuple(w.shape) for w in ws]}")
+
+
+def matmul_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a[e] @ b[e] for a (E, M, K) and a bank b (E, K, N), in a's dtype:
+    the expert banks' GEMM, one launch for all E experts."""
+    _check_banks(a, b)
+    if _on_card(a):
+        return _mm.matmul_batched_tiled(a, b)
+    return _ref.matmul_batched_ref(a, b)
+
+
+def gated_matmul_batched(a: torch.Tensor, w_gate: torch.Tensor,
+                         w_up: torch.Tensor) -> torch.Tensor:
+    """silu(a[e] @ w_gate[e]) * (a[e] @ w_up[e]) for a (E, M, K) and banks
+    (E, K, N), in a's dtype: the experts' SwiGLU hidden phase, one launch
+    for all E."""
+    _check_banks(a, w_gate, w_up)
+    if _on_card(a):
+        return _mm.gated_matmul_batched_tiled(a, w_gate, w_up)
+    return _ref.gated_matmul_batched_ref(a, w_gate, w_up)
 
 
 def _check_decode_q(q: torch.Tensor, n_valid) -> None:

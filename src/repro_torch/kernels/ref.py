@@ -80,6 +80,20 @@ def gated_matmul_ref(a, w_gate, w_up) -> torch.Tensor:
     return (F.silu(g) * u).to(a.dtype)
 
 
+def matmul_batched_ref(a, b) -> torch.Tensor:
+    """C[e] = A[e] @ B[e] for banks A (E, M, K) and B (E, K, N): the batched
+    GEMM's plain version, each expert's product accumulated in f32 and
+    rounded once to A's dtype."""
+    return matmul_ref(a, b)
+
+
+def gated_matmul_batched_ref(a, w_gate, w_up) -> torch.Tensor:
+    """silu(A[e] @ Wg[e]) * (A[e] @ Wu[e]) for banks A (E, M, K) and Wg, Wu
+    (E, K, N): the batched dual GEMM's plain version, f32 accumulation and
+    one rounding to A's dtype."""
+    return gated_matmul_ref(a, w_gate, w_up)
+
+
 def add_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a + b
 

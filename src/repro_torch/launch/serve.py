@@ -26,6 +26,13 @@ page pool or int8 pages:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
         --requests 8 --max-slots 4 --prompt-len-min 64 --prompt-len-max 512
 
+The moe family (mixtral-8x22b, arctic-480b) at its reduced size; at full
+width and depth neither fits one card (chip_smoke.py serves them at a
+cut depth), and a moe target takes no draft:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \
+        --reduced --device cpu --requests 4 --max-slots 2 --kv-layout paged
+
 Bursty arrivals with two priority levels, deadlines 2 s after arrival and
 a temperature sampler over the 50 likeliest tokens:
 

@@ -1,5 +1,5 @@
-"""Top-level model API of the port, families `dense`, `vlm`, `ssm` and
-`hybrid`:
+"""Top-level model API of the port, families `dense`, `vlm`, `moe`, `ssm`
+and `hybrid`:
 
     params = init_params(cfg, generator, device)
     qparams = quantize_params(params)          # int8 dense weights
@@ -26,15 +26,19 @@ Params carry the keys, shapes, scales and param_dtype of the JAX
 package's `init_params`; `repro_torch.bridge` converts those leaf for
 leaf. Caches are updated in place (see models.attention). The vlm
 family (Qwen2-VL's text decoder) is the dense family's stack with QKV
-biases and M-RoPE, on the same caches and steps. The ssm
+biases and M-RoPE, on the same caches and steps. The moe family
+(Mixtral, Arctic) is the dense family's stack with a mixture-of-experts
+FFN in each block (models.moe), on the same caches and steps; its
+router losses come from `forward(..., aux={})`. The ssm
 family's cache is its recurrent state: the SSD state and the two conv
 tails of every layer. The hybrid family (Zamba2) keeps that state for
 each Mamba layer, stacked (n_seg, attn_every, B, ...), beside the
 shared attention block's KV cache of each segment, (n_seg, B, Tmax,
 Hkv, Dh). Both serve (prefill, decode_step) on dense caches, with float
-or int8 weights; the page pool and the verify step are the dense
-family's only. All three families train (forward, loss_fn), each layer
-rematerialised in the backward as `cfg.remat` says (models.transformer).
+or int8 weights; the page pool and the verify step are the KV
+families' only. The dense, ssm and hybrid families train (forward,
+loss_fn), each layer rematerialised in the backward as `cfg.remat` says
+(models.transformer).
 """
 
 from __future__ import annotations
@@ -51,17 +55,18 @@ from repro_torch.models import transformer as T
 
 #: The families whose cache is attention KV alone: they take a page pool
 #: and a verify step.
-KV_FAMILIES = ("dense", "vlm")
+KV_FAMILIES = ("dense", "vlm", "moe")
 
 
 def _check_family(cfg) -> None:
     hybrid = (cfg.family == "hybrid" and cfg.ssm is not None
               and cfg.mlp == "swiglu" and cfg.attn_every > 0
               and cfg.n_layers % cfg.attn_every == 0)
+    kv = cfg.family in KV_FAMILIES and cfg.mlp == "swiglu" \
+        and (cfg.moe is not None) == (cfg.family == "moe")
     if cfg.norm != "rms" or not (
-            (cfg.family in KV_FAMILIES and cfg.mlp == "swiglu")
-            or (cfg.family == "ssm" and cfg.ssm is not None) or hybrid):
-        raise ValueError(f"the port serves dense and vlm swiglu/rms "
+            kv or (cfg.family == "ssm" and cfg.ssm is not None) or hybrid):
+        raise ValueError(f"the port serves dense, vlm and moe swiglu/rms "
                          f"decoders, rms Mamba-2 stacks (ssm) and Mamba-2 "
                          f"stacks in whole segments with a shared swiglu "
                          f"block (hybrid), not {cfg.name} ({cfg.family})")
@@ -91,7 +96,9 @@ def init_params(cfg, generator: torch.Generator, device=None) -> Dict[str, Any]:
 
 
 #: Param subtrees never quantized: the embedding is gathered, and the
-#: tied logits attend through it (the router has no served arch yet).
+#: tied logits attend through it; the MoE router is a small f32 GEMM whose
+#: top-k decides the routing, so a quantization step there would reroute
+#: tokens.
 QUANT_EXCLUDE = ("embed", "router")
 
 
@@ -104,7 +111,9 @@ def quantize_params(params):
     mamba2 model's 3D stacks and lm_head are quantized; a hybrid's
     (n_seg, attn_every, K, N) Mamba stacks are 4D and stay float, so
     its shared block, the block's input projection and lm_head are;
-    raw arrays (the hybrid's lora_a / lora_b) stay float."""
+    raw arrays (the hybrid's lora_a / lora_b, the MoE expert banks) stay
+    float, and so does the f32 router; Arctic's dense branch is
+    quantized."""
 
     def rec(node, name):
         if isinstance(node, dict):
@@ -219,13 +228,15 @@ def _logits(cfg, params, x):
 TRAIN_FAMILIES = ("dense", "ssm", "hybrid")
 
 
-def forward(cfg, params, batch):
+def forward(cfg, params, batch, aux=None):
     """Full-sequence f32 logits (B, T, padded_vocab) of batch["tokens"]
     (B, T), the pad classes masked to -1e30: the training forward, with
-    cache-less causal attention (dense and vlm, at batch["positions"]
-    where given, and the hybrid's shared block) and the Mamba-2 layers'
-    scans from a zero state (ssm, hybrid). (The JAX package's `forward`
-    also returns an aux dict, which is empty for these families.)"""
+    cache-less causal attention (dense, vlm and moe, at
+    batch["positions"] where given, and the hybrid's shared block) and
+    the Mamba-2 layers' scans from a zero state (ssm, hybrid). aux: a
+    dict that a moe model fills with the aux dict the JAX package's
+    `forward` returns (its router losses and dropped fraction; empty for
+    the other families), or None to compute none of it."""
     x = _embed_inputs(cfg, params, batch)
     if cfg.family == "ssm":
         x, _ = T.ssm_stack_apply(params["layers"], x, cfg)
@@ -233,14 +244,21 @@ def forward(cfg, params, batch):
         x, _, _ = T.hybrid_apply(params["hybrid"], x, cfg, emb0=x)
     else:
         x, _ = T.stack_apply(params["layers"], x, cfg,
-                             positions=batch.get("positions"))
+                             positions=batch.get("positions"), aux=aux)
     return _logits(cfg, params, x)
 
 
 def loss_fn(cfg, params, batch):
     """Mean next-token cross entropy over the labels >= 0 of
     batch["labels"] (B, T) (-1: no label), from an f32 log-softmax over
-    the padded vocab. Returns (loss, {"ce_loss", "tokens", "loss"})."""
+    the padded vocab. Returns (loss, {"ce_loss", "tokens", "loss"}). A
+    moe model is refused: the reference adds its router losses to the
+    loss, which comes with moe training."""
+    if cfg.family == "moe":
+        raise NotImplementedError(
+            f"loss_fn of {cfg.name}: a moe loss carries the router's aux "
+            f"losses (forward(..., aux={{}}) computes them); moe training "
+            f"is not ported yet")
     logits = forward(cfg, params, batch)
     labels = batch["labels"].long()
     valid = labels >= 0
@@ -313,9 +331,12 @@ def verify_step(cfg, params, tokens, pos, n_tok, cache):
     row j scores the token at pos + j + 1. Its attention is the decode
     kernel's multi-row form, so row j and the cache rows it writes are
     those of a decode step at pos + j, bit for bit, as its GEMMs' rows
-    are at any row count. vlm: row j turned by t = h = w = pos + j. The
-    dense and vlm families only, as the JAX package's `verify_step`
-    refuses the families that keep a recurrent state."""
+    are at any row count. vlm: row j turned by t = h = w = pos + j. moe:
+    the B * t tokens route as one group, where an expert's capacity can
+    drop some of them, as the reference's verify step routes them (so a
+    moe row is a decode step's only where nothing is dropped). The KV
+    families only, as the JAX package's `verify_step` refuses the
+    families that keep a recurrent state."""
     if cfg.family not in KV_FAMILIES:
         raise ValueError(f"speculative verification needs an attention "
                          f"cache alone (families {KV_FAMILIES}), not "

@@ -1,6 +1,7 @@
 """The decoder stacks: pre-norm blocks of attention and a SwiGLU MLP
-(family dense), pre-norm Mamba-2 blocks (family ssm), and Zamba2's
-Mamba-2 backbone with one shared attention block (family hybrid).
+(family dense) or a mixture-of-experts FFN (family moe, `models.moe`),
+pre-norm Mamba-2 blocks (family ssm), and Zamba2's Mamba-2 backbone with
+one shared attention block (family hybrid).
 
 Params are stacked with a leading layer dim, as the JAX package's
 `stack_init` builds them, and `stack_apply` loops over that dim in
@@ -30,6 +31,7 @@ from repro_torch.core.tree import leaves, tree_map
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 
 
@@ -50,23 +52,34 @@ def _norm_init(cfg, device):
                           device=device)
 
 
-def block_init(generator, cfg, *, device):
-    return {
+def block_init(generator, cfg, *, device, banks=True):
+    """banks=False: a moe block without its expert banks (`stack_init`
+    draws them stacked)."""
+    p = {
         "attn_norm": _norm_init(cfg, device),
         "attn": A.attn_init(generator, cfg, device=device),
         "mlp_norm": _norm_init(cfg, device),
-        "mlp": F.mlp_init(generator, cfg, device=device),
     }
+    if cfg.moe is not None:
+        p["moe"] = M.moe_init(generator, cfg, device=device, banks=banks)
+    else:
+        p["mlp"] = F.mlp_init(generator, cfg, device=device)
+    return p
 
 
 def block_apply(p, x, cfg, *, cache=None, cache_pos=None, kv_table=None,
-                n_valid=None, positions=None):
-    """Returns (x, cache). positions: RoPE positions (attn_apply)."""
+                n_valid=None, positions=None, aux=None):
+    """Returns (x, cache). positions: RoPE positions (attn_apply); aux: a
+    dict a moe block adds its router losses into (models.moe)."""
     h, cache = A.attn_apply(p["attn"], L.rmsnorm_apply(p["attn_norm"], x),
                             cfg, cache=cache, cache_pos=cache_pos,
                             kv_table=kv_table, n_valid=n_valid,
                             positions=positions)
     x = x + h
+    if cfg.moe is not None:
+        # added after the MoE, as the reference adds it (no flush to ride)
+        return x + M.moe_apply(p["moe"], L.rmsnorm_apply(p["mlp_norm"], x),
+                               cfg, aux=aux), cache
     # the skip connection rides the down-projection's flush (residual)
     out = F.mlp_apply(p["mlp"], L.rmsnorm_apply(p["mlp_norm"], x), cfg,
                       residual=x)
@@ -74,9 +87,15 @@ def block_apply(p, x, cfg, *, cache=None, cache_pos=None, kv_table=None,
 
 
 def stack_init(generator, cfg, *, device):
-    layers = [block_init(generator, cfg, device=device)
+    """The layers' params stacked; a moe stack's expert banks are drawn
+    stacked after the rest (`moe.bank_init`), never copied."""
+    layers = [block_init(generator, cfg, device=device, banks=False)
               for _ in range(cfg.n_layers)]
-    return _stack(layers)
+    p = _stack(layers)
+    if cfg.moe is not None:
+        p["moe"].update(M.bank_init(generator, cfg, device=device,
+                                    n_layers=cfg.n_layers))
+    return p
 
 
 def _stack(trees):
@@ -95,13 +114,16 @@ def _unstack(tree, n):
 
 
 def stack_apply(params, x, cfg, *, caches=None, cache_pos=None,
-                kv_table=None, n_valid=None, positions=None):
+                kv_table=None, n_valid=None, positions=None, aux=None):
     """Returns (x, caches). Without caches this is the training forward
     (cache-less causal attention). kv_table (paged decode) has no layer
     dim: a logical page is the same physical page in every layer's pool,
     so every layer gets the same table. n_valid: a verify step's real
     tokens a slot; positions: the tokens' RoPE positions, (B, T) or
-    (B, T, 3), None for the default (models.attention.attn_apply)."""
+    (B, T, 3), None for the default (models.attention.attn_apply). aux: a
+    dict that a moe stack fills with its router losses summed over the
+    layers and the dropped fraction averaged over them, as the
+    reference's stack returns them."""
     n = params["attn_norm"]["scale"].shape[0]
     layers = _unstack(params, n)
     per_cache = [None] * n if caches is None else _unstack(caches, n)
@@ -109,12 +131,15 @@ def stack_apply(params, x, cfg, *, caches=None, cache_pos=None,
     def body(lp, xc, cache):
         return block_apply(lp, xc, cfg, cache=cache, cache_pos=cache_pos,
                            kv_table=kv_table, n_valid=n_valid,
-                           positions=positions)[0]
+                           positions=positions, aux=aux)[0]
 
-    if caches is None:
+    if caches is None and aux is None:
+        # (a recompute would add a layer's aux twice)
         body = _maybe_remat(body, cfg, params)
     for i in range(n):
         x = body(layers[i], x, per_cache[i])
+    if aux is not None and "moe_dropped_frac" in aux:
+        aux["moe_dropped_frac"] = aux["moe_dropped_frac"] / cfg.n_layers
     return x, caches
 
 

@@ -92,8 +92,14 @@ block's KV cache of every segment, written at pos as the dense family's
 verify step apply either. A leaf's slot axis is where the engine's cache
 and the one-slot sub-cache differ (axis 2 of a hybrid's Mamba leaves,
 axis 1 of the rest), and admission copies each leaf along its own.
-Family vlm (Qwen2-VL's text decoder) takes every path of the dense
-family: a text request's prompt is prefilled at plain positions and
+Family moe (Mixtral, Arctic) takes the dense family's paths, the page
+pools and int8 weights included (its f32 router and expert banks stay
+unquantized, as in the JAX engine); a speculative engine with a moe
+target is refused. At 4 slots or fewer a decode step routes at most 4
+tokens to an expert, within its capacity of at least 4, so no decode
+token is dropped and a stream is its request alone. Family vlm
+(Qwen2-VL's text decoder) takes every path of the dense family: a text
+request's prompt is prefilled at plain positions and
 each later token turned by t = h = w = pos (models.model), which is
 plain RoPE, as in the JAX engine; neither engine takes patch
 embeddings in a request.
@@ -266,6 +272,12 @@ class ServingEngine:
                 raise ValueError(
                     f"speculative decoding needs a verify-capable target "
                     f"{M.KV_FAMILIES}, not {cfg.family!r}")
+            if cfg.family == "moe":
+                raise ValueError(
+                    f"speculative decoding with a moe target ({cfg.name}) is "
+                    f"not served yet: its verify step routes the slots' "
+                    f"k + 1 tokens as one group, where an expert's capacity "
+                    f"can drop a token that a decode step keeps")
             draft_cfg, draft_params = draft
             if draft_cfg.vocab != cfg.vocab:
                 raise ValueError(

@@ -22,17 +22,24 @@ WARMUP_RUNS = 2
 
 
 #: The leaves `place_params` casts to the compute dtype: float matrix
-#: weights, and a hybrid's LoRA pairs.
-_CAST = ("w", "lora_a", "lora_b")
+#: weights, a hybrid's LoRA pairs and the MoE expert banks (raw tensors
+#: under the keys a SwiGLU MLP keeps its weight dicts at).
+_CAST = ("w", "lora_a", "lora_b", "w_gate", "w_up", "w_down")
+#: The subtrees it leaves in their own dtype: the MoE router, which the
+#: reference runs in f32 on f32 activations.
+_KEEP = ("router",)
 
 
 def place_params(tree, device, dtype):
-    """The params on `device`, float matrix weights ("w" leaves, and a
-    hybrid's "lora_a" / "lora_b") in the compute dtype; norm scales and
-    the int8 weights' leaves ("w_q" int8, "w_scale" f32) as they are.
-    The JAX package casts each weight to the activation dtype on every
-    call; casting once here gives the same values."""
-    return {k: place_params(v, device, dtype) if isinstance(v, dict)
+    """The params on `device`, float matrix weights ("w" leaves, a
+    hybrid's "lora_a" / "lora_b", the MoE banks) in the compute dtype;
+    norm scales, the int8 weights' leaves ("w_q" int8, "w_scale" f32) and
+    the MoE router as they are. The JAX package casts each weight to the
+    activation dtype on every call (the router's to f32); casting once
+    here gives the same values."""
+    return {k: (on_device(v, device) if k in _KEEP
+                else place_params(v, device, dtype))
+            if isinstance(v, dict)
             else v.to(device, dtype if k in _CAST else v.dtype)
             for k, v in tree.items()}
 

@@ -867,6 +867,9 @@ def test_each_wrapper_counts_one_launch(dev):
     ops.matmul(a, w)
     ops.matmul_q(a, w.to(torch.int8), torch.ones(5, device=dev))
     ops.gated_matmul(a, w, w)
+    ops.matmul_batched(a[None].expand(2, 3, 8), w[None].expand(2, 8, 5))
+    ops.gated_matmul_batched(a[None].expand(2, 3, 8), w[None].expand(2, 8, 5),
+                             w[None].expand(2, 8, 5))
     q = torch.ones(1, 1, 2, 16, device=dev)
     kv = torch.ones(1, 4, 2, 16, device=dev)
     ops.flash_decode(q, kv, kv, pos=2)
@@ -883,7 +886,9 @@ def test_each_wrapper_counts_one_launch(dev):
     ops.add(a, a)
     ops.axpy(2.0, a, a)
     assert ops.launch_counts() == {"matmul": 1, "matmul_q": 1,
-                                   "gated_matmul": 1, "flash_decode": 1,
+                                   "gated_matmul": 1, "matmul_batched": 1,
+                                   "gated_matmul_batched": 1,
+                                   "flash_decode": 1,
                                    "flash_decode_paged": 1,
                                    "flash_decode_rows": 1,
                                    "flash_decode_paged_rows": 1,
@@ -1718,3 +1723,145 @@ def test_replayed_verify_step_equals_the_eager_step_bit_for_bit(dev):
     want, _ = M.verify_step(cfg, eng.params, *args, state)
     assert torch.equal(got, want)
     _assert_same(eng.cache, state)
+
+
+# ----------------------------------------------------------------------
+# the moe family: the batched GEMM and dual GEMM over expert banks, the
+# MoE layer, the engine, and decode attention at Arctic's group of 7
+# ----------------------------------------------------------------------
+
+# (E, M, K, N): decode (the 16-row tiles), a verify step's 20 rows, and
+# prefill buckets (M = 160, mixtral's 512-token bucket: the TMA + wgmma
+# tiles, ragged; N = 8448 takes the dual GEMM's 128-column tile)
+BANK_SHAPES = [(3, 4, 64, 40), (2, 20, 96, 72), (3, 160, 128, 136),
+               (2, 160, 64, 8448)]
+
+
+def _bank(dev, e, m, k, n, dtype, seed=0):
+    a = _randn(e, m, k, dtype=dtype, dev=dev, seed=seed)
+    w = _randn(e, k, n, dtype=dtype, dev=dev, seed=seed + 1, scale=k ** -0.5)
+    u = _randn(e, k, n, dtype=dtype, dev=dev, seed=seed + 2, scale=k ** -0.5)
+    return a, w, u
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BANK_SHAPES)
+def test_batched_gemms_match_plain_and_the_2d_kernels(dev, dtype, shape):
+    """The batched GEMM and dual GEMM against their plain versions, and
+    each expert's output equal to the 2-D kernel's on that expert's
+    operands, bit for bit (the same tile plan on each expert)."""
+    e, m, k, n = shape
+    a, w, u = _bank(dev, e, m, k, n, dtype)
+    c = ops.matmul_batched(a, w)
+    h = ops.gated_matmul_batched(a, w, u)
+    _close(c, ref.matmul_batched_ref(a, w), dtype)
+    _close(h, ref.gated_matmul_batched_ref(a, w, u), dtype)
+    for x in range(e):
+        assert torch.equal(c[x], ops.matmul(a[x], w[x])), x
+        assert torch.equal(h[x], ops.gated_matmul(a[x], w[x], u[x])), x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batched_gemms_are_batch_invariant(dev, dtype):
+    """An expert's first 4 rows have the same bits at M = 4 (decode), 20
+    and 160 (the wide tiles), in a bank of one layer of a stacked
+    (L, E, K, N) tensor."""
+    e, k, n = 3, 256, 320
+    a, _, _ = _bank(dev, e, 160, k, n, dtype)
+    stack = _randn(2, e, k, n, dtype=dtype, dev=dev, seed=5, scale=k ** -0.5)
+    w, u = stack[1], stack[0]
+    c4 = ops.matmul_batched(a[:, :4].contiguous(), w)
+    h4 = ops.gated_matmul_batched(a[:, :4].contiguous(), w, u)
+    for m in (20, 160):
+        am = a[:, :m].contiguous()
+        assert torch.equal(ops.matmul_batched(am, w)[:, :4], c4), m
+        assert torch.equal(ops.gated_matmul_batched(am, w, u)[:, :4], h4), m
+
+
+def test_bank_gemms_on_card_refuse_a_gradient(dev):
+    """The banks' GEMMs are forward only on the card: a call that autograd
+    would record raises; without grad mode they run."""
+    from repro_torch.core import gemm
+    a, w, u = _bank(dev, 2, 4, 16, 8, torch.float32)
+    with pytest.raises(NotImplementedError, match="forward only"):
+        gemm.matmul(a, w.clone().requires_grad_())
+    with pytest.raises(NotImplementedError, match="forward only"):
+        gemm.gated_mlp(a.clone().requires_grad_(), w, u)
+    with torch.no_grad():
+        gemm.matmul(a, w.clone().requires_grad_())
+    with pytest.raises(ValueError, match="bank"):
+        ops.matmul_batched(a, w[:1])
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "arctic-480b"])
+def test_moe_apply_on_card_matches_cpu(dev, arch):
+    """The reduced MoE layer in f32 on 2 x 48 tokens (3 groups of 32; a
+    direction common to every token crowds the same experts, so
+    assignments drop): the card's routing (expert ids, positions, kept)
+    equal to the CPU's, the output and aux within 1e-4."""
+    from repro_torch.models import moe as MoE
+    cfg = dataclasses.replace(get_config(arch, reduced=True), dtype="float32")
+    p = MoE.moe_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 48, cfg.d_model, generator=g) \
+        + torch.randn(cfg.d_model, generator=g)
+    pc = tree_map(lambda t: t.to(dev), p)
+    aux_cpu, aux_card = {}, {}
+    want = MoE.moe_apply(p, x, cfg, aux=aux_cpu)
+    got = MoE.moe_apply(pc, x.to(dev), cfg, aux=aux_card)
+    r_cpu = MoE._route(p, x.reshape(3, 32, -1), cfg.moe)
+    r_card = MoE._route(pc, x.to(dev).reshape(3, 32, -1), cfg.moe)
+    for i in (3, 4, 5):
+        assert torch.equal(r_card[i].cpu(), r_cpu[i]), i
+    assert not r_cpu[5].all()
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    for name in aux_cpu:
+        torch.testing.assert_close(aux_card[name].cpu(), aux_cpu[name],
+                                   atol=1e-6, rtol=1e-5)
+
+
+def test_moe_engine_streams_equal_each_request_alone(dev):
+    """Reduced mixtral (bf16) on 4 slots, its decode and remainder steps
+    CUDA graphs: one batched dual GEMM and one batched GEMM a layer a
+    step, and every stream equal to its request on a 1-slot engine (at 4
+    slots no decode token is dropped, and every kernel row keeps its
+    bits at any batch)."""
+    cfg = get_config("mixtral-8x22b", reduced=True)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    g = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=g).numpy()
+               for n in (40, 16, 37, 9)]
+    eng = ServingEngine(cfg, params, max_slots=4, max_len=64, device=dev)
+    reqs = [eng.submit(p, 6) for p in prompts]
+    ops.reset_launch_counts()
+    eng.run()
+    n = ops.launch_counts()
+    runs = eng.decode_steps + sum(len(p) % 8 for p in prompts) + len(prompts)
+    assert n["gated_matmul_batched"] == n["matmul_batched"] \
+        == cfg.n_layers * runs, (n, runs)
+    one = ServingEngine(cfg, params, max_slots=1, max_len=64, device=dev)
+    alone = [one.submit(p, 6) for p in prompts]
+    one.run()
+    assert [r.generated for r in reqs] == [r.generated for r in alone]
+
+
+@pytest.mark.parametrize("window", [None, 100])
+def test_flash_decode_at_a_group_of_7(dev, window):
+    """Arctic's 56 query heads over 8 KV heads (a group of 7: passes of 4
+    and 3), one-row, dense and a bf16 pool, against the plain version;
+    each slot's row alone equal to its row in the batch, bit for bit."""
+    b, tk, h, hkv, d = 4, 304, 56, 8, 128
+    q = _randn(b, 1, h, d, dtype=torch.bfloat16, dev=dev, seed=0)
+    k = _randn(b, tk, hkv, d, dtype=torch.bfloat16, dev=dev, seed=1)
+    v = _randn(b, tk, hkv, d, dtype=torch.bfloat16, dev=dev, seed=2)
+    pos = torch.tensor([-1, 0, 150, tk - 1], dtype=torch.int32, device=dev)
+    got = ops.flash_decode(q, k, v, pos=pos, window=window)
+    _close(got, ref.attention_fwd_ref(q, k, v, window=window, q_offset=pos),
+           torch.bfloat16)
+    kp, vp, table = _paged(k, v, 16, pos, seed=3)
+    assert torch.equal(ops.flash_decode_paged(q, kp, vp, table, pos=pos,
+                                              window=window), got)
+    for i in range(1, b):
+        alone = ops.flash_decode(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                 pos=pos[i:i + 1], window=window)
+        assert torch.equal(alone[0], got[i]), i

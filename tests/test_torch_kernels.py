@@ -160,6 +160,9 @@ def test_launch_counters_do_not_move_on_cpu():
     ops.gated_matmul(torch.ones(2, 3), torch.ones(3, 4), torch.ones(3, 4))
     ops.matmul_q(torch.ones(2, 3), torch.ones(3, 4, dtype=torch.int8),
                  torch.ones(4))
+    ops.matmul_batched(torch.ones(2, 2, 3), torch.ones(2, 3, 4))
+    ops.gated_matmul_batched(torch.ones(2, 2, 3), torch.ones(2, 3, 4),
+                             torch.ones(2, 3, 4))
     ops.flash_decode_paged(torch.ones(1, 1, 2, 8), torch.ones(2, 4, 1, 8),
                            torch.ones(2, 4, 1, 8),
                            torch.tensor([[1, 0]], dtype=torch.int32), pos=5)
@@ -174,7 +177,9 @@ def test_launch_counters_do_not_move_on_cpu():
     ops.add(torch.ones(2, 3), torch.ones(2, 3))
     ops.axpy(2.0, torch.ones(2, 3), torch.ones(2, 3))
     assert ops.launch_counts() == {"matmul": 0, "matmul_q": 0,
-                                   "gated_matmul": 0, "flash_decode": 0,
+                                   "gated_matmul": 0, "matmul_batched": 0,
+                                   "gated_matmul_batched": 0,
+                                   "flash_decode": 0,
                                    "flash_decode_paged": 0,
                                    "flash_decode_rows": 0,
                                    "flash_decode_paged_rows": 0,
