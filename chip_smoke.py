@@ -157,7 +157,22 @@ Phases, in order; any failure propagates and the exit code is not 0:
      token, peak memory, the memory back after each engine and each
      model; then both at the reduced widths
      and depth 2 in f32 on the card against the CPU (the same routing);
-  13. the paper's experiment at its size, 4096^2: Table 2 through the
+  13. whisper-tiny (encdec) at full width and depth (4 encoder and 4
+     decoder layers, d 384, 6 heads of 64, 1500 encoder frames), random
+     weights drawn on the card in bf16 with random biases: 8 requests on
+     4 slots, each with its own 1500 x 384 frames, prompts of 8-192
+     tokens, 48 generated, in bf16 and with int8 weights. Each run: an
+     eager admission's launches by part (the encoder: 24 GEMMs and 4
+     non-causal flash forwards; the cross K/V: 8 GEMMs; the decoder),
+     exact launch counts (flash_attention at causal=False in every
+     admission, flash_decode twice a decoder layer a step: self and cross
+     over the 1500 encoder keys; bias_gelu and bias flushes; matmul_q
+     with int8), each stream equal to its request alone (a 1-slot
+     engine), a replay against the eager step, a trace, decode p50 and
+     p99, time to first token, peak memory and capture time; then a
+     prefill and 4 decode steps at full width in f32 on the card against
+     the CPU;
+  14. the paper's experiment at its size, 4096^2: Table 2 through the
      measurement `launch.paper` prints (`benchmarks.common.measure`: float,
      double and complex-float through the naive kernel, the GEMM
      chokepoint (the tiled kernel; f64 the plain f64 product) and
@@ -165,7 +180,7 @@ Phases, in order; any failure propagates and the exit code is not 0:
      paper's seconds; the naive/tiled ratio beside the paper's 3.0x), Fig 9 through `benchmarks.bench_add`'s
      (add, sub and axpy in GB/s beside 3.35 TB/s), with exact launch
      counts; then the roofline model of the paper's cards and the H100;
-  14. a JSON line of the kernels (each with its launches on every main
+  15. a JSON line of the kernels (each with its launches on every main
      path), the card line, and the result line.
 """
 
@@ -211,12 +226,12 @@ def main() -> int:
                   smoke.phase_mamba, smoke.phase_mamba_vs_cpu,
                   smoke.phase_hybrid, smoke.phase_hybrid_vs_cpu,
                   smoke.phase_dense_configs, smoke.phase_moe,
-                  smoke.phase_paper):
+                  smoke.phase_encdec, smoke.phase_paper):
         t = time.perf_counter()
         phase()
         print(f"      ({phase.__name__}: {time.perf_counter() - t:.1f} s; "
               f"{time.perf_counter() - t0:.0f} s since the start)")
-    print(f"[14/14] result ({time.perf_counter() - t0:.0f} s since the "
+    print(f"[15/15] result ({time.perf_counter() - t0:.0f} s since the "
           f"start)")
     print(json.dumps({"kernels": smoke.kernel_rows()}))
     print(f"card: {card_line()}")
@@ -239,7 +254,7 @@ class Smoke:
     # -- 1. card ------------------------------------------------------
     def phase_card(self):
         torch = self.torch
-        print(f"[1/14] card: {card_line()}")
+        print(f"[1/15] card: {card_line()}")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         print(f"      torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -251,7 +266,7 @@ class Smoke:
         from repro_torch.kernels import _build
         t0 = time.perf_counter()
         libs = _build.build_all()
-        print(f"[2/14] build: {sorted(libs)} from "
+        print(f"[2/15] build: {sorted(libs)} from "
               f"{_build.CSRC.relative_to(ROOT)} in "
               f"{time.perf_counter() - t0:.1f} s (nvcc "
               f"{' '.join(_build.NVCC_FLAGS)})")
@@ -359,7 +374,7 @@ class Smoke:
         torch = self.torch
         from repro_torch.kernels import ops, ref
         F = torch.nn.functional
-        print("[3/14] kernels against their plain versions (median of 50, "
+        print("[3/15] kernels against their plain versions (median of 50, "
               "L2 flushed, in turns, card time only)")
         gen = torch.Generator(device=self.dev).manual_seed(0)
 
@@ -478,6 +493,7 @@ class Smoke:
         self._kernels_hybrid(randn, tols[torch.bfloat16])
         self._kernels_dense_configs(randn, tols[torch.bfloat16])
         self._kernels_moe(randn, tols)
+        self._kernels_encdec(randn, tols[torch.bfloat16])
         self._kernels_int8_and_paged(randn, tols[torch.bfloat16])
         self._kernels_decode_rows(randn, tols[torch.bfloat16])
         self._kernels_attention(randn, tols)
@@ -809,6 +825,99 @@ class Smoke:
         del q, kc, vc, mask
         self._decode_cases(randn, tol, 56, 8, paged=True, what="arctic-480b")
         self._decode_batch_invariance(randn, 56, 8)
+
+    def _kernels_encdec(self, randn, tol):
+        """whisper-tiny's kernels at its shapes (bf16, d 384, 6 heads of
+        64): the encoder's GEMMs at M = 1500 frames (Q/K/V/O, w_in with the
+        bias_gelu flush, w_out with the bias flush; one admission), the
+        decode step's (M = 4) and the tied logits (N = 51968, f32 out);
+        w_in's bias_gelu on int8 weights at M = 4 and 1500; the non-causal
+        flash forward at the encoder's T = 1500 and at cross-attention's
+        prefill (Tq = 128 against 1500 keys), beside SDPA without a mask;
+        and decode attention over the 1500 encoder keys at pos 1499 (one
+        slot idle), beside SDPA for one query."""
+        torch = self.torch
+        from repro_torch.core import precision
+        from repro_torch.kernels import ops, ref
+        F = torch.nn.functional
+        dtype = torch.bfloat16
+        d, ff, h, dh, te, nv = 384, 1536, 6, 64, 1500, 51968
+        for m, k, n, ep, what in ((te, d, d, "none", "encoder Q/K/V/O"),
+                                  (te, d, ff, "bias_gelu", "encoder w_in"),
+                                  (te, ff, d, "bias", "encoder w_out"),
+                                  (4, d, d, "none", "decode Q/K/V/O"),
+                                  (4, d, ff, "bias_gelu", "decode w_in"),
+                                  (4, ff, d, "bias", "decode w_out")):
+            a = randn(m, k, dtype=dtype)
+            b = randn(k, n, dtype=dtype, scale=k ** -0.5)
+            bias = randn(n, dtype=dtype, scale=0.1) if ep != "none" else None
+            kw = {} if bias is None else {"bias": bias}
+            lib = {"none": lambda a=a, b=b: torch.matmul(a, b),
+                   "bias": lambda a=a, b=b, e=bias: torch.addmm(e, a, b)
+                   }.get(ep)
+            self._case(
+                "matmul", f"bfloat16 M={m} K={k} N={n} {ep} "
+                f"(whisper {what})",
+                lambda a=a, b=b, kw=kw, ep=ep: ops.matmul(a, b, epilogue=ep,
+                                                          **kw),
+                lambda a=a, b=b, kw=kw, ep=ep: ref.fused_matmul_ref(
+                    a, b, dtype, ep, kw.get("bias")),
+                lib, (m * k + k * n + m * n) * 2 + (n * 2 if kw else 0),
+                2 * m * n * k, "bfloat16", tol, n_time=20)
+            if ep == "bias_gelu":
+                wq, scale = precision.quantize_int8(b.float())
+                self._case(
+                    "matmul_q", f"bfloat16 M={m} K={k} N={n} int8 W "
+                    f"bias_gelu (whisper {what})",
+                    lambda a=a, wq=wq, s=scale, e=bias: ops.matmul_q(
+                        a, wq, s, epilogue="bias_gelu", bias=e),
+                    lambda a=a, wq=wq, s=scale, e=bias: ref.matmul_q_ref(
+                        a, wq, s, dtype, "bias_gelu", bias=e),
+                    None, m * k * 2 + k * n + n * 4 + m * n * 2 + n * 2,
+                    2 * m * n * k, "bfloat16", tol, n_time=20)
+            del a, b
+        x = randn(4, d, dtype=dtype)
+        w = randn(nv, d, dtype=dtype, scale=d ** -0.5)
+        self._case(
+            "matmul", f"bfloat16 M=4 K={d} N={nv} [N,K] B, f32 out "
+            f"(whisper logits)",
+            lambda: ops.matmul(x, w.t(), out_dtype=torch.float32),
+            lambda: ref.fused_matmul_ref(x, w.t(), torch.float32),
+            lambda: torch.matmul(x, w.t()),
+            (4 * d + d * nv) * 2 + 4 * nv * 4, 2 * 4 * nv * d, "bfloat16",
+            (1e-4, 1e-4), n_time=20)
+        del x, w
+        k = randn(1, te, h, dh, dtype=dtype)
+        v = randn(1, te, h, dh, dtype=dtype)
+        for tq, what in ((te, "encoder"), (128, "cross prefill")):
+            q = randn(1, tq, h, dh, dtype=dtype)
+            self._case(
+                "flash_attention", f"bfloat16 B=1 Tq={tq} Tk={te} H={h} "
+                f"Hkv={h} D={dh} not causal (whisper {what})",
+                lambda q=q: ops.flash_attention_fwd(q, k, v, causal=False),
+                lambda q=q: ref.flash_attention_fwd_ref(q, k, v,
+                                                        causal=False),
+                lambda q=q: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)),
+                (2 * q.numel() + 2 * k.numel()) * 2 + h * tq * 4,
+                4 * h * tq * te * dh, "bfloat16",
+                [tol, (1e-4, 1e-4)], n_time=20)
+        b_ = 4
+        q = randn(b_, 1, h, dh, dtype=dtype)
+        kc = randn(b_, te, h, dh, dtype=dtype)
+        vc = randn(b_, te, h, dh, dtype=dtype)
+        pos = torch.tensor([te - 1, -1, te - 1, te - 1], dtype=torch.int32,
+                           device=self.dev)
+        mask = (pos >= 0).view(b_, 1, 1, 1).expand(b_, 1, 1, te)
+        keys = 3 * te
+        self._case(
+            "flash_decode", f"bfloat16 B={b_} H={h} Hkv={h} D={dh} Tk={te} "
+            f"pos [1499, -1, 1499, 1499] (whisper cross)",
+            lambda: ops.flash_decode(q, kc, vc, pos=pos),
+            lambda: ref.attention_fwd_ref(q, kc, vc, q_offset=pos),
+            lambda: _sdpa(torch, F, q, kc, vc, mask),
+            (2 * q.numel() + 2 * keys * h * dh) * 2, 4 * keys * h * dh,
+            "bfloat16", tol)
 
     def _decode_cases(self, randn, tol, h, hkv, paged, what, d=128, tk=2048):
         """flash_decode at (h, hkv) heads of d, 4 slots against a tk-deep
@@ -1420,7 +1529,7 @@ class Smoke:
                                device=self.dev)
         del params                      # the engine keeps its bf16 copy
         torch.cuda.synchronize()
-        print(f"[4/14] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
+        print(f"[4/15] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
               f"heads {cfg.n_heads}/{cfg.n_kv_heads}x{cfg.resolved_head_dim} "
               f"d_ff {cfg.d_ff} vocab {cfg.vocab}->{cfg.padded_vocab}; "
               f"weights ready in {time.perf_counter() - t0:.1f} s; "
@@ -1468,8 +1577,9 @@ class Smoke:
         self._trace(self.engine, self.serve_p50,
                     expect=("matmul", "gated_matmul", "flash_decode"))
 
-    def _trace(self, eng, p50_s, n_steps=6, expect=()):
-        """Decode steps of `eng` with 4 slots busy at a depth of ~260: first
+    def _trace(self, eng, p50_s, n_steps=6, expect=(), prompt_len=256):
+        """Decode steps of `eng` with 4 slots busy at a depth of
+        `prompt_len` and on (an encdec request with random frames): first
         one replay against an eager step (`_check_replay`), then a trace:
         the card's busy time a step, by kernel, beside the step's wall
         time on the host clock (the profiler's own host cost included, so
@@ -1481,9 +1591,12 @@ class Smoke:
         import numpy as np
         from torch.profiler import ProfilerActivity, profile
         rng = np.random.default_rng(2)
+        cfg = eng.cfg
         for _ in range(4):
-            eng.submit(rng.integers(0, eng.cfg.vocab, 256).astype(np.int32),
-                       n_steps + 2)
+            frames = rng.normal(size=(cfg.enc_ctx, cfg.d_model)).astype(
+                np.float32) if cfg.family == "encdec" else None
+            eng.submit(rng.integers(0, cfg.vocab, prompt_len).astype(np.int32),
+                       n_steps + 2, enc_frames=frames)
         eng.step()                      # admits all four, one decode step
         assert eng.scheduler.n_active == 4, eng.scheduler.n_active
         self._check_replay(eng)
@@ -1624,7 +1737,7 @@ class Smoke:
         assert launches == want, (launches, want)
         got = [r.generated for r in reqs]
         assert got == self.dense_streams, "paged bf16 streams != dense streams"
-        print(f"[5/14] paged bf16 KV (page 16, {rep['kv_pool']['n_pages']} "
+        print(f"[5/15] paged bf16 KV (page 16, {rep['kv_pool']['n_pages']} "
               f"pages): phase 4's {len(reqs)} streams, token for token; "
               f"launches {launches} ({eng.decode_steps} decode steps at "
               f"141/28/28 each); prefill {rep['prefill_tok_s']:.1f} tok/s, "
@@ -1745,7 +1858,7 @@ class Smoke:
         L = cfg.n_layers
         params = M.init_params(cfg, torch.Generator().manual_seed(0), self.dev)
         other = M.init_params(cfg, torch.Generator().manual_seed(1), self.dev)
-        print(f"[6/14] the request surface at full width ({cfg.name}, "
+        print(f"[6/15] the request surface at full width ({cfg.name}, "
               f"{L} layers, bf16, random weights)")
         want = {}
         eng = ServingEngine(cfg, params, max_slots=4, max_len=self.max_len,
@@ -1975,7 +2088,7 @@ class Smoke:
             return TL.init_state(cfg, opt, torch.Generator().manual_seed(0),
                                  self.dev)
         batches = self._train_batches(cfg, steps + 1, batch, seq)
-        print(f"[7/14] training {cfg.name} at full width ({L} layers, bf16 "
+        print(f"[7/15] training {cfg.name} at full width ({L} layers, bf16 "
               f"activations, remat {cfg.remat}): {steps} AdamW steps at batch "
               f"{batch} x {seq}")
         # a step: the forward's 141 GEMMs, 28 dual GEMMs and 28 attentions;
@@ -2286,7 +2399,7 @@ class Smoke:
         `test_recurrent_train_step_on_card_matches_cpu` (cut here for
         time)."""
         from repro_torch.configs import get_config
-        print("[8/14] training the Mamba-2 families at full width")
+        print("[8/15] training the Mamba-2 families at full width")
         self.zamba_train_launches = self._train_recurrent(
             get_config("zamba2-1.2b"), steps, batch, seq, plain_steps=2)
         self.mamba_train_launches = self._train_recurrent(
@@ -2391,7 +2504,7 @@ class Smoke:
         torch.cuda.empty_cache()
         weights = torch.cuda.memory_allocated()
         sc = cfg.ssm
-        print(f"[9/14] {cfg.name}: {L} layers d_model {cfg.d_model} d_inner "
+        print(f"[9/15] {cfg.name}: {L} layers d_model {cfg.d_model} d_inner "
               f"{sc.expand * cfg.d_model} ({sc.expand * cfg.d_model // sc.head_dim}"
               f" SSD heads of {sc.head_dim}) d_state {sc.d_state} groups "
               f"{sc.n_groups} conv {sc.conv_width} chunk {sc.chunk} vocab "
@@ -2436,8 +2549,9 @@ class Smoke:
         torch.cuda.empty_cache()
 
     def _serve_checked(self, eng, prompts, gen, want_fn, what,
-                         p50_bf16=None, alone_kw=None):
-        """Serve `prompts` on `eng`, `gen` tokens each, with the launch
+                         p50_bf16=None, alone_kw=None, frames=None):
+        """Serve `prompts` on `eng`, `gen` tokens each (an encdec request
+        with its `frames`), with the launch
         counts set to 0 just before and read just after: they must be
         `want_fn(eng)`, and every stream the request run alone at batch 1:
         served by a 1-slot engine on `eng`'s weights (with the engine
@@ -2451,7 +2565,9 @@ class Smoke:
         from repro_torch.kernels import ops
         from repro_torch.serving import ServingEngine
         torch.cuda.reset_peak_memory_stats()
-        reqs = [eng.submit(pr, gen) for pr in prompts]
+        frames = frames or [None] * len(prompts)
+        reqs = [eng.submit(pr, gen, enc_frames=f)
+                for pr, f in zip(prompts, frames)]
         ops.reset_launch_counts()
         report = eng.run()
         torch.cuda.synchronize()
@@ -2483,7 +2599,8 @@ class Smoke:
         one = ServingEngine(eng.cfg, eng.params, max_slots=1,
                             max_len=eng.max_len, device=self.dev,
                             **(alone_kw or {}))
-        alone = [one.submit(pr, gen) for pr in prompts]
+        alone = [one.submit(pr, gen, enc_frames=f)
+                 for pr, f in zip(prompts, frames)]
         one.run()
         for req, solo, prompt in zip(reqs, alone, prompts):
             assert req.generated == solo.generated, \
@@ -2658,7 +2775,7 @@ class Smoke:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         engine_bytes = torch.cuda.memory_allocated() - base
-        print(f"[10/14] {cfg.name}: {cfg.n_layers} Mamba-2 layers in {seg} "
+        print(f"[10/15] {cfg.name}: {cfg.n_layers} Mamba-2 layers in {seg} "
               f"segments of {cfg.attn_every}, d_model {cfg.d_model} d_inner "
               f"{sc.expand * cfg.d_model} ({sc.expand * cfg.d_model // sc.head_dim}"
               f" SSD heads of {sc.head_dim}) d_state {sc.d_state} conv "
@@ -2911,7 +3028,7 @@ class Smoke:
         # -- qwen2-vl-2b: dense, paged bf16, speculative; multimodal
         cfg = get_config("qwen2-vl-2b")
         L = cfg.n_layers
-        print(f"[11/14] the dense configs and vlm at full width (random "
+        print(f"[11/15] the dense configs and vlm at full width (random "
               f"weights, bf16, 4 slots, 32 tokens a request)")
         t0 = time.perf_counter()
         params = self._config_params(cfg)
@@ -3145,7 +3262,7 @@ class Smoke:
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
         self.moe_launches = {}
-        print(f"[12/14] the moe family at full width (random weights drawn "
+        print(f"[12/15] the moe family at full width (random weights drawn "
               f"on the card, bf16 but the f32 router, 4 slots, 32 tokens a "
               f"request)")
 
@@ -3338,7 +3455,232 @@ class Smoke:
               f"assignments dropped), logits and KV cache within rtol "
               f"{tol:g}; max |diff| / max |value| {worst:.2e}")
 
-    # -- 12. the paper's experiment ---------------------------------------
+    # -- 13. whisper-tiny (encdec) at full width ----------------------------
+    def _whisper_params(self, cfg):
+        """whisper-tiny's random params drawn on the card from a CUDA
+        generator of seed 0 and held in bf16, then every leaf init_params
+        starts at zeros (the biases of every projection and MLP, each
+        norm's bias) drawn from one of seed 1 (a bias of zeros passes any
+        check)."""
+        torch = self.torch
+        import dataclasses
+        from repro_torch.core.tree import tree_map
+        from repro_torch.models import model as M
+        params = M.init_params(
+            dataclasses.replace(cfg, param_dtype="bfloat16"),
+            torch.Generator(device=self.dev).manual_seed(0), self.dev)
+        gen = torch.Generator(device=self.dev).manual_seed(1)
+        return tree_map(lambda t: t if t.any() else (torch.randn(
+            t.shape, generator=gen, device=self.dev) * 0.1).to(t.dtype),
+            params)
+
+    @staticmethod
+    def _encdec_want(eng, prompts, int8=False):
+        """Launch counts of a whisper run. A one-token step (decode, or an
+        admission's remainder token) runs 8 GEMMs a decoder layer (self
+        Q, K, V, O; cross Q, O; w_in with bias_gelu, w_out with bias),
+        self and cross decode attention, and the tied logits; an admission
+        prefill runs the encoder (6 GEMMs and the non-causal flash forward
+        a layer), the cross K/V projections (2 a decoder layer), the
+        decoder (8 GEMMs and the cross flash forward a layer; its causal
+        self-attention into the cache is the chunked path's PyTorch) and
+        the logits. With int8 weights every GEMM but the tied logits takes
+        matmul_q."""
+        cfg = eng.cfg
+        L, E, n = cfg.n_layers, cfg.n_enc_layers, len(prompts)
+        one = eng.decode_steps + sum(len(p) % 8 for p in prompts
+                                     if len(p) >= 8)
+        step, pre = 8 * L, 6 * E + 10 * L
+        want = _no_launches(flash_decode=2 * L * one,
+                            flash_attention=(E + L) * n)
+        if int8:
+            want.update(matmul_q=step * one + pre * n, matmul=one + n)
+        else:
+            want.update(matmul=(step + 1) * one + (pre + 1) * n)
+        return want
+
+    def _encdec_admission(self, eng, prompt, frames, int8, reps=5):
+        """The launches of one eager admission prefill of `prompt` with
+        `frames`, by part: the encoder, the cross K/V projections, and the
+        whole prefill (the decoder's part the difference); then the median
+        host-clock time of `reps` encoder runs and of `reps` whole
+        prefills, each ending in a sync."""
+        torch = self.torch
+        from repro_torch.kernels import ops
+        from repro_torch.models import attention as A
+        from repro_torch.models import model as M
+        from repro_torch.models import transformer as T
+        cfg, params = eng.cfg, eng.params
+        L, E = cfg.n_layers, cfg.n_enc_layers
+        g = "matmul_q" if int8 else "matmul"
+        f = torch.as_tensor(frames, device=self.dev)[None]
+        toks = torch.as_tensor(prompt, dtype=torch.long, device=self.dev)
+        ops.reset_launch_counts()
+        enc_out = M._run_encoder(cfg, params, f)
+        enc = _nonzero(ops.launch_counts())
+        ops.reset_launch_counts()
+        for lp in T._unstack(params["dec_layers"]["cross_attn"], L):
+            A.project_cross_kv(lp, enc_out, cfg)
+        cross = _nonzero(ops.launch_counts())
+        ops.reset_launch_counts()
+        cache = M.init_cache(cfg, 1, eng.max_len, self.dev)
+        M.prefill(cfg, params, {"tokens": toks[None], "enc_frames": f}, cache)
+        torch.cuda.synchronize()
+        total = _nonzero(ops.launch_counts())
+        want_enc = {g: 6 * E, "flash_attention": E}
+        want_total = {"flash_attention": E + L, g: 6 * E + 10 * L}
+        want_total["matmul"] = want_total.get("matmul", 0) + 1
+        assert (enc, cross, total) == (want_enc, {g: 2 * L}, want_total), \
+            (enc, cross, total)
+        dec = {k: v - enc.get(k, 0) - cross.get(k, 0)
+               for k, v in total.items()}
+        print(f"      an admission's launches (eager, exact): encoder {enc}, "
+              f"cross K/V {cross}, decoder and logits {_nonzero(dec)}")
+
+        def timed(fn):
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(times)
+        enc_ms = timed(lambda: M._run_encoder(cfg, params, f))
+        pre_ms = timed(lambda: M.prefill(
+            cfg, params, {"tokens": toks[None], "enc_frames": f}, cache))
+        print(f"      an eager admission prefill of {len(prompt)} tokens: "
+              f"{pre_ms:.2f} ms on the host clock (median of {reps}, synced), "
+              f"of which the encoder alone {enc_ms:.2f} ms")
+
+    def phase_encdec(self):
+        """whisper-tiny at full width and depth (4 encoder and 4 decoder
+        layers, d 384, 6 heads of 64, 1500 frames), random weights drawn
+        on the card in bf16 with random biases: 8 requests on 4 slots,
+        each with its own 1500 x 384 frames, prompts of 8-192 tokens and 48
+        generated (within Whisper's 448-token decoder context), in bf16
+        and with int8 weights. Each run: an admission's launches by part,
+        exact launch counts, each stream equal to its request alone (a
+        1-slot engine), a replay against the eager step and a trace,
+        decode p50 and p99, time to first token, peak memory and capture
+        time; the memory back after each engine (to what it was with the
+        params drawn) and after the params. Then a prefill and 4
+        decode steps at full width in f32 on the card against the CPU."""
+        torch = self.torch
+        import numpy as np
+        from repro_torch.configs import get_config
+        from repro_torch.core.tree import leaves
+        from repro_torch.serving import ServingEngine, synthetic_trace
+        cfg = get_config("whisper-tiny")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        params = self._whisper_params(cfg)
+        n_params = sum(t.numel() for t in leaves(params))
+        gen, trace_len = 48, 160
+        work = synthetic_trace(cfg, 8, rng=np.random.default_rng(0),
+                               len_range=(8, 192), gen=gen)
+        prompts = [it.prompt for it in work]
+        frames = [it.enc_frames for it in work]
+        longest = max(max(len(p) for p in prompts) + gen, trace_len + 6)
+        max_len = -(-longest // 16) * 16
+        torch.cuda.synchronize()
+        with_params = torch.cuda.memory_allocated()
+        print(f"[13/15] {cfg.name}: {cfg.n_enc_layers} encoder and "
+              f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, heads "
+              f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.resolved_head_dim}, d_ff "
+              f"{cfg.d_ff} (gelu), layernorm, sinusoid positions, "
+              f"{cfg.enc_ctx} encoder frames, vocab {cfg.vocab}->"
+              f"{cfg.padded_vocab} (tied); {n_params / 1e6:.3f} M params "
+              f"drawn on the card (seed 0, biases seed 1), held in bf16, in "
+              f"{time.perf_counter() - t0:.1f} s; {len(work)} requests, "
+              f"prompts {[len(p) for p in prompts]}, gen {gen}, 4 slots, "
+              f"max_len {max_len}")
+        self.encdec_launches = {}
+        p50 = None
+        for int8 in (False, True):
+            what = "int8 weights" if int8 else "bf16"
+            eng = ServingEngine(cfg, params, max_slots=4, max_len=max_len,
+                                device=self.dev,
+                                quant="int8" if int8 else "off")
+            shape = tuple(eng.cache["cross"]["k"].shape)
+            print(f"      {what}: the cross cache {shape} x 2, "
+                  f"{4 * math.prod(shape) / 2 ** 20:.2f} MiB of bf16, read "
+                  f"in place by the captured steps")
+            _print_capture(eng)
+            self._encdec_admission(eng, prompts[0], frames[0], int8)
+            launches, report = self._serve_checked(
+                eng, prompts, gen,
+                lambda e, i=int8: self._encdec_want(e, prompts, i), what,
+                p50, frames=frames)
+            self.encdec_launches[cfg.name + (" int8" if int8 else "")] = \
+                launches
+            p50 = p50 or report["decode_step_p50_s"]
+            self._trace(eng, report["decode_step_p50_s"], n_steps=4,
+                        expect=("matmul_q" if int8 else "matmul",
+                                "flash_decode"), prompt_len=trace_len)
+            del eng
+            self._memory_back(with_params, what)
+        del params
+        self._memory_back(base, cfg.name)
+        self._encdec_vs_cpu()
+
+    def _encdec_vs_cpu(self, length=100, steps=4, tol=1e-4):
+        """whisper-tiny at full width and depth in f32, random biases: a
+        prefill of two 100-token prompts with their frames, then 4 decode
+        steps at a per-slot position vector with slot 1 idle, on the card
+        (the CUDA kernels) and on the CPU (their plain versions) from the
+        same weights: logits (the idle row's too: zeros from its attention
+        on both) and every cache leaf within rtol 1e-4, atol 1e-4 x the
+        largest |value| (f32 sums in another order)."""
+        torch = self.torch
+        import dataclasses
+        from repro_torch.configs import get_config
+        from repro_torch.core.tree import leaves, tree_map
+        from repro_torch.models import model as M
+        cfg = dataclasses.replace(get_config("whisper-tiny"), dtype="float32")
+        g = torch.Generator().manual_seed(1)
+        params = tree_map(lambda t: t if t.any() else torch.randn(
+            t.shape, generator=g) * 0.1, M.init_params(
+                cfg, torch.Generator().manual_seed(0), "cpu"))
+        toks = torch.randint(0, cfg.vocab, (2, length + steps), generator=g)
+        frames = torch.randn((2, cfg.enc_ctx, cfg.d_model), generator=g)
+        # a KV length past attn_chunk is a whole number of chunks
+        a = cfg.attn_chunk
+        max_len = length + steps if length + steps <= a \
+            else -(-(length + steps) // a) * a
+        out = []
+        for dev in (self.dev, torch.device("cpu")):
+            p = tree_map(lambda x: x.to(dev), params)
+            cache = M.init_cache(cfg, 2, max_len, dev)
+            t0 = time.perf_counter()
+            logits, cache = M.prefill(
+                cfg, p, {"tokens": toks[:, :length].to(dev),
+                         "enc_frames": frames.to(dev)}, cache)
+            logs = [logits]
+            for i in range(steps):
+                pos = torch.tensor([length + i, -1], dtype=torch.int32,
+                                   device=dev)
+                logits, cache = M.decode_step(
+                    cfg, p, toks[:, length + i:length + i + 1].to(dev), pos,
+                    cache)
+                logs.append(logits)
+            got = [t.cpu() for t in logs] + [v.cpu() for v in leaves(cache)]
+            out.append((got, time.perf_counter() - t0))
+        (card, tc), (cpu, tp) = out
+        worst = 0.0
+        for x, y in zip(card, cpu):
+            assert torch.isfinite(x).all(), "non-finite output on the card"
+            scale = y.abs().max().item()
+            torch.testing.assert_close(x, y, rtol=tol, atol=tol * scale)
+            worst = max(worst, ((x - y).abs().max() / scale).item())
+        print(f"      full width and depth, f32, two {length}-token prompts "
+              f"with their frames and {steps} decode steps (slot 1 idle): "
+              f"card ({tc * 1e3:.0f} ms) against CPU ({tp * 1e3:.0f} ms): "
+              f"logits, self and cross caches within rtol {tol:g}; max "
+              f"|diff| / max |value| {worst:.2e}")
+
+    # -- 14. the paper's experiment ---------------------------------------
     def phase_paper(self, n=4096, iters=3):
         """Table 2 and Figs 8-9 at the paper's size through the port's
         entry points: the measurement `launch.paper` prints (float, double
@@ -3350,7 +3692,7 @@ class Smoke:
         from repro_torch.benchmarks import bench_add, common
         from repro_torch.kernels import ops
         from repro_torch.launch import paper
-        print(f"[13/14] the paper's experiment at n={n} (Table 2, Figs 8-9)")
+        print(f"[14/15] the paper's experiment at n={n} (Table 2, Figs 8-9)")
         ops.reset_launch_counts()
         gemm_rows = common.measure(n, self.dev, iters=iters)
         add_rows = bench_add.measure(n, self.dev)
@@ -3376,7 +3718,7 @@ class Smoke:
         assert self.paper_launches == want, (self.paper_launches, want)
         paper.print_model()
 
-    # -- 13. the kernels line --------------------------------------------
+    # -- 15. the kernels line --------------------------------------------
     def kernel_rows(self):
         """One row per kernel: its launches on the main path, the max error
         over every case, and the times of its main-path decode shape."""
@@ -3441,7 +3783,7 @@ class Smoke:
         # 6's self-draft runs (dense, bf16 pool), the training kernels'
         # from phase 7's, the SSD kernel's from phase 9's, the batched
         # GEMMs' from phase 12's mixtral run (dense cache), the paper's
-        # kernels from phase 13's
+        # kernels from phase 14's
         moe = self.moe_launches[next(iter(self.moe_launches))]
         counts = {**self.launches, **self.spec_launches,
                   **{k: moe[k] for k in ("matmul_batched",
@@ -3467,6 +3809,7 @@ class Smoke:
                  "zamba2-1.2b int8": self.hybrid_int8_launches,
                  **self.config_launches,
                  **self.moe_launches,
+                 **self.encdec_launches,
                  "paper": self.paper_launches}
         rows = []
         for name, (source, replaces, label) in meta.items():

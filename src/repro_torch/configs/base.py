@@ -48,7 +48,7 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense | moe | ssm | hybrid | vlm
+    family: str                     # dense | moe | ssm | hybrid | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -72,9 +72,13 @@ class ModelConfig:
     ssm: Optional[SSMConfig] = None
     attn_every: int = 0             # hybrid: shared attn block period (Zamba2)
     shared_attn_lora_rank: int = 0  # Zamba2 per-invocation LoRA on shared block
+    # encoder-decoder (Whisper): encoder layers, and the frames the
+    # (stub) conv frontend hands the encoder
+    n_enc_layers: int = 0
+    enc_ctx: int = 0
     # block flavour
-    norm: str = "rms"
-    mlp: str = "swiglu"
+    norm: str = "rms"               # rms | ln (Whisper)
+    mlp: str = "swiglu"             # swiglu | gelu (Whisper)
     # f32 attention I/O in the chunked (prefill) path
     attn_f32_io: bool = True
     # numerics
@@ -134,6 +138,9 @@ class ModelConfig:
         if self.ssm is not None:
             kw["ssm"] = dataclasses.replace(
                 self.ssm, d_state=16, head_dim=8, chunk=16)
+        if self.n_enc_layers:
+            kw["n_enc_layers"] = 2
+            kw["enc_ctx"] = 32
         if self.attn_every:
             kw["attn_every"] = 2
         if self.window is not None:

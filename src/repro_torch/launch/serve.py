@@ -33,6 +33,13 @@ cut depth), and a moe target takes no draft:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \
         --reduced --device cpu --requests 4 --max-slots 2 --kv-layout paged
 
+whisper-tiny (family encdec), each request with its own 1500 x 384
+encoder frames drawn from the trace's seed (a page pool and a draft are
+refused):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \
+        --requests 8 --max-slots 4 --prompt-len-min 8 --prompt-len-max 192
+
 Bursty arrivals with two priority levels, deadlines 2 s after arrival and
 a temperature sampler over the 50 likeliest tokens:
 
@@ -216,7 +223,8 @@ def main(argv=None):
     if not args.check_exact:
         del params
     requests = [engine.submit(it.prompt, it.gen, arrival_time=it.arrival,
-                              deadline=it.deadline, priority=it.priority)
+                              deadline=it.deadline, priority=it.priority,
+                              enc_frames=it.enc_frames)
                 for it in work]
     report = engine.run()
 
@@ -261,7 +269,8 @@ def main(argv=None):
         del engine
         ref = ServingEngine(cfg, params, max_slots=max_slots,
                             max_len=max_len, device=device)
-        ref_reqs = [ref.submit(it.prompt, it.gen, arrival_time=it.arrival)
+        ref_reqs = [ref.submit(it.prompt, it.gen, arrival_time=it.arrival,
+                               enc_frames=it.enc_frames)
                     for it in work]
         ref.run()
         n_cmp = 0

@@ -1,11 +1,18 @@
-"""Attention layer: GQA, qk-norm, RoPE, dense or paged KV cache.
+"""Attention layer: GQA, qk-norm, RoPE, dense or paged KV cache, and
+cross-attention over an encoder's K/V (Whisper).
 
-Four paths:
-  * cache-less causal self-attention (the training forward) goes to the
-    flash_attention kernel through `_AttentionFused`, whose backward is
-    the flash_attention_bwd kernel, as the JAX package's `_attention_fused`
-    custom VJP routes it; the kernel takes any T (JAX routes only T its
-    blocks divide, `_flash_shapes_ok`, and the rest to the chunked path);
+The paths:
+  * cache-less self-attention (the training forward; causal, or not in
+    an encoder) goes to the flash_attention kernel through
+    `_AttentionFused`, whose backward is the flash_attention_bwd kernel,
+    as the JAX package's `_attention_fused` custom VJP routes it; the
+    kernel takes any T (JAX routes only T its blocks divide,
+    `_flash_shapes_ok`, and the rest to the chunked path);
+  * cross-attention (`enc_kv`) over the whole encoder output: at
+    prefill the non-causal flash_attention kernel (Tq != Tk); at a
+    decode step (`cross_pos` given) the flash_decode kernel over each
+    slot's encoder keys, its position the last key's (-1: an idle slot,
+    a zero row);
   * a decode step on a dense cache (one token a slot at a per-slot
     position), or a speculative verify step (t tokens a slot, n_valid of
     them real), goes to the flash_decode kernel, which reads each slot's
@@ -35,12 +42,12 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 
 
-def chunked_attention(q, k, v, *, window=None, chunk=2048, q_offset=0,
-                      kv_len=None, io_dtype=torch.float32):
-    """Causal online-softmax attention over KV chunks. q [B, Tq, H, D]
-    against k/v [B, Tk, Hkv, D]; query row i sits at position q_offset + i
-    and sees keys below kv_len (ints: every row of the batch at one
-    offset)."""
+def chunked_attention(q, k, v, *, causal=True, window=None, chunk=2048,
+                      q_offset=0, kv_len=None, io_dtype=torch.float32):
+    """Online-softmax attention over KV chunks. q [B, Tq, H, D] against
+    k/v [B, Tk, Hkv, D]; query row i sits at position q_offset + i and
+    sees the keys at or before it (all of them without `causal`) below
+    kv_len (ints: every row of the batch at one offset)."""
     b, tq, h, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     g = h // hkv
@@ -60,7 +67,8 @@ def chunked_attention(q, k, v, *, window=None, chunk=2048, q_offset=0,
         kc, vc = kf[:, c0:c0 + chunk], vf[:, c0:c0 + chunk]
         s = torch.einsum("bqkgd,bckd->bqkgc", qf, kc).float()
         k_pos = c0 + torch.arange(chunk, device=dev)[None, None, :]
-        mask = k_pos <= q_pos
+        mask = k_pos <= q_pos if causal else \
+            torch.ones_like(k_pos, dtype=torch.bool)
         if window is not None:
             mask = mask & (k_pos > q_pos - window)
         if kv_len is not None:
@@ -80,39 +88,43 @@ def chunked_attention(q, k, v, *, window=None, chunk=2048, q_offset=0,
 
 
 class _AttentionFused(torch.autograd.Function):
-    """Causal attention of q [B, T, H, D] over its own k/v, the
-    counterpart of `_attention_fused`: the forward is the flash kernel
-    with its logsumexp, saved with the output; the backward is the
+    """Attention of q [B, Tq, H, D] over k/v [B, Tk, Hkv, D] (causal, or
+    not), the counterpart of `_attention_fused`: the forward is the flash
+    kernel with its logsumexp, saved with the output; the backward is the
     two-sweep flash_attention_bwd kernel on those residuals."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window):
-        o, lse = kops.flash_attention_fwd(q, k, v, causal=True, window=window)
+    def forward(ctx, q, k, v, window, causal):
+        o, lse = kops.flash_attention_fwd(q, k, v, causal=causal,
+                                          window=window)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.window = window
+        ctx.window, ctx.causal = window, causal
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = kops.flash_attention_bwd(
-            q, k, v, o, do.contiguous(), lse, causal=True, window=ctx.window)
-        return dq, dk, dv, None
+            q, k, v, o, do.contiguous(), lse, causal=ctx.causal,
+            window=ctx.window)
+        return dq, dk, dv, None, None
 
 
 def attention(q, k, v, *, window, chunk, q_offset=0, kv_len=None,
-              io_dtype=torch.float32, decode: bool = False):
+              io_dtype=torch.float32, decode: bool = False,
+              causal: bool = True):
     """The attention chokepoint of the contiguous paths: a one-token step
     at an int position (kv_len = pos + 1) runs the flash_decode kernel;
-    cache-less self-attention (no kv_len, q_offset 0) the flash_attention
-    kernel and its backward; prefill into a cache the chunked path. (The
+    cache-less attention (no kv_len, q_offset 0: self-attention, causal
+    or not, and cross-attention at prefill) the flash_attention kernel
+    and its backward; prefill into a cache the chunked path. (The
     per-slot paths call the decode kernels themselves.)"""
     if decode and q.shape[1] == 1:
         return kops.flash_decode(q, k, v, pos=q_offset, window=window)
     if kv_len is None and isinstance(q_offset, int) and q_offset == 0:
-        return _AttentionFused.apply(q, k, v, window)
-    return chunked_attention(q, k, v, window=window, chunk=chunk,
-                             q_offset=q_offset, kv_len=kv_len,
+        return _AttentionFused.apply(q, k, v, window, causal)
+    return chunked_attention(q, k, v, causal=causal, window=window,
+                             chunk=chunk, q_offset=q_offset, kv_len=kv_len,
                              io_dtype=io_dtype)
 
 
@@ -132,6 +144,12 @@ def attn_init(generator, cfg, *, device):
         p["q_norm"] = L.rmsnorm_init(dh, dtype=dtype, device=device)
         p["k_norm"] = L.rmsnorm_init(dh, dtype=dtype, device=device)
     return p
+
+
+def project_cross_kv(p, enc_out, cfg):
+    """The encoder output [B, Tenc, d] projected to cross-attention's
+    (k, v), each [B, Tenc, Hkv, Dh] (Whisper)."""
+    return _project_kv(p, enc_out, cfg)
 
 
 def _project_kv(p, x, cfg):
@@ -265,7 +283,8 @@ def _write_page_rows(pool, table, k, v, pos):
 
 
 def attn_apply(p, x, cfg, *, cache: Optional[dict] = None, cache_pos=None,
-               kv_table=None, n_valid=None, positions=None):
+               kv_table=None, n_valid=None, positions=None, causal=True,
+               enc_kv=None, cross_pos=None):
     """Returns (out, cache). positions: the RoPE positions of x's tokens,
     (B, T), or (B, T, 3) M-RoPE streams (cfg.mrope_sections); None: token
     r of row b at cache_pos (+ r), or at r without a cache. They turn q
@@ -278,13 +297,28 @@ def attn_apply(p, x, cfg, *, cache: Optional[dict] = None, cache_pos=None,
     pos[b] + r, and with n_valid (B,) only its first n_valid[b] tokens
     written and attended (a verify step). With kv_table (B, pp), cache is
     the layer's page pool {"k", "v": [P, page_size, Hkv, Dh][, "ks",
-    "vs": [P, Hkv, page_size]]}, at a per-slot cache_pos."""
+    "vs": [P, Hkv, page_size]]}, at a per-slot cache_pos. causal=False:
+    cache-less attention over all of x's tokens (an encoder).
+
+    enc_kv: cross-attention, x's queries over the encoder's (k, v)
+    [B, Tenc, Hkv, Dh] (no RoPE, no cache write): every key without
+    `cross_pos` (prefill, the training forward), or through the decode
+    kernel at cross_pos, an int or a (B,) vector of Tenc - 1 (-1 for an
+    idle slot, whose row is zeros)."""
     b, t, _ = x.shape
     dh = cfg.resolved_head_dim
     q = L.dense_apply(p["wq"], x).reshape(b, t, cfg.n_heads, dh)
     if cfg.qk_norm:
         q = L.rmsnorm_apply(p["q_norm"], q)
     io_dtype = torch.float32 if cfg.attn_f32_io else torch.bfloat16
+    if enc_kv is not None:
+        k, v = enc_kv
+        if cross_pos is None:
+            out = attention(q, k, v, window=None, chunk=cfg.attn_chunk,
+                            io_dtype=io_dtype, causal=False)
+        else:
+            out = kops.flash_decode(q, k, v, pos=cross_pos)
+        return L.dense_apply(p["wo"], out.reshape(b, t, -1)), None
     k, v = _project_kv(p, x, cfg)
 
     pos_vec = isinstance(cache_pos, torch.Tensor) and cache_pos.dim() == 1
@@ -317,7 +351,7 @@ def attn_apply(p, x, cfg, *, cache: Optional[dict] = None, cache_pos=None,
                         io_dtype=io_dtype, decode=(t == 1))
     else:
         out = attention(q, k, v, window=cfg.window, chunk=cfg.attn_chunk,
-                        io_dtype=io_dtype)
+                        io_dtype=io_dtype, causal=causal)
 
     out = out.reshape(b, t, cfg.n_heads * dh)
     return L.dense_apply(p["wo"], out), cache

@@ -1,10 +1,13 @@
-"""Shared building blocks: dense layers, norms, embeddings, rotary.
+"""Shared building blocks: dense layers, norms, embeddings, rotary and
+sinusoid positions.
 
 Plain functions on tensors over a params dict of the same keys and
 shapes as the JAX package's (`repro/models/layers.py`).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -88,6 +91,42 @@ def rmsnorm_apply(p, x, *, eps: float = 1e-6):
     var = _row_mean(xf * xf)
     y = xf * torch.rsqrt(var + eps)
     return (y * p["scale"].float()).to(x.dtype)
+
+
+def layernorm_init(d: int, *, dtype, device):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm_apply(p, x, *, eps: float = 1e-5):
+    """(x - mean) / sqrt(var + eps) * scale + bias over the last dim, in
+    f32, the variance the population's; both means through `_row_mean`,
+    so a row's bits do not depend on how many rows x has."""
+    xf = x.float()
+    xc = xf - _row_mean(xf)
+    y = xc * torch.rsqrt(_row_mean(xc * xc) + eps)
+    y = y * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype)
+
+
+def sinusoid_at(d: int, pos: torch.Tensor) -> torch.Tensor:
+    """Whisper-style fixed sinusoids, f32, at the positions `pos` (any
+    shape, read as f32): (*pos.shape, d), sin on the even lanes and cos
+    on the odd ones, of pos * 10000^(-2i / d) (the JAX package's
+    interleaved layout, not Whisper's concatenated one). A position
+    tensor on the card gives the rows there, with no host sync."""
+    div = torch.exp(-math.log(10_000.0)
+                    * torch.arange(0, d, 2, dtype=torch.float32,
+                                   device=pos.device) / d)
+    ang = pos.float()[..., None] * div
+    return torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1) \
+        .reshape(*pos.shape, d)
+
+
+def sinusoid_positions(t: int, d: int, offset: int = 0,
+                       device=None) -> torch.Tensor:
+    """The (t, d) f32 sinusoids of positions offset .. offset + t - 1."""
+    return sinusoid_at(d, torch.arange(offset, offset + t, device=device))
 
 
 def embed_init(generator, vocab: int, d: int, *, dtype, device):

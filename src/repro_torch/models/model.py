@@ -1,5 +1,5 @@
-"""Top-level model API of the port, families `dense`, `vlm`, `moe`, `ssm`
-and `hybrid`:
+"""Top-level model API of the port, families `dense`, `vlm`, `moe`, `ssm`,
+`hybrid` and `encdec`:
 
     params = init_params(cfg, generator, device)
     qparams = quantize_params(params)          # int8 dense weights
@@ -39,15 +39,29 @@ or int8 weights; the page pool and the verify step are the KV
 families' only. The dense, ssm and hybrid families train (forward,
 loss_fn), each layer rematerialised in the backward as `cfg.remat` says
 (models.transformer).
+
+The encdec family (Whisper) takes a batch's "enc_frames" (B, enc_ctx,
+d_model), the stub conv frontend's output, through a bidirectional
+layernorm encoder (`_run_encoder`: frames plus sinusoid positions) and
+a causal decoder (token embeddings plus sinusoid positions, no RoPE)
+whose blocks attend the encoder's output. Its cache is {"self": the
+decoder's KV cache, "cross": each decoder layer's projection of the
+encoder's output, {"k", "v"}: (L, B, enc_ctx, Hkv, Dh)}: `prefill` runs
+the encoder and writes "cross" in place; a decode step reads it, each
+slot's row through the decode kernel at its last key (`cross_pos`). It
+serves on dense caches with float or int8 weights; neither a page pool
+nor a verify step takes its read-only whole-sequence cross cache.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict
 
 import torch
 
 from repro_torch.core.device import resolve_device
+from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
@@ -58,18 +72,39 @@ from repro_torch.models import transformer as T
 KV_FAMILIES = ("dense", "vlm", "moe")
 
 
+#: Why a family other than the KV_FAMILIES takes neither a page pool nor
+#: a verify step.
+_NOT_KV = {"ssm": "keeps a recurrent state",
+           "hybrid": "keeps a recurrent state",
+           "encdec": "reads a cross cache, the encoder's K/V of each "
+                     "request, read-only and whole-sequence"}
+
+
 def _check_family(cfg) -> None:
     hybrid = (cfg.family == "hybrid" and cfg.ssm is not None
               and cfg.mlp == "swiglu" and cfg.attn_every > 0
               and cfg.n_layers % cfg.attn_every == 0)
     kv = cfg.family in KV_FAMILIES and cfg.mlp == "swiglu" \
         and (cfg.moe is not None) == (cfg.family == "moe")
-    if cfg.norm != "rms" or not (
-            kv or (cfg.family == "ssm" and cfg.ssm is not None) or hybrid):
+    rms = cfg.norm == "rms" and (
+        kv or (cfg.family == "ssm" and cfg.ssm is not None) or hybrid)
+    encdec = (cfg.family == "encdec" and cfg.norm == "ln"
+              and cfg.mlp == "gelu" and cfg.moe is None and cfg.ssm is None
+              and cfg.n_enc_layers > 0 and cfg.enc_ctx > 0)
+    if not (rms or encdec):
         raise ValueError(f"the port serves dense, vlm and moe swiglu/rms "
-                         f"decoders, rms Mamba-2 stacks (ssm) and Mamba-2 "
+                         f"decoders, rms Mamba-2 stacks (ssm), Mamba-2 "
                          f"stacks in whole segments with a shared swiglu "
-                         f"block (hybrid), not {cfg.name} ({cfg.family})")
+                         f"block (hybrid) and layernorm/gelu "
+                         f"encoder-decoders with encoder layers and frames "
+                         f"(encdec), not {cfg.name} ({cfg.family}, norm "
+                         f"{cfg.norm!r}, mlp {cfg.mlp!r})")
+
+
+def _enc_cfg(cfg):
+    """An encoder-decoder's encoder stack as a config of its own depth
+    (its init scales and remat read n_layers)."""
+    return dataclasses.replace(cfg, n_layers=cfg.n_enc_layers)
 
 
 def init_params(cfg, generator: torch.Generator, device=None) -> Dict[str, Any]:
@@ -90,6 +125,12 @@ def init_params(cfg, generator: torch.Generator, device=None) -> Dict[str, Any]:
         p["layers"] = T.ssm_stack_init(generator, cfg, device=device)
     elif cfg.family == "hybrid":
         p["hybrid"] = T.hybrid_init(generator, cfg, device=device)
+    elif cfg.family == "encdec":
+        p["enc_layers"] = T.stack_init(generator, _enc_cfg(cfg),
+                                       device=device)
+        p["enc_final_norm"] = T._norm_init(cfg, device)
+        p["dec_layers"] = T.stack_init(generator, cfg, device=device,
+                                       cross=True)
     else:
         p["layers"] = T.stack_init(generator, cfg, device=device)
     return p
@@ -113,7 +154,8 @@ def quantize_params(params):
     its shared block, the block's input projection and lm_head are;
     raw arrays (the hybrid's lora_a / lora_b, the MoE expert banks) stay
     float, and so does the f32 router; Arctic's dense branch is
-    quantized."""
+    quantized; an encoder-decoder's encoder, decoder and cross-attention
+    weights are, their biases kept float."""
 
     def rec(node, name):
         if isinstance(node, dict):
@@ -132,15 +174,21 @@ def init_cache(cfg, batch: int, max_len: int, device=None):
     layer's recurrent state, {"ssd": (L, B, H, P, N) f32, "conv":
     (L, B, W - 1, d_inner), "conv_bc": (L, B, W - 1, 2GN)}, whatever
     max_len. hybrid: {"mamba": that state with (n_seg, attn_every) in
-    place of L, "attn": {"k", "v": (n_seg, B, max_len, Hkv, Dh)}}."""
+    place of L, "attn": {"k", "v": (n_seg, B, max_len, Hkv, Dh)}}.
+    encdec: {"self": the dense caches, "cross": {"k", "v": (L, B,
+    enc_ctx, Hkv, Dh)}}."""
     device = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
 
-    def kv(layers):
-        shape = (layers, batch, max_len, cfg.n_kv_heads,
+    def kv(layers, length=max_len):
+        shape = (layers, batch, length, cfg.n_kv_heads,
                  cfg.resolved_head_dim)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    if cfg.family == "encdec":
+        return {"self": kv(cfg.n_layers),
+                "cross": kv(cfg.n_layers, cfg.enc_ctx)}
 
     if cfg.family in ("ssm", "hybrid"):
         st = S.mamba_init_state(cfg, batch, device=device, dtype=dtype)
@@ -169,8 +217,8 @@ def init_paged_cache(cfg, n_pages: int, page_size: int, max_slots: int,
     _check_family(cfg)
     if cfg.family not in KV_FAMILIES:
         raise ValueError(f"a paged KV cache serves the families "
-                         f"{KV_FAMILIES}; {cfg.name} ({cfg.family}) keeps a "
-                         f"recurrent state")
+                         f"{KV_FAMILIES}; {cfg.name} ({cfg.family}) "
+                         f"{_NOT_KV[cfg.family]}")
     device = resolve_device(device)
     hkv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
     shape = (cfg.n_layers, n_pages, page_size, hkv, dh)
@@ -211,8 +259,28 @@ def _text_positions(cfg, b: int, t: int, pos, device):
         .expand(b, t, 3)
 
 
+def _run_encoder(cfg, params, frames):
+    """The encoder's output (B, enc_ctx, d_model) for frames (B, enc_ctx,
+    d_model): frames in the compute dtype plus sinusoid positions,
+    bidirectional blocks, the final norm."""
+    x = frames.to(getattr(torch, cfg.dtype))
+    x = x + L.sinusoid_positions(x.shape[1], cfg.d_model,
+                                 device=x.device)[None].to(x.dtype)
+    x, _ = T.stack_apply(params["enc_layers"], x, _enc_cfg(cfg), causal=False)
+    return T._norm_apply(cfg, params["enc_final_norm"], x)
+
+
+def _cross_pos(pos, enc_len: int):
+    """A decode step's cross-attention positions: each slot's query sees
+    every encoder key, so its position is the last key's, enc_len - 1;
+    an idle slot's (pos < 0) is -1, a zero row (no host sync)."""
+    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+        return torch.where(pos >= 0, enc_len - 1, -1).to(torch.int32)
+    return enc_len - 1
+
+
 def _logits(cfg, params, x):
-    x = L.rmsnorm_apply(params["final_norm"], x)
+    x = T._norm_apply(cfg, params["final_norm"], x)
     if cfg.tie_embeddings:
         logits = L.embed_attend(params["embed"], x)
     else:
@@ -233,12 +301,20 @@ def forward(cfg, params, batch, aux=None):
     (B, T), the pad classes masked to -1e30: the training forward, with
     cache-less causal attention (dense, vlm and moe, at
     batch["positions"] where given, and the hybrid's shared block) and
-    the Mamba-2 layers' scans from a zero state (ssm, hybrid). aux: a
-    dict that a moe model fills with the aux dict the JAX package's
-    `forward` returns (its router losses and dropped fraction; empty for
-    the other families), or None to compute none of it."""
+    the Mamba-2 layers' scans from a zero state (ssm, hybrid); encdec:
+    the encoder over batch["enc_frames"], then the decoder at sinusoid
+    positions 0 .. T - 1, its cross-attention over K/V projected from
+    the encoder's output. aux: a dict that a moe model fills with the
+    aux dict the JAX package's `forward` returns (its router losses and
+    dropped fraction; empty for the other families), or None to compute
+    none of it."""
     x = _embed_inputs(cfg, params, batch)
-    if cfg.family == "ssm":
+    if cfg.family == "encdec":
+        enc_out = _run_encoder(cfg, params, batch["enc_frames"])
+        x = x + L.sinusoid_positions(x.shape[1], cfg.d_model,
+                                     device=x.device)[None].to(x.dtype)
+        x, _ = T.stack_apply(params["dec_layers"], x, cfg, enc_out=enc_out)
+    elif cfg.family == "ssm":
         x, _ = T.ssm_stack_apply(params["layers"], x, cfg)
     elif cfg.family == "hybrid":
         x, _, _ = T.hybrid_apply(params["hybrid"], x, cfg, emb0=x)
@@ -274,9 +350,26 @@ def prefill(cfg, params, batch, cache, pos: int = 0):
     the cache from `pos` (dense and vlm: turned by batch["positions"]
     where given; ssm: the state the prompt ends in, which the prompt
     computes from a zero state; hybrid: that state and the shared
-    block's KV rows). Returns (last-position f32 logits, cache)."""
+    block's KV rows; encdec: the encoder runs over batch["enc_frames"]
+    (B, enc_ctx, d_model), each decoder layer's projection of its output
+    is written into cache["cross"], and the decoder's KV rows into
+    cache["self"]). Returns (last-position f32 logits, cache)."""
     x = _embed_inputs(cfg, params, batch)
-    if cfg.family == "ssm":
+    if cfg.family == "encdec":
+        enc_out = _run_encoder(cfg, params, batch["enc_frames"])
+        cross = cache["cross"]
+        layers = T._unstack(params["dec_layers"]["cross_attn"],
+                            cfg.n_layers)
+        for i, lp in enumerate(layers):
+            k, v = A.project_cross_kv(lp, enc_out, cfg)
+            cross["k"][i].copy_(k)
+            cross["v"][i].copy_(v)
+        x = x + L.sinusoid_positions(x.shape[1], cfg.d_model, pos,
+                                     device=x.device)[None].to(x.dtype)
+        x, _ = T.stack_apply(params["dec_layers"], x, cfg,
+                             caches=cache["self"], cache_pos=pos,
+                             cross_caches=cross)
+    elif cfg.family == "ssm":
         x, cache = T.ssm_stack_apply(params["layers"], x, cfg, states=cache)
     elif cfg.family == "hybrid":
         x, _, _ = T.hybrid_apply(params["hybrid"], x, cfg, emb0=x,
@@ -298,10 +391,23 @@ def decode_step(cfg, params, token, pos, cache):
     so an idle slot's row steps on garbage, which its next admission
     overwrites. hybrid: its Mamba state steps so, and its KV rows are
     written and read at pos as the dense family's. vlm: as dense, the
-    token turned by t = h = w = pos. Returns (f32 logits, cache)."""
+    token turned by t = h = w = pos. encdec: the token plus the
+    sinusoid at pos (computed on the position tensor's device), its self
+    KV rows as the dense family's, its cross-attention over each slot's
+    cache["cross"] rows through the decode kernel (`_cross_pos`).
+    Returns (f32 logits, cache)."""
     x = L.embed_apply(params["embed"], token, dtype=getattr(torch, cfg.dtype))
     positions = _text_positions(cfg, token.shape[0], 1, pos, x.device)
-    if cfg.family == "ssm":
+    if cfg.family == "encdec":
+        p = pos if isinstance(pos, torch.Tensor) \
+            else torch.tensor(pos, device=x.device)
+        pe = L.sinusoid_at(cfg.d_model, p).reshape(-1, 1, cfg.d_model)
+        x = x + pe.to(x.dtype)
+        x, _ = T.stack_apply(
+            params["dec_layers"], x, cfg, caches=cache["self"],
+            cache_pos=pos, cross_caches=cache["cross"],
+            cross_pos=_cross_pos(pos, cache["cross"]["k"].shape[2]))
+    elif cfg.family == "ssm":
         x, cache = T.ssm_stack_apply(params["layers"], x, cfg, states=cache,
                                      decode=True)
     elif cfg.family == "hybrid":
@@ -336,12 +442,12 @@ def verify_step(cfg, params, tokens, pos, n_tok, cache):
     drop some of them, as the reference's verify step routes them (so a
     moe row is a decode step's only where nothing is dropped). The KV
     families only, as the JAX package's `verify_step` refuses the
-    families that keep a recurrent state."""
+    others."""
     if cfg.family not in KV_FAMILIES:
         raise ValueError(f"speculative verification needs an attention "
                          f"cache alone (families {KV_FAMILIES}), not "
-                         f"{cfg.name} ({cfg.family}), which keeps a "
-                         f"recurrent state")
+                         f"{cfg.name} ({cfg.family}), which "
+                         f"{_NOT_KV[cfg.family]}")
     x = L.embed_apply(params["embed"], tokens, dtype=getattr(torch, cfg.dtype))
     positions = _text_positions(cfg, *tokens.shape, pos, x.device)
     if "pages" in cache:

@@ -1,7 +1,10 @@
-"""The decoder stacks: pre-norm blocks of attention and a SwiGLU MLP
+"""The layer stacks: pre-norm blocks of attention and a SwiGLU MLP
 (family dense) or a mixture-of-experts FFN (family moe, `models.moe`),
-pre-norm Mamba-2 blocks (family ssm), and Zamba2's Mamba-2 backbone with
-one shared attention block (family hybrid).
+pre-norm Mamba-2 blocks (family ssm), Zamba2's Mamba-2 backbone with
+one shared attention block (family hybrid), and Whisper's layernorm
+blocks with a gelu MLP (family encdec): a bidirectional encoder stack
+(`causal=False`) and a causal decoder stack whose blocks add
+cross-attention over the encoder's output (`block_init(cross=True)`).
 
 Params are stacked with a leading layer dim, as the JAX package's
 `stack_init` builds them, and `stack_apply` loops over that dim in
@@ -48,13 +51,22 @@ def _maybe_remat(fn, cfg, params):
 
 
 def _norm_init(cfg, device):
-    return L.rmsnorm_init(cfg.d_model, dtype=getattr(torch, cfg.param_dtype),
-                          device=device)
+    dtype = getattr(torch, cfg.param_dtype)
+    if cfg.norm == "ln":
+        return L.layernorm_init(cfg.d_model, dtype=dtype, device=device)
+    return L.rmsnorm_init(cfg.d_model, dtype=dtype, device=device)
 
 
-def block_init(generator, cfg, *, device, banks=True):
+def _norm_apply(cfg, p, x):
+    if cfg.norm == "ln":
+        return L.layernorm_apply(p, x)
+    return L.rmsnorm_apply(p, x)
+
+
+def block_init(generator, cfg, *, device, banks=True, cross=False):
     """banks=False: a moe block without its expert banks (`stack_init`
-    draws them stacked)."""
+    draws them stacked). cross: a decoder block of an encoder-decoder,
+    with cross-attention and its norm."""
     p = {
         "attn_norm": _norm_init(cfg, device),
         "attn": A.attn_init(generator, cfg, device=device),
@@ -64,32 +76,49 @@ def block_init(generator, cfg, *, device, banks=True):
         p["moe"] = M.moe_init(generator, cfg, device=device, banks=banks)
     else:
         p["mlp"] = F.mlp_init(generator, cfg, device=device)
+    if cross:
+        p["cross_norm"] = _norm_init(cfg, device)
+        p["cross_attn"] = A.attn_init(generator, cfg, device=device)
     return p
 
 
 def block_apply(p, x, cfg, *, cache=None, cache_pos=None, kv_table=None,
-                n_valid=None, positions=None, aux=None):
+                n_valid=None, positions=None, aux=None, causal=True,
+                enc_out=None, cross_cache=None, cross_pos=None):
     """Returns (x, cache). positions: RoPE positions (attn_apply); aux: a
-    dict a moe block adds its router losses into (models.moe)."""
-    h, cache = A.attn_apply(p["attn"], L.rmsnorm_apply(p["attn_norm"], x),
+    dict a moe block adds its router losses into (models.moe); causal:
+    False in an encoder. A decoder block of an encoder-decoder attends
+    the encoder after its self-attention: over `cross_cache`'s {"k", "v"}
+    (prefill and decode), or over K/V projected from `enc_out` (the
+    training forward); cross_pos: a decode step's (attn_apply)."""
+    h, cache = A.attn_apply(p["attn"], _norm_apply(cfg, p["attn_norm"], x),
                             cfg, cache=cache, cache_pos=cache_pos,
                             kv_table=kv_table, n_valid=n_valid,
-                            positions=positions)
+                            positions=positions, causal=causal)
     x = x + h
+    if enc_out is not None or cross_cache is not None:
+        kv = (cross_cache["k"], cross_cache["v"]) if cross_cache is not None \
+            else A.project_cross_kv(p["cross_attn"], enc_out, cfg)
+        hc, _ = A.attn_apply(p["cross_attn"],
+                             _norm_apply(cfg, p["cross_norm"], x), cfg,
+                             enc_kv=kv, cross_pos=cross_pos)
+        x = x + hc
     if cfg.moe is not None:
         # added after the MoE, as the reference adds it (no flush to ride)
-        return x + M.moe_apply(p["moe"], L.rmsnorm_apply(p["mlp_norm"], x),
+        return x + M.moe_apply(p["moe"], _norm_apply(cfg, p["mlp_norm"], x),
                                cfg, aux=aux), cache
     # the skip connection rides the down-projection's flush (residual)
-    out = F.mlp_apply(p["mlp"], L.rmsnorm_apply(p["mlp_norm"], x), cfg,
+    out = F.mlp_apply(p["mlp"], _norm_apply(cfg, p["mlp_norm"], x), cfg,
                       residual=x)
     return out, cache
 
 
-def stack_init(generator, cfg, *, device):
+def stack_init(generator, cfg, *, device, cross=False):
     """The layers' params stacked; a moe stack's expert banks are drawn
-    stacked after the rest (`moe.bank_init`), never copied."""
-    layers = [block_init(generator, cfg, device=device, banks=False)
+    stacked after the rest (`moe.bank_init`), never copied. cross: an
+    encoder-decoder's decoder blocks (`block_init`)."""
+    layers = [block_init(generator, cfg, device=device, banks=False,
+                         cross=cross)
               for _ in range(cfg.n_layers)]
     p = _stack(layers)
     if cfg.moe is not None:
@@ -114,30 +143,39 @@ def _unstack(tree, n):
 
 
 def stack_apply(params, x, cfg, *, caches=None, cache_pos=None,
-                kv_table=None, n_valid=None, positions=None, aux=None):
+                kv_table=None, n_valid=None, positions=None, aux=None,
+                causal=True, enc_out=None, cross_caches=None,
+                cross_pos=None):
     """Returns (x, caches). Without caches this is the training forward
-    (cache-less causal attention). kv_table (paged decode) has no layer
-    dim: a logical page is the same physical page in every layer's pool,
-    so every layer gets the same table. n_valid: a verify step's real
-    tokens a slot; positions: the tokens' RoPE positions, (B, T) or
-    (B, T, 3), None for the default (models.attention.attn_apply). aux: a
-    dict that a moe stack fills with its router losses summed over the
-    layers and the dropped fraction averaged over them, as the
-    reference's stack returns them."""
+    (cache-less attention, causal unless `causal=False`: an encoder).
+    kv_table (paged decode) has no layer dim: a logical page is the same
+    physical page in every layer's pool, so every layer gets the same
+    table. n_valid: a verify step's real tokens a slot; positions: the
+    tokens' RoPE positions, (B, T) or (B, T, 3), None for the default
+    (models.attention.attn_apply). aux: a dict that a moe stack fills
+    with its router losses summed over the layers and the dropped
+    fraction averaged over them, as the reference's stack returns them.
+    An encoder-decoder's decoder stack attends the encoder through
+    `cross_caches` (stacked {"k", "v"} (L, B, Tenc, Hkv, Dh), one layer's
+    rows each) or `enc_out`, and `cross_pos` (`block_apply`)."""
     n = params["attn_norm"]["scale"].shape[0]
     layers = _unstack(params, n)
     per_cache = [None] * n if caches is None else _unstack(caches, n)
+    per_cross = [None] * n if cross_caches is None \
+        else _unstack(cross_caches, n)
 
-    def body(lp, xc, cache):
+    def body(lp, xc, cache, cross):
         return block_apply(lp, xc, cfg, cache=cache, cache_pos=cache_pos,
                            kv_table=kv_table, n_valid=n_valid,
-                           positions=positions, aux=aux)[0]
+                           positions=positions, aux=aux, causal=causal,
+                           enc_out=enc_out, cross_cache=cross,
+                           cross_pos=cross_pos)[0]
 
     if caches is None and aux is None:
         # (a recompute would add a layer's aux twice)
         body = _maybe_remat(body, cfg, params)
     for i in range(n):
-        x = body(layers[i], x, per_cache[i])
+        x = body(layers[i], x, per_cache[i], per_cross[i])
     if aux is not None and "moe_dropped_frac" in aux:
         aux["moe_dropped_frac"] = aux["moe_dropped_frac"] / cfg.n_layers
     return x, caches

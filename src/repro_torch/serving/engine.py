@@ -102,7 +102,16 @@ token is dropped and a stream is its request alone. Family vlm
 request's prompt is prefilled at plain positions and
 each later token turned by t = h = w = pos (models.model), which is
 plain RoPE, as in the JAX engine; neither engine takes patch
-embeddings in a request.
+embeddings in a request. Family encdec (Whisper): a request carries its
+encoder frames (`submit(..., enc_frames=)`, (enc_ctx, d_model)); its
+admission prefill runs the encoder and writes each decoder layer's
+cross K/V into the sub-cache's "cross" leaves, which the admission
+copies into the slot's rows beside the self-attention rows; the decode
+and remainder steps read the cross cache in place (a static tensor the
+graphs capture), each slot through the decode kernel at its last
+encoder key. The cross cache stays enc_ctx long whatever max_len; a page
+pool, int8 pages and speculation (as target or draft) are refused, as
+the JAX engine refuses them.
 
 These are the JAX package's `ServingEngine` paths, with the policy
 fields kv_layout / quant_kv / quant as constructor arguments. A kernel
@@ -158,7 +167,7 @@ def check_modes(cfg, kv_layout: str, quant_kv: str, quant: str) -> None:
     paged = kv_layout == "paged"
     if cfg.family not in M.KV_FAMILIES and (paged or quant_kv != "off"):
         raise ValueError(
-            f"{cfg.name} ({cfg.family}) keeps a recurrent state: "
+            f"{cfg.name} ({cfg.family}) {M._NOT_KV[cfg.family]}: "
             f"kv_layout='paged' and quant_kv apply to the families "
             f"{M.KV_FAMILIES} only")
     if quant_kv != "off" and not paged:
@@ -204,9 +213,10 @@ class ServingEngine:
         self.max_slots = max_slots
         # chunked_attention needs kv lengths beyond attn_chunk to be
         # chunk multiples; max_len is trace-dependent, so round it up (an
-        # ssm state has no length to round). Paged mode also needs a whole
-        # number of pages, so the admission page copies never straddle the
-        # sub-cache's end.
+        # ssm state has no length to round; an encdec cross cache keeps
+        # init_cache's enc_ctx whatever max_len). Paged mode also needs a
+        # whole number of pages, so the admission page copies never
+        # straddle the sub-cache's end.
         a = cfg.attn_chunk
         if paged:
             m = math.lcm(a, page_size) if max_len > a else page_size
@@ -268,6 +278,12 @@ class ServingEngine:
         self.spec_proposed = 0
         self.spec_accepted = 0
         if draft is not None:
+            if "encdec" in (cfg.family, draft[0].family):
+                raise ValueError(
+                    f"speculative decoding takes no encdec model, as "
+                    f"target or draft ({cfg.name} drafted by "
+                    f"{draft[0].name}): the verify and draft steps carry "
+                    f"no per-request encoder cache")
             if cfg.family not in M.KV_FAMILIES:
                 raise ValueError(
                     f"speculative decoding needs a verify-capable target "
@@ -368,12 +384,25 @@ class ServingEngine:
     # -- submission ----------------------------------------------------
     def submit(self, prompt, max_new_tokens: int, *,
                arrival_time: float = 0.0, deadline: Optional[float] = None,
-               priority: int = 0) -> Request:
+               priority: int = 0, enc_frames=None) -> Request:
+        """Queue a request. enc_frames: an encdec request's encoder
+        frames, (enc_ctx, d_model) (required there, refused elsewhere)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size + max_new_tokens > self.max_len:
             raise ValueError(
                 f"request (prompt {prompt.size} + gen {max_new_tokens}) "
                 f"exceeds the engine's max_len {self.max_len}")
+        if self.cfg.family == "encdec":
+            want = (self.cfg.enc_ctx, self.cfg.d_model)
+            if enc_frames is None:
+                raise ValueError(f"encdec requests need enc_frames {want}")
+            enc_frames = np.asarray(enc_frames, np.float32)
+            if enc_frames.shape != want:
+                raise ValueError(f"enc_frames of shape {enc_frames.shape}; "
+                                 f"{self.cfg.name} takes {want}")
+        elif enc_frames is not None:
+            raise ValueError(f"enc_frames are an encdec request's; "
+                             f"{self.cfg.name} is {self.cfg.family}")
         if self.pool is not None:
             # refused here when not even an empty pool could take it, so
             # it cannot wedge the FCFS queue; a full pool only defers.
@@ -390,7 +419,7 @@ class ServingEngine:
         req = Request(rid=self._next_rid, prompt=prompt,
                       max_new_tokens=max_new_tokens,
                       arrival_time=arrival_time, deadline=deadline,
-                      priority=priority)
+                      priority=priority, enc_frames=enc_frames)
         self._next_rid += 1
         self.requests.append(req)
         self.scheduler.submit(req)
@@ -468,8 +497,11 @@ class ServingEngine:
         sub = self._sub
         for leaf in leaves(sub):
             leaf.zero_()
-        logits, _ = M.prefill(self.cfg, self.params,
-                              {"tokens": tokens[None, :lb]}, sub)
+        batch = {"tokens": tokens[None, :lb]}
+        if req.enc_frames is not None:
+            batch["enc_frames"] = torch.as_tensor(
+                req.enc_frames, device=self.device)[None]
+        logits, _ = M.prefill(self.cfg, self.params, batch, sub)
         for i in range(lb, len(ctx)):    # remainder: one-token steps
             self._rem_token.copy_(tokens[None, i:i + 1])
             self._rem_pos.fill_(i)

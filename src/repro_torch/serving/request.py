@@ -1,5 +1,6 @@
 """Request lifecycle and per-request stats (the JAX package's
-`repro/serving/request.py`, without the encdec frames).
+`repro/serving/request.py`). An encdec request carries its encoder
+frames, (enc_ctx, d_model), the stub conv frontend's output.
 
 A request moves WAITING -> ACTIVE -> FINISHED on the happy path. While
 ACTIVE it owns one cache slot (a batch row of the engine's KV cache or
@@ -46,6 +47,7 @@ class Request:
     arrival_time: float = 0.0          # seconds on the engine clock
     deadline: Optional[float] = None   # absolute engine-clock seconds
     priority: int = 0                  # higher = more important
+    enc_frames: Optional[np.ndarray] = None   # encdec: (enc_ctx, d_model)
 
     # engine-owned state
     status: str = WAITING

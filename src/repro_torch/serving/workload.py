@@ -1,9 +1,10 @@
 """Synthetic serving traces, a registry of scenarios (the JAX package's
-`repro/serving/workload.py`, without the encdec frames).
+`repro/serving/workload.py`).
 
 All scenarios share one body (`_make_trace`: arrivals, priorities,
-deadlines) and differ in how each request's prompt and generation budget
-are drawn; `TRACES` keys them by name for the serve CLI's `--workload`:
+deadlines, encdec frames) and differ in how each request's prompt and
+generation budget are drawn; `TRACES` keys them by name for the serve
+CLI's `--workload`:
 
 * ``mixed`` (synthetic_trace): prompt lengths uniform over an INCLUSIVE
   [lo, hi] range, random tokens.
@@ -16,11 +17,12 @@ are drawn; `TRACES` keys them by name for the serve CLI's `--workload`:
   generations.
 
 Each draws from its numpy Generator in the JAX package's order, so one
-seed gives both packages the same requests; the JAX package's encdec
-frames are drawn for the encdec family only, which the port does not
-serve, so no draw of theirs is skipped. ``deadline`` is relative to
-arrival (the TraceItem holds the absolute engine-clock deadline) and
-``priority_levels`` are drawn uniformly per request.
+seed gives both packages the same requests: an encdec request's frames,
+(enc_ctx, d_model) normal f32, are drawn right after its prompt, as
+there. ``deadline`` is relative to arrival (the TraceItem holds the
+absolute engine-clock deadline) and ``priority_levels`` are drawn
+uniformly per request. ``enc_frames`` is the TraceItem's last field
+(the JAX package's fourth), so positional uses of the others stand.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ class TraceItem(NamedTuple):
     arrival: float
     deadline: Optional[float] = None       # absolute engine-clock seconds
     priority: int = 0
+    enc_frames: Optional[np.ndarray] = None  # encdec: (enc_ctx, d_model)
 
 
 def _arrivals(rng: np.random.Generator, n: int, arrival_rate: float,
@@ -89,7 +92,7 @@ def _make_trace(cfg, n: int, rng: np.random.Generator, prompt_fn, gen,
                 arrivals: Optional[np.ndarray] = None) -> List[TraceItem]:
     """The shared trace body: every scenario is `prompt_fn(i) -> prompt`
     plus a per-request generation budget (int, or `gen(i) -> int`) over
-    the common arrivals, deadlines and priorities."""
+    the common arrivals, deadlines, priorities and encdec frames."""
     if arrivals is None:
         arrivals = _arrivals(rng, n, arrival_rate, burst_size)
     prios = _priorities(rng, n, priority_levels)
@@ -97,9 +100,13 @@ def _make_trace(cfg, n: int, rng: np.random.Generator, prompt_fn, gen,
     trace: List[TraceItem] = []
     for i in range(n):
         prompt = np.asarray(prompt_fn(i), np.int32)
+        enc = None
+        if cfg.family == "encdec":
+            enc = rng.normal(size=(cfg.enc_ctx, cfg.d_model)) \
+                .astype(np.float32)
         dl = None if deadline is None else float(arrivals[i]) + deadline
         trace.append(TraceItem(prompt, int(gen_fn(i)), float(arrivals[i]),
-                               dl, int(prios[i])))
+                               dl, int(prios[i]), enc))
     return trace
 
 

@@ -1865,3 +1865,120 @@ def test_flash_decode_at_a_group_of_7(dev, window):
         alone = ops.flash_decode(q[i:i + 1], k[i:i + 1], v[i:i + 1],
                                  pos=pos[i:i + 1], window=window)
         assert torch.equal(alone[0], got[i]), i
+
+
+# ----------------------------------------------------------------------
+# whisper-tiny (encdec): its shapes on the kernels, and its model
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("tq", [1500, 128, 37])
+def test_bf16_flash_attention_not_causal_at_whisper_shapes(dev, tq):
+    """The encoder (Tq = Tk = 1500, 6 heads of 64, not causal) and
+    cross-attention at prefill (Tq a prompt's bucket, 128, or ragged,
+    against Tk = 1500 encoder keys) against the plain version."""
+    q = _randn(1, tq, 6, 64, dtype=torch.bfloat16, dev=dev, seed=0)
+    k = _randn(1, 1500, 6, 64, dtype=torch.bfloat16, dev=dev, seed=1)
+    v = _randn(1, 1500, 6, 64, dtype=torch.bfloat16, dev=dev, seed=2)
+    o, lse = ops.flash_attention_fwd(q, k, v, causal=False)
+    want_o, want_lse = ref.flash_attention_fwd_ref(q, k, v, causal=False)
+    _close(o, want_o, torch.bfloat16)
+    torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_over_the_encoder_keys(dev, dtype):
+    """Cross-attention at a decode step: each slot's query over its 1500
+    encoder keys (23 splits of 64 and one of 28) at pos = 1499, one slot
+    idle (pos = -1: a zero row), against the plain version; a slot alone
+    equal to its row in the batch, bit for bit."""
+    b, tk, h, d = 4, 1500, 6, 64
+    q = _randn(b, 1, h, d, dtype=dtype, dev=dev, seed=0)
+    big_k = _randn(4, b, tk, h, d, dtype=dtype, dev=dev, seed=1)
+    big_v = _randn(4, b, tk, h, d, dtype=dtype, dev=dev, seed=2)
+    k, v = big_k[2], big_v[2]       # one layer's view of the cross cache
+    pos = torch.tensor([tk - 1, -1, tk - 1, tk - 1], dtype=torch.int32,
+                       device=dev)
+    got = ops.flash_decode(q, k, v, pos=pos)
+    _close(got, ref.attention_fwd_ref(q, k, v, q_offset=pos), dtype)
+    assert not got[1].any(), "an idle slot must give zeros"
+    for i in (0, 3):
+        alone = ops.flash_decode(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                 pos=pos[i:i + 1])
+        assert torch.equal(alone[0], got[i]), i
+
+
+@pytest.mark.parametrize("mkn, epilogue", [
+    ((4, 384, 1536), "bias_gelu"), ((1500, 384, 1536), "bias_gelu"),
+    ((128, 384, 1536), "bias_gelu"), ((4, 1536, 384), "bias"),
+    ((1500, 1536, 384), "bias")])
+def test_whisper_mlp_gemms_match_plain(dev, mkn, epilogue):
+    """whisper-tiny's MLP at decode (M = 4), a prompt bucket (128) and the
+    encoder (1500 frames): w_in with the bias_gelu flush and w_out with
+    the bias flush, on bf16 and on int8 weights, against the plain
+    versions; a decode row's bits equal at M = 1."""
+    m, k, n = mkn
+    a = _randn(m, k, dtype=torch.bfloat16, dev=dev, seed=0)
+    w = _randn(k, n, dtype=torch.float32, dev=dev, seed=1, scale=k ** -0.5)
+    bias = _randn(n, dtype=torch.float32, dev=dev, seed=2, scale=0.1)
+    wb = w.to(torch.bfloat16)
+    got = ops.matmul(a, wb, epilogue=epilogue, bias=bias)
+    _close(got, ref.fused_matmul_ref(a, wb, torch.bfloat16, epilogue,
+                                     bias=bias), torch.bfloat16)
+    wq, scale = precision.quantize_int8(w)
+    got_q = ops.matmul_q(a, wq, scale, epilogue=epilogue, bias=bias)
+    _close(got_q, ref.matmul_q_ref(a, wq, scale, torch.bfloat16, epilogue,
+                                   bias=bias), torch.bfloat16)
+    if m == 4:
+        assert torch.equal(ops.matmul(a[1:2], wb, epilogue=epilogue,
+                                      bias=bias), got[1:2])
+        assert torch.equal(ops.matmul_q(a[1:2], wq, scale, epilogue=epilogue,
+                                        bias=bias), got_q[1:2])
+
+
+@pytest.mark.parametrize("d", [64, 384])
+def test_layernorm_is_batch_invariant(dev, d):
+    """Each row of 1, 2 or 3 normalises to the bits of the same row in a
+    batch of 4 (whisper-tiny's d_model 384 and its reduced 64), as
+    rmsnorm's rows do."""
+    from repro_torch.models import layers as L
+    p = {"scale": torch.rand(d, device=dev) + 0.5,
+         "bias": torch.rand(d, device=dev) - 0.5}
+    for seed in range(50):
+        x = _randn(4, 1, d, dtype=torch.bfloat16, dev=dev, seed=seed)
+        full = L.layernorm_apply(p, x)
+        for rows in (slice(0, 1), slice(0, 2), slice(0, 3), slice(3, 4)):
+            assert torch.equal(L.layernorm_apply(p, x[rows]), full[rows])
+
+
+def test_encdec_prefill_and_decode_on_card_match_cpu(dev):
+    """The reduced whisper in f32, random biases: a prefill of two
+    prompts with their frames (the encoder and cross-attention through
+    the non-causal flash kernel), two decode steps at a per-slot position
+    vector with slot 1 idle (cross-attention through flash_decode) and
+    one at an int position, on the card against the CPU: logits (the
+    idle row's included: zeros from its attention on both) and every
+    cache leaf."""
+    cfg = dataclasses.replace(get_config("whisper-tiny", reduced=True),
+                              dtype="float32")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    g = torch.Generator().manual_seed(1)
+    # the biases start at zeros: draw them, so that their flushes add
+    params = tree_map(lambda t: t if t.any()
+                      else torch.randn(t.shape, generator=g) * 0.1, params)
+    tokens = torch.randint(0, cfg.vocab, (2, 11), generator=g)
+    frames = torch.randn((2, cfg.enc_ctx, cfg.d_model), generator=g)
+    out = {}
+    for d in ("cpu", "cuda"):
+        p = _to(params, d)
+        cache = M.init_cache(cfg, 2, 16, d)
+        lp, _ = M.prefill(cfg, p, {"tokens": tokens.to(d),
+                                   "enc_frames": frames.to(d)}, cache)
+        logs = [lp]
+        for i in range(2):
+            pos = torch.tensor([11 + i, -1], dtype=torch.int32, device=d)
+            logs.append(M.decode_step(cfg, p, tokens[:, i:i + 1].to(d), pos,
+                                      cache)[0])
+        logs.append(M.decode_step(cfg, p, tokens[:, :1].to(d), 13, cache)[0])
+        out[d] = [t.cpu() for t in logs] + [t.cpu() for t in leaves(cache)]
+    for x, y in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(x, y, atol=1e-4, rtol=1e-4)
