@@ -33,7 +33,15 @@ Phases, in order; any failure propagates and the exit code is not 0:
      in_proj_bc GEMMs of N = 336 and 192 among them), the dual GEMM at
      2048 rows (qwen3-0.6b's and zamba2-1.2b's) beside a GEMM-only
      yardstick, training attention at zamba2-1.2b's shared block, 32
-     heads of 64, and SSD at training's batch of 4 x 512), with the max error
+     heads of 64, and SSD at training's batch of 4 x 512; the batched
+     GEMM in the three layouts a bank's training reads (the forward, dX =
+     g W^T and dW = X^T g on transpose views, in place) at mixtral-8x22b's
+     640 slots an expert (gate/up and down banks) and arctic-480b's E =
+     128 at 32, bf16, and at E = 4 in f32, each expert equal to the 2-D
+     kernel's output bit for bit, beside torch.bmm; the non-causal flash
+     backward at whisper-tiny's training shapes, the encoder's 4 x 1500
+     and cross-attention's 448 queries over 1500 keys, beside SDPA's
+     forward and backward less its forward), with the max error
      beside its tolerance, and the median time of the kernel, the plain version and one PyTorch library call,
      timed in turns with only the card's time inside each event pair,
      beside the least time the card could take; a bf16 page pool must
@@ -95,15 +103,17 @@ Phases, in order; any failure propagates and the exit code is not 0:
      mean over the last 4 steps lies below the mean over the first 4
      (`loss_falls`: over 8 steps a last-against-first gate passed or
      failed with the weights' draw), speed, memory, a trace of a step
-     with the plain SSD backward as a group of its own, zamba2's first 4
-     steps without remat from the same state (step 0's loss equal bit for bit,
-     its grad norm within rtol 1e-5, both peaks and steady step times),
-     and the first 2 (zamba2) and 1 (mamba2) steps through the plain
-     versions on the card, step 0's loss and grad norm within rtol 1e-3
-     of the kernels' (cut for time from 8 steps without remat and 4 and
-     2 plain ones, mamba2's steps without remat and both whole f32 steps
-     at depth 2 against the CPU: their findings stand in PERF.md, and
-     tests/test_torch_cuda.py holds the depth-2 steps on the card);
+     with the plain SSD backward as a group of its own, zamba2's first 2
+     steps without remat from the same state (step 0's loss equal bit for
+     bit, its grad norm within rtol 1e-5, both peaks and steady step
+     times), and the first step of each through the plain versions on the
+     card, its loss and grad norm within rtol 1e-3 of the kernels' (cut
+     for time from 8, then 4, steps without remat and 4, then 2, plain
+     ones, mamba2's steps without remat and both whole f32 steps at depth
+     2 against the CPU: their findings stand in PERF.md, and
+     tests/test_torch_cuda.py holds the depth-2 steps on the card); the
+     weights of phases 8-10 and 14 are drawn on the card (the host's
+     generator took 41 s for mamba2's alone);
   9. Mamba-2 serving at full width: mamba2-2.7b (64 layers, random
      weights from a seed) served by the engine on 4 slots to 8 requests
      whose prompts take every prefill branch, with exact launch counts
@@ -172,7 +182,20 @@ Phases, in order; any failure propagates and the exit code is not 0:
      p99, time to first token, peak memory and capture time; then a
      prefill and 4 decode steps at full width in f32 on the card against
      the CPU;
-  14. the paper's experiment at its size, 4096^2: Table 2 through the
+  14. training the encdec, vlm and moe families at full width (f32
+     params, bf16 activations, remat "full", 16 donated AdamW steps, lr
+     1e-3 cosine, `loss_falls`; exact launch counts a step, speed,
+     memory, a trace of a step): whisper-tiny at full depth, 4 x 448
+     tokens with 4 x 1500 x 384 frames a step, then a step in f32 at
+     full size against the CPU; qwen2-vl-2b at full depth (weights drawn
+     on the card), 4 x 512 tokens with a 16 x 16 image span a row (patch
+     embeddings, (t, h, w) positions, labels -1 at the patches), then
+     depth 2 in f32 against the CPU; mixtral-8x22b at full width and 1
+     of its 56 layers (weights drawn on the card; its router losses and
+     dropped fraction printed), the banks' backward on the batched
+     GEMM's transposed layouts, step 0 with remat "none" (its loss bit
+     for bit) and through the plain versions on the card (within 1e-3);
+  15. the paper's experiment at its size, 4096^2: Table 2 through the
      measurement `launch.paper` prints (`benchmarks.common.measure`: float,
      double and complex-float through the naive kernel, the GEMM
      chokepoint (the tiled kernel; f64 the plain f64 product) and
@@ -180,8 +203,9 @@ Phases, in order; any failure propagates and the exit code is not 0:
      paper's seconds; the naive/tiled ratio beside the paper's 3.0x), Fig 9 through `benchmarks.bench_add`'s
      (add, sub and axpy in GB/s beside 3.35 TB/s), with exact launch
      counts; then the roofline model of the paper's cards and the H100;
-  15. a JSON line of the kernels (each with its launches on every main
-     path), the card line, and the result line.
+  16. a JSON line of the kernels (each with its launches on every main
+     path, and the batched GEMM's transposed layouts and the non-causal
+     backward as `forms`), the card line, and the result line.
 """
 
 import contextlib
@@ -226,12 +250,13 @@ def main() -> int:
                   smoke.phase_mamba, smoke.phase_mamba_vs_cpu,
                   smoke.phase_hybrid, smoke.phase_hybrid_vs_cpu,
                   smoke.phase_dense_configs, smoke.phase_moe,
-                  smoke.phase_encdec, smoke.phase_paper):
+                  smoke.phase_encdec, smoke.phase_train_families,
+                  smoke.phase_paper):
         t = time.perf_counter()
         phase()
         print(f"      ({phase.__name__}: {time.perf_counter() - t:.1f} s; "
               f"{time.perf_counter() - t0:.0f} s since the start)")
-    print(f"[15/15] result ({time.perf_counter() - t0:.0f} s since the "
+    print(f"[16/16] result ({time.perf_counter() - t0:.0f} s since the "
           f"start)")
     print(json.dumps({"kernels": smoke.kernel_rows()}))
     print(f"card: {card_line()}")
@@ -254,7 +279,7 @@ class Smoke:
     # -- 1. card ------------------------------------------------------
     def phase_card(self):
         torch = self.torch
-        print(f"[1/15] card: {card_line()}")
+        print(f"[1/16] card: {card_line()}")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         print(f"      torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -266,7 +291,7 @@ class Smoke:
         from repro_torch.kernels import _build
         t0 = time.perf_counter()
         libs = _build.build_all()
-        print(f"[2/15] build: {sorted(libs)} from "
+        print(f"[2/16] build: {sorted(libs)} from "
               f"{_build.CSRC.relative_to(ROOT)} in "
               f"{time.perf_counter() - t0:.1f} s (nvcc "
               f"{' '.join(_build.NVCC_FLAGS)})")
@@ -339,16 +364,23 @@ class Smoke:
                 (label, got.shape, want.shape, got.dtype, want.dtype)
             wide = torch.float64 if want.dtype == torch.float64 \
                 else torch.float32
-            g, w = got.to(wide), want.to(wide)
-            assert torch.isfinite(g).all(), \
-                f"{kernel} {label}: non-finite output"
-            err = (g - w).abs()
-            bad = err > atol + rtol * w.abs()
-            max_err = max(max_err, err.max().item())
-            assert not bad.any(), (f"{kernel} {label}: {int(bad.sum())} "
-                                   f"elements off, max |err| "
-                                   f"{err.max().item():g} (atol {atol:g} "
-                                   f"rtol {rtol:g})")
+            # a slice of dim 0 at a time: a bank-sized output's f32 copies
+            # would not fit beside it
+            rows = max(1, (1 << 28) // max(1, got[0].numel())) \
+                if got.dim() else 1
+            for gs, ws in zip(got.reshape(-1, *got.shape[1:]).split(rows),
+                              want.reshape(-1, *want.shape[1:]).split(rows)):
+                g, w = gs.to(wide), ws.to(wide)
+                assert torch.isfinite(g).all(), \
+                    f"{kernel} {label}: non-finite output"
+                err = (g - w).abs()
+                bad = err > atol + rtol * w.abs()
+                max_err = max(max_err, err.max().item())
+                assert not bad.any(), (f"{kernel} {label}: {int(bad.sum())} "
+                                       f"elements off, max |err| "
+                                       f"{err.max().item():g} (atol {atol:g} "
+                                       f"rtol {rtol:g})")
+                del g, w, err, bad
         atol, rtol = tols[0]
         timed = [run_plain, run_kernel] + ([run_library]
                                            if callable(run_library) else [])
@@ -374,7 +406,7 @@ class Smoke:
         torch = self.torch
         from repro_torch.kernels import ops, ref
         F = torch.nn.functional
-        print("[3/15] kernels against their plain versions (median of 50, "
+        print("[3/16] kernels against their plain versions (median of 50, "
               "L2 flushed, in turns, card time only)")
         gen = torch.Generator(device=self.dev).manual_seed(0)
 
@@ -493,7 +525,9 @@ class Smoke:
         self._kernels_hybrid(randn, tols[torch.bfloat16])
         self._kernels_dense_configs(randn, tols[torch.bfloat16])
         self._kernels_moe(randn, tols)
+        self._kernels_moe_training(randn, tols)
         self._kernels_encdec(randn, tols[torch.bfloat16])
+        self._kernels_encdec_training(randn, tols)
         self._kernels_int8_and_paged(randn, tols[torch.bfloat16])
         self._kernels_decode_rows(randn, tols[torch.bfloat16])
         self._kernels_attention(randn, tols)
@@ -725,6 +759,14 @@ class Smoke:
     MOE_BANKS = (("mixtral-8x22b", "bfloat16", 8, 6144, 16384, (4, 160)),
                  ("arctic-480b", "bfloat16", 128, 7168, 4864, (4, 8)),
                  ("f32", "float32", 4, 1024, 2048, (4, 160)))
+    #: (what, dtype, experts, slots an expert, K, N) of a bank in
+    #: `_kernels_moe_training`: training's 4 x 512 tokens in groups of 256
+    MOE_TRAIN_BANKS = (("mixtral-8x22b gate/up", "bfloat16", 8, 640, 6144,
+                        16384),
+                       ("mixtral-8x22b down", "bfloat16", 8, 640, 16384, 6144),
+                       ("arctic-480b gate/up", "bfloat16", 128, 32, 7168,
+                        4864),
+                       ("f32", "float32", 4, 160, 512, 640))
 
     def _kernels_moe(self, randn, tols, banks=MOE_BANKS, tk=6144):
         """The moe family's kernels: the batched dual GEMM and GEMM over
@@ -825,6 +867,94 @@ class Smoke:
         del q, kc, vc, mask
         self._decode_cases(randn, tol, 56, 8, paged=True, what="arctic-480b")
         self._decode_batch_invariance(randn, 56, 8)
+
+    def _kernels_moe_training(self, randn, tols, banks=MOE_TRAIN_BANKS):
+        """The batched GEMM in the three layouts a bank's training reads,
+        at training's batch of 4 x 512 tokens in groups of 256 (mixtral-
+        8x22b: E = 8 experts of 8 x 80 = 640 slots, its gate/up bank K =
+        6144, N = 16384 and its down bank K = 16384, N = 6144; arctic-480b:
+        E = 128 of 8 x 4 = 32 slots, its gate/up bank K = 7168, N = 4864),
+        bf16, and at E = 4 in f32: the forward (row-major), dX = g W^T (W^T
+        a transpose view of the bank) and dW = X^T g (X^T a view), each
+        against its plain version beside torch.bmm on the same views, each
+        expert's output equal to the 2-D kernel's on its operands bit for
+        bit."""
+        torch = self.torch
+        from repro_torch.kernels import ops, ref
+        gen = torch.Generator(device=self.dev).manual_seed(11)
+
+        def bank(e, k, n, dtype):
+            out = torch.empty((e, k, n), dtype=dtype, device=self.dev)
+            for m in out:
+                m.copy_(torch.randn((k, n), generator=gen, device=self.dev)
+                        * k ** -0.5)
+            return out
+
+        for what, dname, e, m, k, n in banks:
+            dtype = getattr(torch, dname)
+            tol, n_time = tols[dtype], 5 if e > 8 else 10
+            w = bank(e, k, n, dtype)
+            x = randn(e, m, k, dtype=dtype)
+            g = randn(e, m, n, dtype=dtype)
+            for form, a, b in (("forward", x, w),
+                               ("dX = g W^T, W^T a view", g,
+                                w.transpose(1, 2)),
+                               ("dW = X^T g, X^T a view", x.transpose(1, 2),
+                                g)):
+                em, ek = a.shape[1:]
+                en = b.shape[2]
+                self._case(
+                    "matmul_batched", f"{dname} E={e} M={em} K={ek} N={en} "
+                    f"({what} {form})",
+                    lambda a=a, b=b: ops.matmul_batched(a, b),
+                    lambda a=a, b=b: ref.matmul_batched_ref(a, b),
+                    lambda a=a, b=b: torch.bmm(a, b),
+                    (e * em * ek + e * ek * en + e * em * en) * dtype.itemsize,
+                    2 * e * em * en * ek, dname, tol, n_time=n_time)
+                got = ops.matmul_batched(a, b)
+                for i in range(e):
+                    assert torch.equal(got[i], ops.matmul(a[i], b[i])), \
+                        (what, form, i)
+                del got
+            print(f"      batched {what}: in each layout every expert's "
+                  f"output equals the 2-D kernel's on its operands, bit for "
+                  f"bit")
+            del w, x, g
+            torch.cuda.empty_cache()
+
+    def _kernels_encdec_training(self, randn, tols):
+        """The flash backward at `causal=False` at whisper-tiny's training
+        shapes, 4 x 6 heads of 64: the encoder (Tq = Tk = 1500 = 23 x 64 +
+        28, a ragged key edge) and cross-attention (Tq = 448 decoder
+        queries over the 1500 encoder keys), bf16, from the plain forward's
+        o and lse; the library yardstick SDPA's forward and backward less
+        its forward, no mask."""
+        torch = self.torch
+        from repro_torch.kernels import ops, ref
+        F = torch.nn.functional
+        b_, h, dh, te = 4, 6, 64, 1500
+        dtype, tol = torch.bfloat16, tols[torch.bfloat16]
+        for tq, what in ((te, "encoder"), (448, "cross")):
+            q = randn(b_, tq, h, dh, dtype=dtype)
+            k = randn(b_, te, h, dh, dtype=dtype)
+            v = randn(b_, te, h, dh, dtype=dtype)
+            do = randn(b_, tq, h, dh, dtype=dtype)
+            o, lse = ref.flash_attention_fwd_ref(q, k, v, causal=False)
+            fwd_ms, both_ms = self._time_turns([
+                _sdpa_train(torch, F, q, k, v, None, causal=False),
+                _sdpa_train(torch, F, q, k, v, None, do, causal=False)],
+                n=20)
+            qkv_bytes = (2 * q.numel() + 2 * k.numel()) * 2
+            self._case(
+                "flash_attention_bwd", f"bfloat16 B={b_} Tq={tq} Tk={te} "
+                f"H={h} Hkv={h} D={dh} not causal (whisper {what})",
+                lambda: ops.flash_attention_bwd(q, k, v, o, do, lse,
+                                                causal=False),
+                lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, lse,
+                                                    causal=False),
+                both_ms - fwd_ms, 2 * qkv_bytes + b_ * h * tq * 4,
+                10 * b_ * h * tq * te * dh, "bfloat16", tol, n_time=20)
+            del q, k, v, do, o, lse
 
     def _kernels_encdec(self, randn, tol):
         """whisper-tiny's kernels at its shapes (bf16, d 384, 6 heads of
@@ -1529,7 +1659,7 @@ class Smoke:
                                device=self.dev)
         del params                      # the engine keeps its bf16 copy
         torch.cuda.synchronize()
-        print(f"[4/15] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
+        print(f"[4/16] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
               f"heads {cfg.n_heads}/{cfg.n_kv_heads}x{cfg.resolved_head_dim} "
               f"d_ff {cfg.d_ff} vocab {cfg.vocab}->{cfg.padded_vocab}; "
               f"weights ready in {time.perf_counter() - t0:.1f} s; "
@@ -1737,7 +1867,7 @@ class Smoke:
         assert launches == want, (launches, want)
         got = [r.generated for r in reqs]
         assert got == self.dense_streams, "paged bf16 streams != dense streams"
-        print(f"[5/15] paged bf16 KV (page 16, {rep['kv_pool']['n_pages']} "
+        print(f"[5/16] paged bf16 KV (page 16, {rep['kv_pool']['n_pages']} "
               f"pages): phase 4's {len(reqs)} streams, token for token; "
               f"launches {launches} ({eng.decode_steps} decode steps at "
               f"141/28/28 each); prefill {rep['prefill_tok_s']:.1f} tok/s, "
@@ -1858,7 +1988,7 @@ class Smoke:
         L = cfg.n_layers
         params = M.init_params(cfg, torch.Generator().manual_seed(0), self.dev)
         other = M.init_params(cfg, torch.Generator().manual_seed(1), self.dev)
-        print(f"[6/15] the request surface at full width ({cfg.name}, "
+        print(f"[6/16] the request surface at full width ({cfg.name}, "
               f"{L} layers, bf16, random weights)")
         want = {}
         eng = ServingEngine(cfg, params, max_slots=4, max_len=self.max_len,
@@ -2077,6 +2207,8 @@ class Smoke:
         the plain versions and the first 4 with the dual GEMM plain."""
         torch = self.torch
         from repro_torch.configs import get_config
+        from repro_torch.core.tree import tree_map
+        from repro_torch.models import model as M
         from repro_torch.optim.adamw import AdamW, cosine_schedule
         from repro_torch.training import train_loop as TL
         cfg = get_config("qwen3-0.6b")
@@ -2084,11 +2216,16 @@ class Smoke:
         torch.cuda.empty_cache()
         opt = AdamW(lr=cosine_schedule(1e-3, 2, steps), clip_norm=1.0)
 
+        # drawn once on the host's generator (TL.init_state's params), a
+        # copy a state
+        host = tree_map(lambda t: t.to("cpu", copy=True), M.init_params(
+            cfg, torch.Generator().manual_seed(0), self.dev))
+
         def make_state():
-            return TL.init_state(cfg, opt, torch.Generator().manual_seed(0),
-                                 self.dev)
+            params = tree_map(lambda t: t.to(self.dev, copy=True), host)
+            return TL.TrainState(params, opt.init(params))
         batches = self._train_batches(cfg, steps + 1, batch, seq)
-        print(f"[7/15] training {cfg.name} at full width ({L} layers, bf16 "
+        print(f"[7/16] training {cfg.name} at full width ({L} layers, bf16 "
               f"activations, remat {cfg.remat}): {steps} AdamW steps at batch "
               f"{batch} x {seq}")
         # a step: the forward's 141 GEMMs, 28 dual GEMMs and 28 attentions;
@@ -2111,13 +2248,30 @@ class Smoke:
         self._train_gated_plain(cfg, opt, make_state, batches[:4],
                                 run["losses"][3])
 
-    def _train_batches(self, cfg, n, batch, seq, seed=0):
-        from repro_torch.data.pipeline import SyntheticLM
+    def _train_batches(self, cfg, n, batch, seq, seed=0, device=None):
+        """n SyntheticLM batches of seed `seed` on `device` (the card), with
+        what the family's forward reads: an encdec batch's (B, enc_ctx,
+        d_model) f32 frames, a vlm row's 16 x 16 image span at position 32
+        (`data.pipeline.with_image`: patch embeddings, (t, h, w) positions,
+        labels -1 at the patches), both drawn from
+        np.random.default_rng([seed, i]) for batch i."""
+        import numpy as np
+        from repro_torch.data.pipeline import SyntheticLM, with_image
+        torch = self.torch
         data = SyntheticLM(vocab=cfg.vocab, seq_len=seq, batch=batch,
                            seed=seed)
-        return [{k: self.torch.as_tensor(v, dtype=self.torch.long,
-                                         device=self.dev)
-                 for k, v in data.batch_at(i).items()} for i in range(n)]
+        out = []
+        for i in range(n):
+            b, rng = data.batch_at(i), np.random.default_rng([seed, i])
+            if cfg.family == "encdec":
+                b["enc_frames"] = rng.standard_normal(
+                    (batch, cfg.enc_ctx, cfg.d_model), dtype=np.float32)
+            elif cfg.family == "vlm":
+                b = with_image(b, rng, cfg.d_model, at=32)
+            out.append({k: torch.as_tensor(
+                v, dtype=torch.long if v.dtype.kind == "i" else None,
+                device=device or self.dev) for k, v in b.items()})
+        return out
 
     def _train_run(self, step_fn, make_state, batches, want, falls=None):
         """The steps of `step_fn` from `make_state()`, one a batch, the
@@ -2147,13 +2301,15 @@ class Smoke:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
-        losses, norms, times, per_step = [], [], [], []
+        losses, norms, times, per_step, aux = [], [], [], [], []
         before = ops.launch_counts()
         for b in batches:
             t0 = time.perf_counter()
             state, met = step_fn(state, b)
             losses.append(float(met["loss"]))
             norms.append(float(met["grad_norm"]))
+            aux.append("".join(f" {k} {float(met[k]):.4g}" for k in (
+                "moe_lb_loss", "moe_z_loss", "moe_dropped_frac") if k in met))
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             now = ops.launch_counts()
@@ -2163,8 +2319,8 @@ class Smoke:
         peak = torch.cuda.max_memory_allocated()
         for i, t in enumerate(times):
             print(f"      step {i}: loss {losses[i]:.4f} grad norm "
-                  f"{norms[i]:.4f} wall {t * 1e3:.1f} ms ({tokens / t:.0f} "
-                  f"tok/s)")
+                  f"{norms[i]:.4f}{aux[i]} wall {t * 1e3:.1f} ms "
+                  f"({tokens / t:.0f} tok/s)")
             assert per_step[i] == want, (i, per_step[i], want)
         assert all(map(math.isfinite, losses + norms)), (losses, norms)
         if falls is None:
@@ -2338,22 +2494,20 @@ class Smoke:
     def _train_step_vs_cpu(self, cfg, batch, seq, tol, what):
         """One donated AdamW step on the card (the CUDA kernels) and on the
         CPU (their plain versions) from the same weights (seed 0; a
-        hybrid's lora_b from seed 1) and batch: the loss and the global
-        grad norm agree within rtol `tol` (f32 sums in another order)."""
+        hybrid's lora_b from seed 1) and batch (`_train_batches`' first):
+        the loss and the global grad norm agree within rtol `tol` (f32 sums
+        in another order)."""
         torch = self.torch
         from repro_torch.core.tree import tree_map
-        from repro_torch.data.pipeline import SyntheticLM
         from repro_torch.optim.adamw import AdamW
         from repro_torch.training import train_loop as TL
         opt = AdamW(lr=1e-3, clip_norm=1.0)
         params = self._train_params(cfg, "cpu")
-        data = SyntheticLM(vocab=cfg.vocab, seq_len=seq, batch=batch, seed=0)
         out = []
         for dev in (self.dev, torch.device("cpu")):
             p = tree_map(lambda x: x.to(dev, copy=True), params)
             state = TL.TrainState(p, opt.init(p))
-            b = {k: torch.as_tensor(v, dtype=torch.long, device=dev)
-                 for k, v in data.batch_at(0).items()}
+            b, = self._train_batches(cfg, 1, batch, seq, device=dev)
             t0 = time.perf_counter()
             state, met = TL.make_train_step(cfg, opt, donate=True)(state, b)
             out.append((float(met["loss"]), float(met["grad_norm"]),
@@ -2369,39 +2523,43 @@ class Smoke:
               f"{abs(gn - gn_c) / gn_c:.2e} (rtol {tol:g})")
 
     def _seed_params(self, cfg):
-        """A fresh copy on the card of cfg's random params (`_train_params`
-        on the card), drawn at the first call for cfg's name and kept on
-        the host for the next: drawing mamba2-2.7b's 2.8 G params takes
-        ~25 s, a copy ~2 s."""
+        """A fresh copy on the card of cfg's random params, drawn on the
+        card (`_train_params` with the card's generator of seed 0) at the
+        first call for cfg's name and kept on the host for the next: the
+        host's generator took 41 s for mamba2-2.7b's 2.8 G params on an
+        H100 machine's CPU, the card's takes ~1 s, a copy ~2 s."""
         from repro_torch.core.tree import tree_map
         if cfg.name not in self.host_params:
             self.host_params[cfg.name] = tree_map(
                 lambda t: t.to("cpu", copy=True),
-                self._train_params(cfg, self.dev))
+                self._train_params(cfg, self.dev, self.dev))
         return tree_map(lambda t: t.to(self.dev, copy=True),
                         self.host_params[cfg.name])
 
-    def _train_params(self, cfg, device):
-        """Random params from seed 0 (a hybrid's lora_b from seed 1)."""
+    def _train_params(self, cfg, device, gen_device="cpu"):
+        """Random params from seed 0 on `gen_device`'s generator (a
+        hybrid's lora_b from seed 1)."""
         from repro_torch.models import model as M
         if cfg.family == "hybrid":
-            return self._hybrid_params(cfg, device)
-        return M.init_params(cfg, self.torch.Generator().manual_seed(0),
-                             device)
+            return self._hybrid_params(cfg, device, gen_device)
+        return M.init_params(
+            cfg, self.torch.Generator(device=gen_device).manual_seed(0),
+            device)
 
     # -- 8. training the Mamba-2 families at full width -----------------
     def phase_train_recurrent(self, steps=16, batch=4, seq=512):
         """zamba2-1.2b at full width and depth and mamba2-2.7b at full
         width (`_train_recurrent`, 16 steps each, held to `loss_falls`;
-        zamba2's first 4 without remat, and their first 2 and 1 steps
-        through the plain versions). Their whole f32 steps at depth 2 on
+        zamba2's first 2 without remat, and the first step of each through
+        the plain versions; weights drawn on the card, `_seed_params`).
+        Their whole f32 steps at depth 2 on
         the card against the CPU are tests/test_torch_cuda.py's
         `test_recurrent_train_step_on_card_matches_cpu` (cut here for
         time)."""
         from repro_torch.configs import get_config
-        print("[8/15] training the Mamba-2 families at full width")
+        print("[8/16] training the Mamba-2 families at full width")
         self.zamba_train_launches = self._train_recurrent(
-            get_config("zamba2-1.2b"), steps, batch, seq, plain_steps=2)
+            get_config("zamba2-1.2b"), steps, batch, seq, plain_steps=1)
         self.mamba_train_launches = self._train_recurrent(
             get_config("mamba2-2.7b"), steps, batch, seq, plain_steps=1,
             remat_none=False)
@@ -2409,13 +2567,13 @@ class Smoke:
     def _train_recurrent(self, cfg, steps, batch, seq, plain_steps,
                          remat_none=True):
         """`steps` donated AdamW steps at full width (f32 params, bf16
-        activations, random weights from seed 0 and a hybrid's lora_b from
-        seed 1, SyntheticLM batches from seed 0, lr 1e-3 with 2 warmup
+        activations, random weights from seed 0 on the card's generator
+        and a hybrid's lora_b from seed 1, SyntheticLM batches from seed 0, lr 1e-3 with 2 warmup
         steps and a cosine over `steps`, clip 1.0), each Mamba-2 layer
         rematerialised (remat "full"): exact launch counts a step, finite
         losses that fall by `loss_falls`, speed, memory, the state's
         bytes, a trace of a step with the plain SSD backward as a group of
-        its own; then (`remat_none`) the first 4 steps again with remat
+        its own; then (`remat_none`) the first 2 steps again with remat
         "none" from the same state and batches, and the first
         `plain_steps` through the plain versions on the card (step 0 held
         to the kernels'). Returns the run's launch counts."""
@@ -2447,7 +2605,7 @@ class Smoke:
         self._trace_train_step(run["step_fn"], run.pop("state"),
                                batches[steps], expect)
         if remat_none:
-            self._remat_none(cfg, opt, make_state, batches[:4], run,
+            self._remat_none(cfg, opt, make_state, batches[:2], run,
                              donate=True)
         self._train_plain(cfg, opt, make_state, batches, run, plain_steps,
                           donate=True)
@@ -2504,7 +2662,7 @@ class Smoke:
         torch.cuda.empty_cache()
         weights = torch.cuda.memory_allocated()
         sc = cfg.ssm
-        print(f"[9/15] {cfg.name}: {L} layers d_model {cfg.d_model} d_inner "
+        print(f"[9/16] {cfg.name}: {L} layers d_model {cfg.d_model} d_inner "
               f"{sc.expand * cfg.d_model} ({sc.expand * cfg.d_model // sc.head_dim}"
               f" SSD heads of {sc.head_dim}) d_state {sc.d_state} groups "
               f"{sc.n_groups} conv {sc.conv_width} chunk {sc.chunk} vocab "
@@ -2705,13 +2863,14 @@ class Smoke:
               f"max |diff| / max |value| {worst:.2e}")
 
     # -- 10. Zamba2 hybrid serving at full width ------------------------
-    def _hybrid_params(self, cfg, device):
-        """Random params from seed 0 and a lora_b drawn from seed 1: its
-        init is zeros, and a LoRA path that computes nothing would pass
-        every check."""
+    def _hybrid_params(self, cfg, device, gen_device="cpu"):
+        """Random params from seed 0 (on `gen_device`'s generator) and a
+        lora_b drawn from seed 1 (the host's): its init is zeros, and a
+        LoRA path that computes nothing would pass every check."""
         torch = self.torch
         from repro_torch.models import model as M
-        params = M.init_params(cfg, torch.Generator().manual_seed(0), device)
+        params = M.init_params(
+            cfg, torch.Generator(device=gen_device).manual_seed(0), device)
         lb = params["hybrid"]["lora_b"]
         params["hybrid"]["lora_b"] = (
             torch.randn(lb.shape, generator=torch.Generator().manual_seed(1))
@@ -2775,7 +2934,7 @@ class Smoke:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         engine_bytes = torch.cuda.memory_allocated() - base
-        print(f"[10/15] {cfg.name}: {cfg.n_layers} Mamba-2 layers in {seg} "
+        print(f"[10/16] {cfg.name}: {cfg.n_layers} Mamba-2 layers in {seg} "
               f"segments of {cfg.attn_every}, d_model {cfg.d_model} d_inner "
               f"{sc.expand * cfg.d_model} ({sc.expand * cfg.d_model // sc.head_dim}"
               f" SSD heads of {sc.head_dim}) d_state {sc.d_state} conv "
@@ -3028,7 +3187,7 @@ class Smoke:
         # -- qwen2-vl-2b: dense, paged bf16, speculative; multimodal
         cfg = get_config("qwen2-vl-2b")
         L = cfg.n_layers
-        print(f"[11/15] the dense configs and vlm at full width (random "
+        print(f"[11/16] the dense configs and vlm at full width (random "
               f"weights, bf16, 4 slots, 32 tokens a request)")
         t0 = time.perf_counter()
         params = self._config_params(cfg)
@@ -3262,7 +3421,7 @@ class Smoke:
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
         self.moe_launches = {}
-        print(f"[12/15] the moe family at full width (random weights drawn "
+        print(f"[12/16] the moe family at full width (random weights drawn "
               f"on the card, bf16 but the f32 router, 4 slots, 32 tokens a "
               f"request)")
 
@@ -3586,7 +3745,7 @@ class Smoke:
         max_len = -(-longest // 16) * 16
         torch.cuda.synchronize()
         with_params = torch.cuda.memory_allocated()
-        print(f"[13/15] {cfg.name}: {cfg.n_enc_layers} encoder and "
+        print(f"[13/16] {cfg.name}: {cfg.n_enc_layers} encoder and "
               f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, heads "
               f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.resolved_head_dim}, d_ff "
               f"{cfg.d_ff} (gelu), layernorm, sinusoid positions, "
@@ -3680,7 +3839,110 @@ class Smoke:
               f"logits, self and cross caches within rtol {tol:g}; max "
               f"|diff| / max |value| {worst:.2e}")
 
-    # -- 14. the paper's experiment ---------------------------------------
+    # -- 14. training the encdec, vlm and moe families at full width ---
+    def phase_train_families(self, steps=16, batch=4):
+        """whisper-tiny (full depth, 4 x 448 tokens with 4 x 1500 x 384 f32
+        frames a step), qwen2-vl-2b (full depth, 4 x 512 tokens, a 16 x 16
+        image span a row) and mixtral-8x22b (full width, 1 of its 56
+        layers, 4 x 512 tokens): `steps` donated AdamW steps each (f32
+        params, bf16 activations, remat "full", lr 1e-3 with 2 warmup
+        steps and a cosine over `steps`, clip 1.0), held to exact launch
+        counts a step, `loss_falls`, speed, memory and a trace of a step
+        (`_train_run`). Then whisper's step in f32 at full size (one row:
+        448 tokens over 1500 frames) and qwen2-vl-2b's at depth 2 (one
+        row of 320 tokens with its image) against the CPU (rtol 1e-4);
+        mixtral's step 0 with remat "none" (its loss bit for bit) and
+        through the plain versions on the card (within 1e-3). Every
+        model's weights are drawn on the card (a CUDA generator of seed
+        0)."""
+        import dataclasses
+        from repro_torch.configs import get_config
+        print(f"[14/16] training the encdec, vlm and moe families at full "
+              f"width: {steps} donated AdamW steps each at batch {batch}")
+        self.family_train_launches = {}
+        wh = get_config("whisper-tiny")
+        run = self._train_family(wh, steps, batch, 448,
+                                 self._encdec_train_want(wh))
+        del run
+        self._train_step_vs_cpu(dataclasses.replace(wh, dtype="float32"),
+                                1, 448, 1e-4, "full size")
+        vl = get_config("qwen2-vl-2b")
+        L = vl.n_layers
+        run = self._train_family(
+            vl, steps, batch, 512, _no_launches(
+                matmul=(5 * L + 1) * 3 + 6 * L + 5 * L, gated_matmul=2 * L,
+                flash_attention=2 * L, flash_attention_bwd=L))
+        del run
+        self._train_step_vs_cpu(dataclasses.replace(vl, n_layers=2,
+                                                    dtype="float32"),
+                                1, 320, 1e-4, "depth 2")
+        mx = dataclasses.replace(get_config("mixtral-8x22b"), n_layers=1)
+        L = mx.n_layers
+        run = self._train_family(
+            mx, steps, batch, 512, _no_launches(
+                matmul=(5 * L + 1) * 3 + 5 * L, gated_matmul_batched=2 * L,
+                matmul_batched=10 * L, flash_attention=2 * L,
+                flash_attention_bwd=L), repeats=True)
+        del run
+
+    def _train_family(self, cfg, steps, batch, seq, want, repeats=False):
+        """`_train_run` of cfg's donated steps from seed 0's weights on the
+        card's generator, held to `want` and `loss_falls`, then a traced
+        step; with `repeats`, step 0 again with remat "none" and through
+        the plain versions on the card. The run's launch counts go to
+        `family_train_launches`."""
+        torch = self.torch
+        from repro_torch.models import model as M
+        from repro_torch.optim.adamw import AdamW, cosine_schedule
+        from repro_torch.training import train_loop as TL
+        opt = AdamW(lr=cosine_schedule(1e-3, 2, steps), clip_norm=1.0)
+
+        def make_state():
+            params = M.init_params(
+                cfg, torch.Generator(device=self.dev).manual_seed(0),
+                self.dev)
+            return TL.TrainState(params, opt.init(params))
+        extra = (f", {cfg.moe.n_experts} experts of d_ff {cfg.d_ff} top-"
+                 f"{cfg.moe.top_k}" if cfg.moe else "") + (
+            f", {cfg.n_enc_layers} encoder layers over {cfg.enc_ctx} frames"
+            if cfg.family == "encdec" else "") + (
+            ", a 16 x 16 image span a row" if cfg.family == "vlm" else "")
+        print(f"      {cfg.name}: {cfg.n_layers} layer"
+              f"{'s' * (cfg.n_layers > 1)}, d_model "
+              f"{cfg.d_model}{extra}; bf16 activations, remat {cfg.remat}; "
+              f"batch {batch} x {seq}")
+        batches = self._train_batches(cfg, steps + 1, batch, seq)
+        run = self._train_run(TL.make_train_step(cfg, opt, donate=True),
+                              make_state, batches[:steps], want,
+                              falls=loss_falls)
+        self.family_train_launches[f"{cfg.name} training"] = run["launches"]
+        expect = tuple(k for k, v in want.items() if v)
+        self._trace_train_step(run["step_fn"], run.pop("state"),
+                               batches[steps], expect)
+        if repeats:
+            self._remat_none(cfg, opt, make_state, batches[:2], run,
+                             donate=True)
+            self._train_plain(cfg, opt, make_state, batches, run, 1,
+                              donate=True)
+        return run
+
+    @staticmethod
+    def _encdec_train_want(cfg):
+        """Launch counts of an encdec train step under remat "full". An
+        encoder block runs 6 GEMMs (Q, K, V, O; w_in with bias_gelu, w_out
+        with bias) and a non-causal attention forward; a decoder block 10
+        (self Q, K, V, O; cross Q, O and the K, V of the encoder's output;
+        w_in, w_out), a causal and a cross attention forward. Each block's
+        forward runs again in its recompute. The backward: 2 GEMMs (dx,
+        dw) for each and one more for w_in (its gelu's z recomputed), an
+        attention backward for each forward; the tied logits 1 GEMM and 2
+        in the backward."""
+        e, d = cfg.n_enc_layers, cfg.n_layers
+        return _no_launches(matmul=2 * (6 * e + 10 * d) + 13 * e + 21 * d + 3,
+                            flash_attention=2 * (e + 2 * d),
+                            flash_attention_bwd=e + 2 * d)
+
+    # -- 15. the paper's experiment ---------------------------------------
     def phase_paper(self, n=4096, iters=3):
         """Table 2 and Figs 8-9 at the paper's size through the port's
         entry points: the measurement `launch.paper` prints (float, double
@@ -3692,7 +3954,7 @@ class Smoke:
         from repro_torch.benchmarks import bench_add, common
         from repro_torch.kernels import ops
         from repro_torch.launch import paper
-        print(f"[14/15] the paper's experiment at n={n} (Table 2, Figs 8-9)")
+        print(f"[15/16] the paper's experiment at n={n} (Table 2, Figs 8-9)")
         ops.reset_launch_counts()
         gemm_rows = common.measure(n, self.dev, iters=iters)
         add_rows = bench_add.measure(n, self.dev)
@@ -3718,7 +3980,7 @@ class Smoke:
         assert self.paper_launches == want, (self.paper_launches, want)
         paper.print_model()
 
-    # -- 15. the kernels line --------------------------------------------
+    # -- 16. the kernels line --------------------------------------------
     def kernel_rows(self):
         """One row per kernel: its launches on the main path, the max error
         over every case, and the times of its main-path decode shape."""
@@ -3730,11 +3992,11 @@ class Smoke:
                              "src/repro/kernels/matmul.py:360",
                              "bfloat16 M=4 K=1024 N=3072"),
             "matmul_batched": (
-                "src/repro_torch/kernels/csrc/matmul_tc.cu",
+                "src/repro_torch/kernels/csrc/matmul_tc_batched.cu",
                 "src/repro/kernels/matmul.py:244",
                 "bfloat16 E=8 M=4 K=16384 N=6144 (mixtral-8x22b down)"),
             "gated_matmul_batched": (
-                "src/repro_torch/kernels/csrc/matmul_tc.cu",
+                "src/repro_torch/kernels/csrc/matmul_tc_batched.cu",
                 "src/repro/kernels/matmul.py:360",
                 "bfloat16 E=8 M=4 K=6144 N=16384 (mixtral-8x22b)"),
             "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
@@ -3783,7 +4045,7 @@ class Smoke:
         # 6's self-draft runs (dense, bf16 pool), the training kernels'
         # from phase 7's, the SSD kernel's from phase 9's, the batched
         # GEMMs' from phase 12's mixtral run (dense cache), the paper's
-        # kernels from phase 14's
+        # kernels from phase 15's
         moe = self.moe_launches[next(iter(self.moe_launches))]
         counts = {**self.launches, **self.spec_launches,
                   **{k: moe[k] for k in ("matmul_batched",
@@ -3810,7 +4072,12 @@ class Smoke:
                  **self.config_launches,
                  **self.moe_launches,
                  **self.encdec_launches,
+                 **self.family_train_launches,
                  "paper": self.paper_launches}
+        # the forms a row's kernel takes beside its main shape: the batched
+        # GEMM's transposed layouts (a bank's backward), the non-causal
+        # backward (encdec training)
+        forms = {"matmul_batched": "view", "flash_attention_bwd": "not causal"}
         rows = []
         for name, (source, replaces, label) in meta.items():
             cases = self.results[name]
@@ -3824,6 +4091,12 @@ class Smoke:
                 "library_ms": rep["library_ms"], "shape": label,
                 "launches_by_path": {p: c[name] for p, c in paths.items()
                                      if c.get(name)}})
+            if name in forms:
+                rows[-1]["forms"] = [
+                    {k: c[k] for k in ("label", "ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms",
+                                       "max_abs_err")}
+                    for c in cases if forms[name] in c["label"]]
         return rows
 
 
@@ -3980,10 +4253,10 @@ def _sdpa(torch, F, q, k, v, mask):
         attn_mask=mask)
 
 
-def _sdpa_train(torch, F, q, k, v, mask, do=None):
+def _sdpa_train(torch, F, q, k, v, mask, do=None, causal=True):
     """The library yardstick for training attention (timed only): SDPA's
-    causal forward (a bool mask with a window), and with `do` its forward
-    and backward."""
+    forward, causal (a bool mask with a window) or not, and with `do` its
+    forward and backward."""
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(do is not None)
                   for x in (q, k, v))
     g = q.shape[2] // k.shape[2]
@@ -3991,7 +4264,8 @@ def _sdpa_train(torch, F, q, k, v, mask, do=None):
         kw = {"enable_gqa": True}
     else:
         kt, vt, kw = kt.repeat_interleave(g, 1), vt.repeat_interleave(g, 1), {}
-    kw.update(is_causal=True) if mask is None else kw.update(attn_mask=mask)
+    kw.update(is_causal=causal) if mask is None \
+        else kw.update(attn_mask=mask)
 
     def run():
         o = F.scaled_dot_product_attention(qt, kt, vt, **kw)

@@ -36,11 +36,13 @@ is.
 
 `matmul` and `gated_mlp` also take a bank of weights, b or w (E, K, N)
 against a (E, M, K): the MoE expert GEMMs, which the JAX package vmaps
-over its 2D chokepoint. They run the batched forms of the kernels, one
-launch for all E experts (`kernels.ops.matmul_batched`,
-`gated_matmul_batched`). Forward only on the card, as `dense_q` (the
-banks' backward GEMMs come with moe training); on the CPU autograd
-differentiates the plain versions.
+over its 2D chokepoint and its custom VJPs. They run the batched forms of
+the kernels, one launch for all E experts (`kernels.ops.matmul_batched`,
+`gated_matmul_batched`), and so do their backwards (`_MatmulBank`,
+`_GatedMLPBank`): each expert's dA = g B^T and dB = A^T g, the batched
+GEMM reading the transposed operand of every expert in place, with the
+2-D Functions' dtypes (a bf16 bank's gradient is bf16, cast back to the
+f32 param by the caller's `.to()`, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -104,29 +106,49 @@ class _Matmul(torch.autograd.Function):
         return (*_matmul_grads(a, b, g, ctx.needs_input_grad[:2]), None)
 
 
-def _forward_only_on_card(what: str, *operands) -> None:
-    if operands[0].device.type == "cuda" and _recorded(*operands):
-        raise NotImplementedError(
-            f"{what} on the card is forward only: its backward comes with "
-            f"the training of the family that runs it")
-
-
-def _batched(what: str, a, ws, out_dtype):
+def _check_bank(what: str, a, ws, out_dtype):
     if a.dim() != 3:
         raise ValueError(f"{what} against a bank {tuple(ws[0].shape)} takes "
                          f"a (E, M, K), got {tuple(a.shape)}")
     if out_dtype not in (None, a.dtype):
         raise ValueError(f"{what} against a bank gives a's dtype {a.dtype}, "
                          f"not {out_dtype}")
-    _forward_only_on_card(what, a, *ws)
+
+
+def _bank_grads(a, b, g, needs=(True, True)):
+    """(dA, dB) of the bank product a[e] @ b[e] for the cotangent g, as
+    `_matmul_grads` per expert: g cast to A's dtype, dA[e] = g[e] B[e]^T
+    in A's dtype, dB[e] = A[e]^T g[e] in B's (one dtype: a bank GEMM
+    takes A's). Both batched GEMMs read their transposed operand in
+    place (`transpose(1, 2)` views)."""
+    g = g.to(a.dtype).contiguous()
+    da = _ops.matmul_batched(g, b.transpose(1, 2)) if needs[0] else None
+    db = _ops.matmul_batched(a.transpose(1, 2), g) if needs[1] else None
+    return da, db
+
+
+class _MatmulBank(torch.autograd.Function):
+    """a[e] @ b[e] over a bank, one batched launch; the backward is two."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _ops.matmul_batched(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        return _bank_grads(a, b, g, ctx.needs_input_grad)
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
     """A @ B for a: (..., M, K), b: (K, N); or for a bank b (E, K, N)
     against a (E, M, K), each expert's product in a's dtype, through the
-    batched kernel (forward only on the card)."""
+    batched kernel (its backward too)."""
     if b.dim() == 3:
-        _batched("matmul", a, (b,), out_dtype)
+        _check_bank("matmul", a, (b,), out_dtype)
+        if _recorded(a, b):
+            return _MatmulBank.apply(a, b)
         return _ops.matmul_batched(a, b)
     a2 = _fold(a)
     out = _Matmul.apply(a2, b, out_dtype) if _recorded(a2, b) \
@@ -257,14 +279,41 @@ class _GatedMLP(torch.autograd.Function):
         return None if dx_g is None else dx_g + dx_u, dw_gate, dw_up
 
 
+class _GatedMLPBank(torch.autograd.Function):
+    """silu(x[e] @ wg[e]) * (x[e] @ wu[e]) over banks, one batched dual
+    GEMM; the backward is `_GatedMLP.backward` for every expert at once:
+    gate and up recomputed by the batched GEMM, silu(gate) * up
+    differentiated there, then four batched cotangent GEMMs."""
+
+    @staticmethod
+    def forward(ctx, x, w_gate, w_up):
+        ctx.save_for_backward(x, w_gate, w_up)
+        return _ops.gated_matmul_batched(x, w_gate, w_up)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w_gate, w_up = ctx.saved_tensors
+        with torch.enable_grad():
+            gate = _ops.matmul_batched(x, w_gate).requires_grad_()
+            up = _ops.matmul_batched(x, w_up).requires_grad_()
+            d_gate, d_up = torch.autograd.grad(F.silu(gate) * up, (gate, up),
+                                               g.to(x.dtype))
+        needs = ctx.needs_input_grad
+        dx_g, dw_gate = _bank_grads(x, w_gate, d_gate, (needs[0], needs[1]))
+        dx_u, dw_up = _bank_grads(x, w_up, d_up, (needs[0], needs[2]))
+        return None if dx_g is None else dx_g + dx_u, dw_gate, dw_up
+
+
 def gated_mlp(x: torch.Tensor, w_gate: torch.Tensor,
               w_up: torch.Tensor) -> torch.Tensor:
     """silu(x @ w_gate) * (x @ w_up), the SwiGLU hidden phase, as one
     dual-GEMM kernel; for banks w_gate, w_up (E, K, F) against x (E, M, K),
-    each expert's through the batched dual GEMM (forward only on the
-    card)."""
+    each expert's through the batched dual GEMM (its backward through the
+    batched GEMM)."""
     if w_gate.dim() == 3:
-        _batched("gated_mlp", x, (w_gate, w_up), None)
+        _check_bank("gated_mlp", x, (w_gate, w_up), None)
+        if _recorded(x, w_gate, w_up):
+            return _GatedMLPBank.apply(x, w_gate, w_up)
         return _ops.gated_matmul_batched(x, w_gate, w_up)
     x2 = _fold(x)
     out = _GatedMLP.apply(x2, w_gate, w_up) if _recorded(x2, w_gate, w_up) \

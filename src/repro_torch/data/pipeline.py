@@ -44,6 +44,24 @@ class SyntheticLM:
             step += 1
 
 
+def _mrope_positions(before: int, grid, after: int) -> np.ndarray:
+    """(T, 3) (t, h, w) positions of `before` text tokens, one image of
+    grid[0] x grid[1] patches, then `after` text tokens, as Qwen2-VL
+    places them: text token i at t = h = w = i; the patch in row r,
+    column c of an image that starts at p at (p, p + r, p + c); the text
+    after it from the largest position so far + 1."""
+    gh, gw = grid
+    n_img = gh * gw
+    pos = np.empty((before + n_img + after, 3), np.int64)
+    pos[:before] = np.arange(before)[:, None]
+    r, c = np.divmod(np.arange(n_img), gw)
+    pos[before:before + n_img] = np.stack(
+        [np.full(n_img, before), before + r, before + c], axis=1)
+    nxt = before + max(gh, gw)
+    pos[before + n_img:] = (nxt + np.arange(after))[:, None]
+    return pos
+
+
 def multimodal_prompt(rng, vocab: int, d_model: int, *, batch: int = 1,
                       before: int = 8, grid=(16, 16), after: int = 8,
                       scale: float = 0.02):
@@ -51,9 +69,7 @@ def multimodal_prompt(rng, vocab: int, d_model: int, *, batch: int = 1,
     grid[1] patches, then `after` text tokens, as numpy arrays:
     {"tokens": (B, T) int32, "patch_embeds": (B, T, d_model) f32 (normal
     x scale at the patches, zeros at text), "positions": (B, T, 3)
-    int32}. Qwen2-VL's positions: text token i at t = h = w = i; the
-    patch in row r, column c of an image that starts at p at (p, p + r,
-    p + c); the text after it from the largest position so far + 1."""
+    int32} (`_mrope_positions`)."""
     gh, gw = grid
     n_img = gh * gw
     t = before + n_img + after
@@ -61,13 +77,31 @@ def multimodal_prompt(rng, vocab: int, d_model: int, *, batch: int = 1,
     embeds = np.zeros((batch, t, d_model), np.float32)
     embeds[:, before:before + n_img] = rng.standard_normal(
         (batch, n_img, d_model)) * scale
-    pos = np.empty((t, 3), np.int64)
-    pos[:before] = np.arange(before)[:, None]
-    r, c = np.divmod(np.arange(n_img), gw)
-    pos[before:before + n_img] = np.stack(
-        [np.full(n_img, before), before + r, before + c], axis=1)
-    nxt = before + max(gh, gw)
-    pos[before + n_img:] = (nxt + np.arange(after))[:, None]
-    positions = np.broadcast_to(pos, (batch, t, 3)).astype(np.int32)
+    positions = np.broadcast_to(_mrope_positions(before, grid, after),
+                                (batch, t, 3)).astype(np.int32)
     return {"tokens": tokens, "patch_embeds": embeds,
             "positions": np.ascontiguousarray(positions)}
+
+
+def with_image(batch, rng, d_model: int, *, at: int, grid=(16, 16),
+               scale: float = 0.02):
+    """A vlm training batch from a text batch {"tokens", "labels"} (B, T):
+    every row gets one image of grid[0] x grid[1] patches at positions
+    [at, at + gh * gw), in `multimodal_prompt`'s layout: "patch_embeds"
+    (B, T, d_model) f32, normal x scale at the patches and zeros at text,
+    (B, T, 3) int32 "positions", and labels -1 at the patches (their
+    tokens are placeholders, not text to predict)."""
+    b, t = batch["tokens"].shape
+    n_img = grid[0] * grid[1]
+    if at + n_img > t:
+        raise ValueError(f"an image of {n_img} patches at {at} does not "
+                         f"fit {t} tokens")
+    embeds = np.zeros((b, t, d_model), np.float32)
+    embeds[:, at:at + n_img] = rng.standard_normal((b, n_img, d_model)) \
+        * scale
+    positions = np.broadcast_to(
+        _mrope_positions(at, grid, t - at - n_img), (b, t, 3))
+    labels = np.array(batch["labels"], copy=True)
+    labels[:, at:at + n_img] = -1
+    return dict(batch, labels=labels, patch_embeds=embeds,
+                positions=np.ascontiguousarray(positions, np.int32))

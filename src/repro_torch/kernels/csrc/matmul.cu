@@ -1,7 +1,7 @@
 // The FMA GEMMs, f32 only: the f32 tiled GEMM with a fused epilogue, the
 // int8-weight GEMM with f32 activations, and the dual-GEMM SwiGLU kernel
 // in f32. Their bf16 instances, the main paths', run on the tensor cores
-// in matmul_tc.cu (mma.sync and wgmma).
+// in matmul_tc.cuh (mma.sync and wgmma).
 //
 // Replaces the f32 instances of the Pallas kernels `matmul_tiled`
 // (_matmul_kernel), `matmul_q_tiled` (_matmul_q_kernel) and
@@ -57,10 +57,12 @@
 // [M, K] row-major or as [K, M] (`a_km`); the int8 B is [K, N].
 //
 // The batched forms of the f32 GEMM and the dual GEMM (the MoE expert
-// banks, the vmapped Pallas kernels' counterpart: a bank of E row-major
-// matrices, one launch for all) run expert blockIdx.z's operands through
-// the same tile, so an expert's output is the 2-D kernel's on its operands,
-// bit for bit. They serve the f32 checks of the moe family on the card.
+// banks, the vmapped Pallas kernels' counterpart: a bank of E matrices,
+// one launch for all) run expert blockIdx.z's operands through the same
+// tile, so an expert's output is the 2-D kernel's on its operands, bit for
+// bit. The batched GEMM reads each bank in either layout of the 2-D GEMM
+// (the banks' backward: g B^T and A^T g), the dual GEMM row-major banks.
+// They serve the f32 checks of the moe family on the card.
 
 #include <stdint.h>
 
@@ -199,16 +201,17 @@ matmul_kernel(const TIn* __restrict__ A, const TB* __restrict__ B, const float* 
   matmul_tile<TIn, TB, TOut, NK, KM>(A, B, S, E, C, M, N, K, lda, ldb, lde, e_bf16, epilogue);
 }
 
-// The batched forms (the expert banks, row-major, f32, no epilogue): expert
+// The batched forms (the expert banks, f32, no epilogue): expert
 // blockIdx.z's operands sa, sb (A, B and U) and M * N (C) elements on, the
-// 2-D kernel's tile on them.
+// 2-D kernel's tile on them, in its layout (NK, KM).
+template <bool NK, bool KM>
 __global__ void __launch_bounds__(THREADS)
 matmul_batched_kernel(const float* __restrict__ A, const float* __restrict__ B,
                       float* __restrict__ C, int M, int N, int K, long long lda, long long ldb,
                       long long sa, long long sb) {
   const long long z = blockIdx.z;
-  matmul_tile<float, float, float, false, false>(A + z * sa, B + z * sb, nullptr, nullptr,
-                                                 C + z * M * N, M, N, K, lda, ldb, 0, 0, EP_NONE);
+  matmul_tile<float, float, float, NK, KM>(A + z * sa, B + z * sb, nullptr, nullptr,
+                                           C + z * M * N, M, N, K, lda, ldb, 0, 0, EP_NONE);
 }
 
 // ---- the wide tile: 128x128 outputs a block, 8x8 a thread, k-step 16 ----
@@ -367,13 +370,14 @@ matmul_wide_kernel(const float* __restrict__ A, const float* __restrict__ B,
                                  vec_b);
 }
 
+template <bool NK, bool KM>
 __global__ void __launch_bounds__(THREADS, 2)
 matmul_batched_wide_kernel(const float* __restrict__ A, const float* __restrict__ B,
                            float* __restrict__ C, int M, int N, int K, long long lda,
                            long long ldb, long long sa, long long sb, int vec_a, int vec_b) {
   const long long z = blockIdx.z;
-  matmul_wide_tile<float, false, false>(A + z * sa, B + z * sb, nullptr, C + z * M * N, M, N, K,
-                                        lda, ldb, 0, 0, EP_NONE, vec_a, vec_b);
+  matmul_wide_tile<float, NK, KM>(A + z * sa, B + z * sb, nullptr, C + z * M * N, M, N, K, lda,
+                                  ldb, 0, 0, EP_NONE, vec_a, vec_b);
 }
 
 template <typename T>
@@ -485,6 +489,21 @@ void launch_matmul(const void* a, const void* b, const void* e, void* c, int M, 
     launch_matmul_layout<TOut, false, false>(a, b, e, c, M, N, K, lda, ldb, lde, e_bf16, epilogue, tile, s);
 }
 
+template <bool NK, bool KM>
+void launch_matmul_batched(const float* a, const float* b, float* c, int E, int M, int N, int K,
+                           long long lda, long long ldb, long long sa, long long sb, int tile,
+                           cudaStream_t s) {
+  if (tile == 1) {
+    const dim3 grid((N + WB - 1) / WB, (M + WB - 1) / WB, E);
+    matmul_batched_wide_kernel<NK, KM><<<grid, THREADS, 0, s>>>(
+        a, b, c, M, N, K, lda, ldb, sa, sb, aligned16(a, lda) && sa % 4 == 0,
+        aligned16(b, ldb) && sb % 4 == 0);
+  } else {
+    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, E);
+    matmul_batched_kernel<NK, KM><<<grid, THREADS, 0, s>>>(a, b, c, M, N, K, lda, ldb, sa, sb);
+  }
+}
+
 template <typename TOut>
 void launch_matmul_q(const void* a, const void* bq, const float* scale, const void* e, void* c,
                      int M, int N, int K, long long lda, long long ldb, long long lde,
@@ -542,26 +561,27 @@ extern "C" int repro_gated_matmul(const void* a, const void* g, const void* u, v
 }
 
 // The batched forms over E experts (`blockIdx.z`), f32: a [E, M, K], b (g,
-// u) [E, K, N] banks, row-major with row strides lda, ldb and expert
-// strides sa, sb; c [E, M, N] contiguous. tile: `f32_tile_plan`'s for one
-// expert's (M, K, N). bf16 goes to repro_*_batched_tc (matmul_tc.cu).
+// u) [E, K, N] banks with row strides lda, ldb and expert strides sa, sb;
+// c [E, M, N] contiguous. The GEMM's banks are row-major or (a_km, b_nk)
+// every matrix the transpose view of a row-major [K, M] or [N, K], as
+// repro_matmul's; the dual GEMM's row-major. tile: `f32_tile_plan`'s for
+// one expert's (M, K, N). bf16 goes to repro_*_batched_tc (matmul_tc_batched.cu).
 extern "C" int repro_matmul_batched(const void* a, const void* b, void* c, int E, int M, int N,
                                     int K, long long lda, long long ldb, long long sa,
-                                    long long sb, int tile, void* stream) {
+                                    long long sb, int a_km, int b_nk, int tile, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (E > 0 && M > 0 && N > 0) {
     const float* pa = static_cast<const float*>(a);
     const float* pb = static_cast<const float*>(b);
     float* pc = static_cast<float*>(c);
-    if (tile == 1) {
-      const dim3 grid((N + WB - 1) / WB, (M + WB - 1) / WB, E);
-      matmul_batched_wide_kernel<<<grid, THREADS, 0, s>>>(
-          pa, pb, pc, M, N, K, lda, ldb, sa, sb, aligned16(a, lda) && sa % 4 == 0,
-          aligned16(b, ldb) && sb % 4 == 0);
-    } else {
-      const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, E);
-      matmul_batched_kernel<<<grid, THREADS, 0, s>>>(pa, pb, pc, M, N, K, lda, ldb, sa, sb);
-    }
+    if (a_km && b_nk)
+      launch_matmul_batched<true, true>(pa, pb, pc, E, M, N, K, lda, ldb, sa, sb, tile, s);
+    else if (a_km)
+      launch_matmul_batched<false, true>(pa, pb, pc, E, M, N, K, lda, ldb, sa, sb, tile, s);
+    else if (b_nk)
+      launch_matmul_batched<true, false>(pa, pb, pc, E, M, N, K, lda, ldb, sa, sb, tile, s);
+    else
+      launch_matmul_batched<false, false>(pa, pb, pc, E, M, N, K, lda, ldb, sa, sb, tile, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,5 @@
 // Building blocks of the port's tensor-core kernels (the bf16, dual and
-// int8-weight GEMMs of matmul_tc.cu, the bf16 flash-attention forward and
+// int8-weight GEMMs of matmul_tc.cuh, the bf16 flash-attention forward and
 // backward, the SSD kernel) and of the decode kernel's staging: 16-, 8-
 // and 4-byte cp.async with zero fill, ldmatrix, mma.sync.m16n8k16 bf16 ->
 // f32, mma.sync.m16n8k8 tf32 -> f32 with the hi + lo split of an f32, and

@@ -1,6 +1,7 @@
 """Wrappers of the tiled GEMM, int8-weight GEMM and dual-GEMM CUDA
-kernels: bf16 activations on the tensor cores (`csrc/matmul_tc.cu`), f32
-on the FMA kernels (`csrc/matmul.cu`).
+kernels: bf16 activations on the tensor cores (`csrc/matmul_tc.cuh`, the
+2-D entry points in `csrc/matmul_tc.cu`, the batched ones in
+`csrc/matmul_tc_batched.cu`), f32 on the FMA kernels (`csrc/matmul.cu`).
 
 `matmul_tiled` computes ``C[M,N] = epilogue(A[M,K] @ B[K,N])``,
 `matmul_q_tiled` ``epilogue((A @ Wq) * scale)`` for an int8 [K, N] Wq and
@@ -8,12 +9,15 @@ its (N,) per-channel scale, and `gated_matmul_tiled`
 ``silu(A @ Wg) * (A @ Wu)``; they replace the Pallas kernels of the same
 names in the JAX package. `matmul_batched_tiled` and
 `gated_matmul_batched_tiled` are the batched forms of the GEMM and the
-dual GEMM over a bank of E row-major matrices (the MoE expert banks), one
-launch for all E where the JAX package vmaps its kernels over the
-experts: each expert runs the 2-D kernel's tile plan for its (M, K, N),
-so its output is the 2-D kernel's on its operands, bit for bit. Each takes tensors on the
-card and launches its kernel, or raises: the CPU path is the plain
-version in `kernels.ref`, chosen by `kernels.ops` for CPU tensors.
+dual GEMM over a bank of E matrices (the MoE expert banks), one launch
+for all E where the JAX package vmaps its kernels over the experts: each
+expert runs the 2-D kernel's tile plan for its (M, K, N) and layout, so
+its output is the 2-D kernel's on its operands, bit for bit. The batched
+GEMM takes each bank in either of the 2-D GEMM's layouts (the banks'
+backward reads g B^T and A^T g of every expert in place); the batched
+dual GEMM row-major banks. Each takes tensors on the card and launches
+its kernel, or raises: the CPU path is the plain version in
+`kernels.ref`, chosen by `kernels.ops` for CPU tensors.
 
 The GEMM's B may be a [K, N] row-major tensor or the transpose view of
 an [N, K] one (`w.t()`), and its A an [M, K] row-major tensor or the
@@ -50,7 +54,7 @@ _SIGNATURES = {
                        _I, _P],
     "repro_gated_matmul": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _P],
     "repro_matmul_batched": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _I,
-                             _P],
+                             _I, _I, _P],
     "repro_gated_matmul_batched": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L,
                                    _L, _L, _P],
 }
@@ -60,8 +64,10 @@ _TC_SIGNATURES = {
     "repro_matmul_q_tc": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _I, _I,
                           _I, _I, _P],
     "repro_gated_matmul_tc": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _P],
+}
+_TC_BATCHED_SIGNATURES = {
     "repro_matmul_batched_tc": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L,
-                                _I, _P],
+                                _I, _I, _I, _P],
     "repro_gated_matmul_batched_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L,
                                       _L, _L, _I, _P],
 }
@@ -80,9 +86,13 @@ def _tc_lib():
     return _build.load("matmul_tc", _TC_SIGNATURES)
 
 
+def _tc_batched_lib():
+    return _build.load("matmul_tc_batched", _TC_BATCHED_SIGNATURES)
+
+
 @dataclass(frozen=True)
 class TilePlan:
-    """A tile of a GEMM (bf16: `csrc/matmul_tc.cu`; f32: `csrc/matmul.cu`):
+    """A tile of a GEMM (bf16: `csrc/matmul_tc.cuh`; f32: `csrc/matmul.cu`):
     `kernel` is the instance number the launcher takes; bm x bn outputs a
     block, bk a k-stage, `stages` of them in flight, `mma` the tensor-core
     instruction ("fma" for the f32 kernels' FMA units).
@@ -345,21 +355,29 @@ def gated_matmul_tiled(a: torch.Tensor, w_gate: torch.Tensor,
 MAX_EXPERTS = 65535
 
 
-def _check_bank(x: torch.Tensor, name: str, e: int) -> None:
-    """x must be an (e, R, C) bank of row-major matrices: a contiguous last
-    dim, each matrix's rows one stride apart and the matrices another."""
+def _check_bank(x: torch.Tensor, name: str, e: int,
+                transposed: bool = False):
+    """x must be an (e, R, C) bank of matrices one stride apart, each
+    row-major or (`transposed`) the transpose view of a row-major (C, R):
+    returns its (transposed, leading dim), as `_layout` for one matrix."""
     if x.dim() != 3 or x.shape[0] != e:
         raise ValueError(f"{name} must be a bank of {e} matrices (E, R, C), "
                          f"got shape {tuple(x.shape)}")
-    if x.stride(2) != 1:
-        raise ValueError(f"{name}'s matrices must be row-major, got strides "
-                         f"{x.stride()}")
+    if x.stride(2) == 1:
+        return 0, x.stride(1)
+    if transposed and x.stride(1) == 1:
+        return 1, x.stride(2)
+    raise ValueError(f"{name}'s matrices must be row-major"
+                     f"{' or transpose views' if transposed else ''}, got "
+                     f"strides {x.stride()}")
 
 
-def _check_batch(a: torch.Tensor, ws, what: str) -> int:
+def _check_batch(a: torch.Tensor, ws, what: str, transposed=False):
+    """(E, each bank's (transposed, leading dim)) of A and the banks `ws`,
+    ((name, bank), ...), one dtype on one card."""
     e = a.shape[0] if a.dim() == 3 else -1
-    for name, x in (("A", a), *ws):
-        _check_bank(x, name, e)
+    layouts = [_check_bank(x, name, e, transposed)
+               for name, x in (("A", a), *ws)]
     if e > MAX_EXPERTS:
         raise ValueError(f"{what}: at most {MAX_EXPERTS} experts a launch, "
                          f"got {e}")
@@ -368,25 +386,28 @@ def _check_batch(a: torch.Tensor, ws, what: str) -> int:
         if w.dtype != a.dtype:
             raise TypeError(f"A is {a.dtype} but {name} is {w.dtype}")
     _check_cuda(a, *(w for _, w in ws))
-    return e
+    return e, layouts
 
 
 def matmul_batched_tiled(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """C[e] = A[e] @ B[e] on the card, in A's dtype, for a bank A (E, M, K)
-    and a bank B (E, K, N) of row-major matrices: one launch, an expert a
-    blockIdx.z, each on the plan `tile_plan` (bf16) or `f32_tile_plan`
-    (f32) picks for (M, K, N)."""
-    e = _check_batch(a, (("B", b),), "matmul_batched_tiled")
+    and a bank B (E, K, N): one launch, an expert a blockIdx.z, each on
+    the plan `tile_plan` (bf16) or `f32_tile_plan` (f32) picks for
+    (M, K, N) in its layout. Each bank may be row-major or, per expert,
+    the transpose view of a row-major (E, K, M) or (E, N, K) one
+    (`x.transpose(1, 2)`), read in place."""
+    e, ((a_km, lda), (b_nk, ldb)) = _check_batch(
+        a, (("B", b),), "matmul_batched_tiled", transposed=True)
     _, m, k = a.shape
     if b.shape[1] != k:
         raise ValueError(f"shapes {tuple(a.shape)} @ {tuple(b.shape)}")
     n = b.shape[2]
     c = torch.empty((e, m, n), dtype=a.dtype, device=a.device)
     operands = (a.data_ptr(), b.data_ptr(), c.data_ptr(), e, m, n, k,
-                a.stride(1), b.stride(1), a.stride(0), b.stride(0))
+                lda, ldb, a.stride(0), b.stride(0), a_km, b_nk)
     if a.dtype == torch.bfloat16:        # the tensor cores
-        err = _tc_lib().repro_matmul_batched_tc(
-            *operands, tile_plan(m, k, n, False, False).kernel,
+        err = _tc_batched_lib().repro_matmul_batched_tc(
+            *operands, tile_plan(m, k, n, bool(a_km), bool(b_nk)).kernel,
             _build.stream_ptr(a.device))
     else:                                # f32: the FMA kernels
         err = _lib().repro_matmul_batched(
@@ -403,7 +424,7 @@ def gated_matmul_batched_tiled(a: torch.Tensor, w_gate: torch.Tensor,
     for a bank A (E, M, K) and banks Wg, Wu (E, K, N) of one layout: one
     launch, an expert a blockIdx.z, each on the plan `gated_tile_plan`
     picks for (M, K, N) (bf16; f32 takes the FMA kernel)."""
-    e = _check_batch(a, (("w_gate", w_gate), ("w_up", w_up)),
+    e, _ = _check_batch(a, (("w_gate", w_gate), ("w_up", w_up)),
                      "gated_matmul_batched_tiled")
     _, m, k = a.shape
     if w_gate.shape != w_up.shape or w_gate.shape[1] != k:
@@ -418,7 +439,7 @@ def gated_matmul_batched_tiled(a: torch.Tensor, w_gate: torch.Tensor,
                 c.data_ptr(), e, m, n, k, a.stride(1), w_gate.stride(1),
                 a.stride(0), w_gate.stride(0))
     if a.dtype == torch.bfloat16:        # the tensor cores
-        err = _tc_lib().repro_gated_matmul_batched_tc(
+        err = _tc_batched_lib().repro_gated_matmul_batched_tc(
             *operands, gated_tile_plan(m, k, n).kernel,
             _build.stream_ptr(a.device))
     else:                                # f32: the FMA kernel

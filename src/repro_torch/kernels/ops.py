@@ -160,7 +160,9 @@ def _check_banks(a, *ws) -> None:
 
 def matmul_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a[e] @ b[e] for a (E, M, K) and a bank b (E, K, N), in a's dtype:
-    the expert banks' GEMM, one launch for all E experts."""
+    the expert banks' GEMM, one launch for all E experts. Either operand
+    may be the transpose view of a row-major bank (its backward's
+    g b^T and a^T g), read in place."""
     _check_banks(a, b)
     if _on_card(a):
         return _mm.matmul_batched_tiled(a, b)

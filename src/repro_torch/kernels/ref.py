@@ -81,9 +81,10 @@ def gated_matmul_ref(a, w_gate, w_up) -> torch.Tensor:
 
 
 def matmul_batched_ref(a, b) -> torch.Tensor:
-    """C[e] = A[e] @ B[e] for banks A (E, M, K) and B (E, K, N): the batched
-    GEMM's plain version, each expert's product accumulated in f32 and
-    rounded once to A's dtype."""
+    """C[e] = A[e] @ B[e] for banks A (E, M, K) and B (E, K, N), either one
+    a transpose view (`x.transpose(1, 2)`): the batched GEMM's plain
+    version, each expert's product accumulated in f32 and rounded once to
+    A's dtype."""
     return matmul_ref(a, b)
 
 

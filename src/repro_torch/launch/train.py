@@ -5,10 +5,17 @@
     PYTHONPATH=src python -m repro_torch.launch.train --steps 4 \
         --batch 4 --seq 512                              # full width, on the card
 
-Trains `--arch` (qwen3-0.6b, mamba2-2.7b or zamba2-1.2b: the archs whose
-family `models.model` trains, `TRAIN_FAMILIES`), or its `--reduced` test
-config, from random weights (`torch.Generator().manual_seed(--seed)`) on
-`SyntheticLM` batches with AdamW and a cosine schedule. The step updates
+Trains `--arch` (every arch whose family `models.model` trains,
+`TRAIN_FAMILIES`: the dense configs, qwen2-vl-2b on text, mixtral-8x22b
+and arctic-480b with their router losses in the loss, mamba2-2.7b and
+zamba2-1.2b), or its `--reduced` test config, from random weights
+(`torch.Generator().manual_seed(--seed)`) on `SyntheticLM` batches with
+AdamW and a cosine schedule. whisper-tiny is not offered: its batches
+need encoder frames, which `SyntheticLM` does not carry (nor does the
+JAX launcher's); it trains through `training.train_loop.make_train_step`
+on batches with "enc_frames". The full mixtral-8x22b and arctic-480b do
+not fit one card (their f32 params and AdamW moments alone are ~2.3 TB
+and ~7.7 TB); `--reduced` trains them on the CPU. The step updates
 the train state in place (`make_train_step(donate=True)`), as the JAX
 launcher donates it. Runs on the card unless `--device cpu` is given,
 and raises where there is no card. Not ported yet: the JAX launcher's
@@ -31,8 +38,11 @@ from repro_torch.models.model import TRAIN_FAMILIES
 from repro_torch.optim.adamw import AdamW, cosine_schedule
 from repro_torch.training import train_loop as TL
 
+#: The archs offered: every trained family's but encdec (no frames in
+#: the synthetic batches).
 TRAIN_ARCHS = tuple(a for a in ARCH_NAMES
-                    if get_config(a).family in TRAIN_FAMILIES)
+                    if get_config(a).family in TRAIN_FAMILIES
+                    and get_config(a).family != "encdec")
 
 
 def main(argv=None):

@@ -36,9 +36,9 @@ each Mamba layer, stacked (n_seg, attn_every, B, ...), beside the
 shared attention block's KV cache of each segment, (n_seg, B, Tmax,
 Hkv, Dh). Both serve (prefill, decode_step) on dense caches, with float
 or int8 weights; the page pool and the verify step are the KV
-families' only. The dense, ssm and hybrid families train (forward,
-loss_fn), each layer rematerialised in the backward as `cfg.remat` says
-(models.transformer).
+families' only. Every family trains (forward, loss_fn), each layer
+rematerialised in the backward as `cfg.remat` says (models.transformer):
+a moe loss carries its router losses, an encdec batch its frames.
 
 The encdec family (Whisper) takes a batch's "enc_frames" (B, enc_ctx,
 d_model), the stub conv frontend's output, through a bidirectional
@@ -291,9 +291,9 @@ def _logits(cfg, params, x):
 
 
 #: The families that `forward` and `loss_fn` train; the launcher offers
-#: only their archs. (Both take a vlm batch too, but vlm training on the
-#: card is not checked yet, so the launcher does not offer it.)
-TRAIN_FAMILIES = ("dense", "ssm", "hybrid")
+#: their archs but whisper-tiny, whose batches need encoder frames that
+#: the synthetic token data does not carry (launch.train).
+TRAIN_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 
 
 def forward(cfg, params, batch, aux=None):
@@ -327,22 +327,26 @@ def forward(cfg, params, batch, aux=None):
 def loss_fn(cfg, params, batch):
     """Mean next-token cross entropy over the labels >= 0 of
     batch["labels"] (B, T) (-1: no label), from an f32 log-softmax over
-    the padded vocab. Returns (loss, {"ce_loss", "tokens", "loss"}). A
-    moe model is refused: the reference adds its router losses to the
-    loss, which comes with moe training."""
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            f"loss_fn of {cfg.name}: a moe loss carries the router's aux "
-            f"losses (forward(..., aux={{}}) computes them); moe training "
-            f"is not ported yet")
-    logits = forward(cfg, params, batch)
+    the padded vocab, plus every aux term named *_loss (a moe model's
+    router losses, summed over its layers), as the JAX package's
+    `loss_fn` adds them. Returns (loss, {"ce_loss", "tokens", the aux
+    terms ("moe_lb_loss", "moe_z_loss", "moe_dropped_frac" for moe),
+    "loss"})."""
+    aux = {}
+    logits = forward(cfg, params, batch, aux=aux)
     labels = batch["labels"].long()
     valid = labels >= 0
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
     denom = valid.sum().clamp(min=1)
     loss = (nll * valid).sum() / denom
-    return loss, {"ce_loss": loss, "tokens": denom, "loss": loss}
+    metrics = {"ce_loss": loss, "tokens": denom}
+    for name, v in aux.items():
+        metrics[name] = v
+        if name.endswith("_loss"):
+            loss = loss + v
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def prefill(cfg, params, batch, cache, pos: int = 0):

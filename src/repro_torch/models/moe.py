@@ -123,8 +123,9 @@ def _tree_sum(x: torch.Tensor) -> torch.Tensor:
 
 def _softmax(logits: torch.Tensor) -> torch.Tensor:
     """exp(x - max) / sum(exp(x - max)) over the last dim, as
-    `jax.nn.softmax` writes it, the sum by `_tree_sum`."""
-    ex = torch.exp(logits - logits.amax(-1, keepdim=True))
+    `jax.nn.softmax` writes it (no gradient through the max, which
+    cancels), the sum by `_tree_sum`."""
+    ex = torch.exp(logits - logits.amax(-1, keepdim=True).detach())
     return ex / _tree_sum(ex)
 
 

@@ -15,11 +15,17 @@ keep their (L, B, T, Hkv, D) layout (page pools their (L, P, page_size,
 Hkv, D) one), updated in place.
 
 Rematerialisation follows the reference's `remat` (`_maybe_remat`): with
-`cfg.remat == "full"` each dense block, each Mamba-2 layer of the ssm
-stack and each Mamba-2 layer inside a hybrid segment (not the shared
-block) runs under `torch.utils.checkpoint` when autograd records it, so
+`cfg.remat == "full"` each block of `stack_apply` (dense, vlm and moe;
+an encoder-decoder's encoder and decoder blocks), each Mamba-2 layer of
+the ssm stack and each Mamba-2 layer inside a hybrid segment (not the
+shared block) runs under `torch.utils.checkpoint` when autograd records it, so
 the backward keeps only each layer's input and runs the layer's forward
-again, the same kernels on the same inputs, before its backward. A call
+again, the same kernels on the same inputs, before its backward. A moe
+block's router losses come back from the checkpointed body beside its
+output and are summed outside it, as the reference carries (x, aux)
+through its checkpointed scan body, so a recompute adds nothing twice;
+an encoder-decoder's decoder blocks read the encoder's output by
+closure, which the non-reentrant checkpoint differentiates. A call
 that autograd does not record (serving, the engine's CUDA-graph
 captures) never goes through it.
 """
@@ -165,17 +171,22 @@ def stack_apply(params, x, cfg, *, caches=None, cache_pos=None,
         else _unstack(cross_caches, n)
 
     def body(lp, xc, cache, cross):
-        return block_apply(lp, xc, cfg, cache=cache, cache_pos=cache_pos,
-                           kv_table=kv_table, n_valid=n_valid,
-                           positions=positions, aux=aux, causal=causal,
-                           enc_out=enc_out, cross_cache=cross,
-                           cross_pos=cross_pos)[0]
+        # the layer's aux terms come back beside x, from a dict of this
+        # call's own: a recompute under remat fills one that nobody reads
+        layer_aux = None if aux is None else {}
+        xo = block_apply(lp, xc, cfg, cache=cache, cache_pos=cache_pos,
+                         kv_table=kv_table, n_valid=n_valid,
+                         positions=positions, aux=layer_aux, causal=causal,
+                         enc_out=enc_out, cross_cache=cross,
+                         cross_pos=cross_pos)[0]
+        return xo, layer_aux
 
-    if caches is None and aux is None:
-        # (a recompute would add a layer's aux twice)
+    if caches is None:
         body = _maybe_remat(body, cfg, params)
     for i in range(n):
-        x = body(layers[i], x, per_cache[i], per_cross[i])
+        x, layer_aux = body(layers[i], x, per_cache[i], per_cross[i])
+        for name, v in (layer_aux or {}).items():
+            aux[name] = aux[name] + v if name in aux else v
     if aux is not None and "moe_dropped_frac" in aux:
         aux["moe_dropped_frac"] = aux["moe_dropped_frac"] / cfg.n_layers
     return x, caches

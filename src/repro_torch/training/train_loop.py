@@ -1,5 +1,5 @@
-"""The train step: the JAX package's `training/train_loop.py` for the
-dense, ssm and hybrid families, in PyTorch.
+"""The train step: the JAX package's `training/train_loop.py` for every
+family, in PyTorch.
 
     state = init_state(cfg, optimizer, generator, device)
     step = make_train_step(cfg, optimizer, accum=2, donate=True)
@@ -7,12 +7,13 @@ dense, ssm and hybrid families, in PyTorch.
 
 A step takes the loss and its gradients (the forward and the backward
 run through the CUDA kernels on the card: the GEMM chokepoint's autograd
-Functions, the flash attention pair and the SSD Function, each layer
-rematerialised as `cfg.remat` says), accumulates them over `accum`
-microbatches of the batch, and takes one AdamW step with global-norm
-clipping. With `donate=True`, the counterpart of the JAX launcher's
-`donate_argnums=(0,)`, the step updates the state's tensors in place
-(`AdamW.update(donate=True)`) and returns them. Gradient compression
+Functions, the flash attention pair, the expert banks' Functions and
+the SSD Function, each layer rematerialised as `cfg.remat` says),
+accumulates them over `accum` microbatches of the batch, and takes one
+AdamW step with global-norm clipping. With `donate=True`, the
+counterpart of the JAX launcher's `donate_argnums=(0,)`, the step
+updates the state's tensors in place (`AdamW.update(donate=True)`) and
+returns them. Gradient compression
 (`compress`) is not ported yet.
 """
 
@@ -62,9 +63,13 @@ def _split(batch, accum: int):
 def make_train_step(cfg, optimizer: AdamW, *, accum: int = 1,
                     donate: bool = False):
     """step(state, batch) -> (state, metrics). batch: {"tokens", "labels"}
-    (B, T) integer tensors on the params' device. metrics: the last
-    microbatch's loss_fn metrics with "ce_loss" and "loss" the mean over
-    the microbatches, and "grad_norm" before clipping, as tensors.
+    (B, T) integer tensors on the params' device, and what the family's
+    forward reads ("enc_frames" (B, enc_ctx, d_model) for encdec,
+    "patch_embeds" (B, T, d_model) and (B, T, 3) "positions" for vlm),
+    every entry cut along dim 0 into the microbatches. metrics: the last
+    microbatch's loss_fn metrics (a moe model's router losses and dropped
+    fraction among them) with "ce_loss" and "loss" the mean over the
+    microbatches, and "grad_norm" before clipping, as tensors.
     donate: the returned state is the given one, updated in place (the
     same bits as the functional step's); the caller must not read the old
     state again."""

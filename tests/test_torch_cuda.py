@@ -1778,17 +1778,83 @@ def test_batched_gemms_are_batch_invariant(dev, dtype):
         assert torch.equal(ops.gated_matmul_batched(am, w, u)[:, :4], h4), m
 
 
-def test_bank_gemms_on_card_refuse_a_gradient(dev):
-    """The banks' GEMMs are forward only on the card: a call that autograd
-    would record raises; without grad mode they run."""
+def _bank_view(dev, e, m, k, n, dtype, a_km, b_nk, seed=0):
+    """A (E, M, K) and B (E, K, N) banks, each row-major or (a_km, b_nk)
+    the transpose view of a row-major (E, K, M) or (E, N, K) bank."""
+    a = _randn(e, *((k, m) if a_km else (m, k)), dtype=dtype, dev=dev,
+               seed=seed)
+    b = _randn(e, *((n, k) if b_nk else (k, n)), dtype=dtype, dev=dev,
+               seed=seed + 1, scale=k ** -0.5)
+    return (a.transpose(1, 2) if a_km else a,
+            b.transpose(1, 2) if b_nk else b)
+
+
+# (E, M, K, N): the 16-row tiles, the narrow and the TMA + wgmma tiles
+# (ragged), a weight gradient's K of 640 slots, a 192-wide plan
+BANK_T_SHAPES = [(3, 4, 64, 40), (2, 20, 96, 72), (3, 160, 128, 136),
+                 (2, 384, 640, 200), (2, 256, 96, 1152)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BANK_T_SHAPES)
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_batched_gemm_layouts_match_plain_and_the_2d_kernel(dev, dtype, shape,
+                                                            layout):
+    """The batched GEMM on transpose views of its banks (A as a row-major
+    (E, K, M) bank's, B as an (E, N, K) one's: a bank's backward), read
+    in place: against the plain version, each expert's output equal to
+    the 2-D kernel's on the same views bit for bit."""
+    e, m, k, n = shape
+    a, b = _bank_view(dev, e, m, k, n, dtype, *layout)
+    c = ops.matmul_batched(a, b)
+    _close(c, ref.matmul_batched_ref(a, b), dtype)
+    for x in range(e):
+        assert torch.equal(c[x], ops.matmul(a[x], b[x])), x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", LAYOUTS[1:])
+def test_batched_gemm_layouts_are_batch_invariant(dev, dtype, layout):
+    """In each transposed layout an expert's first 4 rows have the same
+    bits at M = 4, 20 and 160."""
+    e, k, n = 3, 256, 320
+    a, b = _bank_view(dev, e, 160, k, n, dtype, *layout)
+    c4 = ops.matmul_batched(a[:, :4], b)
+    for m in (20, 160):
+        assert torch.equal(ops.matmul_batched(a[:, :m], b)[:, :4], c4), m
+
+
+def test_bank_gemms_on_card_refuse_a_gradient(dev, monkeypatch):
+    """A recorded bank GEMM on the card no longer refuses: it goes through
+    the bank Functions (the batched kernels; the backward 2 batched GEMMs
+    for the GEMM, 6 for the dual GEMM, on the transposed layouts, no plain
+    version launched). In f32 the gradients equal autograd of the plain
+    versions on the card; in bf16 (whose recompute rounds gate and up to
+    bf16, as the JAX package's VJP does) the same Functions with every
+    GEMM through its plain version on the card."""
     from repro_torch.core import gemm
-    a, w, u = _bank(dev, 2, 4, 16, 8, torch.float32)
-    with pytest.raises(NotImplementedError, match="forward only"):
-        gemm.matmul(a, w.clone().requires_grad_())
-    with pytest.raises(NotImplementedError, match="forward only"):
-        gemm.gated_mlp(a.clone().requires_grad_(), w, u)
-    with torch.no_grad():
-        gemm.matmul(a, w.clone().requires_grad_())
+    for dtype in (torch.float32, torch.bfloat16):
+        a, w, u = _bank(dev, 3, 160, 128, 136, dtype)
+        ga = _randn(3, 160, 136, dtype=dtype, dev=dev, seed=7)
+        for fn, plain, ins in (
+                (gemm.matmul, ref.matmul_batched_ref, (a, w)),
+                (gemm.gated_mlp, ref.gated_matmul_batched_ref, (a, w, u))):
+            ops.reset_launch_counts()
+            ts = [t.detach().requires_grad_() for t in ins]
+            got = torch.autograd.grad(fn(*ts), ts, ga)
+            counts = ops.launch_counts()
+            assert (counts["matmul_batched"], counts["gated_matmul_batched"]) \
+                == ((3, 0) if fn is gemm.matmul else (6, 1)), counts
+            ts = [t.detach().requires_grad_() for t in ins]
+            if dtype == torch.float32:
+                want = torch.autograd.grad(plain(*ts), ts, ga)
+            else:
+                with monkeypatch.context() as m:
+                    m.setattr(ops, "_on_card", lambda t: False)
+                    want = torch.autograd.grad(fn(*ts), ts, ga)
+            for g_, w_ in zip(got, want):
+                assert g_.dtype == dtype
+                _close(g_, w_, dtype)
     with pytest.raises(ValueError, match="bank"):
         ops.matmul_batched(a, w[:1])
 
@@ -1883,6 +1949,24 @@ def test_bf16_flash_attention_not_causal_at_whisper_shapes(dev, tq):
     want_o, want_lse = ref.flash_attention_fwd_ref(q, k, v, causal=False)
     _close(o, want_o, torch.bfloat16)
     torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tq", [1500, 448])
+def test_flash_attention_bwd_not_causal_at_whisper_shapes(dev, dtype, tq):
+    """The backward of training's encoder (Tq = Tk = 1500 = 23 x 64 + 28,
+    a ragged key edge) and cross-attention (Tq = 448 decoder queries over
+    1500 encoder keys), 6 heads of 64, not causal, against the plain
+    version."""
+    q = _randn(2, tq, 6, 64, dtype=dtype, dev=dev, seed=0)
+    k = _randn(2, 1500, 6, 64, dtype=dtype, dev=dev, seed=1)
+    v = _randn(2, 1500, 6, 64, dtype=dtype, dev=dev, seed=2)
+    do = _randn(2, tq, 6, 64, dtype=dtype, dev=dev, seed=3)
+    o, lse = ops.flash_attention_fwd(q, k, v, causal=False)
+    got = ops.flash_attention_bwd(q, k, v, o, do, lse, causal=False)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal=False)
+    for x, y in zip(got, want):
+        _close(x, y, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -374,16 +374,12 @@ def test_engine_streams_match_jax_engine(engine):
 
 def test_moe_refuses_what_it_does_not_serve_yet():
     """A moe speculative target (its verify step routes the slots' rows
-    as one group) and moe training's loss (the router's aux losses) are
-    refused, not run without them."""
+    as one group) is refused, not run."""
     _, cfg = _cfgs("mixtral-8x22b")
     params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(ValueError, match="moe target"):
         ServingEngine(cfg, params, max_slots=2, max_len=32, device="cpu",
                       draft=(cfg, params))
-    tokens = torch.zeros(1, 8, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="aux losses"):
-        M.loss_fn(cfg, params, {"tokens": tokens, "labels": tokens})
 
 
 @pytest.mark.parametrize("arch", ARCHS)
