@@ -22,8 +22,9 @@ Phases, in order; any failure propagates and the exit code is not 0:
      f32), each expert equal to the 2-D kernel's output bit for bit, an
      expert's rows at M = 4 equal at M = 20, torch.bmm the down
      projection's yardstick; decode attention at mixtral's 48/8 heads with
-     its 4096 window over 6144 keys and at arctic's group of 7 (56/8:
-     one-row, paged, multi-row, batch invariance); the paper's
+     its 4096 window over 6144 keys (one-row, paged, and the multi-row
+     form of a verify step, dense and paged) and at arctic's group of 7
+     (56/8: one-row, paged, multi-row, batch invariance); the paper's
      tiled GEMM (f32 and bf16, with their TFLOP/s beside torch.matmul's)
      and naive GEMM at
      4096^2, f32 against the f64 product, and add, sub, mul and axpy bit
@@ -70,11 +71,11 @@ Phases, in order; any failure propagates and the exit code is not 0:
   6. the request surface at full width (qwen3-0.6b, 28 layers, bf16):
      (a) speculative decoding, greedy, phase 4's 8 requests on 4 slots,
      spec_k 4, the target as its own draft on the dense cache and a bf16
-     pool, and a seed-1 draft on the dense cache (its run on the pool is
-     cut for time; the CPU tests hold it): every stream equals phase
-     4's, the
-     self-draft accepts every proposal, each request's target cache rows
-     equal the plain engine's bit for bit; the verify launches a round,
+     pool, and a draft of other weights (seed 1) on the dense cache (its
+     run on the pool is cut for time): every stream equals phase 4's,
+     the self-draft accepts every proposal and the other draft not all,
+     each request's target cache rows equal the plain engine's bit for
+     bit; the verify launches a round,
      the round's p50 beside phase 4's decode step and a round's logits
      copy; (b) one paged run of a bursty trace (priorities 0/1) on a pool
      that forces preemption, on a clock of one unit a step: a waiter
@@ -83,9 +84,16 @@ Phases, in order; any failure propagates and the exit code is not 0:
      every page returns; twice with a temperature sampler over the top
      50: the same streams, each token in its row's top 50; then on the
      wall clock: tok/s, time to first token and the deadline miss rate;
-  7. training at full width: 8 AdamW steps of qwen3-0.6b (f32 params,
-     bf16 activations, each block rematerialised) at batch 4 x 512
-     tokens, with exact launch counts a step (the recompute's included),
+  7. training at full width: 8 donated AdamW steps of qwen3-0.6b (f32
+     params, bf16 activations, each block rematerialised) at batch 4 x
+     512 tokens, supervised (`distributed.Supervisor`): a checkpoint of
+     the state every 4 steps without blocking (`checkpoint.Checkpointer`,
+     keep 1, in a directory under build/ removed after), a failure
+     injected before step 6, the step-4 checkpoint restored into the
+     state's own tensors and steps 4 and 5 run again, each with its
+     first run's loss and grad norm, and the state after it, bit for bit
+     (the free disk, each save's and the restore's bytes and seconds
+     printed); exact launch counts a step run (the recompute's included),
      finite losses and grad norms, a falling loss, speed, memory and a
      torch.profiler trace of a step; the first 4 steps without remat from
      the same state, step 0's loss equal bit for bit, both peaks and
@@ -157,7 +165,16 @@ Phases, in order; any failure propagates and the exit code is not 0:
   12. the moe family at full width, random weights drawn on the card in
      bf16 (the router f32): mixtral-8x22b at 8 of its 56 layers (41 GB)
      serving phase 4's trace on the dense cache and a bf16 page pool (the
-     same streams), one request of 4,608 prompt tokens past its 4096
+     same streams), greedy speculative decoding with mixtral as its own
+     draft (k = 4, 4 slots, the dense cache: the verify graph's launches,
+     every round's emitted tokens the greedy rule's on its verify logits,
+     a round against an eager verify_step bit for bit and against the
+     plain versions on the card, each round's dropped fraction,
+     acceptance and round p50; the requests whose verify rows dropped
+     nothing keep the dense streams; then 1 slot at k = 3, where no
+     round can drop, on the dense cache and a bf16 pool: the dense
+     streams, every proposal accepted, the multi-row decode's launches a
+     round), one request of 4,608 prompt tokens past its 4096
      window (its stream equal to eager prefill and decode), and int8
      weights on an int8 pool (4 requests); arctic-480b at 2 of its 35
      layers (55.6 GB), 4 requests. Each run: exact launch counts (one
@@ -340,7 +357,7 @@ class Smoke:
                 for ev in events]
 
     def _case(self, kernel, label, run_kernel, run_plain, run_library,
-              nbytes, flops, dtype, tol, reference=None, n_time=50,
+              nbytes, flops, dtype, tol, reference=None, n_time=30,
               peak=None, note=""):
         """Compare, then time. tol = (atol, rtol) on |kernel - plain|, or
         a list of them for a kernel of several outputs. run_library: a
@@ -406,7 +423,7 @@ class Smoke:
         torch = self.torch
         from repro_torch.kernels import ops, ref
         F = torch.nn.functional
-        print("[3/16] kernels against their plain versions (median of 50, "
+        print("[3/16] kernels against their plain versions (median of 30, "
               "L2 flushed, in turns, card time only)")
         gen = torch.Generator(device=self.dev).manual_seed(0)
 
@@ -780,7 +797,8 @@ class Smoke:
         projection's yardstick. Then decode attention at mixtral's 48/8
         heads with its window of 4096 over 6144 keys, and at arctic's 56/8
         (a group of 7: passes of 4 and 3 query heads), one-row, through a
-        bf16 pool and multi-row, with its batch invariance."""
+        bf16 pool and multi-row (mixtral's dense and through the pool: a
+        verify step's rows), with its batch invariance."""
         torch = self.torch
         from repro_torch.kernels import ops, ref
         F = torch.nn.functional
@@ -865,6 +883,9 @@ class Smoke:
             (2 * q.numel() + 2 * keys * hkv * d) * 2 + b_ * 4,
             4 * keys * h * d, "bfloat16", tol, n_time=20)
         del q, kc, vc, mask
+        # a verify step's rows at mixtral's 48/8 and window: dense, paged
+        self._decode_cases(randn, tol, 48, 8, paged=True, what="mixtral-8x22b",
+                           tk=tk, window=window)
         self._decode_cases(randn, tol, 56, 8, paged=True, what="arctic-480b")
         self._decode_batch_invariance(randn, 56, 8)
 
@@ -1049,31 +1070,43 @@ class Smoke:
             (2 * q.numel() + 2 * keys * h * dh) * 2, 4 * keys * h * dh,
             "bfloat16", tol)
 
-    def _decode_cases(self, randn, tol, h, hkv, paged, what, d=128, tk=2048):
+    def _decode_cases(self, randn, tol, h, hkv, paged, what, d=128, tk=2048,
+                      window=None):
         """flash_decode at (h, hkv) heads of d, 4 slots against a tk-deep
-        cache at pos [-1, 0, 700, tk - 1]; with `paged`, the same through
-        a bf16 page table (whose output must be the dense kernel's bits)
-        and the multi-row form (5 rows a slot, n_valid [5, 5, 3, 5])."""
+        cache at pos [-1, 0, 700, tk - 5] ([-1, 100, 4500, tk - 5] with a
+        `window`: each slot sees its last `window` keys); with `paged`,
+        the same through a bf16 page table (whose output must be the
+        dense kernel's bits) and the multi-row form (5 rows a slot,
+        n_valid [5, 5, 3, 5]), dense and through the table, each row the
+        one-row kernel's bits at its position."""
         torch = self.torch
         from repro_torch.kernels import ops, ref
         F = torch.nn.functional
         dtype = torch.bfloat16
         b_, ps, t = 4, 16, 5
-        pos_list, nv_list = [-1, 0, 700, tk - t], [t, t, 3, t]
+        pos_list = [-1, 0, 700, tk - t] if window is None \
+            else [-1, 100, 4500, tk - t]
+        nv_list = [t, t, 3, t]
+        w = window or tk
+
+        def lo(p):                        # a query at p sees keys lo(p) .. p
+            return max(0, p - w + 1)
         pos = torch.tensor(pos_list, dtype=torch.int32, device=self.dev)
         q = randn(b_, t, h, d, dtype=dtype)
         kc = randn(b_, tk, hkv, d, dtype=dtype)
         vc = randn(b_, tk, hkv, d, dtype=dtype)
         q1 = q[:, :1].contiguous()
-        keys = sum(p + 1 for p in pos_list if p >= 0)
+        keys = sum(p + 1 - lo(p) for p in pos_list if p >= 0)
         mask = torch.zeros((b_, 1, 1, tk), dtype=torch.bool, device=self.dev)
         for i, p in enumerate(pos_list):
-            mask[i, ..., :p + 1] = True
-        label = f"bfloat16 B={b_} H={h} Hkv={hkv} D={d} Tk={tk} ({what})"
+            mask[i, ..., lo(p):p + 1] = True
+        win = "" if window is None else f" window={window}"
+        label = f"bfloat16 B={b_} H={h} Hkv={hkv} D={d} Tk={tk}{win} ({what})"
         self._case(
             "flash_decode", label,
-            lambda: ops.flash_decode(q1, kc, vc, pos=pos),
-            lambda: ref.attention_fwd_ref(q1, kc, vc, q_offset=pos),
+            lambda: ops.flash_decode(q1, kc, vc, pos=pos, window=window),
+            lambda: ref.attention_fwd_ref(q1, kc, vc, window=window,
+                                          q_offset=pos),
             lambda: _sdpa(torch, F, q1, kc, vc, mask),
             (2 * q1.numel() + 2 * keys * hkv * d) * 2 + b_ * 4,
             4 * keys * h * d, "bfloat16", tol, n_time=20)
@@ -1089,41 +1122,68 @@ class Smoke:
         table = perm.reshape(b_, pp).to(torch.int32)
         for i, (p, n) in enumerate(zip(pos_list, nv_list)):
             table[i, max(p + n - 1, -1) // ps + 1:] = -1
-        assert torch.equal(ops.flash_decode_paged(q1, kp, vp, table, pos=pos),
-                           ops.flash_decode(q1, kc, vc, pos=pos)), \
+        assert torch.equal(ops.flash_decode_paged(q1, kp, vp, table, pos=pos,
+                                                  window=window),
+                           ops.flash_decode(q1, kc, vc, pos=pos,
+                                            window=window)), \
             f"{what}: a bf16 pool's output != the dense cache's bits"
-        pages = sum(p // ps + 1 for p in pos_list if p >= 0)
+        pages = sum(p // ps - lo(p) // ps + 1 for p in pos_list if p >= 0)
         self._case(
             "flash_decode_paged", f"bfloat16 bf16 pool B={b_} H={h} "
-            f"Hkv={hkv} D={d} ps={ps} pp={pp} ({what})",
-            lambda: ops.flash_decode_paged(q1, kp, vp, table, pos=pos),
-            lambda: ref.flash_decode_paged_ref(q1, kp, vp, table, pos=pos),
+            f"Hkv={hkv} D={d} ps={ps} pp={pp}{win} ({what})",
+            lambda: ops.flash_decode_paged(q1, kp, vp, table, pos=pos,
+                                           window=window),
+            lambda: ref.flash_decode_paged_ref(q1, kp, vp, table, pos=pos,
+                                               window=window),
             None, (2 * q1.numel() + 2 * keys * hkv * d) * 2 + pages * 4
             + b_ * 4, 4 * keys * h * d, "bfloat16", tol, n_time=20)
         n_valid = torch.tensor(nv_list, dtype=torch.int32, device=self.dev)
-        seen = sum(p + r + 1 for p, n in zip(pos_list, nv_list) if p >= 0
-                   for r in range(n))
-        union = sum(p + n for p, n in zip(pos_list, nv_list) if p >= 0)
+        seen = sum(p + r + 1 - lo(p + r) for p, n in zip(pos_list, nv_list)
+                   if p >= 0 for r in range(n))
+        union = sum(p + n - lo(p) for p, n in zip(pos_list, nv_list)
+                    if p >= 0)
         rmask = torch.zeros((b_, 1, t, tk), dtype=torch.bool,
                             device=self.dev)
         for i, (p, n) in enumerate(zip(pos_list, nv_list)):
             for r in range(n if p >= 0 else 0):
-                rmask[i, 0, r, :p + r + 1] = True
-        got = ops.flash_decode(q, kc, vc, pos=pos, n_valid=n_valid)
+                rmask[i, 0, r, lo(p + r):p + r + 1] = True
+        got = ops.flash_decode(q, kc, vc, pos=pos, window=window,
+                               n_valid=n_valid)
         for r in range(t):
             pr = torch.where((pos >= 0) & (r < n_valid), pos + r, -1) \
                 .to(torch.int32)
-            one = ops.flash_decode(q[:, r:r + 1].contiguous(), kc, vc, pos=pr)
+            one = ops.flash_decode(q[:, r:r + 1].contiguous(), kc, vc, pos=pr,
+                                   window=window)
             assert torch.equal(got[:, r], one[:, 0]), \
                 f"{what}: row {r} != the one-row kernel at pos + {r}"
         self._case(
             "flash_decode_rows", f"bfloat16 B={b_} t={t} H={h} Hkv={hkv} "
-            f"D={d} Tk={tk} ({what})",
-            lambda: ops.flash_decode(q, kc, vc, pos=pos, n_valid=n_valid),
-            lambda: ref.decode_rows_ref(q, kc, vc, pos=pos, n_valid=n_valid),
+            f"D={d} Tk={tk}{win} ({what})",
+            lambda: ops.flash_decode(q, kc, vc, pos=pos, window=window,
+                                     n_valid=n_valid),
+            lambda: ref.decode_rows_ref(q, kc, vc, pos=pos, window=window,
+                                        n_valid=n_valid),
             lambda: _sdpa(torch, F, q, kc, vc, rmask),
             (2 * q.numel() + 2 * union * hkv * d) * 2 + b_ * 8,
             4 * seen * h * d, "bfloat16", tol, n_time=20)
+        if window is None:
+            return
+        got = ops.flash_decode_paged(q, kp, vp, table, pos=pos, window=window,
+                                     n_valid=n_valid)
+        assert torch.equal(got, ops.flash_decode(
+            q, kc, vc, pos=pos, window=window, n_valid=n_valid)), \
+            f"{what}: a bf16 pool's rows != the dense cache's bits"
+        rpages = sum((p + n - 1) // ps - lo(p) // ps + 1
+                     for p, n in zip(pos_list, nv_list) if p >= 0)
+        self._case(
+            "flash_decode_paged_rows", f"bfloat16 bf16 pool B={b_} t={t} "
+            f"H={h} Hkv={hkv} D={d} ps={ps} pp={pp}{win} ({what})",
+            lambda: ops.flash_decode_paged(q, kp, vp, table, pos=pos,
+                                           window=window, n_valid=n_valid),
+            lambda: ref.flash_decode_paged_ref(q, kp, vp, table, pos=pos,
+                                               window=window, n_valid=n_valid),
+            None, (2 * q.numel() + 2 * union * hkv * d) * 2 + rpages * 4
+            + b_ * 8, 4 * seen * h * d, "bfloat16", tol, n_time=20)
 
     def _decode_batch_invariance(self, randn, h, hkv, d=128, tk=2048):
         """flash_decode and flash_decode_paged (bf16 and int8 pools) at
@@ -1645,11 +1705,10 @@ class Smoke:
         import numpy as np
         from repro_torch.configs import get_config
         from repro_torch.kernels import ops
-        from repro_torch.models import model as M
         from repro_torch.serving import ServingEngine, synthetic_trace
         cfg = get_config("qwen3-0.6b")
         t0 = time.perf_counter()
-        params = M.init_params(cfg, torch.Generator().manual_seed(0), self.dev)
+        params = self._serve_params(cfg)
         work = synthetic_trace(cfg, 8, rng=np.random.default_rng(0),
                                len_range=(64, 512), gen=32)
         # whole 16-token pages, the paged engine's rounding: phase 5's
@@ -1849,12 +1908,11 @@ class Smoke:
     def phase_paged(self):
         torch = self.torch
         import numpy as np
-        from repro_torch.models import model as M
         from repro_torch.serving import ServingEngine, prefix_heavy_trace
         cfg = self.engine.cfg
         L = cfg.n_layers
         del self.engine                  # free phase 4's engine
-        params = M.init_params(cfg, torch.Generator().manual_seed(0), self.dev)
+        params = self._serve_params(cfg)
 
         # 1. phase 4's trace on a bf16 page pool: phase 4's streams, bit for bit
         work = self.work
@@ -1974,20 +2032,23 @@ class Smoke:
     def phase_spec(self):
         """(a) Greedy speculative decoding at full width: phase 4's 8
         requests on 4 slots, spec_k 4, the target as its own draft on the
-        dense cache and a bf16 page pool, a draft of seed-1 weights on the
-        dense cache (its run on the pool is cut for time: the CPU tests
-        hold its rows). Every stream must equal phase 4's, the self-draft
-        must accept every proposal, and each request's target cache rows
-        up to its last fed token must equal the plain engine's bit for
-        bit."""
+        dense cache and a bf16 page pool, a draft of other weights (drawn
+        on the card from seed 1) on the dense cache (its run on the pool
+        is cut for time: the CPU tests hold its rows). Every stream must
+        equal phase 4's, the self-draft must accept every proposal and the
+        other draft must have some rejected, and each request's target
+        cache rows up to its last fed token must equal the plain engine's
+        bit for bit: a round that rejects proposals leaves its rows past
+        the new pending position, where the next round overwrites them."""
         torch = self.torch
         from repro_torch.configs import get_config
         from repro_torch.models import model as M
         from repro_torch.serving import ServingEngine
         cfg = get_config("qwen3-0.6b")
         L = cfg.n_layers
-        params = M.init_params(cfg, torch.Generator().manual_seed(0), self.dev)
-        other = M.init_params(cfg, torch.Generator().manual_seed(1), self.dev)
+        params = self._serve_params(cfg)
+        other = M.init_params(
+            cfg, torch.Generator(device=self.dev).manual_seed(1), self.dev)
         print(f"[6/16] the request surface at full width ({cfg.name}, "
               f"{L} layers, bf16, random weights)")
         want = {}
@@ -2011,8 +2072,7 @@ class Smoke:
                 assert streams == self.dense_streams, \
                     f"{layout} {name}-draft streams != phase 4's"
                 rate = rep["spec_acceptance_rate"]
-                if name == "self":
-                    assert rate == 1.0, rate
+                assert rate == 1.0 if name == "self" else rate < 1.0, rate
                 for rid, w in want.items():
                     for k in ("k", "v"):
                         assert torch.equal(got[rid][k], w[k]), \
@@ -2070,10 +2130,9 @@ class Smoke:
         wall clock, sampled."""
         torch = self.torch
         import numpy as np
-        from repro_torch.models import model as M
         from repro_torch.serving import (Sampler, SamplerConfig, ServingEngine,
                                          bursty_trace)
-        params = M.init_params(cfg, torch.Generator().manual_seed(0), self.dev)
+        params = self._serve_params(cfg)
         work = bursty_trace(cfg, 12, rng=np.random.default_rng(5),
                             len_range=(64, 256), gen=24, arrival_rate=0.25,
                             burst_mean=4.0, priority_levels=(0, 1))
@@ -2202,9 +2261,13 @@ class Smoke:
         end below where it began. It does not within 4 steps: Adam's first
         steps, near sign(g) times lr for every weight, lift it (12.29 to
         16.79 by step 3, through the kernels and through the plain versions
-        alike), and it falls from step 4 on. Then the first 4 steps with
-        remat "none" from the same state and batches, the first 2 through
-        the plain versions and the first 4 with the dual GEMM plain."""
+        alike), and it falls from step 4 on. The steps are donated and
+        supervised, as `launch.train --ckpt-dir D --ckpt-every 4 --fail-at
+        6` runs them: a checkpoint at step 4, a failure before step 6, and
+        steps 4 and 5 again from the restored state, with their first
+        run's bits (`_supervised`). Then the first 4 steps with remat
+        "none" from the same state and batches, the first 2 through the
+        plain versions and the first 4 with the dual GEMM plain."""
         torch = self.torch
         from repro_torch.configs import get_config
         from repro_torch.core.tree import tree_map
@@ -2237,8 +2300,9 @@ class Smoke:
         want = _no_launches(matmul=(5 * L + 1) * 3 + 6 * L + 5 * L,
                             gated_matmul=2 * L, flash_attention=2 * L,
                             flash_attention_bwd=L)
-        run = self._train_run(TL.make_train_step(cfg, opt), make_state,
-                              batches[:steps], want)
+        run = self._train_run(TL.make_train_step(cfg, opt, donate=True),
+                              make_state, batches[:steps], want,
+                              supervise=dict(every=4, fail_at=(6,)))
         self.train_launches = run["launches"]
         self._trace_train_step(run["step_fn"], run.pop("state"),
                                batches[steps])
@@ -2273,15 +2337,22 @@ class Smoke:
                 device=device or self.dev) for k, v in b.items()})
         return out
 
-    def _train_run(self, step_fn, make_state, batches, want, falls=None):
+    def _train_run(self, step_fn, make_state, batches, want, falls=None,
+                   supervise=None):
         """The steps of `step_fn` from `make_state()`, one a batch, the
         launch counts set to 0 just before and read after each step: each
         step's counts must be `want`, every loss and grad norm finite, the
         last loss below the first (or, given `falls`, `falls(losses)`
         true: `loss_falls`). Prints the state's size, each step and
         the steady step time (the median after step 0), tok/s and
-        max_memory_allocated. Returns the state, step_fn, losses, norms,
-        steady seconds, peak bytes and the run's launch counts."""
+        max_memory_allocated. With `supervise` ({"every": n, "fail_at":
+        (s,)}) the steps run under `distributed.Supervisor` with a
+        Checkpointer (`_supervised`): a save every n steps, a failure
+        injected before step s, the latest save restored into the state's
+        tensors and the steps from it run again, each replay held to its
+        first run's bits; the losses, norms and times are the first run's
+        of each step. Returns the state, step_fn, losses, norms, steady
+        seconds, peak bytes and the run's launch counts."""
         torch = self.torch
         import gc
         from repro_torch.core.tree import leaves
@@ -2301,27 +2372,47 @@ class Smoke:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
-        losses, norms, times, per_step, aux = [], [], [], [], []
-        before = ops.launch_counts()
-        for b in batches:
+        runs = []                         # one record a step run
+
+        def one(state, i):
+            before = ops.launch_counts()
             t0 = time.perf_counter()
-            state, met = step_fn(state, b)
-            losses.append(float(met["loss"]))
-            norms.append(float(met["grad_norm"]))
-            aux.append("".join(f" {k} {float(met[k]):.4g}" for k in (
-                "moe_lb_loss", "moe_z_loss", "moe_dropped_frac") if k in met))
+            state, met = step_fn(state, batches[i])
+            loss, norm = float(met["loss"]), float(met["grad_norm"])
+            aux = "".join(f" {k} {float(met[k]):.4g}" for k in (
+                "moe_lb_loss", "moe_z_loss", "moe_dropped_frac") if k in met)
             torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
+            t = time.perf_counter() - t0
             now = ops.launch_counts()
-            per_step.append({k: now[k] - before[k] for k in now})
-            before = now
+            runs.append(dict(step=i, loss=loss, norm=norm, aux=aux, t=t,
+                             launches={k: now[k] - before[k] for k in now}))
+            return state, met
+
+        if supervise is None:
+            for i in range(len(batches)):
+                state, _ = one(state, i)
+        else:
+            state = self._supervised(state, one, len(batches), runs,
+                                     **supervise)
         launches = ops.launch_counts()
         peak = torch.cuda.max_memory_allocated()
-        for i, t in enumerate(times):
-            print(f"      step {i}: loss {losses[i]:.4f} grad norm "
-                  f"{norms[i]:.4f}{aux[i]} wall {t * 1e3:.1f} ms "
-                  f"({tokens / t:.0f} tok/s)")
-            assert per_step[i] == want, (i, per_step[i], want)
+        first = {}
+        for r in runs:
+            again = r["step"] in first
+            print(f"      step {r['step']}{' (replay)' if again else ''}: "
+                  f"loss {r['loss']:.4f} grad norm {r['norm']:.4f}{r['aux']} "
+                  f"wall {r['t'] * 1e3:.1f} ms ({tokens / r['t']:.0f} tok/s)")
+            assert r["launches"] == want, (r["step"], r["launches"], want)
+            if again:
+                assert (r["loss"], r["norm"]) == (first[r["step"]]["loss"],
+                                                  first[r["step"]]["norm"]), \
+                    f"replayed step {r['step']}: not its first run's bits"
+            else:
+                first[r["step"]] = r
+        assert sorted(first) == list(range(len(batches))), sorted(first)
+        losses = [first[i]["loss"] for i in range(len(batches))]
+        norms = [first[i]["norm"] for i in range(len(batches))]
+        times = [first[i]["t"] for i in range(len(batches))]
         assert all(map(math.isfinite, losses + norms)), (losses, norms)
         if falls is None:
             assert losses[-1] < losses[0], losses
@@ -2333,14 +2424,108 @@ class Smoke:
                   f"{'holds' if ok else 'FAILS'}")
             assert ok, losses
         steady = statistics.median(times[1:])
-        print(f"      launches a step {_nonzero(want)} (each step exactly); "
-              f"over the run {_nonzero(launches)}; steady step "
+        print(f"      launches a step {_nonzero(want)} (each step run "
+              f"exactly); over the run ({len(runs)} step runs) "
+              f"{_nonzero(launches)}; steady step "
               f"{steady * 1e3:.1f} ms, {tokens / steady:.0f} tok/s; "
               f"max_memory_allocated {peak / 2 ** 30:.3f} GiB ("
               f"{held / 2 ** 30:.3f} GiB of it held before the state was "
               f"made)")
         return dict(state=state, step_fn=step_fn, losses=losses, norms=norms,
                     steady=steady, peak=peak, launches=launches)
+
+    def _supervised(self, state, one, n_steps, runs, every, fail_at):
+        """`one(state, i)` for steps 0 .. n_steps - 1 under a Supervisor
+        with a Checkpointer (keep=1) in a temporary directory under
+        build/, removed at the end: a save without blocking every `every`
+        steps, a failure injected before each step of `fail_at`, then
+        the latest save restored into the state's own tensors (the same
+        storage before and after) and the steps from it run again. The
+        state after each step before a failure is copied to pinned host
+        memory (off the step's clock) and its replay must give it bit for
+        bit.
+        Prints the free disk before the run and each save's bytes and
+        seconds (the host copy before save returns, the files on the
+        writer thread) and each restore's."""
+        torch = self.torch
+        import shutil
+        import tempfile
+        from repro_torch.checkpoint import Checkpointer, flatten
+        from repro_torch.distributed import FailureInjector, Supervisor
+
+        class Timed(Checkpointer):
+            def save(ck, step, tree, **kw):
+                t0 = time.perf_counter()
+                super().save(step, tree, **kw)
+                ck.log.append(f"save of step {step}: host copy "
+                              f"{time.perf_counter() - t0:.2f} s")
+
+            def _write(ck, step, host, manifest):
+                t0 = time.perf_counter()
+                super()._write(step, host, manifest)
+                n = sum(a.nbytes for a in host)
+                ck.log.append(f"files of step {step}: {n / 1e9:.3f} GB in "
+                              f"{time.perf_counter() - t0:.2f} s")
+
+            def restore(ck, step, like):
+                t0 = time.perf_counter()
+                out = super().restore(step, like)
+                torch.cuda.synchronize()
+                ck.log.append(f"restore of step {step} into the state: "
+                              f"{time.perf_counter() - t0:.2f} s")
+                return out
+
+        base = ROOT / "build"
+        base.mkdir(exist_ok=True)
+        print(f"      supervised: a save every {every} steps (keep 1), a "
+              f"failure before step(s) {list(fail_at)}; "
+              f"{shutil.disk_usage(base).free / 1e9:.1f} GB free under "
+              f"{base}")
+        ptrs = [t.data_ptr() for t in flatten(state)]
+        again = {s - 1 for s in fail_at}          # the steps to hold
+        snaps, live = {}, {}
+
+        def step_fn(state, i):
+            live["state"] = state
+            return one(state, i)
+
+        def on_metrics(step, metrics, dt):
+            leaves = flatten(live["state"])
+            if step in again and step not in snaps:
+                # pinned host copies: the card holds no second state
+                snaps[step] = [torch.empty(t.shape, dtype=t.dtype,
+                                           pin_memory=t.is_cuda).copy_(t)
+                               for t in leaves]
+            elif step in snaps:
+                for j, (a, b) in enumerate(zip(snaps[step], leaves)):
+                    assert torch.equal(a.to(b.device), b), \
+                        f"the state after the replay of step {step}, " \
+                        f"leaf {j}: not its first run's bits"
+                print(f"      the state after the replay of step {step} "
+                      f"equals its first run's, {len(leaves)} leaves bit "
+                      f"for bit")
+
+        with tempfile.TemporaryDirectory(prefix="ckpt-", dir=base) as d:
+            ck = Timed(d, keep=1)
+            ck.log = []
+            sup = Supervisor(ck, checkpoint_every=every)
+            state, reached = sup.run_resilient(
+                state, step_fn, n_steps,
+                injector=FailureInjector(tuple(fail_at)),
+                on_metrics=on_metrics)
+            kept = ck.steps()
+        for line in ck.log:
+            print(f"      {line}")
+        order = [r["step"] for r in runs]
+        print(f"      step runs {order}; restarts {sup.restarts}; "
+              f"stragglers {len(sup.straggler.flagged)}; checkpoints left "
+              f"{kept}")
+        assert reached == n_steps and sup.restarts == len(fail_at), \
+            (reached, sup.restarts)
+        assert snaps.keys() == again, (sorted(snaps), again)
+        assert [t.data_ptr() for t in flatten(state)] == ptrs, \
+            "the restore did not write into the state's own tensors"
+        return state
 
     def _remat_none(self, cfg, opt, make_state, batches, run, donate,
                     rtol=1e-5):
@@ -2535,6 +2720,20 @@ class Smoke:
                 self._train_params(cfg, self.dev, self.dev))
         return tree_map(lambda t: t.to(self.dev, copy=True),
                         self.host_params[cfg.name])
+
+    def _serve_params(self, cfg):
+        """A copy on the card of cfg's random params from the host's
+        generator of seed 0, drawn at the first call and kept on the host
+        for the next: phases 4, 5 and 6 serve qwen3-0.6b's, which each
+        drew anew on the host before."""
+        from repro_torch.core.tree import tree_map
+        from repro_torch.models import model as M
+        key = f"{cfg.name} served"
+        if key not in self.host_params:
+            self.host_params[key] = M.init_params(
+                cfg, self.torch.Generator().manual_seed(0), "cpu")
+        return tree_map(lambda t: t.to(self.dev, copy=True),
+                        self.host_params[key])
 
     def _train_params(self, cfg, device, gen_device="cpu"):
         """Random params from seed 0 on `gen_device`'s generator (a
@@ -3399,7 +3598,8 @@ class Smoke:
         32 tokens a request. mixtral-8x22b at `mixtral_layers` of its 56
         layers (5.0 GB a layer in bf16: its 56 do not fit one card): phase
         4's trace (8 requests of 64-512 tokens) on the dense cache and on a
-        bf16 page pool (the same streams); one request of 4,608 prompt
+        bf16 page pool (the same streams), and as its own speculative
+        draft on the dense cache (`_moe_spec`); one request of 4,608 prompt
         tokens and 32 new ones, past the 4096-token window, its stream
         equal to its eager prefill and batch-1 decode steps; int8 weights
         on an int8 pool, 4 requests. arctic-480b at `arctic_layers` of its
@@ -3463,6 +3663,10 @@ class Smoke:
         self.moe_p50 = {key: report["decode_step_p50_s"]}
         del eng
         self._memory_back(held, f"{name} dense")
+        for run, counts in self._moe_spec(cfg, params, work,
+                                          streams).items():
+            self.moe_launches[f"{key} {run}"] = counts
+        self._memory_back(held, f"{name} speculative")
         eng, self.moe_launches[key + " paged"], rep, paged = self._serve_moe(
             cfg, params, work, f"{name} paged bf16", kv_layout="paged",
             expect=("gated_matmul_batched", "matmul_batched",
@@ -3508,6 +3712,234 @@ class Smoke:
         self._memory_back(base, name)
         for name in ("mixtral-8x22b", "arctic-480b"):
             self._moe_vs_cpu(name)
+
+    def _moe_spec(self, cfg, params, work, streams, k=4, check_round=2):
+        """Greedy speculative decoding with `cfg` as the target and its own
+        draft: `work` on 4 slots at spec_k `k`, the dense cache. A verify
+        step routes its 4 x (k + 1) rows as one group (capacity 6 an
+        expert for 20 rows at top-2 of 8), so rounds can drop
+        assignments, its zero rows' among them (idle slots, rows past
+        n_tok). The launch counts are set to 0 just before the run and
+        read just after; the run's own wrapper of the verify step only
+        copies, on the card, each round's block, argmax rows and drops,
+        and round `check_round`'s (every slot busy) inputs, cache and
+        outputs. Checks, after the counts are read: the verify graph's
+        launches (a layer's Q, K, V, O and f32 router GEMMs, its batched
+        dual GEMM and batched GEMM, its multi-row decode attention; the
+        logits GEMM), the multi-row decode's L a round exactly; every
+        request's stream is its first token and then, round by round, the
+        greedy rule's tokens on that round's verify logits; round
+        `check_round` against an eager `M.verify_step` on a clone of its
+        block and cache, logits and drops bit for bit, and against the
+        plain versions on another clone, each real row whose routing (top-k
+        ids and kept assignments at every layer) is the kernels' within
+        2^-4 of its norm; the streams of the requests whose real rows
+        dropped nothing equal the dense run's (`streams`). Prints the
+        acceptance, each round's dropped fraction (real rows, all rows),
+        the launch counts and the round's p50. Then the first 2 requests
+        on 1 slot at k = 3, on the dense cache and on a bf16 page pool,
+        where a round's 4 rows fit the capacity of 4 and none can drop:
+        their streams must be the dense run's, every proposal accepted,
+        the multi-row decode (dense or paged) L launches a round. Returns
+        {run: launch counts}."""
+        torch = self.torch
+        from repro_torch.kernels import ops
+        from repro_torch.models import model as M
+        from repro_torch.models import moe as PMoE
+        from repro_torch.serving import ServingEngine
+        L, top = cfg.n_layers, cfg.moe.top_k
+        max_len = -(-max(len(it.prompt) + it.gen for it in work) // 16) * 16
+        eng = ServingEngine(cfg, params, max_slots=4, max_len=max_len,
+                            device=self.dev, draft=(cfg, params), spec_k=k)
+        _print_capture(eng)
+        per_round = _no_launches(matmul=5 * L + 1, matmul_batched=L,
+                                 gated_matmul_batched=L,
+                                 flash_decode_rows=L)
+        graph = _no_launches(**eng._verify_step.launches)
+        print(f"      {cfg.name} spec, target as its own draft, k={k}: the "
+              f"verify graph launches {_nonzero(graph)}")
+        assert graph == per_round, (graph, per_round)
+        replay = eng._verify_step
+        rounds, saved = [], {}
+
+        def verify_step():
+            """The graph's replay; copies on the card, no kernel wrapper."""
+            if eng.spec_rounds == check_round:
+                saved.update(args=(eng._v_tokens.clone(),
+                                   eng._step_pos.clone(),
+                                   eng._v_ntok.clone()),
+                             cache=_clone_tree(eng.cache),
+                             plain_cache=_clone_tree(eng.cache))
+            logits = replay()
+            rounds.append(dict(
+                top=logits[..., :cfg.vocab].argmax(-1), drops=eng._v_drops
+                .clone(), tokens=eng._v_tokens.clone(),
+                n_tok=eng._v_ntok.clone(),
+                rids={s: r.rid for s, r in eng.scheduler.active.items()}))
+            if eng.spec_rounds == check_round:
+                saved.update(logits=logits.clone(),
+                             drops=eng._v_drops.clone())
+            return logits
+        eng._verify_step = verify_step
+        reqs = [eng.submit(it.prompt, it.gen) for it in work]
+        ops.reset_launch_counts()
+        rep = eng.run()
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        eng._verify_step = replay
+        assert rep["n_finished"] == len(reqs), rep
+        n_rounds = rep["spec_rounds"]
+        assert len(rounds) == n_rounds, (len(rounds), n_rounds)
+        assert launches["flash_decode_rows"] == L * n_rounds, \
+            (launches, n_rounds)
+        assert launches["matmul_batched"] >= L * n_rounds, launches
+        assert saved, f"round {check_round} was not reached"
+        rounds = [{key: v.cpu().numpy() if torch.is_tensor(v) else v
+                   for key, v in r.items()} for r in rounds]
+
+        # every emitted token: the greedy rule on its round's verify rows
+        want = {r.rid: [r.generated[0]] for r in reqs}
+        for r in rounds:
+            for slot, rid in r["rids"].items():
+                top_s, drafts = r["top"][slot], r["tokens"][slot, 1:]
+                n = int(r["n_tok"][slot])
+                j = 0
+                while j < n - 1 and top_s[j] == drafts[j]:
+                    j += 1
+                want[rid] += [int(t) for t in top_s[:j + 1]]
+        for req in reqs:
+            assert req.generated == want[req.rid][:req.max_new_tokens], \
+                f"request {req.rid}: not the greedy rule on its verify rows"
+
+        # round check_round: the replay against the eager step and the
+        # plain versions, on clones of its block and cache
+        def routes(fn):
+            """fn()'s output and each layer's (top-k ids, kept) per row."""
+            seen, route = [], PMoE._route
+
+            def recording(p, xg, mc):
+                out = route(p, xg, mc)
+                seen.append((out[3].reshape(-1, mc.top_k).clone(),
+                             out[5].reshape(-1, mc.top_k).clone()))
+                return out
+            PMoE._route = recording
+            try:
+                return fn(), seen
+            finally:
+                PMoE._route = route
+
+        def eager():
+            d = []
+            out = M.verify_step(cfg, eng.params, *saved["args"],
+                                saved["cache"], drops=d)
+            return out[0], torch.stack(d).sum(0, dtype=torch.int32)
+
+        def plain():
+            on_card = ops._on_card
+            ops._on_card = lambda t: False
+            try:
+                return M.verify_step(cfg, eng.params, *saved["args"],
+                                     saved["plain_cache"])[0]
+            finally:
+                ops._on_card = on_card
+        logits, drops = saved["logits"], saved["drops"]
+        (want_logits, want_drops), seen = routes(eager)
+        assert torch.equal(logits, want_logits) and torch.equal(
+            drops, want_drops), \
+            "a replayed verify step differs from the eager step"
+        got_plain, seen_plain = routes(plain)
+        same = torch.ones(logits.shape[:2], dtype=torch.bool,
+                          device=logits.device).reshape(-1)
+        for (ti, kp), (pti, pkp) in zip(seen, seen_plain):
+            same &= (ti == pti).all(-1) & (kp == pkp).all(-1)
+        same = same.reshape(logits.shape[:2])
+        real = torch.arange(k + 1, device=logits.device)[None] \
+            < saved["args"][2][:, None]
+        g, w = logits[..., :cfg.vocab], got_plain[..., :cfg.vocab]
+        rel = (g - w).norm(dim=-1) / w.norm(dim=-1)
+        held = real & same
+        checked = dict(rows=int(real.sum()), held=int(held.sum()),
+                       rel=float(rel[held].max()) if held.any() else 0.0,
+                       drops=int(drops[real].sum()))
+        assert checked["rel"] <= 2 ** -4, checked
+        del saved, logits, drops, want_logits, want_drops, got_plain
+
+        fracs = [(sum(int(r["drops"][i, :n].sum())
+                      for i, n in enumerate(r["n_tok"]))
+                  / max(int(r["n_tok"].sum()) * top * L, 1),
+                  int(r["drops"].sum()) / (r["drops"].size * top * L))
+                 for r in rounds]
+        print(f"      {cfg.name} spec: {n_rounds} rounds, acceptance "
+              f"{rep['spec_acceptance_rate']:.3f} ({rep['spec_accepted']}/"
+              f"{rep['spec_proposed']}), tokens/slot-step "
+              f"{rep['tokens_per_step']:.2f}; round p50 "
+              f"{rep['decode_step_p50_s'] * 1e3:.2f} ms p99 "
+              f"{rep['decode_step_p99_s'] * 1e3:.2f} (the decode step's p50 "
+              f"{self.moe_p50[next(iter(self.moe_p50))] * 1e3:.2f} ms); "
+              f"draft {rep['draft_time_s'] * 1e3:.0f} ms of "
+              f"{sum(eng._step_times) * 1e3:.0f} ms of rounds")
+        print(f"      dropped fraction a round (real rows / all rows): "
+              + ", ".join(f"{a:.3f}/{b:.3f}" for a, b in fracs)
+              + f"; rounds dropping {rep['verify_rounds_dropping']} of "
+              f"{n_rounds}; real assignments dropped {rep['verify_dropped']} "
+              f"({rep['verify_dropped_frac']:.4f})")
+        print(f"      launches over the run {_nonzero(launches)}; "
+              f"flash_decode_rows {L} a round (exact)")
+        print(f"      every request's tokens, round by round: the greedy rule "
+              f"on that round's verify rows ({len(reqs)} streams, "
+              f"{n_rounds} rounds)")
+        print(f"      round {check_round}: the replay equals an eager "
+              f"verify_step on a clone, logits and drops bit for bit "
+              f"({checked['drops']} real assignments dropped); the plain "
+              f"versions: {checked['held']} of {checked['rows']} real rows "
+              f"routed alike, each within {checked['rel']:.2e} of its "
+              f"norm (bound 2^-4)")
+        clean = [i for i, r in enumerate(reqs) if r.verify_dropped == 0]
+        for i in clean:
+            assert reqs[i].generated == streams[i], \
+                f"request {i} dropped nothing but left the plain stream"
+        print(f"      the {len(clean)} requests whose real rows dropped "
+              f"nothing ({clean}) keep the dense run's streams; "
+              f"{sum(r.generated == streams[i] for i, r in enumerate(reqs))} "
+              f"of {len(reqs)} streams equal it in all")
+        del eng
+        out = {"speculative": launches}
+        # one slot at k = 3: 4 rows a round, within the capacity of 4, so
+        # no round can drop and the streams must be the dense run's; the
+        # draft's cache has the target's length, so its prefill writes the
+        # target's bits and a self-draft proposes the target's tokens
+        assert PMoE._capacity(cfg.moe, 4) >= 4
+        for layout, kw in (("dense", {}), ("paged", dict(
+                page_size=16, kv_pool_pages=2 * max_len // 16))):
+            # a pool of two slots' pages: admission reserves the write
+            # range's pages beside the prompt's
+            one = ServingEngine(cfg, params, max_slots=1, max_len=max_len,
+                                device=self.dev, kv_layout=layout,
+                                draft=(cfg, params), spec_k=3, **kw)
+            solo = [one.submit(it.prompt, it.gen) for it in work[:2]]
+            ops.reset_launch_counts()
+            rep1 = one.run()
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            rows = "flash_decode_rows" if layout == "dense" \
+                else "flash_decode_paged_rows"
+            n1 = rep1["spec_rounds"]
+            assert counts[rows] == L * n1, (counts, n1)
+            assert rep1["verify_rounds_dropping"] == 0, \
+                "a round of 4 rows dropped an assignment"
+            assert [r.generated for r in solo] == streams[:2], \
+                f"1-slot {layout} spec streams != the dense run's"
+            assert rep1["spec_acceptance_rate"] == 1.0, rep1
+            print(f"      1 slot, k=3, {layout} (4 rows a round, capacity "
+                  f"4: no round can drop): {n1} rounds drop nothing, "
+                  f"acceptance 1.000 ({rep1['spec_accepted']}/"
+                  f"{rep1['spec_proposed']}), the {len(solo)} streams equal "
+                  f"the dense run's; {rows} {counts[rows] // n1} a round "
+                  f"(exact); round p50 "
+                  f"{rep1['decode_step_p50_s'] * 1e3:.2f} ms")
+            out[f"speculative 1 slot {layout}"] = counts
+            del one
+        return out
 
     def _moe_long(self, cfg, params, prompt_len=4608, gen=32):
         """One request of `prompt_len` tokens and `gen` new ones on a

@@ -1,6 +1,11 @@
-"""Synthetic token batches: the port's own copy of `SyntheticLM` from the
-JAX package's `data/pipeline.py`, with the same numpy draws, so both
-packages train on the same batches. (`MemmapCorpus` is not ported yet.)
+"""Token batches: the port's own copy of the JAX package's
+`data/pipeline.py`, with the same numpy arithmetic, so both packages
+train on the same batches. (step, shard, n_shards) alone fix a batch, so
+a restart or an elastic re-shard replays the same sequence.
+
+  * SyntheticLM: a seeded Zipf-ish token stream;
+  * MemmapCorpus: a flat binary token file (`write_corpus`), read in
+    batch-sized spans strided by (step, shard).
 
 `batch_at(step)` yields {"tokens": (B, S), "labels": (B, S)} int32 numpy
 arrays, labels = tokens shifted left, the last label -1 (no label).
@@ -42,6 +47,40 @@ class SyntheticLM:
         while True:
             yield self.batch_at(step)
             step += 1
+
+
+@dataclasses.dataclass(frozen=True)
+class MemmapCorpus:
+    path: str
+    vocab: int
+    seq_len: int
+    batch: int
+    dtype: str = "uint16"
+
+    def _data(self):
+        return np.memmap(self.path, dtype=self.dtype, mode="r")
+
+    def n_batches(self) -> int:
+        return self._data().shape[0] // (self.batch * (self.seq_len + 1))
+
+    def batch_at(self, step: int, shard: int = 0, n_shards: int = 1):
+        """Span (step * n_shards + shard) mod the spans in the file, each
+        token taken mod vocab."""
+        data = self._data()
+        span = self.batch * (self.seq_len + 1)
+        n = data.shape[0] // span
+        idx = (step * n_shards + shard) % max(n, 1)
+        chunk = np.asarray(data[idx * span:(idx + 1) * span], dtype=np.int64)
+        chunk = (chunk % self.vocab).reshape(self.batch, self.seq_len + 1)
+        tokens = chunk[:, :-1].astype(np.int32)
+        labels = chunk[:, 1:].astype(np.int32).copy()
+        labels[:, -1] = -1
+        return {"tokens": tokens, "labels": labels}
+
+
+def write_corpus(path: str, tokens: np.ndarray, dtype: str = "uint16"):
+    """Write `tokens` as the flat binary file MemmapCorpus reads."""
+    np.asarray(tokens, dtype=dtype).tofile(path)
 
 
 def _mrope_positions(before: int, grid, after: int) -> np.ndarray:

@@ -28,10 +28,16 @@ page pool or int8 pages:
 
 The moe family (mixtral-8x22b, arctic-480b) at its reduced size; at full
 width and depth neither fits one card (chip_smoke.py serves them at a
-cut depth), and a moe target takes no draft:
+cut depth). A moe target takes a draft: its verify step routes the
+slots' rows as one group, where capacity can drop an assignment that a
+decode step keeps, so --check-exact holds only the requests whose verify
+rows dropped nothing:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \
         --reduced --device cpu --requests 4 --max-slots 2 --kv-layout paged
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \
+        --reduced --device cpu --requests 4 --max-slots 2 \
+        --draft mixtral-8x22b --spec-k 4
 
 whisper-tiny (family encdec), each request with its own 1500 x 384
 encoder frames drawn from the trace's seed (a page pool and a draft are
@@ -254,6 +260,11 @@ def main(argv=None):
               f"({report['spec_accepted']}/{report['spec_proposed']}), "
               f"tokens/step {report['tokens_per_step']:.2f}, "
               f"draft time {report['draft_time_s']*1e3:.0f}ms")
+    if "verify_dropped" in report:
+        print(f"verify drops: {report['verify_dropped']} expert assignments "
+              f"of real rows ({report['verify_dropped_frac']:.4f}), "
+              f"{report['verify_rounds_dropping']} of "
+              f"{report['spec_rounds']} rounds dropping")
     if "kv_pool" in report:
         kv = report["kv_pool"]
         print(f"kv pool: {kv['n_pages']} pages x {kv['page_size']} tok, "
@@ -265,7 +276,8 @@ def main(argv=None):
 
     if args.check_exact:
         # the same trace on a dense engine without a draft: the paged,
-        # speculative engine must emit the same greedy streams
+        # speculative engine must emit the same greedy streams (a moe
+        # target's requests whose verify rows dropped nothing)
         del engine
         ref = ServingEngine(cfg, params, max_slots=max_slots,
                             max_len=max_len, device=device)
@@ -273,16 +285,21 @@ def main(argv=None):
                                enc_frames=it.enc_frames)
                     for it in work]
         ref.run()
-        n_cmp = 0
+        n_cmp = n_dropped = 0
         for a, b in zip(requests, ref_reqs):
             if a.status != FINISHED:
+                continue
+            if a.verify_dropped:
+                n_dropped += 1
                 continue
             assert a.generated == b.generated, \
                 (a.rid, a.generated, b.generated)
             n_cmp += 1
-        assert n_cmp > 0, "no finished requests to compare"
+        left = (f" ({n_dropped} left out: their verify rows dropped expert "
+                f"assignments)" if n_dropped else "")
+        assert n_cmp > 0, "no finished requests to compare" + left
         print(f"check-exact: {n_cmp} token streams match the dense "
-              f"engine without a draft")
+              f"engine without a draft{left}")
 
     if not args.requests and not args.prefix_len and not args.workload:
         gen = np.stack([np.asarray(r.generated, np.int32) for r in requests])

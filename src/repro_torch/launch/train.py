@@ -4,6 +4,8 @@
         --device cpu --steps 3 --batch 2 --seq 32      # the plain versions
     PYTHONPATH=src python -m repro_torch.launch.train --steps 4 \
         --batch 4 --seq 512                              # full width, on the card
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced \
+        --device cpu --steps 8 --ckpt-dir D --ckpt-every 2 --fail-at 3
 
 Trains `--arch` (every arch whose family `models.model` trains,
 `TRAIN_FAMILIES`: the dense configs, qwen2-vl-2b on text, mixtral-8x22b
@@ -18,9 +20,18 @@ not fit one card (their f32 params and AdamW moments alone are ~2.3 TB
 and ~7.7 TB); `--reduced` trains them on the CPU. The step updates
 the train state in place (`make_train_step(donate=True)`), as the JAX
 launcher donates it. Runs on the card unless `--device cpu` is given,
-and raises where there is no card. Not ported yet: the JAX launcher's
---backend, --autotune, --model-parallel, --compress, --ckpt-dir,
---ckpt-every and --fail-at.
+and raises where there is no card.
+
+With `--ckpt-dir`, the run is supervised, as the JAX launcher's is: it
+resumes from the directory's latest checkpoint, saves the state every
+`--ckpt-every` steps without blocking (`checkpoint.Checkpointer`, 3
+kept), and `--fail-at` injects a failure before each step it names,
+after which the latest checkpoint is restored into the state's own
+tensors and the steps from it run again (`distributed.Supervisor`). The
+losses hold one entry for every step run, replays included. A step's
+time ends with the read of its loss, which waits for the card, so the
+straggler detector sees the card's work. Not ported yet: the JAX
+launcher's --backend, --autotune, --model-parallel and --compress.
 """
 
 from __future__ import annotations
@@ -30,10 +41,13 @@ import time
 
 import torch
 
+from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.core.device import resolve_device
 from repro_torch.core.tree import leaves
 from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.distributed.fault_tolerance import (FailureInjector,
+                                                     Supervisor)
 from repro_torch.models.model import TRAIN_FAMILIES
 from repro_torch.optim.adamw import AdamW, cosine_schedule
 from repro_torch.training import train_loop as TL
@@ -56,6 +70,10 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--fail-at", type=int, nargs="*", default=(),
+                    help="inject simulated failures at these steps")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
@@ -74,19 +92,44 @@ def main(argv=None):
     print(f"arch={cfg.name} params={n_params / 1e6:.2f}M device={device}")
 
     losses = []
-    t0 = time.time()
-    for step in range(args.steps):
-        t1 = time.perf_counter()
+
+    def on_metrics(step, metrics, dt):
+        losses.append(metrics["loss"])
+        if step % args.log_every == 0:
+            print(f"step {step:5d} loss {losses[-1]:.4f} "
+                  f"gnorm {float(metrics['grad_norm']):.3f} {dt * 1e3:.0f}ms")
+
+    def run_step(state, step):
         batch = {k: torch.as_tensor(v, dtype=torch.long, device=device)
                  for k, v in data.batch_at(step).items()}
         state, metrics = step_fn(state, batch)
-        losses.append(float(metrics["loss"]))      # waits for the step
-        if step % args.log_every == 0:
-            print(f"step {step:5d} loss {losses[-1]:.4f} "
-                  f"gnorm {float(metrics['grad_norm']):.3f} "
-                  f"{(time.perf_counter() - t1) * 1e3:.0f}ms")
-    print(f"done {args.steps} steps in {time.time() - t0:.1f}s")
-    print(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f})")
+        return state, dict(metrics, loss=float(metrics["loss"]))  # waits
+
+    if args.ckpt_dir:
+        ckpt = Checkpointer(args.ckpt_dir, keep=3)
+        sup = Supervisor(ckpt, checkpoint_every=args.ckpt_every)
+        injector = FailureInjector(tuple(args.fail_at)) if args.fail_at \
+            else None
+        start = ckpt.latest_step() or 0
+        if start:
+            state = ckpt.restore(start, state)
+            print(f"resumed from checkpoint step {start}")
+        t0 = time.time()
+        state, step = sup.run_resilient(
+            state, run_step, args.steps, start_step=start,
+            injector=injector, on_metrics=on_metrics)
+        print(f"done at step {step} in {time.time() - t0:.1f}s "
+              f"(restarts={sup.restarts}, "
+              f"stragglers={len(sup.straggler.flagged)})")
+    else:
+        t0 = time.time()
+        for step in range(args.steps):
+            t1 = time.perf_counter()
+            state, metrics = run_step(state, step)
+            on_metrics(step, metrics, time.perf_counter() - t1)
+        print(f"done {args.steps} steps in {time.time() - t0:.1f}s")
+    if losses:
+        print(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f})")
     return losses
 
 

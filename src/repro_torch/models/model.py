@@ -429,7 +429,7 @@ def decode_step(cfg, params, token, pos, cache):
     return _logits(cfg, params, x), cache
 
 
-def verify_step(cfg, params, tokens, pos, n_tok, cache):
+def verify_step(cfg, params, tokens, pos, n_tok, cache, drops=None):
     """A speculative verify step, one forward over t tokens a slot.
 
     tokens: (B, t) int, a slot's pending token and its draft proposals;
@@ -444,9 +444,10 @@ def verify_step(cfg, params, tokens, pos, n_tok, cache):
     are at any row count. vlm: row j turned by t = h = w = pos + j. moe:
     the B * t tokens route as one group, where an expert's capacity can
     drop some of them, as the reference's verify step routes them (so a
-    moe row is a decode step's only where nothing is dropped). The KV
-    families only, as the JAX package's `verify_step` refuses the
-    others."""
+    moe row is a decode step's only where nothing is dropped); drops: a
+    list that a moe model appends each layer's (B, t) dropped
+    assignments a token to. The KV families only, as the JAX package's
+    `verify_step` refuses the others."""
     if cfg.family not in KV_FAMILIES:
         raise ValueError(f"speculative verification needs an attention "
                          f"cache alone (families {KV_FAMILIES}), not "
@@ -457,9 +458,9 @@ def verify_step(cfg, params, tokens, pos, n_tok, cache):
     if "pages" in cache:
         x, _ = T.stack_apply(params["layers"], x, cfg, caches=cache["pages"],
                              cache_pos=pos, kv_table=cache["table"],
-                             n_valid=n_tok, positions=positions)
+                             n_valid=n_tok, positions=positions, drops=drops)
     else:
         x, cache = T.stack_apply(params["layers"], x, cfg, caches=cache,
                                  cache_pos=pos, n_valid=n_tok,
-                                 positions=positions)
+                                 positions=positions, drops=drops)
     return _logits(cfg, params, x), cache

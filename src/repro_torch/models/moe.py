@@ -202,11 +202,13 @@ def _combine(ex_out, top_i, top_p, pos, keep, mc, dtype):
     return out.to(dtype)
 
 
-def moe_apply(p, x, cfg, *, aux=None):
+def moe_apply(p, x, cfg, *, aux=None, drops=None):
     """x (B, T, D) -> the MoE FFN's output (B, T, D), without the block's
     residual (the block adds x). aux: a dict to add this layer's
     "moe_lb_loss", "moe_z_loss" (each times its coefficient) and
-    "moe_dropped_frac" into, or None to compute none of them."""
+    "moe_dropped_frac" into, or None to compute none of them. drops: a
+    list to append this layer's dropped assignments of each token to,
+    (B, T) int32, or None."""
     mc = cfg.moe
     if mc.dispatch not in DISPATCH_MODES:
         raise ValueError(f"unknown moe dispatch {mc.dispatch!r}; expected "
@@ -228,6 +230,8 @@ def moe_apply(p, x, cfg, *, aux=None):
 
     if mc.dense_ff:               # Arctic: the parallel dense branch
         out = out + F.mlp_apply(p["dense"], x, cfg)
+    if drops is not None:
+        drops.append((~keep).sum(-1, dtype=torch.int32).reshape(b, t))
 
     if aux is not None:
         me = probs.mean((0, 1))

@@ -90,9 +90,10 @@ def block_init(generator, cfg, *, device, banks=True, cross=False):
 
 def block_apply(p, x, cfg, *, cache=None, cache_pos=None, kv_table=None,
                 n_valid=None, positions=None, aux=None, causal=True,
-                enc_out=None, cross_cache=None, cross_pos=None):
+                enc_out=None, cross_cache=None, cross_pos=None, drops=None):
     """Returns (x, cache). positions: RoPE positions (attn_apply); aux: a
-    dict a moe block adds its router losses into (models.moe); causal:
+    dict a moe block adds its router losses into, drops: a list it
+    appends its tokens' dropped assignments to (models.moe); causal:
     False in an encoder. A decoder block of an encoder-decoder attends
     the encoder after its self-attention: over `cross_cache`'s {"k", "v"}
     (prefill and decode), or over K/V projected from `enc_out` (the
@@ -112,7 +113,7 @@ def block_apply(p, x, cfg, *, cache=None, cache_pos=None, kv_table=None,
     if cfg.moe is not None:
         # added after the MoE, as the reference adds it (no flush to ride)
         return x + M.moe_apply(p["moe"], _norm_apply(cfg, p["mlp_norm"], x),
-                               cfg, aux=aux), cache
+                               cfg, aux=aux, drops=drops), cache
     # the skip connection rides the down-projection's flush (residual)
     out = F.mlp_apply(p["mlp"], _norm_apply(cfg, p["mlp_norm"], x), cfg,
                       residual=x)
@@ -151,7 +152,7 @@ def _unstack(tree, n):
 def stack_apply(params, x, cfg, *, caches=None, cache_pos=None,
                 kv_table=None, n_valid=None, positions=None, aux=None,
                 causal=True, enc_out=None, cross_caches=None,
-                cross_pos=None):
+                cross_pos=None, drops=None):
     """Returns (x, caches). Without caches this is the training forward
     (cache-less attention, causal unless `causal=False`: an encoder).
     kv_table (paged decode) has no layer dim: a logical page is the same
@@ -160,7 +161,10 @@ def stack_apply(params, x, cfg, *, caches=None, cache_pos=None,
     tokens' RoPE positions, (B, T) or (B, T, 3), None for the default
     (models.attention.attn_apply). aux: a dict that a moe stack fills
     with its router losses summed over the layers and the dropped
-    fraction averaged over them, as the reference's stack returns them.
+    fraction averaged over them, as the reference's stack returns them;
+    drops: a list that a moe stack appends each layer's (B, T) dropped
+    assignments a token to (a cached step's: a recompute under remat
+    would append again).
     An encoder-decoder's decoder stack attends the encoder through
     `cross_caches` (stacked {"k", "v"} (L, B, Tenc, Hkv, Dh), one layer's
     rows each) or `enc_out`, and `cross_pos` (`block_apply`)."""
@@ -178,7 +182,7 @@ def stack_apply(params, x, cfg, *, caches=None, cache_pos=None,
                          kv_table=kv_table, n_valid=n_valid,
                          positions=positions, aux=layer_aux, causal=causal,
                          enc_out=enc_out, cross_cache=cross,
-                         cross_pos=cross_pos)[0]
+                         cross_pos=cross_pos, drops=drops)[0]
         return xo, layer_aux
 
     if caches is None:

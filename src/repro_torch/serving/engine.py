@@ -93,11 +93,17 @@ verify step apply either. A leaf's slot axis is where the engine's cache
 and the one-slot sub-cache differ (axis 2 of a hybrid's Mamba leaves,
 axis 1 of the rest), and admission copies each leaf along its own.
 Family moe (Mixtral, Arctic) takes the dense family's paths, the page
-pools and int8 weights included (its f32 router and expert banks stay
-unquantized, as in the JAX engine); a speculative engine with a moe
-target is refused. At 4 slots or fewer a decode step routes at most 4
-tokens to an expert, within its capacity of at least 4, so no decode
-token is dropped and a stream is its request alone. Family vlm
+pools, int8 weights (its f32 router and expert banks stay unquantized,
+as in the JAX engine) and speculation included. At 4 slots or fewer a
+decode step routes at most 4 tokens to an expert, within its capacity
+of at least 4, so no decode token is dropped and a stream is its
+request alone. A verify step routes its S x (k + 1) rows as one group,
+idle slots' and rows past n_tok's tokens too, so capacity can bind
+(4 slots at k = 4: 6 slots an expert for 20 rows at mixtral's top-2 of
+8); the engine counts the dropped assignments of real rows
+(`verify_dropped`, `Request.verify_dropped`). Where a request's real rows
+drop nothing, its greedy spec stream is the plain engine's; where they
+do, its tokens follow the greedy rule on the verify step's logits. Family vlm
 (Qwen2-VL's text decoder) takes every path of the dense family: a text
 request's prompt is prefilled at plain positions and
 each later token turned by t = h = w = pos (models.model), which is
@@ -277,6 +283,11 @@ class ServingEngine:
         self.spec_rounds = 0
         self.spec_proposed = 0
         self.spec_accepted = 0
+        # moe: the expert assignments of real verify rows dropped, the
+        # real rows, and the rounds that dropped any assignment
+        self.verify_dropped = 0
+        self.verify_rows = 0
+        self.verify_rounds_dropping = 0
         if draft is not None:
             if "encdec" in (cfg.family, draft[0].family):
                 raise ValueError(
@@ -288,12 +299,6 @@ class ServingEngine:
                 raise ValueError(
                     f"speculative decoding needs a verify-capable target "
                     f"{M.KV_FAMILIES}, not {cfg.family!r}")
-            if cfg.family == "moe":
-                raise ValueError(
-                    f"speculative decoding with a moe target ({cfg.name}) is "
-                    f"not served yet: its verify step routes the slots' "
-                    f"k + 1 tokens as one group, where an expert's capacity "
-                    f"can drop a token that a decode step keeps")
             draft_cfg, draft_params = draft
             if draft_cfg.vocab != cfg.vocab:
                 raise ValueError(
@@ -311,6 +316,9 @@ class ServingEngine:
             self._v_tokens = torch.zeros_like(self._vtokens_h,
                                               device=self.device)
             self._v_ntok = torch.zeros_like(self._ntok_h, device=self.device)
+            # a moe verify step's dropped assignments a row (zeros else)
+            self._v_drops = torch.zeros((max_slots, spec_k + 1),
+                                        dtype=torch.int32, device=self.device)
 
         self.requests: List[Request] = []
         self._next_rid = 0
@@ -349,9 +357,15 @@ class ServingEngine:
     def _verify_fn(self):
         """The pending token and the draft's proposals of every slot, at
         its position, into the cache in place; (S, k + 1, padded_vocab)
-        f32 logits."""
-        logits, _ = M.verify_step(self.cfg, self.params, self._v_tokens,
-                                  self._step_pos, self._v_ntok, self.cache)
+        f32 logits; a moe target's dropped expert assignments a row,
+        summed over the layers, into `_v_drops` in place."""
+        args = (self.cfg, self.params, self._v_tokens, self._step_pos,
+                self._v_ntok, self.cache)
+        if self.cfg.moe is None:
+            return M.verify_step(*args)[0]
+        drops = []
+        logits, _ = M.verify_step(*args, drops=drops)
+        self._v_drops.copy_(torch.stack(drops).sum(0, dtype=torch.int32))
         return logits
 
     def _build_steps(self) -> None:
@@ -687,6 +701,8 @@ class ServingEngine:
         self._v_ntok.copy_(self._ntok_h, non_blocking=True)
         logits = self._verify_step()
         rows = logits[:, :, :self.cfg.vocab].cpu().numpy()   # sync point
+        drops = self._v_drops.cpu().numpy()
+        self.verify_rounds_dropping += bool(drops.any())
         dt = time.perf_counter() - t0
         self.decode_time += dt
         self._step_times.append(dt)
@@ -702,6 +718,10 @@ class ServingEngine:
                 self._quarantine(req, slot, now, f"non-finite logits at "
                                  f"decode step {step_idx}")
                 continue
+            dropped = int(drops[slot, :nt].sum())
+            req.verify_dropped += dropped
+            self.verify_dropped += dropped
+            self.verify_rows += nt
             kk = nt - 1
             emitted, n_acc = self.sampler.speculative_accept(
                 rows[slot, :nt], drafts[slot, :kk],
@@ -827,6 +847,12 @@ class ServingEngine:
                                            / max(self.spec_proposed, 1))
             out["draft_time_s"] = self.spec.draft_time
             out["draft_prefill_time_s"] = self.spec.prefill_time
+            if self.cfg.moe is not None:
+                out["verify_dropped"] = self.verify_dropped
+                out["verify_dropped_frac"] = self.verify_dropped / max(
+                    self.verify_rows * self.cfg.moe.top_k * self.cfg.n_layers,
+                    1)
+                out["verify_rounds_dropping"] = self.verify_rounds_dropping
         if self.pool is not None:
             out["kv_pool"] = self.pool.report()
         return out

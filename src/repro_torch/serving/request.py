@@ -61,6 +61,8 @@ class Request:
     error: Optional[str] = None        # diagnostic for quarantined/failed
     draft_proposed: int = 0            # speculative tokens proposed for
     draft_accepted: int = 0            # ... / accepted on this request
+    verify_dropped: int = 0            # moe: expert assignments of its
+                                       # real verify rows dropped
 
     @property
     def acceptance_rate(self) -> Optional[float]:

@@ -10,8 +10,13 @@ tokens.
 
 `SpecDecoder` owns the draft side:
 
-* the draft's params and its own DENSE per-slot cache, with `spec_k`
-  rows of headroom (a round writes up to pos + spec_k);
+* the draft's params and its own DENSE per-slot cache, as long as the
+  engine's (a round writes rows pos .. pos + k_vec, and the engine's
+  k_vec leaves them inside a request's own length). The same length
+  matters on the card: a prefill's attention over a cache shorter than
+  `attn_chunk` reduces over every row of it, so a draft cache of
+  another length would prefill the same prompt to other bits, and a
+  self-draft would propose other tokens than its target's;
 * `admit(slot, ctx)`: the slot's context prefilled into that cache,
   bucketed as the engine's admission is (a prefill of a multiple of
   `prefill_chunk` tokens, the rest one token at a time);
@@ -52,8 +57,9 @@ class SpecDecoder:
     cfg, params:  the DRAFT model (a dense or vlm config whose vocab is
                   the target's; the engine checks that).
     max_slots:    the engine's slot count (slot ids are shared).
-    max_len:      the engine's (rounded) max_len; the draft cache adds
-                  `spec_k` rows of headroom.
+    max_len:      the engine's (rounded) max_len, the draft cache's
+                  length (rounded up to the draft's `attn_chunk` where
+                  it is longer than that and not a multiple of it).
     spec_k:       draft tokens proposed a round.
     sampler:      the draft's proposal sampler (default greedy: a greedy
                   draft is a valid q under any target sampler, the delta
@@ -76,10 +82,9 @@ class SpecDecoder:
         self.max_slots = max_slots
         self.prefill_chunk = max(1, prefill_chunk)
         self.sampler = sampler or Sampler()
-        # headroom: a round writes rows pos .. pos + spec_k; lengths past
-        # attn_chunk must be chunk multiples
+        # lengths past attn_chunk must be chunk multiples
         a = cfg.attn_chunk
-        ml = max_len + spec_k
+        ml = max_len
         if ml > a and ml % a:
             ml += a - ml % a
         self.max_len = ml

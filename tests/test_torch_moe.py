@@ -373,13 +373,20 @@ def test_engine_streams_match_jax_engine(engine):
 
 
 def test_moe_refuses_what_it_does_not_serve_yet():
-    """A moe speculative target (its verify step routes the slots' rows
-    as one group) is refused, not run."""
+    """A moe target takes a draft (tests/test_torch_moe_spec.py), but not
+    an encdec one (its draft steps carry no encoder cache) nor a draft of
+    another vocab: both are refused at construction, not run."""
     _, cfg = _cfgs("mixtral-8x22b")
     params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(ValueError, match="moe target"):
+    wcfg = get_config("whisper-tiny", reduced=True)
+    wparams = M.init_params(wcfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(ValueError, match="encdec"):
         ServingEngine(cfg, params, max_slots=2, max_len=32, device="cpu",
-                      draft=(cfg, params))
+                      draft=(wcfg, wparams))
+    with pytest.raises(ValueError, match="vocab"):
+        ServingEngine(cfg, params, max_slots=2, max_len=32, device="cpu",
+                      draft=(dataclasses.replace(cfg, vocab=cfg.vocab // 2),
+                             params))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
