@@ -29,6 +29,10 @@ Phases, in order; any failure propagates and the exit code is not 0:
      and naive GEMM at
      4096^2, f32 against the f64 product, and add, sub, mul and axpy bit
      for bit;
+     the gradient of dense_q (its autograd Function: the int8-weight
+     kernel's forward, the backward's GEMMs on the tiled kernel) at
+     qwen3-0.6b's down projection, 2048 rows, against autograd of the
+     plain dequantized composition on the card, timed beside it;
      the bf16 GEMM also at training's shapes, 2048 rows, in all four
      layouts (qwen3-0.6b's, mamba2-2.7b's and zamba2-1.2b's widths, the
      in_proj_bc GEMMs of N = 336 and 192 among them), the dual GEMM at
@@ -84,6 +88,19 @@ Phases, in order; any failure propagates and the exit code is not 0:
      every page returns; twice with a temperature sampler over the top
      50: the same streams, each token in its row's top 50; then on the
      wall clock: tok/s, time to first token and the deadline miss rate;
+     (c) chaos: phase 4's 8 requests on 4 slots over a bf16 page pool
+     under one scripted FaultInjector (a NaN logits row, a poisoned
+     write page, kernel faults at two steps: a retry, then the rebuild
+     of the captured steps with 4 slots busy; a slow step; a denied
+     admission: a preemption and its resume): no crashed step, the two
+     poisoned requests alone quarantined, every other stream phase 4's,
+     a straggler flagged, every page back, the replay after the rebuild
+     launching what it did before and calling no kernel wrapper, its
+     seconds, graph pools and memory_allocated before and after, decode
+     p50/p99 beside phase 4's; (d) the target's own weights as an int8
+     draft (`draft_quant="int8"`) on the dense cache: phase 4's streams,
+     exact launch counts (matmul_q in the draft's graphs and prefills),
+     acceptance and round p50 beside the bf16 self-draft's;
   7. training at full width: 8 donated AdamW steps of qwen3-0.6b (f32
      params, bf16 activations, each block rematerialised) at batch 4 x
      512 tokens, supervised (`distributed.Supervisor`): a checkpoint of
@@ -98,11 +115,11 @@ Phases, in order; any failure propagates and the exit code is not 0:
      torch.profiler trace of a step; the first 4 steps without remat from
      the same state, step 0's loss equal bit for bit, both peaks and
      steady step times; the first 2 steps again through the plain
-     versions on the card, step 0 held to the kernels'; the first 4 steps
-     with only the dual GEMM through its plain version, the loss after
-     them beside the kernels' (cut for time from 8, 4 and 8 steps: their
-     findings stand in PERF.md); then a whole step at depth 2 in f32 on
-     the card against the same step on the CPU;
+     versions on the card, step 0 held to the kernels' (the 4 steps with
+     only the dual GEMM through its plain version, and earlier 8, 4 and
+     8 steps, cut for time: their findings stand in PERF.md); then a
+     whole step at depth 2 in f32, batch 1 x 256,
+     on the card against the same step on the CPU;
   8. training the Mamba-2 families at full width: zamba2-1.2b (36 layers
      in 6 segments, lora_b from a seed) and mamba2-2.7b (64 layers), f32
      params, bf16 activations, 16 donated AdamW steps at batch 4 x 512
@@ -145,7 +162,11 @@ Phases, in order; any failure propagates and the exit code is not 0:
      engine), a replay against the eager step and a trace of decode steps
      (bf16 only; the int8 run's cut for time), decode p50 and p99, time
      to first token, peak memory, the capture time and graph pools, and
-     the memory back after each engine; then a depth-2 (two segments)
+     the memory back after each engine; a rebuild run on the bf16
+     weights: 4 of those requests under kernel faults at two decode
+     steps, so the captured steps are rebuilt with every Mamba state
+     busy: each stream the fault-free run's, the fault-free launch
+     counts, no kernel wrapper called after the rebuild; then a depth-2 (two segments)
      prefill and decode in f32 on the card against the CPU;
   11. the dense configs and vlm at full width, random weights drawn on
      the card and held in bf16, the QKV biases random: qwen2-vl-2b (28
@@ -479,6 +500,7 @@ class Smoke:
             del w
             if dtype == torch.bfloat16:
                 self._kernels_matmul_training(randn, tols)
+                self._kernels_dense_q_grad(randn)
             # -- gated_matmul: the SwiGLU gate/up at decode, prefill and
             #    (bf16) training's 4 x 512 tokens, qwen3-0.6b's and (bf16,
             #    training) zamba2-1.2b's shared SwiGLU (d_ff 8192)
@@ -641,6 +663,58 @@ class Smoke:
                 + mm * n * out.itemsize, 2 * mm * n * k, "bfloat16",
                 tols[out], n_time=20)
             del a, b, r
+
+    def _kernels_dense_q_grad(self, randn, m=2048, k=3072, n=1024):
+        """The gradient of dense_q (`core.gemm._DenseQ`) at qwen3-0.6b's
+        down projection with its residual, 4 x 512 tokens, bf16: d x, d
+        scale and d residual through the Function (the int8-weight
+        kernel's forward; dx = g W^T and dw = x^T g of the dequantized
+        weight on the tiled kernel's transposed layouts) against autograd
+        of the plain dequantized composition on the card, each within
+        2^-7 x its largest |value|; 1 matmul_q and 2 matmul launches. The
+        forward and backward timed in turns (median of 20), beside the
+        plain version's."""
+        torch = self.torch
+        from repro_torch.core import gemm, precision
+        from repro_torch.kernels import ops
+        bf16 = torch.bfloat16
+        x, r, g = randn(m, k, dtype=bf16), randn(m, n, dtype=bf16), \
+            randn(m, n, dtype=bf16)
+        wq, scale = precision.quantize_int8(
+            randn(k, n, dtype=torch.float32, scale=k ** -0.5))
+
+        def grads(fn):
+            leaves = [t.detach().requires_grad_() for t in (x, scale, r)]
+            fn(*leaves).backward(g)
+            return [t.grad for t in leaves]
+
+        def kernel():
+            return grads(lambda x_, s_, r_: gemm.dense_q(x_, wq, s_,
+                                                         residual=r_))
+
+        def plain():
+            return grads(lambda x_, s_, r_: x_ @ (wq.float() * s_).to(bf16)
+                         + r_)
+        ops.reset_launch_counts()
+        got = kernel()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        assert counts == _no_launches(matmul_q=1, matmul=2), _nonzero(counts)
+        errs = []
+        for name, a, b in zip(("x", "scale", "residual"), got, plain()):
+            assert a.dtype == b.dtype and torch.isfinite(a).all(), name
+            top = b.abs().max().item()
+            errs.append((a - b).abs().max().item() / top)
+            assert errs[-1] <= 2 ** -7, (name, errs[-1])
+        plain_ms, ms = self._time_turns([plain, kernel], n=20)
+        flops = 3 * 2 * m * k * n
+        print(f"      dense_q gradient  bfloat16 M={m} K={k} N={n} int8 W "
+              f"residual (qwen3-0.6b down, 4 x 512 tokens): d x, d scale, "
+              f"d residual within {', '.join(f'{e:.2e}' for e in errs)} of "
+              f"the plain version's max |value| (tol 2^-7); launches "
+              f"{_nonzero(counts)}; forward + backward {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms")
+        self.dense_q_grad = dict(ms=ms, plain_ms=plain_ms, errs=errs)
 
     def _kernels_hybrid(self, randn, tol, m=4):
         """The bf16 GEMMs of a zamba2 decode step (4 slots) that no other
@@ -1761,6 +1835,7 @@ class Smoke:
         self.work, self.max_len = work, engine.max_len
         self.dense_streams = [list(r.generated) for r in reqs]
         self.serve_p50 = report["decode_step_p50_s"]
+        self.serve_p99 = report["decode_step_p99_s"]
 
     def phase_trace(self):
         self._trace(self.engine, self.serve_p50,
@@ -2102,6 +2177,7 @@ class Smoke:
                       f"p50 {rep['latency_p50_s'] * 1e3:.0f} ms")
                 if layout == "dense" and name == "self":
                     _print_capture(eng)
+                    self_draft = rep
                 del eng, got
         # the round's host copy: (4, 5, vocab) f32 logits rows
         x = torch.zeros((4, 5, cfg.padded_vocab), device=self.dev)
@@ -2113,8 +2189,192 @@ class Smoke:
             times.append(time.perf_counter() - t0)
         print(f"      a round's logits copy to the host ({4 * 5 * cfg.vocab * 4 / 1e6:.1f} MB): "
               f"median {statistics.median(times) * 1e3:.2f} ms of 11")
-        del params, other, want
+        del other, want
+        self._int8_draft(cfg, params, self_draft)
+        del params
         self._requests(cfg)
+        self._chaos(cfg)
+
+    def _int8_draft(self, cfg, params, bf16, k=4):
+        """(d) The target's own weights as its draft with int8 weights
+        (`draft_quant="int8"`: quantized once; the draft's decode and
+        remainder graphs and its prefill on the int8-weight GEMM, its KV
+        dense), phase 4's 8 requests on 4 slots at k = 4 on the dense
+        cache: every stream phase 4's, exact launch counts (the draft's 7
+        int8 GEMMs a layer in each of its k + 1 steps a round, each
+        prefill and each remainder step; the target's GEMMs and multi-row
+        decode attention), the acceptance and the round p50 beside the
+        bf16 self-draft's (`bf16`, its report)."""
+        from repro_torch.serving import ServingEngine
+        L = cfg.n_layers
+        eng = ServingEngine(cfg, params, max_slots=4, max_len=self.max_len,
+                            device=self.dev, draft=(cfg, params), spec_k=k,
+                            draft_quant="int8")
+        reqs, rep, launches = self._run_counted(eng, self.work)
+        assert [r.generated for r in reqs] == self.dense_streams, \
+            "int8-draft streams != phase 4's"
+        rounds, n = rep["spec_rounds"], len(reqs)
+        rem = sum(len(r.prompt) % 8 for r in reqs)
+        draft_runs = (k + 1) * rounds + n + rem
+        target_runs = rounds + n + rem
+        want = _no_launches(matmul_q=7 * L * draft_runs,
+                            matmul=(5 * L + 1) * target_runs + draft_runs,
+                            gated_matmul=L * target_runs,
+                            flash_decode=L * (2 * rem + (k + 1) * rounds),
+                            flash_decode_rows=L * rounds)
+        assert launches == want, (launches, want)
+        print(f"      (d) int8 draft (the target's weights quantized), k={k}, "
+              f"dense cache: 8 streams = phase 4's token for token; "
+              f"launches {_nonzero(launches)} (exact: matmul_q {7 * L} a "
+              f"draft step, {k + 1} steps a round, {rounds} rounds, {n} "
+              f"prefills, {rem} remainder tokens); acceptance "
+              f"{rep['spec_acceptance_rate']:.3f} ({rep['spec_accepted']}/"
+              f"{rep['spec_proposed']}; the bf16 self-draft's "
+              f"{bf16['spec_acceptance_rate']:.3f}), round p50 "
+              f"{rep['decode_step_p50_s'] * 1e3:.2f} ms p99 "
+              f"{rep['decode_step_p99_s'] * 1e3:.2f} (bf16 draft "
+              f"{bf16['decode_step_p50_s'] * 1e3:.2f} / "
+              f"{bf16['decode_step_p99_s'] * 1e3:.2f}); draft "
+              f"{rep['draft_time_s'] * 1e3:.0f} ms of "
+              f"{sum(eng._step_times) * 1e3:.0f} ms of rounds (bf16 "
+              f"{bf16['draft_time_s'] * 1e3:.0f} ms); tokens/slot-step "
+              f"{rep['tokens_per_step']:.2f}")
+        _print_capture(eng)
+
+    def _chaos(self, cfg, nan=(6, 0), kernel=(3, 9), slow=(12, 0.25),
+               deny=4):
+        """(c) Serving under scripted faults at full width: phase 4's 8
+        requests (4-7 at priority 1) on 4 slots over a bf16 page pool, one
+        injector scripting a NaN logits row (slot 0 at step 6), a
+        poisoned write page (slot 1, at the first step from 7 where its
+        position is 2 or more rows into a page: the page's earlier rows
+        NaN, so the fault comes out of flash_decode_paged's math; the
+        kernel reads no key past pos), kernel faults at steps 3 and 9 (a
+        retry, then the rebuild of the captured steps with 4 slots busy),
+        a 0.25 s sleep at step 12 and a denied admission (ordinal 4: a
+        preemption of a priority-0 request, and its resume). Gates: no
+        crashed step, 2 kernel faults, degraded, step 12 flagged as a
+        straggler; requests 0 and 1 alone quarantined, their tokens before
+        the fault phase 4's; every other stream phase 4's; one preemption;
+        every page back; the replay after the rebuild launches what one
+        before it did, and no decode step after it calls a kernel
+        wrapper; the graphs' pools and memory_allocated before and after
+        the rebuild printed, the latter grown by no more than one graph
+        pool; the rebuild's seconds; decode p50 and p99 beside phase
+        4's."""
+        torch = self.torch
+        from repro_torch.kernels import ops
+        from repro_torch.serving import FaultInjector, ServingEngine
+        from repro_torch.serving.request import FINISHED, QUARANTINED
+        from repro_torch.serving.steps import CapturedStep
+        work = self.work
+        p1 = len(work[1].prompt)
+        cor = next(s for s in range(nan[0] + 1, nan[0] + 17)
+                   if (p1 + s) % 16 >= 2)
+        inj = FaultInjector(nan_rows={nan[0]: nan[1]}, corrupt_pages={cor: 1},
+                            kernel_fail_steps=kernel,
+                            slow_steps={slow[0]: slow[1]},
+                            deny_admissions=(deny,))
+        eng = ServingEngine(cfg, self._serve_params(cfg), max_slots=4,
+                            max_len=self.max_len, device=self.dev,
+                            kv_layout="paged", fault_injector=inj)
+        before = dict(eng._step.launches)
+        seen, watched = {}, []
+        rebuild, run_step = eng._rebuild_steps, eng._run_step
+
+        def measured(err):
+            torch.cuda.synchronize()
+            seen.update(active=eng.scheduler.n_active,
+                        pools=eng.graph_pool_bytes,
+                        before=torch.cuda.memory_allocated())
+            rebuild(err)
+            torch.cuda.synchronize()
+            seen.update(after=torch.cuda.memory_allocated(),
+                        pools_after=eng.graph_pool_bytes)
+
+        def guarded(step_idx):
+            if not eng.degraded:
+                return run_step(step_idx)
+            with _wrapper_calls() as calls:
+                out = run_step(step_idx)
+            watched.append(len(calls))
+            return out
+        eng._rebuild_steps, eng._run_step = measured, guarded
+        reqs = [eng.submit(it.prompt, it.gen, priority=int(i >= 4))
+                for i, it in enumerate(work)]
+        ops.reset_launch_counts()
+        rep = eng.run()
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        # the fault-free formula: every admission's prefill (a resume's
+        # too) and every one-token step runs the step's GEMMs; a faulted
+        # attempt launches nothing, the rebuild's warm-ups are taken out
+        L = cfg.n_layers
+        rem = eng.prefill_tokens - sum(
+            (len(r.prompt) - len(r.prompt) % 8 or len(r.prompt))
+            * (1 + r.preemptions) for r in reqs)
+        runs = eng.decode_steps + rem + eng._admissions
+        want = _no_launches(matmul=(5 * L + 1) * runs, gated_matmul=L * runs,
+                            flash_decode=L * rem,
+                            flash_decode_paged=L * eng.decode_steps)
+        assert launches == want, (launches, want)
+        assert rep["crashed_steps"] == 0 and rep["kernel_faults"] == 2, rep
+        assert rep["degraded"] and rep["straggler_steps"] >= 1, rep
+        assert any(s == slow[0] for s, _, _ in eng.straggler.flagged), \
+            eng.straggler.flagged
+        assert rep["faults_injected"] == {
+            "nan_rows": 1, "page_corruptions": 1, "kernel_faults": 2,
+            "slow_steps": 1, "denied_admissions": 1}, rep["faults_injected"]
+        assert [r.status for r in reqs] == [QUARANTINED] * 2 + \
+            [FINISHED] * 6, [r.status for r in reqs]
+        assert reqs[0].error == f"non-finite logits at decode step {nan[0]}"
+        assert reqs[1].error == f"non-finite logits at decode step {cor}"
+        for r, want in zip(reqs, self.dense_streams):
+            assert r.generated == want[:len(r.generated)], r.rid
+        assert rep["preempted"] == 1 and rep["quarantined"] == 2, rep
+        pool = eng.pool
+        assert (pool.refcount == 0).all() and pool.n_reserved == 0
+        assert isinstance(eng._step, CapturedStep)
+        assert eng._step.launches == before, (eng._step.launches, before)
+        assert watched and not any(watched), watched
+        biggest = max(eng._step.pool_bytes, eng._remainder_step.pool_bytes)
+        assert seen["active"] == 4, seen
+        assert seen["after"] - seen["before"] <= biggest, seen
+        victim = next(r for r in reqs if r.preemptions)
+        # the wrappers close over the engine: drop them, so that no
+        # reference cycle keeps it alive after the phase
+        del eng._rebuild_steps, eng._run_step
+        print(f"      (c) chaos, bf16 pool: NaN row slot {nan[1]} at step "
+              f"{nan[0]}, poisoned page slot 1 at step {cor} (position "
+              f"{p1 + cor}), kernel faults at steps {kernel}, a "
+              f"{slow[1]} s sleep at step {slow[0]}, admission {deny} "
+              f"denied: {rep['n_finished']} finished = phase 4's streams, "
+              f"requests 0 and 1 quarantined (their {len(reqs[0].generated)}"
+              f" and {len(reqs[1].generated)} tokens phase 4's), request "
+              f"{victim.rid} preempted and resumed; every page back; "
+              f"kernel_faults {rep['kernel_faults']}, crashed_steps "
+              f"{rep['crashed_steps']}, straggler steps "
+              f"{[s for s, _, _ in eng.straggler.flagged]}; "
+              f"faults_injected {json.dumps(rep['faults_injected'])}; "
+              f"launches {_nonzero(launches)} (the fault-free formula's: "
+              f"{eng._admissions} admissions, {rem} remainder tokens, "
+              f"{eng.decode_steps} decode steps)")
+        print(f"      (c) the rebuild at step {kernel[1]} with "
+              f"{seen['active']} slots busy: {eng.rebuild_s:.3f} s; graph "
+              f"pools {seen['pools'] / 2 ** 20:.2f} -> "
+              f"{seen['pools_after'] / 2 ** 20:.2f} MiB; memory_allocated "
+              f"{seen['before'] / 2 ** 30:.4f} -> {seen['after'] / 2 ** 30:.4f}"
+              f" GiB ({seen['after'] - seen['before']:+d} B, a graph pool "
+              f"{biggest} B); a replay launches {_nonzero(eng._step.launches)}"
+              f" before and after; {len(watched)} decode steps after it, no "
+              f"kernel wrapper called")
+        print(f"      (c) decode step p50 {rep['decode_step_p50_s'] * 1e3:.2f}"
+              f" ms p99 {rep['decode_step_p99_s'] * 1e3:.2f} ms (phase 4's "
+              f"{self.serve_p50 * 1e3:.2f} / {self.serve_p99 * 1e3:.2f}; the "
+              f"p99 holds the sleep and the rebuild), {rep['decode_steps']} "
+              f"steps, goodput {rep['goodput']:.3f}, ttft p50 "
+              f"{rep['ttft_p50_s'] * 1e3:.0f} ms")
+        del eng
 
     def _requests(self, cfg):
         """(b) One paged run (a bf16 pool small enough to force
@@ -2266,8 +2526,9 @@ class Smoke:
         6` runs them: a checkpoint at step 4, a failure before step 6, and
         steps 4 and 5 again from the restored state, with their first
         run's bits (`_supervised`). Then the first 4 steps with remat
-        "none" from the same state and batches, the first 2 through the
-        plain versions and the first 4 with the dual GEMM plain."""
+        "none" from the same state and batches and the first 2 through the
+        plain versions (the 4 with only the dual GEMM plain are cut for
+        time: their finding stands in PERF.md)."""
         torch = self.torch
         from repro_torch.configs import get_config
         from repro_torch.core.tree import tree_map
@@ -2309,8 +2570,6 @@ class Smoke:
         self._remat_none(cfg, opt, make_state, batches[:4], run,
                          donate=False)
         self._train_plain(cfg, opt, make_state, batches, run, 2)
-        self._train_gated_plain(cfg, opt, make_state, batches[:4],
-                                run["losses"][3])
 
     def _train_batches(self, cfg, n, batch, seq, seed=0, device=None):
         """n SyntheticLM batches of seed `seed` on `device` (the card), with
@@ -2610,32 +2869,6 @@ class Smoke:
         assert abs(plain[0][0] - losses[0]) <= rtol * abs(losses[0]), plain
         assert abs(plain[0][1] - norms[0]) <= rtol * abs(norms[0]), plain
 
-    def _train_gated_plain(self, cfg, opt, make_state, batches, final):
-        """How far the dual GEMM's summation order alone moves the final
-        loss: the run's steps again from its weights with only the dual
-        GEMM sent to its plain version on the card (another order of the
-        same exact products), the final loss printed beside the run's
-        (`final`). No bound: Adam's first, sign-like steps amplify any
-        rounding difference."""
-        torch = self.torch
-        from repro_torch.kernels import ops, ref
-        from repro_torch.training import train_loop as TL
-        kernel = ops.gated_matmul
-        ops.gated_matmul = ref.gated_matmul_ref
-        try:
-            state, step_fn = make_state(), TL.make_train_step(cfg, opt)
-            for b in batches:
-                state, met = step_fn(state, b)
-            plain = float(met["loss"])
-        finally:
-            ops.gated_matmul = kernel
-        del state
-        torch.cuda.empty_cache()
-        assert math.isfinite(plain), plain
-        print(f"      loss after {len(batches)} steps: kernels {final:.4f}, "
-              f"dual GEMM through its plain version {plain:.4f} (gap "
-              f"{final - plain:+.4f})")
-
     def _trace_train_step(self, step_fn, state, batch,
                           expect=("matmul", "gated_matmul", "flash_attention",
                                   "flash_attention_bwd")):
@@ -2667,7 +2900,7 @@ class Smoke:
                      own={"_SSDBackward": "ssd backward (plain)",
                           "AdamW.update": "adamw update"})
 
-    def phase_train_vs_cpu(self, batch=2, seq=256, tol=1e-4):
+    def phase_train_vs_cpu(self, batch=1, seq=256, tol=1e-4):
         """A whole train step of qwen3-0.6b at full width, depth 2, f32
         activations, on the card and on the CPU (`_train_step_vs_cpu`)."""
         import dataclasses
@@ -3150,8 +3383,10 @@ class Smoke:
         self.hybrid_launches, report = self._serve_checked(
             eng, prompts, gen, lambda e: self._hybrid_want(e, lengths, False),
             "bf16")
+        streams = [r.generated for r in eng.requests[:len(prompts)]]
         self._trace(eng, report["decode_step_p50_s"], n_steps=4,
                     expect=("matmul", "gated_matmul", "flash_decode"))
+        self._hybrid_rebuild(eng, prompts[:4], streams[:4], gen)
         del eng
         self._memory_back(base, "bf16")
 
@@ -3169,6 +3404,50 @@ class Smoke:
             "int8 weights", report["decode_step_p50_s"])
         del eng
         self._memory_back(base, "int8 weights")
+
+    def _hybrid_rebuild(self, eng, prompts, streams, gen, kernel=(3, 10)):
+        """Phase 10's rebuild run: a fresh engine on `eng`'s weights with
+        kernel faults scripted at decode steps 3 and 10, 4 requests on 4
+        slots, so the rebuild of the captured steps falls mid-trace with
+        every Mamba state busy. Every stream must be its request's from
+        the fault-free run (`streams`, each its request alone), the
+        launch counts the fault-free formula's (the rebuild's warm-ups
+        and captures taken out), and no decode step after the rebuild
+        calls a kernel wrapper."""
+        torch = self.torch
+        from repro_torch.kernels import ops
+        from repro_torch.serving import FaultInjector, ServingEngine
+        one = ServingEngine(eng.cfg, eng.params, max_slots=4,
+                            max_len=eng.max_len, device=self.dev,
+                            fault_injector=FaultInjector(
+                                kernel_fail_steps=kernel))
+        before = dict(one._step.launches)
+        reqs = [one.submit(p, gen) for p in prompts]
+        ops.reset_launch_counts()
+        while not one.degraded:
+            assert one.step(), "the run drained before the rebuild"
+        active = one.scheduler.n_active
+        with _wrapper_calls() as calls:
+            rep = one.run()
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        assert not calls, f"a step after the rebuild called {calls}"
+        assert rep["kernel_faults"] == 2 and rep["crashed_steps"] == 0, rep
+        assert active == 4 and one._step.launches == before
+        assert [r.generated for r in reqs] == streams, \
+            "a stream across the rebuild differs from the fault-free run's"
+        want = self._hybrid_want(one, [len(p) for p in prompts], False)
+        assert launches == want, (launches, want)
+        print(f"      rebuild run: kernel faults at decode steps {kernel}, "
+              f"the captured steps rebuilt at step {kernel[1]} with "
+              f"{active} Mamba states busy in {one.rebuild_s:.3f} s (graph "
+              f"pools {one.graph_pool_bytes / 2 ** 20:.2f} MiB): the "
+              f"{len(reqs)} streams equal the fault-free run's (each its "
+              f"request alone), launches {_nonzero(launches)} (the "
+              f"fault-free formula's), no "
+              f"kernel wrapper called by {one.decode_steps - kernel[1] - 1} "
+              f"decode steps after it")
+        del one
 
     def _memory_back(self, base, what):
         """Once the caller has dropped its engine, the card's allocated

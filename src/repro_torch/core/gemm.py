@@ -27,12 +27,13 @@ GEMMs on the tiled kernel), float64 to the plain `ref.matmul_ref` (the
 JAX package sends f64 to XLA: there is no f64 tile kernel), and the rest
 to the tiled kernel. Its backward's GEMMs take the same route.
 
-`dense_q` is forward only on the card: its int8 weight is a frozen
-buffer, and the gradients of x, scale, b and residual (the JAX
-package's `_dense_q_vjp`) are not ported yet, so a call there that
-autograd would record raises rather than record nothing. On the CPU the
-plain version is ordinary PyTorch, which autograd differentiates as it
-is.
+`dense_q` goes through `_DenseQ`, the counterpart of the JAX package's
+`_dense_q_vjp`, on the CPU and on the card alike: the forward is the
+int8-weight kernel; the backward differentiates the dequantized
+composition, w = (wq * scale) in x's dtype, by the dense chokepoint's
+own backward (`_dense_grads`, its GEMMs on the tiled kernel), and d
+scale is the sum over K of d w * wq. The int8 weight is a frozen leaf
+and gets no gradient.
 
 `matmul` and `gated_mlp` also take a bank of weights, b or w (E, K, N)
 against a (E, M, K): the MoE expert GEMMs, which the JAX package vmaps
@@ -185,14 +186,32 @@ def _dense_fwd(x, w, b, r, activation, out_dtype):
         x, w.shape[-1], b, r, activation)
 
 
-class _Dense(torch.autograd.Function):
-    """act(x @ w + b) + r on 2D operands, the epilogue on the kernel's
-    flush. The backward differentiates the unfused composition, as
-    `_dense_ep_bwd` does: with an activation it recomputes z = x @ w + b
-    through the chokepoint and takes the activation's derivative there;
+def _dense_grads(x, w, b, r, activation, out_dtype, g, needs=(True, True)):
+    """(dx, dw, db, dr) of act(x @ w + b) + r for the cotangent g, as
+    `_dense_ep_bwd`: with an activation, z = x @ w + b is recomputed
+    through the chokepoint and the activation's derivative taken there;
     without one (none, bias, residual: a linear epilogue) there is
     nothing to recompute, and the cotangent goes straight to the two
-    GEMMs, the bias (summed over rows) and the residual."""
+    GEMMs (dx and dw as `needs` asks), the bias (summed over rows) and
+    the residual."""
+    g = g.to(out_dtype or x.dtype)
+    dr = None if r is None else g.sum_to_size(r.shape).to(r.dtype)
+    if activation is not None:
+        z = _ops.matmul(x, w, out_dtype=g.dtype)
+        if b is not None:
+            z = z + b.reshape(-1).to(z.dtype)
+        with torch.enable_grad():
+            z = z.detach().requires_grad_()
+            g, = torch.autograd.grad(_ACTIVATIONS[activation](z), z, g)
+    db = None if b is None else g.sum_to_size(b.shape).to(b.dtype)
+    dx, dw = _matmul_grads(x, w, g, needs)
+    return dx, dw, db, dr
+
+
+class _Dense(torch.autograd.Function):
+    """act(x @ w + b) + r on 2D operands, the epilogue on the kernel's
+    flush; the backward differentiates the unfused composition
+    (`_dense_grads`)."""
 
     @staticmethod
     def forward(ctx, x, w, b, r, activation, out_dtype):
@@ -203,18 +222,8 @@ class _Dense(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w, b, r = ctx.saved_tensors
-        g = g.to(ctx.out_dtype or x.dtype)
-        dr = None if r is None else g.sum_to_size(r.shape).to(r.dtype)
-        if ctx.activation is not None:
-            z = _ops.matmul(x, w, out_dtype=g.dtype)
-            if b is not None:
-                z = z + b.reshape(-1).to(z.dtype)
-            with torch.enable_grad():
-                z = z.detach().requires_grad_()
-                g, = torch.autograd.grad(_ACTIVATIONS[ctx.activation](z), z, g)
-        db = None if b is None else g.sum_to_size(b.shape).to(b.dtype)
-        dx, dw = _matmul_grads(x, w, g, ctx.needs_input_grad[:2])
-        return dx, dw, db, dr, None, None
+        return (*_dense_grads(x, w, b, r, ctx.activation, ctx.out_dtype, g,
+                              ctx.needs_input_grad[:2]), None, None)
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
@@ -230,6 +239,39 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
     return out.reshape(*x.shape[:-1], w.shape[-1])
 
 
+def _dense_q_fwd(x, wq, scale, b, r, activation, out_dtype):
+    return _dense_2d(
+        lambda a, **kw: _ops.matmul_q(a, wq, scale, out_dtype=out_dtype,
+                                      **kw),
+        x, wq.shape[-1], b, r, activation)
+
+
+class _DenseQ(torch.autograd.Function):
+    """act((x @ wq) * scale + b) + r on 2D operands, the int8-weight
+    kernel's forward. The backward, as `_dense_q_bwd`: the dequantized
+    weight w = (wq * scale) in x's dtype, the dense composition's
+    gradients on it (`_dense_grads`: dx, dw, db, dr, every GEMM through
+    the chokepoint), d scale = the sum over K of dw * wq in f32 (the
+    dequantization's chain rule), and none for the int8 wq."""
+
+    @staticmethod
+    def forward(ctx, x, wq, scale, b, r, activation, out_dtype):
+        ctx.save_for_backward(x, wq, scale, b, r)
+        ctx.activation, ctx.out_dtype = activation, out_dtype
+        return _dense_q_fwd(x, wq, scale, b, r, activation, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wq, scale, b, r = ctx.saved_tensors
+        needs = ctx.needs_input_grad
+        w = (wq.float() * scale.reshape(1, -1)).to(x.dtype)
+        dx, dw, db, dr = _dense_grads(x, w, b, r, ctx.activation,
+                                      ctx.out_dtype, g, (needs[0], needs[2]))
+        dscale = None if dw is None else (dw.float() * wq.float()).sum(
+            0, keepdim=True).reshape(scale.shape).to(scale.dtype)
+        return dx, None, dscale, db, dr, None, None
+
+
 def dense_q(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
             b: torch.Tensor | None = None, *, activation: str | None = None,
             residual: torch.Tensor | None = None,
@@ -237,20 +279,14 @@ def dense_q(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
     """y = act((x @ wq) * scale + b) + residual for x: (..., K), wq an
     int8 (K, N) weight and scale its (1, N) per-channel f32 scale
     (`core.precision.quantize_int8`). The kernel streams the int8 weight
-    and dequantizes on its f32 accumulator. Forward only on the card: a
-    call there that autograd would record raises."""
+    and dequantizes on its f32 accumulator. A call that autograd records
+    goes through `_DenseQ`: x, scale, b and residual get gradients, the
+    frozen int8 weight none."""
     _check_activation(activation)
-    if x.device.type == "cuda" and _recorded(x, scale, b, residual):
-        raise NotImplementedError(
-            "dense_q on the card is forward only: its backward (the "
-            "gradients of x, scale, b and residual, as the JAX package's "
-            "_dense_q_vjp) comes with int8 weights beyond the serving "
-            "forward")
-    r = None if residual is None else _fold(residual)
-    out = _dense_2d(
-        lambda a, **kw: _ops.matmul_q(a, wq, scale, out_dtype=out_dtype,
-                                      **kw),
-        _fold(x), wq.shape[-1], b, r, activation)
+    x2, r = _fold(x), None if residual is None else _fold(residual)
+    out = _DenseQ.apply(x2, wq, scale, b, r, activation, out_dtype) \
+        if _recorded(x2, scale, b, r) \
+        else _dense_q_fwd(x2, wq, scale, b, r, activation, out_dtype)
     return out.reshape(*x.shape[:-1], wq.shape[-1])
 
 

@@ -61,6 +61,17 @@ streams to a dense engine's without a draft):
         --workload prefix_heavy --kv-layout paged --draft qwen3-0.6b \
         --spec-k 4 --check-exact
 
+Chaos mode (deterministic fault injection, `serving.faults.FaultInjector`:
+a NaN logits row, a poisoned KV page, kernel faults that are retried and
+then rebuild the captured steps, a slow step, a denied admission); the
+run must survive it, and --check-exact holds every request that
+finished to the fault-free dense engine's stream:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
+        --device cpu --requests 8 --max-slots 2 --kv-layout paged \
+        --page-size 8 --chaos-nan-step 3 --chaos-kernel-steps 1,4 \
+        --chaos-deny-admissions 2 --check-exact
+
 Weights are random, drawn from a torch.Generator seeded with --seed (a
 draft's with --seed + 1).
 """
@@ -75,9 +86,9 @@ import torch
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.core.device import resolve_device
 from repro_torch.models import model as M
-from repro_torch.serving import (TRACES, ServingEngine, make_sampler,
-                                 make_trace, prefix_heavy_trace,
-                                 synthetic_trace)
+from repro_torch.serving import (TRACES, FaultInjector, ServingEngine,
+                                 make_sampler, make_trace,
+                                 prefix_heavy_trace, synthetic_trace)
 from repro_torch.serving.engine import check_modes
 from repro_torch.serving.request import FINISHED, TERMINAL
 
@@ -116,6 +127,24 @@ def build_workload(cfg, args, rng):
                            gen=args.gen, arrival_rate=0.0, **ft)
 
 
+def build_injector(args):
+    """The FaultInjector the --chaos-* flags script, or None when none is
+    set."""
+    steps = lambda s: tuple(int(x) for x in s.split(",")) if s else ()
+    nan_rows = ({int(args.chaos_nan_step): int(args.chaos_nan_slot)}
+                if args.chaos_nan_step >= 0 else {})
+    corrupt = ({int(args.chaos_corrupt_step): int(args.chaos_corrupt_slot)}
+               if args.chaos_corrupt_step >= 0 else {})
+    slow = {s: args.chaos_slow_seconds for s in steps(args.chaos_slow_steps)}
+    kernel = steps(args.chaos_kernel_steps)
+    deny = steps(args.chaos_deny_admissions)
+    if not (nan_rows or corrupt or slow or kernel or deny):
+        return None
+    return FaultInjector(nan_rows=nan_rows, corrupt_pages=corrupt,
+                         kernel_fail_steps=kernel, slow_steps=slow,
+                         deny_admissions=deny)
+
+
 def check_outputs(cfg, engine, requests):
     """Every request ended; a FINISHED one generated its whole quota (or
     stopped at eos); every emitted token is a real vocab id, and the
@@ -132,6 +161,25 @@ def check_outputs(cfg, engine, requests):
                 (req.rid, toks.min(), toks.max(), cfg.vocab)
     assert sum(r.n_generated for r in requests) == engine.tokens_emitted
     assert engine.scheduler.n_active == 0 and engine.scheduler.n_waiting == 0
+
+
+def check_chaos(engine, report, requests):
+    """A chaos run survived: no crashed step, goodput above 0, every
+    request in a terminal state that the report counts, and at least one
+    scripted fault fired (a script that fires nothing tested nothing)."""
+    assert report["crashed_steps"] == 0, report
+    assert report["goodput"] > 0.0, report
+    assert report["useful_tokens"] > 0, report
+    terminal = (report["n_finished"] + report["expired"]
+                + report["cancelled"] + report["quarantined"])
+    assert terminal == len(requests), (terminal, len(requests), report)
+    inj = report["faults_injected"]
+    assert sum(inj.values()) > 0, f"no scripted fault fired: {inj}"
+    print(f"chaos: survived {sum(inj.values())} injected fault(s) "
+          f"({inj}); goodput {report['goodput']:.2f}, "
+          f"quarantined {report['quarantined']}, "
+          f"preempted {report['preempted']}, "
+          f"degraded={report['degraded']} (steps rebuilt)")
 
 
 def main(argv=None):
@@ -196,6 +244,26 @@ def main(argv=None):
     ap.add_argument("--burst-size", type=int, default=1,
                     help="requests an arrival burst (> 1 = bursty "
                          "arrivals at the same long-run rate)")
+    ap.add_argument("--chaos-nan-step", type=int, default=-1,
+                    help="decode step at which one slot's logits row is "
+                         "NaN'd (-1 = off)")
+    ap.add_argument("--chaos-nan-slot", type=int, default=0)
+    ap.add_argument("--chaos-corrupt-step", type=int, default=-1,
+                    help="decode step before which one slot's private KV "
+                         "page (a dense slot's rows) is NaN-poisoned "
+                         "(-1 = off)")
+    ap.add_argument("--chaos-corrupt-slot", type=int, default=0)
+    ap.add_argument("--chaos-kernel-steps", type=str, default="",
+                    help="comma-separated decode steps raising a simulated "
+                         "kernel fault (retry, then a rebuild of the "
+                         "captured steps)")
+    ap.add_argument("--chaos-slow-steps", type=str, default="",
+                    help="comma-separated decode steps slowed by "
+                         "--chaos-slow-seconds (straggler flagging)")
+    ap.add_argument("--chaos-slow-seconds", type=float, default=0.05)
+    ap.add_argument("--chaos-deny-admissions", type=str, default="",
+                    help="comma-separated admission ordinals that see an "
+                         "exhausted KV pool (preemption path; paged mode)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the CUDA kernels) or cpu (their plain "
                          "PyTorch versions)")
@@ -208,6 +276,7 @@ def main(argv=None):
     check_modes(cfg, args.kv_layout, args.quant_kv, "off")
     rng = np.random.default_rng(args.seed)
     work = build_workload(cfg, args, rng)
+    injector = build_injector(args)
     max_slots = args.max_slots or (args.batch if not args.requests else 4)
     max_len = max(len(it.prompt) + it.gen for it in work)
 
@@ -224,7 +293,8 @@ def main(argv=None):
                            device=device, kv_layout=args.kv_layout,
                            quant_kv=args.quant_kv, page_size=args.page_size,
                            kv_pool_pages=args.kv_pool_pages or None,
-                           sampler=sampler, draft=draft, spec_k=args.spec_k)
+                           sampler=sampler, fault_injector=injector,
+                           draft=draft, spec_k=args.spec_k)
     del draft
     if not args.check_exact:
         del params
@@ -252,7 +322,8 @@ def main(argv=None):
           f"expired {report['expired']}, cancelled {report['cancelled']}, "
           f"preempted {report['preempted']}, "
           f"quarantined {report['quarantined']}, "
-          f"deadline-miss rate {report['deadline_miss_rate']:.2f}")
+          f"deadline-miss rate {report['deadline_miss_rate']:.2f}, "
+          f"stragglers {report['straggler_steps']}")
     if "spec_acceptance_rate" in report:
         print(f"speculative: draft={args.draft} k={args.spec_k}, "
               f"{report['spec_rounds']} rounds, acceptance "
@@ -273,11 +344,15 @@ def main(argv=None):
               f"{kv['shared_page_hits']} shared hits, "
               f"{kv['cow_copies']} CoW copies")
     check_outputs(cfg, engine, requests)
+    if injector is not None:
+        check_chaos(engine, report, requests)
 
     if args.check_exact:
-        # the same trace on a dense engine without a draft: the paged,
-        # speculative engine must emit the same greedy streams (a moe
-        # target's requests whose verify rows dropped nothing)
+        # the same trace on a dense engine without a draft or faults: the
+        # paged, speculative or chaos engine must emit the same greedy
+        # streams (a moe target's requests whose verify rows dropped
+        # nothing; under chaos, the requests that finished: a fault ends
+        # its request early on purpose)
         del engine
         ref = ServingEngine(cfg, params, max_slots=max_slots,
                             max_len=max_len, device=device)

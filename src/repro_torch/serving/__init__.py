@@ -1,10 +1,10 @@
-"""Continuous-batching serving (the JAX package's `repro/serving`, less
-its chaos injector and backend degrade).
+"""Continuous-batching serving (the JAX package's `repro/serving`).
 
     engine.py     request lifecycle admit -> prefill -> decode -> evict
                   over a fixed pool of cache slots, with deadlines,
-                  cancel, priority preemption and quarantine, and
-                  speculative decoding
+                  cancel, priority preemption and quarantine, kernel
+                  fault retries and a rebuild of the captured steps,
+                  and speculative decoding
     scheduler.py  slot allocation and FCFS admission over eligible
                   waiters (arrival and preemption backoff), deadline
                   expiry, preemption requeue
@@ -18,10 +18,14 @@ its chaos injector and backend degrade).
     request.py    request lifecycle and per-request stats
     workload.py   synthetic traces by name (mixed, prefix_heavy, bursty,
                   long_context), with deadlines and priorities
+    faults.py     the deterministic chaos injector (NaN rows, page
+                  corruption, kernel faults, slow steps, denied
+                  admissions), scripted by step counts
 """
 
 from repro_torch.serving.engine import (DEFAULT_PAGE_SIZE,
                                         DEFAULT_PREFILL_CHUNK, ServingEngine)
+from repro_torch.serving.faults import FaultInjector, SimulatedKernelFault
 from repro_torch.serving.kv_pool import (AdmitPlan, KVPagePool,
                                          KVPoolExhausted, PageWrite)
 from repro_torch.serving.request import Request, percentile
@@ -35,6 +39,7 @@ from repro_torch.serving.workload import (TRACES, TraceItem, bursty_trace,
 
 __all__ = [
     "AdmitPlan", "DEFAULT_PAGE_SIZE", "DEFAULT_PREFILL_CHUNK",
+    "FaultInjector", "SimulatedKernelFault",
     "KVPagePool", "KVPoolExhausted", "PageWrite",
     "ServingEngine", "SpecDecoder",
     "Request", "percentile",

@@ -119,16 +119,41 @@ encoder key. The cross cache stays enc_ctx long whatever max_len; a page
 pool, int8 pages and speculation (as target or draft) are refused, as
 the JAX engine refuses them.
 
+Faults, as the JAX engine handles them. A decode step that raises
+RuntimeError (a kernel fault, or the chaos injector's
+`SimulatedKernelFault`) is retried, up to `max_step_retries` times; past
+them it counts as a crashed step and re-raises. Once the kernel faults
+reach `kernel_fault_threshold`, the engine rebuilds its captured steps
+on the same kernels (`_rebuild_steps`: the old decode and remainder
+graphs and their pools freed, both captured again, `degraded` set, one
+RuntimeWarning a process), where the JAX engine falls back to plain
+XLA: on the card the plain versions are not a fallback the port takes,
+and no step runs eagerly after a fault. The rebuild happens with slots
+busy: its warm-ups and captures run at every position -1, so no KV row
+is written, and a Mamba state, which a step moves at any position, is
+saved before and copied back after, so the streams go on as if no fault
+had come. On the CPU the rebuild binds the functions again. The chaos
+injector (`serving.faults.FaultInjector`, `fault_injector=`) drives
+these paths at scripted steps: a NaN logits row after the step, a
+private cache page (or a dense slot's rows) poisoned in place before
+it, a fault or a sleep before it, a denied admission (the pool taken as
+exhausted: preempt or defer). A `StragglerDetector` observes every
+decode step and round. Speculative decoding takes no injector, as in
+the JAX engine, and its round is not retried.
+
+`draft_quant="int8"` quantizes the draft's weights once (its KV stays
+dense), the JAX engine's `draft_policy` with quant="int8".
+
 These are the JAX package's `ServingEngine` paths, with the policy
-fields kv_layout / quant_kv / quant as constructor arguments. A kernel
-fault propagates: there is no retry and no degraded backend, and the
-chaos injector is not ported.
+fields kv_layout / quant_kv / quant (and the draft's quant) as
+constructor arguments.
 """
 
 from __future__ import annotations
 
 import math
 import time
+import warnings
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -137,7 +162,9 @@ import torch
 from repro_torch.core import precision
 from repro_torch.core.device import resolve_device
 from repro_torch.core.tree import leaves
+from repro_torch.distributed.fault_tolerance import StragglerDetector
 from repro_torch.models import model as M
+from repro_torch.serving.faults import FaultInjector
 from repro_torch.serving.kv_pool import KVPagePool, KVPoolExhausted
 from repro_torch.serving.request import (ACTIVE, CANCELLED, FINISHED,
                                          QUARANTINED, TERMINAL, WAITING,
@@ -158,6 +185,9 @@ IDLE_SLEEP_S = 1e-3
 DEFAULT_PAGE_SIZE = 16
 KV_LAYOUTS = ("dense", "paged")
 QUANT_MODES = ("off", *precision.QUANT_MODES)
+# Rebuilding the captured steps after repeated kernel faults warns once
+# a process.
+_REBUILD_WARNED = False
 
 
 def check_modes(cfg, kv_layout: str, quant_kv: str, quant: str) -> None:
@@ -203,9 +233,12 @@ class ServingEngine:
                  sampler: Optional[Sampler] = None,
                  prefill_chunk: int = DEFAULT_PREFILL_CHUNK,
                  eos_id: Optional[int] = None,
+                 fault_injector: Optional[FaultInjector] = None,
                  preempt_retry_budget: int = 2,
                  preempt_backoff: float = 0.02,
-                 draft=None, spec_k: int = 4,
+                 kernel_fault_threshold: int = 2,
+                 max_step_retries: int = 2,
+                 draft=None, spec_k: int = 4, draft_quant: str = "off",
                  draft_sampler: Optional[Sampler] = None):
         check_modes(cfg, kv_layout, quant_kv, quant)
         paged = kv_layout == "paged"
@@ -235,8 +268,12 @@ class ServingEngine:
         self.eos_id = eos_id
         self.sampler = sampler or Sampler()
         self.scheduler = SlotScheduler(max_slots)
+        self.injector = fault_injector
         self.preempt_retry_budget = preempt_retry_budget
         self.preempt_backoff = preempt_backoff
+        self.kernel_fault_threshold = kernel_fault_threshold
+        self.max_step_retries = max_step_retries
+        self.straggler = StragglerDetector()
 
         self.page_size = page_size if paged else None
         self.pool: Optional[KVPagePool] = None
@@ -299,6 +336,11 @@ class ServingEngine:
                 raise ValueError(
                     f"speculative decoding needs a verify-capable target "
                     f"{M.KV_FAMILIES}, not {cfg.family!r}")
+            if fault_injector is not None:
+                raise ValueError(
+                    "speculative decoding and the chaos injector are "
+                    "mutually exclusive: the injector's step hooks assume "
+                    "one token per slot per step")
             draft_cfg, draft_params = draft
             if draft_cfg.vocab != cfg.vocab:
                 raise ValueError(
@@ -308,7 +350,8 @@ class ServingEngine:
             self.spec = SpecDecoder(
                 draft_cfg, draft_params, max_slots=max_slots,
                 max_len=self.max_len, spec_k=spec_k, sampler=draft_sampler,
-                prefill_chunk=self.prefill_chunk, device=self.device)
+                prefill_chunk=self.prefill_chunk, device=self.device,
+                quant=draft_quant)
             self._vtokens_h = torch.zeros((max_slots, spec_k + 1),
                                           dtype=torch.int64, pin_memory=pin)
             self._ntok_h = torch.zeros((max_slots,), dtype=torch.int32,
@@ -335,8 +378,13 @@ class ServingEngine:
         self.cancelled = 0
         self.preempted = 0             # preemption events (a request may repeat)
         self.quarantined = 0
+        self.kernel_faults = 0
+        self.crashed_steps = 0         # steps that ran out of retries
+        self.degraded = False          # the steps were rebuilt after faults
+        self._admissions = 0           # admissions so far (the ordinal)
         self.capture_s = 0.0           # every graph's warm-ups and capture
         self.graph_pool_bytes = 0      # the graphs' private memory pools
+        self.rebuild_s = 0.0           # the rebuild's seconds
         self._build_steps()
 
     # -- the steps -----------------------------------------------------
@@ -368,32 +416,85 @@ class ServingEngine:
         self._v_drops.copy_(torch.stack(drops).sum(0, dtype=torch.int32))
         return logits
 
+    def _steps(self):
+        """(attribute, function, what) of every step the engine keeps."""
+        steps = [("_step", self._decode_fn, "the decode step"),
+                 ("_remainder_step", self._remainder_fn,
+                  "the prefill-remainder step")]
+        if self.spec is not None:
+            steps.append(("_verify_step", self._verify_fn, "the verify step"))
+        return steps
+
+    def _capture(self, steps) -> None:
+        """Bind each of `steps`: on the card a CUDA graph of its function,
+        on the CPU the function itself. The graphs' pools count the
+        draft's graphs too."""
+        if self.device.type != "cuda":
+            for name, fn, _ in steps:
+                setattr(self, name, fn)
+            return
+        for name, fn, what in steps:
+            setattr(self, name, CapturedStep(fn, self.device, what))
+        self.graph_pool_bytes = sum(getattr(self, name).pool_bytes
+                                    for name, _, _ in self._steps())
+        if self.spec is not None:
+            self.graph_pool_bytes += self.spec.graph_pool_bytes
+
     def _build_steps(self) -> None:
         """Make `_step`, `_remainder_step` and, with a draft,
         `_verify_step`: on the card, CUDA graphs of `_decode_fn`,
         `_remainder_fn` and `_verify_fn`, captured while every slot is
         idle (pos = -1, so the warm-ups and captures write no KV row; a
         Mamba state steps only idle rows, which admission overwrites); on
-        the CPU, the functions themselves. The capture time and the
-        graphs' pools count the draft's graphs too."""
-        steps = [("_step", self._decode_fn, "the decode step"),
-                 ("_remainder_step", self._remainder_fn,
-                  "the prefill-remainder step")]
-        if self.spec is not None:
-            steps.append(("_verify_step", self._verify_fn, "the verify step"))
-        if self.device.type != "cuda":
-            for name, fn, _ in steps:
-                setattr(self, name, fn)
-            return
+        the CPU, the functions themselves. The capture time counts the
+        draft's graphs too."""
         t0 = time.perf_counter()
-        for name, fn, what in steps:
-            step = CapturedStep(fn, self.device, what)
-            setattr(self, name, step)
-            self.graph_pool_bytes += step.pool_bytes
-        self.capture_s = time.perf_counter() - t0
-        if self.spec is not None:
-            self.capture_s += self.spec.capture_s
-            self.graph_pool_bytes += self.spec.graph_pool_bytes
+        self._capture(self._steps())
+        if self.device.type == "cuda":
+            self.capture_s = time.perf_counter() - t0
+            if self.spec is not None:
+                self.capture_s += self.spec.capture_s
+
+    def _recurrent_leaves(self):
+        """The cache leaves a step writes at any position, an idle slot's
+        too: the Mamba state (all of an ssm cache, a hybrid's "mamba")."""
+        if self.cfg.family == "ssm":
+            return leaves(self.cache)
+        if self.cfg.family == "hybrid":
+            return leaves(self.cache["mamba"])
+        return []
+
+    def _rebuild_steps(self, err: BaseException) -> None:
+        """The port's degrade: capture the decode and remainder steps
+        again on the same kernels, the old graphs and their pools freed
+        first. Slots may be busy. The warm-ups and captures run at every
+        position -1 (the next attempt copies the host positions in
+        again), so no KV row is written; the Mamba state, which they step
+        at any position, is copied out before and back in after (on the
+        CPU, where the functions are only bound again, too). Sets
+        `degraded`; warns once a process."""
+        global _REBUILD_WARNED
+        t0 = time.perf_counter()
+        steps = self._steps()[:2]
+        saved = [(leaf, leaf.clone()) for leaf in self._recurrent_leaves()]
+        for name, _, _ in steps:
+            step = getattr(self, name)
+            if isinstance(step, CapturedStep):
+                step.release()
+        self._step_pos.fill_(-1)
+        self._rem_pos.fill_(-1)
+        self._capture(steps)
+        for leaf, old in saved:
+            leaf.copy_(old)
+        self.rebuild_s = time.perf_counter() - t0
+        self.degraded = True
+        if not _REBUILD_WARNED:
+            _REBUILD_WARNED = True
+            warnings.warn(
+                f"serving engine rebuilt its captured steps on the same "
+                f"kernels after {self.kernel_faults} kernel fault(s) (last: "
+                f"{err!r}); the trace continues", RuntimeWarning,
+                stacklevel=2)
 
     # -- submission ----------------------------------------------------
     def submit(self, prompt, max_new_tokens: int, *,
@@ -503,6 +604,7 @@ class ServingEngine:
             plan = self.pool.admit_slot(slot, ctx, req.remaining_tokens)
         if req.t_admitted is None:
             req.t_admitted = self._now()
+        self._admissions += 1
         t0 = time.perf_counter()
 
         L = req.prompt_len
@@ -617,6 +719,51 @@ class ServingEngine:
         self._preempt_slot(cands[0][2])
         return True
 
+    # -- kernel faults and the chaos hooks ------------------------------
+    def _run_step(self, step_idx: int) -> torch.Tensor:
+        """The decode step over the host tokens and positions, guarded: a
+        RuntimeError (a kernel fault, or the injector's) is retried; once
+        the faults reach `kernel_fault_threshold` the steps are rebuilt
+        first (`_rebuild_steps`). A step that runs out of retries counts
+        as crashed and re-raises."""
+        attempts = 0
+        while True:
+            try:
+                if self.injector is not None:
+                    self.injector.before_kernel(step_idx)
+                self._step_tokens.copy_(self._tokens_h, non_blocking=True)
+                self._step_pos.copy_(self._pos_h, non_blocking=True)
+                return self._step()
+            except RuntimeError as e:
+                attempts += 1
+                self.kernel_faults += 1
+                if attempts > self.max_step_retries:
+                    self.crashed_steps += 1
+                    raise
+                if (self.kernel_faults >= self.kernel_fault_threshold
+                        and not self.degraded):
+                    self._rebuild_steps(e)
+
+    def _poison_slot_cache(self, slot: int) -> None:
+        """The chaos hook: NaN a cache region private to `slot`, in place
+        in the tensors the captured steps read, so the fault surfaces
+        through the attention math. Paged: the slot's current write page
+        (made private by `_prepare_pages` just before; a shared page is
+        never touched), its K and V, or their scales on an int8 pool.
+        Dense: the slot's rows of every float cache leaf."""
+        if self.pool is not None:
+            phys = int(self.pool.table[slot, int(self._pos[slot])
+                                       // self.page_size])
+            pages = self.cache["pages"]
+            for name in ("k", "v"):
+                # int8 pages cannot hold a NaN: poison the scales
+                target = name + "s" if name + "s" in pages else name
+                pages[target][:, phys].fill_(float("nan"))
+            return
+        for leaf, ax in zip(leaves(self.cache), self._slot_axes):
+            if ax is not None and leaf.is_floating_point():
+                leaf.select(ax, slot).fill_(float("nan"))
+
     # -- decode --------------------------------------------------------
     def _prepare_pages(self, active, n_tok=None) -> None:
         """Make every page an active slot's step writes private before the
@@ -642,17 +789,21 @@ class ServingEngine:
         step_idx = self.decode_steps
         if self.pool is not None:
             self._prepare_pages(active)
+        if self.injector is not None:
+            for slot in self.injector.corrupt_slots(step_idx, tuple(active)):
+                self._poison_slot_cache(slot)
         t0 = time.perf_counter()
-        self._step_tokens.copy_(self._tokens_h, non_blocking=True)
-        self._step_pos.copy_(self._pos_h, non_blocking=True)
-        logits = self._step()
+        logits = self._run_step(step_idx)
         rows = logits[:, -1, :self.cfg.vocab].cpu().numpy()  # sync point
         dt = time.perf_counter() - t0
         self.decode_time += dt
         self._step_times.append(dt)
+        self.straggler.observe(step_idx, dt)
         self.decode_steps += 1
         self.decode_slot_steps += len(active)
         self.peak_occupancy = max(self.peak_occupancy, len(active))
+        if self.injector is not None:
+            rows = self.injector.poison_rows(step_idx, rows, tuple(active))
         now = self._now()
         for slot in sorted(active):
             req = active[slot]
@@ -706,6 +857,7 @@ class ServingEngine:
         dt = time.perf_counter() - t0
         self.decode_time += dt
         self._step_times.append(dt)
+        self.straggler.observe(step_idx, dt)
         self.decode_steps += 1
         self.spec_rounds += 1
         self.decode_slot_steps += len(active)
@@ -761,8 +913,11 @@ class ServingEngine:
             if req is None:
                 break
             if self.pool is not None:
-                ok = self.pool.can_admit(req.context_tokens(),
-                                         req.remaining_tokens)
+                # a denied admission takes the pool as exhausted
+                denied = (self.injector is not None and
+                          self.injector.deny_admission(self._admissions))
+                ok = not denied and self.pool.can_admit(
+                    req.context_tokens(), req.remaining_tokens)
                 while not ok and self._preempt_for(req):
                     ok = self.pool.can_admit(req.context_tokens(),
                                              req.remaining_tokens)
@@ -831,6 +986,10 @@ class ServingEngine:
             "cancelled": self.cancelled,
             "preempted": self.preempted,
             "quarantined": self.quarantined,
+            "kernel_faults": self.kernel_faults,
+            "crashed_steps": self.crashed_steps,
+            "degraded": self.degraded,
+            "straggler_steps": len(self.straggler.flagged),
             "useful_tokens": useful,
             "goodput": useful / max(self.tokens_emitted, 1),
             "deadline_miss_rate": (len(missed) / len(deadlined)
@@ -853,6 +1012,8 @@ class ServingEngine:
                     self.verify_rows * self.cfg.moe.top_k * self.cfg.n_layers,
                     1)
                 out["verify_rounds_dropping"] = self.verify_rounds_dropping
+        if self.injector is not None:
+            out["faults_injected"] = self.injector.report()
         if self.pool is not None:
             out["kv_pool"] = self.pool.report()
         return out

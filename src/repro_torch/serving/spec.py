@@ -32,7 +32,10 @@ target cache rests on the same rule after a rejection.
 
 On the card the draft's decode step and its remainder step are CUDA
 graphs (`steps.CapturedStep`) captured at construction, as the engine's
-are; on the CPU they are the plain functions.
+are; on the CPU they are the plain functions. `quant="int8"` quantizes
+the draft's weights once, at construction (`models.model.
+quantize_params`), so its steps and its prefill run the int8-weight GEMM;
+its KV cache stays dense, as the JAX package's draft policy requires.
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ import torch
 from repro_torch.core.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.serving.sampler import Sampler
-from repro_torch.serving.steps import CapturedStep, place_params
+from repro_torch.serving.steps import CapturedStep, on_device, place_params
 
 __all__ = ["SpecDecoder"]
 
@@ -64,18 +67,26 @@ class SpecDecoder:
     sampler:      the draft's proposal sampler (default greedy: a greedy
                   draft is a valid q under any target sampler, the delta
                   at its argmax).
+    quant:        "off", or "int8": the draft's weights quantized once
+                  (the embedding stays in the compute dtype).
     """
 
     def __init__(self, cfg, params, *, max_slots: int, max_len: int,
                  spec_k: int = 4, sampler: Optional[Sampler] = None,
-                 prefill_chunk: int = 8, device=None):
+                 prefill_chunk: int = 8, device=None, quant: str = "off"):
         if cfg.family not in M.KV_FAMILIES:
             raise ValueError(f"draft model must be an attention-cache "
                              f"family {M.KV_FAMILIES}, not {cfg.family!r}")
         if spec_k < 1:
             raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+        if quant not in ("off", "int8"):
+            raise ValueError(f"unknown draft quant {quant!r} (the engine's "
+                             f"draft_quant); expected 'off' or 'int8'")
         self.cfg = cfg
         self.device = resolve_device(device)
+        if quant == "int8":
+            # quantize the f32 weights once, before any cast, on the card
+            params = M.quantize_params(on_device(params, self.device))
         self.params = place_params(params, self.device,
                                    getattr(torch, cfg.dtype))
         self.spec_k = spec_k

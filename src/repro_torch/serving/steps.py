@@ -59,7 +59,8 @@ class CapturedStep:
     that the capture counted to `ops.launch_counts()`; the counts of the
     warm-up runs and of the capture itself are taken out. Raises
     RuntimeError when `fn` cannot be captured: nothing falls back to
-    running it eagerly."""
+    running it eagerly. `release()` frees the graph and its pool, so a
+    step can be captured again without keeping the old one."""
 
     def __init__(self, fn, device, what: str):
         start = kops.launch_counts()
@@ -101,6 +102,14 @@ class CapturedStep:
         self.graph.replay()
         kops.add_launch_counts(self.launches)
         return self.out
+
+    def release(self) -> None:
+        """Free the graph and the memory of its private pool (the output
+        tensor lives there); the step cannot be called after."""
+        self.out = None
+        self.graph.reset()
+        self.graph = None
+        self.pool_bytes = 0
 
 
 def _end_broken_capture(graph) -> None:

@@ -1391,20 +1391,41 @@ def test_gemm_routes_complex_and_float64(dev):
     torch.testing.assert_close(br.grad, bw.grad, atol=1e-4, rtol=1e-4)
 
 
-def test_dense_q_on_card_refuses_a_gradient(dev):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("activation", [None, "silu", "gelu"])
+def test_dense_q_gradient_on_card_matches_plain(dev, dtype, activation):
+    """The gradients of x, scale, b and residual of dense_q on the card
+    (`_DenseQ`: the int8-weight kernel forward, the backward's GEMMs on
+    the tiled kernel) against autograd of the plain dequantized
+    composition on the card, within 1e-4 (f32) or 2^-7 (bf16) x the
+    largest |gradient|; the int8 weight takes none."""
     from repro_torch.core import gemm
-    x = torch.ones(2, 8, device=dev)
-    wq, scale = precision.quantize_int8(torch.ones(8, 4, device=dev))
-    assert gemm.dense_q(x, wq, scale).shape == (2, 4)
-    with torch.no_grad():
-        gemm.dense_q(x.clone().requires_grad_(), wq, scale)
-    for kw in ({"x": x.clone().requires_grad_()},
-               {"scale": scale.clone().requires_grad_()},
-               {"b": torch.zeros(4, device=dev, requires_grad=True)},
-               {"residual": torch.zeros(2, 4, device=dev, requires_grad=True)}):
-        args = {"x": x, "scale": scale, **kw}
-        with pytest.raises(NotImplementedError, match="forward only"):
-            gemm.dense_q(args.pop("x"), wq, args.pop("scale"), **args)
+    m, k, n = 70, 96, 130
+    ops_ = [_randn(m, k, dtype=dtype, dev=dev, seed=0),
+            None, _randn(n, dtype=dtype, dev=dev, seed=2),
+            _randn(m, n, dtype=dtype, dev=dev, seed=3)]
+    wq, ops_[1] = precision.quantize_int8(
+        _randn(k, n, dtype=torch.float32, dev=dev, seed=1, scale=0.1))
+    g = _randn(m, n, dtype=dtype, dev=dev, seed=4)
+    got = [t.clone().requires_grad_() for t in ops_]
+    ops.reset_launch_counts()
+    gemm.dense_q(got[0], wq, got[1], got[2], activation=activation,
+                 residual=got[3]).backward(g)
+    torch.cuda.synchronize()
+    # the forward, dx and dw (and the recompute under an activation)
+    assert ops.launch_counts() == _no_launches(
+        matmul_q=1, matmul=2 + (activation is not None))
+    want = [t.clone().requires_grad_() for t in ops_]
+    z = want[0] @ (wq.float() * want[1]).to(dtype) + want[2]
+    if activation is not None:
+        z = gemm._ACTIVATIONS[activation](z)
+    (z + want[3]).backward(g)
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -7
+    for name, a, b in zip(("x", "scale", "b", "residual"), got, want):
+        assert a.grad.dtype == b.grad.dtype, name
+        scale = max(b.grad.abs().max().item(), 1.0)
+        assert (a.grad - b.grad).abs().max().item() <= tol * scale, name
+    assert wq.grad is None
 
 
 # ----------------------------------------------------------------------
@@ -1610,10 +1631,61 @@ def test_a_host_sync_in_the_step_makes_the_constructor_raise(dev,
     assert len(req.generated) == 3
 
 
+@pytest.mark.parametrize("path", ["hybrid", "paged-int8"])
+def test_a_rebuild_mid_trace_keeps_the_fault_free_streams(dev, path,
+                                                          monkeypatch):
+    """Kernel faults at decode steps 1 and 4 with both slots busy: the
+    second rebuilds the captured steps (the old graphs freed, the new
+    ones captured at position -1, a Mamba state put back), and every
+    stream is the fault-free run's. The new graphs launch what the old
+    ones did, in as much pool memory, and memory_allocated does not
+    grow by more than a graph pool."""
+    from repro_torch.serving import FaultInjector
+    from repro_torch.serving import engine as E
+    eng, prompts = _serving(dev, path)
+    reqs = [eng.submit(p, 6) for p in prompts]
+    eng.run()
+    want = [r.generated for r in reqs]
+    kw = SERVE_PATHS[path][1]
+    eng = ServingEngine(eng.cfg, eng.params, max_slots=2, max_len=48,
+                        device=dev, **kw, fault_injector=FaultInjector(
+                            kernel_fail_steps=(1, 4)))
+    launches, pools = eng._step.launches, eng.graph_pool_bytes
+    seen = {}
+    rebuild = eng._rebuild_steps
+
+    def measured(err):
+        torch.cuda.synchronize()
+        seen["active"] = eng.scheduler.n_active
+        seen["before"] = torch.cuda.memory_allocated(dev)
+        rebuild(err)
+        torch.cuda.synchronize()
+        seen["after"] = torch.cuda.memory_allocated(dev)
+    # an instance attribute, taken out at teardown: the closure would
+    # keep the engine alive in a reference cycle
+    monkeypatch.setattr(eng, "_rebuild_steps", measured)
+    monkeypatch.setattr(E, "_REBUILD_WARNED", True)
+    reqs = [eng.submit(p, 6) for p in prompts]
+    rep = eng.run()
+    assert rep["degraded"] and rep["kernel_faults"] == 2, rep
+    assert rep["crashed_steps"] == 0 and seen["active"] == 2, (rep, seen)
+    assert [r.generated for r in reqs] == want
+    assert eng._step.launches == launches
+    biggest = max(eng._step.pool_bytes, eng._remainder_step.pool_bytes)
+    assert eng.graph_pool_bytes <= pools + biggest, (eng.graph_pool_bytes,
+                                                     pools)
+    assert seen["after"] - seen["before"] <= biggest, seen
+
+
 def test_an_engine_frees_its_graphs(dev):
-    """Deleting an engine frees its graphs' memory with its caches."""
+    """Deleting an engine frees its graphs' memory with its caches. An
+    earlier test's garbage (an engine in a reference cycle, say) is
+    collected first, so that no collection during the test moves the
+    count."""
+    import gc
     cfg = get_config("qwen3-0.6b", reduced=True)
     params = M.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    gc.collect()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated(dev)
     eng = ServingEngine(cfg, params, max_slots=2, max_len=32, device=dev)

@@ -276,9 +276,9 @@ def test_gemm_matmul_complex_matches_jax_and_differentiates():
 
 
 def test_dense_q_differentiates_on_cpu_as_jax_does():
-    """The CPU path of `dense_q` is plain PyTorch: autograd gives the
-    gradients of x, scale, b and residual that the JAX package's
-    `_dense_q_vjp` gives."""
+    """On the CPU `dense_q` goes through its autograd Function (`_DenseQ`)
+    as on the card: it gives the gradients of x, scale, b and residual
+    that the JAX package's `_dense_q_vjp` gives."""
     rng = np.random.default_rng(6)
     x = rng.normal(size=(2, 5, 32)).astype(np.float32)
     wq = rng.integers(-127, 128, size=(32, 24)).astype(np.int8)
