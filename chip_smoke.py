@@ -184,8 +184,8 @@ Phases, in order; any failure propagates and the exit code is not 0:
      batch 1, a replay against the eager step, a trace, decode p50 and
      p99, time to first token, peak memory and capture time;
   12. the moe family at full width, random weights drawn on the card in
-     bf16 (the router f32): mixtral-8x22b at 8 of its 56 layers (41 GB)
-     serving phase 4's trace on the dense cache and a bf16 page pool (the
+     bf16 (the router f32): mixtral-8x22b at 4 of its 56 layers (20 GB,
+     cut for the run's time) serving phase 4's trace on the dense cache and a bf16 page pool (the
      same streams), greedy speculative decoding with mixtral as its own
      draft (k = 4, 4 slots, the dense cache: the verify graph's launches,
      every round's emitted tokens the greedy rule's on its verify logits,
@@ -241,7 +241,23 @@ Phases, in order; any failure propagates and the exit code is not 0:
      paper's seconds; the naive/tiled ratio beside the paper's 3.0x), Fig 9 through `benchmarks.bench_add`'s
      (add, sub and axpy in GB/s beside 3.35 TB/s), with exact launch
      counts; then the roofline model of the paper's cards and the H100;
-  16. a JSON line of the kernels (each with its launches on every main
+  16. tuned tiles at full width (`repro_torch.tuning`): qwen3-0.6b's
+     decode (4 slots), prefill (batch 1 over the prompts' buckets) and
+     training (4 x 512, the backward's GEMMs) shapes swept into a
+     temporary cache by `warm_start(autotune=True)` on the clock phase
+     3's tables read (`tuning.timing`), each shape in the layouts the
+     step runs it in, its static instance and winner timed in the same
+     turns, the sweep's seconds, a second warm_start that hits every
+     shape; every candidate of every tuned GEMM shape the static plan's
+     output bit for bit in each layout; a second cache whose winners are
+     forced off the static plans; a serve (4 slots, 4 requests, 16
+     tokens) under the static plans, the sweep's winners and the forced
+     ones with the same streams and exact launch counts, the decode
+     p50s and the GEMM shapes each served off its static plan (the
+     forced run's prefill and decode shapes among them); a train step
+     under each cache with phase 7's step 0 loss and grad norm bit for
+     bit;
+  17. a JSON line of the kernels (each with its launches on every main
      path, and the batched GEMM's transposed layouts and the non-causal
      backward as `forms`), the card line, and the result line.
 """
@@ -256,8 +272,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-FLUSH_BYTES = 64 << 20                                  # > the 50 MB L2
-SLEEP_HZ = 2.0e9              # torch.cuda._sleep cycles a second, at least
 TF32_PEAK = 495e12            # H100 SXM, dense TF32 tensor cores (data sheet)
 
 
@@ -289,12 +303,12 @@ def main() -> int:
                   smoke.phase_hybrid, smoke.phase_hybrid_vs_cpu,
                   smoke.phase_dense_configs, smoke.phase_moe,
                   smoke.phase_encdec, smoke.phase_train_families,
-                  smoke.phase_paper):
+                  smoke.phase_paper, smoke.phase_tuning):
         t = time.perf_counter()
         phase()
         print(f"      ({phase.__name__}: {time.perf_counter() - t:.1f} s; "
               f"{time.perf_counter() - t0:.0f} s since the start)")
-    print(f"[16/16] result ({time.perf_counter() - t0:.0f} s since the "
+    print(f"[17/17] result ({time.perf_counter() - t0:.0f} s since the "
           f"start)")
     print(json.dumps({"kernels": smoke.kernel_rows()}))
     print(f"card: {card_line()}")
@@ -317,7 +331,7 @@ class Smoke:
     # -- 1. card ------------------------------------------------------
     def phase_card(self):
         torch = self.torch
-        print(f"[1/16] card: {card_line()}")
+        print(f"[1/17] card: {card_line()}")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         print(f"      torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -329,7 +343,7 @@ class Smoke:
         from repro_torch.kernels import _build
         t0 = time.perf_counter()
         libs = _build.build_all()
-        print(f"[2/16] build: {sorted(libs)} from "
+        print(f"[2/17] build: {sorted(libs)} from "
               f"{_build.CSRC.relative_to(ROOT)} in "
               f"{time.perf_counter() - t0:.1f} s (nvcc "
               f"{' '.join(_build.NVCC_FLAGS)})")
@@ -340,42 +354,12 @@ class Smoke:
 
     # -- 3. kernels against their plain versions ------------------------
     def _time_turns(self, fns, n=50, warmup=3, chunk=5):
-        """Median ms of each callable in `fns` over n rounds run in turns
-        (fns[0], fns[1], ... in each round), by CUDA events, L2 flushed
-        before each (decode reads each weight once a step: the caller
-        finds it cold). Only the card's time falls inside an event pair:
-        before each chunk of rounds the card sleeps (`torch.cuda._sleep`)
-        for twice the host's measured time to enqueue them, so the whole
-        chunk waits in the queue when the card wakes, and no wrapper's
-        ctypes call or library's Python dispatch is timed."""
-        torch = self.torch
-        flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=self.dev)
-        for fn in fns:
-            for _ in range(warmup):
-                fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for fn in fns:                   # one round, to size the sleep
-            flush.zero_()
-            fn()
-        enqueue_s = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        events = [[] for _ in fns]
-        for r0 in range(0, n, chunk):
-            rounds = min(chunk, n - r0)
-            torch.cuda._sleep(int(SLEEP_HZ * (2 * enqueue_s * rounds + 1e-4)))
-            for _ in range(rounds):
-                for fn, ev in zip(fns, events):
-                    start = torch.cuda.Event(enable_timing=True)
-                    end = torch.cuda.Event(enable_timing=True)
-                    flush.zero_()
-                    start.record()
-                    fn()
-                    end.record()
-                    ev.append((start, end))
-            torch.cuda.synchronize()
-        return [statistics.median(s.elapsed_time(e) for s, e in ev)
-                for ev in events]
+        """Median ms of each callable in `fns` over n rounds run in turns,
+        by the clock the autotuner reads (`tuning.timing.time_turns`:
+        CUDA events, L2 flushed before each call, card time only)."""
+        from repro_torch.tuning import timing
+        return timing.time_turns(fns, device=self.dev, n=n, warmup=warmup,
+                                 chunk=chunk)
 
     def _case(self, kernel, label, run_kernel, run_plain, run_library,
               nbytes, flops, dtype, tol, reference=None, n_time=30,
@@ -444,7 +428,7 @@ class Smoke:
         torch = self.torch
         from repro_torch.kernels import ops, ref
         F = torch.nn.functional
-        print("[3/16] kernels against their plain versions (median of 30, "
+        print("[3/17] kernels against their plain versions (median of 30, "
               "L2 flushed, in turns, card time only)")
         gen = torch.Generator(device=self.dev).manual_seed(0)
 
@@ -1792,7 +1776,7 @@ class Smoke:
                                device=self.dev)
         del params                      # the engine keeps its bf16 copy
         torch.cuda.synchronize()
-        print(f"[4/16] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
+        print(f"[4/17] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
               f"heads {cfg.n_heads}/{cfg.n_kv_heads}x{cfg.resolved_head_dim} "
               f"d_ff {cfg.d_ff} vocab {cfg.vocab}->{cfg.padded_vocab}; "
               f"weights ready in {time.perf_counter() - t0:.1f} s; "
@@ -2000,7 +1984,7 @@ class Smoke:
         assert launches == want, (launches, want)
         got = [r.generated for r in reqs]
         assert got == self.dense_streams, "paged bf16 streams != dense streams"
-        print(f"[5/16] paged bf16 KV (page 16, {rep['kv_pool']['n_pages']} "
+        print(f"[5/17] paged bf16 KV (page 16, {rep['kv_pool']['n_pages']} "
               f"pages): phase 4's {len(reqs)} streams, token for token; "
               f"launches {launches} ({eng.decode_steps} decode steps at "
               f"141/28/28 each); prefill {rep['prefill_tok_s']:.1f} tok/s, "
@@ -2124,7 +2108,7 @@ class Smoke:
         params = self._serve_params(cfg)
         other = M.init_params(
             cfg, torch.Generator(device=self.dev).manual_seed(1), self.dev)
-        print(f"[6/16] the request surface at full width ({cfg.name}, "
+        print(f"[6/17] the request surface at full width ({cfg.name}, "
               f"{L} layers, bf16, random weights)")
         want = {}
         eng = ServingEngine(cfg, params, max_slots=4, max_len=self.max_len,
@@ -2541,7 +2525,7 @@ class Smoke:
         opt = AdamW(lr=cosine_schedule(1e-3, 2, steps), clip_norm=1.0)
 
         # drawn once on the host's generator (TL.init_state's params), a
-        # copy a state
+        # copy a state (phase 16's tuned step takes one too)
         host = tree_map(lambda t: t.to("cpu", copy=True), M.init_params(
             cfg, torch.Generator().manual_seed(0), self.dev))
 
@@ -2549,7 +2533,7 @@ class Smoke:
             params = tree_map(lambda t: t.to(self.dev, copy=True), host)
             return TL.TrainState(params, opt.init(params))
         batches = self._train_batches(cfg, steps + 1, batch, seq)
-        print(f"[7/16] training {cfg.name} at full width ({L} layers, bf16 "
+        print(f"[7/17] training {cfg.name} at full width ({L} layers, bf16 "
               f"activations, remat {cfg.remat}): {steps} AdamW steps at batch "
               f"{batch} x {seq}")
         # a step: the forward's 141 GEMMs, 28 dual GEMMs and 28 attentions;
@@ -2565,6 +2549,9 @@ class Smoke:
                               make_state, batches[:steps], want,
                               supervise=dict(every=4, fail_at=(6,)))
         self.train_launches = run["launches"]
+        self.train_step0 = dict(host=host, opt=opt, batch=batches[0],
+                                want=want, loss=run["losses"][0],
+                                norm=run["norms"][0])
         self._trace_train_step(run["step_fn"], run.pop("state"),
                                batches[steps])
         self._remat_none(cfg, opt, make_state, batches[:4], run,
@@ -2989,7 +2976,7 @@ class Smoke:
         `test_recurrent_train_step_on_card_matches_cpu` (cut here for
         time)."""
         from repro_torch.configs import get_config
-        print("[8/16] training the Mamba-2 families at full width")
+        print("[8/17] training the Mamba-2 families at full width")
         self.zamba_train_launches = self._train_recurrent(
             get_config("zamba2-1.2b"), steps, batch, seq, plain_steps=1)
         self.mamba_train_launches = self._train_recurrent(
@@ -3094,7 +3081,7 @@ class Smoke:
         torch.cuda.empty_cache()
         weights = torch.cuda.memory_allocated()
         sc = cfg.ssm
-        print(f"[9/16] {cfg.name}: {L} layers d_model {cfg.d_model} d_inner "
+        print(f"[9/17] {cfg.name}: {L} layers d_model {cfg.d_model} d_inner "
               f"{sc.expand * cfg.d_model} ({sc.expand * cfg.d_model // sc.head_dim}"
               f" SSD heads of {sc.head_dim}) d_state {sc.d_state} groups "
               f"{sc.n_groups} conv {sc.conv_width} chunk {sc.chunk} vocab "
@@ -3366,7 +3353,7 @@ class Smoke:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         engine_bytes = torch.cuda.memory_allocated() - base
-        print(f"[10/16] {cfg.name}: {cfg.n_layers} Mamba-2 layers in {seg} "
+        print(f"[10/17] {cfg.name}: {cfg.n_layers} Mamba-2 layers in {seg} "
               f"segments of {cfg.attn_every}, d_model {cfg.d_model} d_inner "
               f"{sc.expand * cfg.d_model} ({sc.expand * cfg.d_model // sc.head_dim}"
               f" SSD heads of {sc.head_dim}) d_state {sc.d_state} conv "
@@ -3665,7 +3652,7 @@ class Smoke:
         # -- qwen2-vl-2b: dense, paged bf16, speculative; multimodal
         cfg = get_config("qwen2-vl-2b")
         L = cfg.n_layers
-        print(f"[11/16] the dense configs and vlm at full width (random "
+        print(f"[11/17] the dense configs and vlm at full width (random "
               f"weights, bf16, 4 slots, 32 tokens a request)")
         t0 = time.perf_counter()
         params = self._config_params(cfg)
@@ -3871,7 +3858,7 @@ class Smoke:
                     expect=expect)
         return eng, launches, report, streams
 
-    def phase_moe(self, mixtral_layers=8, arctic_layers=2):
+    def phase_moe(self, mixtral_layers=4, arctic_layers=2):
         """The moe family at full width, random weights drawn on the card
         (a CUDA generator of seed 0) in bf16 but the f32 router, 4 slots,
         32 tokens a request. mixtral-8x22b at `mixtral_layers` of its 56
@@ -3900,7 +3887,7 @@ class Smoke:
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
         self.moe_launches = {}
-        print(f"[12/16] the moe family at full width (random weights drawn "
+        print(f"[12/17] the moe family at full width (random weights drawn "
               f"on the card, bf16 but the f32 router, 4 slots, 32 tokens a "
               f"request)")
 
@@ -4456,7 +4443,7 @@ class Smoke:
         max_len = -(-longest // 16) * 16
         torch.cuda.synchronize()
         with_params = torch.cuda.memory_allocated()
-        print(f"[13/16] {cfg.name}: {cfg.n_enc_layers} encoder and "
+        print(f"[13/17] {cfg.name}: {cfg.n_enc_layers} encoder and "
               f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, heads "
               f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.resolved_head_dim}, d_ff "
               f"{cfg.d_ff} (gelu), layernorm, sinusoid positions, "
@@ -4568,7 +4555,7 @@ class Smoke:
         0)."""
         import dataclasses
         from repro_torch.configs import get_config
-        print(f"[14/16] training the encdec, vlm and moe families at full "
+        print(f"[14/17] training the encdec, vlm and moe families at full "
               f"width: {steps} donated AdamW steps each at batch {batch}")
         self.family_train_launches = {}
         wh = get_config("whisper-tiny")
@@ -4665,7 +4652,7 @@ class Smoke:
         from repro_torch.benchmarks import bench_add, common
         from repro_torch.kernels import ops
         from repro_torch.launch import paper
-        print(f"[15/16] the paper's experiment at n={n} (Table 2, Figs 8-9)")
+        print(f"[15/17] the paper's experiment at n={n} (Table 2, Figs 8-9)")
         ops.reset_launch_counts()
         gemm_rows = common.measure(n, self.dev, iters=iters)
         add_rows = bench_add.measure(n, self.dev)
@@ -4691,7 +4678,215 @@ class Smoke:
         assert self.paper_launches == want, (self.paper_launches, want)
         paper.print_model()
 
-    # -- 16. the kernels line --------------------------------------------
+    # -- 16. tuned tiles at full width -------------------------------------
+    def phase_tuning(self, gen=16):
+        """The autotuner at qwen3-0.6b's full width: `warm_start(...,
+        autotune=True)` into a temporary cache for the decode step's
+        GEMM shapes (4 slots), the admission prefill's (batch 1 over the 4
+        prompts' buckets and the one-token remainder steps) and
+        training's (phase 7's 4 x 512 with its backward), each shape in
+        the layouts the step runs it in, a line a shape (the static
+        instance and the winner, timed in the same turns); the sweep's
+        seconds, a second warm_start that hits every shape; every
+        candidate of every tuned shape against the static plan's output,
+        bit for bit, in each of its layouts. Then a second cache whose
+        winners are forced off the static plans (a timer that favours
+        each space's last instance). Served under the static plans, the
+        sweep's winners (what `--backend tuned` sets) and the forced ones
+        (4 slots, 4 of phase 4's prompts, 16 tokens each): the same
+        streams token for token, exact launch counts, the decode p50s,
+        and the count of distinct GEMM shapes each run served off its
+        static plan (the forced run must move prefill and decode shapes
+        both). One train step from phase 7's state and first batch under
+        each cache: phase 7's step 0 loss and grad norm bit for bit, its
+        launches, the shapes served off the static plan (the forced step
+        must move some)."""
+        torch = self.torch
+        import os
+        import tempfile
+        from repro_torch import tuning
+        from repro_torch.configs import get_config
+        from repro_torch.core.tree import tree_map
+        from repro_torch.kernels import ops
+        from repro_torch.serving import ServingEngine
+        from repro_torch.training import train_loop as TL
+        cfg = get_config("qwen3-0.6b")
+        work = [it._replace(gen=gen) for it in self.work[:4]]
+        prompts = [it.prompt for it in work]
+        max_len = max(len(p) for p in prompts) + gen
+        buckets = sorted({len(p) - len(p) % 8 or len(p) for p in prompts}
+                         | {1})
+        train = self.train_step0
+        batch, seq = train["batch"]["tokens"].shape
+        print(f"[16/17] tuned tiles at full width ({cfg.name}): decode at 4 "
+              f"slots, prefill buckets {buckets}, training {batch} x {seq} "
+              f"with its backward; each shape in its layouts")
+        (ROOT / "build").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            cache = tuning.TuningCache(os.path.join(tmp, "tuning.json"))
+            shapes = (dict(batch=4, seq=1, decode_len=max_len),
+                      dict(batch=1, seq=buckets),
+                      dict(batch=batch, seq=seq, backward=True))
+            t0 = time.perf_counter()
+            reps = [tuning.warm_start(cfg, autotune=True, cache=cache,
+                                      device=self.dev, **kw)
+                    for kw in shapes]
+            sweep_s = time.perf_counter() - t0
+            results = [r for rep in reps for r in rep["results"]]
+            for r in results:
+                rest = ", ".join(f"{c.name} {t * 1e3:.4f}"
+                                 for c, t in r.trials[1:])
+                print(f"      {r.key:44s} {_layout_names(r.layouts):24s} "
+                      f"static {r.baseline.name:10s} "
+                      f"{r.baseline_s * 1e3:8.4f} ms  winner "
+                      f"{r.best.name:10s} {r.best_s * 1e3:8.4f} ms  "
+                      f"{r.speedup:.3f}x" + (f" (the others: {rest})"
+                                             if rest else ""))
+            saved = sum(r.baseline_s - r.best_s for r in results)
+            print(f"      the sweep: {len(results)} shapes tuned in "
+                  f"{sweep_s:.1f} s; "
+                  f"{sum(r.best is not r.baseline for r in results)} "
+                  f"winners are not the static plan; {saved * 1e3:.4f} ms "
+                  f"saved over one call of each shape; "
+                  f"{sum(len(rep['fixed']) for rep in reps)} attention "
+                  f"shapes of one instance, not timed")
+            t0 = time.perf_counter()
+            again = [tuning.warm_start(cfg, cache=tuning.TuningCache(
+                cache.path).load(), device=self.dev, **kw) for kw in shapes]
+            assert all(not rep["misses"] and not rep["tuned"]
+                       for rep in again), again
+            n_hits = sum(len(rep["hits"]) for rep in again)
+            print(f"      a second warm_start from the file: {n_hits} hits, "
+                  f"0 misses in {time.perf_counter() - t0:.2f} s")
+            self._tuned_candidates_bits(results)
+            forced = tuning.TuningCache(os.path.join(tmp, "forced.json"))
+            last = lambda fns: [1.0 - i / 1e3 for i in range(len(fns))]
+            moved = sum(r.best is not r.baseline
+                        for kw in shapes
+                        for r in tuning.warm_start(
+                            cfg, autotune=True, cache=forced,
+                            device=self.dev, timer=last, **kw)["results"])
+            print(f"      forced cache: {moved} of {len(forced)} shapes' "
+                  f"winners are each space's last instance, not the static "
+                  f"plan")
+            caches = {"static": None, "tuned": cache, "forced": forced}
+            runs = {}
+            for what, c in caches.items():
+                with _served_off_static() as off:
+                    with tuning.tuned(c):
+                        eng = ServingEngine(cfg, self._serve_params(cfg),
+                                            max_slots=4, max_len=max_len,
+                                            device=self.dev)
+                    assert eng.tuned_cache is c and \
+                        tuning.tuned_cache() is None
+                    reqs, rep, launches = self._run_counted(eng, work)
+                want = self._want_launches(eng, reqs, dict(
+                    matmul=5 * cfg.n_layers + 1,
+                    gated_matmul=cfg.n_layers))
+                want["flash_decode"] += cfg.n_layers * eng.decode_steps
+                want["flash_decode_paged"] = 0
+                assert launches == want, (what, launches, want)
+                runs[what] = ([list(r.generated) for r in reqs], rep,
+                              launches, off)
+                del eng
+            streams = runs["static"][0]
+            for what in ("tuned", "forced"):
+                assert runs[what][0] == streams, (what, runs[what][0],
+                                                  streams)
+            assert not runs["static"][3]
+            f_off = runs["forced"][3]
+            assert any(m == 4 for _, _, m, _, _, _ in f_off) and \
+                any(m > 4 for _, _, m, _, _, _ in f_off), f_off
+            self.tuned_launches = runs["tuned"][2]
+            print(f"      serve (4 slots, 4 requests, {gen} tokens) under the "
+                  f"static plans, the sweep's winners and the forced ones: "
+                  f"the same streams, token for token; launches "
+                  f"{_nonzero(self.tuned_launches)} (exact, each run); GEMM "
+                  f"shapes served off the static plan: "
+                  + ", ".join(f"{what} {_off_counts(runs[what][3])}"
+                              for what in ("tuned", "forced"))
+                  + "; decode step p50 " + ", ".join(
+                      f"{what} {runs[what][1]['decode_step_p50_s'] * 1e3:.2f}"
+                      for what in caches) + " ms")
+            opt = train["opt"]
+            for what, c in (("tuned", cache), ("forced", forced)):
+                params = tree_map(lambda t: t.to(self.dev, copy=True),
+                                  train["host"])
+                state = TL.TrainState(params, opt.init(params))
+                step = TL.make_train_step(cfg, opt, donate=True)
+                with _served_off_static() as off, tuning.tuned(c):
+                    ops.reset_launch_counts()
+                    t0 = time.perf_counter()
+                    state, met = step(state, train["batch"])
+                    loss, norm = float(met["loss"]), float(met["grad_norm"])
+                    t = time.perf_counter() - t0
+                    launches = ops.launch_counts()
+                del state, params
+                assert (loss, norm) == (train["loss"], train["norm"]), \
+                    (what, loss, norm, train)
+                assert launches == train["want"], (what, launches,
+                                                   train["want"])
+                assert what != "forced" or off, "no forced plan served"
+                if what == "tuned":
+                    self.tuned_train_launches = launches
+                print(f"      a train step under the {what} plans: loss "
+                      f"{loss:.6f} grad norm {norm:.6f}, phase 7's step 0 "
+                      f"bit for bit; launches {_nonzero(launches)} (exact); "
+                      f"GEMM shapes served off the static plan "
+                      f"{_off_counts(off)}; {t * 1e3:.1f} ms (the first "
+                      f"step of its state)")
+        assert tuning.tuned_cache() is None
+
+    def _tuned_candidates_bits(self, results):
+        """Every candidate of each tuned GEMM shape (seeded operands, in
+        each layout the shape was timed in) gives the static plan's
+        output bit for bit."""
+        torch = self.torch
+        from repro_torch.core import precision
+        from repro_torch.kernels import matmul as tmm
+        gen = torch.Generator(device=self.dev).manual_seed(3)
+
+        def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+            return (torch.randn(shape, generator=gen, device=self.dev)
+                    * scale).to(dtype)
+        n_runs = 0
+        for r in results:
+            m, n, k = (int(x) for x in r.key.split("|")[1].split("x"))
+            ep = r.key.split("|")[4] if r.key.count("|") == 4 else "none"
+            a = randn(m, k)
+            e = randn(m, n) if ep == "residual" else \
+                randn(n) if ep != "none" else None
+            if r.op == "gated":
+                wg, wu = (randn(k, n, scale=k ** -0.5) for _ in range(2))
+                runs = [lambda p: tmm.gated_matmul_tiled(a, wg, wu, plan=p)]
+            elif r.op == "matmul_q":
+                wq, scale = precision.quantize_int8(
+                    randn(k, n, dtype=torch.float32, scale=k ** -0.5))
+                runs = [lambda p, out=out: tmm.matmul_q_tiled(
+                    a, wq, scale.reshape(n), out_dtype=out, epilogue=ep,
+                    epilogue_operand=e, plan=p)
+                    for out in _out_dtypes(torch, r.layouts)]
+            else:
+                b = randn(k, n, scale=k ** -0.5)
+                a_t, b_t = a.t().contiguous().t(), b.t().contiguous().t()
+                runs = [lambda p, a=a_t if t_a else a, b=b_t if t_b else b,
+                        out=out: tmm.matmul_tiled(
+                            a, b, out_dtype=out, epilogue=ep,
+                            epilogue_operand=e, plan=p)
+                        for (t_a, t_b, _), out in zip(
+                            r.layouts, _out_dtypes(torch, r.layouts))]
+            for run in runs:
+                want = run(r.baseline)
+                for c, _ in r.trials[1:]:
+                    assert torch.equal(run(c), want), (r.key, c.name)
+                    n_runs += 1
+                del want
+        torch.cuda.synchronize()
+        print(f"      every candidate of every tuned GEMM shape gives the "
+              f"static plan's output bit for bit in each of its layouts "
+              f"({n_runs} candidate calls against their static plans)")
+
+    # -- 17. the kernels line --------------------------------------------
     def kernel_rows(self):
         """One row per kernel: its launches on the main path, the max error
         over every case, and the times of its main-path decode shape."""
@@ -4774,6 +4969,8 @@ class Smoke:
                  "qwen3-0.6b paged int8": self.paged_launches,
                  "qwen3-0.6b speculative": self.spec_launches,
                  "qwen3-0.6b training": self.train_launches,
+                 "qwen3-0.6b tuned": self.tuned_launches,
+                 "qwen3-0.6b tuned training": self.tuned_train_launches,
                  "zamba2-1.2b training": self.zamba_train_launches,
                  "mamba2-2.7b training": self.mamba_train_launches,
                  "mamba2-2.7b": self.mamba_launches,
@@ -4867,6 +5064,48 @@ def loss_falls(losses):
     lead = statistics.fmean(losses[:q])
     trail = statistics.fmean(losses[-q:])
     return lead, trail, trail < lead
+
+
+@contextlib.contextmanager
+def _served_off_static():
+    """While open, collect the distinct GEMM calls whose plan a tuning
+    cache served off the static plan, {(op, dtype, m, k, n, epilogue):
+    the served instance's name}: a wrapper of `kernels.matmul._served`,
+    which every plan function asks first."""
+    from repro_torch.kernels import matmul as tmm
+    served, off = tmm._served, {}
+
+    def wrapper(op, dtype, m, k, n, epilogue="none"):
+        plan = served(op, dtype, m, k, n, epilogue)
+        if plan is not None and plan != tmm.static_plan(op, dtype, m, k, n):
+            off[(op, dtype, m, k, n, epilogue)] = plan.name
+        return plan
+    tmm._served = wrapper
+    try:
+        yield off
+    finally:
+        tmm._served = served
+
+
+def _off_counts(off: dict) -> str:
+    """The count of `_served_off_static`'s calls, and of them by M."""
+    by_m = {}
+    for _, _, m, _, _, _ in off:
+        by_m[m] = by_m.get(m, 0) + 1
+    return f"{len(off)} (" + ", ".join(
+        f"M={m}: {c}" for m, c in sorted(by_m.items())) + ")"
+
+
+def _layout_names(layouts) -> str:
+    """(a_km, b_nk, out) triples as "MK.KN", "MK.NK f32", ..."""
+    return ",".join(f"{'KM' if t_a else 'MK'}.{'NK' if t_b else 'KN'}"
+                    f"{' f32' if out == 'float32' else ''}"
+                    for t_a, t_b, out in layouts)
+
+
+def _out_dtypes(torch, layouts) -> list:
+    return [None if out is None else getattr(torch, out)
+            for _, _, out in layouts]
 
 
 def _nonzero(counts: dict) -> dict:

@@ -179,8 +179,8 @@ def main(argv=None):
             for name, path in libs.items()}
     smoke = Smoke(torch)
     if args.warm:
-        import chip_smoke
-        chip_smoke.FLUSH_BYTES = 16
+        from repro_torch.tuning import timing
+        timing.FLUSH_BYTES = 16
 
     # (B, L, H, G, P, N, chunk): mamba2-2.7b's 512-token prefill, and its
     # ragged 200-token chunk

@@ -34,6 +34,10 @@ decode tile with 16 columns of each weight, else the TMA + wgmma tile, 64
 or 128 columns of H). Their k-order (the k-step and the split of K) is
 one constant; M picks only the row tile and its instruction, and N
 how wide a tile to take, so one output row has the same bits at every M.
+Where a tuning cache is set (`tuning.cache.set_tuned`), each plan
+function serves its winner for the shape first (`PLANS`: every compiled
+instance, one k-order an op and dtype); the batched forms read the 2-D
+entry for their (M, K, N). Each wrapper takes `plan=` for the tuner.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import EPILOGUES
+from repro_torch.tuning import cache as _tcache
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -95,11 +100,12 @@ class TilePlan:
     """A tile of a GEMM (bf16: `csrc/matmul_tc.cuh`; f32: `csrc/matmul.cu`):
     `kernel` is the instance number the launcher takes; bm x bn outputs a
     block, bk a k-stage, `stages` of them in flight, `mma` the tensor-core
-    instruction ("fma" for the f32 kernels' FMA units).
-    `k_order` fixes how each output is summed: the k-step and the number
-    of parts K is split into (summed in order). An m16n8k16 mma.sync step
-    and an m64nNk16 wgmma step give the same bits (checked on the card),
-    so the instruction is not part of it."""
+    instruction ("fma" for the f32 kernels' FMA units), `name` the
+    instance's name in the tuning cache (the `Plan` enum's in
+    `csrc/matmul_tc.cuh`). `k_order` fixes how each output is summed:
+    the k-step and the number of parts K is split into (summed in order).
+    An m16n8k16 mma.sync step and an m64nNk16 wgmma step give the same
+    bits (checked on the card), so the instruction is not part of it."""
     kernel: int
     bm: int
     bn: int
@@ -109,30 +115,100 @@ class TilePlan:
     mma: str = "mma.sync.m16n8k16"
     k_step: int = 16
     k_split: int = 1
+    name: str = ""
 
     @property
     def k_order(self) -> tuple:
         return self.k_step, self.k_split
 
 
-_ROWS16_N8 = TilePlan(0, 16, 8, 256, 1, 4)
-_ROWS16_N32 = TilePlan(1, 16, 32, 128, 1, 4)
-_WIDE = TilePlan(2, 128, 128, 64, 12, 4, mma="wgmma.m64n128k16")
-_WIDE192 = TilePlan(3, 128, 192, 64, 12, 4, mma="wgmma.m64n192k16")
+_ROWS16_N8 = TilePlan(0, 16, 8, 256, 1, 4, name="ROWS16_N8")
+_ROWS16_N32 = TilePlan(1, 16, 32, 128, 1, 4, name="ROWS16_N32")
+_WIDE = TilePlan(2, 128, 128, 64, 12, 4, mma="wgmma.m64n128k16", name="WIDE")
+_WIDE192 = TilePlan(3, 128, 192, 64, 12, 4, mma="wgmma.m64n192k16",
+                    name="WIDE192")
 _SMS = 132                      # H100 SXM: one wide block an SM
-# the f32 GEMM's FMA tiles (`csrc/matmul.cu`), which sum one k at a time
-_F32_64 = TilePlan(0, 64, 64, 32, 8, 1, mma="fma", k_step=1)
-_F32_WIDE = TilePlan(1, 128, 128, 16, 8, 2, mma="fma", k_step=1)
+# the f32 GEMM's FMA tiles (`csrc/matmul.cu`), which sum one k at a time;
+# the f32 int8-weight and dual GEMMs have the 64 x 64 one alone
+_F32_64 = TilePlan(0, 64, 64, 32, 8, 1, mma="fma", k_step=1, name="F32_64")
+_F32_WIDE = TilePlan(1, 128, 128, 16, 8, 2, mma="fma", k_step=1,
+                     name="F32_128")
 # the int8-weight GEMM's decode tiles by width, and its 128 x 64 tile
-_Q_ROWS16 = {8: TilePlan(0, 16, 8, 256, 1, 4), 16: TilePlan(4, 16, 16, 256, 1, 4)}
-_Q_NARROW = TilePlan(2, 128, 64, 64, 4, 3)
+_Q_ROWS16 = {8: TilePlan(0, 16, 8, 256, 1, 4, name="ROWS16_N8"),
+             16: TilePlan(4, 16, 16, 256, 1, 4, name="ROWS16_N16")}
+_Q_NARROW = TilePlan(2, 128, 64, 64, 4, 3, name="WIDE")
 # the dual GEMM's (bn: columns of H a block, each from Wg and Wu)
-_GATED_ROWS16 = TilePlan(4, 16, 16, 128, 1, 4)
-_GATED_WIDE = {64: TilePlan(2, 128, 64, 64, 12, 4, mma="wgmma.m64n128k16"),
-               128: TilePlan(5, 128, 128, 64, 12, 4, mma="wgmma.m64n256k16")}
+_GATED_ROWS16 = TilePlan(4, 16, 16, 128, 1, 4, name="ROWS16_N16")
+_GATED_WIDE = {64: TilePlan(2, 128, 64, 64, 12, 4, mma="wgmma.m64n128k16",
+                            name="WIDE"),
+               128: TilePlan(5, 128, 128, 64, 12, 4, mma="wgmma.m64n256k16",
+                             name="WIDE256")}
+
+#: Every compiled instance of a GEMM, by (op, dtype): the bf16 GEMM's
+#: four, the f32 GEMM's two tiles, the int8-weight GEMM's three and the
+#: dual GEMM's three (each f32 form one). The instances of an op and dtype
+#: sum each output in one k-order, so any of them gives the same bits:
+#: the tuner picks among them (`tuning.space`).
+PLANS = {
+    ("matmul", "bfloat16"): (_ROWS16_N8, _ROWS16_N32, _WIDE, _WIDE192),
+    ("matmul", "float32"): (_F32_64, _F32_WIDE),
+    ("matmul_q", "bfloat16"): (_Q_ROWS16[8], _Q_ROWS16[16], _Q_NARROW),
+    ("matmul_q", "float32"): (_F32_64,),
+    ("gated", "bfloat16"): (_GATED_ROWS16, _GATED_WIDE[64], _GATED_WIDE[128]),
+    ("gated", "float32"): (_F32_64,),
+}
 
 
-def f32_tile_plan(m: int, k: int, n: int) -> TilePlan:
+def _instance(op: str, dtype: str, name: str) -> TilePlan:
+    """The compiled instance `name` of `op` in `dtype`; raises if there is
+    none (a tuning cache's entry must name one)."""
+    for plan in PLANS[(op, dtype)]:
+        if plan.name == name:
+            return plan
+    raise ValueError(f"{op} in {dtype} has no instance {name!r}; its "
+                     f"instances: {[p.name for p in PLANS[(op, dtype)]]}")
+
+
+def _served(op: str, dtype: str, m: int, k: int, n: int,
+            epilogue: str = "none") -> TilePlan | None:
+    """The instance the tuned cache (`tuning.cache.set_tuned`) names for
+    this GEMM, or None where no cache is set or the shape misses. An
+    entry that names no instance of the op raises: a cached instance
+    never gives way to the static plan."""
+    cache = _tcache.tuned_cache()
+    if cache is None:
+        return None
+    if op == "gated":
+        name = cache.get_gated(m, n, k, dtype)
+    elif op == "matmul_q":
+        name = cache.get_matmul_q(m, n, k, dtype, epilogue)
+    else:
+        name = cache.get_matmul(m, n, k, dtype, epilogue)
+    return None if name is None else _instance(op, dtype, name)
+
+
+def static_plan(op: str, dtype: str, m: int, k: int, n: int) -> TilePlan:
+    """The plan the fixed rules below pick, whatever the tuning cache."""
+    if dtype == "float32":
+        return _f32_rule(m, n) if op == "matmul" else _F32_64
+    return {"matmul": _tile_rule, "matmul_q": _q_rule,
+            "gated": _gated_rule}[op](m, n)
+
+
+def _check_plan(plan: TilePlan, op: str, dtype: str) -> None:
+    if plan not in PLANS[(op, dtype)]:
+        raise ValueError(f"{plan} is not an instance of {op} in {dtype}; "
+                         f"its instances: "
+                         f"{[p.name for p in PLANS[(op, dtype)]]}")
+
+
+def _f32_rule(m: int, n: int) -> TilePlan:
+    wide_blocks = -(-m // 128) * -(-n // 128)
+    return _F32_WIDE if m >= 128 and wide_blocks >= _SMS // 2 else _F32_64
+
+
+def f32_tile_plan(m: int, k: int, n: int,
+                  epilogue: str = "none") -> TilePlan:
     """The f32 GEMM's tile: 128 x 128 outputs a block (8 x 8 a thread,
     two blocks an SM) where M fills its rows and its grid has a block for
     half the SMs at least, else 64 x 64 (4 x 4 a thread), which skips the
@@ -142,21 +218,13 @@ def f32_tile_plan(m: int, k: int, n: int) -> TilePlan:
     gains 5% with a bias and loses as much with a gelu or silu flush (64
     outputs a thread), `experiments/probe_fma_kernels.py`. Both tiles sum
     each output one k at a time in ascending order, so the plan changes
-    no bits: one k-order in every plan, whatever (m, k, n) and layout."""
-    wide_blocks = -(-m // 128) * -(-n // 128)
-    return _F32_WIDE if m >= 128 and wide_blocks >= _SMS // 2 else _F32_64
+    no bits: one k-order in every plan, whatever (m, k, n) and layout.
+    A tuned cache's winner for (m, k, n, epilogue) comes first."""
+    return _served("matmul", "float32", m, k, n, epilogue) \
+        or _f32_rule(m, n)
 
 
-def tile_plan(m: int, k: int, n: int, a_km: bool, b_nk: bool) -> TilePlan:
-    """The bf16 GEMM's tile for an (m, k, n) product in a layout. The
-    k-order is the same in every plan, whatever (m, k, n) and layout;
-    m picks the row tile: 16 rows for decode (m <= 16), with 8 columns a
-    block (32 for the logits' width, to cut the block count), else the
-    128-row TMA and wgmma tile, 192 columns wide where its waves of
-    blocks take less time than 128's, else 128 (the launcher gives an
-    operand TMA cannot take to a 128 x 64 mma.sync tile). The int8-weight
-    and dual GEMMs take the same decode tile and k-order from
-    `q_tile_plan` and `gated_tile_plan`."""
+def _tile_rule(m: int, n: int) -> TilePlan:
     if m <= 16:
         return _ROWS16_N32 if n >= 32768 else _ROWS16_N8
 
@@ -165,15 +233,43 @@ def tile_plan(m: int, k: int, n: int, a_km: bool, b_nk: bool) -> TilePlan:
     return _WIDE192 if cost(192) < cost(128) else _WIDE
 
 
-def q_tile_plan(m: int, k: int, n: int) -> TilePlan:
+def tile_plan(m: int, k: int, n: int, a_km: bool, b_nk: bool,
+              epilogue: str = "none") -> TilePlan:
+    """The bf16 GEMM's tile for an (m, k, n) product in a layout. The
+    k-order is the same in every plan, whatever (m, k, n) and layout;
+    m picks the row tile: 16 rows for decode (m <= 16), with 8 columns a
+    block (32 for the logits' width, to cut the block count), else the
+    128-row TMA and wgmma tile, 192 columns wide where its waves of
+    blocks take less time than 128's, else 128 (the launcher gives an
+    operand TMA cannot take to a 128 x 64 mma.sync tile). The int8-weight
+    and dual GEMMs take the same decode tile and k-order from
+    `q_tile_plan` and `gated_tile_plan`. A tuned cache's winner for
+    (m, k, n, epilogue), read whatever the layout, comes first."""
+    return _served("matmul", "bfloat16", m, k, n, epilogue) \
+        or _tile_rule(m, n)
+
+
+def _q_rule(m: int, n: int) -> TilePlan:
+    if m <= 16:
+        return _Q_ROWS16[8 if n <= 1024 else 16]
+    return _Q_NARROW
+
+
+def q_tile_plan(m: int, k: int, n: int, epilogue: str = "none") -> TilePlan:
     """The int8-weight GEMM's tile: for decode (m <= 16) the 16-row
     mma.sync tile, 8 int8 columns a block up to N = 1024 and 16 above (of
     8, 16 and 32, the fastest at N = 1024 and 3072 on an H100, `PERF.md`;
     the width changes only which columns share a block); else the
-    128 x 64 mma.sync tile. One k-order in every plan, as `tile_plan`'s."""
+    128 x 64 mma.sync tile. One k-order in every plan, as `tile_plan`'s;
+    a tuned cache's winner comes first."""
+    return _served("matmul_q", "bfloat16", m, k, n, epilogue) \
+        or _q_rule(m, n)
+
+
+def _gated_rule(m: int, n: int) -> TilePlan:
     if m <= 16:
-        return _Q_ROWS16[8 if n <= 1024 else 16]
-    return _Q_NARROW
+        return _GATED_ROWS16
+    return _GATED_WIDE[128 if -(-m // 128) * -(-n // 128) >= _SMS else 64]
 
 
 def gated_tile_plan(m: int, k: int, n: int) -> TilePlan:
@@ -182,10 +278,9 @@ def gated_tile_plan(m: int, k: int, n: int) -> TilePlan:
     128 columns of each in one m64n256k16 step (128 x 128 of H a block)
     where that grid fills every SM at least once, else 64 of each in one
     m64n128k16 step (an operand TMA cannot take, or K = 0, goes to a
-    128-row mma.sync tile). One k-order in every plan, as `tile_plan`'s."""
-    if m <= 16:
-        return _GATED_ROWS16
-    return _GATED_WIDE[128 if -(-m // 128) * -(-n // 128) >= _SMS else 64]
+    128-row mma.sync tile). One k-order in every plan, as `tile_plan`'s;
+    a tuned cache's winner comes first."""
+    return _served("gated", "bfloat16", m, k, n) or _gated_rule(m, n)
 
 
 def _check_dtype(dtype: torch.dtype, what: str) -> None:
@@ -241,9 +336,12 @@ def _epilogue_args(epilogue, epilogue_operand, m, n):
 
 def matmul_tiled(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
                  epilogue: str = "none",
-                 epilogue_operand: torch.Tensor | None = None) -> torch.Tensor:
+                 epilogue_operand: torch.Tensor | None = None,
+                 plan: TilePlan | None = None) -> torch.Tensor:
     """C = epilogue(A @ B) on the card. epilogue_operand: the (N,) bias
-    for the bias* epilogues, the (M, N) residual for "residual"."""
+    for the bias* epilogues, the (M, N) residual for "residual". plan:
+    the instance to launch (the tuner's; it must be one of `PLANS` for
+    the op and dtype), else `tile_plan` / `f32_tile_plan`'s."""
     m, k = a.shape
     k2, n = b.shape
     if k != k2:
@@ -257,20 +355,25 @@ def matmul_tiled(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
     _check_cuda(a, b, *([] if e is None else [e]))
     a_km, lda = _layout(a, "A", "MK")
     b_nk, ldb = _layout(b, "B", "KN")
+    bf16 = a.dtype == torch.bfloat16
+    if plan is None:
+        plan = tile_plan(m, k, n, bool(a_km), bool(b_nk), epilogue) if bf16 \
+            else f32_tile_plan(m, k, n, epilogue)
+    else:
+        _check_plan(plan, "matmul", "bfloat16" if bf16 else "float32")
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
     operands = (a.data_ptr(), b.data_ptr(),
                 None if e is None else e.data_ptr(), c.data_ptr(), m, n, k,
                 lda, ldb, lde, a_km, b_nk)
-    if a.dtype == torch.bfloat16:        # the tensor cores
+    if bf16:                             # the tensor cores
         err = _tc_lib().repro_matmul_tc(
             *operands, int(out_dtype == torch.bfloat16), e_bf16,
-            EPILOGUES.index(epilogue),
-            tile_plan(m, k, n, bool(a_km), bool(b_nk)).kernel,
+            EPILOGUES.index(epilogue), plan.kernel,
             _build.stream_ptr(a.device))
     else:                                # f32: the FMA kernels
         err = _lib().repro_matmul(
             *operands, int(out_dtype == torch.bfloat16), e_bf16,
-            EPILOGUES.index(epilogue), f32_tile_plan(m, k, n).kernel,
+            EPILOGUES.index(epilogue), plan.kernel,
             _build.stream_ptr(a.device))
     LAUNCHES["matmul"] += 1
     _build.check(err, "matmul_tiled")
@@ -279,10 +382,12 @@ def matmul_tiled(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
 
 def matmul_q_tiled(a: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, *,
                    out_dtype=None, epilogue: str = "none",
-                   epilogue_operand: torch.Tensor | None = None) -> torch.Tensor:
+                   epilogue_operand: torch.Tensor | None = None,
+                   plan: TilePlan | None = None) -> torch.Tensor:
     """C = epilogue((A @ Wq) * scale) on the card. wq: int8 [K, N]
     row-major; scale: (N,) or (1, N) float32, applied to the f32
-    accumulator before the epilogue."""
+    accumulator before the epilogue. plan: as `matmul_tiled`'s
+    (`q_tile_plan`'s by default; f32 A has one instance)."""
     m, k = a.shape
     if wq.dim() != 2 or wq.shape[0] != k:
         raise ValueError(f"shapes {tuple(a.shape)} @ {tuple(wq.shape)}")
@@ -302,16 +407,20 @@ def matmul_q_tiled(a: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, *,
     e, lde, e_bf16 = _epilogue_args(epilogue, epilogue_operand, m, n)
     _check_cuda(a, wq, s, *([] if e is None else [e]))
     _check_a(a)
+    bf16 = a.dtype == torch.bfloat16
+    if plan is None:
+        plan = q_tile_plan(m, k, n, epilogue) if bf16 else _F32_64
+    else:
+        _check_plan(plan, "matmul_q", "bfloat16" if bf16 else "float32")
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
     operands = (a.data_ptr(), wq.data_ptr(), s.data_ptr(),
                 None if e is None else e.data_ptr(), c.data_ptr(), m, n, k,
                 a.stride(0), wq.stride(0), lde,
                 int(out_dtype == torch.bfloat16), e_bf16,
                 EPILOGUES.index(epilogue))
-    if a.dtype == torch.bfloat16:        # the tensor cores
+    if bf16:                             # the tensor cores
         err = _tc_lib().repro_matmul_q_tc(
-            *operands, q_tile_plan(m, k, n).kernel,
-            _build.stream_ptr(a.device))
+            *operands, plan.kernel, _build.stream_ptr(a.device))
     else:                                # f32: the FMA kernel
         err = _lib().repro_matmul_q(*operands, _build.stream_ptr(a.device))
     LAUNCHES["matmul_q"] += 1
@@ -320,8 +429,11 @@ def matmul_q_tiled(a: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, *,
 
 
 def gated_matmul_tiled(a: torch.Tensor, w_gate: torch.Tensor,
-                       w_up: torch.Tensor) -> torch.Tensor:
-    """H = silu(A @ Wg) * (A @ Wu) on the card, in one pass over A."""
+                       w_up: torch.Tensor, *,
+                       plan: TilePlan | None = None) -> torch.Tensor:
+    """H = silu(A @ Wg) * (A @ Wu) on the card, in one pass over A.
+    plan: as `matmul_tiled`'s (`gated_tile_plan`'s by default; f32 has
+    one instance)."""
     m, k = a.shape
     if w_gate.shape != w_up.shape or w_gate.shape[0] != k:
         raise ValueError(f"shapes {tuple(a.shape)}, {tuple(w_gate.shape)}, "
@@ -337,13 +449,17 @@ def gated_matmul_tiled(a: torch.Tensor, w_gate: torch.Tensor,
         if w.stride(1) != 1 or w.stride(0) != ldb:
             raise ValueError("w_gate and w_up must be [K, N] row-major with "
                              "one row stride")
+    bf16 = a.dtype == torch.bfloat16
+    if plan is None:
+        plan = gated_tile_plan(m, k, n) if bf16 else _F32_64
+    else:
+        _check_plan(plan, "gated", "bfloat16" if bf16 else "float32")
     c = torch.empty((m, n), dtype=a.dtype, device=a.device)
     operands = (a.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
                 c.data_ptr(), m, n, k, a.stride(0), ldb)
-    if a.dtype == torch.bfloat16:        # the tensor cores
+    if bf16:                             # the tensor cores
         err = _tc_lib().repro_gated_matmul_tc(
-            *operands, gated_tile_plan(m, k, n).kernel,
-            _build.stream_ptr(a.device))
+            *operands, plan.kernel, _build.stream_ptr(a.device))
     else:                                # f32: the FMA kernel
         err = _lib().repro_gated_matmul(*operands, _build.stream_ptr(a.device))
     LAUNCHES["gated_matmul"] += 1
@@ -389,11 +505,13 @@ def _check_batch(a: torch.Tensor, ws, what: str, transposed=False):
     return e, layouts
 
 
-def matmul_batched_tiled(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def matmul_batched_tiled(a: torch.Tensor, b: torch.Tensor, *,
+                         plan: TilePlan | None = None) -> torch.Tensor:
     """C[e] = A[e] @ B[e] on the card, in A's dtype, for a bank A (E, M, K)
     and a bank B (E, K, N): one launch, an expert a blockIdx.z, each on
     the plan `tile_plan` (bf16) or `f32_tile_plan` (f32) picks for
-    (M, K, N) in its layout. Each bank may be row-major or, per expert,
+    (M, K, N) in its layout (a tuned cache's 2-D entry for (M, K, N)
+    included), or on `plan`. Each bank may be row-major or, per expert,
     the transpose view of a row-major (E, K, M) or (E, N, K) one
     (`x.transpose(1, 2)`), read in place."""
     e, ((a_km, lda), (b_nk, ldb)) = _check_batch(
@@ -402,28 +520,33 @@ def matmul_batched_tiled(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if b.shape[1] != k:
         raise ValueError(f"shapes {tuple(a.shape)} @ {tuple(b.shape)}")
     n = b.shape[2]
+    bf16 = a.dtype == torch.bfloat16
+    if plan is None:
+        plan = tile_plan(m, k, n, bool(a_km), bool(b_nk)) if bf16 \
+            else f32_tile_plan(m, k, n)
+    else:
+        _check_plan(plan, "matmul", "bfloat16" if bf16 else "float32")
     c = torch.empty((e, m, n), dtype=a.dtype, device=a.device)
     operands = (a.data_ptr(), b.data_ptr(), c.data_ptr(), e, m, n, k,
                 lda, ldb, a.stride(0), b.stride(0), a_km, b_nk)
-    if a.dtype == torch.bfloat16:        # the tensor cores
+    if bf16:                             # the tensor cores
         err = _tc_batched_lib().repro_matmul_batched_tc(
-            *operands, tile_plan(m, k, n, bool(a_km), bool(b_nk)).kernel,
-            _build.stream_ptr(a.device))
+            *operands, plan.kernel, _build.stream_ptr(a.device))
     else:                                # f32: the FMA kernels
         err = _lib().repro_matmul_batched(
-            *operands, f32_tile_plan(m, k, n).kernel,
-            _build.stream_ptr(a.device))
+            *operands, plan.kernel, _build.stream_ptr(a.device))
     LAUNCHES["matmul_batched"] += 1
     _build.check(err, "matmul_batched_tiled")
     return c
 
 
 def gated_matmul_batched_tiled(a: torch.Tensor, w_gate: torch.Tensor,
-                               w_up: torch.Tensor) -> torch.Tensor:
+                               w_up: torch.Tensor, *,
+                               plan: TilePlan | None = None) -> torch.Tensor:
     """H[e] = silu(A[e] @ Wg[e]) * (A[e] @ Wu[e]) on the card, in A's dtype,
     for a bank A (E, M, K) and banks Wg, Wu (E, K, N) of one layout: one
     launch, an expert a blockIdx.z, each on the plan `gated_tile_plan`
-    picks for (M, K, N) (bf16; f32 takes the FMA kernel)."""
+    picks for (M, K, N), or on `plan` (bf16; f32 takes the FMA kernel)."""
     e, _ = _check_batch(a, (("w_gate", w_gate), ("w_up", w_up)),
                      "gated_matmul_batched_tiled")
     _, m, k = a.shape
@@ -434,14 +557,18 @@ def gated_matmul_batched_tiled(a: torch.Tensor, w_gate: torch.Tensor,
         raise ValueError(f"w_gate and w_up must share their strides, got "
                          f"{w_gate.stride()} and {w_up.stride()}")
     n = w_gate.shape[2]
+    bf16 = a.dtype == torch.bfloat16
+    if plan is None:
+        plan = gated_tile_plan(m, k, n) if bf16 else _F32_64
+    else:
+        _check_plan(plan, "gated", "bfloat16" if bf16 else "float32")
     c = torch.empty((e, m, n), dtype=a.dtype, device=a.device)
     operands = (a.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
                 c.data_ptr(), e, m, n, k, a.stride(1), w_gate.stride(1),
                 a.stride(0), w_gate.stride(0))
-    if a.dtype == torch.bfloat16:        # the tensor cores
+    if bf16:                             # the tensor cores
         err = _tc_batched_lib().repro_gated_matmul_batched_tc(
-            *operands, gated_tile_plan(m, k, n).kernel,
-            _build.stream_ptr(a.device))
+            *operands, plan.kernel, _build.stream_ptr(a.device))
     else:                                # f32: the FMA kernel
         err = _lib().repro_gated_matmul_batched(
             *operands, _build.stream_ptr(a.device))

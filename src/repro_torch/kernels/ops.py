@@ -23,9 +23,16 @@ there is no fallback from a failing kernel to its plain version.
     axpy                elementwise.axpy                     ref.saxpy_ref
 
 `matmul_naive`, `add`, `sub` and `axpy` are the paper's experiment
-(Table 2, Figs 8-9), each an entry point of its own: the naive GEMM is
-not a backend of `matmul`, which is the tiled kernel and keeps refusing
-float64 on the card.
+(Table 2, Figs 8-9), each an entry point of its own. `matmul` keeps
+refusing float64 on the card.
+
+Each public op registers itself under the backend "cuda" in the kernel
+registry (`kernels.registry`), under the reference's op names
+(`flash_attention` is the forward's output alone, `flash_attention_fwd`
+adds its lse); `matmul` also has "naive", the paper's Listing 3
+(`matmul_naive`, which computes the product without an epilogue). The
+registry routes nothing: the tensor's device picks kernel or plain
+version whatever the backend.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from repro_torch.kernels import matmul_naive as _mmn
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import ssd as _ssd
 from repro_torch.kernels.ref import EPILOGUES
+from repro_torch.kernels.registry import register_op
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -77,6 +85,7 @@ def _epilogue_operand(epilogue, bias, residual, m, n):
     return e
 
 
+@register_op("matmul", backend="cuda")
 def matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
            epilogue: str = "none", bias: torch.Tensor | None = None,
            residual: torch.Tensor | None = None) -> torch.Tensor:
@@ -112,6 +121,7 @@ def _check_quant_operands(wq, scale, k, n):
     return s
 
 
+@register_op("matmul_q", backend="cuda")
 def matmul_q(a: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, *,
              out_dtype=None, epilogue: str = "none",
              bias: torch.Tensor | None = None,
@@ -135,6 +145,7 @@ def matmul_q(a: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, *,
                              residual=e)
 
 
+@register_op("gated_matmul", backend="cuda")
 def gated_matmul(a: torch.Tensor, w_gate: torch.Tensor,
                  w_up: torch.Tensor) -> torch.Tensor:
     """silu(a @ w_gate) * (a @ w_up), the SwiGLU hidden phase, in a's
@@ -158,6 +169,7 @@ def _check_banks(a, *ws) -> None:
                          f"{[tuple(w.shape) for w in ws]}")
 
 
+@register_op("matmul_batched", backend="cuda")
 def matmul_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a[e] @ b[e] for a (E, M, K) and a bank b (E, K, N), in a's dtype:
     the expert banks' GEMM, one launch for all E experts. Either operand
@@ -169,6 +181,7 @@ def matmul_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _ref.matmul_batched_ref(a, b)
 
 
+@register_op("gated_matmul_batched", backend="cuda")
 def gated_matmul_batched(a: torch.Tensor, w_gate: torch.Tensor,
                          w_up: torch.Tensor) -> torch.Tensor:
     """silu(a[e] @ w_gate[e]) * (a[e] @ w_up[e]) for a (E, M, K) and banks
@@ -190,6 +203,7 @@ def _check_decode_q(q: torch.Tensor, n_valid) -> None:
                          f"a slot for {q.shape[0]} slots")
 
 
+@register_op("flash_decode", backend="cuda")
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  pos=0, window: int | None = None,
                  n_valid: torch.Tensor | None = None) -> torch.Tensor:
@@ -210,6 +224,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                 n_valid=n_valid)
 
 
+@register_op("flash_decode_paged", backend="cuda")
 def flash_decode_paged(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
                        table: torch.Tensor, *, pos=0,
                        window: int | None = None,
@@ -249,6 +264,7 @@ def _check_bthd(q, k, v) -> None:
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
 
 
+@register_op("flash_attention_fwd", backend="cuda")
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int | None = None):
     """Attention of q [B, Tq, H, D] over k/v [B, Tk, Hkv, D] with the
@@ -261,6 +277,19 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _ref.flash_attention_fwd_ref(q, k, v, causal=causal, window=window)
 
 
+@register_op("flash_attention", backend="cuda")
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: int | None = None) -> torch.Tensor:
+    """o [B, Tq, H, D] of `flash_attention_fwd`, without its lse."""
+    _check_bthd(q, k, v)
+    if _on_card(q):
+        return _fa.flash_attention(q, k, v, causal=causal, window=window)
+    return _ref.flash_attention_fwd_ref(q, k, v, causal=causal,
+                                        window=window)[0]
+
+
+@register_op("flash_attention_bwd", backend="cuda")
 def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
                         window: int | None = None):
     """(dq, dk, dv) of `flash_attention_fwd` from its (o, lse) and the
@@ -277,6 +306,7 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
                                         window=window)
 
 
+@register_op("ssd", backend="cuda")
 def ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         chunk: int, init_state: torch.Tensor | None = None):
     """Chunked SSD scan (the Mamba-2 dual form) of x (B, L, H, P)
@@ -309,6 +339,8 @@ def ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     return _ref.ssd_chunked_ref(x, a, b, c, chunk, init_state)
 
 
+@register_op("matmul", backend="naive")
+@register_op("matmul_naive", backend="cuda")
 def matmul_naive(a: torch.Tensor, b: torch.Tensor, *,
                  out_dtype=None) -> torch.Tensor:
     """2D GEMM ``a @ b`` by the paper's Listing 3 (one thread an output
@@ -338,16 +370,19 @@ def _binary(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _ew.binary_op(a, b, op)
 
 
+@register_op("add", backend="cuda")
 def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a + b for operands of one shape and dtype, in that dtype."""
     return _binary("add", a, b)
 
 
+@register_op("sub", backend="cuda")
 def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a - b for operands of one shape and dtype, in that dtype."""
     return _binary("sub", a, b)
 
 
+@register_op("axpy", backend="cuda")
 def axpy(alpha, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """alpha * x + y in x's dtype, alpha (a number, or a one-element tensor
     on x's device) cast to x's dtype first, the product rounded before the

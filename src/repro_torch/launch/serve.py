@@ -72,6 +72,14 @@ finished to the fault-free dense engine's stream:
         --page-size 8 --chaos-nan-step 3 --chaos-kernel-steps 1,4 \
         --chaos-deny-admissions 2 --check-exact
 
+Tuned tiles (`repro_torch.tuning`): --autotune times the instances of
+every GEMM shape the engine runs on the card and caches the winners
+(`REPRO_TORCH_TUNING_CACHE`, by default ~/.cache/repro_torch/tuning.json),
+and --backend tuned serves them, bit for bit the static plans' outputs:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --requests 4 \
+        --max-slots 4 --gen 16 --backend tuned --autotune
+
 Weights are random, drawn from a torch.Generator seeded with --seed (a
 draft's with --seed + 1).
 """
@@ -83,12 +91,14 @@ import argparse
 import numpy as np
 import torch
 
+from repro_torch import tuning
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.core.device import resolve_device
 from repro_torch.models import model as M
-from repro_torch.serving import (TRACES, FaultInjector, ServingEngine,
-                                 make_sampler, make_trace,
-                                 prefix_heavy_trace, synthetic_trace)
+from repro_torch.serving import (DEFAULT_PREFILL_CHUNK, TRACES,
+                                 FaultInjector, ServingEngine, make_sampler,
+                                 make_trace, prefix_heavy_trace,
+                                 synthetic_trace)
 from repro_torch.serving.engine import check_modes
 from repro_torch.serving.request import FINISHED, TERMINAL
 
@@ -267,9 +277,20 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (the CUDA kernels) or cpu (their plain "
                          "PyTorch versions)")
+    ap.add_argument("--backend", default="cuda",
+                    help="cuda (the GEMMs on their static tile plans) or "
+                         "tuned (on the tuning cache's winners, the same "
+                         "bits)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="tune the engine's uncached shapes at startup, "
+                         "on the card")
     args = ap.parse_args(argv)
     if args.check_exact and args.sampler != "greedy":
         ap.error("--check-exact requires --sampler greedy")
+    try:
+        tuning.check_backend(args.backend)
+    except ValueError as e:
+        ap.error(str(e))
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
@@ -280,6 +301,40 @@ def main(argv=None):
     max_slots = args.max_slots or (args.batch if not args.requests else 4)
     max_len = max(len(it.prompt) + it.gen for it in work)
 
+    with tuning.tuned(warm_tuning(cfg, args, work, max_slots, max_len,
+                                  device)):
+        return serve(cfg, args, device, work, injector, max_slots, max_len)
+
+
+def warm_tuning(cfg, args, work, max_slots, max_len, device):
+    """The reference's startup hook: under `--backend tuned` or with
+    `--autotune`, check the tuning cache for the shapes the engine runs
+    (the admission prefill at batch 1 over the prompts' buckets and the
+    one-token remainder steps; the decode step at max_slots rows over the
+    cache's depth), tuning the misses on the card with `--autotune`.
+    Returns the cache whose winners the run serves (`--backend tuned`),
+    else None: the static plans."""
+    if args.backend != "tuned" and not args.autotune:
+        return None
+    chunk = DEFAULT_PREFILL_CHUNK
+    buckets = sorted({(len(it.prompt) - len(it.prompt) % chunk)
+                      or len(it.prompt) for it in work} | {1})
+    rep = tuning.warm_start(cfg, 1, buckets, autotune=args.autotune,
+                            device=device)
+    print(tuning.describe_warm_start(rep))
+    # decode attends over the engine's cache depth, which rounds max_len
+    # up to an attn_chunk multiple (ServingEngine.__init__)
+    a = cfg.attn_chunk
+    cache_len = max_len + (a - max_len % a if max_len > a
+                           and max_len % a else 0)
+    rep = tuning.warm_start(cfg, max_slots, 1, autotune=args.autotune,
+                            decode_len=cache_len, device=device)
+    print(tuning.describe_warm_start(rep))
+    return tuning.get_cache() if args.backend == "tuned" else None
+
+
+def serve(cfg, args, device, work, injector, max_slots, max_len):
+    """Serve `work` on an engine built from args and print its report."""
     params = M.init_params(cfg, torch.Generator().manual_seed(args.seed),
                            device)
     draft = None

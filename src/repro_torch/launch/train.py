@@ -30,8 +30,13 @@ after which the latest checkpoint is restored into the state's own
 tensors and the steps from it run again (`distributed.Supervisor`). The
 losses hold one entry for every step run, replays included. A step's
 time ends with the read of its loss, which waits for the card, so the
-straggler detector sees the card's work. Not ported yet: the JAX
-launcher's --backend, --autotune, --model-parallel and --compress.
+straggler detector sees the card's work.
+
+`--backend tuned` runs the GEMMs on the tuning cache's winners
+(`repro_torch.tuning`; the same bits as the static plans), and
+`--autotune` tunes the step's uncached shapes, its backward's included,
+on the card before the state is made. Not ported yet: the JAX launcher's
+--model-parallel and --compress.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import time
 
 import torch
 
+from repro_torch import tuning
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.core.device import resolve_device
@@ -77,10 +83,37 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
+    ap.add_argument("--backend", default="cuda",
+                    help="cuda (the GEMMs on their static tile plans) or "
+                         "tuned (on the tuning cache's winners, the same "
+                         "bits)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="tune the step's uncached shapes at startup, on "
+                         "the card")
     args = ap.parse_args(argv)
+    try:
+        tuning.check_backend(args.backend)
+    except ValueError as e:
+        ap.error(str(e))
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
+    tuned = None
+    if args.backend == "tuned" or args.autotune:
+        # check (and with --autotune fill) the cache for the step's
+        # shapes, its backward's included, before the state is made
+        rep = tuning.warm_start(cfg, args.batch, args.seq,
+                                autotune=args.autotune, backward=True,
+                                device=device)
+        print(tuning.describe_warm_start(rep))
+        if args.backend == "tuned":
+            tuned = tuning.get_cache()
+    with tuning.tuned(tuned):
+        return train(cfg, args, device)
+
+
+def train(cfg, args, device):
+    """Train `cfg` as args say; returns the losses, one a step run."""
     opt = AdamW(lr=cosine_schedule(args.lr, args.warmup, args.steps),
                 clip_norm=1.0)
     state = TL.init_state(cfg, opt, torch.Generator().manual_seed(args.seed),

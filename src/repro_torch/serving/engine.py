@@ -173,6 +173,7 @@ from repro_torch.serving.sampler import Sampler
 from repro_torch.serving.scheduler import SlotScheduler
 from repro_torch.serving.spec import SpecDecoder
 from repro_torch.serving.steps import CapturedStep, on_device, place_params
+from repro_torch.tuning import cache as _tcache
 
 # Admission prefill buckets prompt lengths down to a multiple of this
 # (remainder tokens run through one-token steps).
@@ -385,6 +386,10 @@ class ServingEngine:
         self.capture_s = 0.0           # every graph's warm-ups and capture
         self.graph_pool_bytes = 0      # the graphs' private memory pools
         self.rebuild_s = 0.0           # the rebuild's seconds
+        # the tuning cache whose GEMM winners everything the engine runs
+        # takes (None: the static plans): the graphs, captured and
+        # rebuilt, and each step's eager admission prefills
+        self.tuned_cache = _tcache.tuned_cache()
         self._build_steps()
 
     # -- the steps -----------------------------------------------------
@@ -427,14 +432,16 @@ class ServingEngine:
 
     def _capture(self, steps) -> None:
         """Bind each of `steps`: on the card a CUDA graph of its function,
-        on the CPU the function itself. The graphs' pools count the
-        draft's graphs too."""
+        captured under the engine's tuning setting (`tuned_cache`), on
+        the CPU the function itself. The graphs' pools count the draft's
+        graphs too."""
         if self.device.type != "cuda":
             for name, fn, _ in steps:
                 setattr(self, name, fn)
             return
-        for name, fn, what in steps:
-            setattr(self, name, CapturedStep(fn, self.device, what))
+        with _tcache.tuned(self.tuned_cache):
+            for name, fn, what in steps:
+                setattr(self, name, CapturedStep(fn, self.device, what))
         self.graph_pool_bytes = sum(getattr(self, name).pool_bytes
                                     for name, _, _ in self._steps())
         if self.spec is not None:
@@ -902,8 +909,13 @@ class ServingEngine:
         """Drop the expired waiters, admit every ready request the pool
         can take (preempting for a pool-starved FCFS head where a victim
         exists; otherwise the head waits), then run one decode step (a
-        round, with a draft) if any slot is active. Returns False when
-        all work is drained."""
+        round, with a draft) if any slot is active, all of it under the
+        engine's tuning setting (`tuned_cache`), whatever the process's.
+        Returns False when all work is drained."""
+        with _tcache.tuned(self.tuned_cache):
+            return self._step_under_setting()
+
+    def _step_under_setting(self) -> bool:
         while True:
             now = self._now()
             for req in self.scheduler.drop_expired(now):

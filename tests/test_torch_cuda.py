@@ -2138,3 +2138,183 @@ def test_encdec_prefill_and_decode_on_card_match_cpu(dev):
         out[d] = [t.cpu() for t in logs] + [t.cpu() for t in leaves(cache)]
     for x, y in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(x, y, atol=1e-4, rtol=1e-4)
+
+
+# ----------------------------------------------------------------------
+# tuning: every candidate instance gives the static plan's bits
+# ----------------------------------------------------------------------
+
+TUNE_M = [1, 4, 16, 17, 128, 2048]
+
+
+def _tune_bank(dev, e, rows, cols, transposed, seed, scale=1.0):
+    """An (e, rows, cols) bf16 bank: row-major, or the transpose view of a
+    row-major (e, cols, rows) one."""
+    if transposed:
+        return _randn(e, cols, rows, dtype=torch.bfloat16, dev=dev,
+                      seed=seed, scale=scale).transpose(1, 2)
+    return _randn(e, rows, cols, dtype=torch.bfloat16, dev=dev, seed=seed,
+                  scale=scale)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("m", TUNE_M)
+def test_every_matmul_candidate_gives_the_static_plans_bits(dev, m, layout):
+    """Each instance of the GEMM's space (`tuning.space`) at this shape
+    and layout gives the static plan's output bit for bit, bf16 (with
+    and without TMA, every epilogue kind, bf16 and f32 out) and f32, and
+    so does the batched form over a bank of 3."""
+    from repro_torch.kernels import matmul as tmm
+    from repro_torch.tuning import space
+    a_km, b_nk = layout
+    for k, n in ((1024, 1536), (301, 259)):
+        for dtype in (torch.bfloat16, torch.float32):
+            a, b = _gemm_operands(dev, m, k, n, a_km, b_nk, dtype=dtype)
+            cands = space.matmul_candidates(m, n, k, dtype, a_km=a_km,
+                                            b_nk=b_nk)
+            assert len(cands) >= 2, (m, k, n, cands)
+            for ep in ("none", "bias_silu", "residual"):
+                kw = _epilogue_kw(dev, ep, m, n, dtype)
+                e = kw.get("bias", kw.get("residual"))
+                for out_dtype in (torch.bfloat16, torch.float32):
+                    want = ops.matmul(a, b, out_dtype=out_dtype,
+                                      epilogue=ep, **kw)
+                    for c in cands:
+                        got = tmm.matmul_tiled(
+                            a, b, out_dtype=out_dtype, epilogue=ep,
+                            epilogue_operand=e, plan=c)
+                        assert torch.equal(got, want), (k, n, dtype, ep,
+                                                        out_dtype, c.name)
+    k, n = 1024, 1536
+    a = _tune_bank(dev, 3, m, k, a_km, seed=4)
+    b = _tune_bank(dev, 3, k, n, b_nk, seed=5, scale=k ** -0.5)
+    want = ops.matmul_batched(a, b)
+    assert torch.equal(want[1], ops.matmul(a[1], b[1]))
+    for c in space.matmul_candidates(m, n, k, a_km=a_km, b_nk=b_nk):
+        assert torch.equal(tmm.matmul_batched_tiled(a, b, plan=c), want), \
+            c.name
+
+
+@pytest.mark.parametrize("m", TUNE_M)
+def test_every_q_and_gated_candidate_gives_the_static_plans_bits(dev, m):
+    """Each instance of the int8-weight GEMM's space (bf16 and f32 A, the
+    residual epilogue, bf16 and f32 out) and of the dual GEMM's (TMA and
+    not; the batched form over a bank of 3) gives the static plan's
+    output bit for bit."""
+    from repro_torch.kernels import matmul as tmm
+    from repro_torch.tuning import space
+    for k, n in ((1024, 3072), (2048, 1024)):
+        w = _randn(k, n, dtype=torch.float32, dev=dev, seed=1,
+                   scale=k ** -0.5)
+        wq, scale = precision.quantize_int8(w)
+        for dtype in (torch.bfloat16, torch.float32):
+            a = _randn(m, k, dtype=dtype, dev=dev, seed=0)
+            res = _randn(m, n, dtype=dtype, dev=dev, seed=2)
+            for out_dtype in (torch.bfloat16, torch.float32):
+                want = ops.matmul_q(a, wq, scale, out_dtype=out_dtype,
+                                    epilogue="residual", residual=res)
+                for c in space.matmul_candidates(m, n, k, dtype,
+                                                 quant=True):
+                    got = tmm.matmul_q_tiled(
+                        a, wq, scale.reshape(n), out_dtype=out_dtype,
+                        epilogue="residual", epilogue_operand=res, plan=c)
+                    assert torch.equal(got, want), (k, n, dtype, c.name)
+    for k, n, pad in ((1024, 3072, 0), (1024, 3072, 3), (77, 200, 0)):
+        a = _randn(m, k + pad, dtype=torch.bfloat16, dev=dev, seed=0)[:, :k]
+        wg = _randn(k, n, dtype=torch.bfloat16, dev=dev, seed=1,
+                    scale=k ** -0.5)
+        wu = _randn(k, n, dtype=torch.bfloat16, dev=dev, seed=2,
+                    scale=k ** -0.5)
+        want = ops.gated_matmul(a, wg, wu)
+        for c in space.gated_matmul_candidates(m, n, k):
+            got = tmm.gated_matmul_tiled(a, wg, wu, plan=c)
+            assert torch.equal(got, want), (k, n, pad, c.name)
+    k, n = 1024, 3072
+    a = _tune_bank(dev, 3, m, k, False, seed=4)
+    wg = _tune_bank(dev, 3, k, n, False, seed=5, scale=k ** -0.5)
+    wu = _tune_bank(dev, 3, k, n, False, seed=6, scale=k ** -0.5)
+    want = ops.gated_matmul_batched(a, wg, wu)
+    for c in space.gated_matmul_candidates(m, n, k):
+        assert torch.equal(tmm.gated_matmul_batched_tiled(a, wg, wu, plan=c),
+                           want), c.name
+
+
+def test_tune_matmul_and_gated_fill_a_temporary_cache(dev, tmp_path):
+    """A sweep on the card's clock: the winner is in the cache and served
+    while the cache is set; it is never slower than the static plan,
+    which is timed in the same turns."""
+    from repro_torch.kernels import matmul as tmm
+    from repro_torch.tuning import autotuner, cache as tcache
+    c = tcache.TuningCache(str(tmp_path / "tuning.json"))
+    results = [
+        autotuner.tune_matmul(4, 3072, 1024, cache=c, iters=5),
+        autotuner.tune_matmul(2048, 1024, 3072, epilogue="residual",
+                              cache=c, iters=5),
+        autotuner.tune_matmul(4, 3072, 1024, quant="int8", cache=c,
+                              iters=5),
+        autotuner.tune_gated_matmul(2048, 3072, 1024, cache=c, iters=5),
+        autotuner.tune_flash_decode(256, 128, cache=c, iters=5),
+    ]
+    for r in results:
+        assert 0 < r.best_s <= r.baseline_s, r
+        assert len(r.trials) >= 1 and c.entries[r.key]["time_us"] > 0
+    assert tcache.TuningCache(c.path).load().entries == c.entries
+    with tcache.tuned(c):
+        assert tmm.tile_plan(4, 1024, 3072, False, False) is results[0].best
+        assert tmm.gated_tile_plan(2048, 1024, 3072) is results[3].best
+    assert tcache.tuned_cache() is None
+
+
+def test_an_engine_under_tuned_plans_gives_the_static_engines_bits(
+        dev, tmp_path, monkeypatch):
+    """A cache whose winner is each space's last instance (a timer that
+    favours it), set while an engine is built: its graphs capture those
+    plans (the cache is hit, and most winners are not the static plan),
+    a rebuild captures them again, its admission prefills (eager, run
+    outside the setting) serve them too, and a decode step's logits and
+    the streams equal a static engine's bit for bit."""
+    from repro_torch.kernels import matmul as tmm
+    from repro_torch.serving import engine as E
+    from repro_torch.tuning import autotuner, cache as tcache
+    monkeypatch.setattr(E, "_REBUILD_WARNED", True)
+    eng, prompts = _serving(dev, "dense")
+    cfg = eng.cfg
+    c = tcache.TuningCache(str(tmp_path / "tuning.json"))
+    last = lambda fns: [1.0 - i / 10 for i in range(len(fns))]
+    buckets = sorted({len(p) - len(p) % 8 or len(p) for p in prompts} | {1})
+    rep = autotuner.warm_start(cfg, 1, buckets, autotune=True, cache=c,
+                               device=dev, timer=last)
+    rep2 = autotuner.warm_start(cfg, 2, 1, autotune=True, cache=c,
+                                decode_len=48, device=dev, timer=last)
+    moved = [r for r in rep["results"] + rep2["results"]
+             if r.best is not r.baseline]
+    assert len(moved) >= 6, [r.key for r in moved]
+    with tcache.tuned(c):
+        tuned = ServingEngine(cfg, eng.params, max_slots=2, max_len=48,
+                              device=dev)
+    assert tuned.tuned_cache is c and tcache.tuned_cache() is None
+    assert c.hits > 0
+    hits = c.hits
+    tuned._rebuild_steps(RuntimeError("a rebuild under the same setting"))
+    assert c.hits > hits and tcache.tuned_cache() is None
+    off, served = [], tmm._served
+
+    def record(op, dtype, m, k, n, epilogue="none"):
+        plan = served(op, dtype, m, k, n, epilogue)
+        if plan is not None and plan != tmm.static_plan(op, dtype, m, k, n):
+            off.append(m)
+        return plan
+    monkeypatch.setattr(tmm, "_served", record)
+    logits, reqs = [], []
+    for e in (eng, tuned):
+        reqs.append([e.submit(p, 6) for p in prompts[:2]])
+        e.step()
+        e.step()
+        e._step_tokens.copy_(e._tokens_h)
+        e._step_pos.copy_(e._pos_h)
+        logits.append(e._step().clone())
+    assert any(m > 2 for m in off), off      # the prefills' rows
+    assert torch.equal(logits[1], logits[0])
+    for e in (eng, tuned):
+        e.run()
+    assert [r.generated for r in reqs[1]] == [r.generated for r in reqs[0]]
