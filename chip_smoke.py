@@ -3,7 +3,8 @@
     python3 chip_smoke.py        # from the root of a checkout; needs one card
 
 Phases, in order; any failure propagates and the exit code is not 0:
-  1. card: its name and power limit; TF32 off for every f32 product;
+  1. card: its name and power limit, its L2 against `hw.H100.l2_bytes`;
+     TF32 off for every f32 product;
   2. build: the kernels of src/repro_torch/kernels/csrc/, one nvcc each,
      all at once, with ptxas' register and shared-memory report;
   3. kernels: each CUDA kernel against its plain PyTorch version at the
@@ -49,7 +50,9 @@ Phases, in order; any failure propagates and the exit code is not 0:
      forward and backward less its forward), with the max error
      beside its tolerance, and the median time of the kernel, the plain version and one PyTorch library call,
      timed in turns with only the card's time inside each event pair,
-     beside the least time the card could take; a bf16 page pool must
+     beside the least time the card could take (from the op's charge,
+     `roofline.analysis`: its compulsory bytes and the products its mask
+     keeps); a bf16 page pool must
      give the dense decode kernel's bits; the decode kernels' multi-row
      form (a verify step: 4 slots x 5 rows, dense, bf16 and int8 pools)
      against its plain version, each row equal to the one-row kernel at
@@ -257,7 +260,23 @@ Phases, in order; any failure propagates and the exit code is not 0:
      forced run's prefill and decode shapes among them); a train step
      under each cache with phase 7's step 0 loss and grad norm bit for
      bit;
-  17. a JSON line of the kernels (each with its launches on every main
+  17. the roofline of a step (`roofline.counter`, `roofline.analysis`):
+     one eager run of each of these steps, counted where the phase that
+     ran it left it (its captured graph's replays are not counted):
+     qwen3-0.6b's decode step at 4 slots (phase 4), an admission prefill
+     and its train step with remat "full" and "none" (phase 7),
+     mamba2-2.7b's decode (phase 9) and train steps (phase 8),
+     mixtral-8x22b's decode step at 4 layers (phase 12) and
+     whisper-tiny's (phase 13); each step's report (compute and memory
+     terms, bound, useful ratio, mfu_roofline), its top 5 charges, its
+     measured time from that phase, its share of the roofline (the
+     larger term over that time) and its mfu (model FLOPs over that time
+     over the bf16 peak). Each kernel launch of a counted run must be
+     charged once; remat "full" must count 1.25x-1.45x the FLOPs of
+     "none" over the blocks it recomputes (the step less the counted
+     logits GEMMs), and over the whole step the ratio a CPU count of
+     the same step gives (1.2332x: the logits lie outside the remat);
+  18. a JSON line of the kernels (each with its launches on every main
      path, and the batched GEMM's transposed layouts and the non-causal
      backward as `forms`), the card line, and the result line.
 """
@@ -272,7 +291,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-TF32_PEAK = 495e12            # H100 SXM, dense TF32 tensor cores (data sheet)
 
 
 def card_line() -> str:
@@ -303,12 +321,13 @@ def main() -> int:
                   smoke.phase_hybrid, smoke.phase_hybrid_vs_cpu,
                   smoke.phase_dense_configs, smoke.phase_moe,
                   smoke.phase_encdec, smoke.phase_train_families,
-                  smoke.phase_paper, smoke.phase_tuning):
+                  smoke.phase_paper, smoke.phase_tuning,
+                  smoke.phase_roofline):
         t = time.perf_counter()
         phase()
         print(f"      ({phase.__name__}: {time.perf_counter() - t:.1f} s; "
               f"{time.perf_counter() - t0:.0f} s since the start)")
-    print(f"[17/17] result ({time.perf_counter() - t0:.0f} s since the "
+    print(f"[18/18] result ({time.perf_counter() - t0:.0f} s since the "
           f"start)")
     print(json.dumps({"kernels": smoke.kernel_rows()}))
     print(f"card: {card_line()}")
@@ -327,23 +346,33 @@ class Smoke:
         self.results = {}      # kernel name -> list of case dicts
         self.launches = {}
         self.host_params = {}  # config name -> its seeded params on the host
+        self.rooflines = []    # the counted steps (`_count_step`)
 
     # -- 1. card ------------------------------------------------------
     def phase_card(self):
         torch = self.torch
-        print(f"[1/17] card: {card_line()}")
+        print(f"[1/18] card: {card_line()}")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         print(f"      torch {torch.__version__} cuda {torch.version.cuda}; "
               f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
               f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+        props = torch.cuda.get_device_properties(0)
+        l2 = getattr(props, "L2_cache_size", None)
+        chip = self.chip
+        print(f"      L2 {l2} bytes by the device's properties, "
+              f"{chip.l2_bytes} by hw.H100 (data sheet); device memory "
+              f"{props.total_memory} bytes ({chip.hbm_bytes} by the data "
+              f"sheet); {props.multi_processor_count} SMs "
+              f"({chip.sm_count} by the data sheet)")
+        assert l2 is None or l2 == chip.l2_bytes, (l2, chip.l2_bytes)
 
     # -- 2. build -----------------------------------------------------
     def phase_build(self):
         from repro_torch.kernels import _build
         t0 = time.perf_counter()
         libs = _build.build_all()
-        print(f"[2/17] build: {sorted(libs)} from "
+        print(f"[2/18] build: {sorted(libs)} from "
               f"{_build.CSRC.relative_to(ROOT)} in "
               f"{time.perf_counter() - t0:.1f} s (nvcc "
               f"{' '.join(_build.NVCC_FLAGS)})")
@@ -361,17 +390,37 @@ class Smoke:
         return timing.time_turns(fns, device=self.dev, n=n, warmup=warmup,
                                  chunk=chunk)
 
+    def _charge(self, run_kernel):
+        """The work of one call of `run_kernel`, its op's charge
+        (`roofline.analysis`, through `roofline.counter`): the compulsory
+        bytes, and the FLOPs of the products the mask keeps (`kept_flops`)
+        that the bound counts, the least the card could do. The call must
+        be one charged op and nothing else that moves bytes."""
+        from repro_torch.roofline import analysis, counter
+        with counter.count() as c:
+            run_kernel()
+        (kernel, n), = c.calls.items()
+        assert n == 1 and c.hbm_bytes == c.tagged_bytes[kernel], \
+            (c.calls, c.top_charges(3))
+        return analysis.Charge(kernel, c.flops, c.kept_flops, c.hbm_bytes,
+                               c.charges[-1][1])
+
     def _case(self, kernel, label, run_kernel, run_plain, run_library,
-              nbytes, flops, dtype, tol, reference=None, n_time=30,
-              peak=None, note=""):
+              dtype, tol, reference=None, n_time=30, peak=None, note="",
+              charge=None):
         """Compare, then time. tol = (atol, rtol) on |kernel - plain|, or
         a list of them for a kernel of several outputs. run_library: a
         callable to time, or a time measured by the caller, or None.
         reference: a callable whose result (of a wider dtype) the kernel
         is held against in place of the plain version's. peak: the FLOP/s
         of the kernel's route, where it is not the card's rate for dtype;
-        note: printed at the end of the line."""
+        note: printed at the end of the line. The bound's bytes and FLOPs
+        are `charge`'s (a `roofline.analysis.Charge`: its bytes and kept
+        FLOPs), by default the op's own charge for this call
+        (`_charge`)."""
         torch = self.torch
+        charge = charge or self._charge(run_kernel)
+        nbytes, flops = charge.hbm_bytes, charge.kept_flops
         got = run_kernel()
         torch.cuda.synchronize()
         want = (reference or run_plain)()
@@ -428,7 +477,7 @@ class Smoke:
         torch = self.torch
         from repro_torch.kernels import ops, ref
         F = torch.nn.functional
-        print("[3/17] kernels against their plain versions (median of 30, "
+        print("[3/18] kernels against their plain versions (median of 30, "
               "L2 flushed, in turns, card time only)")
         gen = torch.Generator(device=self.dev).manual_seed(0)
 
@@ -439,7 +488,6 @@ class Smoke:
         tols = {torch.bfloat16: (1e-3, 2 ** -7), torch.float32: (1e-4, 1e-4)}
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[-1]
-            size = torch.finfo(dtype).bits // 8
             tol = tols[dtype]
             # -- matmul: the projections, the residual down-projection,
             #    the tied-embedding logits, each bias epilogue once
@@ -451,13 +499,11 @@ class Smoke:
             for m, k, n, ep in cases:
                 a = randn(m, k, dtype=dtype)
                 b = randn(k, n, dtype=dtype, scale=k ** -0.5)
-                kw, e_bytes = {}, 0
+                kw = {}
                 if ep == "residual":
                     kw["residual"] = randn(m, n, dtype=dtype)
-                    e_bytes = m * n * size
                 elif ep != "none":
                     kw["bias"] = randn(n, dtype=dtype)
-                    e_bytes = n * size
                 lib = {"none": lambda a=a, b=b: torch.matmul(a, b),
                        "residual": lambda a=a, b=b, r=kw.get("residual"):
                            torch.addmm(r, a, b),
@@ -468,8 +514,7 @@ class Smoke:
                     lambda a=a, b=b, kw=kw: ops.matmul(a, b, epilogue=ep, **kw),
                     lambda a=a, b=b, kw=kw, ep=ep: ref.fused_matmul_ref(
                         a, b, dtype, ep, kw.get("bias"), kw.get("residual")),
-                    lib, (m * k + k * n + m * n) * size + e_bytes,
-                    2 * m * n * k, dname, tol)
+                    lib, dname, tol)
             # the logits: x @ W_emb^T, W as an [N, K] operand, f32 out
             m, k, n = 4, 1024, 152064
             x = randn(m, k, dtype=dtype)
@@ -479,7 +524,7 @@ class Smoke:
                 lambda: ops.matmul(x, w.t(), out_dtype=torch.float32),
                 lambda: ref.fused_matmul_ref(x, w.t(), torch.float32),
                 lambda: torch.matmul(x, w.t()),
-                (m * k + k * n) * size + m * n * 4, 2 * m * n * k, dname,
+                dname,
                 tols[torch.float32])
             del w
             if dtype == torch.bfloat16:
@@ -499,8 +544,7 @@ class Smoke:
                     "gated_matmul", f"{dname} M={m} K={k} N={n}",
                     lambda a=a, wg=wg, wu=wu: ops.gated_matmul(a, wg, wu),
                     lambda a=a, wg=wg, wu=wu: ref.gated_matmul_ref(a, wg, wu),
-                    None, (m * k + 2 * k * n + m * n) * size, 4 * m * n * k,
-                    dname, tol, n_time=20 if m == 2048 else 50)
+                    None, dname, tol, n_time=20 if m == 2048 else 50)
                 if m == 2048:
                     wgu = torch.cat([wg, wu], 1)
                     ms, = self._time_turns([lambda: torch.matmul(a, wgu)],
@@ -523,8 +567,6 @@ class Smoke:
                 kc = randn(b_, tk, hkv, d, dtype=dtype)
                 vc = randn(b_, tk, hkv, d, dtype=dtype)
                 for window in windows:
-                    keys = [0 if p < 0 else min(p + 1, window or p + 1)
-                            for p in pos_list]
                     lo = [max(0, p - window + 1) if window else 0
                           for p in pos_list]
                     mask = torch.zeros((b_, 1, 1, tk), dtype=torch.bool,
@@ -542,8 +584,7 @@ class Smoke:
                                                   q_offset=pos),
                         lambda q=q, kc=kc, vc=vc, m_=mask: _sdpa(
                             torch, F, q, kc, vc, m_),
-                        (2 * q.numel() + 2 * sum(keys) * hkv * d) * size,
-                        4 * sum(keys) * h * d, dname, tol)
+                        dname, tol, note="; bound: + the pos vector's bytes")
                 del q, kc, vc
         self._kernels_hybrid(randn, tols[torch.bfloat16])
         self._kernels_dense_configs(randn, tols[torch.bfloat16])
@@ -643,9 +684,9 @@ class Smoke:
                     a, b, out_dtype=out, epilogue=ep, residual=r),
                 lambda a=a, b=b, r=r, ep=ep, out=out: ref.fused_matmul_ref(
                     a, b, out, ep, residual=r),
-                lib, (mm * k + k * n + (2 if r is not None else 0) * mm * n) * 2
-                + mm * n * out.itemsize, 2 * mm * n * k, "bfloat16",
-                tols[out], n_time=20)
+                lib, "bfloat16", tols[out], n_time=20,
+                note="" if r is None else "; bound: the residual read once "
+                "(an earlier count read it twice)")
             del a, b, r
 
     def _kernels_dense_q_grad(self, randn, m=2048, k=3072, n=1024):
@@ -723,7 +764,6 @@ class Smoke:
                 lambda a=a, b=b, o=out: ops.matmul(a, b, out_dtype=o),
                 lambda a=a, b=b, o=out: ref.fused_matmul_ref(a, b, o),
                 lambda a=a, b=b: torch.matmul(a, b),
-                (m * k + k * n) * 2 + m * n * out.itemsize, 2 * m * n * k,
                 "bfloat16", tol if out == dtype else (1e-4, 1e-4))
         k, n = 2048, 8192
         a = randn(m, k, dtype=dtype)
@@ -733,7 +773,7 @@ class Smoke:
             "gated_matmul", f"bfloat16 M={m} K={k} N={n} (shared SwiGLU)",
             lambda: ops.gated_matmul(a, wg, wu),
             lambda: ref.gated_matmul_ref(a, wg, wu), None,
-            (m * k + 2 * k * n + m * n) * 2, 4 * m * n * k, "bfloat16", tol)
+            "bfloat16", tol)
 
     def _kernels_dense_configs(self, randn, tol, m=4):
         """The kernels of the dense configs' and qwen2-vl-2b's decode
@@ -768,13 +808,11 @@ class Smoke:
             for k, n, ep, what in gemms:
                 a = randn(m, k, dtype=dtype)
                 b = randn(k, n, dtype=dtype, scale=k ** -0.5)
-                kw, e_bytes = {}, 0
+                kw = {}
                 if ep == "residual":
                     kw["residual"] = randn(m, n, dtype=dtype)
-                    e_bytes = m * n * 2
                 elif ep == "bias":
                     kw["bias"] = randn(n, dtype=dtype, scale=0.1)
-                    e_bytes = n * 2
                 lib = {"none": lambda a=a, b=b: torch.matmul(a, b)}.get(
                     ep, lambda a=a, b=b, e=kw.get("bias",
                                                   kw.get("residual")):
@@ -787,8 +825,7 @@ class Smoke:
                     lambda a=a, b=b, kw=kw, ep=ep: ref.fused_matmul_ref(
                         a, b, dtype, ep, kw.get("bias"),
                         kw.get("residual")),
-                    lib, (m * k + k * n + m * n) * 2 + e_bytes,
-                    2 * m * n * k, "bfloat16", tol, n_time=20)
+                    lib, "bfloat16", tol, n_time=20)
                 if ep == "bias":
                     wq, scale = precision.quantize_int8(b.float())
                     self._case(
@@ -799,8 +836,7 @@ class Smoke:
                         lambda a=a, wq=wq, s=scale, kw=kw:
                             ref.matmul_q_ref(a, wq, s, dtype, "bias",
                                              **kw),
-                        None, m * k * 2 + k * n + n * 4 + m * n * 2
-                        + e_bytes, 2 * m * n * k, "bfloat16", tol, n_time=20)
+                        None, "bfloat16", tol, n_time=20)
                 del a, b, kw
             a = randn(m, d, dtype=dtype)
             wg = randn(d, ff, dtype=dtype, scale=d ** -0.5)
@@ -809,8 +845,7 @@ class Smoke:
                 "gated_matmul", f"bfloat16 M={m} K={d} N={ff} ({name})",
                 lambda a=a, wg=wg, wu=wu: ops.gated_matmul(a, wg, wu),
                 lambda a=a, wg=wg, wu=wu: ref.gated_matmul_ref(a, wg, wu),
-                None, (m * d + 2 * d * ff + m * ff) * 2,
-                4 * m * ff * d, "bfloat16", tol, n_time=20)
+                None, "bfloat16", tol, n_time=20)
             del a, wg, wu
             # the logits, f32 out: x @ W_emb^T (tied) or x @ W_lm_head
             x = randn(m, d, dtype=dtype)
@@ -822,7 +857,6 @@ class Smoke:
                 lambda: ops.matmul(x, w, out_dtype=torch.float32),
                 lambda: ref.fused_matmul_ref(x, w, torch.float32),
                 lambda: torch.matmul(x, w),
-                (m * d + d * nv) * 2 + m * nv * 4, 2 * m * nv * d,
                 "bfloat16", (1e-4, 1e-4), n_time=20)
             del x, w
             self._decode_cases(randn, tol, h, hkv, paged=name == "qwen2-vl-2b",
@@ -873,7 +907,7 @@ class Smoke:
 
         for what, dname, e, d, f, ms in banks:
             dtype = getattr(torch, dname)
-            size, tol = dtype.itemsize, tols[dtype]
+            tol = tols[dtype]
             n_time = 10 if e > 8 else 20
             wg, wu, wd = bank(e, d, f, dtype), bank(e, d, f, dtype), \
                 bank(e, f, d, dtype)
@@ -885,16 +919,14 @@ class Smoke:
                     f"{dname} E={e} M={m} K={d} N={f} ({what})",
                     lambda a=a: ops.gated_matmul_batched(a, wg, wu),
                     lambda a=a: ref.gated_matmul_batched_ref(a, wg, wu),
-                    None, (e * m * d + 2 * e * d * f + e * m * f) * size,
-                    4 * e * m * f * d, dname, tol, n_time=n_time)
+                    None, dname, tol, n_time=n_time)
                 self._case(
                     "matmul_batched", f"{dname} E={e} M={m} K={f} N={d} "
                     f"({what} down)",
                     lambda h=h: ops.matmul_batched(h, wd),
                     lambda h=h: ref.matmul_batched_ref(h, wd),
                     lambda h=h: torch.bmm(h, wd),
-                    (e * m * f + e * f * d + e * m * d) * size,
-                    2 * e * m * d * f, dname, tol, n_time=n_time)
+                    dname, tol, n_time=n_time)
                 got_g = ops.gated_matmul_batched(a, wg, wu)
                 got_d = ops.matmul_batched(h, wd)
                 for x in range(e):
@@ -927,7 +959,6 @@ class Smoke:
         q = randn(b_, 1, h, d, dtype=dtype)
         kc = randn(b_, tk, hkv, d, dtype=dtype)
         vc = randn(b_, tk, hkv, d, dtype=dtype)
-        keys = sum(min(p + 1, window) for p in pos_list if p >= 0)
         mask = torch.zeros((b_, 1, 1, tk), dtype=torch.bool, device=self.dev)
         for i, p in enumerate(pos_list):
             mask[i, ..., max(0, p - window + 1):p + 1] = True
@@ -938,8 +969,7 @@ class Smoke:
             lambda: ref.attention_fwd_ref(q, kc, vc, window=window,
                                           q_offset=pos),
             lambda: _sdpa(torch, F, q, kc, vc, mask),
-            (2 * q.numel() + 2 * keys * hkv * d) * 2 + b_ * 4,
-            4 * keys * h * d, "bfloat16", tol, n_time=20)
+            "bfloat16", tol, n_time=20)
         del q, kc, vc, mask
         # a verify step's rows at mixtral's 48/8 and window: dense, paged
         self._decode_cases(randn, tol, 48, 8, paged=True, what="mixtral-8x22b",
@@ -988,8 +1018,7 @@ class Smoke:
                     lambda a=a, b=b: ops.matmul_batched(a, b),
                     lambda a=a, b=b: ref.matmul_batched_ref(a, b),
                     lambda a=a, b=b: torch.bmm(a, b),
-                    (e * em * ek + e * ek * en + e * em * en) * dtype.itemsize,
-                    2 * e * em * en * ek, dname, tol, n_time=n_time)
+                    dname, tol, n_time=n_time)
                 got = ops.matmul_batched(a, b)
                 for i in range(e):
                     assert torch.equal(got[i], ops.matmul(a[i], b[i])), \
@@ -1023,7 +1052,6 @@ class Smoke:
                 _sdpa_train(torch, F, q, k, v, None, causal=False),
                 _sdpa_train(torch, F, q, k, v, None, do, causal=False)],
                 n=20)
-            qkv_bytes = (2 * q.numel() + 2 * k.numel()) * 2
             self._case(
                 "flash_attention_bwd", f"bfloat16 B={b_} Tq={tq} Tk={te} "
                 f"H={h} Hkv={h} D={dh} not causal (whisper {what})",
@@ -1031,8 +1059,7 @@ class Smoke:
                                                 causal=False),
                 lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, lse,
                                                     causal=False),
-                both_ms - fwd_ms, 2 * qkv_bytes + b_ * h * tq * 4,
-                10 * b_ * h * tq * te * dh, "bfloat16", tol, n_time=20)
+                both_ms - fwd_ms, "bfloat16", tol, n_time=20)
             del q, k, v, do, o, lse
 
     def _kernels_encdec(self, randn, tol):
@@ -1071,8 +1098,7 @@ class Smoke:
                                                           **kw),
                 lambda a=a, b=b, kw=kw, ep=ep: ref.fused_matmul_ref(
                     a, b, dtype, ep, kw.get("bias")),
-                lib, (m * k + k * n + m * n) * 2 + (n * 2 if kw else 0),
-                2 * m * n * k, "bfloat16", tol, n_time=20)
+                lib, "bfloat16", tol, n_time=20)
             if ep == "bias_gelu":
                 wq, scale = precision.quantize_int8(b.float())
                 self._case(
@@ -1082,8 +1108,7 @@ class Smoke:
                         a, wq, s, epilogue="bias_gelu", bias=e),
                     lambda a=a, wq=wq, s=scale, e=bias: ref.matmul_q_ref(
                         a, wq, s, dtype, "bias_gelu", bias=e),
-                    None, m * k * 2 + k * n + n * 4 + m * n * 2 + n * 2,
-                    2 * m * n * k, "bfloat16", tol, n_time=20)
+                    None, "bfloat16", tol, n_time=20)
             del a, b
         x = randn(4, d, dtype=dtype)
         w = randn(nv, d, dtype=dtype, scale=d ** -0.5)
@@ -1093,7 +1118,7 @@ class Smoke:
             lambda: ops.matmul(x, w.t(), out_dtype=torch.float32),
             lambda: ref.fused_matmul_ref(x, w.t(), torch.float32),
             lambda: torch.matmul(x, w.t()),
-            (4 * d + d * nv) * 2 + 4 * nv * 4, 2 * 4 * nv * d, "bfloat16",
+            "bfloat16",
             (1e-4, 1e-4), n_time=20)
         del x, w
         k = randn(1, te, h, dh, dtype=dtype)
@@ -1108,8 +1133,7 @@ class Smoke:
                                                         causal=False),
                 lambda q=q: F.scaled_dot_product_attention(
                     q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)),
-                (2 * q.numel() + 2 * k.numel()) * 2 + h * tq * 4,
-                4 * h * tq * te * dh, "bfloat16",
+                "bfloat16",
                 [tol, (1e-4, 1e-4)], n_time=20)
         b_ = 4
         q = randn(b_, 1, h, dh, dtype=dtype)
@@ -1118,15 +1142,13 @@ class Smoke:
         pos = torch.tensor([te - 1, -1, te - 1, te - 1], dtype=torch.int32,
                            device=self.dev)
         mask = (pos >= 0).view(b_, 1, 1, 1).expand(b_, 1, 1, te)
-        keys = 3 * te
         self._case(
             "flash_decode", f"bfloat16 B={b_} H={h} Hkv={h} D={dh} Tk={te} "
             f"pos [1499, -1, 1499, 1499] (whisper cross)",
             lambda: ops.flash_decode(q, kc, vc, pos=pos),
             lambda: ref.attention_fwd_ref(q, kc, vc, q_offset=pos),
             lambda: _sdpa(torch, F, q, kc, vc, mask),
-            (2 * q.numel() + 2 * keys * h * dh) * 2, 4 * keys * h * dh,
-            "bfloat16", tol)
+            "bfloat16", tol, note="; bound: + the pos vector's bytes")
 
     def _decode_cases(self, randn, tol, h, hkv, paged, what, d=128, tk=2048,
                       window=None):
@@ -1154,7 +1176,6 @@ class Smoke:
         kc = randn(b_, tk, hkv, d, dtype=dtype)
         vc = randn(b_, tk, hkv, d, dtype=dtype)
         q1 = q[:, :1].contiguous()
-        keys = sum(p + 1 - lo(p) for p in pos_list if p >= 0)
         mask = torch.zeros((b_, 1, 1, tk), dtype=torch.bool, device=self.dev)
         for i, p in enumerate(pos_list):
             mask[i, ..., lo(p):p + 1] = True
@@ -1166,8 +1187,7 @@ class Smoke:
             lambda: ref.attention_fwd_ref(q1, kc, vc, window=window,
                                           q_offset=pos),
             lambda: _sdpa(torch, F, q1, kc, vc, mask),
-            (2 * q1.numel() + 2 * keys * hkv * d) * 2 + b_ * 4,
-            4 * keys * h * d, "bfloat16", tol, n_time=20)
+            "bfloat16", tol, n_time=20)
         if not paged:
             return
         pp = tk // ps
@@ -1185,7 +1205,6 @@ class Smoke:
                            ops.flash_decode(q1, kc, vc, pos=pos,
                                             window=window)), \
             f"{what}: a bf16 pool's output != the dense cache's bits"
-        pages = sum(p // ps - lo(p) // ps + 1 for p in pos_list if p >= 0)
         self._case(
             "flash_decode_paged", f"bfloat16 bf16 pool B={b_} H={h} "
             f"Hkv={hkv} D={d} ps={ps} pp={pp}{win} ({what})",
@@ -1193,13 +1212,8 @@ class Smoke:
                                            window=window),
             lambda: ref.flash_decode_paged_ref(q1, kp, vp, table, pos=pos,
                                                window=window),
-            None, (2 * q1.numel() + 2 * keys * hkv * d) * 2 + pages * 4
-            + b_ * 4, 4 * keys * h * d, "bfloat16", tol, n_time=20)
+            None, "bfloat16", tol, n_time=20)
         n_valid = torch.tensor(nv_list, dtype=torch.int32, device=self.dev)
-        seen = sum(p + r + 1 - lo(p + r) for p, n in zip(pos_list, nv_list)
-                   if p >= 0 for r in range(n))
-        union = sum(p + n - lo(p) for p, n in zip(pos_list, nv_list)
-                    if p >= 0)
         rmask = torch.zeros((b_, 1, t, tk), dtype=torch.bool,
                             device=self.dev)
         for i, (p, n) in enumerate(zip(pos_list, nv_list)):
@@ -1222,8 +1236,7 @@ class Smoke:
             lambda: ref.decode_rows_ref(q, kc, vc, pos=pos, window=window,
                                         n_valid=n_valid),
             lambda: _sdpa(torch, F, q, kc, vc, rmask),
-            (2 * q.numel() + 2 * union * hkv * d) * 2 + b_ * 8,
-            4 * seen * h * d, "bfloat16", tol, n_time=20)
+            "bfloat16", tol, n_time=20)
         if window is None:
             return
         got = ops.flash_decode_paged(q, kp, vp, table, pos=pos, window=window,
@@ -1231,8 +1244,6 @@ class Smoke:
         assert torch.equal(got, ops.flash_decode(
             q, kc, vc, pos=pos, window=window, n_valid=n_valid)), \
             f"{what}: a bf16 pool's rows != the dense cache's bits"
-        rpages = sum((p + n - 1) // ps - lo(p) // ps + 1
-                     for p, n in zip(pos_list, nv_list) if p >= 0)
         self._case(
             "flash_decode_paged_rows", f"bfloat16 bf16 pool B={b_} t={t} "
             f"H={h} Hkv={hkv} D={d} ps={ps} pp={pp}{win} ({what})",
@@ -1240,8 +1251,7 @@ class Smoke:
                                            window=window, n_valid=n_valid),
             lambda: ref.flash_decode_paged_ref(q, kp, vp, table, pos=pos,
                                                window=window, n_valid=n_valid),
-            None, (2 * q.numel() + 2 * union * hkv * d) * 2 + rpages * 4
-            + b_ * 8, 4 * seen * h * d, "bfloat16", tol, n_time=20)
+            None, "bfloat16", tol, n_time=20)
 
     def _decode_batch_invariance(self, randn, h, hkv, d=128, tk=2048):
         """flash_decode and flash_decode_paged (bf16 and int8 pools) at
@@ -1325,21 +1335,18 @@ class Smoke:
             a = randn(m, k, dtype=dtype)
             wq, scale = precision.quantize_int8(
                 randn(k, n, dtype=torch.float32, scale=k ** -0.5))
-            kw, e_bytes = {}, 0
+            kw = {}
             if ep == "residual":
                 kw["residual"] = randn(m, n, dtype=dtype)
-                e_bytes = m * n * 2
             elif ep != "none":
                 kw["bias"] = randn(n, dtype=dtype)
-                e_bytes = n * 2
             self._case(
                 "matmul_q", f"bfloat16 M={m} K={k} N={n} int8 W {ep}",
                 lambda a=a, wq=wq, s=scale, kw=kw, ep=ep: ops.matmul_q(
                     a, wq, s, epilogue=ep, **kw),
                 lambda a=a, wq=wq, s=scale, kw=kw, ep=ep: ref.matmul_q_ref(
                     a, wq, s, dtype, ep, **kw),
-                None, m * k * 2 + k * n + n * 4 + m * n * 2 + e_bytes,
-                2 * m * n * k, "bfloat16", tol)
+                None, "bfloat16", tol)
         # -- flash_decode_paged: 4 slots, 128 pages of 16 a slot, one idle,
         #    the pages shuffled over the pool, -1 past each prefix
         b_, h, hkv, d, ps, pp = 4, 16, 8, 128, 16, 128
@@ -1368,15 +1375,9 @@ class Smoke:
                                            window=window)
             assert torch.equal(paged, dense), \
                 f"paged bf16 pool != dense cache bits, window={window}"
-            lo = [max(0, p - window + 1) if window else 0 for p in pos_list]
-            keys = sum(max(0, p - l + 1) for p, l in zip(pos_list, lo))
-            pages = sum(p // ps - l // ps + 1 for p, l in zip(pos_list, lo)
-                        if p >= 0)
-            io = 2 * q.numel() * 2 + pages * 4 + b_ * 4     # q, o, table, pos
-            for pool, (k_, v_, kw, elem) in {
-                    "bf16": (kp, vp, {}, 2),
-                    "int8": (k8, v8, dict(ks=ks, vs=vs), 1)}.items():
-                nbytes = io + 2 * keys * hkv * (d * elem + (4 if kw else 0))
+            for pool, (k_, v_, kw) in {
+                    "bf16": (kp, vp, {}),
+                    "int8": (k8, v8, dict(ks=ks, vs=vs))}.items():
                 self._case(
                     "flash_decode_paged",
                     f"bfloat16 {pool} pool B={b_} H={h} Hkv={hkv} D={d} "
@@ -1387,7 +1388,7 @@ class Smoke:
                     lambda k_=k_, v_=v_, kw=kw, w_=window:
                         ref.flash_decode_paged_ref(q, k_, v_, table, pos=pos,
                                                    window=w_, **kw),
-                    None, nbytes, 4 * keys * h * d, "bfloat16", tol)
+                    None, "bfloat16", tol)
         print("      flash_decode_paged on a bf16 pool equals flash_decode on "
               "the dense cache, bit for bit (window None and 512)")
 
@@ -1424,18 +1425,8 @@ class Smoke:
         k8, ks = precision.quantize_kv(kp)
         v8, vs = precision.quantize_kv(vp)
         ks, vs = ks.transpose(1, 2).contiguous(), vs.transpose(1, 2).contiguous()
-        pools = {"bf16": (kp, vp, {}, 2), "int8": (k8, v8, dict(ks=ks, vs=vs), 1)}
+        pools = {"bf16": (kp, vp, {}), "int8": (k8, v8, dict(ks=ks, vs=vs))}
         for window in (None, 512):
-            # the rows each real row sees, and the union a slot stages
-            rows = [(p + r, max(0, p + r - window + 1) if window else 0)
-                    for p, n in zip(pos_list, nv_list) if p >= 0
-                    for r in range(n)]
-            seen = sum(hi - lo + 1 for hi, lo in rows)
-            union = sum(p + n - (max(0, p - window + 1) if window else 0)
-                        for p, n in zip(pos_list, nv_list) if p >= 0)
-            pages = sum((p + n - 1) // ps - (max(0, p - window + 1)
-                                             if window else 0) // ps + 1
-                        for p, n in zip(pos_list, nv_list) if p >= 0)
             mask = torch.zeros((b_, 1, t, tk), dtype=torch.bool,
                                device=self.dev)
             for i, (p, n) in enumerate(zip(pos_list, nv_list)):
@@ -1462,7 +1453,6 @@ class Smoke:
             assert torch.equal(ops.flash_decode_paged(
                 q, kp, vp, table, pos=pos, window=window, n_valid=n_valid),
                 dense), "paged bf16 pool rows != dense cache rows"
-            io = 2 * q.numel() * 2 + b_ * 8                # q, o, pos, n_valid
             self._case(
                 "flash_decode_rows",
                 f"bfloat16 B={b_} t={t} H={h} Hkv={hkv} D={d} Tk={tk} "
@@ -1473,9 +1463,8 @@ class Smoke:
                                                       window=w_,
                                                       n_valid=n_valid),
                 lambda m_=mask: _sdpa(torch, F, q, kc, vc, m_),
-                io + 2 * union * hkv * d * 2, 4 * seen * h * d,
                 "bfloat16", tol)
-            for pool, (k_, v_, kw, elem) in pools.items():
+            for pool, (k_, v_, kw) in pools.items():
                 self._case(
                     "flash_decode_paged_rows",
                     f"bfloat16 {pool} pool B={b_} t={t} H={h} Hkv={hkv} "
@@ -1488,9 +1477,7 @@ class Smoke:
                         ref.flash_decode_paged_ref(q, k_, v_, table, pos=pos,
                                                    window=w_, n_valid=n_valid,
                                                    **kw),
-                    None, io + pages * 4
-                    + 2 * union * hkv * (d * elem + (4 if kw else 0)),
-                    4 * seen * h * d, "bfloat16", tol)
+                    None, "bfloat16", tol)
         print(f"      decode rows: each of the {t} rows of a slot equals the "
               f"one-row kernel at pos + r bit for bit (dense and int8 "
               f"pool), and a bf16 pool the dense cache (window None and "
@@ -1516,7 +1503,6 @@ class Smoke:
                                          (f32, 16, 8, 128, qwen3),
                                          (bf16, 32, 32, 64, ((512, None),))):
             dname = str(dtype).split(".")[-1]
-            size = torch.finfo(dtype).bits // 8
             for t, window in shapes:
                 q = randn(b_, t, h, d, dtype=dtype)
                 k = randn(b_, t, hkv, d, dtype=dtype)
@@ -1526,11 +1512,8 @@ class Smoke:
                 mask = pos[None, :] <= pos[:, None]
                 if window:
                     mask &= pos[None, :] > pos[:, None] - window
-                pairs = int(mask.sum())
                 label = (f"{dname} B={b_} T={t} H={h} Hkv={hkv} D={d} "
                          f"causal window={window}")
-                qkv_bytes = (2 * q.numel() + 2 * k.numel()) * size
-                lse_bytes = b_ * h * t * 4
                 sdpa = _sdpa_train(torch, F, q, k, v, None if window is None
                                    else mask)
                 self._case(
@@ -1538,8 +1521,7 @@ class Smoke:
                     lambda: ops.flash_attention_fwd(q, k, v, window=window),
                     lambda: ref.flash_attention_fwd_ref(q, k, v,
                                                         window=window),
-                    sdpa, qkv_bytes + lse_bytes, 4 * b_ * h * pairs * d,
-                    dname, [tols[dtype], tols[torch.float32]])
+                    sdpa, dname, [tols[dtype], tols[torch.float32]])
                 o, lse = ref.flash_attention_fwd_ref(q, k, v, window=window)
                 fwd_ms, both_ms = self._time_turns([sdpa, _sdpa_train(
                     torch, F, q, k, v, None if window is None else mask, do)])
@@ -1549,8 +1531,7 @@ class Smoke:
                                                     window=window),
                     lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, lse,
                                                         window=window),
-                    both_ms - fwd_ms, 2 * qkv_bytes + lse_bytes,
-                    10 * b_ * h * pairs * d, dname, tols[dtype])
+                    both_ms - fwd_ms, dname, tols[dtype])
                 del q, k, v, do, o, lse
 
     def _kernels_ssd(self, gen, tols):
@@ -1561,8 +1542,10 @@ class Smoke:
         inputs, strong decays and training's batch of 4 x 512 at
         mamba2-2.7b's and zamba2-1.2b's heads). x ~ N(0, 1),
         B and C scaled so that C . B ~ N(0, 1), -a ~ U(0.01, 0.5). The
-        bound counts each input and output once, and the unmasked
-        products: the causal half of C B^T and of S x, and the state. f32
+        bound is the op's charge, its bytes and kept FLOPs
+        (`roofline.analysis.ssd_charge`, `ssd_intra_chunk_charge`): each
+        input and output once, and the unmasked products: the causal half
+        of C B^T and of S x, and the state. f32
         operands at the kernel's route, three TF32 tensor-core passes a
         product (3xTF32); bf16 ones at the card's bf16 tensor rate, one
         pass for C B^T and two for S x and the state, whose f32 side
@@ -1573,6 +1556,7 @@ class Smoke:
         torch = self.torch
         from repro_torch.kernels import ops, ref
         from repro_torch.kernels import ssd as kssd
+        from repro_torch.roofline import analysis as an
 
         def inputs(b, l, h, g, p, n, dtype, decay=None):
             x = torch.randn((b, l, h, p), generator=gen, device=self.dev)
@@ -1601,56 +1585,50 @@ class Smoke:
                  (4, 512, 64, 1, 64, 64, 128, f32, None, False)]
         for b, l, h, g, p, n, q, dtype, decay, with_state in cases:
             dname = str(dtype).split(".")[-1]
-            size = torch.finfo(dtype).bits // 8
             x, a, bm, cm = inputs(b, l, h, g, p, n, dtype, decay)
-            nc = l // q
-            pairs = q * (q + 1) // 2
-            cb_flops = b * h * nc * 2 * pairs * n
-            flops = cb_flops + b * h * nc * (2 * pairs * p + 2 * q * n * p)
-            # the scan adds the state -> output products and the recurrence
-            scan_flops = 2 * b * h * (l + nc) * n * p
-            t_route = 3 * flops / TF32_PEAK if dtype == f32 else \
-                (cb_flops + 2 * (flops - cb_flops)) / self.chip.peak_flops(2)
+            intra = an.ssd_intra_chunk_charge(x, a, bm, cm, q)
+            flops = intra.kept_flops
+            # C B^T's share of the intra-chunk products: one bf16 pass
+            cb_flops = b * h * (l // q) * q * (q + 1) * n
+            t_route = 3 * flops / self.chip.peak_flops_tf32 if dtype == f32 \
+                else (2 * flops - cb_flops) / self.chip.peak_flops(2)
             fma = self.chip.peak_flops_f32
 
-            def route(nbytes, scan=0):
-                """_case's peak and note for a case that moves nbytes and
-                adds `scan` FLOP at the FMA rate."""
-                fma_ms = max(nbytes / self.chip.hbm_bw,
-                             (flops + scan) / fma) * 1e3
-                return dict(peak=(flops + scan) / (t_route + scan / fma),
+            def route(c):
+                """_case's charge, peak and note for the charge c: its
+                intra-chunk products at the route's rate, the rest (the
+                scan's own) at the FMA rate."""
+                scan = c.kept_flops - flops
+                fma_ms = max(c.hbm_bytes / self.chip.hbm_bw,
+                             c.kept_flops / fma) * 1e3
+                return dict(charge=c,
+                            peak=c.kept_flops / (t_route + scan / fma),
                             note=f"; FMA-route bound {fma_ms:.4f}")
-            in_bytes = (x.numel() + bm.numel() + cm.numel()) * size \
-                + a.numel() * 4
-            scan_bytes = in_bytes + b * h * p * n * 4 + x.numel() * size
             label = (f"{dname} B={b} L={l} H={h} G={g} P={p} N={n} "
                      f"chunk={q}" + (f" a=-{decay:g}" if decay else ""))
             if with_state:
                 s0 = torch.randn((b, h, p, n), generator=gen, device=self.dev)
-                nbytes = in_bytes + s0.numel() * 8 + x.numel() * size
                 self._case(
                     "ssd", label + " scan from init_state",
                     lambda: ops.ssd(x, a, bm, cm, q, init_state=s0),
                     lambda: ref.ssd_chunked_ref(x, a, bm, cm, q, s0),
-                    None, nbytes, flops + scan_flops, "float32",
+                    None, "float32",
                     [tols[dtype], tols[f32]],
-                    **route(nbytes, scan_flops))
+                    **route(an.ssd_charge(x, a, bm, cm, q, init_state=s0)))
                 continue
-            nbytes = in_bytes + x.numel() * 4 + b * h * nc * n * p * 4
             self._case(
                 "ssd", label,
                 lambda: kssd.ssd_intra_chunk(x, a, bm, cm, q),
                 lambda: ref.ssd_intra_chunk_ref(x, a, bm, cm, q),
-                None, nbytes, flops, "float32", tols[f32],
-                **route(nbytes))
+                None, "float32", tols[f32], **route(intra))
             if dtype == bf16 or decay or b == 4:
                 self._case(
                     "ssd", label + " scan",
                     lambda: ops.ssd(x, a, bm, cm, q),
                     lambda: ref.ssd_chunked_ref(x, a, bm, cm, q),
-                    None, scan_bytes, flops + scan_flops, "float32",
+                    None, "float32",
                     [tols[dtype], tols[f32]],
-                    **route(scan_bytes, scan_flops))
+                    **route(an.ssd_charge(x, a, bm, cm, q)))
             del x, a, bm, cm
 
     def _kernels_paper(self, randn, tols, n=4096):
@@ -1666,17 +1644,18 @@ class Smoke:
         torch = self.torch
         from repro_torch.kernels import elementwise as kew
         from repro_torch.kernels import ops, ref
+        from repro_torch.roofline import analysis as an
         f32, bf16, f64 = torch.float32, torch.bfloat16, torch.float64
         exact = (0.0, 0.0)
 
-        def name_size(dtype):
-            return str(dtype).split(".")[-1], torch.finfo(dtype).bits // 8
+        def name(dtype):
+            return str(dtype).split(".")[-1]
 
         # the tiled GEMM at the paper's size (Table 2's "tiled" column):
         # f32 on the FMA kernel's wide tile, held to the f64 product; bf16
         # on the tensor cores
         for dtype in (f32, bf16):
-            dname, size = name_size(dtype)
+            dname = name(dtype)
             a = randn(n, n, dtype=dtype)
             b = randn(n, n, dtype=dtype, scale=n ** -0.5)
             f64_product = lambda a=a, b=b: ref.matmul_ref(a.double(), b.double())
@@ -1685,7 +1664,7 @@ class Smoke:
                 lambda a=a, b=b: ops.matmul(a, b),
                 lambda a=a, b=b: ref.fused_matmul_ref(a, b, dtype),
                 lambda a=a, b=b: torch.matmul(a, b),
-                3 * n * n * size, 2 * n ** 3, dname,
+                dname,
                 (n * 2.0 ** -24, 0.0) if dtype == f32 else tols[bf16],
                 reference=f64_product if dtype == f32 else None, n_time=10)
             row = self.results["matmul"][-1]
@@ -1698,7 +1677,7 @@ class Smoke:
         for m, k, nn, dtype, n_time in ((n, n, n, f32, 10), (n, n, n, bf16, 10),
                                         (q, q, q, f64, 50),
                                         (1000, 300, 700, f32, 50)):
-            dname, size = name_size(dtype)
+            dname = name(dtype)
             a = randn(m, k, dtype=dtype)
             b = randn(k, nn, dtype=dtype, scale=k ** -0.5)
             reference, tol = None, tols.get(dtype)
@@ -1711,13 +1690,13 @@ class Smoke:
                 lambda a=a, b=b: ops.matmul_naive(a, b),
                 lambda a=a, b=b: ref.matmul_ref(a, b),
                 lambda a=a, b=b: torch.matmul(a, b),
-                (m * k + k * nn + m * nn) * size, 2 * m * nn * k, dname, tol,
+                dname, tol,
                 reference=reference, n_time=n_time)
             del a, b
 
         library = {"add": torch.add, "sub": torch.sub, "mul": torch.mul}
         for dtype in (f32, bf16, f64):
-            dname, size = name_size(dtype)
+            dname = name(dtype)
             for rows, cols, names in ((n, n, ("add", "sub", "mul")),
                                       (1000, 1001, ("add",))):
                 x, y = randn(rows, cols, dtype=dtype), randn(rows, cols, dtype=dtype)
@@ -1727,8 +1706,8 @@ class Smoke:
                         lambda x=x, y=y, op=op: kew.binary_op(x, y, op),
                         lambda x=x, y=y, op=op: ref.binary_ref(x, y, op),
                         lambda x=x, y=y, op=op: library[op](x, y),
-                        3 * x.numel() * size, x.numel(), dname, exact,
-                        n_time=200 if rows == n else 50)
+                        dname, exact, n_time=200 if rows == n else 50,
+                        charge=an.binary_charge(x, y))
             x, y = randn(n, n, dtype=dtype), randn(n, n, dtype=dtype)
             alpha_t = torch.full((1,), 0.7, device=self.dev)
             for alpha, how in ((0.7, "a number"), (alpha_t, "an f32 tensor")):
@@ -1737,15 +1716,16 @@ class Smoke:
                     lambda alpha=alpha: kew.axpy(alpha, x, y),
                     lambda alpha=alpha: ref.saxpy_ref(alpha, x, y),
                     lambda: torch.add(y, x, alpha=0.7),
-                    3 * x.numel() * size, 2 * x.numel(), dname, exact,
-                    n_time=200)
+                    dname, exact, n_time=200,
+                    charge=an.axpy_charge(alpha, x, y),
+                    note="" if how == "a number" else
+                    "; bound: + alpha's 4 bytes")
             del x, y
         # unaligned operands (one element into a buffer): the one-element path
         xu, yu = (randn(n * n + 1, dtype=f32)[1:].view(n, n) for _ in range(2))
         self._case("binary_op", f"float32 add {n}x{n} unaligned operands",
                    lambda: ops.add(xu, yu), lambda: ref.add_ref(xu, yu),
-                   lambda: torch.add(xu, yu), 3 * xu.numel() * 4, xu.numel(),
-                   "float32", exact)
+                   lambda: torch.add(xu, yu), "float32", exact)
         # complex64: add on the (re, im) pairs, through ops.add
         xc, yc = (torch.complex(randn(n // 2, n // 2, dtype=f32),
                                 randn(n // 2, n // 2, dtype=f32))
@@ -1753,8 +1733,7 @@ class Smoke:
         self._case("binary_op", f"complex64 add {n // 2}x{n // 2} (f32 view)",
                    lambda: torch.view_as_real(ops.add(xc, yc)),
                    lambda: torch.view_as_real(ref.add_ref(xc, yc)),
-                   lambda: torch.add(xc, yc), 3 * xc.numel() * 8,
-                   2 * xc.numel(), "float32", exact)
+                   lambda: torch.add(xc, yc), "float32", exact)
         del xu, yu, xc, yc
 
     # -- 4. the slice at full width --------------------------------------
@@ -1776,7 +1755,7 @@ class Smoke:
                                device=self.dev)
         del params                      # the engine keeps its bf16 copy
         torch.cuda.synchronize()
-        print(f"[4/17] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
+        print(f"[4/18] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
               f"heads {cfg.n_heads}/{cfg.n_kv_heads}x{cfg.resolved_head_dim} "
               f"d_ff {cfg.d_ff} vocab {cfg.vocab}->{cfg.padded_vocab}; "
               f"weights ready in {time.perf_counter() - t0:.1f} s; "
@@ -1823,12 +1802,17 @@ class Smoke:
 
     def phase_trace(self):
         self._trace(self.engine, self.serve_p50,
-                    expect=("matmul", "gated_matmul", "flash_decode"))
+                    expect=("matmul", "gated_matmul", "flash_decode"),
+                    roofline=True)
+        self._count_prefill(self.engine,
+                            max((it.prompt for it in self.work), key=len))
 
-    def _trace(self, eng, p50_s, n_steps=6, expect=(), prompt_len=256):
+    def _trace(self, eng, p50_s, n_steps=6, expect=(), prompt_len=256,
+               roofline=False):
         """Decode steps of `eng` with 4 slots busy at a depth of
         `prompt_len` and on (an encdec request with random frames): first
-        one replay against an eager step (`_check_replay`), then a trace:
+        one replay against an eager step (`_check_replay`; with
+        `roofline`, the eager step counted for phase 17), then a trace:
         the card's busy time a step, by kernel, beside the step's wall
         time on the host clock (the profiler's own host cost included, so
         the idle share read here is an upper bound) and the decode p50 of
@@ -1847,7 +1831,7 @@ class Smoke:
                        n_steps + 2, enc_frames=frames)
         eng.step()                      # admits all four, one decode step
         assert eng.scheduler.n_active == 4, eng.scheduler.n_active
-        self._check_replay(eng)
+        self._check_replay(eng, p50_s if roofline else None)
         first = len(eng._step_times)
         with _wrapper_calls() as calls, \
                 profile(activities=[ProfilerActivity.CPU,
@@ -1878,12 +1862,15 @@ class Smoke:
         if api:
             assert graphs == n_steps, (graphs, n_steps, api)
 
-    def _check_replay(self, eng):
+    def _check_replay(self, eng, p50_s=None):
         """One replay of `eng`'s decode graph against an eager decode_step
         from a clone of the same state: logits and every cache leaf bit
         for bit. The state is put back after, so the streams go on as if
-        the check had not run."""
+        the check had not run. Given `p50_s` (the phase's decode p50), the
+        eager step is counted for phase 17 (`_count_step`): the replay's
+        bits then show that counting changed none."""
         torch = self.torch
+        from repro_torch.configs.base import ShapeCell
         from repro_torch.core.tree import leaves
         from repro_torch.models import model as M
         if eng.pool is not None:
@@ -1893,9 +1880,19 @@ class Smoke:
         before = [t.clone() for t in leaves(eng.cache)]
         state = _clone_tree(eng.cache)
         got = eng._step().clone()
-        want, state = M.decode_step(eng.cfg, eng.params,
-                                    eng._step_tokens.clone(),
-                                    eng._step_pos.clone(), state)
+
+        def eager():
+            return M.decode_step(eng.cfg, eng.params,
+                                 eng._step_tokens.clone(),
+                                 eng._step_pos.clone(), state)
+        if p50_s is None:
+            want, state = eager()
+        else:
+            n, depth = eng.scheduler.n_active, int(eng._pos_h.max()) + 1
+            want, state = self._count_step(
+                f"{eng.cfg.name} decode step, {n} slots at depth {depth}",
+                eng.cfg, ShapeCell(f"decode_{n}x{depth}", "decode", depth, n),
+                eager, p50_s * 1e3, "the phase's decode p50, graph replays")
         same = torch.equal(got, want) and all(
             torch.equal(a, b) for a, b in zip(leaves(eng.cache),
                                               leaves(state)))
@@ -1984,7 +1981,7 @@ class Smoke:
         assert launches == want, (launches, want)
         got = [r.generated for r in reqs]
         assert got == self.dense_streams, "paged bf16 streams != dense streams"
-        print(f"[5/17] paged bf16 KV (page 16, {rep['kv_pool']['n_pages']} "
+        print(f"[5/18] paged bf16 KV (page 16, {rep['kv_pool']['n_pages']} "
               f"pages): phase 4's {len(reqs)} streams, token for token; "
               f"launches {launches} ({eng.decode_steps} decode steps at "
               f"141/28/28 each); prefill {rep['prefill_tok_s']:.1f} tok/s, "
@@ -2108,7 +2105,7 @@ class Smoke:
         params = self._serve_params(cfg)
         other = M.init_params(
             cfg, torch.Generator(device=self.dev).manual_seed(1), self.dev)
-        print(f"[6/17] the request surface at full width ({cfg.name}, "
+        print(f"[6/18] the request surface at full width ({cfg.name}, "
               f"{L} layers, bf16, random weights)")
         want = {}
         eng = ServingEngine(cfg, params, max_slots=4, max_len=self.max_len,
@@ -2515,6 +2512,7 @@ class Smoke:
         time: their finding stands in PERF.md)."""
         torch = self.torch
         from repro_torch.configs import get_config
+        from repro_torch.configs.base import ShapeCell
         from repro_torch.core.tree import tree_map
         from repro_torch.models import model as M
         from repro_torch.optim.adamw import AdamW, cosine_schedule
@@ -2533,7 +2531,7 @@ class Smoke:
             params = tree_map(lambda t: t.to(self.dev, copy=True), host)
             return TL.TrainState(params, opt.init(params))
         batches = self._train_batches(cfg, steps + 1, batch, seq)
-        print(f"[7/17] training {cfg.name} at full width ({L} layers, bf16 "
+        print(f"[7/18] training {cfg.name} at full width ({L} layers, bf16 "
               f"activations, remat {cfg.remat}): {steps} AdamW steps at batch "
               f"{batch} x {seq}")
         # a step: the forward's 141 GEMMs, 28 dual GEMMs and 28 attentions;
@@ -2552,10 +2550,16 @@ class Smoke:
         self.train_step0 = dict(host=host, opt=opt, batch=batches[0],
                                 want=want, loss=run["losses"][0],
                                 norm=run["norms"][0])
-        self._trace_train_step(run["step_fn"], run.pop("state"),
-                               batches[steps])
+        cell = ShapeCell(f"train_{batch}x{seq}", "train", seq, batch)
+        state = run.pop("state")
+        state, _ = self._count_step(
+            f"{cfg.name} train step, remat {cfg.remat}", cfg, cell,
+            lambda: run["step_fn"](state, batches[steps]),
+            run["steady"] * 1e3, "the steady step, host clock")
+        self._trace_train_step(run["step_fn"], state, batches[steps])
+        del state
         self._remat_none(cfg, opt, make_state, batches[:4], run,
-                         donate=False)
+                         donate=False, roofline=cell)
         self._train_plain(cfg, opt, make_state, batches, run, 2)
 
     def _train_batches(self, cfg, n, batch, seq, seed=0, device=None):
@@ -2774,7 +2778,7 @@ class Smoke:
         return state
 
     def _remat_none(self, cfg, opt, make_state, batches, run, donate,
-                    rtol=1e-5):
+                    rtol=1e-5, roofline=None):
         """The run's steps again with remat "none", from the state and on
         the batches the run (`_train_run`'s, remat "full") took: step 0's
         loss must be the run's bit for bit (the forward launches the same
@@ -2782,7 +2786,9 @@ class Smoke:
         keeps), its grad norm within rtol 1e-5 (the embedding's
         scatter-add is unordered on the card). Prints both peaks and both
         steady step times, each the median after step 0 of as many steps
-        in this call. The caller has dropped the run's state."""
+        in this call. The caller has dropped the run's state. Given
+        `roofline` (a ShapeCell), one more step on batch 0 is counted for
+        phase 17 (`_count_step`; not donated, and its state dropped)."""
         torch = self.torch
         import dataclasses
         import gc
@@ -2803,9 +2809,15 @@ class Smoke:
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         peak = torch.cuda.max_memory_allocated()
+        (loss, gn), steady = out[0], statistics.median(times[1:])
+        if roofline is not None:
+            self._count_step(
+                f"{cfg.name} train step, remat none",
+                dataclasses.replace(cfg, remat="none"), roofline,
+                lambda: step_fn(state, batches[0]), steady * 1e3,
+                "the steady step, host clock")
         del state
         torch.cuda.empty_cache()
-        (loss, gn), steady = out[0], statistics.median(times[1:])
         print(f"      remat none, from the same state and batches: step 0 "
               f"loss {loss:.6f} grad norm {gn:.6f} (remat full "
               f"{run['losses'][0]:.6f} / {run['norms'][0]:.6f}); steady "
@@ -2976,15 +2988,15 @@ class Smoke:
         `test_recurrent_train_step_on_card_matches_cpu` (cut here for
         time)."""
         from repro_torch.configs import get_config
-        print("[8/17] training the Mamba-2 families at full width")
+        print("[8/18] training the Mamba-2 families at full width")
         self.zamba_train_launches = self._train_recurrent(
             get_config("zamba2-1.2b"), steps, batch, seq, plain_steps=1)
         self.mamba_train_launches = self._train_recurrent(
             get_config("mamba2-2.7b"), steps, batch, seq, plain_steps=1,
-            remat_none=False)
+            remat_none=False, roofline=True)
 
     def _train_recurrent(self, cfg, steps, batch, seq, plain_steps,
-                         remat_none=True):
+                         remat_none=True, roofline=False):
         """`steps` donated AdamW steps at full width (f32 params, bf16
         activations, random weights from seed 0 on the card's generator
         and a hybrid's lora_b from seed 1, SyntheticLM batches from seed 0, lr 1e-3 with 2 warmup
@@ -2995,7 +3007,10 @@ class Smoke:
         its own; then (`remat_none`) the first 2 steps again with remat
         "none" from the same state and batches, and the first
         `plain_steps` through the plain versions on the card (step 0 held
-        to the kernels'). Returns the run's launch counts."""
+        to the kernels'). With `roofline`, one more step before the trace
+        is counted for phase 17 (`_count_step`). Returns the run's launch
+        counts."""
+        from repro_torch.configs.base import ShapeCell
         from repro_torch.optim.adamw import AdamW, cosine_schedule
         from repro_torch.training import train_loop as TL
         opt = AdamW(lr=cosine_schedule(1e-3, 2, steps), clip_norm=1.0)
@@ -3021,8 +3036,16 @@ class Smoke:
         expect = ("matmul", "ssd", "ssd backward (plain)") + (
             ("gated_matmul", "flash_attention", "flash_attention_bwd")
             if seg else ())
-        self._trace_train_step(run["step_fn"], run.pop("state"),
-                               batches[steps], expect)
+        state = run.pop("state")
+        if roofline:
+            state, _ = self._count_step(
+                f"{cfg.name} train step, remat {cfg.remat}", cfg,
+                ShapeCell(f"train_{batch}x{seq}", "train", seq, batch),
+                lambda: run["step_fn"](state, batches[steps]),
+                run["steady"] * 1e3, "the steady step, host clock")
+        self._trace_train_step(run["step_fn"], state, batches[steps],
+                               expect)
+        del state
         if remat_none:
             self._remat_none(cfg, opt, make_state, batches[:2], run,
                              donate=True)
@@ -3081,7 +3104,7 @@ class Smoke:
         torch.cuda.empty_cache()
         weights = torch.cuda.memory_allocated()
         sc = cfg.ssm
-        print(f"[9/17] {cfg.name}: {L} layers d_model {cfg.d_model} d_inner "
+        print(f"[9/18] {cfg.name}: {L} layers d_model {cfg.d_model} d_inner "
               f"{sc.expand * cfg.d_model} ({sc.expand * cfg.d_model // sc.head_dim}"
               f" SSD heads of {sc.head_dim}) d_state {sc.d_state} groups "
               f"{sc.n_groups} conv {sc.conv_width} chunk {sc.chunk} vocab "
@@ -3097,7 +3120,7 @@ class Smoke:
                 + (3 * L + 1) * (e.decode_steps + rem), ssd=L * len(lengths)),
             "bf16")
         self._trace(eng, report["decode_step_p50_s"], n_steps=4,
-                    expect=("matmul",))
+                    expect=("matmul",), roofline=True)
         self._trace_prefill(eng, prompts[5])
         del eng
         torch.cuda.empty_cache()
@@ -3353,7 +3376,7 @@ class Smoke:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         engine_bytes = torch.cuda.memory_allocated() - base
-        print(f"[10/17] {cfg.name}: {cfg.n_layers} Mamba-2 layers in {seg} "
+        print(f"[10/18] {cfg.name}: {cfg.n_layers} Mamba-2 layers in {seg} "
               f"segments of {cfg.attn_every}, d_model {cfg.d_model} d_inner "
               f"{sc.expand * cfg.d_model} ({sc.expand * cfg.d_model // sc.head_dim}"
               f" SSD heads of {sc.head_dim}) d_state {sc.d_state} conv "
@@ -3652,7 +3675,7 @@ class Smoke:
         # -- qwen2-vl-2b: dense, paged bf16, speculative; multimodal
         cfg = get_config("qwen2-vl-2b")
         L = cfg.n_layers
-        print(f"[11/17] the dense configs and vlm at full width (random "
+        print(f"[11/18] the dense configs and vlm at full width (random "
               f"weights, bf16, 4 slots, 32 tokens a request)")
         t0 = time.perf_counter()
         params = self._config_params(cfg)
@@ -3819,14 +3842,15 @@ class Smoke:
         return want
 
     def _serve_moe(self, cfg, params, work, what, trace=2, expect=(),
-                   **kw):
+                   roofline=False, **kw):
         """One engine run of `work` on 4 slots of cfg from `params` (engine
         options `kw`: a page pool, int8 pages, int8 weights) through
         `_serve_checked` (exact launch counts, `_moe_per_step`; speed,
         time to first token, peak memory; every stream equal to its
         request on a 1-slot engine of the same cache layout), then a
-        replay against the eager step and a trace of `trace` decode steps
-        in which the groups `expect` must show (`_trace`). Returns
+        replay against the eager step (with `roofline`, counted for phase
+        17) and a trace of `trace` decode steps in which the groups
+        `expect` must show (`_trace`). Returns
         (engine, launches, report, streams)."""
         from repro_torch.serving import ServingEngine
         max_len = -(-max(len(it.prompt) + it.gen for it in work) // 16) * 16
@@ -3855,7 +3879,7 @@ class Smoke:
             eng, prompts, work[0].gen, want, what, alone_kw=alone_kw)
         streams = [list(r.generated) for r in eng.requests[:len(work)]]
         self._trace(eng, report["decode_step_p50_s"], n_steps=trace,
-                    expect=expect)
+                    expect=expect, roofline=roofline)
         return eng, launches, report, streams
 
     def phase_moe(self, mixtral_layers=4, arctic_layers=2):
@@ -3887,7 +3911,7 @@ class Smoke:
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
         self.moe_launches = {}
-        print(f"[12/17] the moe family at full width (random weights drawn "
+        print(f"[12/18] the moe family at full width (random weights drawn "
               f"on the card, bf16 but the f32 router, 4 slots, 32 tokens a "
               f"request)")
 
@@ -3925,7 +3949,8 @@ class Smoke:
         key = f"{name} ({mixtral_layers} layers)"
         eng, self.moe_launches[key], report, streams = self._serve_moe(
             cfg, params, work, f"{name} dense", trace=4,
-            expect=("gated_matmul_batched", "matmul_batched", "flash_decode"))
+            expect=("gated_matmul_batched", "matmul_batched", "flash_decode"),
+            roofline=True)
         self.moe_p50 = {key: report["decode_step_p50_s"]}
         del eng
         self._memory_back(held, f"{name} dense")
@@ -4443,7 +4468,7 @@ class Smoke:
         max_len = -(-longest // 16) * 16
         torch.cuda.synchronize()
         with_params = torch.cuda.memory_allocated()
-        print(f"[13/17] {cfg.name}: {cfg.n_enc_layers} encoder and "
+        print(f"[13/18] {cfg.name}: {cfg.n_enc_layers} encoder and "
               f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, heads "
               f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.resolved_head_dim}, d_ff "
               f"{cfg.d_ff} (gelu), layernorm, sinusoid positions, "
@@ -4475,7 +4500,8 @@ class Smoke:
             p50 = p50 or report["decode_step_p50_s"]
             self._trace(eng, report["decode_step_p50_s"], n_steps=4,
                         expect=("matmul_q" if int8 else "matmul",
-                                "flash_decode"), prompt_len=trace_len)
+                                "flash_decode"), prompt_len=trace_len,
+                        roofline=not int8)
             del eng
             self._memory_back(with_params, what)
         del params
@@ -4555,7 +4581,7 @@ class Smoke:
         0)."""
         import dataclasses
         from repro_torch.configs import get_config
-        print(f"[14/17] training the encdec, vlm and moe families at full "
+        print(f"[14/18] training the encdec, vlm and moe families at full "
               f"width: {steps} donated AdamW steps each at batch {batch}")
         self.family_train_launches = {}
         wh = get_config("whisper-tiny")
@@ -4652,7 +4678,7 @@ class Smoke:
         from repro_torch.benchmarks import bench_add, common
         from repro_torch.kernels import ops
         from repro_torch.launch import paper
-        print(f"[15/17] the paper's experiment at n={n} (Table 2, Figs 8-9)")
+        print(f"[15/18] the paper's experiment at n={n} (Table 2, Figs 8-9)")
         ops.reset_launch_counts()
         gemm_rows = common.measure(n, self.dev, iters=iters)
         add_rows = bench_add.measure(n, self.dev)
@@ -4718,7 +4744,7 @@ class Smoke:
                          | {1})
         train = self.train_step0
         batch, seq = train["batch"]["tokens"].shape
-        print(f"[16/17] tuned tiles at full width ({cfg.name}): decode at 4 "
+        print(f"[16/18] tuned tiles at full width ({cfg.name}): decode at 4 "
               f"slots, prefill buckets {buckets}, training {batch} x {seq} "
               f"with its backward; each shape in its layouts")
         (ROOT / "build").mkdir(exist_ok=True)
@@ -4886,7 +4912,140 @@ class Smoke:
               f"static plan's output bit for bit in each of its layouts "
               f"({n_runs} candidate calls against their static plans)")
 
-    # -- 17. the kernels line --------------------------------------------
+    # -- 17. the roofline of a step ----------------------------------------
+    def _count_step(self, what, cfg, cell, fn, ms, ms_what):
+        """One eager run of fn(), counted (`roofline.counter.count()`),
+        kept for phase 17 with its report (`analysis.build_report` for
+        `cfg` at the ShapeCell `cell`), the kernel launches the run made,
+        and `ms`, the time of the same step that an earlier phase measured
+        (`ms_what` says which). Returns fn()'s result."""
+        torch = self.torch
+        from repro_torch.kernels import ops
+        from repro_torch.roofline import analysis, counter
+        torch.cuda.synchronize()
+        # count() reads the run's peak without resetting the statistic:
+        # this window is the count's alone
+        torch.cuda.reset_peak_memory_stats()
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        with counter.count() as costs:
+            out = fn()
+        seconds = time.perf_counter() - t0
+        after = ops.launch_counts()
+        self.rooflines.append(dict(
+            what=what, cfg=cfg, cell=cell, costs=costs, ms=ms,
+            ms_what=ms_what, seconds=seconds,
+            launched={k: after[k] - before[k] for k in after
+                      if after[k] != before[k]},
+            report=analysis.build_report(cfg, cell, kind=cell.kind,
+                                         costs=costs)))
+        return out
+
+    def _count_prefill(self, eng, prompt, n=5):
+        """An admission prefill of `prompt` (its bucket, as `_admit` runs
+        it) on `eng`'s weights into a copy of its batch-1 cache: the
+        median of n eager runs on the host clock, then one counted."""
+        torch = self.torch
+        from repro_torch.configs.base import ShapeCell
+        from repro_torch.models import model as M
+        lb = len(prompt) - len(prompt) % eng.prefill_chunk or len(prompt)
+        batch = {"tokens": torch.as_tensor(prompt[:lb], dtype=torch.long,
+                                           device=self.dev)[None]}
+        sub = _clone_tree(eng._sub)
+
+        def prefill():
+            return M.prefill(eng.cfg, eng.params, batch, sub)
+        times = []
+        for _ in range(n + 1):
+            t0 = time.perf_counter()
+            prefill()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        self._count_step(
+            f"{eng.cfg.name} admission prefill, {lb} tokens", eng.cfg,
+            ShapeCell(f"prefill_{lb}", "prefill", lb, 1), prefill,
+            statistics.median(times[1:]) * 1e3,
+            f"median of {n} eager prefills after one (host clock)")
+
+    def phase_roofline(self, band=(1.25, 1.45),
+                       whole=(("qwen3-0.6b", 1.233161890766593),)):
+        """The counted steps' rooflines (`_count_step`), each beside the
+        time its phase measured: the share of the roofline (the larger of
+        the compute and memory terms over that time) and mfu (the model's
+        FLOPs over that time over the bf16 peak). Checks: each count's
+        charged calls by kernel are the launches its run made; remat
+        "full" counts `band` x the FLOPs of "none" over what it
+        recomputes, the blocks: the step less the logits' GEMMs (the
+        counted `matmul` charges with the padded vocabulary among their
+        dims: the forward, dx and dw), which no remat covers. Over the
+        whole step the ratio must be `whole`'s for the model, what a count
+        of the same step on the CPU gives (qwen3-0.6b at 4 x 512 under a
+        FakeTensorMode: the count depends on shapes alone)."""
+        whole = dict(whole)
+        peak = self.chip.peak_flops_bf16
+        total = sum(r["seconds"] for r in self.rooflines)
+        print(f"[17/18] the roofline of a step: {len(self.rooflines)} steps, "
+              f"each one eager run counted by roofline.counter (the graphs' "
+              f"replays are not counted), {total:.1f} s of counting in the "
+              f"phases that ran them; terms at {self.chip.name}'s "
+              f"{peak / 1e12:g} TFLOP/s bf16 and "
+              f"{self.chip.hbm_bw / 1e12:g} TB/s")
+        faults = []
+        for r in self.rooflines:
+            rep, costs, t = r["report"], r["costs"], r["ms"] / 1e3
+            top = "; ".join(f"{b / 2 ** 20:.1f} MiB {d}"
+                            for b, d, _ in costs.top_charges(5))
+            peak_gib = "not read" if costs.peak_bytes is None \
+                else f"{costs.peak_bytes / 2 ** 30:.3f} GiB"
+            print(f"      {r['what']}: {costs.flops / 1e12:.4f} TFLOP, "
+                  f"{costs.hbm_bytes / 2 ** 30:.4f} GiB; t_compute "
+                  f"{rep.t_compute * 1e3:.4f} ms t_memory "
+                  f"{rep.t_memory * 1e3:.4f} ms bound {rep.bound}; useful "
+                  f"{rep.useful_ratio:.4f} mfu_roofline "
+                  f"{rep.mfu_roofline:.4f}; measured {r['ms']:.3f} ms "
+                  f"({r['ms_what']}): share of the roofline "
+                  f"{max(rep.t_compute, rep.t_memory) / t:.4f}, mfu "
+                  f"{rep.model_flops_total / t / peak:.4f}; "
+                  f"max_memory_allocated {peak_gib}; counted in "
+                  f"{r['seconds']:.2f} s")
+            print(f"        calls {costs.calls}; top 5: {top}")
+            if costs.calls != r["launched"]:
+                faults.append((r["what"], costs.calls, r["launched"]))
+        print(f"      each kernel launch of the {len(self.rooflines)} counted "
+              f"runs charged exactly once: "
+              f"{'yes' if not faults else f'NO: {faults}'}")
+        train = {}
+        for r in self.rooflines:
+            if r["cell"].kind == "train":
+                train.setdefault(r["cfg"].name, {})[r["cfg"].remat] = r
+
+        def head(costs, vocab):
+            return sum(f for _, d, f in costs.charges
+                       if d.split()[0] == "matmul"
+                       and str(vocab) in d.split()[1].split("x"))
+        bands, wholes = {}, {}
+        for name, by in train.items():
+            if not {"full", "none"} <= by.keys():
+                continue
+            full, none = by["full"]["costs"], by["none"]["costs"]
+            vocab = by["full"]["cfg"].padded_vocab
+            hf, hn = head(full, vocab), head(none, vocab)
+            wholes[name] = full.flops / none.flops
+            bands[name] = (full.flops - hf) / (none.flops - hn)
+            print(f"      {name} remat: \"full\" counts "
+                  f"{wholes[name]!r}x the FLOPs of \"none\" over the whole "
+                  f"step (the CPU's count: {whole.get(name)!r}x), "
+                  f"{bands[name]!r}x "
+                  f"over the blocks it recomputes (less the logits' counted "
+                  f"{hf / 1e12:.4f} / {hn / 1e12:.4f} TFLOP); band {band}")
+        assert not faults, faults
+        assert bands and all(band[0] < x < band[1] for x in bands.values()), \
+            (bands, band)
+        assert wholes.keys() == whole.keys() and all(
+            abs(x - whole[name]) <= 1e-9 for name, x in wholes.items()), \
+            (wholes, whole)
+
+    # -- 18. the kernels line --------------------------------------------
     def kernel_rows(self):
         """One row per kernel: its launches on the main path, the max error
         over every case, and the times of its main-path decode shape."""

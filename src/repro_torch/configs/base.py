@@ -5,6 +5,8 @@ A copy of the JAX package's `ModelConfig`, `MoEConfig` and `SSMConfig`
 describe the models the port serves: each keeps its name and default
 there, so a config built here and one built there compare field by
 field. `reduced()` derives the same CPU test config as the reference's.
+`ShapeCell`, `SHAPES` and `get_shape` are the reference's shape cells,
+which the roofline report reads (`roofline.analysis.build_report`).
 """
 
 from __future__ import annotations
@@ -146,3 +148,27 @@ class ModelConfig:
         if self.window is not None:
             kw["window"] = 32
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    """One assigned (input-shape) column: what to lower and how big."""
+    name: str                       # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str                       # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = (
+    ShapeCell("train_4k", "train", 4_096, 256),
+    ShapeCell("prefill_32k", "prefill", 32_768, 32),
+    ShapeCell("decode_32k", "decode", 32_768, 128),
+    ShapeCell("long_500k", "decode", 524_288, 1),
+)
+
+
+def get_shape(name: str) -> ShapeCell:
+    for s in SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)

@@ -33,9 +33,17 @@ adds its lse); `matmul` also has "naive", the paper's Listing 3
 (`matmul_naive`, which computes the product without an epilogue). The
 registry routes nothing: the tensor's device picks kernel or plain
 version whatever the backend.
+
+Each op charges itself to an active cost counter (`roofline.counter`):
+its charge function in `roofline.analysis` gives its kernel's name, FLOPs
+and compulsory bytes from the operands, and the op then runs with the
+counter's aten counting suspended. Without a counter the cost is one
+check of `counter.ACTIVE`.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -47,6 +55,21 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import ssd as _ssd
 from repro_torch.kernels.ref import EPILOGUES
 from repro_torch.kernels.registry import register_op
+from repro_torch.roofline import analysis as _an
+from repro_torch.roofline import counter as _counter
+
+
+def _charged(charge):
+    """Charge each call of the op to the active counter by `charge` (a
+    function of `roofline.analysis` taking the op's arguments)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def op(*args, **kwargs):
+            if _counter.ACTIVE is None:
+                return fn(*args, **kwargs)
+            return _counter.ACTIVE.run_op(charge, fn, args, kwargs)
+        return op
+    return wrap
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -86,6 +109,7 @@ def _epilogue_operand(epilogue, bias, residual, m, n):
 
 
 @register_op("matmul", backend="cuda")
+@_charged(_an.matmul_charge)
 def matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
            epilogue: str = "none", bias: torch.Tensor | None = None,
            residual: torch.Tensor | None = None) -> torch.Tensor:
@@ -122,6 +146,7 @@ def _check_quant_operands(wq, scale, k, n):
 
 
 @register_op("matmul_q", backend="cuda")
+@_charged(_an.matmul_q_charge)
 def matmul_q(a: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, *,
              out_dtype=None, epilogue: str = "none",
              bias: torch.Tensor | None = None,
@@ -146,6 +171,7 @@ def matmul_q(a: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, *,
 
 
 @register_op("gated_matmul", backend="cuda")
+@_charged(_an.gated_matmul_charge)
 def gated_matmul(a: torch.Tensor, w_gate: torch.Tensor,
                  w_up: torch.Tensor) -> torch.Tensor:
     """silu(a @ w_gate) * (a @ w_up), the SwiGLU hidden phase, in a's
@@ -170,6 +196,7 @@ def _check_banks(a, *ws) -> None:
 
 
 @register_op("matmul_batched", backend="cuda")
+@_charged(_an.matmul_batched_charge)
 def matmul_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a[e] @ b[e] for a (E, M, K) and a bank b (E, K, N), in a's dtype:
     the expert banks' GEMM, one launch for all E experts. Either operand
@@ -182,6 +209,7 @@ def matmul_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 @register_op("gated_matmul_batched", backend="cuda")
+@_charged(_an.gated_matmul_batched_charge)
 def gated_matmul_batched(a: torch.Tensor, w_gate: torch.Tensor,
                          w_up: torch.Tensor) -> torch.Tensor:
     """silu(a[e] @ w_gate[e]) * (a[e] @ w_up[e]) for a (E, M, K) and banks
@@ -204,6 +232,7 @@ def _check_decode_q(q: torch.Tensor, n_valid) -> None:
 
 
 @register_op("flash_decode", backend="cuda")
+@_charged(_an.flash_decode_charge)
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  pos=0, window: int | None = None,
                  n_valid: torch.Tensor | None = None) -> torch.Tensor:
@@ -225,6 +254,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 @register_op("flash_decode_paged", backend="cuda")
+@_charged(_an.flash_decode_paged_charge)
 def flash_decode_paged(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
                        table: torch.Tensor, *, pos=0,
                        window: int | None = None,
@@ -265,6 +295,7 @@ def _check_bthd(q, k, v) -> None:
 
 
 @register_op("flash_attention_fwd", backend="cuda")
+@_charged(_an.flash_attention_fwd_charge)
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int | None = None):
     """Attention of q [B, Tq, H, D] over k/v [B, Tk, Hkv, D] with the
@@ -278,6 +309,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 @register_op("flash_attention", backend="cuda")
+@_charged(_an.flash_attention_charge)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     window: int | None = None) -> torch.Tensor:
@@ -290,6 +322,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 @register_op("flash_attention_bwd", backend="cuda")
+@_charged(_an.flash_attention_bwd_charge)
 def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
                         window: int | None = None):
     """(dq, dk, dv) of `flash_attention_fwd` from its (o, lse) and the
@@ -307,6 +340,7 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
 
 
 @register_op("ssd", backend="cuda")
+@_charged(_an.ssd_charge)
 def ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         chunk: int, init_state: torch.Tensor | None = None):
     """Chunked SSD scan (the Mamba-2 dual form) of x (B, L, H, P)
@@ -341,6 +375,7 @@ def ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
 
 @register_op("matmul", backend="naive")
 @register_op("matmul_naive", backend="cuda")
+@_charged(_an.matmul_naive_charge)
 def matmul_naive(a: torch.Tensor, b: torch.Tensor, *,
                  out_dtype=None) -> torch.Tensor:
     """2D GEMM ``a @ b`` by the paper's Listing 3 (one thread an output
@@ -371,18 +406,21 @@ def _binary(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 @register_op("add", backend="cuda")
+@_charged(_an.binary_charge)
 def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a + b for operands of one shape and dtype, in that dtype."""
     return _binary("add", a, b)
 
 
 @register_op("sub", backend="cuda")
+@_charged(_an.binary_charge)
 def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a - b for operands of one shape and dtype, in that dtype."""
     return _binary("sub", a, b)
 
 
 @register_op("axpy", backend="cuda")
+@_charged(_an.axpy_charge)
 def axpy(alpha, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """alpha * x + y in x's dtype, alpha (a number, or a one-element tensor
     on x's device) cast to x's dtype first, the product rounded before the

@@ -41,7 +41,6 @@ Import-light on purpose: `kernels.matmul` consults it on every plan.
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import datetime
 import json
 import os
@@ -51,6 +50,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.core import hw
+from repro_torch.core.blocking import FlashBlockConfig, SSDBlockConfig
 
 CACHE_VERSION = 1
 CACHE_ENV_VAR = "REPRO_TORCH_TUNING_CACHE"
@@ -61,20 +61,6 @@ BACKEND = "cuda"
 
 def default_cache_path() -> str:
     return os.path.expanduser(os.environ.get(CACHE_ENV_VAR, DEFAULT_CACHE_PATH))
-
-
-@dataclasses.dataclass(frozen=True)
-class FlashBlockConfig:
-    """The tile of an attention kernel: query rows and keys a step."""
-    bq: int
-    bk: int
-
-
-@dataclasses.dataclass(frozen=True)
-class SSDBlockConfig:
-    """The SSD kernel's execution chunk and head-dim tile."""
-    q: int
-    bp: int
 
 
 def dtype_name(dtype) -> str:

@@ -21,17 +21,18 @@ SSD kernel takes the whole model chunk), so no other instance may run.
 
 from __future__ import annotations
 
+from repro_torch.core import blocking as _blocking
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import matmul as _mm
 from repro_torch.tuning.cache import (FlashBlockConfig, SSDBlockConfig,
                                       dtype_name)
 
-# the flash kernels' tiles (`csrc/flash_attention.cu`): bf16 on the tensor
-# cores 64 x 64 both ways; f32 64 query rows against 32 keys forward, 64
-# backward
-_FLASH = {"bfloat16": FlashBlockConfig(64, 64),
-          "float32": FlashBlockConfig(64, 32)}
-_FLASH_BWD = FlashBlockConfig(64, 64)
+# the flash kernels' tiles (`csrc/flash_attention.cu`, `core.blocking`):
+# bf16 on the tensor cores 64 x 64 both ways; f32 64 query rows against 32
+# keys forward, 64 backward
+_FLASH = {"bfloat16": _blocking.FLASH_TILES[2],
+          "float32": _blocking.FLASH_TILES[4]}
+_FLASH_BWD = _blocking.FLASH_BWD_TILE
 
 
 def _tma(m: int, n: int, k: int, a_km: bool, b_nk: bool) -> bool:
