@@ -276,7 +276,22 @@ Phases, in order; any failure propagates and the exit code is not 0:
      "none" over the blocks it recomputes (the step less the counted
      logits GEMMs), and over the whole step the ratio a CPU count of
      the same step gives (1.2332x: the logits lie outside the remat);
-  18. a JSON line of the kernels (each with its launches on every main
+  18. distributed (`core.distributed`, `launch.train`, `launch.dryrun`;
+     one card, so no multi-card time): (a) `sharded_matmul` in a NCCL
+     world of 1, each schedule at the paper's 4096^2 in bf16 and f32, bit
+     for bit the GEMM chokepoint's; (b) the local GEMMs each rank of a
+     4-rank schedule runs (ring: 4 of (1024, 1024, 4096) a rank, the K
+     blocks in the reference's order; row; column), launched on the card
+     and combined in the schedule's order, held to the whole product
+     (max |err| within 2^-7 of its largest entry in bf16, 1e-4 in f32),
+     each shard GEMM's time beside `comm_model_bytes` over NVLink (a
+     model from the data sheet, not measured); (c) the train launcher's
+     entry at full width, `--compress --model-parallel 1`, 4 steps of
+     qwen3-0.6b at 4 x 512: step 0's loss equal to phase 7's uncompressed
+     step 0 bit for bit, exact launch counts, finite losses; (d) the
+     dry-run of qwen3-0.6b x train_4k on a fake 16x16 process group:
+     n_devices 256, a collective term above 0, its summary line;
+  19. a JSON line of the kernels (each with its launches on every main
      path, and the batched GEMM's transposed layouts and the non-causal
      backward as `forms`), the card line, and the result line.
 """
@@ -322,12 +337,12 @@ def main() -> int:
                   smoke.phase_dense_configs, smoke.phase_moe,
                   smoke.phase_encdec, smoke.phase_train_families,
                   smoke.phase_paper, smoke.phase_tuning,
-                  smoke.phase_roofline):
+                  smoke.phase_roofline, smoke.phase_distributed):
         t = time.perf_counter()
         phase()
         print(f"      ({phase.__name__}: {time.perf_counter() - t:.1f} s; "
               f"{time.perf_counter() - t0:.0f} s since the start)")
-    print(f"[18/18] result ({time.perf_counter() - t0:.0f} s since the "
+    print(f"[19/19] result ({time.perf_counter() - t0:.0f} s since the "
           f"start)")
     print(json.dumps({"kernels": smoke.kernel_rows()}))
     print(f"card: {card_line()}")
@@ -351,7 +366,7 @@ class Smoke:
     # -- 1. card ------------------------------------------------------
     def phase_card(self):
         torch = self.torch
-        print(f"[1/18] card: {card_line()}")
+        print(f"[1/19] card: {card_line()}")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         print(f"      torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -372,7 +387,7 @@ class Smoke:
         from repro_torch.kernels import _build
         t0 = time.perf_counter()
         libs = _build.build_all()
-        print(f"[2/18] build: {sorted(libs)} from "
+        print(f"[2/19] build: {sorted(libs)} from "
               f"{_build.CSRC.relative_to(ROOT)} in "
               f"{time.perf_counter() - t0:.1f} s (nvcc "
               f"{' '.join(_build.NVCC_FLAGS)})")
@@ -477,7 +492,7 @@ class Smoke:
         torch = self.torch
         from repro_torch.kernels import ops, ref
         F = torch.nn.functional
-        print("[3/18] kernels against their plain versions (median of 30, "
+        print("[3/19] kernels against their plain versions (median of 30, "
               "L2 flushed, in turns, card time only)")
         gen = torch.Generator(device=self.dev).manual_seed(0)
 
@@ -1755,7 +1770,7 @@ class Smoke:
                                device=self.dev)
         del params                      # the engine keeps its bf16 copy
         torch.cuda.synchronize()
-        print(f"[4/18] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
+        print(f"[4/19] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
               f"heads {cfg.n_heads}/{cfg.n_kv_heads}x{cfg.resolved_head_dim} "
               f"d_ff {cfg.d_ff} vocab {cfg.vocab}->{cfg.padded_vocab}; "
               f"weights ready in {time.perf_counter() - t0:.1f} s; "
@@ -1981,7 +1996,7 @@ class Smoke:
         assert launches == want, (launches, want)
         got = [r.generated for r in reqs]
         assert got == self.dense_streams, "paged bf16 streams != dense streams"
-        print(f"[5/18] paged bf16 KV (page 16, {rep['kv_pool']['n_pages']} "
+        print(f"[5/19] paged bf16 KV (page 16, {rep['kv_pool']['n_pages']} "
               f"pages): phase 4's {len(reqs)} streams, token for token; "
               f"launches {launches} ({eng.decode_steps} decode steps at "
               f"141/28/28 each); prefill {rep['prefill_tok_s']:.1f} tok/s, "
@@ -2105,7 +2120,7 @@ class Smoke:
         params = self._serve_params(cfg)
         other = M.init_params(
             cfg, torch.Generator(device=self.dev).manual_seed(1), self.dev)
-        print(f"[6/18] the request surface at full width ({cfg.name}, "
+        print(f"[6/19] the request surface at full width ({cfg.name}, "
               f"{L} layers, bf16, random weights)")
         want = {}
         eng = ServingEngine(cfg, params, max_slots=4, max_len=self.max_len,
@@ -2531,7 +2546,7 @@ class Smoke:
             params = tree_map(lambda t: t.to(self.dev, copy=True), host)
             return TL.TrainState(params, opt.init(params))
         batches = self._train_batches(cfg, steps + 1, batch, seq)
-        print(f"[7/18] training {cfg.name} at full width ({L} layers, bf16 "
+        print(f"[7/19] training {cfg.name} at full width ({L} layers, bf16 "
               f"activations, remat {cfg.remat}): {steps} AdamW steps at batch "
               f"{batch} x {seq}")
         # a step: the forward's 141 GEMMs, 28 dual GEMMs and 28 attentions;
@@ -2988,7 +3003,7 @@ class Smoke:
         `test_recurrent_train_step_on_card_matches_cpu` (cut here for
         time)."""
         from repro_torch.configs import get_config
-        print("[8/18] training the Mamba-2 families at full width")
+        print("[8/19] training the Mamba-2 families at full width")
         self.zamba_train_launches = self._train_recurrent(
             get_config("zamba2-1.2b"), steps, batch, seq, plain_steps=1)
         self.mamba_train_launches = self._train_recurrent(
@@ -3104,7 +3119,7 @@ class Smoke:
         torch.cuda.empty_cache()
         weights = torch.cuda.memory_allocated()
         sc = cfg.ssm
-        print(f"[9/18] {cfg.name}: {L} layers d_model {cfg.d_model} d_inner "
+        print(f"[9/19] {cfg.name}: {L} layers d_model {cfg.d_model} d_inner "
               f"{sc.expand * cfg.d_model} ({sc.expand * cfg.d_model // sc.head_dim}"
               f" SSD heads of {sc.head_dim}) d_state {sc.d_state} groups "
               f"{sc.n_groups} conv {sc.conv_width} chunk {sc.chunk} vocab "
@@ -3376,7 +3391,7 @@ class Smoke:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         engine_bytes = torch.cuda.memory_allocated() - base
-        print(f"[10/18] {cfg.name}: {cfg.n_layers} Mamba-2 layers in {seg} "
+        print(f"[10/19] {cfg.name}: {cfg.n_layers} Mamba-2 layers in {seg} "
               f"segments of {cfg.attn_every}, d_model {cfg.d_model} d_inner "
               f"{sc.expand * cfg.d_model} ({sc.expand * cfg.d_model // sc.head_dim}"
               f" SSD heads of {sc.head_dim}) d_state {sc.d_state} conv "
@@ -3675,7 +3690,7 @@ class Smoke:
         # -- qwen2-vl-2b: dense, paged bf16, speculative; multimodal
         cfg = get_config("qwen2-vl-2b")
         L = cfg.n_layers
-        print(f"[11/18] the dense configs and vlm at full width (random "
+        print(f"[11/19] the dense configs and vlm at full width (random "
               f"weights, bf16, 4 slots, 32 tokens a request)")
         t0 = time.perf_counter()
         params = self._config_params(cfg)
@@ -3911,7 +3926,7 @@ class Smoke:
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
         self.moe_launches = {}
-        print(f"[12/18] the moe family at full width (random weights drawn "
+        print(f"[12/19] the moe family at full width (random weights drawn "
               f"on the card, bf16 but the f32 router, 4 slots, 32 tokens a "
               f"request)")
 
@@ -4468,7 +4483,7 @@ class Smoke:
         max_len = -(-longest // 16) * 16
         torch.cuda.synchronize()
         with_params = torch.cuda.memory_allocated()
-        print(f"[13/18] {cfg.name}: {cfg.n_enc_layers} encoder and "
+        print(f"[13/19] {cfg.name}: {cfg.n_enc_layers} encoder and "
               f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, heads "
               f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.resolved_head_dim}, d_ff "
               f"{cfg.d_ff} (gelu), layernorm, sinusoid positions, "
@@ -4581,7 +4596,7 @@ class Smoke:
         0)."""
         import dataclasses
         from repro_torch.configs import get_config
-        print(f"[14/18] training the encdec, vlm and moe families at full "
+        print(f"[14/19] training the encdec, vlm and moe families at full "
               f"width: {steps} donated AdamW steps each at batch {batch}")
         self.family_train_launches = {}
         wh = get_config("whisper-tiny")
@@ -4678,7 +4693,7 @@ class Smoke:
         from repro_torch.benchmarks import bench_add, common
         from repro_torch.kernels import ops
         from repro_torch.launch import paper
-        print(f"[15/18] the paper's experiment at n={n} (Table 2, Figs 8-9)")
+        print(f"[15/19] the paper's experiment at n={n} (Table 2, Figs 8-9)")
         ops.reset_launch_counts()
         gemm_rows = common.measure(n, self.dev, iters=iters)
         add_rows = bench_add.measure(n, self.dev)
@@ -4744,7 +4759,7 @@ class Smoke:
                          | {1})
         train = self.train_step0
         batch, seq = train["batch"]["tokens"].shape
-        print(f"[16/18] tuned tiles at full width ({cfg.name}): decode at 4 "
+        print(f"[16/19] tuned tiles at full width ({cfg.name}): decode at 4 "
               f"slots, prefill buckets {buckets}, training {batch} x {seq} "
               f"with its backward; each shape in its layouts")
         (ROOT / "build").mkdir(exist_ok=True)
@@ -4984,7 +4999,7 @@ class Smoke:
         whole = dict(whole)
         peak = self.chip.peak_flops_bf16
         total = sum(r["seconds"] for r in self.rooflines)
-        print(f"[17/18] the roofline of a step: {len(self.rooflines)} steps, "
+        print(f"[17/19] the roofline of a step: {len(self.rooflines)} steps, "
               f"each one eager run counted by roofline.counter (the graphs' "
               f"replays are not counted), {total:.1f} s of counting in the "
               f"phases that ran them; terms at {self.chip.name}'s "
@@ -5045,7 +5060,145 @@ class Smoke:
             abs(x - whole[name]) <= 1e-9 for name, x in wholes.items()), \
             (wholes, whole)
 
-    # -- 18. the kernels line --------------------------------------------
+    # -- 18. distributed ---------------------------------------------------
+    def phase_distributed(self, n=4096, p=4, train_steps=4, batch=4,
+                          seq=512):
+        """(a)-(d) of the module's docstring."""
+        torch = self.torch
+        import torch.distributed as dist
+        from repro_torch.core import distributed as D
+        from repro_torch.core import gemm
+        from repro_torch.kernels import ops
+        from repro_torch.launch import mesh as mesh_lib
+        print(f"[18/19] distributed: one card, so a world of 1 and the "
+              f"shards of a {p}-rank schedule on it; link times are a model "
+              f"({self.chip.name}: {self.chip.nvlink_links} NVLink links of "
+              f"{self.chip.nvlink_bw / 1e9:g} GB/s a direction, the data "
+              f"sheet's)")
+        gen = torch.Generator(device=self.dev).manual_seed(18)
+        tol = {torch.bfloat16: 2 ** -7, torch.float32: 1e-4}
+        # (a) the schedules in a NCCL world of 1: the chokepoint's bits
+        with mesh_lib.host_mesh(1, self.dev) as mesh:
+            assert dist.get_backend() == mesh_lib.backend_for(self.dev) \
+                and tuple(mesh.shape) == (1, 1)
+            for dtype in (torch.bfloat16, torch.float32):
+                a = torch.randn(n, n, generator=gen, device=self.dev,
+                                dtype=dtype)
+                b = torch.randn(n, n, generator=gen, device=self.dev,
+                                dtype=dtype)
+                whole = gemm.matmul(a, b)
+                for s in ("ring", "column", "row"):
+                    ops.reset_launch_counts()
+                    got = D.sharded_matmul(a, b, mesh, schedule=s)
+                    torch.cuda.synchronize()
+                    launched = _nonzero(ops.launch_counts())
+                    assert launched == {"matmul": 1}, (s, launched)
+                    assert torch.equal(got, whole), (s, dtype)
+                print(f"      (a) world of 1 ({dist.get_backend()}): ring, "
+                      f"column and row at "
+                      f"{n}^2 {str(dtype)[6:]} each equal the chokepoint's "
+                      f"product bit for bit, one matmul launch each")
+        # (b) a p-rank schedule's local GEMMs, on the one card
+        kb = n // p
+        for dtype in (torch.bfloat16, torch.float32):
+            a = torch.randn(n, n, generator=gen, device=self.dev, dtype=dtype)
+            b = torch.randn(n, n, generator=gen, device=self.dev, dtype=dtype)
+            whole = gemm.matmul(a, b)
+            scale = whole.float().abs().max().item()
+            item = a.element_size()
+            blk = [slice(r * kb, (r + 1) * kb) for r in range(p)]
+            ops.reset_launch_counts()
+            ring = []
+            for r in range(p):            # rank r: A's rows r, its K blocks
+                acc = None                # in the order they come round
+                for t in range(p):
+                    owner = (r - t) % p
+                    y = gemm.matmul(a[blk[r], blk[owner]], b[blk[owner]])
+                    acc = y if acc is None else acc + y
+                ring.append(acc)
+            row = None
+            for r in range(p):
+                y = gemm.matmul(a[:, blk[r]], b[blk[r]])
+                row = y if row is None else row + y
+            column = torch.cat([gemm.matmul(a[blk[r]], b) for r in range(p)])
+            torch.cuda.synchronize()
+            launched = _nonzero(ops.launch_counts())
+            assert launched == {"matmul": p * p + 2 * p}, launched
+            shard = {"ring": (lambda: gemm.matmul(a[:kb, :kb], b[:kb]),
+                              (kb, kb, n), p),
+                     "row": (lambda: gemm.matmul(a[:, :kb], b[:kb]),
+                             (n, kb, n), 1),
+                     "column": (lambda: gemm.matmul(a[:kb], b), (kb, n, n), 1)}
+            times = dict(zip(shard, self._time_turns(
+                [f for f, _, _ in shard.values()], n=20)))
+            for name, got in (("ring", torch.cat(ring)), ("row", row),
+                              ("column", column)):
+                err = (got.float() - whole.float()).abs().max().item()
+                assert err <= tol[dtype] * scale, (name, dtype, err, scale)
+                _, (m_, k_, n_), calls = shard[name]
+                link = D.comm_model_bytes(n, n, n, p, item, name)
+                print(f"      (b) {p}-rank {name:6s} {str(dtype)[6:]:8s} max "
+                      f"|err| {err:.3e} of {scale:.1f} (tol "
+                      f"{tol[dtype]:g} of it); a shard GEMM ({m_}, {k_}, "
+                      f"{n_}) {times[name]:.4f} ms x {calls} a rank; link "
+                      f"bytes a rank {link / 2 ** 20:.1f} MiB: model "
+                      f"{link / self.chip.nvlink_bw * 1e3:.4f} ms over one "
+                      f"link, {link / (self.chip.nvlink_bw * self.chip.nvlink_links) * 1e3:.4f} "
+                      f"ms over {self.chip.nvlink_links}")
+            del a, b, whole, ring, row, column
+        # (c) the train launcher, --compress, in a NCCL world of 1
+        self._distributed_train(train_steps, batch, seq)
+        # (d) the dry-run on a fake 16x16 process group
+        from repro_torch.launch import dryrun
+        assert not dist.is_initialized()
+        t0 = time.perf_counter()
+        costs, rj = dryrun.lower_cell("qwen3-0.6b", "train_4k", verbose=False)
+        dist.destroy_process_group()
+        secs = time.perf_counter() - t0
+        print(f"      (d) dry-run qwen3-0.6b x train_4k x {rj['mesh']} "
+              f"(n_devices {rj['n_devices']}, rank 0's step under "
+              f"FakeTensorMode, counted in {secs:.1f} s): collectives "
+              f"{costs.collective_summary()}")
+        print(f"        {rj['arch']:16s} {rj['shape']:12s} {rj['mesh']:10s} "
+              f"tc={rj['t_compute'] * 1e3:9.3f}ms "
+              f"tm={rj['t_memory'] * 1e3:9.3f}ms "
+              f"tcoll={rj['t_collective'] * 1e3:9.3f}ms "
+              f"bound={rj['bound']:10s} useful={rj['useful_ratio']:6.3f} "
+              f"mfu*={rj['mfu_roofline']:6.3f} (the collective term a "
+              f"model: ring-model bytes over one NVLink link)")
+        assert rj["n_devices"] == 256 and rj["t_collective"] > 0, rj
+
+    def _distributed_train(self, steps, batch, seq):
+        """(c): `launch.train.main` as the CLI runs it, 4 steps with
+        --compress --model-parallel 1; step 0's loss is phase 7's (the same
+        weights, batch and kernels; compression acts after the loss)."""
+        torch = self.torch
+        from repro_torch.kernels import ops
+        from repro_torch.launch import train as train_cli
+        torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = train_cli.main(["--steps", str(steps), "--batch", str(batch),
+                                 "--seq", str(seq), "--warmup", "2",
+                                 "--compress", "--model-parallel", "1",
+                                 "--log-every", "1"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        self.dist_train_launches = ops.launch_counts()
+        want = {k: v * steps for k, v in self.train_step0["want"].items()}
+        got = _nonzero(self.dist_train_launches)
+        print(f"      (c) launch.train --compress --model-parallel 1: "
+              f"{steps} steps at {batch} x {seq} in {secs:.1f} s (the "
+              f"weights' draw and the world's start included); losses "
+              f"{[round(x, 4) for x in losses]}; step 0 {losses[0]!r}, "
+              f"phase 7's uncompressed step 0 {self.train_step0['loss']!r}; "
+              f"launches {got}")
+        assert all(math.isfinite(x) for x in losses), losses
+        assert losses[0] == self.train_step0["loss"], \
+            (losses[0], self.train_step0["loss"])
+        assert got == _nonzero(want), (got, want)
+
+    # -- 19. the kernels line --------------------------------------------
     def kernel_rows(self):
         """One row per kernel: its launches on the main path, the max error
         over every case, and the times of its main-path decode shape."""
@@ -5130,6 +5283,7 @@ class Smoke:
                  "qwen3-0.6b training": self.train_launches,
                  "qwen3-0.6b tuned": self.tuned_launches,
                  "qwen3-0.6b tuned training": self.tuned_train_launches,
+                 "qwen3-0.6b launcher --compress": self.dist_train_launches,
                  "zamba2-1.2b training": self.zamba_train_launches,
                  "mamba2-2.7b training": self.mamba_train_launches,
                  "mamba2-2.7b": self.mamba_launches,

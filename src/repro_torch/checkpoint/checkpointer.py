@@ -16,7 +16,13 @@ Layout:   <dir>/step_<N>/
     the state in place next cannot reach what the thread writes;
   * in place: `restore(step, like)` copies each leaf into `like`'s own
     tensor and returns `like`, so a donated state, and whatever aliases
-    it, stays valid.
+    it, stays valid;
+  * re-meshed: `restore(step, like, shardings=)` lays each leaf out on a
+    mesh (`distributed.sharding.Sharding`, the elastic re-mesh): `like`
+    gives the whole shapes and dtypes, and each rank gets a new tree of
+    its blocks, from a checkpoint of whole leaves written at any world
+    size or by the reference. `save(..., shardings=)` writes a tree of
+    such blocks: every rank gathers each whole leaf, rank 0 writes it.
 
 bfloat16 leaves are stored as raw uint16 views (`raw_views: "bfloat16"`),
 as the reference stores them: numpy has no bfloat16.
@@ -63,6 +69,23 @@ def structure(tree) -> str:
     return "*"
 
 
+def unflatten(like, xs) -> Any:
+    """`like`'s structure with the leaves `xs` in `flatten`'s order."""
+    it = iter(xs)
+
+    def rebuild(node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            return {k: rebuild(node[k]) for k in sorted(node)}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(rebuild(v) for v in node))
+        if isinstance(node, (tuple, list)):
+            return type(node)(rebuild(v) for v in node)
+        return next(it)
+    return rebuild(like)
+
+
 def _host_copy(x) -> tuple:
     """(a numpy copy of leaf x in fresh host memory, its raw view name)."""
     if isinstance(x, torch.Tensor):
@@ -90,13 +113,24 @@ class Checkpointer:
 
     # -- save --------------------------------------------------------------
     def save(self, step: int, tree: Any, *, spec: Any = None,
-             blocking: bool = True) -> None:
+             blocking: bool = True, shardings: Any = None) -> None:
         """Write `tree` as step `step`. Every leaf is copied to host
         memory before this returns; blocking=False writes the files on a
         thread (`wait()` joins it). spec: a tree of logical sharding
-        specs, stored by name."""
+        specs, stored by name. shardings: a tree of `Sharding`s matching
+        `tree`, whose leaves are then this rank's blocks: every rank of
+        the mesh calls save, each whole leaf is gathered, and rank 0
+        writes (spec, unless given, the shardings' specs)."""
         self.wait()
-        copies = [_host_copy(x) for x in flatten(tree)]
+        xs = flatten(tree)
+        if shardings is not None:
+            import torch.distributed as dist
+            shs = flatten(shardings)
+            xs = [sh.gather(x) for sh, x in zip(shs, xs)]
+            spec = [repr(sh.spec) for sh in shs] if spec is None else spec
+            if dist.get_rank() != 0:
+                return
+        copies = [_host_copy(x) for x in xs]
         host = [a for a, _ in copies]
         raw_views = [r for _, r in copies]
         manifest = {
@@ -165,10 +199,16 @@ class Checkpointer:
         steps = self.steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like: Any) -> Any:
+    def restore(self, step: int, like: Any, *, shardings: Any = None) -> Any:
         """Copy step `step` into the tensors of `like` and return `like`.
         The leaf count and every shape must match; a leaf stored in
-        another dtype is cast to its tensor's."""
+        another dtype is cast to its tensor's. shardings: a tree of
+        `Sharding`s matching `like` (the elastic re-mesh): then `like`'s
+        leaves (any tensors, fake or meta ones too) give the whole shapes
+        and dtypes, and a new tree of this rank's blocks is returned, on
+        the mesh's device."""
+        if shardings is not None:
+            return self._restore_blocks(step, like, flatten(shardings))
         path = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
@@ -187,3 +227,25 @@ class Checkpointer:
             with torch.no_grad():
                 t.copy_(src)
         return like
+
+    def _restore_blocks(self, step: int, like: Any, shardings: list) -> Any:
+        path = os.path.join(self.dir, f"step_{step}")
+        with open(os.path.join(path, "manifest.json")) as f:
+            manifest = json.load(f)
+        ref = flatten(like)
+        if manifest["n_leaves"] != len(ref) or len(shardings) != len(ref):
+            raise ValueError(f"checkpoint step {step} holds "
+                             f"{manifest['n_leaves']} leaves; the state has "
+                             f"{len(ref)}, the shardings {len(shardings)}")
+        raw_views = manifest.get("raw_views") or [None] * len(ref)
+        out = []
+        for i, (t, sh) in enumerate(zip(ref, shardings)):
+            src = _load(os.path.join(path, f"arr_{i}.npy"), raw_views[i])
+            if tuple(src.shape) != tuple(t.shape):
+                raise ValueError(f"checkpoint step {step} leaf {i}: shape "
+                                 f"{tuple(src.shape)}, the state's "
+                                 f"{tuple(t.shape)}")
+            block = sh.local(src.to(t.dtype))
+            out.append(block.to(sh.mesh.device_type, copy=True)
+                       .contiguous())
+        return unflatten(like, out)

@@ -111,6 +111,11 @@ class ModelConfig:
         return ((self.vocab + m - 1) // m) * m
 
     @property
+    def subquadratic(self) -> bool:
+        """Can this arch serve 500k-token contexts? (DESIGN §6)."""
+        return self.family in ("ssm", "hybrid") or self.window is not None
+
+    @property
     def is_attention_free(self) -> bool:
         return self.family == "ssm"
 

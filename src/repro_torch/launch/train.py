@@ -6,6 +6,10 @@
         --batch 4 --seq 512                              # full width, on the card
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \
         --device cpu --steps 8 --ckpt-dir D --ckpt-every 2 --fail-at 3
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced \
+        --device cpu --steps 3 --batch 2 --seq 32 --compress
+    PYTHONPATH=src torchrun --nproc-per-node N -m repro_torch.launch.train \
+        --model-parallel M [--compress]                  # N cards
 
 Trains `--arch` (every arch whose family `models.model` trains,
 `TRAIN_FAMILIES`: the dense configs, qwen2-vl-2b on text, mixtral-8x22b
@@ -35,8 +39,19 @@ straggler detector sees the card's work.
 `--backend tuned` runs the GEMMs on the tuning cache's winners
 (`repro_torch.tuning`; the same bits as the static plans), and
 `--autotune` tunes the step's uncached shapes, its backward's included,
-on the card before the state is made. Not ported yet: the JAX launcher's
---model-parallel and --compress.
+on the card before the state is made.
+
+The run is on a ("data", "model") mesh of the world that exists
+(`launch.mesh.host_mesh`): torchrun's (nccl on the cards, one a rank), a
+gloo group the caller started with `--device cpu`, or else a world of 1
+in this process. `--model-parallel M` makes "model" M wide: the dense
+family's step is then tensor-parallel (each rank holds its block of the
+params), and every other family raises NotImplementedError. The rest of
+the world is "data": each data rank trains on its block of the batch's
+rows, the gradients averaged. `--compress` compresses the gradients to
+int8 with error feedback after that average (`distributed.compression`).
+One card holds a world of 1 only. Rank 0 prints. `--ckpt-dir` takes a
+world of 1.
 """
 
 from __future__ import annotations
@@ -54,6 +69,7 @@ from repro_torch.core.tree import leaves
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.distributed.fault_tolerance import (FailureInjector,
                                                      Supervisor)
+from repro_torch.launch.mesh import host_mesh
 from repro_torch.models.model import TRAIN_FAMILIES
 from repro_torch.optim.adamw import AdamW, cosine_schedule
 from repro_torch.training import train_loop as TL
@@ -76,6 +92,10 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="the width of the mesh's \"model\" axis")
+    ap.add_argument("--compress", action="store_true",
+                    help="int8 error-feedback gradient compression")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--fail-at", type=int, nargs="*", default=(),
@@ -108,29 +128,40 @@ def main(argv=None):
         print(tuning.describe_warm_start(rep))
         if args.backend == "tuned":
             tuned = tuning.get_cache()
-    with tuning.tuned(tuned):
-        return train(cfg, args, device)
+    with tuning.tuned(tuned), host_mesh(args.model_parallel, device) as mesh:
+        return train(cfg, args, device, mesh)
 
 
-def train(cfg, args, device):
-    """Train `cfg` as args say; returns the losses, one a step run."""
+def train(cfg, args, device, mesh=None):
+    """Train `cfg` as args say on `mesh` (None: this process alone);
+    returns the losses, one a step run."""
+    import torch.distributed as dist
+    rank = dist.get_rank() if mesh is not None else 0
+    world = dist.get_world_size() if mesh is not None else 1
+    if args.ckpt_dir and world > 1:
+        raise ValueError(f"--ckpt-dir takes a world of 1, not {world}")
+    say = print if rank == 0 else (lambda *a, **k: None)
     opt = AdamW(lr=cosine_schedule(args.lr, args.warmup, args.steps),
                 clip_norm=1.0)
     state = TL.init_state(cfg, opt, torch.Generator().manual_seed(args.seed),
-                          device)
-    step_fn = TL.make_train_step(cfg, opt, accum=args.accum, donate=True)
+                          device, compress=args.compress, mesh=mesh)
+    step_fn = TL.make_train_step(cfg, opt, accum=args.accum, donate=True,
+                                 compress=args.compress, mesh=mesh)
     data = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq, batch=args.batch,
                        seed=args.seed)
     n_params = sum(x.numel() for x in leaves(state.params))
-    print(f"arch={cfg.name} params={n_params / 1e6:.2f}M device={device}")
+    shape = "none" if mesh is None else dict(zip(mesh.mesh_dim_names,
+                                                 mesh.shape))
+    say(f"arch={cfg.name} params={n_params / 1e6:.2f}M (a rank's) "
+        f"device={device} mesh={shape} compress={args.compress}")
 
     losses = []
 
     def on_metrics(step, metrics, dt):
         losses.append(metrics["loss"])
         if step % args.log_every == 0:
-            print(f"step {step:5d} loss {losses[-1]:.4f} "
-                  f"gnorm {float(metrics['grad_norm']):.3f} {dt * 1e3:.0f}ms")
+            say(f"step {step:5d} loss {losses[-1]:.4f} "
+                f"gnorm {float(metrics['grad_norm']):.3f} {dt * 1e3:.0f}ms")
 
     def run_step(state, step):
         batch = {k: torch.as_tensor(v, dtype=torch.long, device=device)
@@ -146,12 +177,12 @@ def train(cfg, args, device):
         start = ckpt.latest_step() or 0
         if start:
             state = ckpt.restore(start, state)
-            print(f"resumed from checkpoint step {start}")
+            say(f"resumed from checkpoint step {start}")
         t0 = time.time()
         state, step = sup.run_resilient(
             state, run_step, args.steps, start_step=start,
             injector=injector, on_metrics=on_metrics)
-        print(f"done at step {step} in {time.time() - t0:.1f}s "
+        say(f"done at step {step} in {time.time() - t0:.1f}s "
               f"(restarts={sup.restarts}, "
               f"stragglers={len(sup.straggler.flagged)})")
     else:
@@ -160,9 +191,9 @@ def train(cfg, args, device):
             t1 = time.perf_counter()
             state, metrics = run_step(state, step)
             on_metrics(step, metrics, time.perf_counter() - t1)
-        print(f"done {args.steps} steps in {time.time() - t0:.1f}s")
+        say(f"done {args.steps} steps in {time.time() - t0:.1f}s")
     if losses:
-        print(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f})")
+        say(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f})")
     return losses
 
 

@@ -28,6 +28,18 @@ The paths:
 The KV cache is updated in place: the JAX package writes a new cache
 and donates the old one; here the written rows land in the caller's
 tensors, which saves a copy of the cache a step.
+
+Under a "model" group (`distributed.context.model_group`) the layer is
+tensor-parallel over heads: Q, K and V are column-parallel over this
+rank's heads (one `core.distributed.copy_to` of the input shared by the
+three, its cotangent all-reduced backward), attention and the cache see
+the local heads alone, and O is row-parallel, its bias added once after
+the sum (`layers.row_parallel_apply`). K/V heads that do not divide over
+the group (MQA) are replicated, each rank taking the one its query heads
+read; the replicated K/V weights and the q/k norms' scales, whose
+gradients each rank holds in part, go through `copy_to` too. The head
+counts come from the weights' shapes, so without a group every path is
+as before.
 """
 
 from __future__ import annotations
@@ -37,7 +49,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import distributed as D
 from repro_torch.core import precision
+from repro_torch.distributed import context as ctx
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 
@@ -155,11 +169,26 @@ def project_cross_kv(p, enc_out, cfg):
 def _project_kv(p, x, cfg):
     b, t, _ = x.shape
     dh = cfg.resolved_head_dim
-    k = L.dense_apply(p["wk"], x).reshape(b, t, cfg.n_kv_heads, dh)
-    v = L.dense_apply(p["wv"], x).reshape(b, t, cfg.n_kv_heads, dh)
+    k = L.dense_apply(p["wk"], x).reshape(b, t, -1, dh)
+    v = L.dense_apply(p["wv"], x).reshape(b, t, -1, dh)
     if cfg.qk_norm:
         k = L.rmsnorm_apply(p["k_norm"], k)      # before RoPE
     return k, v
+
+
+def _tp_params(p, cfg, group):
+    """(p with its partly-graded replicated leaves through `copy_to`, the
+    KV head a rank reads from replicated K/V or None)."""
+    tp = D._size(group)
+    p = dict(p)
+    for name in ("q_norm", "k_norm"):
+        if name in p:
+            p[name] = {k: D.copy_to(v, group) for k, v in p[name].items()}
+    if cfg.n_kv_heads % tp == 0:
+        return p, None
+    for name in ("wk", "wv"):
+        p[name] = {k: D.copy_to(v, group) for k, v in p[name].items()}
+    return p, D._rank(group) // (tp // cfg.n_kv_heads)
 
 
 def _row_positions(pos, t: int, n_valid, device):
@@ -307,7 +336,11 @@ def attn_apply(p, x, cfg, *, cache: Optional[dict] = None, cache_pos=None,
     idle slot, whose row is zeros)."""
     b, t, _ = x.shape
     dh = cfg.resolved_head_dim
-    q = L.dense_apply(p["wq"], x).reshape(b, t, cfg.n_heads, dh)
+    group, kv_head = ctx.model_group(), None
+    if group is not None:
+        p, kv_head = _tp_params(p, cfg, group)
+        x = D.copy_to(x, group)
+    q = L.dense_apply(p["wq"], x).reshape(b, t, -1, dh)
     if cfg.qk_norm:
         q = L.rmsnorm_apply(p["q_norm"], q)
     io_dtype = torch.float32 if cfg.attn_f32_io else torch.bfloat16
@@ -320,6 +353,8 @@ def attn_apply(p, x, cfg, *, cache: Optional[dict] = None, cache_pos=None,
             out = kops.flash_decode(q, k, v, pos=cross_pos)
         return L.dense_apply(p["wo"], out.reshape(b, t, -1)), None
     k, v = _project_kv(p, x, cfg)
+    if kv_head is not None:
+        k, v = k[:, :, kv_head:kv_head + 1], v[:, :, kv_head:kv_head + 1]
 
     pos_vec = isinstance(cache_pos, torch.Tensor) and cache_pos.dim() == 1
     if (kv_table is not None or n_valid is not None) and not pos_vec:
@@ -353,5 +388,7 @@ def attn_apply(p, x, cfg, *, cache: Optional[dict] = None, cache_pos=None,
         out = attention(q, k, v, window=cfg.window, chunk=cfg.attn_chunk,
                         io_dtype=io_dtype, causal=causal)
 
-    out = out.reshape(b, t, cfg.n_heads * dh)
+    out = out.reshape(b, t, -1)
+    if group is not None:
+        return L.row_parallel_apply(p["wo"], out, group), cache
     return L.dense_apply(p["wo"], out), cache

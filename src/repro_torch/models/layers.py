@@ -3,6 +3,14 @@ sinusoid positions.
 
 Plain functions on tensors over a params dict of the same keys and
 shapes as the JAX package's (`repro/models/layers.py`).
+
+Under a mesh whose "model" axis is wider than 1
+(`distributed.context.model_group`), the embedding table and the head
+are this rank's block of the vocab (`distributed.sharding.model_layout`):
+the lookup is vocab-parallel (each rank gathers the ids it holds, the
+rows summed over the group), and the logits are column-parallel, joined
+along the vocab by an all-gather. `row_parallel_apply` is a row-parallel
+dense layer (O, down). Without such a mesh nothing here changes.
 """
 
 from __future__ import annotations
@@ -12,8 +20,10 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import distributed as D
 from repro_torch.core import gemm
 from repro_torch.core import precision
+from repro_torch.distributed import context as ctx
 
 
 def dense_init(generator, d_in: int, d_out: int, *, dtype, device,
@@ -52,6 +62,17 @@ def dense_apply(p, x, *, out_dtype=None, activation=None, residual=None):
     return gemm.dense(x, p["w"].to(x.dtype), p.get("b"),
                       activation=activation, residual=residual,
                       out_dtype=out_dtype)
+
+
+def row_parallel_apply(p, x, group, *, residual=None):
+    """A dense layer whose weight is this rank's block of K rows (its
+    input this rank's block of features): the partial product summed
+    over `group` (`core.distributed.row_parallel`), then the bias and the
+    residual, each added once, after the sum."""
+    y = D.row_parallel(x, p["w"].to(x.dtype), axis=group, scatter=False)
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y if residual is None else y + residual.to(y.dtype)
 
 
 def gated_apply(p_gate, p_up, x):
@@ -138,14 +159,28 @@ def embed_init(generator, vocab: int, d: int, *, dtype, device):
 def embed_apply(p, ids, *, dtype):
     """The rows of the table for `ids`, in `dtype`. The gradient is plain
     PyTorch, a scatter-add of each row's cotangent into the table (an
-    index_put with accumulate), as XLA scatters it."""
-    return p["w"][ids].to(dtype)
+    index_put with accumulate), as XLA scatters it. Vocab-parallel under
+    a "model" group (the module's docstring): the ids outside this rank's
+    rows give zeros, and the rows are summed over the group."""
+    group = ctx.model_group()
+    if group is None:
+        return p["w"][ids].to(dtype)
+    rows = p["w"].shape[0]
+    local = ids - D._rank(group) * rows
+    inside = (local >= 0) & (local < rows)
+    e = p["w"][local.clamp(0, rows - 1)].to(dtype)
+    return D.reduce_from(torch.where(inside[..., None], e, 0), group)
 
 
-def embed_attend(p, x):
+def embed_attend(p, x, *, gather: bool = True):
     """Tied-embedding logits x @ W^T in f32. W^T is the transpose view of
-    the [vocab, d] table: the GEMM kernel reads it in place."""
-    return gemm.matmul(x, p["w"].to(x.dtype).t(), out_dtype=torch.float32)
+    the [vocab, d] table: the GEMM kernel reads it in place. Under a
+    "model" group each rank's block of the vocab, joined by an
+    all-gather unless gather=False."""
+    group = ctx.model_group()
+    y = gemm.matmul(D.copy_to(x, group), p["w"].to(x.dtype).t(),
+                    out_dtype=torch.float32)
+    return D.gather_from(y, group) if gather else y
 
 
 # ----------------------------------------------------------------------

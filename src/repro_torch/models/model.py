@@ -60,7 +60,10 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch.core import distributed as D
 from repro_torch.core.device import resolve_device
+from repro_torch.distributed import context as ctx
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
@@ -279,15 +282,50 @@ def _cross_pos(pos, enc_len: int):
     return enc_len - 1
 
 
-def _logits(cfg, params, x):
+def _check_mesh(cfg) -> None:
+    """Refuse a family the port does not shard over the current mesh's
+    "model" axis (`distributed.sharding.check_tp`)."""
+    SH.check_tp(cfg, ctx.axis_size("model"))
+
+
+def _logits(cfg, params, x, gather: bool = True):
+    """f32 logits over the padded vocab, the pad classes masked to -1e30.
+    Under a "model" group each rank computes its block of the vocab
+    (column-parallel); gather=True joins the blocks (an all-gather), else
+    the block comes back (`loss_fn`'s vocab-parallel cross entropy)."""
     x = T._norm_apply(cfg, params["final_norm"], x)
+    group = ctx.model_group()
     if cfg.tie_embeddings:
-        logits = L.embed_attend(params["embed"], x)
+        logits = L.embed_attend(params["embed"], x, gather=gather)
     else:
-        logits = L.dense_apply(params["lm_head"], x, out_dtype=torch.float32)
+        logits = L.dense_apply(params["lm_head"], D.copy_to(x, group),
+                               out_dtype=torch.float32)
+        if gather:
+            logits = D.gather_from(logits, group)
+    if group is not None and not gather:
+        n = logits.shape[-1]
+        cls = D._rank(group) * n + torch.arange(n, device=logits.device)
+        return torch.where(cls < cfg.vocab, logits, -1e30)
     if cfg.padded_vocab != cfg.vocab:
         logits[..., cfg.vocab:] = -1e30      # mask the pad classes
     return logits
+
+
+def _vocab_parallel_nll(logits, labels, group):
+    """-log softmax(logits)[labels] from each rank's block of the vocab:
+    the max and the sum of exponentials over the vocab all-reduced, and
+    the label's logit from the rank that holds it."""
+    import torch.distributed as dist
+    z = logits.float()
+    m = z.detach().amax(dim=-1)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    s = D.reduce_from(torch.exp(z - m[..., None]).sum(dim=-1), group)
+    n = z.shape[-1]
+    local = labels - D._rank(group) * n
+    inside = (local >= 0) & (local < n)
+    zt = z.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0]
+    zt = D.reduce_from(torch.where(inside, zt, 0.0), group)
+    return torch.log(s) + m - zt
 
 
 #: The families that `forward` and `loss_fn` train; the launcher offers
@@ -296,7 +334,7 @@ def _logits(cfg, params, x):
 TRAIN_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 
 
-def forward(cfg, params, batch, aux=None):
+def forward(cfg, params, batch, aux=None, gather: bool = True):
     """Full-sequence f32 logits (B, T, padded_vocab) of batch["tokens"]
     (B, T), the pad classes masked to -1e30: the training forward, with
     cache-less causal attention (dense, vlm and moe, at
@@ -307,7 +345,9 @@ def forward(cfg, params, batch, aux=None):
     the encoder's output. aux: a dict that a moe model fills with the
     aux dict the JAX package's `forward` returns (its router losses and
     dropped fraction; empty for the other families), or None to compute
-    none of it."""
+    none of it. gather: under a "model" group, False returns this rank's
+    block of the vocab (`_logits`)."""
+    _check_mesh(cfg)
     x = _embed_inputs(cfg, params, batch)
     if cfg.family == "encdec":
         enc_out = _run_encoder(cfg, params, batch["enc_frames"])
@@ -321,7 +361,7 @@ def forward(cfg, params, batch, aux=None):
     else:
         x, _ = T.stack_apply(params["layers"], x, cfg,
                              positions=batch.get("positions"), aux=aux)
-    return _logits(cfg, params, x)
+    return _logits(cfg, params, x, gather=gather)
 
 
 def loss_fn(cfg, params, batch):
@@ -331,13 +371,18 @@ def loss_fn(cfg, params, batch):
     router losses, summed over its layers), as the JAX package's
     `loss_fn` adds them. Returns (loss, {"ce_loss", "tokens", the aux
     terms ("moe_lb_loss", "moe_z_loss", "moe_dropped_frac" for moe),
-    "loss"})."""
+    "loss"}). Under a "model" group the cross entropy is vocab-parallel
+    (`_vocab_parallel_nll`): no rank holds the whole logits."""
     aux = {}
-    logits = forward(cfg, params, batch, aux=aux)
+    group = ctx.model_group()
+    logits = forward(cfg, params, batch, aux=aux, gather=group is None)
     labels = batch["labels"].long()
     valid = labels >= 0
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    if group is None:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    else:
+        nll = _vocab_parallel_nll(logits, labels.clamp(min=0), group)
     denom = valid.sum().clamp(min=1)
     loss = (nll * valid).sum() / denom
     metrics = {"ce_loss": loss, "tokens": denom}
@@ -358,6 +403,7 @@ def prefill(cfg, params, batch, cache, pos: int = 0):
     (B, enc_ctx, d_model), each decoder layer's projection of its output
     is written into cache["cross"], and the decoder's KV rows into
     cache["self"]). Returns (last-position f32 logits, cache)."""
+    _check_mesh(cfg)
     x = _embed_inputs(cfg, params, batch)
     if cfg.family == "encdec":
         enc_out = _run_encoder(cfg, params, batch["enc_frames"])
@@ -400,6 +446,7 @@ def decode_step(cfg, params, token, pos, cache):
     KV rows as the dense family's, its cross-attention over each slot's
     cache["cross"] rows through the decode kernel (`_cross_pos`).
     Returns (f32 logits, cache)."""
+    _check_mesh(cfg)
     x = L.embed_apply(params["embed"], token, dtype=getattr(torch, cfg.dtype))
     positions = _text_positions(cfg, token.shape[0], 1, pos, x.device)
     if cfg.family == "encdec":
@@ -448,6 +495,7 @@ def verify_step(cfg, params, tokens, pos, n_tok, cache, drops=None):
     list that a moe model appends each layer's (B, t) dropped
     assignments a token to. The KV families only, as the JAX package's
     `verify_step` refuses the others."""
+    _check_mesh(cfg)
     if cfg.family not in KV_FAMILIES:
         raise ValueError(f"speculative verification needs an attention "
                          f"cache alone (families {KV_FAMILIES}), not "

@@ -10,6 +10,12 @@ state, it writes the new params and moments into the state's own tensors
 and scales the grads in place, a slice of each leaf at a time
 (`_slices`), so that no new tree and no temporary the size of a leaf is
 made; the arithmetic of each element is the same, so are the bits.
+
+Under tensor parallelism (`sharded=`, `group=`: the train step on a
+mesh) each rank updates its blocks of the params; the global norm's sum
+of squares over the leaves held in blocks is all-reduced over the
+"model" group, and a replicated leaf is counted once, so the clip is the
+whole model's.
 """
 
 from __future__ import annotations
@@ -51,15 +57,17 @@ class AdamW:
         return self.lr(step) if callable(self.lr) else self.lr
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params, *, donate=False):
+    def update(self, grads, state: AdamWState, params, *, donate=False,
+               sharded=None, group=None):
         """(new params, new state, the global grad norm before clipping).
         Weight decay applies to the leaves of two or more dims only (not
         to norms or biases). donate: the new params, m and v are written
         into `params`, `state.m` and `state.v` (returned), and `grads` is
         scaled in place; the caller reads none of them as the old values
-        again."""
+        again. sharded, group: a tree of bools (True: this rank's block of
+        a leaf split over `group`), for the global norm."""
         step = state.step + 1
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, sharded=sharded, group=group)
         scale = None
         if self.clip_norm is not None:
             scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
@@ -116,13 +124,26 @@ def _slices(x: torch.Tensor) -> list:
     return [(slice(i, i + rows),) for i in range(0, x.shape[0], rows)]
 
 
-def global_norm(tree) -> torch.Tensor:
+def _sum_squares(x: torch.Tensor) -> torch.Tensor:
+    return sum(torch.sum(torch.square(x[sl].float())) for sl in _slices(x))
+
+
+def global_norm(tree, *, sharded=None, group=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32, each leaf's sum
     taken over `_slices` of it, so no temporary is the size of a large
-    leaf."""
-    return torch.sqrt(sum(sum(torch.sum(torch.square(x[sl].float()))
-                              for sl in _slices(x))
-                          for x in leaves(tree)))
+    leaf. sharded, group: the leaves marked True in the tree of bools
+    `sharded` are blocks of leaves split over `group`, their sum of
+    squares all-reduced over it; the others are counted once."""
+    if group is None:
+        return torch.sqrt(sum(_sum_squares(x) for x in leaves(tree)))
+    import torch.distributed as dist
+    xs = leaves(tree)
+    zero = torch.zeros((), dtype=torch.float32, device=xs[0].device)
+    own = sum((_sum_squares(x) for x, s in zip(xs, leaves(sharded)) if s),
+              zero)
+    dist.all_reduce(own, group=group)
+    return torch.sqrt(own + sum((_sum_squares(x) for x, s in
+                                 zip(xs, leaves(sharded)) if not s), zero))
 
 
 def cosine_schedule(peak_lr: float, warmup: int, total: int,

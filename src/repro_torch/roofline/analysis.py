@@ -405,11 +405,14 @@ def build_report(
     chip: hw.ChipSpec = hw.DEFAULT_CHIP, note: str = "",
 ) -> RooflineReport:
     """The roofline of a counted step: `costs` is `roofline.counter`'s
-    Costs of one eager run (in place of the reference's HLO text). One
-    device and no collectives until the port is distributed: the
-    collective term is 0. memory_analysis: a dict to report, else the
-    counted run's `torch.cuda.max_memory_allocated` on the card (empty on
-    the CPU)."""
+    Costs of one eager run (in place of the reference's HLO text), one
+    rank's on a mesh of `n_devices` (`mesh_name`). The collective term is
+    the ring-model link bytes of the collectives the run dispatched
+    (`Costs.ici_bytes`) over one NVLink link's rate, `chip.nvlink_bw`
+    (the data sheet's, not measured), as the reference divides by one ICI
+    link's; the note says so where there are any. memory_analysis: a
+    dict to report, else the counted run's `torch.cuda.max_memory_allocated`
+    on the card (empty on the CPU)."""
     peak = chip.peak_flops_bf16
     t_c = costs.flops / peak
     t_m = costs.hbm_bytes / chip.hbm_bw
@@ -433,8 +436,18 @@ def build_report(
         t_compute=t_c, t_memory=t_m, t_collective=t_coll, bound=bound,
         model_flops_total=mf, useful_ratio=useful, mfu_roofline=mfu,
         memory_analysis=dict(memory_analysis),
-        note="; ".join(x for x in (note, COUNTED_NOTE) if x),
+        note="; ".join(x for x in (note, COUNTED_NOTE, _link_note(
+            costs, chip)) if x),
     )
+
+
+def _link_note(costs, chip) -> str:
+    if not costs.collectives:
+        return ""
+    return (f"collective term: ring-model link bytes over one NVLink link "
+            f"({chip.name}'s nvlink_bw, {chip.nvlink_bw / 1e9:g} GB/s a "
+            f"direction, one of its {chip.nvlink_links} links; the data "
+            f"sheet's, not measured)")
 
 
 def save_report(report: RooflineReport, path: str) -> None:

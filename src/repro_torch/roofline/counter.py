@@ -15,7 +15,16 @@ the reference analyzer's conventions:
                scatter, index_copy_) costs 2x the update; views,
                allocations and metadata (the `prim` ops a fake tensor
                dispatches among them) cost nothing;
-  collectives  none: the port runs on one card.
+  collectives  each collective a step dispatches (the `c10d` ops of
+               torch.distributed: all-reduce, all-gather, reduce-scatter,
+               a send of a ring's permute), with its result bytes and its
+               group's size, and the link bytes a rank moves by the
+               reference's ring model (`roofline/hlo.py`
+               `Collective.ici_bytes`): all-reduce 2n(p-1)/p, all-gather
+               n(p-1)/p, reduce-scatter n(p-1), a permute n (none in a
+               group of one); each also costs 2n device-memory bytes, as
+               the reference charges it. A receive is its send's other
+               end and costs nothing, nor does any other c10d op.
 
 Each op of `kernels.ops` charges itself, as the reference charges a
 custom call: its compulsory bytes (each operand and output once) and its
@@ -93,6 +102,50 @@ def _capturing() -> bool:
     return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
 
 
+# the torch.distributed ops the port dispatches, by the reference's
+# collective names; each op's first argument holds its result
+_COLLECTIVES = {"allreduce_": "all-reduce",
+                "_allgather_base_": "all-gather",
+                "_reduce_scatter_base_": "reduce-scatter",
+                "send": "collective-permute"}
+
+
+@dataclasses.dataclass
+class Collective:
+    """One collective call: the reference's `roofline/hlo.py` record."""
+    op: str
+    bytes_result: int
+    group_size: int
+    count: int = 1
+    where: str = ""
+
+    @property
+    def ici_bytes(self) -> float:
+        """Ring-model bytes a rank moves over the links, a call."""
+        p, n = self.group_size, self.bytes_result
+        if p <= 1:
+            return 0.0
+        if self.op == "all-reduce":
+            return 2 * n * (p - 1) / p
+        if self.op == "all-gather":
+            return n * (p - 1) / p
+        if self.op == "reduce-scatter":
+            return n * (p - 1)          # operand = result * p
+        return n
+
+
+def _group_size(args) -> int:
+    """The size of the process group among a c10d op's arguments."""
+    pg_cls = torch._C._distributed_c10d.ProcessGroup
+    for a in args:
+        if isinstance(a, torch.ScriptObject):
+            try:
+                return pg_cls.unbox(a).size()
+            except RuntimeError:        # a ReduceOp, not a group
+                continue
+    return 1
+
+
 @dataclasses.dataclass
 class Costs:
     """A counted run's FLOPs (the reference's convention, and the kept
@@ -115,11 +168,19 @@ class Costs:
 
     @property
     def ici_bytes(self) -> float:
-        """Bytes over the links between cards: none on one card."""
-        return 0.0
+        """Ring-model bytes a rank moves over the links between cards."""
+        return sum(c.ici_bytes * c.count for c in self.collectives)
 
     def collective_summary(self) -> dict:
-        return {}
+        """{op: {"count", "bytes", "ici_bytes"}}, as the reference's."""
+        agg = {}
+        for c in self.collectives:
+            a = agg.setdefault(c.op, {"count": 0, "bytes": 0.0,
+                                      "ici_bytes": 0.0})
+            a["count"] += c.count
+            a["bytes"] += c.bytes_result * c.count
+            a["ici_bytes"] += c.ici_bytes * c.count
+        return agg
 
 
 class Counter:
@@ -158,6 +219,17 @@ class Counter:
         self._charge(float(nbytes), f"aten.{packet.__name__} {shape}", flops,
                      flops)
 
+    def charge_collective(self, func, args) -> None:
+        """A c10d op: its Collective (see the module's docstring)."""
+        op = _COLLECTIVES.get(func.overloadpacket.__name__)
+        if op is None:
+            return
+        n = _tensor_bytes(args[0])
+        self.costs.collectives.append(Collective(
+            op=op, bytes_result=n, group_size=_group_size(args),
+            where=f"c10d.{func.overloadpacket.__name__}"))
+        self._charge(2.0 * n, f"{op} {n} B")
+
     def run_op(self, charge_fn, fn, args, kwargs):
         """Run the kernel op `fn` with counting suspended, then charge it
         what `charge_fn` (its `roofline.analysis` charge) says."""
@@ -188,7 +260,11 @@ class _Mode(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if not self.counter.suspended:
+        if self.counter.suspended:
+            return out
+        if func.namespace == "c10d":
+            self.counter.charge_collective(func, args)
+        else:
             self.counter.charge_aten(func, args, kwargs, out)
         return out
 

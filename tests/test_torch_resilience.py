@@ -74,6 +74,8 @@ def _equal_trees(a, b):
 
 
 def _clone_any(tree):
+    if tree is None:                    # TrainState.ef without compression
+        return None
     if isinstance(tree, dict):
         return {k: _clone_any(v) for k, v in tree.items()}
     if isinstance(tree, tuple):
